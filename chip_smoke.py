@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
+GPU.  Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. card   -- the card's name and power limit (nvidia-smi).
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc``, one nvcc each,
+             all started together.
+3. kernels -- each kernel against its plain PyTorch version on the card, at
+             the main path's shapes and at internlm2-20b widths, multi-row,
+             windowed, empty-slot and unaligned cases.  bfloat16 at 2e-2
+             (atol and rtol, the reference suite's bf16 tolerance); float32
+             at 1e-4 (the kernel's FMA sums and the plain version's cuBLAS
+             products run in different orders).  Prints the kernel's, the
+             plain version's and one PyTorch library call's time per case
+             (``scaled_dot_product_attention``, timed here only; the port
+             never calls it).
+4. main path -- ``repro_torch.launch.serve`` one-shot generate of full-width,
+             40-layer qwen1.5-4b (random weights from the seed), 8 requests x
+             256 prompt tokens x 32 generated, ``kernel_impl="cuda"``.  The
+             launch counts must be exactly 40 (flash_attention, one per
+             layer of the prefill) and 40 x 31 (flash_decode, one per layer
+             of every decode step), and the tokens in range.  Its prefill is
+             then held against the dense reference on the same weights, one
+             layer at a time and teacher-forced: each of the 40 bf16 layers
+             of the prefill and of the first decode step, fed the
+             reference's input, must give an update within 2e-2 relative
+             L2 of the reference layer's (bf16 rounding of the attention
+             output at different points of two summation orders).  The
+             first-token logits of all 40 layers are printed, not held:
+             with random weights the stack is chaotic, and the float32
+             reference moves as far when its embeddings move by one ulp.
+             A profiler pass over one prefill and 8 decode steps prints
+             the card's busy time against the wall time.
+5. results -- a JSON line of every kernel's numbers, then the last line
+             ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BF16_TOL = 2e-2
+F32_TOL = 1e-4
+LAYER_REL_TOL = 2e-2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
+GEN = 32
+SPIN_CYCLES = 2_000_000  # ~1.1 ms at the H100's 1.755 GHz boost clock
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def time_ms(fn, flush, iters: int) -> float:
+    """Median device milliseconds of one call.  Before each call a 256 MB
+    write evicts the 50 MB L2 (the main path finds its inputs cold) and a
+    ~1 ms device spin lets the host enqueue the whole call, so the CUDA
+    events time the card's work and not the host's dispatch.  A call that
+    synchronizes inside (the plain decode version reads its tile count)
+    includes host time all the same."""
+    import torch
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    evs = []
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        evs.append((start, end))
+    torch.cuda.synchronize()
+    ms = sorted(s.elapsed_time(e) for s, e in evs)
+    return ms[len(ms) // 2]
+
+
+def attention_cases():
+    # name, B, Sq, Sk, H, KV, hd, causal, window, q_offset, dtype
+    return [
+        ("prefill qwen1.5-4b (main path)", 8, 256, 256, 20, 20, 128, True, 0, 0, "bfloat16"),
+        ("prefill qwen1.5-4b f32", 8, 256, 256, 20, 20, 128, True, 0, 0, "float32"),
+        ("prefill internlm2-20b widths", 2, 256, 256, 48, 8, 128, True, 0, 0, "bfloat16"),
+        ("prefill unaligned 300, window 128", 2, 300, 300, 20, 20, 128, True, 128, 0, "bfloat16"),
+        ("prefill q_offset 256", 2, 64, 320, 48, 8, 128, True, 0, 256, "bfloat16"),
+        ("prefill bidirectional", 2, 192, 192, 20, 20, 128, False, 0, 0, "bfloat16"),
+    ]
+
+
+def decode_cases():
+    # name, B, S, H, KV, hd, sq, pos, window, block_k, q dtype, cache dtype
+    last = 256 + GEN - 2  # position of the main path's last decode step
+    return [
+        ("decode qwen1.5-4b (main path)", 8, 256 + GEN, 20, 20, 128, 1, [last] * 8, 0, 128,
+         "bfloat16", "bfloat16"),
+        ("decode qwen1.5-4b f32", 8, 256 + GEN, 20, 20, 128, 1, [last] * 8, 0, 128,
+         "float32", "float32"),
+        ("decode internlm2-20b widths, ragged", 4, 300, 48, 8, 128, 1, [10, 150, 299, 77], 0,
+         128, "bfloat16", "bfloat16"),
+        ("decode multi-row Sq 3", 4, 300, 48, 8, 128, 3, [0, 126, 200, 297], 0, 128,
+         "bfloat16", "bfloat16"),
+        ("decode 64 rows (Sq 8, n_rep 8)", 2, 256, 32, 4, 128, 8, [100, 248], 0, 64,
+         "bfloat16", "bfloat16"),
+        ("decode windowed ring 64", 4, 64, 20, 20, 128, 1, [30, 63, 64, 500], 64, 32,
+         "bfloat16", "bfloat16"),
+        ("decode empty slot", 3, 200, 20, 20, 128, 1, [-1, 0, 199], 0, 128,
+         "bfloat16", "bfloat16"),
+        ("decode f32 cache, bf16 q", 2, 300, 48, 8, 128, 1, [299, 5], 0, 128,
+         "bfloat16", "float32"),
+    ]
+
+
+def run_attention_case(case, dev, flush, torch, F, ops, fa):
+    name, b, sq, sk, h, kv, hd, causal, window, qoff, dname = case
+    dt = getattr(torch, dname)
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((b, sk, kv, hd), generator=g, device=dev).to(dt)
+    v = torch.randn((b, sk, kv, hd), generator=g, device=dev).to(dt)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL if dname == "bfloat16" else F32_TOL
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"flash_attention {name}: max |kernel - plain| = {err} > tol {tol}")
+    qpos = torch.arange(sq, device=dev)[:, None] + qoff
+    kpos = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    plain_causal = causal and window == 0 and qoff == 0 and sq == sk
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=None if plain_causal else mask, is_causal=plain_causal,
+        enable_gqa=h != kv)
+    ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), flush, 20)
+    plain_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), flush, 5)
+    lib_ms = time_ms(lib, flush, 20)
+    pairs = int(mask.sum())
+    flops = 4 * hd * b * h * pairs
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()  # q, k, v in; out
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  flash_attention | {name}: max_abs_err={err:.3g} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
+def run_decode_case(case, dev, flush, torch, F, ops, fd, attn):
+    import numpy as np
+
+    name, b, s, h, kv, hd, sq, pos, window, bk, qname, kvname = case
+    qdt, kvdt = getattr(torch, qname), getattr(torch, kvname)
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(qdt)
+    k = torch.randn((b, s, kv, hd), generator=g, device=dev).to(kvdt)
+    v = torch.randn((b, s, kv, hd), generator=g, device=dev).to(kvdt)
+    kp = np.full((b, s), -1, np.int32)
+    for i, p in enumerate(pos):  # keys written through the slot's deepest row
+        deepest = p + sq - 1 if p >= 0 else -1
+        for t in range(max(0, deepest - s + 1), deepest + 1):
+            kp[i, t % s if window else t] = t
+    kpos = torch.from_numpy(kp).to(dev)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    kw = dict(window=window, block_k=bk)
+    got = ops.flash_decode(q, k, v, kpos, posv, **kw)
+    torch.cuda.synchronize()
+    want = fd.flash_decode_plain(q, k, v, kpos, posv, **kw)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL if qname == "bfloat16" else F32_TOL
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"flash_decode {name}: max |kernel - plain| = {err} > tol {tol}")
+    for i, p in enumerate(pos):
+        if p < 0 and torch.any(got[i, 0] != 0):
+            fail(f"flash_decode {name}: empty slot {i} is not exact zeros")
+    rowpos = posv[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)
+    mask = attn.ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None], window)[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.to(qdt).transpose(1, 2), v.to(qdt).transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
+    ms = time_ms(lambda: ops.flash_decode(q, k, v, kpos, posv, **kw), flush, 20)
+    plain_ms = time_ms(lambda: fd.flash_decode_plain(q, k, v, kpos, posv, **kw), flush, 5)
+    lib_ms = time_ms(lib, flush, 20)
+    bkk = min(bk, s)
+    nt = fd.needed_tiles(kpos, posv, window=window, block_k=bkk, sq=sq)
+    keys = int(torch.clamp(nt * bkk, max=s).sum())  # keys the needed tiles hold
+    nbytes = (2 * keys * kv * hd * k.element_size() + 2 * q.numel() * q.element_size()
+              + kpos.numel() * 4 + posv.numel() * 4)
+    flops = 4 * hd * (h // kv) * kv * int(mask.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[qname] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  flash_decode | {name}: max_abs_err={err:.3g} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
+def prefill_logits(cfg, params, batch, gen, dev):
+    from repro_torch.models import get_model
+    from repro_torch.serve import zeros_cache
+
+    api = get_model(cfg)
+    b, s = batch["tokens"].shape
+    return api.prefill(params, batch, cfg, zeros_cache(cfg, api, b, s + gen, device=dev))[0]
+
+
+def layer_errors(cfg, params, batch, dev, torch) -> dict:
+    """The bf16 prefill and the first decode step one layer at a time,
+    teacher-forced: every layer gets the reference path's input, runs once
+    through the kernels and once through the dense reference, and gives
+    the relative L2 distance of the two outputs' updates ``y - x``.  Both
+    caches receive the same keys, so the decode step holds flash_decode in
+    the same way.  Random weights make the 40-layer stack chaotic (see
+    ``run_main_path``), so this is where a tolerance can hold the kernels
+    at the main path's full width and depth."""
+    from repro_torch.models import get_model
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import tree_map
+    from repro_torch.serve import zeros_cache
+
+    rcfg = dataclasses.replace(cfg, kernel_impl="reference")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    caches = [zeros_cache(c, get_model(c), b, s + 1, device=dev) for c in (cfg, rcfg)]
+    errs = {"prefill": [], "decode": []}
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+    for mode, x in (("prefill", T.embed_tokens(params, tokens, cfg)),
+                    ("decode", T.embed_tokens(params, tokens[:, -1:], cfg))):
+        for i in range(cfg.n_layers):
+            lp = tree_map(lambda a: a[i], params["layers"])
+            yk, yr = (T.dense_block_apply(lp, x, positions, c, mode=mode,
+                                          cache=tree_map(lambda a: a[i], cache), pos=s)[0]
+                      for c, cache in zip((cfg, rcfg), caches))
+            errs[mode].append(float((yk - yr).float().norm() / (yr - x).float().norm()))
+            x = yr
+    return errs
+
+
+def profile_steps(cfg, params, batch, dev, torch) -> dict:
+    """torch.profiler over one prefill and then 8 decode steps of the
+    main path: the card's busy time (the sum of its kernels' durations)
+    against the host's wall time for each, and the kernels that take most
+    of the card's time.  The profiler adds host time of its own."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import get_model
+    from repro_torch.serve import make_decode_chain, make_prefill_step, zeros_cache
+
+    api = get_model(cfg)
+    b, s = batch["tokens"].shape
+    prefill, chain = make_prefill_step(cfg, api), make_decode_chain(cfg, api)
+    cache = zeros_cache(cfg, api, b, s + 8, device=dev)
+    out, tok = {}, None
+    for region in ("prefill", "decode_8_steps"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if tok is None:
+                tok, cache = prefill(params, batch, cache)
+            else:
+                chain(params, cache, tok, s, 8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = Counter()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kern[e.name[:80]] += e.time_range.elapsed_us() / 1e3
+        busy = sum(kern.values())
+        out[region] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+                       "top_kernels_ms": kern.most_common(6)}
+        print(f"  [profile] {region}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+              f"({'not measured' if busy == 0 else f'{busy / wall / 1e3:.1%}'})", flush=True)
+        for name, ms in kern.most_common(6):
+            print(f"    {ms:9.3f} ms  {name}")
+    return out
+
+
+def run_main_path(argv, dev, torch) -> dict:
+    """The launcher's one-shot generate with the launch counts zeroed just
+    before and read just after, then the checks of its prefill against
+    the dense reference on the same weights (see ``layer_errors``)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import cast_params_cached
+
+    ops.reset_launch_counts()
+    result = serve.main(argv)
+    counts = ops.launch_counts()
+    toks = result["tokens"]
+    args = serve.parse_args(argv)
+    cfg, api, params = serve.load_model(args)
+    if toks.shape != (args.requests, args.gen) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
+    batch = serve.load_batch(cfg, args)
+    cast = cast_params_cached(params, cfg.compute_dtype)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    ref = dataclasses.replace(cfg, kernel_impl="reference")
+    lk = prefill_logits(cfg, cast, batch, args.gen, dev)
+    lr = prefill_logits(ref, cast, batch, args.gen, dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ref32 = dataclasses.replace(ref, compute_dtype="float32")
+    lk32 = prefill_logits(f32, params, batch, args.gen, dev)
+    lr32 = prefill_logits(ref32, params, batch, args.gen, dev)
+    # The model's own sensitivity: the float32 reference with every
+    # embedding entry moved by one ulp.
+    nudged = dict(params, embed=torch.nextafter(params["embed"],
+                                                torch.tensor(float("inf"), device=dev)))
+    ln32 = prefill_logits(ref32, nudged, batch, args.gen, dev)
+    del nudged
+    if not all(torch.isfinite(x).all() for x in (lk, lr, lk32, lr32, ln32)):
+        fail("non-finite first-token logits")
+    first_ok = bool((lk.argmax(-1)[:, 0].int().cpu().numpy() == toks[:, 0]).all())
+    errs = layer_errors(cfg, cast, batch, dev, torch)
+    out = {"counts": counts, "arch": cfg.name, "layers": cfg.n_layers,
+           "requests": args.requests, "prompt_len": args.prompt_len, "gen": args.gen,
+           "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
+           "peak_memory_bytes": result["peak_memory_bytes"],
+           "first_token_is_prefill_argmax": first_ok,
+           "layer_rel_l2_max_bf16_prefill": max(errs["prefill"]),
+           "layer_rel_l2_max_bf16_decode": max(errs["decode"]),
+           "logits_rel_l2_bf16": rel(lk, lr),
+           "logits_rel_l2_f32": rel(lk32, lr32),
+           "logits_rel_l2_bf16_reference_vs_f32_reference": rel(lr, lr32),
+           "logits_rel_l2_f32_reference_embed_one_ulp": rel(ln32, lr32),
+           "profile": profile_steps(cfg, cast, batch, dev, torch)}
+    for mode, e in errs.items():
+        print(f"  per-layer bf16 {mode} update, kernel vs reference: max rel L2 {max(e):.3g} "
+              f"(tol {LAYER_REL_TOL}; layers 0-3: {[round(x, 5) for x in e[:4]]})")
+    print(f"  first-token logits of all {cfg.n_layers} layers (printed, not held): kernel vs "
+          f"reference rel L2 {out['logits_rel_l2_bf16']:.3g} in bf16 and "
+          f"{out['logits_rel_l2_f32']:.3g} in float32; the bf16 reference vs the float32 "
+          f"reference {out['logits_rel_l2_bf16_reference_vs_f32_reference']:.3g}; the float32 "
+          f"reference vs itself with the embeddings one ulp off "
+          f"{out['logits_rel_l2_f32_reference_embed_one_ulp']:.3g}", flush=True)
+    print(f"  generate's first token = argmax of its prefill logits: {first_ok}", flush=True)
+    return out
+
+
+def main() -> None:
+    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
+        fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+    dev = torch.device("cuda")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"[card] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}", flush=True)
+    print(card, flush=True)
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.models import attention as attn
+
+    t0 = time.perf_counter()
+    out = _build.build(ptxas_info=True)
+    print(f"[build] {len(out)} kernel libraries built in {time.perf_counter() - t0:.1f} s "
+          f"into {_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
+    for name, text in out.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    print("[kernels] kernel vs plain version on the card", flush=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    recs = {}
+    for case in attention_cases():
+        rec = run_attention_case(case, dev, flush, torch, F, ops, fa)
+        recs.setdefault("flash_attention", rec)
+    for case in decode_cases():
+        rec = run_decode_case(case, dev, flush, torch, F, ops, fd, attn)
+        recs.setdefault("flash_decode", rec)
+    del flush
+
+    print("[main path] repro_torch.launch.serve one-shot generate, qwen1.5-4b --full",
+          flush=True)
+    argv = ["--arch", "qwen1.5-4b", "--full", "--requests", "8", "--prompt-len", "256",
+            "--gen", str(GEN), "--seed", "0", "--kernel", "cuda"]
+    mp = run_main_path(argv, dev, torch)
+    want = {"flash_attention": 40, "flash_decode": 40 * (GEN - 1)}
+    counts = mp.pop("counts")
+    print(f"  launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"main path launch counts {counts} != {want}")
+    for mode in ("prefill", "decode"):
+        if mp[f"layer_rel_l2_max_bf16_{mode}"] > LAYER_REL_TOL:
+            fail(f"a bf16 {mode} layer through the kernels disagrees with the reference")
+    if not mp["first_token_is_prefill_argmax"]:
+        fail("generate's first token is not the argmax of its prefill logits")
+    print(json.dumps({"main_path": mp}))
+
+    sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:145"),
+               "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                                "src/repro/kernels/flash_decode.py:195")}
+    kernels = [dict(name=n, route="cuda", source=sources[n][0], replaces=sources[n][1],
+                    launches=counts[n], **recs[n]) for n in ("flash_attention", "flash_decode")]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,10 @@
+"""Architecture configs. Importing this package registers the ported archs."""
+from repro_torch.configs.base import (  # noqa: F401
+    ModelConfig,
+    ShapeCell,
+    get_config,
+)
+
+# Register the ported architectures (import side effects).
+from repro_torch.configs import internlm2_20b, qwen15_4b  # noqa: F401
+from repro_torch.configs.reduced import reduced  # noqa: F401

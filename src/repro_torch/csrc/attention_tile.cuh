@@ -1,0 +1,282 @@
+// Block-level online-softmax attention shared by the two attention kernels
+// (flash_attention.cu, flash_decode.cu).
+//
+// One thread block owns `rows` query rows that all read the same K/V head.
+// It walks KV tiles [t_lo, t_hi) of `bk` keys; for each tile it
+//   1. loads K (16-byte loads, cast to the query dtype, held as float) and
+//      the keys' recorded positions into shared memory,
+//   2. scores every (row, key) pair with float FMAs and masks it
+//      (score_tile),
+//   3. updates the running max / sum of each row (one warp per row) while
+//      V replaces K in the same buffer,
+//   4. accumulates p @ V into a float accumulator in shared memory
+//      (pv_tile).
+// Masked keys get p = 0 explicitly, so a row with no valid key ends with
+// l = 0 and is written as exact zeros (divide by max(l, 1e-30)).  p is
+// rounded to the value dtype before the PV product, as in the reference.
+//
+// The row order of every reduction depends on the block's own rows and
+// tiles only: a slot's output never depends on the batch around it.
+//
+// Plain FMAs on float tiles in shared memory are the simple first form;
+// mma.sync / wgmma and TMA-fed pipelines are later work (ROADMAP.md).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace repro {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxRows = 64;
+constexpr int kMaxBlockK = 128;
+constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can opt into on sm_90
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as the reference's casts
+}
+
+// x rounded to T's precision and held as float.
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Dynamic shared memory of attend_rows, in bytes.  The Python wrappers
+// compute the same sum to reject shapes before a launch.
+inline size_t smem_bytes(int rows, int hd, int bk) {
+  return sizeof(float) * (2 * (size_t)rows * hd + (size_t)bk * (hd + 1) +
+                          (size_t)rows * bk + 3 * (size_t)rows) +
+         sizeof(int) * (size_t)bk;
+}
+
+// Keys s0 .. s0 + bk - 1 of a K or V head into tile (row j at tile + j * ldt),
+// cast to TQ and held as float; keys at s >= S read as 0.  Each thread keeps
+// kLoadsInFlight 16-byte loads in flight before it converts and stores them:
+// the loads' latency, not their bytes, bounds a simple tile copy.  Needs
+// hd a multiple of 16 / sizeof(T) and 16-byte aligned rows (the wrappers
+// check both).
+constexpr int kLoadsInFlight = 4;
+
+template <typename TQ, typename T>
+__device__ __forceinline__ void load_tile(float* tile, int ldt, const T* __restrict__ src,
+                                          size_t base, size_t stride, int s0, int S, int bk,
+                                          int hd) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
+  const int vpr = hd / V;            // loads per key
+  const int n = bk * vpr;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kThreads * kLoadsInFlight) {
+    uint4 buf[kLoadsInFlight];
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int i = i0 + u * kThreads;
+      const int j = i / vpr, c = i - j * vpr;
+      buf[u] = (i < n && s0 + j < S)
+                   ? *reinterpret_cast<const uint4*>(src + base + (size_t)(s0 + j) * stride + c * V)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kLoadsInFlight; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < n) {
+        const int j = i / vpr, c = i - j * vpr;
+        const T* e = reinterpret_cast<const T*>(&buf[u]);
+#pragma unroll
+        for (int t = 0; t < V; ++t) tile[j * ldt + c * V + t] = round_to<TQ>(to_float(e[t]));
+      }
+    }
+  }
+}
+
+// Row r of a block is query (r / div) at head offset (r % div): its element d
+// lives at base + (r / div) * stride + (r % div) * hd + d.
+struct RowMap {
+  size_t base;
+  int div;
+  size_t stride;
+};
+
+// Row r sits at absolute position base + r / div.  A key recorded at kp is
+// valid for it iff 0 <= kp, kp <= position (when causal) and
+// kp > position - window (when window > 0).
+struct Mask {
+  int base;
+  int div;
+  int causal;
+  int window;
+  __device__ __forceinline__ bool operator()(int r, int kp) const {
+    const int rp = base + r / div;
+    return kp >= 0 && (!causal || kp <= rp) && (window <= 0 || kp > rp - window);
+  }
+};
+
+// Rows per thread in the score and PV loops: each shared-memory read of K
+// or V feeds RB independent FMA chains (the q and p reads are warp
+// broadcasts).  Blocks with fewer rows than kRowBlock use RB = 1.  Every
+// output keeps the order of its own sum, so RB does not change results.
+constexpr int kRowBlock = 4;
+
+// sc[r][j] = q_r . k_j * scale, or kNegInf where the mask rejects key j.
+template <int RB, typename M>
+__device__ __forceinline__ void score_tile(float* sc, const float* qs, const float* tile,
+                                           int ldt, const int* kp_s, int rows, int bk,
+                                           int hd, float scale, M mask) {
+  const int groups = (rows + RB - 1) / RB;
+  for (int i = threadIdx.x; i < groups * bk; i += kThreads) {
+    const int r0 = (i / bk) * RB, j = i % bk;
+    const float* kr = tile + j * ldt;
+    const float* qr[RB];
+    float dot[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      qr[u] = qs + min(r0 + u, rows - 1) * hd;
+      dot[u] = 0.f;
+    }
+#pragma unroll 4
+    for (int d = 0; d < hd; ++d) {
+      const float kd = kr[d];
+#pragma unroll
+      for (int u = 0; u < RB; ++u) dot[u] = fmaf(qr[u][d], kd, dot[u]);
+    }
+    const int kp = kp_s[j];
+#pragma unroll
+    for (int u = 0; u < RB; ++u)
+      if (r0 + u < rows) sc[(r0 + u) * bk + j] = mask(r0 + u, kp) ? dot[u] * scale : kNegInf;
+  }
+}
+
+// acc[r][d] = acc[r][d] * alpha[r] + sum_j p[r][j] * v[j][d].
+template <int RB>
+__device__ __forceinline__ void pv_tile(float* acc, const float* sc, const float* tile, int ldt,
+                                        const float* a_s, int rows, int bk, int hd) {
+  const int groups = (rows + RB - 1) / RB;
+  for (int i = threadIdx.x; i < groups * hd; i += kThreads) {
+    const int r0 = (i / hd) * RB, d = i % hd;
+    const float* pr[RB];
+    float pv[RB];
+#pragma unroll
+    for (int u = 0; u < RB; ++u) {
+      pr[u] = sc + min(r0 + u, rows - 1) * bk;
+      pv[u] = 0.f;
+    }
+#pragma unroll 4
+    for (int j = 0; j < bk; ++j) {
+      const float vd = tile[j * ldt + d];
+#pragma unroll
+      for (int u = 0; u < RB; ++u) pv[u] = fmaf(pr[u][j], vd, pv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < RB; ++u)
+      if (r0 + u < rows) acc[(r0 + u) * hd + d] = acc[(r0 + u) * hd + d] * a_s[r0 + u] + pv[u];
+  }
+}
+
+// k/v element d of key s lives at kv_base + s * kv_stride + d.  kpos holds
+// the recorded position of each key, or is null when key s sits at
+// position s.  Keys at s >= S read as empty (position -1).
+template <typename TQ, typename TKV>
+__device__ void attend_rows(const TQ* __restrict__ q, TQ* __restrict__ out, RowMap rm,
+                            int rows, const TKV* __restrict__ k,
+                            const TKV* __restrict__ v, size_t kv_base, size_t kv_stride,
+                            const int* __restrict__ kpos, int S, int t_lo, int t_hi,
+                            int bk, int hd, float scale, Mask mask) {
+  extern __shared__ float smem[];
+  float* qs = smem;                 // rows x hd
+  float* acc = qs + rows * hd;      // rows x hd
+  float* tile = acc + rows * hd;    // bk x (hd + 1): K, then V
+  float* sc = tile + bk * (hd + 1); // rows x bk: scores, then p
+  float* m_s = sc + rows * bk;      // rows
+  float* l_s = m_s + rows;          // rows
+  float* a_s = l_s + rows;          // rows
+  int* kp_s = reinterpret_cast<int*>(a_s + rows);  // bk
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldt = hd + 1;  // padded K rows: score_tile reads them conflict-free
+
+  for (int i = tid; i < rows * hd; i += kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    qs[i] = to_float(q[rm.base + (size_t)(r / rm.div) * rm.stride + (size_t)(r % rm.div) * hd + d]);
+    acc[i] = 0.f;
+  }
+  for (int r = tid; r < rows; r += kThreads) {
+    m_s[r] = kNegInf;
+    l_s[r] = 0.f;
+  }
+  __syncthreads();
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int s0 = t * bk;
+    load_tile<TQ>(tile, ldt, k, kv_base, kv_stride, s0, S, bk, hd);
+    for (int j = tid; j < bk; j += kThreads) {
+      const int s = s0 + j;
+      kp_s[j] = s < S ? (kpos ? kpos[s] : s) : -1;
+    }
+    __syncthreads();
+
+    if (rows >= kRowBlock)
+      score_tile<kRowBlock>(sc, qs, tile, ldt, kp_s, rows, bk, hd, scale, mask);
+    else
+      score_tile<1>(sc, qs, tile, ldt, kp_s, rows, bk, hd, scale, mask);
+    __syncthreads();
+
+    for (int r = warp; r < rows; r += kWarps) {
+      float* sr = sc + r * bk;
+      float mx = kNegInf;
+      for (int j = lane; j < bk; j += 32) mx = fmaxf(mx, sr[j]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int j = lane; j < bk; j += 32) {
+        const float p = mask(r, kp_s[j]) ? expf(sr[j] - m_new) : 0.f;
+        sum += p;
+        sr[j] = round_to<TQ>(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+        a_s[r] = alpha;
+      }
+    }
+    load_tile<TQ>(tile, ldt, v, kv_base, kv_stride, s0, S, bk, hd);
+    __syncthreads();
+
+    if (rows >= kRowBlock)
+      pv_tile<kRowBlock>(acc, sc, tile, ldt, a_s, rows, bk, hd);
+    else
+      pv_tile<1>(acc, sc, tile, ldt, a_s, rows, bk, hd);
+    __syncthreads();
+  }
+
+  for (int i = tid; i < rows * hd; i += kThreads) {
+    const int r = i / hd, d = i - r * hd;
+    out[rm.base + (size_t)(r / rm.div) * rm.stride + (size_t)(r % rm.div) * hd + d] =
+        from_float<TQ>(acc[i] / fmaxf(l_s[r], 1e-30f));
+  }
+}
+
+}  // namespace repro
+
+extern "C" const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,140 @@
+"""Build the CUDA sources under ``csrc/`` and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own, with a plain C interface, into
+``build/kernels/<name>-<hash>.so`` at the repository root (listed in
+``.gitignore``):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+The hash covers the sources and the flags, so an edited source builds anew.
+:func:`build` starts one ``nvcc`` per missing library, all at once.  Nothing
+here runs at import: the CPU tests import every module without ``nvcc``.
+
+Every wrapper counts its launches in :data:`LAUNCHES`, a plain integer per
+kernel, incremented only where it launches its kernel.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+KERNELS = ("flash_attention", "flash_decode")
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernels' row and tile limits and shared-memory budget (attention_tile.cuh).
+MAX_ROWS = 64
+MAX_BLOCK_K = 128
+MAX_SMEM = 232448
+
+LAUNCHES = {name: 0 for name in KERNELS}
+
+_lock = threading.Lock()
+_libs: dict = {}
+_fns: dict = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def smem_bytes(rows: int, hd: int, bk: int) -> int:
+    """Dynamic shared memory of one block, as ``smem_bytes`` in the header."""
+    return 4 * (2 * rows * hd + bk * (hd + 1) + rows * bk + 3 * rows) + 4 * bk
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels need it")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=KERNELS, *, ptxas_info: bool = False) -> dict:
+    """Compile every missing library among ``names``, one ``nvcc`` each, all
+    started together.  Returns ``{name: compiler output}`` for the libraries
+    built now (``ptxas_info`` adds each kernel's registers and spills).
+    Raises if any build fails."""
+    todo = {n: _lib_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name, path in todo.items():
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp)
+    outputs, failed = {}, []
+    for name, (proc, tmp) in procs.items():
+        outputs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{outputs[name]}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return outputs
+
+
+def kernel_fn(name: str, symbol: str, argtypes):
+    """The C entry point ``symbol`` of kernel library ``name``, built and
+    loaded on first use, with its argument types set."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
+    import ctypes
+
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib.kernel_error_string.argtypes = [ctypes.c_int]
+            lib.kernel_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[(name, symbol)] = fn
+    return fn
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err:
+        msg = _libs[name].kernel_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

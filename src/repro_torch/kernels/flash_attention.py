@@ -1,0 +1,129 @@
+"""FlashAttention forward: prefill attention.
+
+Port of the JAX package's Pallas TPU kernel ``kernels/flash_attention.py``
+(``flash_attention`` → ``_flash_fwd_impl``, body ``_kernel``): q
+``(B,Sq,H,hd)``, k/v ``(B,Sk,KV,hd)``; causal with ``q_offset``, sliding
+window or bidirectional; GQA reads kv head ``h // n_rep``; online softmax
+over KV tiles in float32 with p cast to v's dtype before PV; tiles outside
+the mask are skipped.
+
+``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
+on CUDA tensors and runs ``flash_attention_plain``, the same tiles and masks
+as a loop in PyTorch, on CPU tensors.  Forward only: the backward waits for
+the training slice (ROADMAP.md).
+
+Tiles are 64 x 64 by default (the TPU kernel's are 128 x 128): a block keeps
+its float q rows, accumulator, scores and one K/V tile in shared memory, and
+at hd 128 a 64 x 64 tile pair needs 116 KB of the 227 KB a block may use.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _tile_range(first: int, last: int, sk: int, bk: int, causal: bool, window: int):
+    """KV tiles [lo, hi) that rows at positions first..last can reach."""
+    kv_end = min(sk, last + 1) if causal else sk
+    kv_begin = max(0, first - window + 1) if window > 0 else 0
+    lo = kv_begin // bk
+    hi = -(-kv_end // bk) if kv_end > kv_begin else lo
+    return lo, hi
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          q_offset: int = 0, block_q: int = 64, block_k: int = 64):
+    """The kernel's function in PyTorch: per q tile, a loop over the KV
+    tiles its rows can reach, with the kernel's masks, float32 online
+    softmax and explicit p = 0 for masked keys.  The CPU path, and the
+    kernel's oracle on the card."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    n_rep = h // kvh
+    scale = hd ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, block_q):
+        rows = min(block_q, sq - q0)
+        first = q0 + q_offset
+        qg = q[:, q0:q0 + rows].reshape(b, rows, kvh, n_rep, hd).float()
+        qpos = first + torch.arange(rows, device=q.device)
+        m = torch.full((b, h, rows), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, rows), device=q.device)
+        acc = torch.zeros((b, h, rows, hd), device=q.device)
+        lo, hi = _tile_range(first, first + rows - 1, sk, block_k, causal, window)
+        for t in range(lo, hi):
+            kb = k[:, t * block_k:(t + 1) * block_k]
+            vb = v[:, t * block_k:(t + 1) * block_k]
+            kc = kb.shape[1]
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.float()).reshape(b, h, rows, kc)
+            s = s * scale
+            kpos = t * block_k + torch.arange(kc, device=q.device)
+            valid = torch.ones((rows, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                valid &= kpos[None, :] <= qpos[:, None]
+            if window > 0:
+                valid &= kpos[None, :] > qpos[:, None] - window
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pg = p.to(v.dtype).float().reshape(b, kvh, n_rep, rows, kc)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", pg, vb.float())
+            acc = acc * alpha[..., None] + pv.reshape(b, h, rows, hd)
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)
+        out[:, q0:q0 + rows] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                    block_q: int = 64, block_k: int = 64):
+    """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) with H % KV == 0, one dtype
+    (float32 or bfloat16).  Returns (B,Sq,H,hd).
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`flash_attention_plain`."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, block_q=block_q, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+    return _flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset, block_q=block_q, block_k=block_k)
+
+
+def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, block_q, block_k):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    req = _build.require
+    req(k.device == q.device and v.device == q.device, "all tensors on one device")
+    req(k.shape == v.shape and k.shape[0] == b and k.shape[3] == hd,
+        f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    req(h % kvh == 0, f"H={h} is not a multiple of KV={kvh}")
+    req(q.dtype == k.dtype == v.dtype, "q, k and v share one dtype")
+    req(hd * k.element_size() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+        "k/v rows must be whole, 16-byte aligned 16-byte vectors (the kernel's loads)")
+    req(all(t.is_contiguous() for t in (q, k, v)), "contiguous tensors")
+    req(0 < bq <= _build.MAX_ROWS, f"block_q={bq} outside 1..{_build.MAX_ROWS}")
+    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
+    req(b * h <= 65535, f"B*H={b * h} > 65535 blocks")
+    req(_build.smem_bytes(bq, hd, bk) <= _build.MAX_SMEM, f"hd={hd} too wide")
+    code = _build.dtype_code(q)
+    out = torch.empty_like(q)
+    fn = _build.kernel_fn("flash_attention", "flash_attention_launch",
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
+                          + [ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 b, sq, sk, h, kvh, hd, bq, bk, int(causal), window, q_offset,
+                 hd ** -0.5, code, torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_attention", err)
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

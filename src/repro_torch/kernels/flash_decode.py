@@ -1,0 +1,150 @@
+"""Ragged flash-decode: batched decode attention over the KV cache as stored.
+
+Port of the JAX package's Pallas TPU kernel ``kernels/flash_decode.py``
+(``flash_decode``).  One query token per slot (or Sq consecutive rows)
+against ``(B, S, KV, hd)`` k/v in any storage dtype, the recorded-position
+vector ``kpos`` (−1 = empty) and per-slot positions ``pos``:
+
+- **GQA folded into rows.**  q is read as ``(B, KV, Sq·n_rep, hd)``: each
+  K/V tile serves its whole query-head group.
+- **Position masking.**  Row j of slot b attends ``0 <= kpos <= pos[b]+j``
+  (and ``kpos > pos[b]+j-window`` for rolling caches).
+- **Per-slot tile skip.**  ``needed_tiles`` (on the device, no host sync)
+  counts the KV tiles a slot needs; the kernel loops over that many.
+
+A row with no valid keys returns exact zeros.  A slot's reduction order is
+its own, whatever batch it shares the call with.
+
+``flash_decode`` launches the CUDA kernel (``csrc/flash_decode.cu``) on CUDA
+tensors and runs ``flash_decode_plain``, the same tiles and masks as a
+loop in PyTorch, on CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.attention import ragged_valid_mask
+
+NEG_INF = -1e30
+
+
+def needed_tiles(kpos, pos, *, window: int = 0, block_k: int = 128, sq: int = 1):
+    """Per-slot KV tile count the ragged kernel touches.
+
+    ``kpos``: (B, S) recorded positions (−1 = empty); ``pos``: (B,) query
+    positions.  Returns (B,) int32 in [1, ceil(S/block_k)]: 1 + the last
+    tile holding any key with ``0 <= kpos <= pos + sq - 1`` (window-masked
+    from the shallowest row when ``window > 0``); an all-empty slot counts 1.
+    Stays on kpos's device: no host sync."""
+    s = kpos.shape[1]
+    valid = ragged_valid_mask(kpos, pos[:, None] + (sq - 1), 0)
+    if window > 0:
+        valid &= kpos > pos[:, None] - window
+    tile = (torch.arange(s, dtype=torch.int32, device=kpos.device) // block_k)[None, :]
+    last = torch.where(valid, tile, -1).amax(dim=1)
+    return torch.clamp(last + 1, min=1).to(torch.int32)
+
+
+def _pad_cache(k, v, kpos, bk):
+    pad = (-k.shape[1]) % bk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        # Padding is recorded-position -1 == empty == masked out.
+        kpos = F.pad(kpos, (0, pad), value=-1)
+    return k, v, kpos
+
+
+def flash_decode_plain(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 128):
+    """The kernel's function in PyTorch: a loop over KV tiles up to the
+    batch's deepest needed tile, the same masks and online softmax in
+    float32, p rounded to the value dtype before PV.  The CPU path, and the
+    kernel's oracle on the card."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    n_rep = h // kvh
+    rows = sq * n_rep
+    bk = min(block_k, k.shape[1])
+    k, v, kpos = _pad_cache(k, v, kpos, bk)
+    pos = pos.to(torch.int32)
+    n_hi = int(needed_tiles(kpos, pos, window=window, block_k=bk, sq=sq).max())
+    qg = (q.reshape(b, sq, kvh, n_rep, hd).permute(0, 2, 1, 3, 4)
+          .reshape(b, kvh, rows, hd).float())
+    rowpos = pos[:, None] + torch.arange(rows, dtype=torch.int32, device=q.device) // n_rep
+    scale = hd ** -0.5
+    m = torch.full((b, kvh, rows), NEG_INF, device=q.device)
+    l = torch.zeros((b, kvh, rows), device=q.device)
+    acc = torch.zeros((b, kvh, rows, hd), device=q.device)
+    for i in range(n_hi):
+        kb = k[:, i * bk:(i + 1) * bk].to(q.dtype).float()
+        vb = v[:, i * bk:(i + 1) * bk].to(q.dtype)
+        kp = kpos[:, i * bk:(i + 1) * bk]
+        s = torch.einsum("bgrd,bkgd->bgrk", qg, kb) * scale
+        valid = ragged_valid_mask(kp[:, None, :], rowpos[:, :, None], window)[:, None]
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # Mask p explicitly: an all-masked tile has m_new == NEG_INF and
+        # exp(s - m_new) == 1, which must not count.
+        p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrk,bkgd->bgrd", p.to(vb.dtype).float(), vb.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return (out.reshape(b, kvh, sq, n_rep, hd).permute(0, 2, 1, 3, 4)
+            .reshape(b, sq, h, hd).to(q.dtype))
+
+
+def flash_decode(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 128):
+    """q: (B,Sq,H,hd); k/v: (B,S,KV,hd) with H % KV == 0 (float32 or
+    bfloat16 storage, cast to q's dtype in the load); kpos: (B,S) int32;
+    pos: (B,) int32.  Returns (B,Sq,H,hd) in q.dtype.
+
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    :func:`flash_decode_plain`."""
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, kpos, pos, window=window, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu tensors, got {q.device}")
+    return _flash_decode_cuda(q, k, v, kpos, pos, window=window, block_k=block_k)
+
+
+def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    b, sq, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    bk = min(block_k, s)
+    rows = sq * (h // max(kvh, 1))
+    req = _build.require
+    req(all(t.device == q.device for t in (k, v, kpos, pos)), "all tensors on one device")
+    req(k.shape == v.shape and k.shape[0] == b and k.shape[3] == hd,
+        f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    req(h % kvh == 0, f"H={h} is not a multiple of KV={kvh}")
+    req(tuple(kpos.shape) == (b, s) and tuple(pos.shape) == (b,), "kpos (B,S), pos (B,)")
+    req(k.dtype == v.dtype, "k and v share one storage dtype")
+    req(hd * k.element_size() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+        "k/v rows must be whole, 16-byte aligned 16-byte vectors (the kernel's loads)")
+    req(kpos.dtype == torch.int32 and pos.dtype == torch.int32, "kpos/pos are int32")
+    req(all(t.is_contiguous() for t in (q, k, v, kpos, pos)), "contiguous tensors")
+    req(rows <= _build.MAX_ROWS, f"Sq*n_rep={rows} > {_build.MAX_ROWS} rows")
+    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
+    req(_build.smem_bytes(rows, hd, bk) <= _build.MAX_SMEM, f"hd={hd} too wide")
+    codes = _build.dtype_code(q), _build.dtype_code(k)
+    nt = needed_tiles(kpos, pos, window=window, block_k=bk, sq=sq)
+    out = torch.empty_like(q)
+    fn = _build.kernel_fn("flash_decode", "flash_decode_launch",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+                 pos.data_ptr(), nt.data_ptr(), out.data_ptr(),
+                 b, s, sq, h, kvh, hd, bk, window, hd ** -0.5, *codes,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_decode", err)
+    _build.LAUNCHES["flash_decode"] += 1
+    return out

@@ -1,0 +1,15 @@
+"""Public wrappers for the port's kernels.
+
+Each wrapper launches its CUDA kernel on CUDA tensors (or raises) and runs
+its plain PyTorch version on CPU tensors.  Models select the kernels with
+``cfg.kernel_impl = "cuda"``.  ``launch_counts()`` reads, and
+``reset_launch_counts()`` zeroes, the number of kernel launches so far.
+"""
+from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels._build import reset_launches as reset_launch_counts  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_decode import flash_decode, needed_tiles  # noqa: F401
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)

@@ -1,0 +1,31 @@
+"""Model zoo registry: a uniform API over the ported families.
+
+    api = get_model(cfg)
+    api.param_spec(cfg)                   -> Spec tree
+    api.cache_spec(cfg, batch, seq)       -> Spec tree (decode caches)
+    api.prefill(params, batch, cfg, cache)-> (logits, cache)
+    api.decode(params, token, pos, cfg, cache) -> (logits, cache)
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+KERNEL_IMPLS = ("reference", "cuda")
+
+
+class ModelAPI(NamedTuple):
+    param_spec: Callable
+    cache_spec: Callable
+    prefill: Callable
+    decode: Callable
+
+
+def get_model(cfg) -> ModelAPI:
+    if cfg.kernel_impl not in KERNEL_IMPLS:
+        raise ValueError(f"kernel_impl {cfg.kernel_impl!r} is not one of {KERNEL_IMPLS}")
+    if cfg.family == "dense":
+        from repro_torch.models import transformer as T
+
+        return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode)
+    raise NotImplementedError(
+        f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP.md item A9")

@@ -1,0 +1,172 @@
+"""Attention block: projections, RoPE, the contiguous KV cache.
+
+A cache is ``{k, v, pos}``: k/v ``(B, S, KV, hd)`` and ``pos`` ``(B, S)``
+int32 recorded positions, −1 for an empty slot, which makes windowed
+(rolling) and full caches uniform.  Where the JAX package returns a new
+cache from ``.at[].set`` on a donated buffer, the port writes the cache in
+place (``index_put_``) and returns the same dict.
+
+The paged, chunk and mesh paths of the JAX module are not ported yet
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models.params import Spec
+
+
+def attn_spec(cfg) -> dict:
+    H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    spec = {
+        "wq": Spec((d, H, hd)),
+        "wk": Spec((d, KV, hd)),
+        "wv": Spec((d, KV, hd)),
+        "wo": Spec((H, hd, d)),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = Spec((H, hd), "zeros")
+        spec["bk"] = Spec((KV, hd), "zeros")
+        spec["bv"] = Spec((KV, hd), "zeros")
+    return spec
+
+
+def cache_spec(cfg, batch: int, max_seq: int, window: int = 0) -> dict:
+    """Per-layer KV cache. ``pos`` records absolute positions per slot (−1 =
+    empty)."""
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    s = min(max_seq, window) if window else max_seq
+    cdt = cfg.cache_dtype or None
+    return {
+        "k": Spec((batch, s, KV, hd), "zeros", None, cdt),
+        "v": Spec((batch, s, KV, hd), "zeros", None, cdt),
+        "pos": Spec((batch, s), "neg_ones", None, "int32"),
+    }
+
+
+def _proj(x, w):
+    """einsum("bsd,d...->bs...", x, w) as one matrix product."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _project_qkv(p, x, positions, cfg):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if "bq" in p:  # bias before RoPE
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _out_proj(out, wo):
+    """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
+    return out.flatten(2) @ wo.flatten(0, 1)
+
+
+def _write(cache, slot, k, v, positions):
+    # In place: the JAX package's .at[bidx, slot].set on a donated cache.
+    bidx = torch.arange(k.shape[0], device=k.device)[:, None]
+    cache["k"].index_put_((bidx, slot), k.to(cache["k"].dtype))
+    cache["v"].index_put_((bidx, slot), v.to(cache["v"].dtype))
+    cache["pos"].index_put_((bidx, slot), positions.to(cache["pos"].dtype))
+
+
+def prefill_with_cache(p, x, positions, cfg, cache, *, window=0):
+    """Prefill that also fills the cache (in place). Assumes S <= cache
+    length for a full cache; a rolling cache keeps the trailing window."""
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    s = x.shape[1]
+    cs = cache["k"].shape[1]
+    if window and s > cs:
+        # Only the trailing window survives in a rolling cache.
+        k_w, v_w, pos_w = k[:, -cs:], v[:, -cs:], positions[:, -cs:]
+    else:
+        k_w, v_w, pos_w = k, v, positions
+    slot = pos_w % cs if window else pos_w
+    _write(cache, slot.long(), k_w, v_w, pos_w)
+    out = L.attention(q, k, v, cfg, causal=True, window=window)
+    return _out_proj(out, p["wo"]), cache
+
+
+def pos_vector(pos, b: int, device=None):
+    """Normalize a decode position to a per-slot int32 vector: a scalar
+    (uniform batch) broadcasts to (B,); a (B,) vector (continuous batch)
+    passes through.  A Python int becomes a device fill, not a host copy,
+    so a decode loop never waits on the card."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((b,), int(pos), dtype=torch.int32, device=device)
+    p = pos.to(device=device or pos.device, dtype=torch.int32)
+    if p.ndim == 0:
+        return p.expand(b).contiguous()
+    if tuple(p.shape) != (b,):
+        raise ValueError(f"pos must be scalar or shape ({b},), got {tuple(p.shape)}")
+    return p
+
+
+def decode_step(p, x, pos, cfg, cache, *, window=0):
+    """Decode step. x: (B, Sq, d); pos: a scalar absolute position or a (B,)
+    vector of per-slot positions.  Sq > 1 is the multi-row step: the Sq
+    tokens of a slot sit at consecutive positions ``pos .. pos+Sq-1``; all
+    Sq keys are written into the cache *before* attention, and each query
+    row masks at its own depth."""
+    b, sq = x.shape[0], x.shape[1]
+    posv = pos_vector(pos, b, x.device)
+    positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    cs = cache["k"].shape[1]
+    slot = positions % cs if window else positions  # (B, Sq)
+    _write(cache, slot.long(), k, v, positions)
+    out = cached_attention(q, cache, posv, cfg, window=window)
+    return _out_proj(out, p["wo"]), cache
+
+
+def ragged_valid_mask(kpos, pos, window: int):
+    """THE ragged-decode validity predicate, shared by every decode path
+    (the dense fallback, the kernel's plain version and ``needed_tiles``;
+    the CUDA kernel computes the same expression): a recorded position is
+    attendable iff ``0 <= kpos <= pos`` and, for rolling caches, within the
+    window.  ``kpos``/``pos`` broadcast elementwise."""
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window > 0:
+        valid &= kpos > pos - window
+    return valid
+
+
+def _ragged_dense(q, k, v, kpos, posv, *, window=0):
+    """Dense ragged-decode attention: Sq queries per slot over the cache as
+    stored, masked by recorded positions, GQA via a grouped-head einsum.
+    Row j of slot b sits at ``posv[b] + j``.  A slot with no valid keys
+    returns zeros."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, hd)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                          k.to(q.dtype).float()) * (hd ** -0.5)
+    rowpos = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=q.device)
+    vm = ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None],
+                           window)[:, None, None, :, :]
+    logits = torch.where(vm, logits, L.NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    # Mask p explicitly (not via exp underflow): an all-empty slot has
+    # m == -1e30 and exp(0) == 1 everywhere, which must not count.
+    p = torch.where(vm, torch.exp(logits - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    probs = (p / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.to(q.dtype))
+    return out.reshape(b, sq, h, hd)
+
+
+def cached_attention(q, cache, pos, cfg, *, window=0):
+    """Attention of Sq query rows per slot over the contiguous cache,
+    masked by recorded slot positions.  ``cfg.kernel_impl == "cuda"`` goes
+    to the ``flash_decode`` kernel (its plain version for CPU tensors), else
+    to the dense grouped-GQA reference."""
+    posv = pos_vector(pos, q.shape[0], q.device)
+    if cfg.kernel_impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.flash_decode(q, cache["k"], cache["v"], cache["pos"], posv,
+                                 window=window, block_k=cfg.decode_block or 128)
+    return _ragged_dense(q, cache["k"], cache["v"], cache["pos"], posv,
+                         window=window)

@@ -1,0 +1,147 @@
+"""Common model building blocks: norms, RoPE, attention, MLPs.
+
+Plain functions on tensors, in the JAX package's layouts: activations
+``(B, S, d)``, q ``(B, S, H, hd)``, k/v ``(B, S, KV, hd)``.  Where JAX asks
+for ``preferred_element_type=float32`` the inputs are widened to float32
+before the product: the products of bf16 values are exact in float32, so
+only the order of the sums differs.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+
+
+def rms_norm(x, weight, eps: float):
+    """Normalize in float32, cast back to x's dtype, *then* scale."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+# ---------------------------------------------------------------- RoPE ----
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: (..., S) int.  Split-half rotation in
+    float32, cast back to x's dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)  # (hd/2,)
+    angles = positions[..., None].float() * freqs  # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------- attention ----
+
+
+def repeat_kv(k, n_rep: int):
+    """(B, S, kv, hd) -> (B, S, kv*n_rep, hd)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, hd).reshape(b, s, kv * n_rep, hd)
+
+
+def _position_mask(sq, sk, q_offset, causal, window, device):
+    qpos = torch.arange(sq, device=device)[:, None] + q_offset
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def naive_attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0):
+    """Reference O(S^2)-memory attention. q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd).
+
+    ``q_offset`` is the absolute position of q[0] relative to k[0]."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    k = repeat_kv(k, h // kv)
+    v = repeat_kv(v, h // kv)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd ** -0.5)
+    mask = _position_mask(sq, sk, q_offset, causal, window, q.device)
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def chunked_attention(q, k, v, *, causal: bool, window: int = 0, q_offset=0,
+                      q_chunk: int = 1024, kv_chunk: int = 1024):
+    """Online-softmax attention in plain torch: O(S) memory, a loop over KV
+    chunks carrying the running (max, sum, acc) for each q chunk."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    n_rep = h // kv
+    scale = hd ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, q_chunk):
+        qblk = q[:, q0:q0 + q_chunk]
+        qc = qblk.shape[1]
+        qg = qblk.reshape(b, qc, kv, n_rep, hd).float()
+        m = torch.full((b, h, qc), float("-inf"), device=q.device)
+        l = torch.zeros((b, h, qc), device=q.device)
+        acc = torch.zeros((b, h, qc, hd), device=q.device)
+        for k0 in range(0, sk, kv_chunk):
+            kblk = k[:, k0:k0 + kv_chunk]
+            vblk = v[:, k0:k0 + kv_chunk]
+            kc = kblk.shape[1]
+            # GQA via a grouped-head einsum; head order h = g * n_rep + r.
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kblk.float())
+            s = s.reshape(b, h, qc, kc) * scale
+            msk = _position_mask(qc, kc, q0 + q_offset - k0, causal, window, q.device)
+            s = s.masked_fill(~msk, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            pg = p.to(q.dtype).reshape(b, kv, n_rep, qc, kc)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", pg, vblk)
+            acc = acc * alpha[..., None] + pv.reshape(b, h, qc, hd).float()
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)
+        out[:, q0:q0 + qc] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def attention(q, k, v, cfg, *, causal: bool = True, window: int = 0, q_offset=0):
+    """Dispatch on cfg.kernel_impl; q (B,Sq,H,hd), k/v (B,Sk,KV,hd).
+
+    ``"cuda"`` sends every Sq > 1 call to the ``flash_attention`` kernel
+    (its plain version for CPU tensors); everything else is the JAX
+    package's reference dispatch."""
+    sq, sk = q.shape[1], k.shape[1]
+    if cfg.kernel_impl == "cuda" and sq > 1:
+        from repro_torch.kernels import ops as kops
+
+        return kops.flash_attention(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset)
+    if sq == 1:
+        # Decode: one query token — a dense row over the KV cache.
+        return naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if not cfg.fused_attention and sq * sk <= 4096 * 4096:
+        return naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    if sq * sk <= 512 * 512:  # tiny shapes: chunking is pure overhead
+        return naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return chunked_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                             q_chunk=min(1024, sq), kv_chunk=min(1024, sk))
+
+
+# ----------------------------------------------------------------- MLP ----
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down

@@ -1,0 +1,116 @@
+"""Parameter-definition trees.
+
+A model is described once as a nested dict of :class:`Spec` leaves, as in
+the JAX package; from that description come the materialized tensors and
+the empty caches.  Layer-stacked leaves keep the JAX layout (a leading
+``n_layers`` dim), so a JAX parameter tree loads leaf for leaf.
+
+The JAX package's ``pspec`` entries are gone: one device needs no sharding.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One parameter leaf: shape + init recipe."""
+
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | small_normal | zeros | ones | neg_ones
+    scale: float | None = None  # stddev override for normal init
+    dtype: str | None = None  # per-leaf dtype override (e.g. int32 cache pos)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """Map ``fn`` over the leaves of nested dicts (keys in sorted order)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [tree]
+
+
+def stack_layers(n_layers: int, tree):
+    """Prepend a layer dim (stacked per-layer params and caches)."""
+    return tree_map(
+        lambda s: Spec((n_layers,) + s.shape, s.init, s.scale, s.dtype), tree)
+
+
+def _dtype(name) -> torch.dtype:
+    if isinstance(name, torch.dtype):
+        return name
+    return getattr(torch, name)
+
+
+def materialize(tree, generator: torch.Generator, dtype, device):
+    """Real tensors for a Spec tree, drawn on ``device`` from ``generator``
+    (which must live on that device: 4 B parameters never pass through
+    numpy).  ``normal`` leaves draw at ``fan_in ** -0.5`` with the JAX
+    package's fan-in rule (``shape[-2]`` for rank >= 2, stacked dim
+    included), ``small_normal`` at the leaf's own scale.  The draws differ
+    from ``jax.random``'s; parity tests load JAX trees instead."""
+    device = torch.device(device)
+
+    def mk(s: Spec):
+        dt = _dtype(s.dtype or dtype)
+        if s.init == "zeros":
+            return torch.zeros(s.shape, dtype=dt, device=device)
+        if s.init == "ones":
+            return torch.ones(s.shape, dtype=dt, device=device)
+        if s.init == "neg_ones":
+            return torch.full(s.shape, -1, dtype=dt, device=device)
+        if s.init not in ("normal", "small_normal"):
+            raise ValueError(f"unknown init {s.init!r}")
+        scale = s.scale
+        if scale is None:
+            fan_in = s.shape[-2] if len(s.shape) >= 2 else s.shape[-1]
+            scale = fan_in ** -0.5
+        x = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return x.mul_(scale).to(dt)
+
+    return tree_map(mk, tree)
+
+
+def load_jax_params(np_tree, cfg, device, dtype=torch.float32):
+    """The port's parameters from a JAX parameter tree given as numpy
+    arrays (``jax.tree_util.tree_map(np.asarray, params)``).
+
+    The port keeps the JAX tree's keys, layer stacking and leaf layouts, so
+    the load is a checked leaf-for-leaf copy: every key and shape must match
+    the port's own ``param_spec(cfg)``, and floating leaves become ``dtype``
+    on ``device``.  The port then computes exactly what the JAX tree
+    computes."""
+    from repro_torch.models import get_model
+
+    spec = get_model(cfg).param_spec(cfg)
+
+    def check(path, s, a):
+        if isinstance(s, dict):
+            if not isinstance(a, dict) or set(a) != set(s):
+                got = sorted(a) if isinstance(a, dict) else type(a).__name__
+                raise ValueError(f"{path or 'params'}: keys {got} != {sorted(s)}")
+            for k in s:
+                check(f"{path}/{k}", s[k], a[k])
+        elif tuple(np.shape(a)) != tuple(s.shape):
+            raise ValueError(f"{path}: shape {np.shape(a)} != {s.shape}")
+
+    check("", spec, np_tree)
+
+    def mk(a):
+        t = torch.from_numpy(np.array(a))  # a writable copy
+        if t.is_floating_point():
+            t = t.to(_dtype(dtype))
+        return t.to(device)
+
+    return tree_map(mk, np_tree)

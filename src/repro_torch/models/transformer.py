@@ -1,0 +1,126 @@
+"""Decoder LM of the dense family: the layer stack, embed and head.
+
+Parameters keep the JAX package's tree: per-layer leaves stacked along a
+leading ``n_layers`` dim.  The JAX ``lax.scan`` over layers becomes a loop
+over per-layer views of the stacked tensors; the stacked cache is written in
+place through the same views.
+
+Block interface (as in the JAX package):
+    block_spec(cfg) -> Spec tree for ONE layer
+    block_apply(p, x, positions, cfg, *, mode, cache, pos) -> (x, cache)
+
+Training, chunked prefill and the other families are not ported yet
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.params import Spec, stack_layers, tree_map
+
+
+# ------------------------------------------------------------- dense block
+
+
+def dense_block_spec(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "attn": A.attn_spec(cfg),
+        "mlp": {
+            "w_gate": Spec((d, f)),
+            "w_up": Spec((d, f)),
+            "w_down": Spec((f, d)),
+        },
+        "norm1": Spec((d,), "ones"),
+        "norm2": Spec((d,), "ones"),
+    }
+
+
+def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if mode == "prefill":
+        a, cache = A.prefill_with_cache(p["attn"], h, positions, cfg, cache,
+                                        window=cfg.window)
+    elif mode == "decode":
+        a, cache = A.decode_step(p["attn"], h, pos, cfg, cache, window=cfg.window)
+    else:
+        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    x = x + a
+    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    return x, cache
+
+
+# ---------------------------------------------------------------- stack
+
+
+def embed_spec(cfg) -> dict:
+    spec = {
+        "embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02),
+        "final_norm": Spec((cfg.d_model,), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = Spec((cfg.d_model, cfg.vocab))
+    return spec
+
+
+def param_spec(cfg) -> dict:
+    spec = embed_spec(cfg)
+    spec["layers"] = stack_layers(cfg.n_layers, dense_block_spec(cfg))
+    return spec
+
+
+def cache_spec(cfg, batch: int, max_seq: int) -> dict:
+    """Stacked (n_layers-leading) cache tree."""
+    return stack_layers(cfg.n_layers,
+                        A.cache_spec(cfg, batch, max_seq, window=cfg.window))
+
+
+def run_stack(params, x, positions, cfg, *, mode, cache, pos=None):
+    """Run the layer stack; the stacked cache is updated in place.
+    Returns (x, cache)."""
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = tree_map(lambda a: a[i], layers)
+        lc = tree_map(lambda a: a[i], cache)
+        x, _ = dense_block_apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos)
+    return x, cache
+
+
+# ------------------------------------------------------------ embed/head
+
+
+def embed_tokens(params, tokens, cfg):
+    x = params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    if cfg.tie_embeddings:
+        x = x * (cfg.d_model ** 0.5)  # gemma-style scaling
+    return x
+
+
+def logits_fn(params, x, cfg):
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+    return (x @ head.to(x.dtype)).float()
+
+
+# ------------------------------------------------------------- public API
+
+
+def prefill(params, batch, cfg, cache):
+    """Fill the cache from a full prompt; returns (last_logits, cache)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x, cache = run_stack(params, x, positions, cfg, mode="prefill", cache=cache)
+    return logits_fn(params, x[:, -1:], cfg), cache
+
+
+def decode(params, token, pos, cfg, cache):
+    """One decode step. token: (B, Sq) int; pos: scalar or a (B,) vector of
+    per-slot positions (Sq > 1: rows at pos .. pos+Sq-1)."""
+    x = embed_tokens(params, token, cfg)
+    x, cache = run_stack(params, x, None, cfg, mode="decode", cache=cache, pos=pos)
+    return logits_fn(params, x, cfg), cache

@@ -1,0 +1,160 @@
+"""Port's flash_decode (its plain version, on CPU tensors) and needed_tiles
+vs the JAX package's Pallas kernel in interpret mode and its dense oracle,
+on cases of tests/test_flash_decode.py: GQA ratios 1/2/4, full, unaligned
+and rolling-window caches, float32 and bfloat16 storage, multi-row decode,
+and empty slots, whose rows must be exact zeros.
+
+Tolerance 2e-5 (float32 queries; bf16 storage is cast in the load by both,
+so only the order of float32 sums differs)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.ops import flash_decode as jax_flash_decode
+from repro.kernels.ops import needed_tiles as jax_needed_tiles
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ops import (
+    flash_decode,
+    launch_counts,
+    needed_tiles,
+    reset_launch_counts,
+)
+
+TOL = 2e-5
+STORAGE = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def ragged_cache(seed, b, s, kv, hd, pos, window):
+    """Cache-as-stored with serve semantics (as tests/test_flash_decode.py):
+    full caches record position t at slot t, rolling caches at t % s;
+    unwritten slots keep pos -1 and garbage k/v."""
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((b, s, kv, hd), np.float32)
+    v = rng.standard_normal((b, s, kv, hd), np.float32)
+    kpos = np.full((b, s), -1, np.int32)
+    for i, p in enumerate(pos):
+        for t in range(max(0, p - s + 1), p + 1):
+            kpos[i, t % s if window else t] = t
+    return k, v, kpos
+
+
+def run_both(q, k, v, kpos, pos, storage, window, block_k, interpret):
+    """(port plain, JAX Pallas interpret or None, port oracle, JAX oracle)."""
+    jdt, tdt = STORAGE[storage]
+    want = None
+    if interpret:
+        want = np.asarray(jax_flash_decode(
+            jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt), jnp.asarray(kpos),
+            jnp.asarray(pos, jnp.int32), window=window, block_k=block_k, interpret=True))
+    oracle = jref.flash_decode_ref(jnp.asarray(q), jnp.asarray(k, jdt), jnp.asarray(v, jdt),
+                                   jnp.asarray(kpos), jnp.asarray(pos, jnp.int32),
+                                   window=window)
+    tq = torch.from_numpy(q)
+    tk, tv = torch.from_numpy(k).to(tdt), torch.from_numpy(v).to(tdt)
+    tkpos, tpos = torch.from_numpy(kpos), torch.tensor(pos, dtype=torch.int32)
+    got = flash_decode(tq, tk, tv, tkpos, tpos, window=window, block_k=block_k)
+    tor = tref.flash_decode_ref(tq, tk, tv, tkpos, tpos, window=window)
+    return got.numpy(), want, tor.numpy(), np.asarray(oracle)
+
+
+CACHES = {  # window, s, block_k, pos
+    "full": (0, 48, 16, (-1, 0, 15, 16, 17, 47)),  # tile boundaries, empty, full depth
+    "unaligned": (0, 40, 16, (5, 39)),              # unaligned S
+    "window": (8, 16, 8, (-1, 3, 15, 40)),          # rolling window (wrapped slots)
+}
+# Every GQA ratio (h = 4) and cache with float32 and bf16 storage (cast in
+# the load) against the JAX oracle; the Pallas kernel in interpret mode, at
+# a few seconds a case, on the diagonal of ratio and cache.
+PARITY = [(kv, c, st) for st in STORAGE for kv in (4, 2, 1) for c in CACHES]
+INTERPRET = {(4, "full"), (2, "window"), (1, "unaligned")}
+
+
+@pytest.mark.parametrize("kv,cache,storage", PARITY,
+                         ids=[f"kv{kv}-{c}-{st}" for kv, c, st in PARITY])
+def test_plain_matches_jax(kv, cache, storage):
+    window, s, block_k, pos = CACHES[cache]
+    b, h, hd = len(pos), 4, 16
+    q = np.random.default_rng(3).standard_normal((b, 1, h, hd), np.float32)
+    k, v, kpos = ragged_cache(17, b, s, kv, hd, pos, window)
+    interpret = (kv, cache) in INTERPRET
+    got, want, tor, oracle = run_both(q, k, v, kpos, pos, storage, window, block_k,
+                                      interpret)
+    if interpret:
+        np.testing.assert_allclose(got, want, atol=TOL)
+    np.testing.assert_allclose(tor, oracle, atol=TOL)
+    np.testing.assert_allclose(got, oracle, atol=TOL)
+    for i, p in enumerate(pos):
+        if p < 0:  # no valid keys: exact zeros
+            assert not np.any(got[i])
+            assert not np.any(tor[i])
+
+
+@pytest.mark.parametrize("kv,sq", [(4, 2), (2, 4), (1, 4)])
+def test_multirow_plain_matches_jax(kv, sq):
+    """Sq rows per slot at consecutive positions, each masked at its own
+    depth; cache written through pos + sq - 1."""
+    s, block_k, h, hd = 48, 16, 4, 16
+    pos = (-1, 0, 14, 15, 16, 48 - sq)
+    written = [(-1 if p < 0 else min(p + sq - 1, s - 1)) for p in pos]
+    q = np.random.default_rng(11).standard_normal((len(pos), sq, h, hd), np.float32)
+    k, v, kpos = ragged_cache(29, len(pos), s, kv, hd, written, 0)
+    got, want, tor, oracle = run_both(q, k, v, kpos, pos, "float32", 0, block_k, True)
+    np.testing.assert_allclose(got, want, atol=TOL)
+    np.testing.assert_allclose(tor, oracle, atol=TOL)
+    assert not np.any(got[0, 0])  # row 0 of the empty slot sees no key
+
+
+def test_plain_rows_are_batch_invariant():
+    """A slot's output does not depend on the batch it is decoded in."""
+    pos = (3, 17, 40)
+    q = torch.from_numpy(np.random.default_rng(5).standard_normal((3, 2, 4, 16), np.float32))
+    k, v, kpos = (torch.from_numpy(x) for x in ragged_cache(7, 3, 48, 2, 16,
+                                                            [p + 1 for p in pos], 0))
+    posv = torch.tensor(pos, dtype=torch.int32)
+    got = flash_decode(q, k, v, kpos, posv, block_k=16)
+    for i in range(3):
+        one = flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1], kpos[i:i + 1],
+                           posv[i:i + 1], block_k=16)
+        np.testing.assert_allclose(one[0].numpy(), got[i].numpy(), atol=1e-6)
+
+
+def test_needed_tiles_math():
+    kpos = np.asarray([
+        [0, 1, 2, -1, -1, -1, -1, -1],     # 3 tokens deep
+        [0, 1, 2, 3, 4, 5, 6, 7],          # full depth
+        [-1, -1, -1, -1, -1, -1, -1, -1],  # empty
+        [5, -1, -1, -1, -1, -1, -1, -1],   # deep pos, keys only in tile 0
+    ], np.int32)
+    for pos, window, sq, want in [
+        ([2, 7, -1, 5], 0, 1, [1, 2, 1, 1]),
+        ([2, 2, -1, 5], 0, 1, [1, 1, 1, 1]),   # masking by pos
+        ([2, 7, -1, 5], 2, 1, [1, 2, 1, 1]),   # window
+        ([3, 3, -1, 1], 0, 3, [1, 2, 1, 1]),   # multi-row union
+    ]:
+        pv = np.asarray(pos, np.int32)
+        got = needed_tiles(torch.from_numpy(kpos), torch.from_numpy(pv), window=window,
+                           block_k=4, sq=sq)
+        ref = jax_needed_tiles(jnp.asarray(kpos), jnp.asarray(pv), window=window,
+                               block_k=4, sq=sq)
+        assert got.dtype == torch.int32
+        assert got.tolist() == want == np.asarray(ref).tolist()
+
+
+def test_cpu_tensors_count_no_launch():
+    reset_launch_counts()
+    q = torch.zeros((1, 1, 2, 8))
+    k = torch.zeros((1, 4, 2, 8))
+    kpos = torch.tensor([[0, 1, -1, -1]], dtype=torch.int32)
+    flash_decode(q, k, k, kpos, torch.tensor([1], dtype=torch.int32))
+    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    """No silent fallback: only CPU tensors take the plain version."""
+    q = torch.empty((1, 1, 2, 8), device="meta")
+    kpos = torch.empty((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_decode(q, q, q, kpos, kpos[:, 0])

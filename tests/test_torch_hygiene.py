@@ -1,0 +1,57 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither jax nor the JAX package, and the whole package imports with jax
+blocked."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_or_reference_import(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+
+
+def test_package_imports_with_jax_blocked():
+    modules = sorted(".".join(("repro_torch",) + p.relative_to(PORT).with_suffix("").parts)
+                     .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    code = ("import importlib, sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None  # any import of them raises\n"
+            f"for m in {modules!r}:\n"
+            "    importlib.import_module(m)\n"
+            "loaded = [m for m, mod in sys.modules.items() if mod is not None\n"
+            "          and m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+            "assert not loaded, loaded\n"
+            "print('imported', len(" + repr(modules) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["imported", str(len(modules))]
+
+
+def test_chip_smoke_refuses_without_cuda():
+    """Without a card the script exits non-zero and prints no result line."""
+    env = dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], env=env,
+                       capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
