@@ -7,40 +7,53 @@ GPU.  Run from the repository root, with no arguments:
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
-2. build  -- every CUDA kernel from ``src/repro_torch/csrc``, one nvcc each,
-             all started together.
-3. kernels -- each kernel against its plain PyTorch version on the card, at
-             the main path's shapes and at internlm2-20b widths, multi-row,
-             windowed, empty-slot and unaligned cases.  bfloat16 at 2e-2
-             (atol and rtol, the reference suite's bf16 tolerance); float32
-             at 1e-4 (the kernel's FMA sums and the plain version's cuBLAS
-             products run in different orders).  Prints the kernel's, the
-             plain version's and one PyTorch library call's time per case
-             (``scaled_dot_product_attention``, timed here only; the port
-             never calls it).
-4. main path -- ``repro_torch.launch.serve`` one-shot generate of full-width,
-             40-layer qwen1.5-4b (random weights from the seed), 8 requests x
-             256 prompt tokens x 32 generated, ``kernel_impl="cuda"``.  The
-             launch counts must be exactly 40 (flash_attention, one per
-             layer of the prefill) and 40 x 31 (flash_decode, one per layer
-             of every decode step), and the tokens in range.  Its prefill is
-             then held against the dense reference on the same weights, one
-             layer at a time and teacher-forced: each of the 40 bf16 layers
-             of the prefill and of the first decode step, fed the
-             reference's input, must give an update within 2e-2 relative
-             L2 of the reference layer's (bf16 rounding of the attention
-             output at different points of two summation orders).  The
-             first-token logits of all 40 layers are printed, not held:
-             with random weights the stack is chaotic, and the float32
-             reference moves as far when its embeddings move by one ulp.
-             A profiler pass over one prefill and 8 decode steps prints
-             the card's busy time against the wall time.
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (four
+             libraries), one nvcc each, all started together.
+3. kernels -- each kernel against its plain PyTorch version on the card.
+             flash_attention and flash_decode at the main path's shapes, at
+             internlm2-20b and recurrentgemma-2b widths (hd 256, MQA n_rep
+             10, window 2048, a wrapped decode ring), multi-row, windowed,
+             empty-slot and unaligned cases: bfloat16 at 2e-2 (atol and
+             rtol, the reference suite's bf16 tolerance), float32 at 1e-4
+             (the kernel's FMA sums and the plain version's cuBLAS products
+             run in different orders); one ``scaled_dot_product_attention``
+             call is timed beside each (here only; the port never calls
+             it).  ssm_scan and rglru_scan in float32 at 1e-4 at the
+             recurrent main paths' shapes, a 2048-step case and an odd
+             case, with a nonzero start state; no single PyTorch call
+             computes either recurrence.  Each case prints the kernel's and
+             the plain version's time.
+4. main paths -- ``repro_torch.launch.serve`` one-shot generate,
+             ``kernel_impl="cuda"``, random weights from the seed, one model
+             at a time (each freed before the next):
+             - qwen1.5-4b, 40 layers, 8 requests x 256 prompt x 32
+               generated: launches exactly flash_attention 40 and
+               flash_decode 40 x 31;
+             - falcon-mamba-7b, 64 layers, 8 x 256 x 32: ssm_scan 64 (one
+               per layer of the prefill; decode is the elementwise step);
+             - recurrentgemma-2b, 26 layers (18 rec, 8 local attention),
+               8 x 256 x 32: rglru_scan 18, flash_attention 8, flash_decode
+               8 x 31; and 2 x 2048 x 16, whose 2048-slot window ring
+               wraps: 18, 8 and 8 x 15.
+             Each run's tokens must lie in range, and its first token be
+             the argmax of its prefill.  Each is then held against the
+             dense reference on the same weights one layer at a time,
+             teacher-forced: every bf16 layer of the prefill (and, where a
+             kernel serves decode, of the first decode step), fed the
+             reference's input, must give an update within 2e-2 relative L2
+             of the reference layer's.  The first-token logits of the whole
+             stack are printed, not held: with random weights a deep stack
+             is chaotic, and the float32 reference moves as far when its
+             embeddings move by one ulp.  A profiler pass over one prefill
+             and 8 decode steps prints the card's busy time against the
+             wall time.
 5. results -- a JSON line of every kernel's numbers, then the last line
              ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -97,6 +110,11 @@ def attention_cases():
         ("prefill unaligned 300, window 128", 2, 300, 300, 20, 20, 128, True, 128, 0, "bfloat16"),
         ("prefill q_offset 256", 2, 64, 320, 48, 8, 128, True, 0, 256, "bfloat16"),
         ("prefill bidirectional", 2, 192, 192, 20, 20, 128, False, 0, 0, "bfloat16"),
+        ("prefill recurrentgemma-2b (hd 256, MQA, window 2048)", 8, 256, 256, 10, 1, 256,
+         True, 2048, 0, "bfloat16"),
+        ("prefill recurrentgemma-2b 2048 tokens", 2, 2048, 2048, 10, 1, 256, True, 2048, 0,
+         "bfloat16"),
+        ("prefill hd 256 f32", 2, 256, 256, 10, 1, 256, True, 2048, 0, "float32"),
     ]
 
 
@@ -120,6 +138,10 @@ def decode_cases():
          "bfloat16", "bfloat16"),
         ("decode f32 cache, bf16 q", 2, 300, 48, 8, 128, 1, [299, 5], 0, 128,
          "bfloat16", "float32"),
+        ("decode recurrentgemma-2b (hd 256, MQA, window 2048)", 8, 256 + GEN, 10, 1, 256, 1,
+         [last] * 8, 2048, 128, "bfloat16", "bfloat16"),
+        ("decode recurrentgemma-2b, wrapped 2048 ring", 2, 2048, 10, 1, 256, 1, [2062, 4000],
+         2048, 128, "bfloat16", "bfloat16"),
     ]
 
 
@@ -215,6 +237,64 @@ def run_decode_case(case, dev, flush, torch, F, ops, fd, attn):
     return rec
 
 
+def scan_cases():
+    # kernel, name, shape: ssm (B, S, di, N), rglru (B, S, W)
+    return [
+        ("ssm_scan", "falcon-mamba-7b prefill (main path)", (8, 256, 8192, 16)),
+        ("ssm_scan", "2048 steps", (1, 2048, 8192, 16)),
+        ("ssm_scan", "odd shape", (3, 100, 96, 8)),
+        ("rglru_scan", "recurrentgemma-2b prefill (main path)", (8, 256, 2560)),
+        ("rglru_scan", "2048 steps", (2, 2048, 2560)),
+        ("rglru_scan", "odd shape", (3, 96, 48)),
+    ]
+
+
+def run_scan_case(case, dev, flush, torch, ops, ss, rg):
+    """A scan kernel against its plain version in float32, inputs drawn as
+    the reference's kernel suite draws them (tests/test_kernels.py) with a
+    nonzero start state.  Bound: each input read once and each output
+    written once at 3.35 TB/s, against the float32 operations at 67 TFLOP/s
+    (ssm: 7 per state element and step, the exponential counted as one;
+    rglru: one FMA, 2)."""
+    kernel, name, shape = case
+    g = torch.Generator(device=dev).manual_seed(len(name) + len(shape))
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+
+    if kernel == "ssm_scan":
+        b, s, di, n = shape
+        ins = (torch.nn.functional.softplus(rnd(b, s, di)), rnd(b, s, di), rnd(b, s, n),
+               rnd(b, s, n), -torch.exp(rnd(di, n) * 0.5), rnd(b, di, n))
+        fn, plain = ops.ssm_scan, ss.ssm_scan_plain
+        nbytes = 4 * (3 * b * s * di + 2 * b * s * n + di * n + 2 * b * di * n)
+        flops = 7 * b * s * di * n + b * s * di
+    else:
+        b, s, w = shape
+        ins = (torch.sigmoid(rnd(b, s, w)), rnd(b, s, w), rnd(b, w))
+        fn, plain = ops.rglru_scan, rg.rglru_scan_plain
+        nbytes = 4 * (3 * b * s * w + 2 * b * w)
+        flops = 2 * b * s * w
+    got = fn(*ins)
+    torch.cuda.synchronize()
+    want = plain(*ins)
+    err = max((x - y).abs().max().item() for x, y in zip(got, want))
+    for x, y, what in zip(got, want, ("outputs", "last state")):
+        if not torch.allclose(x, y, atol=F32_TOL, rtol=F32_TOL):
+            fail(f"{kernel} {name}: {what} differ from the plain version by up to "
+                 f"{(x - y).abs().max().item()} > tol {F32_TOL}")
+    ms = time_ms(lambda: fn(*ins), flush, 20)
+    plain_ms = time_ms(lambda: plain(*ins), flush, 3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  {kernel} | {name} {shape}: max_abs_err={err:.3g} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          flush=True)
+    return rec
+
+
 def prefill_logits(cfg, params, batch, gen, dev):
     from repro_torch.models import get_model
     from repro_torch.serve import zeros_cache
@@ -224,33 +304,35 @@ def prefill_logits(cfg, params, batch, gen, dev):
     return api.prefill(params, batch, cfg, zeros_cache(cfg, api, b, s + gen, device=dev))[0]
 
 
-def layer_errors(cfg, params, batch, dev, torch) -> dict:
-    """The bf16 prefill and the first decode step one layer at a time,
+def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
+    """The bf16 prefill and (with ``"decode"`` in ``modes``) the first
+    decode step one layer at a time,
     teacher-forced: every layer gets the reference path's input, runs once
     through the kernels and once through the dense reference, and gives
     the relative L2 distance of the two outputs' updates ``y - x``.  Both
-    caches receive the same keys, so the decode step holds flash_decode in
-    the same way.  Random weights make the 40-layer stack chaotic (see
+    caches receive the same inputs, so the decode step holds flash_decode
+    in the same way.  Random weights make a deep stack chaotic (see
     ``run_main_path``), so this is where a tolerance can hold the kernels
     at the main path's full width and depth."""
     from repro_torch.models import get_model
+    from repro_torch.models import rglru as R
     from repro_torch.models import transformer as T
-    from repro_torch.models.params import tree_map
     from repro_torch.serve import zeros_cache
 
+    stack = R if cfg.family == "hybrid" else T
     rcfg = dataclasses.replace(cfg, kernel_impl="reference")
     tokens = batch["tokens"]
     b, s = tokens.shape
     caches = [zeros_cache(c, get_model(c), b, s + 1, device=dev) for c in (cfg, rcfg)]
-    errs = {"prefill": [], "decode": []}
+    layers = [stack.stack_order(params, cache, cfg) for cache in caches]
+    errs = {}
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    for mode, x in (("prefill", T.embed_tokens(params, tokens, cfg)),
-                    ("decode", T.embed_tokens(params, tokens[:, -1:], cfg))):
-        for i in range(cfg.n_layers):
-            lp = tree_map(lambda a: a[i], params["layers"])
-            yk, yr = (T.dense_block_apply(lp, x, positions, c, mode=mode,
-                                          cache=tree_map(lambda a: a[i], cache), pos=s)[0]
-                      for c, cache in zip((cfg, rcfg), caches))
+    for mode in modes:  # the prefill fills both caches for the decode step
+        x = T.embed_tokens(params, tokens if mode == "prefill" else tokens[:, -1:], cfg)
+        errs[mode] = []
+        for (apply, lp, kc), (_, _, rc) in zip(*layers):
+            yk, yr = (apply(lp, x, positions, c, mode=mode, cache=cache, pos=s)[0]
+                      for c, cache in ((cfg, kc), (rcfg, rc)))
             errs[mode].append(float((yk - yr).float().norm() / (yr - x).float().norm()))
             x = yr
     return errs
@@ -297,10 +379,26 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
     return out
 
 
-def run_main_path(argv, dev, torch) -> dict:
+def main_paths():
+    """(arch, requests, prompt length, generated, launches wanted, modes of
+    the per-layer check) of each main path, run in this order."""
+    def want(fa=0, fd=0, ss=0, rg=0):
+        return {"flash_attention": fa, "flash_decode": fd, "ssm_scan": ss, "rglru_scan": rg}
+
+    return [
+        ("qwen1.5-4b", 8, 256, GEN, want(fa=40, fd=40 * (GEN - 1)), ("prefill", "decode")),
+        ("falcon-mamba-7b", 8, 256, GEN, want(ss=64), ("prefill",)),
+        ("recurrentgemma-2b", 8, 256, GEN, want(fa=8, fd=8 * (GEN - 1), rg=18),
+         ("prefill", "decode")),
+        ("recurrentgemma-2b", 2, 2048, 16, want(fa=8, fd=8 * 15, rg=18), ("prefill", "decode")),
+    ]
+
+
+def run_main_path(argv, dev, torch, modes) -> dict:
     """The launcher's one-shot generate with the launch counts zeroed just
-    before and read just after, then the checks of its prefill against
-    the dense reference on the same weights (see ``layer_errors``)."""
+    before and read just after, then the checks of its prefill (and decode
+    step, with ``"decode"`` in ``modes``) against the dense reference on
+    the same weights (see ``layer_errors``)."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serve import cast_params_cached
@@ -335,14 +433,13 @@ def run_main_path(argv, dev, torch) -> dict:
     if not all(torch.isfinite(x).all() for x in (lk, lr, lk32, lr32, ln32)):
         fail("non-finite first-token logits")
     first_ok = bool((lk.argmax(-1)[:, 0].int().cpu().numpy() == toks[:, 0]).all())
-    errs = layer_errors(cfg, cast, batch, dev, torch)
+    errs = layer_errors(cfg, cast, batch, dev, torch, modes)
     out = {"counts": counts, "arch": cfg.name, "layers": cfg.n_layers,
            "requests": args.requests, "prompt_len": args.prompt_len, "gen": args.gen,
            "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
            "peak_memory_bytes": result["peak_memory_bytes"],
            "first_token_is_prefill_argmax": first_ok,
-           "layer_rel_l2_max_bf16_prefill": max(errs["prefill"]),
-           "layer_rel_l2_max_bf16_decode": max(errs["decode"]),
+           **{f"layer_rel_l2_max_bf16_{m}": max(e) for m, e in errs.items()},
            "logits_rel_l2_bf16": rel(lk, lr),
            "logits_rel_l2_f32": rel(lk32, lr32),
            "logits_rel_l2_bf16_reference_vs_f32_reference": rel(lr, lr32),
@@ -385,6 +482,8 @@ def main() -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import attention as attn
 
     t0 = time.perf_counter()
@@ -405,31 +504,47 @@ def main() -> None:
     for case in decode_cases():
         rec = run_decode_case(case, dev, flush, torch, F, ops, fd, attn)
         recs.setdefault("flash_decode", rec)
+    for case in scan_cases():
+        rec = run_scan_case(case, dev, flush, torch, ops, ss, rg)
+        recs.setdefault(case[0], rec)
     del flush
 
-    print("[main path] repro_torch.launch.serve one-shot generate, qwen1.5-4b --full",
-          flush=True)
-    argv = ["--arch", "qwen1.5-4b", "--full", "--requests", "8", "--prompt-len", "256",
-            "--gen", str(GEN), "--seed", "0", "--kernel", "cuda"]
-    mp = run_main_path(argv, dev, torch)
-    want = {"flash_attention": 40, "flash_decode": 40 * (GEN - 1)}
-    counts = mp.pop("counts")
-    print(f"  launches {counts} (want {want})", flush=True)
-    if counts != want:
-        fail(f"main path launch counts {counts} != {want}")
-    for mode in ("prefill", "decode"):
-        if mp[f"layer_rel_l2_max_bf16_{mode}"] > LAYER_REL_TOL:
-            fail(f"a bf16 {mode} layer through the kernels disagrees with the reference")
-    if not mp["first_token_is_prefill_argmax"]:
-        fail("generate's first token is not the argmax of its prefill logits")
-    print(json.dumps({"main_path": mp}))
+    launches = {}  # each kernel's count on the first main path that runs it
+    for arch, requests, prompt_len, gen, want, modes in main_paths():
+        print(f"[main path] repro_torch.launch.serve one-shot generate, {arch} --full, "
+              f"{requests} x {prompt_len} + {gen}", flush=True)
+        argv = ["--arch", arch, "--full", "--requests", str(requests), "--prompt-len",
+                str(prompt_len), "--gen", str(gen), "--seed", "0", "--kernel", "cuda"]
+        mp = run_main_path(argv, dev, torch, modes)
+        counts = mp.pop("counts")
+        print(f"  launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"{arch} main path launch counts {counts} != {want}")
+        for mode in modes:
+            if mp[f"layer_rel_l2_max_bf16_{mode}"] > LAYER_REL_TOL:
+                fail(f"{arch}: a bf16 {mode} layer through the kernels disagrees with the "
+                     f"reference")
+        if not mp["first_token_is_prefill_argmax"]:
+            fail(f"{arch}: generate's first token is not the argmax of its prefill logits")
+        print(json.dumps({"main_path": mp}))
+        for name, n in counts.items():
+            if n:
+                launches.setdefault(name, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+              flush=True)
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:145"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
-                                "src/repro/kernels/flash_decode.py:195")}
-    kernels = [dict(name=n, route="cuda", source=sources[n][0], replaces=sources[n][1],
-                    launches=counts[n], **recs[n]) for n in ("flash_attention", "flash_decode")]
+                                "src/repro/kernels/flash_decode.py:195"),
+               "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
+                            "src/repro/kernels/ssm_scan.py:66"),
+               "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
+                              "src/repro/kernels/rglru_scan.py:52")}
+    kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
+                    **recs[n]) for n, (src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,5 +6,10 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # Register the ported architectures (import side effects).
-from repro_torch.configs import internlm2_20b, qwen15_4b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    falcon_mamba_7b,
+    internlm2_20b,
+    qwen15_4b,
+    recurrentgemma_2b,
+)
 from repro_torch.configs.reduced import reduced  # noqa: F401

@@ -87,8 +87,6 @@ _REGISTRY: dict = {}
 UNPORTED = {
     "arctic-480b": "A9 (moe family)",
     "kimi-k2-1t-a32b": "A9 (moe family)",
-    "falcon-mamba-7b": "A9 and B4 (ssm family, ssm_scan kernel)",
-    "recurrentgemma-2b": "A9 and B5 (hybrid family, rglru_scan kernel)",
     "whisper-tiny": "A9 (audio family)",
     "paligemma-3b": "A9 (vlm prefix-LM attention)",
     "codeqwen1.5-7b": "A2 (further dense configs)",

@@ -9,6 +9,8 @@ from repro_torch.kernels._build import LAUNCHES
 from repro_torch.kernels._build import reset_launches as reset_launch_counts  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_decode import flash_decode, needed_tiles  # noqa: F401
+from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: F401
+from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: F401
 
 
 def launch_counts() -> dict:

@@ -37,3 +37,32 @@ def flash_decode_ref(q, k, v, kpos, pos, *, window: int = 0):
     from repro_torch.models.attention import _ragged_dense
 
     return _ragged_dense(q, k, v, kpos, pos.to(torch.int32), window=window)
+
+
+def ssm_scan_ref(dt, x, b_mat, c_mat, a, h0):
+    """Mamba selective scan, sequential ground truth.
+
+    dt/x: (B,S,di) [dt already softplus'd]; b_mat/c_mat: (B,S,N);
+    a: (di,N) negative; h0: (B,di,N) fp32.  Returns (y (B,S,di) f32, h_last).
+    """
+    dtf, xf, bf, cf = (t.float() for t in (dt, x, b_mat, c_mat))
+    h = h0.float()
+    ys = []
+    for t in range(dtf.shape[1]):
+        da = torch.exp(dtf[:, t, :, None] * a)  # (B,di,N)
+        h = da * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def rglru_scan_ref(a, b, h0):
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t (all fp32).
+
+    a/b: (B,S,W); h0: (B,W). Returns (hs (B,S,W), h_last)."""
+    af, bf = a.float(), b.float()
+    h = h0.float()
+    hs = []
+    for t in range(af.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

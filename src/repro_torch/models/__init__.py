@@ -23,9 +23,13 @@ class ModelAPI(NamedTuple):
 def get_model(cfg) -> ModelAPI:
     if cfg.kernel_impl not in KERNEL_IMPLS:
         raise ValueError(f"kernel_impl {cfg.kernel_impl!r} is not one of {KERNEL_IMPLS}")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "ssm"):
         from repro_torch.models import transformer as T
 
         return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode)
+    if cfg.family == "hybrid":
+        from repro_torch.models import rglru as R
+
+        return ModelAPI(R.param_spec, R.cache_spec, R.prefill, R.decode)
     raise NotImplementedError(
         f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP.md item A9")

@@ -140,8 +140,30 @@ def attention(q, k, v, cfg, *, causal: bool = True, window: int = 0, q_offset=0)
                              q_chunk=min(1024, sq), kv_chunk=min(1024, sk))
 
 
+# ---------------------------------------------------------------- scan ----
+
+
+def assoc_scan(a, b):
+    """Inclusive scan of the recurrence h_t = a_t h_{t-1} + b_t along dim 1,
+    from h = 0: returns the cumulative (prod a, h) pairs, so that a start
+    state h0 gives h_t = prod_a[t] * h0 + h[t].  The JAX package's
+    ``lax.associative_scan`` with the same combine, written as a log-step
+    (Hillis-Steele) scan: step k combines each position with the one k
+    before it, log2(S) tensor passes instead of S."""
+    k = 1
+    while k < a.shape[1]:
+        a, b = (torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1),
+                torch.cat([b[:, :k], a[:, k:] * b[:, :-k] + b[:, k:]], dim=1))
+        k *= 2
+    return a, b
+
+
 # ----------------------------------------------------------------- MLP ----
 
 
 def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def geglu(x, w_gate, w_up, w_down):
+    return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down

@@ -21,7 +21,7 @@ class Spec:
     """One parameter leaf: shape + init recipe."""
 
     shape: tuple[int, ...]
-    init: str = "normal"  # normal | small_normal | zeros | ones | neg_ones
+    init: str = "normal"  # normal | small_normal | zeros | ones | neg_ones | lambda_init
     scale: float | None = None  # stddev override for normal init
     dtype: str | None = None  # per-leaf dtype override (e.g. int32 cache pos)
 
@@ -57,7 +57,8 @@ def materialize(tree, generator: torch.Generator, dtype, device):
     (which must live on that device: 4 B parameters never pass through
     numpy).  ``normal`` leaves draw at ``fan_in ** -0.5`` with the JAX
     package's fan-in rule (``shape[-2]`` for rank >= 2, stacked dim
-    included), ``small_normal`` at the leaf's own scale.  The draws differ
+    included), ``small_normal`` at the leaf's own scale, ``lambda_init``
+    as the JAX package's RG-LRU decay parametrization.  The draws differ
     from ``jax.random``'s; parity tests load JAX trees instead."""
     device = torch.device(device)
 
@@ -69,6 +70,13 @@ def materialize(tree, generator: torch.Generator, dtype, device):
             return torch.ones(s.shape, dtype=dt, device=device)
         if s.init == "neg_ones":
             return torch.full(s.shape, -1, dtype=dt, device=device)
+        if s.init == "lambda_init":
+            # RG-LRU Lambda, drawn as the JAX package draws it: u uniform in
+            # (0.9, 0.999), lam = -log(expm1(-log u)), so that
+            # 1 - exp(-softplus(lam)) = u.
+            u = torch.rand(s.shape, generator=generator, dtype=torch.float32,
+                           device=device) * (0.999 - 0.9) + 0.9
+            return (-torch.log(torch.expm1(-torch.log(u)))).to(dt)
         if s.init not in ("normal", "small_normal"):
             raise ValueError(f"unknown init {s.init!r}")
         scale = s.scale

@@ -1,4 +1,4 @@
-"""Decoder LM of the dense family: the layer stack, embed and head.
+"""Decoder LM of the dense and ssm families: the layer stack, embed and head.
 
 Parameters keep the JAX package's tree: per-layer leaves stacked along a
 leading ``n_layers`` dim.  The JAX ``lax.scan`` over layers becomes a loop
@@ -9,7 +9,8 @@ Block interface (as in the JAX package):
     block_spec(cfg) -> Spec tree for ONE layer
     block_apply(p, x, positions, cfg, *, mode, cache, pos) -> (x, cache)
 
-Training, chunked prefill and the other families are not ported yet
+The ssm family (falcon-mamba) swaps the block for ``mamba.py``'s.
+Training, chunked prefill and the moe and vlm families are not ported yet
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mamba
 from repro_torch.models.params import Spec, stack_layers, tree_map
 
 
@@ -56,6 +58,13 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
 # ---------------------------------------------------------------- stack
 
 
+# (block_spec, block_apply) of each family this stack serves.
+FAMILIES = {
+    "dense": (dense_block_spec, dense_block_apply),
+    "ssm": (mamba.mamba_block_spec, mamba.mamba_block_apply),
+}
+
+
 def embed_spec(cfg) -> dict:
     spec = {
         "embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02),
@@ -68,24 +77,33 @@ def embed_spec(cfg) -> dict:
 
 def param_spec(cfg) -> dict:
     spec = embed_spec(cfg)
-    spec["layers"] = stack_layers(cfg.n_layers, dense_block_spec(cfg))
+    bspec, _ = FAMILIES[cfg.family]
+    spec["layers"] = stack_layers(cfg.n_layers, bspec(cfg))
     return spec
 
 
 def cache_spec(cfg, batch: int, max_seq: int) -> dict:
     """Stacked (n_layers-leading) cache tree."""
-    return stack_layers(cfg.n_layers,
-                        A.cache_spec(cfg, batch, max_seq, window=cfg.window))
+    if cfg.family == "ssm":
+        per_layer = mamba.ssm_cache_spec(cfg, batch)
+    else:
+        per_layer = A.cache_spec(cfg, batch, max_seq, window=cfg.window)
+    return stack_layers(cfg.n_layers, per_layer)
+
+
+def stack_order(params, cache, cfg):
+    """(block apply, layer params, layer cache) of every layer in the
+    order the stack runs them, as views into the stacked trees."""
+    _, bapply = FAMILIES[cfg.family]
+    return [(bapply, tree_map(lambda a: a[i], params["layers"]),
+             tree_map(lambda a: a[i], cache)) for i in range(cfg.n_layers)]
 
 
 def run_stack(params, x, positions, cfg, *, mode, cache, pos=None):
     """Run the layer stack; the stacked cache is updated in place.
     Returns (x, cache)."""
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        lp = tree_map(lambda a: a[i], layers)
-        lc = tree_map(lambda a: a[i], cache)
-        x, _ = dense_block_apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos)
+    for apply, lp, lc in stack_order(params, cache, cfg):
+        x, _ = apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos)
     return x, cache
 
 

@@ -43,7 +43,7 @@ def weights(request):
     return jcfg, jparams_, tcfg, tparams.load_jax_params(np_tree, tcfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["falcon-mamba-7b", "recurrentgemma-2b"])
 def test_configs_are_copies(arch):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -52,7 +52,7 @@ def test_configs_are_copies(arch):
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        tconfigs.get_config("falcon-mamba-7b")
+        tconfigs.get_config("arctic-480b")
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 

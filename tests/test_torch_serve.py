@@ -26,7 +26,9 @@ from repro_torch.models import params as tparams
 
 CASES = [("qwen1.5-4b", "reference", "reference"),
          ("internlm2-20b", "reference", "reference"),
-         ("internlm2-20b", "cuda", "pallas_interpret")]
+         ("internlm2-20b", "cuda", "pallas_interpret"),
+         ("falcon-mamba-7b", "cuda", "pallas_interpret"),
+         ("recurrentgemma-2b", "cuda", "pallas_interpret")]
 
 
 @pytest.mark.parametrize("arch,timpl,jimpl", CASES,
@@ -56,7 +58,8 @@ def test_cast_params_cached_casts_once():
     assert tserve.cast_params_cached(p, torch.float32)["embed"] is p["embed"]
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "internlm2-20b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "internlm2-20b", "falcon-mamba-7b",
+                                  "recurrentgemma-2b"])
 def test_launcher_runs_on_cpu(arch, capsys):
     reset_launch_counts()
     out = launcher.main(["--arch", arch, "--device", "cpu", "--requests", "2",
@@ -66,7 +69,8 @@ def test_launcher_runs_on_cpu(arch, capsys):
     assert "generated (2, 3) on cpu" in capsys.readouterr().out
     # The default kernel_impl is "cuda": on CPU tensors the plain versions
     # run and no launch is counted.
-    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0}
+    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0, "ssm_scan": 0,
+                               "rglru_scan": 0}
     again = launcher.main(["--arch", arch, "--device", "cpu", "--requests", "2",
                            "--prompt-len", "8", "--gen", "3", "--seed", "1",
                            "--kernel", "reference"])
@@ -78,3 +82,10 @@ def test_launcher_without_cuda_raises_unless_cpu_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="--device cpu"):
         launcher.main(["--arch", "qwen1.5-4b", "--requests", "1", "--prompt-len", "4",
                        "--gen", "2"])
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_launcher_without_cuda_raises_for_recurrent_archs(arch, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        launcher.main(["--arch", arch, "--requests", "1", "--prompt-len", "4", "--gen", "2"])
