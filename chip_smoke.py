@@ -19,9 +19,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              run in different orders); one ``scaled_dot_product_attention``
              call is timed beside each (here only; the port never calls
              it).  ssm_scan and rglru_scan in float32 at 1e-4 at the
-             recurrent main paths' shapes, a 2048-step case and an odd
-             case, with a nonzero start state; no single PyTorch call
-             computes either recurrence.  Each case prints the kernel's and
+             recurrent main paths' shapes, a 2048-step case and odd cases
+             (ssm: di not a multiple of a block's channels, N not a power
+             of two; rglru: S not a multiple of the unrolled steps), with a
+             nonzero start state; no single PyTorch call computes either
+             recurrence.  Each case prints the kernel's and
              the plain version's time.
 4. main paths -- ``repro_torch.launch.serve`` one-shot generate,
              ``kernel_impl="cuda"``, random weights from the seed, one model
@@ -34,7 +36,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              - recurrentgemma-2b, 26 layers (18 rec, 8 local attention),
                8 x 256 x 32: rglru_scan 18, flash_attention 8, flash_decode
                8 x 31; and 2 x 2048 x 16, whose 2048-slot window ring
-               wraps: 18, 8 and 8 x 15.
+               wraps: 18, 8 and 8 x 15;
+             - falcon-mamba-7b and recurrentgemma-2b at an odd prompt
+               length, 2 x 300 x 8, which the TPU kernels could not take:
+               ssm_scan 64; rglru_scan 18, flash_attention 8, flash_decode
+               8 x 7.
              Each run's tokens must lie in range, and its first token be
              the argmax of its prefill.  Each is then held against the
              dense reference on the same weights one layer at a time,
@@ -243,9 +249,11 @@ def scan_cases():
         ("ssm_scan", "falcon-mamba-7b prefill (main path)", (8, 256, 8192, 16)),
         ("ssm_scan", "2048 steps", (1, 2048, 8192, 16)),
         ("ssm_scan", "odd shape", (3, 100, 96, 8)),
+        ("ssm_scan", "di and N odd", (2, 77, 100, 12)),
         ("rglru_scan", "recurrentgemma-2b prefill (main path)", (8, 256, 2560)),
         ("rglru_scan", "2048 steps", (2, 2048, 2560)),
         ("rglru_scan", "odd shape", (3, 96, 48)),
+        ("rglru_scan", "S odd", (3, 100, 50)),
     ]
 
 
@@ -391,6 +399,8 @@ def main_paths():
         ("recurrentgemma-2b", 8, 256, GEN, want(fa=8, fd=8 * (GEN - 1), rg=18),
          ("prefill", "decode")),
         ("recurrentgemma-2b", 2, 2048, 16, want(fa=8, fd=8 * 15, rg=18), ("prefill", "decode")),
+        ("falcon-mamba-7b", 2, 300, 8, want(ss=64), ("prefill",)),
+        ("recurrentgemma-2b", 2, 300, 8, want(fa=8, fd=8 * 7, rg=18), ("prefill", "decode")),
     ]
 
 

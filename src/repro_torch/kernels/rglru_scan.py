@@ -8,8 +8,9 @@ h_last ``(B,W)``.
 
 ``rglru_scan`` launches the CUDA kernel (``csrc/rglru_scan.cu``) on CUDA
 tensors and runs ``rglru_scan_plain``, the same recurrence as a loop over
-time in PyTorch, on CPU tensors.  The kernel takes any B, S and W; the model
-keeps the JAX package's dispatch conditions (``models/rglru.py``).
+time in PyTorch, on CPU tensors.  The kernel takes any B, S and W, so the
+model (``models/rglru.py``) sends it every prefill of S > 1 under
+``kernel_impl="cuda"``.
 """
 from __future__ import annotations
 

@@ -13,8 +13,8 @@ float32; returns y ``(B,S,di)`` and h_last ``(B,di,N)`` in float32.
 and runs ``ssm_scan_plain``, the same recurrence as a loop over time in
 PyTorch, on CPU tensors.  The kernel keeps the state in registers over the
 whole sequence, so unlike the TPU kernel it needs no divisibility of S by a
-chunk or of di by a block; the model keeps the JAX package's dispatch
-conditions (``models/mamba.py``).
+chunk or of di by a block, and the model (``models/mamba.py``) sends it
+every prefill of S > 1 under ``kernel_impl="cuda"``.
 """
 from __future__ import annotations
 

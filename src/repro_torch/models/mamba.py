@@ -1,15 +1,14 @@
 """Mamba-1 selective SSM block (falcon-mamba-7b).
 
 Prefill runs the selective scan over the whole prompt; decode carries
-(conv_state, ssm_state), O(1) per token.  ``ssm_forward`` keeps the JAX
-package's four branches and their conditions, so the two packages take the
-same path for the same length:
+(conv_state, ssm_state), O(1) per token.  ``ssm_forward`` takes:
 
 - S == 1: the elementwise decode step, no kernel;
-- ``kernel_impl == "cuda"`` and S % 256 == 0: the ``ssm_scan`` kernel;
-- S % 256 == 0 otherwise: the chunked scan, a log-step scan within each
-  256-step chunk;
-- any other S: the token-by-token scan.
+- ``kernel_impl == "cuda"``, any other S: the ``ssm_scan`` kernel, which
+  needs no divisibility of S (the TPU kernel needed S % 256 == 0);
+- ``"reference"`` with S % 256 == 0: the chunked scan, a log-step scan
+  within each 256-step chunk;
+- ``"reference"``, any other S: ``ssm_scan_plain``, a loop over time.
 
 The cache is written in place (the JAX package returned a new one).
 """
@@ -18,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
 
@@ -85,7 +85,7 @@ def ssm_forward(p, x, cfg, h0=None):
         h_last = (torch.exp(dt[:, 0, :, None] * A) * h0
                   + (dt[:, 0] * xf[:, 0])[..., None] * Bf[:, 0, None, :])
         y = torch.einsum("bdn,bn->bd", h_last, Cf[:, 0])[:, None]
-    elif cfg.kernel_impl == "cuda" and s % CHUNK == 0:
+    elif cfg.kernel_impl == "cuda":
         from repro_torch.kernels import ops as kops
 
         y, h_last = kops.ssm_scan(dt, xf.contiguous(), Bf.contiguous(), Cf.contiguous(), A,
@@ -103,13 +103,8 @@ def ssm_forward(p, x, cfg, h0=None):
             ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cf[:, c0:c0 + CHUNK]))
             h = hs[:, -1]
         y, h_last = torch.cat(ys, dim=1), h
-    else:  # small/odd lengths: token-by-token scan
-        h, ys = h0, []
-        for t in range(s):
-            h = (torch.exp(dt[:, t, :, None] * A) * h
-                 + (dt[:, t] * xf[:, t])[..., None] * Bf[:, t, None, :])
-            ys.append(torch.einsum("bdn,bn->bd", h, Cf[:, t]))
-        y, h_last = torch.stack(ys, dim=1), h
+    else:
+        y, h_last = ssm_scan_plain(dt, xf, Bf, Cf, A, h0)
     y = y + xf * p["D"]
     return y.to(x.dtype), h_last
 
@@ -129,7 +124,9 @@ def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     elif mode == "prefill":
         xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], cfg.ssm_conv))
         y, h_last = ssm_forward(p, xc, cfg, h0=h0)
-        cache["conv"].copy_(x_in[:, -(cfg.ssm_conv - 1):])
+        # The conv's zero padding stays in the state of a prompt shorter
+        # than the window.
+        cache["conv"].copy_(F.pad(x_in, (0, 0, cfg.ssm_conv - 1, 0))[:, -(cfg.ssm_conv - 1):])
     else:
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     cache["ssm"].copy_(h_last)

@@ -21,6 +21,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec, stack_layers, tree_map
@@ -67,16 +68,17 @@ def rec_cache_spec(cfg, batch: int) -> dict:
 
 
 def _rglru_scan(a, b, h0, impl: str = "reference"):
-    """h_t = a_t h_{t-1} + b_t, diagonal.  The JAX package's branches and
-    conditions: S == 1 is one elementwise step; ``"cuda"`` with S a multiple
-    of min(256, S) is the ``rglru_scan`` kernel; such an S otherwise is a
-    log-step scan within each chunk; any other S a token-by-token scan."""
+    """h_t = a_t h_{t-1} + b_t, diagonal.  S == 1 is one elementwise step;
+    ``"cuda"`` with any other S is the ``rglru_scan`` kernel, which needs no
+    divisibility of S; ``"reference"`` takes a log-step scan within each
+    chunk of min(256, S) steps where S is a multiple of it, and
+    ``rglru_scan_plain``, a loop over time, for any other S."""
     bsz, s, w = a.shape
     chunk = min(CHUNK, s)
     if s == 1:
         h = a[:, 0] * h0 + b[:, 0]
         return h[:, None], h
-    if impl == "cuda" and s % chunk == 0:
+    if impl == "cuda":
         from repro_torch.kernels import ops as kops
 
         return kops.rglru_scan(a, b, h0.contiguous())
@@ -87,11 +89,7 @@ def _rglru_scan(a, b, h0, impl: str = "reference"):
             hs.append(a_s * h[:, None] + b_s)
             h = hs[-1][:, -1]
         return torch.cat(hs, dim=1), h
-    h, hs = h0, []
-    for t in range(s):
-        h = a[:, t] * h + b[:, t]
-        hs.append(h)
-    return torch.stack(hs, dim=1), h
+    return rglru_scan_plain(a, b, h0)
 
 
 def rec_block_apply(p, x, cfg, cache):
@@ -111,9 +109,10 @@ def rec_block_apply(p, x, cfg, cache):
 
     # Block-diagonal gates as one batched product over the nb blocks.  The
     # JAX package unrolls them per block to keep its CPU lowering
-    # batch-invariant; on the card one product saves 2 * (nb - 1) launches
-    # per rec layer and decode step.  Batch invariance on the card is an
-    # open question of its own (ROADMAP.md C2).
+    # batch-invariant; on the card one batched product is expected to need
+    # fewer launches than 2 * nb small ones per rec layer and step (not
+    # counted).  Batch invariance on the card is an open question of its
+    # own (ROADMAP.md C2).
     xg = xc.reshape(bsz, s, nb, w // nb)
     r = torch.sigmoid(torch.einsum("bsnw,nwv->bsnv", xg, p["gate_a"]) + p["gate_a_b"])
     i = torch.sigmoid(torch.einsum("bsnw,nwv->bsnv", xg, p["gate_x"]) + p["gate_x_b"])

@@ -55,13 +55,19 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     return x, cache
 
 
+def dense_cache_spec(cfg, batch: int, max_seq: int) -> dict:
+    return A.cache_spec(cfg, batch, max_seq, window=cfg.window)
+
+
 # ---------------------------------------------------------------- stack
 
 
-# (block_spec, block_apply) of each family this stack serves.
+# (block_spec, block_apply, per-layer cache_spec) of each family this stack
+# serves.
 FAMILIES = {
-    "dense": (dense_block_spec, dense_block_apply),
-    "ssm": (mamba.mamba_block_spec, mamba.mamba_block_apply),
+    "dense": (dense_block_spec, dense_block_apply, dense_cache_spec),
+    "ssm": (mamba.mamba_block_spec, mamba.mamba_block_apply,
+            lambda cfg, batch, max_seq: mamba.ssm_cache_spec(cfg, batch)),
 }
 
 
@@ -77,24 +83,21 @@ def embed_spec(cfg) -> dict:
 
 def param_spec(cfg) -> dict:
     spec = embed_spec(cfg)
-    bspec, _ = FAMILIES[cfg.family]
+    bspec, _, _ = FAMILIES[cfg.family]
     spec["layers"] = stack_layers(cfg.n_layers, bspec(cfg))
     return spec
 
 
 def cache_spec(cfg, batch: int, max_seq: int) -> dict:
     """Stacked (n_layers-leading) cache tree."""
-    if cfg.family == "ssm":
-        per_layer = mamba.ssm_cache_spec(cfg, batch)
-    else:
-        per_layer = A.cache_spec(cfg, batch, max_seq, window=cfg.window)
-    return stack_layers(cfg.n_layers, per_layer)
+    _, _, layer_cache_spec = FAMILIES[cfg.family]
+    return stack_layers(cfg.n_layers, layer_cache_spec(cfg, batch, max_seq))
 
 
 def stack_order(params, cache, cfg):
     """(block apply, layer params, layer cache) of every layer in the
     order the stack runs them, as views into the stacked trees."""
-    _, bapply = FAMILIES[cfg.family]
+    _, bapply, _ = FAMILIES[cfg.family]
     return [(bapply, tree_map(lambda a: a[i], params["layers"]),
              tree_map(lambda a: a[i], cache)) for i in range(cfg.n_layers)]
 

@@ -10,7 +10,10 @@ both packages.  Prefill and decode logits, scalar and vector positions, and
 the caches in float32 at 1e-4 (XLA and torch order float32 sums
 differently); vector-position rows by tolerance, never bitwise (ROADMAP.md
 C2).  The port's "reference" is held against the JAX "reference", the
-port's "cuda" against the JAX "pallas_interpret".
+port's "cuda" against the JAX "pallas_interpret".  The port's "cuda" sends
+every rec layer's prefill of S > 1 to the ``rglru_scan`` wrapper, 300
+tokens included (the TPU kernel took S <= 256 or S % 256 == 0), and agrees
+with its "reference" at 1e-4.
 """
 import dataclasses
 
@@ -26,6 +29,7 @@ from repro.models import get_model as jax_get_model
 from repro.models import params as jparams
 from repro.serve import zeros_cache as jax_zeros_cache
 from repro_torch import configs as tconfigs
+from repro_torch.kernels import ops as kops
 from repro_torch.models import get_model
 from repro_torch.models import params as tparams
 from repro_torch.models import rglru
@@ -124,3 +128,28 @@ def test_materialize_honours_lambda_init():
     u = 1 - torch.exp(-torch.nn.functional.softplus(lam.double()))
     assert u.min() >= 0.9 - 1e-6 and u.max() <= 0.999 + 1e-6
     assert u.max() - u.min() > 0.05  # spread over the range, not a constant
+
+
+@pytest.mark.parametrize("s", [2, 12, 300])
+def test_cuda_sends_every_rec_prefill_to_the_kernel(weights, monkeypatch, s):
+    """Under "cuda" each rec layer's prefill calls the ``rglru_scan``
+    wrapper at the prompt's own length; "reference" never calls it.  The
+    logits of the two agree at 1e-4."""
+    _, _, tcfg, tp = weights
+    real, calls = kops.rglru_scan, []
+
+    def counted(*args):
+        calls.append(args[0].shape[1])
+        return real(*args)
+
+    monkeypatch.setattr(kops, "rglru_scan", counted)
+    n_rec = sum(k == "rec" for k in (tcfg.block_pattern * tcfg.n_layers)[: tcfg.n_layers])
+    toks = torch.from_numpy(np.random.default_rng(s).integers(0, tcfg.vocab, (2, s)))
+    logits = {}
+    for impl, want in (("reference", []), ("cuda", [s] * n_rec)):
+        cfg = dataclasses.replace(tcfg, kernel_impl=impl)
+        api = get_model(cfg)
+        logits[impl] = api.prefill(tp, {"tokens": toks}, cfg,
+                                   zeros_cache(cfg, api, 2, s + 1, device="cpu"))[0]
+        assert calls == want
+    _close(logits["cuda"], logits["reference"])

@@ -9,9 +9,12 @@
   prefill, scalar- and vector-position decode logits and the ssm cache in
   float32 at 1e-4 (XLA and torch order float32 sums differently).  A
   256-token prompt reaches the scan kernel (the plain version on the CPU)
-  in both packages; 12 tokens take the token-by-token scan.  The port's
+  in both packages; 12 tokens take the token-by-token scan in the JAX
+  package and the kernel's wrapper under the port's "cuda".  The port's
   "reference" is held against the JAX "reference", the port's "cuda"
   against the JAX "pallas_interpret".
+- The port's "cuda" sends every prefill of S > 1 to the ``ssm_scan``
+  wrapper, one call per layer, and agrees with its "reference" at 1e-4.
 """
 import dataclasses
 
@@ -30,6 +33,7 @@ from repro.models import get_model as jax_get_model
 from repro.models import params as jparams
 from repro.serve import zeros_cache as jax_zeros_cache
 from repro_torch import configs as tconfigs
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import ssm_scan as tss
@@ -161,3 +165,28 @@ def test_mamba_prefill_and_decode_logits_match(mamba_weights, impls, s):
     tl, tcache = tapi.decode(tp, torch.from_numpy(tok), torch.from_numpy(posv), tcfg, tcache)
     _close(tl, jl)
     _close(tcache["ssm"], jcache["ssm"])
+
+
+@pytest.mark.parametrize("s", [2, 12, 256, 300])
+def test_mamba_cuda_sends_every_prefill_to_the_kernel(mamba_weights, monkeypatch, s):
+    """The CUDA kernel takes any S, so under "cuda" each layer's prefill
+    calls the ``ssm_scan`` wrapper at the prompt's own length (the TPU
+    kernel took only S % 256 == 0); "reference" never calls it.  The
+    logits of the two agree at 1e-4."""
+    _, _, tcfg, tp = mamba_weights
+    real, calls = kops.ssm_scan, []
+
+    def counted(*args):
+        calls.append(args[0].shape[1])
+        return real(*args)
+
+    monkeypatch.setattr(kops, "ssm_scan", counted)
+    toks = torch.from_numpy(np.random.default_rng(s).integers(0, tcfg.vocab, (2, s)))
+    logits = {}
+    for impl, want in (("reference", []), ("cuda", [s] * tcfg.n_layers)):
+        cfg = dataclasses.replace(tcfg, kernel_impl=impl)
+        api = get_model(cfg)
+        logits[impl] = api.prefill(tp, {"tokens": toks}, cfg,
+                                   zeros_cache(cfg, api, 2, s + 1, device="cpu"))[0]
+        assert calls == want
+    _close(logits["cuda"], logits["reference"])
