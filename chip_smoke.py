@@ -7,7 +7,7 @@ GPU.  Run from the repository root, with no arguments:
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
-2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (four
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (five
              libraries), one nvcc each, all started together.
 3. kernels -- each kernel against its plain PyTorch version on the card.
              flash_attention and flash_decode at the main path's shapes, at
@@ -23,8 +23,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (ssm: di not a multiple of a block's channels, N not a power
              of two; rglru: S not a multiple of the unrolled steps), with a
              nonzero start state; no single PyTorch call computes either
-             recurrence.  Each case prints the kernel's and
-             the plain version's time.
+             recurrence.  flash_decode_paged in bfloat16 over block pools
+             with a random block permutation: the served path's last step
+             (B 8, H = KV = 20, hd 128, blocks of 16, 18 table entries, one
+             layer's strided view of a 152-block (N, 40, 16, 20, 128)
+             pool; every entry is live at that step), internlm2-20b widths
+             (H 48, KV 8), a windowed ring in blocks, an empty slot
+             (exact zeros) and multi-row Sq 4, the last four with
+             null-block table entries.  Each is held bitwise against
+             flash_decode at block_k = the block length on the gathered
+             layout, and at 2e-2 against its plain version; the
+             ``scaled_dot_product_attention`` yardstick runs on the
+             pre-gathered contiguous layout (the gather is not timed).
+             Each case prints the kernel's and the plain version's time.
 4. main paths -- ``repro_torch.launch.serve`` one-shot generate,
              ``kernel_impl="cuda"``, random weights from the seed, one model
              at a time (each freed before the next):
@@ -41,7 +52,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
                length, 2 x 300 x 8, which the TPU kernels could not take:
                ssm_scan 64; rglru_scan 18, flash_attention 8, flash_decode
                8 x 7.
-             Each run's tokens must lie in range, and its first token be
+             - the paged continuous-batching server on qwen1.5-4b's
+               weights (``run_server`` of the launcher, ``--server --paged
+               --block-len 16 --seg-len 8 --max-batch 8``), 8 requests x
+               256 prompt x 32 generated: launches exactly flash_attention
+               40 (one prefill wave), flash_decode_paged 40 x 8 x 4 (four
+               segments of 8 steps) and nothing else; no request may fail
+               or be rejected, and every served stream must equal the same
+               8 prompts' one-shot generate as one batch of 8, bitwise
+               (the GEMM shapes of the 8-slot segment).  How many streams
+               equal their batch-1 one-shot is printed, not held
+               (ROADMAP.md C2).
+             Each one-shot run's tokens must lie in range, and its first token be
              the argmax of its prefill.  Each is then held against the
              dense reference on the same weights one layer at a time,
              teacher-forced: every bf16 layer of the prefill (and, where a
@@ -53,7 +75,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              embeddings move by one ulp.  A profiler pass over one prefill
              and 8 decode steps prints the card's busy time against the
              wall time.
-5. results -- a JSON line of every kernel's numbers, then the last line
+5. results -- a JSON line of every kernel's numbers (launches: each
+             kernel's count on the first path that runs it; for
+             flash_decode_paged, the served path), then the last line
              ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -243,6 +267,96 @@ def run_decode_case(case, dev, flush, torch, F, ops, fd, attn):
     return rec
 
 
+def paged_cases():
+    # name, B, H, KV, hd, block_len, table entries (live + null), blocks in
+    # the pool, layers of the pool, sq, pos, window
+    last = 256 + GEN - 2  # the served path's last decode step
+    return [
+        ("paged qwen1.5-4b served last step (main path)", 8, 20, 20, 128, 16, (18, 0), 152,
+         40, 1, [last] * 8, 0),
+        ("paged internlm2-20b widths, ragged", 4, 48, 8, 128, 16, (19, 2), 96, 2, 1,
+         [10, 150, 299, 77], 0),
+        ("paged windowed ring of 4 blocks", 4, 20, 20, 128, 16, (4, 2), 24, 2, 1,
+         [30, 63, 64, 500], 64),
+        ("paged empty slot", 3, 20, 20, 128, 16, (13, 2), 48, 2, 1, [-1, 0, 199], 0),
+        ("paged multi-row Sq 4", 4, 48, 8, 128, 16, (19, 2), 96, 2, 4, [0, 126, 200, 296], 0),
+    ]
+
+
+def run_paged_case(case, dev, flush, torch, F, ops, fd, attn):
+    """flash_decode_paged on a block pool whose blocks hold a ragged logical
+    cache in a random physical order, read through one layer's strided view
+    of a layer-stacked pool (the other layers hold garbage, so a wrong
+    stride shows).  Held bitwise against flash_decode at block_k = the
+    block length on the gathered layout, and at 2e-2 against the plain
+    version."""
+    import numpy as np
+
+    name, b, h, kv, hd, bl, (live, null), n_blocks, layers, sq, pos, window = case
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    s = live * bl  # logical timeline (the ring, for a windowed cache)
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt)
+    kp = np.full((b, s), -1, np.int32)
+    for i, p in enumerate(pos):  # keys written through the slot's deepest row
+        deepest = p + sq - 1 if p >= 0 else -1
+        for t in range(max(0, deepest - s + 1), deepest + 1):
+            kp[i, t % s if window else t] = t
+    rng = np.random.default_rng(len(name))
+    phys = rng.permutation(np.arange(2, n_blocks))[: b * live].reshape(b, live)
+    tables = np.ones((b, live + null), np.int32)  # null entries -> block 1
+    tables[:, :live] = phys
+    layer = layers // 2
+    kpool = torch.randn((n_blocks, layers, bl, kv, hd), generator=g, device=dev).to(dt)
+    vpool = torch.randn((n_blocks, layers, bl, kv, hd), generator=g, device=dev).to(dt)
+    kppool = torch.randint(0, 4096, (n_blocks, layers, bl), generator=g, device=dev,
+                           dtype=torch.int32)
+    kppool[:, layer] = -1
+    idx = torch.from_numpy(phys.reshape(-1)).long().to(dev)
+    kppool[idx, layer] = torch.from_numpy(kp.reshape(b * live, bl)).to(dev)
+    view = kpool[:, layer], vpool[:, layer], kppool[:, layer]
+    tables = torch.from_numpy(tables).to(dev)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    got = ops.flash_decode_paged(q, *view, tables, posv, window=window)
+    torch.cuda.synchronize()
+    gk, gv, gkp = (fd.gather_pool(x, tables) for x in view)
+    contig = ops.flash_decode(q, gk, gv, gkp, posv, window=window, block_k=bl)
+    torch.cuda.synchronize()
+    if not torch.equal(got, contig):
+        fail(f"flash_decode_paged {name}: not bitwise equal to flash_decode at block_k={bl} "
+             f"on the gathered layout (max |diff| {(got.float() - contig.float()).abs().max()})")
+    want = fd.flash_decode_paged_plain(q, *view, tables, posv, window=window)
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL):
+        fail(f"flash_decode_paged {name}: max |kernel - plain| = {err} > tol {BF16_TOL}")
+    for i, p in enumerate(pos):
+        if p < 0 and torch.any(got[i] != 0):
+            fail(f"flash_decode_paged {name}: empty slot {i} is not exact zeros")
+    rowpos = posv[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)
+    mask = attn.ragged_valid_mask(gkp[:, None, :], rowpos[:, :, None], window)[:, None]
+    qt, kt, vt = q.transpose(1, 2), gk.transpose(1, 2), gv.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
+    ms = time_ms(lambda: ops.flash_decode_paged(q, *view, tables, posv, window=window),
+                 flush, 20)
+    plain_ms = time_ms(lambda: fd.flash_decode_paged_plain(q, *view, tables, posv,
+                                                           window=window), flush, 5)
+    lib_ms = time_ms(lib, flush, 20)
+    nt = fd.needed_tiles(gkp, posv, window=window, block_k=bl, sq=sq)
+    keys = int((nt * bl).sum())  # keys of the needed blocks
+    nbytes = (2 * keys * kv * hd * 2 + keys * 4 + 2 * q.numel() * 2 + tables.numel() * 4
+              + posv.numel() * 4)
+    flops = 4 * hd * (h // kv) * kv * int(mask.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  flash_decode_paged | {name}: bitwise = flash_decode(block_k={bl}); "
+          f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"sdpa (pre-gathered)={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
 def scan_cases():
     # kernel, name, shape: ssm (B, S, di, N), rglru (B, S, W)
     return [
@@ -391,7 +505,8 @@ def main_paths():
     """(arch, requests, prompt length, generated, launches wanted, modes of
     the per-layer check) of each main path, run in this order."""
     def want(fa=0, fd=0, ss=0, rg=0):
-        return {"flash_attention": fa, "flash_decode": fd, "ssm_scan": ss, "rglru_scan": rg}
+        return {"flash_attention": fa, "flash_decode": fd, "flash_decode_paged": 0,
+                "ssm_scan": ss, "rglru_scan": rg}
 
     return [
         ("qwen1.5-4b", 8, 256, GEN, want(fa=40, fd=40 * (GEN - 1)), ("prefill", "decode")),
@@ -468,6 +583,103 @@ def run_main_path(argv, dev, torch, modes) -> dict:
     return out
 
 
+SERVER_ARGV = ["--arch", "qwen1.5-4b", "--full", "--server", "--paged", "--block-len", "16",
+               "--seg-len", "8", "--max-batch", "8", "--requests", "8", "--prompt-len", "256",
+               "--gen", str(GEN), "--rate", "1000", "--max-wait-ms", "200", "--seed", "0",
+               "--kernel", "cuda"]
+
+
+def run_served_path(dev, torch) -> dict:
+    """The launcher's paged continuous-batching server (``run_server``) on
+    qwen1.5-4b's weights (the one-shot path's, drawn again from the same
+    seed), with the launch counts zeroed just before and read just after
+    and the span tracer on (the runtime's write-back spans).  Then its
+    streams against one-shot generate of the same 8 prompts as one batch
+    (held, bitwise) and one at a time (counted)."""
+    import numpy as np
+
+    from repro_torch.core.trace import Tracer, set_tracer, tracer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import make_generate
+
+    args = serve.parse_args(SERVER_ARGV)
+    cfg, api, params = serve.load_model(args)
+    if cfg.decode_block != args.block_len:
+        fail(f"--paged --kernel cuda left decode_block at {cfg.decode_block}")
+    prev = tracer()
+    set_tracer(Tracer(capacity=1 << 17, enabled=True))
+    ops.reset_launch_counts()
+    try:
+        result = serve.run_server(cfg, api, params, args)
+    finally:
+        counts = ops.launch_counts()
+        set_tracer(prev)
+    s = result["stats"]
+    segs = -(-(args.gen - 1) // args.seg_len)
+    want = {"flash_attention": cfg.n_layers, "flash_decode": 0,
+            "flash_decode_paged": cfg.n_layers * args.seg_len * segs, "ssm_scan": 0,
+            "rglru_scan": 0}
+    print(f"  launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"served path launch counts {counts} != {want}")
+    if (s["completed"] != args.requests or s["failed"] or s["rejected"]
+            or any(r is None for r in result["results"])):
+        fail(f"served path: {s['completed']} completed, {s['failed']} failed, "
+             f"{s['rejected']} rejected of {args.requests}")
+    if s["prefill_waves"] != 1 or s["segments"] != segs:
+        fail(f"served path ran {s['prefill_waves']} prefill waves and {s['segments']} "
+             f"segments, want 1 and {segs}")
+    served = np.stack(result["results"])
+    tokens = torch.from_numpy(np.stack(result["prompts"])).to(dev)
+    generate = make_generate(cfg, api)
+    one8 = generate(params, {"tokens": tokens}, args.gen).cpu().numpy()
+    rows8 = int(sum(np.array_equal(a, b) for a, b in zip(served, one8)))
+    if rows8 != args.requests:
+        fail(f"served path: {rows8} of {args.requests} streams equal one-shot generate of "
+             f"the same prompts as one batch of {args.requests}")
+    rows1 = int(sum(np.array_equal(served[i], generate(params, {"tokens": tokens[i:i + 1]},
+                                                       args.gen)[0].cpu().numpy())
+                    for i in range(args.requests)))
+    mem = s["memory"]
+    spans = result.get("spans", {})
+
+    def per_package_ms(name):
+        d = spans.get(name)
+        return d["seconds"] / d["count"] * 1e3 if d else None
+    out = {"arch": cfg.name, "requests": args.requests, "prompt_len": args.prompt_len,
+           "gen": args.gen, "block_len": args.block_len, "seg_len": args.seg_len,
+           "max_batch": args.max_batch, "wall_s": result["wall_s"],
+           "tokens_per_s": result["tokens_per_s"],
+           "peak_memory_bytes": result["peak_memory_bytes"],
+           "prefill_waves": s["prefill_waves"], "segments": s["segments"],
+           "blocks_peak": mem["blocks_peak"], "blocks_total": mem["blocks_total"],
+           "bytes_per_block": mem["bytes_per_block"],
+           "kv_bytes_allocated": mem["kv_bytes_allocated"],
+           "kv_bytes_touched": mem["kv_bytes_touched"],
+           "kv_bytes_device": mem["kv_bytes_device"],
+           "transfers": s["transfers"],
+           "segment_write_back_ms": per_package_ms(f"write_back/decode_pseg{args.seg_len}"),
+           "segment_dispatch_ms": per_package_ms(f"dispatch/decode_pseg{args.seg_len}"),
+           "prefill_write_back_ms": per_package_ms(f"write_back/prefill_{args.prompt_len}"),
+           "prefill_dispatch_ms": per_package_ms(f"dispatch/prefill_{args.prompt_len}"),
+           "streams_equal_batch8_oneshot": rows8, "streams_equal_batch1_oneshot": rows1,
+           "ttft_s": sorted(m["ttft"] for m in result["request_metrics"])}
+    print(f"  served == one-shot generate of the same prompts as one batch of "
+          f"{args.requests}: {rows8}/{args.requests}; == one-shot at batch 1 (printed, not "
+          f"held): {rows1}/{args.requests}", flush=True)
+    peak = result["peak_memory_bytes"] or 0
+    print(f"  {result['tokens_per_s']:.1f} tokens/s, {result['wall_s']:.3f} s, peak memory "
+          f"{peak / 2**30:.2f} GiB; pool {mem['blocks_peak']}/"
+          f"{mem['blocks_total']} blocks at peak ({mem['kv_bytes_allocated']} B allocated, "
+          f"{mem['kv_bytes_touched']} B touched, {mem['kv_bytes_device']} B on the card); "
+          f"per segment: host dispatch of its 8 steps {out['segment_dispatch_ms']} ms, host "
+          f"write-back {out['segment_write_back_ms']} ms; per prefill wave: dispatch "
+          f"{out['prefill_dispatch_ms']} ms, write-back {out['prefill_write_back_ms']} ms",
+          flush=True)
+    return out, counts
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
@@ -514,6 +726,9 @@ def main() -> None:
     for case in decode_cases():
         rec = run_decode_case(case, dev, flush, torch, F, ops, fd, attn)
         recs.setdefault("flash_decode", rec)
+    for case in paged_cases():
+        rec = run_paged_case(case, dev, flush, torch, F, ops, fd, attn)
+        recs.setdefault("flash_decode_paged", rec)
     for case in scan_cases():
         rec = run_scan_case(case, dev, flush, torch, ops, ss, rg)
         recs.setdefault(case[0], rec)
@@ -545,16 +760,31 @@ def main() -> None:
         print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
               flush=True)
 
+    print(f"[served path] repro_torch.launch.serve --server --paged, qwen1.5-4b --full, "
+          f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
+    sp, counts = run_served_path(dev, torch)
+    print(json.dumps({"served_path": sp}))
+    for name, n in counts.items():
+        if n:
+            launches.setdefault(name, n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+          flush=True)
+
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:145"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                                 "src/repro/kernels/flash_decode.py:195"),
+               "flash_decode_paged": ("src/repro_torch/csrc/flash_decode_paged.cu",
+                                      "src/repro/kernels/flash_decode.py:282"),
                "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                             "src/repro/kernels/ssm_scan.py:66"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
                               "src/repro/kernels/rglru_scan.py:52")}
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     **recs[n]) for n, (src, rep) in sources.items()]
+    print(card, flush=True)  # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

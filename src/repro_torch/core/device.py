@@ -1,0 +1,274 @@
+"""Tier-2 ``DeviceGroup``: the co-execution unit.
+
+In the paper a Device wraps one OpenCL device and its command queue/thread.
+Here a DeviceGroup wraps one ``torch.device`` plus scheduling metadata: a
+relative compute ``power`` and a rated ``watts``.  On a CUDA device the
+group owns one CUDA stream, its command queue: every upload, kernel and
+write-back of the group's packages runs on it.
+
+Port of the JAX package's ``core/device.py``.  ``jax.jit(fn,
+donate_argnums=...)`` becomes a direct call: PyTorch runs eagerly, and a
+donated input is a device tensor the kernel updates in place and hands
+back as its output.  The transfer cache (``(id, version, lo, hi, need)``
+keys, ``stash_output`` handoffs, ``consume`` on donated inputs) and the
+power-of-two package ``_bucket`` are the reference's, so package geometry
+and transfer counts match it.
+
+The default device is ``cuda:0``; a group asked for CUDA raises when CUDA
+is missing.  The reference's per-group specialized kernels, minimum
+package sizes (for Dynamic/HGuided), simulated heterogeneous speeds and
+``patch_cached`` (slot migration) come with co-execution across groups
+(ROADMAP.md items A4 and A7).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import weakref
+from collections import OrderedDict
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.core.program import buffer_version
+
+
+class DeviceGroup:
+    def __init__(
+        self,
+        name: str,
+        device=None,
+        *,
+        power: float = 1.0,
+        watts: float = 0.0,
+        transfer_cache_entries: int = 128,
+    ) -> None:
+        self.name = name
+        self.device = torch.device(device if device is not None else "cuda:0")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"DeviceGroup {name!r}: CUDA is not available; pass "
+                    "device='cpu' to run on the CPU")
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+            self.stream = torch.cuda.Stream(self.device)
+        elif self.device.type == "cpu":
+            self.stream = None
+        else:
+            raise ValueError(f"unsupported device {self.device}: use cuda or cpu")
+        self.devices = [self.device]
+        self.power = power
+        # Rated board power (0 = unrated).  Rate-aware placement divides
+        # observed throughput by watts when set, so scheduling optimizes
+        # tokens/joule instead of raw tokens/s (Green Computing rating).
+        self.watts = watts
+        # Device-resident transfer cache: (buffer version, offset, bucket) ->
+        # padded device tensor.  Versions (program.buffer_version) change
+        # when a buffer is rewritten/swapped, so hits are always
+        # content-correct.
+        self._xfer_cache: OrderedDict[tuple, Any] = OrderedDict()
+        self._xfer_cache_entries = max(0, transfer_cache_entries)
+        self._xfer_lock = threading.Lock()
+        # ids of host buffers that were garbage collected: their cached
+        # device slices can never be hit again, so they are evicted on the
+        # next cache access.  Appended from GC finalizers (which may run
+        # while _xfer_lock is held on this very thread), hence a lock-free
+        # list + drain-under-lock instead of direct eviction.  _tracked_ids
+        # guarantees ONE finalizer per live buffer per group, however many
+        # slices/versions of it get cached.
+        self._dead_buffers: list = []
+        self._tracked_ids: set = set()
+        self.n_transfers = 0  # host -> device copies of kernel inputs
+        self.n_cache_hits = 0
+
+    def stream_context(self):
+        """Make this group's stream current (a no-op on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    @staticmethod
+    def _bucket(size_wi: int, lws: int) -> int:
+        """Round a package up to a power-of-two number of work-groups.
+
+        The reference buckets so that XLA compiles at most log2(max_groups)
+        executables per device; the port keeps the same package geometry
+        (inputs padded, outputs trimmed on write-back), so package streams
+        and transfer counts match the reference's.
+        """
+        groups = -(-size_wi // lws)
+        return lws * (1 << max(0, (groups - 1).bit_length()))
+
+    # ------------------------------------------------------- transfer cache
+    def _drain_dead(self) -> None:
+        """Evict entries of collected buffers (lock held by caller)."""
+        if not self._dead_buffers:
+            return
+        dead = set()
+        while self._dead_buffers:  # atomic pops: appends are never lost
+            dead.add(self._dead_buffers.pop())
+        self._tracked_ids -= dead
+        for k in [k for k in self._xfer_cache if k[0] in dead]:
+            del self._xfer_cache[k]
+
+    def _cache_get(self, key, *, take: bool = False):
+        with self._xfer_lock:
+            self._drain_dead()
+            if take:
+                # Consume the entry: the caller donates the device tensor to
+                # a kernel that writes it in place, so a retained entry would
+                # serve those writes under the old version on the next probe.
+                return self._xfer_cache.pop(key, None)
+            v = self._xfer_cache.get(key)
+            if v is not None:
+                self._xfer_cache.move_to_end(key)
+            return v
+
+    def _cache_put(self, key, value, host_buf) -> None:
+        if self._xfer_cache_entries <= 0:
+            return
+        with self._xfer_lock:
+            self._drain_dead()
+            register = key[0] not in self._tracked_ids
+            if register:
+                self._tracked_ids.add(key[0])
+        if register:
+            try:
+                weakref.finalize(host_buf, self._dead_buffers.append, key[0])
+            except TypeError:  # can't observe its death: don't pin a copy
+                with self._xfer_lock:
+                    self._tracked_ids.discard(key[0])
+                return
+        with self._xfer_lock:
+            self._xfer_cache[key] = value
+            self._xfer_cache.move_to_end(key)
+            while len(self._xfer_cache) > self._xfer_cache_entries:
+                self._xfer_cache.popitem(last=False)
+
+    def clear_cache(self) -> None:
+        with self._xfer_lock:
+            self._xfer_cache.clear()
+
+    def transfer_stats(self) -> dict:
+        with self._xfer_lock:
+            return {
+                "transfers": self.n_transfers,
+                "cache_hits": self.n_cache_hits,
+                "cached_entries": len(self._xfer_cache),
+            }
+
+    @staticmethod
+    def _pad_rows(t: torch.Tensor, need: int) -> torch.Tensor:
+        return torch.cat([t, t.new_zeros((need,) + tuple(t.shape[1:]))])
+
+    def _input_slice(self, program, host_buf, offset_wi: int, size_wi: int,
+                     bucket: int, *, consume: bool = False):
+        """Device copy of one input's package slice, padded to the bucket.
+
+        Cached per (buffer version, offset, bucket): iterative/serving reruns
+        over unchanged buffers skip the host->device transfer entirely.
+        ``consume`` (donated inputs): the kernel writes the device tensor in
+        place, so a cache hit is *popped* and fresh transfers are never
+        retained — each upload/handoff serves exactly one run."""
+        r = program.buffer_ratio(host_buf)
+        lo, hi = int(r * offset_wi), int(r * (offset_wi + size_wi))
+        need = int(r * bucket) - (hi - lo)
+        # A buffer that is both input and output of the same Program
+        # (in-place update) is uncacheable: under run-scoped write versions a
+        # mid-run input slice would be keyed on the run's final version and
+        # could shadow the produced output for dependent runs.
+        if any(b is host_buf for b in program._outs):
+            version = None
+        else:
+            version = buffer_version(host_buf)
+        # Keyed on element bounds (not work-items): a buffer shared between
+        # programs of different gws can't alias a wrong slice.  The leading
+        # id ties every entry to the buffer whose death evicts it.
+        key = (id(host_buf), version, lo, hi, need) if version is not None else None
+        if key is not None:
+            cached = self._cache_get(key, take=consume)
+            if cached is not None:
+                with self._xfer_lock:
+                    self.n_cache_hits += 1
+                return cached
+            if need > 0:
+                # Handoff probe: a producer run stashed this exact element
+                # range unpadded (need=0).  Padding happens device-side —
+                # no host re-read, no upload.  The padded tensor is a new
+                # buffer, so donating it never touches the stashed base.
+                base = self._cache_get(key[:4] + (0,))
+                if base is not None:
+                    with self._xfer_lock:
+                        self.n_cache_hits += 1
+                    dev = self._pad_rows(base, need)
+                    if not consume:
+                        self._cache_put(key, dev, host_buf)
+                    return dev
+        b = torch.as_tensor(host_buf[lo:hi])
+        if need > 0:
+            b = self._pad_rows(b, need)
+        dev = b.to(self.device, copy=True)
+        with self._xfer_lock:
+            self.n_transfers += 1
+        if key is not None and not consume:
+            self._cache_put(key, dev, host_buf)
+        return dev
+
+    def stash_output(self, program, host_buf, offset_wi: int, size_wi: int,
+                     dev_result, version: Optional[int]) -> None:
+        """Device-resident output handoff: seed the transfer cache with a
+        slice this group just produced, keyed under the producing run's
+        write ``version`` (``RunHandle.version_for_write``).  A dependent
+        run that reads the same element range on this group then serves the
+        still-on-device result instead of re-reading host memory and paying
+        a fresh upload.  Bucket padding is trimmed (a view: pad lanes hold
+        garbage computed from padded inputs); consumers re-pad with zeros on
+        their own bucket geometry."""
+        if version is None or self._xfer_cache_entries <= 0:
+            return
+        r = program.buffer_ratio(host_buf)
+        lo, hi = int(r * offset_wi), int(r * (offset_wi + size_wi))
+        self._cache_put((id(host_buf), version, lo, hi, 0),
+                        dev_result[: hi - lo], host_buf)
+
+    def execute_chunk(self, program, offset_wi: int, size_wi: int):
+        """Run one package on this group's stream; returns ``(results,
+        event)`` without waiting for the device: ``event`` (None on the
+        CPU) is recorded after the kernel's last launch, and
+        :meth:`wait` blocks on it.
+
+        Inputs are padded to the bucket size; callers must trim outputs to
+        ``size_wi`` (Program.write_outputs does).
+        """
+        # Nothing to compile (the reference's per-group jit): PyTorch runs
+        # the kernel eagerly, and donation is in-place reuse.
+        fn = program._kernel
+        bucket = self._bucket(size_wi, program.lws)
+        donated = set(program.donated_ins)
+        with self.stream_context():
+            if self.stream is not None:
+                # Work the caller enqueued on the default stream (the
+                # parameters, a cache it filled) precedes this package.
+                self.stream.wait_stream(torch.cuda.default_stream(self.device))
+            ins = [
+                self._input_slice(program, b, offset_wi, size_wi, bucket,
+                                  consume=i in donated)
+                for i, b in enumerate(program._ins)
+            ]
+            res = fn(offset_wi, *ins, *program._args)
+            event = None
+            if self.stream is not None:
+                event = torch.cuda.Event()
+                event.record(self.stream)
+        return res, event
+
+    @staticmethod
+    def wait(event) -> None:
+        """Block this thread until a package's device work is done (the
+        JAX package's ``jax.block_until_ready``)."""
+        if event is not None:
+            event.synchronize()
+
+    def __repr__(self) -> str:
+        return f"DeviceGroup({self.name!r}, device={self.device}, power={self.power})"

@@ -1,5 +1,5 @@
-// Block-level online-softmax attention shared by the two attention kernels
-// (flash_attention.cu, flash_decode.cu).
+// Block-level online-softmax attention shared by the three attention kernels
+// (flash_attention.cu, flash_decode.cu, flash_decode_paged.cu).
 //
 // One thread block owns `rows` query rows that all read the same K/V head.
 // It walks KV tiles [t_lo, t_hi) of `bk` keys; for each tile it
@@ -69,8 +69,56 @@ inline size_t smem_bytes(int rows, int hd, int bk) {
          sizeof(int) * (size_t)bk;
 }
 
-// Keys s0 .. s0 + bk - 1 of a K or V head into tile (row j at tile + j * ldt),
-// cast to TQ and held as float; keys at s >= S read as 0.  Each thread keeps
+// Where the keys of one KV tile live: element d of the block's head of key
+// j lives at base + j * stride + d, for j < n; its recorded position is
+// kp[j], or pos0 + j when kp is null.  Keys j >= n read as empty: value 0,
+// position -1.
+struct TileRef {
+  size_t base;
+  size_t stride;
+  int n;
+  const int* kp;
+  int pos0;
+};
+
+// Tile t of one head of a contiguous timeline of S keys (key s at
+// base + s * stride), in tiles of bk keys.  kpos (S) or null (key s sits at
+// position s).
+struct ContigTiles {
+  size_t base;
+  size_t stride;
+  const int* kpos;
+  int S;
+  int bk;
+  __device__ __forceinline__ TileRef operator()(int t) const {
+    const int s0 = t * bk;
+    return TileRef{base + (size_t)s0 * stride, stride, min(bk, S - s0),
+                   kpos ? kpos + s0 : nullptr, s0};
+  }
+};
+
+// Tile t of one slot in a pool of blocks of bl keys: the block table maps
+// logical tile t to physical block table[t], whose key j of this head lives
+// at block * blk_stride + head_off + j * tok_stride and whose recorded
+// positions are kpos[block * kpos_blk_stride + j].  The strides let the
+// kernel read one layer's view of a layer-stacked pool in place.
+struct PagedTiles {
+  const int* table;
+  size_t blk_stride;
+  size_t head_off;
+  size_t tok_stride;
+  const int* kpos;
+  size_t kpos_blk_stride;
+  int bl;
+  __device__ __forceinline__ TileRef operator()(int t) const {
+    const size_t blk = (size_t)table[t];
+    return TileRef{blk * blk_stride + head_off, tok_stride, bl, kpos + blk * kpos_blk_stride,
+                   0};
+  }
+};
+
+// The keys of tile r of a K or V head into tile (row j at tile + j * ldt),
+// cast to TQ and held as float; keys j >= r.n read as 0.  Each thread keeps
 // kLoadsInFlight 16-byte loads in flight before it converts and stores them:
 // the loads' latency, not their bytes, bounds a simple tile copy.  Needs
 // hd a multiple of 16 / sizeof(T) and 16-byte aligned rows (the wrappers
@@ -79,8 +127,7 @@ constexpr int kLoadsInFlight = 4;
 
 template <typename TQ, typename T>
 __device__ __forceinline__ void load_tile(float* tile, int ldt, const T* __restrict__ src,
-                                          size_t base, size_t stride, int s0, int S, int bk,
-                                          int hd) {
+                                          const TileRef& r, int bk, int hd) {
   constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
   const int vpr = hd / V;            // loads per key
   const int n = bk * vpr;
@@ -90,8 +137,8 @@ __device__ __forceinline__ void load_tile(float* tile, int ldt, const T* __restr
     for (int u = 0; u < kLoadsInFlight; ++u) {
       const int i = i0 + u * kThreads;
       const int j = i / vpr, c = i - j * vpr;
-      buf[u] = (i < n && s0 + j < S)
-                   ? *reinterpret_cast<const uint4*>(src + base + (size_t)(s0 + j) * stride + c * V)
+      buf[u] = (i < n && j < r.n)
+                   ? *reinterpret_cast<const uint4*>(src + r.base + (size_t)j * r.stride + c * V)
                    : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
@@ -190,14 +237,14 @@ __device__ __forceinline__ void pv_tile(float* acc, const float* sc, const float
   }
 }
 
-// k/v element d of key s lives at kv_base + s * kv_stride + d.  kpos holds
-// the recorded position of each key, or is null when key s sits at
-// position s.  Keys at s >= S read as empty (position -1).
-template <typename TQ, typename TKV>
+// Tiles maps a tile index to the TileRef of its keys (ContigTiles for a
+// contiguous timeline, PagedTiles for a block pool): one tile body serves
+// every attention kernel, so a paged tile gives the same bits as the same
+// keys in a contiguous tile.
+template <typename TQ, typename TKV, typename Tiles>
 __device__ void attend_rows(const TQ* __restrict__ q, TQ* __restrict__ out, RowMap rm,
                             int rows, const TKV* __restrict__ k,
-                            const TKV* __restrict__ v, size_t kv_base, size_t kv_stride,
-                            const int* __restrict__ kpos, int S, int t_lo, int t_hi,
+                            const TKV* __restrict__ v, Tiles tiles, int t_lo, int t_hi,
                             int bk, int hd, float scale, Mask mask) {
   extern __shared__ float smem[];
   float* qs = smem;                 // rows x hd
@@ -223,12 +270,10 @@ __device__ void attend_rows(const TQ* __restrict__ q, TQ* __restrict__ out, RowM
   __syncthreads();
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int s0 = t * bk;
-    load_tile<TQ>(tile, ldt, k, kv_base, kv_stride, s0, S, bk, hd);
-    for (int j = tid; j < bk; j += kThreads) {
-      const int s = s0 + j;
-      kp_s[j] = s < S ? (kpos ? kpos[s] : s) : -1;
-    }
+    const TileRef ref = tiles(t);
+    load_tile<TQ>(tile, ldt, k, ref, bk, hd);
+    for (int j = tid; j < bk; j += kThreads)
+      kp_s[j] = j < ref.n ? (ref.kp ? ref.kp[j] : ref.pos0 + j) : -1;
     __syncthreads();
 
     if (rows >= kRowBlock)
@@ -258,7 +303,7 @@ __device__ void attend_rows(const TQ* __restrict__ q, TQ* __restrict__ out, RowM
         a_s[r] = alpha;
       }
     }
-    load_tile<TQ>(tile, ldt, v, kv_base, kv_stride, s0, S, bk, hd);
+    load_tile<TQ>(tile, ldt, v, ref, bk, hd);
     __syncthreads();
 
     if (rows >= kRowBlock)

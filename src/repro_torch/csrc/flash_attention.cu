@@ -42,8 +42,8 @@ __global__ void __launch_bounds__(kThreads)
   const int t_hi = kv_end > kv_begin ? (kv_end + bk - 1) / bk : t_lo;
   const RowMap rm{(((size_t)b * Sq + q0) * H + h) * hd, 1, (size_t)H * hd};
   const Mask mask{first, 1, causal, window};
-  attend_rows<T, T>(q, out, rm, rows, k, v, ((size_t)b * Sk * KV + g) * hd, (size_t)KV * hd,
-                    nullptr, Sk, t_lo, t_hi, bk, hd, scale, mask);
+  const ContigTiles tiles{((size_t)b * Sk * KV + g) * hd, (size_t)KV * hd, nullptr, Sk, bk};
+  attend_rows<T, T>(q, out, rm, rows, k, v, tiles, t_lo, t_hi, bk, hd, scale, mask);
 }
 
 template <typename T>

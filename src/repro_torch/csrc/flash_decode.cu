@@ -37,9 +37,9 @@ __global__ void __launch_bounds__(kThreads)
   // Row r: query token r / n_rep of the slot, head g * n_rep + r % n_rep.
   const RowMap rm{((size_t)b * sq * H + (size_t)g * n_rep) * hd, n_rep, (size_t)H * hd};
   const Mask mask{pos[b], n_rep, 1, window};
-  attend_rows<TQ, TKV>(q, out, rm, sq * n_rep, k, v, ((size_t)b * S * KV + g) * hd,
-                       (size_t)KV * hd, kpos + (size_t)b * S, S, 0, nt[b], bk, hd, scale,
-                       mask);
+  const ContigTiles tiles{((size_t)b * S * KV + g) * hd, (size_t)KV * hd,
+                          kpos + (size_t)b * S, S, bk};
+  attend_rows<TQ, TKV>(q, out, rm, sq * n_rep, k, v, tiles, 0, nt[b], bk, hd, scale, mask);
 }
 
 template <typename TQ, typename TKV>

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("flash_attention", "flash_decode", "ssm_scan", "rglru_scan")
+KERNELS = ("flash_attention", "flash_decode", "flash_decode_paged", "ssm_scan",
+           "rglru_scan")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' row and tile limits and shared-memory budget (attention_tile.cuh).
 MAX_ROWS = 64

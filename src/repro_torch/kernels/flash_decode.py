@@ -148,3 +148,93 @@ def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
     _build.check("flash_decode", err)
     _build.LAUNCHES["flash_decode"] += 1
     return out
+
+
+# ------------------------------------------------------------- paged pool
+
+
+def gather_pool(pool, tables):
+    """The logical contiguous layout of a block pool: ``pool`` (N, bl, ...)
+    gathered through ``tables`` (B, nmax) into (B, nmax·bl, ...).  Logical
+    tile i of slot b is physical block ``tables[b, i]``."""
+    b, nmax = tables.shape
+    g = pool[tables.long()]
+    return g.reshape((b, nmax * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def flash_decode_paged_plain(q, k, v, kpos, tables, pos, *, window: int = 0):
+    """The paged kernel's function in PyTorch: gather the slot's blocks into
+    the logical layout and run :func:`flash_decode_plain` at ``block_k =
+    bl``, the tile the kernel walks.  The CPU path, and the kernel's oracle
+    on the card."""
+    return flash_decode_plain(q, gather_pool(k, tables), gather_pool(v, tables),
+                              gather_pool(kpos, tables), pos, window=window,
+                              block_k=k.shape[1])
+
+
+def flash_decode_paged(q, k, v, kpos, tables, pos, *, window: int = 0):
+    """Ragged flash-decode over a paged KV block pool.
+
+    Port of the JAX package's ``flash_decode_paged``.  q: (B,Sq,H,hd); k/v:
+    (N, bl, KV, hd), a pool of N physical blocks of ``bl`` tokens (float32
+    or bfloat16 storage), possibly a strided view (one layer of a
+    layer-stacked pool) whose blocks each hold contiguous (bl, KV, hd)
+    keys; kpos: (N, bl) int32 recorded positions (−1 = empty), unit stride
+    inside a block; tables: (B, nmax) int32; pos: (B,) int32.  Returns
+    (B,Sq,H,hd) in q.dtype, bit-identical to :func:`flash_decode` at
+    ``block_k = bl`` on the gathered layout.
+
+    CUDA tensors launch the kernel (``csrc/flash_decode_paged.cu``) or
+    raise; CPU tensors take :func:`flash_decode_paged_plain`."""
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k, v, kpos, tables, pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_paged runs on cuda or cpu tensors, got {q.device}")
+    return _flash_decode_paged_cuda(q, k, v, kpos, tables, pos, window=window)
+
+
+def _flash_decode_paged_cuda(q, k, v, kpos, tables, pos, *, window):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    b, sq, h, hd = q.shape
+    n, bl, kvh = k.shape[0], k.shape[1], k.shape[2]
+    nmax = tables.shape[1]
+    rows = sq * (h // max(kvh, 1))
+    esz = k.element_size()
+    req = _build.require
+    req(all(t.device == q.device for t in (k, v, kpos, tables, pos)), "all tensors on one device")
+    req(k.shape == v.shape and k.ndim == 4 and k.shape[3] == hd,
+        f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    req(h % kvh == 0, f"H={h} is not a multiple of KV={kvh}")
+    req(k.dtype == v.dtype and k.stride() == v.stride(), "k and v share one dtype and layout")
+    req(tuple(k.stride()[1:]) == (kvh * hd, hd, 1),
+        "each block's (bl, KV, hd) keys must be contiguous")
+    req(hd * esz % 16 == 0 and k.stride(0) * esz % 16 == 0
+        and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
+        "k/v rows and blocks must be 16-byte aligned (the kernel's loads)")
+    req(tuple(kpos.shape) == (n, bl) and kpos.stride(1) == 1, "kpos (N, bl), unit stride in a block")
+    req(tuple(tables.shape) == (b, nmax) and tuple(pos.shape) == (b,), "tables (B,nmax), pos (B,)")
+    req(all(t.dtype == torch.int32 for t in (kpos, tables, pos)), "kpos/tables/pos are int32")
+    req(all(t.is_contiguous() for t in (q, tables, pos)), "q, tables and pos contiguous")
+    req(rows <= _build.MAX_ROWS, f"Sq*n_rep={rows} > {_build.MAX_ROWS} rows")
+    req(0 < bl <= _build.MAX_BLOCK_K, f"block_len={bl} outside 1..{_build.MAX_BLOCK_K}")
+    req(_build.smem_bytes(rows, hd, bl) <= _build.MAX_SMEM, f"hd={hd} too wide")
+    codes = _build.dtype_code(q), _build.dtype_code(k)
+    # Needed tiles on the device from the table-gathered positions: the
+    # tile-skip math of the contiguous kernel on each slot's logical view.
+    nt = needed_tiles(gather_pool(kpos, tables), pos, window=window, block_k=bl, sq=sq)
+    out = torch.empty_like(q)
+    fn = _build.kernel_fn("flash_decode_paged", "flash_decode_paged_launch",
+                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(), tables.data_ptr(),
+                 pos.data_ptr(), nt.data_ptr(), out.data_ptr(), b, nmax, bl, sq, h, kvh, hd,
+                 k.stride(0), kpos.stride(0), window, hd ** -0.5, *codes,
+                 torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_decode_paged", err)
+    _build.LAUNCHES["flash_decode_paged"] += 1
+    return out

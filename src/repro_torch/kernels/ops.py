@@ -8,7 +8,11 @@ its plain PyTorch version on CPU tensors.  Models select the kernels with
 from repro_torch.kernels._build import LAUNCHES
 from repro_torch.kernels._build import reset_launches as reset_launch_counts  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.kernels.flash_decode import flash_decode, needed_tiles  # noqa: F401
+from repro_torch.kernels.flash_decode import (  # noqa: F401
+    flash_decode,
+    flash_decode_paged,
+    needed_tiles,
+)
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: F401
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: F401
 

@@ -1,17 +1,27 @@
-"""Serving launcher: one-shot batched greedy generate.
+"""Serving launcher: one-shot batched greedy generate, and the
+continuous-batching server.
 
-    # on the card, through the CUDA kernels (the default)
+    # one-shot generate on the card, through the CUDA kernels (the default)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --full \\
         --requests 8 --prompt-len 256 --gen 32
 
     # on the CPU, reduced config, kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --device cpu
 
+    # the paged continuous-batching server, Poisson arrivals, checked
+    # against one-shot generate of each prompt
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --server --paged --device cpu --verify
+
 Weights are random (float32 masters drawn from ``--seed`` on the device,
-cast once to the compute dtype); prompts are random tokens from
-``--seed + 1``.  The co-executed (``--coexec``) and server (``--server``)
-modes of the JAX launcher wait for the runtime and server slices
-(ROADMAP.md).
+cast once to the compute dtype); one-shot prompts are random tokens from
+``--seed + 1``, server prompts and arrival gaps from ``--seed + 2`` (as the
+JAX launcher draws them).  Under ``--paged --kernel cuda`` the one-shot
+reference tiles its cache at the block length (``decode_block``), so the
+served streams and the reference run the same tile partition.  The
+co-executed mode (``--coexec``) and the server's speculative, chunked and
+multi-group options of the JAX launcher are not ported yet (ROADMAP.md
+items A4, A5, A7).
 """
 from __future__ import annotations
 
@@ -45,6 +55,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "plain versions on the CPU); 'reference' the dense "
                          "torch paths")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--server", action="store_true",
+                    help="continuous-batching server, Poisson arrivals")
+    ap.add_argument("--rate", type=float, default=100.0,
+                    help="offered load, requests/s (server mode)")
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--seg-len", type=int, default=2)
+    ap.add_argument("--max-wait-ms", type=float, default=10.0)
+    ap.add_argument("--scheduler", default="static", choices=["static"],
+                    help="engine scheduler (Dynamic and HGuided are not ported)")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve from the paged KV block pool (block tables + "
+                         "prefix cache)")
+    ap.add_argument("--block-len", type=int, default=4,
+                    help="tokens per KV block in --paged mode")
+    ap.add_argument("--verify", action="store_true",
+                    help="server mode: assert every served stream equals "
+                         "one-shot generate of its prompt at batch 1")
     return ap.parse_args(argv)
 
 
@@ -55,6 +82,11 @@ def load_model(args):
     if not args.full:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(cfg, kernel_impl=args.kernel)
+    if getattr(args, "paged", False) and args.kernel == "cuda":
+        # Tile the contiguous one-shot reference at the pool's block length
+        # so --verify compares equal logical tile partitions (the paged
+        # contract on the kernel path).
+        cfg = dataclasses.replace(cfg, decode_block=args.block_len)
     api = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = materialize(api.param_spec(cfg), gen, torch.float32, device)
@@ -73,9 +105,121 @@ def run_oneshot(cfg, api, params, batch, gen: int):
     return make_generate(cfg, api)(params, batch, gen)
 
 
+def server_prompts(cfg, args):
+    """The server's prompts and arrival gaps, drawn as the JAX launcher's
+    ``run_server`` draws them (numpy ``default_rng(seed + 2)``)."""
+    rng = np.random.default_rng(args.seed + 2)
+    prompts = [rng.integers(0, cfg.vocab, args.prompt_len).astype(np.int32)
+               for _ in range(args.requests)]
+    gaps = rng.exponential(1.0 / args.rate, args.requests)
+    return prompts, gaps
+
+
+def run_server(cfg, api, params, args) -> dict:
+    """Replay a seeded Poisson arrival trace through ``InferenceServer`` on
+    one DeviceGroup of ``--device``."""
+    from repro_torch.core import DeviceGroup, Static
+    from repro_torch.core.trace import tracer
+    from repro_torch.serve.paged import PagedSpec
+    from repro_torch.serve.server import InferenceServer
+
+    prompts, gaps = server_prompts(cfg, args)
+    device = resolve_device(args.device)
+    cuda = device.type == "cuda"
+    paged = PagedSpec(block_len=args.block_len) if args.paged else None
+    server = InferenceServer(
+        cfg, api, params,
+        groups=[DeviceGroup("serve:0", device=device)],
+        scheduler={"static": Static}[args.scheduler](),
+        buckets=(args.prompt_len,),
+        max_batch=args.max_batch,
+        seg_len=args.seg_len,
+        max_new_cap=max(args.gen, 1),
+        max_wait_ms=args.max_wait_ms,
+        paged=paged,
+    )
+    if cuda and cfg.kernel_impl == "cuda":
+        # Build the kernel libraries here, not on the runtime's worker
+        # thread at the first segment.
+        from repro_torch.kernels import _build
+
+        _build.build()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with server:
+        handles = []
+        for p, gap in zip(prompts, gaps):
+            time.sleep(gap)
+            handles.append(server.submit(p, args.gen))
+        results = []
+        for h in handles:
+            # Wait for the *final* state before reading `rejected`.
+            h.wait(timeout=600)
+            results.append(None if h.rejected else h.result(timeout=600))
+        wall = time.perf_counter() - t0
+    s = server.stats()
+    lat = sorted(h.metrics["latency"] for h in handles if not h.rejected)
+    pct = (f"p50={lat[len(lat) // 2] * 1e3:.0f}ms "
+           f"p99={lat[-1] * 1e3:.0f}ms " if lat else "")
+    where = torch.cuda.get_device_name(device) if cuda else "cpu"
+    print(f"served {s['completed']}/{args.requests} requests on {where} ({cfg.name}, "
+          f"kernel_impl={cfg.kernel_impl}) in {wall:.3f}s (rate {args.rate}/s, "
+          f"{s['rejected']} rejected, {s['failed']} failed) {pct}"
+          f"occupancy={s['occupancy_mean']:.2f} tokens/s={s['tokens_out'] / wall:.1f}")
+    mem = s.get("memory", {})
+    if mem.get("mode") == "paged":
+        print(f"paged KV: peak {mem['blocks_peak']}/{mem['blocks_total']} "
+              f"blocks ({mem['kv_bytes_allocated']} B allocated, "
+              f"{mem['kv_bytes_touched']} B touched), "
+              f"{mem['prefix_hits']} prefix hits, {mem['cow']} CoW, "
+              f"{s['deferred']} boardings deferred")
+    result = {
+        "prompts": prompts, "results": results, "stats": s, "wall_s": wall,
+        "tokens_per_s": s["tokens_out"] / wall,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+        "request_metrics": [h.metrics for h in handles],
+    }
+    tr = tracer()
+    if tr.enabled:  # installed by the caller (set_tracer)
+        # The runtime's spans per kernel label: "dispatch" is the host time
+        # of issuing a package's kernel (eager PyTorch: the whole decode
+        # loop), "write_back" the host copy of its outputs (the decode
+        # segment writes its whole cache, the paged pool, back).
+        spans: dict = {}
+        for e in tr.chrome_events():
+            if e.get("ph") == "X" and e["name"] in ("dispatch", "write_back"):
+                key = (e["name"], e["args"].get("kernel", "?"))
+                d = spans.setdefault(key, {"count": 0, "seconds": 0.0})
+                d["count"] += 1
+                d["seconds"] += e["dur"] / 1e6
+        result["spans"] = {f"{n}/{k}": d for (n, k), d in sorted(spans.items())}
+        for name, d in result["spans"].items():
+            print(f"{name}: {d['count']} packages, {d['seconds'] / d['count'] * 1e3:.1f} ms each")
+    if args.verify:
+        generate = make_generate(cfg, api)
+        n = 0
+        for p, r in zip(prompts, results):
+            if r is None:
+                continue
+            tokens = torch.from_numpy(p[None]).to(device)
+            want = generate(params, {"tokens": tokens}, args.gen)[0].cpu().numpy()
+            assert np.array_equal(r, want), (r, want)
+            n += 1
+        print(f"verify: {n} results bit-identical to one-shot generate")
+    return result
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg, api, params = load_model(args)
+    if args.server:
+        return run_server(cfg, api, params, args)
+    return run_oneshot_main(cfg, api, params, args)
+
+
+def run_oneshot_main(cfg, api, params, args) -> dict:
     batch = load_batch(cfg, args)
     cuda = batch["tokens"].device.type == "cuda"
     if cuda:

@@ -6,8 +6,11 @@ int32 recorded positions, −1 for an empty slot, which makes windowed
 cache from ``.at[].set`` on a donated buffer, the port writes the cache in
 place (``index_put_``) and returns the same dict.
 
-The paged, chunk and mesh paths of the JAX module are not ported yet
-(ROADMAP.md).
+A cache carrying a ``"table"`` leaf is **paged**: k/v are a block pool
+``(N, bl, KV, hd)`` (possibly one layer's strided view of a layer-stacked
+pool), ``pos`` is ``(N, bl)``, and ``table`` ``(B, nmax)`` maps each slot's
+logical tile to a physical block (see ``serve/paged.py``).  The chunk and
+mesh paths of the JAX module are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -109,16 +112,42 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
     vector of per-slot positions.  Sq > 1 is the multi-row step: the Sq
     tokens of a slot sit at consecutive positions ``pos .. pos+Sq-1``; all
     Sq keys are written into the cache *before* attention, and each query
-    row masks at its own depth."""
+    row masks at its own depth.  A paged cache (a ``"table"`` leaf) is
+    written through its block table instead of per-slot rows."""
     b, sq = x.shape[0], x.shape[1]
     posv = pos_vector(pos, b, x.device)
     positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, positions, cfg)
-    cs = cache["k"].shape[1]
-    slot = positions % cs if window else positions  # (B, Sq)
-    _write(cache, slot.long(), k, v, positions)
+    if "table" in cache:
+        _paged_write(cache, k, v, positions, window)
+    else:
+        cs = cache["k"].shape[1]
+        slot = positions % cs if window else positions  # (B, Sq)
+        _write(cache, slot.long(), k, v, positions)
     out = cached_attention(q, cache, posv, cfg, window=window)
     return _out_proj(out, p["wo"]), cache
+
+
+def _paged_write(cache, kt, vt, positions, window):
+    """Scatter Sq tokens' K/V/pos through the block table, in place.
+    kt/vt: (B, Sq, KV, hd); positions: (B, Sq).  Logical index = ``pos``
+    (full cache) or ``pos % ring`` (rolling: the logical capacity
+    ``nmax*bl`` equals the contiguous ring size by construction, so the ring
+    layout is preserved).  The tile index is clamped so slots whose position
+    ran past their table (exited slots decoding garbage on static shapes)
+    write into their table's sink entry instead of indexing out of
+    bounds."""
+    bl = cache["k"].shape[1]
+    nmax = cache["table"].shape[1]
+    li = positions % (nmax * bl) if window else positions
+    blk = torch.clamp(li // bl, max=nmax - 1).long()
+    off = (li % bl).long()
+    bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    phys = cache["table"][bidx, blk].long()  # (B, Sq)
+    cache["k"].index_put_((phys, off), kt.to(cache["k"].dtype))
+    cache["v"].index_put_((phys, off), vt.to(cache["v"].dtype))
+    cache["pos"].index_put_((phys, off), positions.to(cache["pos"].dtype))
+    return cache
 
 
 def ragged_valid_mask(kpos, pos, window: int):
@@ -157,12 +186,36 @@ def _ragged_dense(q, k, v, kpos, posv, *, window=0):
     return out.reshape(b, sq, h, hd)
 
 
+def _paged_dense(q, cache, posv, *, window=0):
+    """Dense paged-decode attention: gather the slot's physical blocks into
+    the logical (B, nmax·bl, KV, hd) layout through the block table, then
+    run the same dense ragged attention as the contiguous path.  The gather
+    is an exact permutation, and unreserved table entries resolve to the
+    pool's never-written null block (kpos = −1, exactly masked), so paged
+    outputs equal contiguous outputs on the same recorded timeline."""
+    from repro_torch.kernels.flash_decode import gather_pool
+
+    tbl = cache["table"]
+    return _ragged_dense(q, gather_pool(cache["k"], tbl), gather_pool(cache["v"], tbl),
+                         gather_pool(cache["pos"], tbl), posv, window=window)
+
+
 def cached_attention(q, cache, pos, cfg, *, window=0):
-    """Attention of Sq query rows per slot over the contiguous cache,
-    masked by recorded slot positions.  ``cfg.kernel_impl == "cuda"`` goes
-    to the ``flash_decode`` kernel (its plain version for CPU tensors), else
-    to the dense grouped-GQA reference."""
+    """Attention of Sq query rows per slot over the cache, masked by
+    recorded slot positions.  A paged cache (a ``"table"`` leaf) goes to the
+    ``flash_decode_paged`` kernel under ``cfg.kernel_impl == "cuda"`` (its
+    tile is the pool's block length) or to the gather-then-dense reference;
+    a contiguous cache to the ``flash_decode`` kernel or the dense
+    grouped-GQA reference.  The kernels run their plain versions on CPU
+    tensors."""
     posv = pos_vector(pos, q.shape[0], q.device)
+    if "table" in cache:
+        if cfg.kernel_impl == "cuda":
+            from repro_torch.kernels import ops as kops
+
+            return kops.flash_decode_paged(q, cache["k"], cache["v"], cache["pos"],
+                                           cache["table"], posv, window=window)
+        return _paged_dense(q, cache, posv, window=window)
     if cfg.kernel_impl == "cuda":
         from repro_torch.kernels import ops as kops
 

@@ -1,9 +1,45 @@
-"""Serving: prefill/decode steps, decode chains and one-shot generate."""
+"""Serving: prefill/decode steps, decode chains, one-shot generate, and the
+continuous-batching server (contiguous and paged KV) on the EngineCL
+runtime."""
+from repro_torch.serve.admission import (  # noqa: F401
+    DeadlineAdmission,
+    PoolAdmission,
+    ServiceModel,
+    edf_key,
+)
+from repro_torch.serve.batcher import (  # noqa: F401
+    BatchGroup,
+    Buckets,
+    ModelKernels,
+    segments_for,
+)
+from repro_torch.serve.multigroup import MigrationPolicy, proportional_split  # noqa: F401
+from repro_torch.serve.paged import (  # noqa: F401
+    BlockPool,
+    PagedBatchGroup,
+    PagedSpec,
+    blocks_needed,
+    validate_paged,
+)
+from repro_torch.serve.server import (  # noqa: F401
+    AdmissionError,
+    InferenceServer,
+    RequestHandle,
+    ServeError,
+)
 from repro_torch.serve.step import (  # noqa: F401
+    cache_batch_axes,
     cast_params_cached,
     make_decode_chain,
     make_decode_step,
     make_generate,
     make_prefill_step,
     zeros_cache,
+)
+from repro_torch.serve.telemetry import (  # noqa: F401
+    Ema,
+    RollingStat,
+    Telemetry,
+    parse_exposition,
+    quantile,
 )

@@ -8,8 +8,8 @@ serving loop calls prefill/decode many times against the same parameters.
 The KV cache is written in place; a cache passed to a step is updated and
 returned, not copied (the JAX package donated it to the jitted step).
 
-Tracer spans around prefill and the chain wait for the port of the span
-tracer (ROADMAP.md).
+Tracer spans around prefill and the chain are not ported yet (ROADMAP.md
+item A3).
 """
 from __future__ import annotations
 
@@ -88,6 +88,20 @@ def zeros_cache(cfg, api, batch: int, max_seq: int, *, device, dtype=None):
         return torch.zeros(s.shape, dtype=ldt, device=device)
 
     return tree_map(mk, api.cache_spec(cfg, batch, max_seq))
+
+
+def cache_batch_axes(cfg, api, max_seq: int):
+    """Per-leaf batch-axis index of the cache tree (layer-stacked leaves put
+    batch at axis 1, not 0).  Found structurally — the axis whose extent
+    tracks the requested batch size — so it holds across model families
+    without a per-family table."""
+    def ax(a, b):
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return i
+        raise ValueError(f"cache leaf {a.shape} has no batch axis: cannot slot it")
+
+    return tree_map(ax, api.cache_spec(cfg, 1, max_seq), api.cache_spec(cfg, 2, max_seq))
 
 
 def make_decode_chain(cfg, api):

@@ -149,7 +149,8 @@ def test_cpu_tensors_count_no_launch():
     k = torch.zeros((1, 4, 2, 8))
     kpos = torch.tensor([[0, 1, -1, -1]], dtype=torch.int32)
     flash_decode(q, k, k, kpos, torch.tensor([1], dtype=torch.int32))
-    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0, "ssm_scan": 0,
+    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                               "flash_decode_paged": 0, "ssm_scan": 0,
                                "rglru_scan": 0}
 
 

@@ -69,7 +69,8 @@ def test_launcher_runs_on_cpu(arch, capsys):
     assert "generated (2, 3) on cpu" in capsys.readouterr().out
     # The default kernel_impl is "cuda": on CPU tensors the plain versions
     # run and no launch is counted.
-    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0, "ssm_scan": 0,
+    assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
+                               "flash_decode_paged": 0, "ssm_scan": 0,
                                "rglru_scan": 0}
     again = launcher.main(["--arch", arch, "--device", "cpu", "--requests", "2",
                            "--prompt-len", "8", "--gen", "3", "--seed", "1",
