@@ -8,7 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
 2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (five
-             libraries), one nvcc each, all started together.
+             libraries), one nvcc each, all started together; then one line
+             of the decode key-chunk plan.
 3. kernels -- each kernel against its plain PyTorch version on the card.
              flash_attention and flash_decode at the main path's shapes, at
              internlm2-20b and recurrentgemma-2b widths (hd 256, MQA n_rep
@@ -30,12 +31,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
              pool; every entry is live at that step), internlm2-20b widths
              (H 48, KV 8), a windowed ring in blocks, an empty slot
              (exact zeros) and multi-row Sq 4, the last four with
-             null-block table entries.  Each is held bitwise against
-             flash_decode at block_k = the block length on the gathered
-             layout, and at 2e-2 against its plain version; the
-             ``scaled_dot_product_attention`` yardstick runs on the
-             pre-gathered contiguous layout (the gather is not timed).
-             Each case prints the kernel's and the plain version's time.
+             null-block table entries, and 40 blocks of 16 keys (three key
+             chunks).  Each is held bitwise against flash_decode at
+             block_k = the block length on the gathered layout, and at 2e-2
+             against its plain version; the ``scaled_dot_product_attention``
+             yardstick runs on the pre-gathered contiguous layout (the
+             gather is not timed).  Batch invariance, bitwise: each slot of
+             the qwen1.5-4b and recurrentgemma-2b main-path decode cases, and
+             one batch element of the qwen1.5-4b prefill case, computed
+             alone must equal its row of the batch of 8.  Each decode case
+             prints its body (tensor-core "mma" or FMA "fma") and its chunk
+             plan; each case prints the kernel's and the plain version's
+             time.
 4. main paths -- ``repro_torch.launch.serve`` one-shot generate,
              ``kernel_impl="cuda"``, random weights from the seed, one model
              at a time (each freed before the next):
@@ -131,6 +138,12 @@ def time_ms(fn, flush, iters: int) -> float:
     return ms[len(ms) // 2]
 
 
+# Cases whose rows are also computed one batch element (prefill) or one slot
+# (decode) at a time and held bitwise against their row of the whole batch.
+BATCH_INVARIANT = {"prefill qwen1.5-4b (main path)", "decode qwen1.5-4b (main path)",
+                   "decode recurrentgemma-2b (hd 256, MQA, window 2048)"}
+
+
 def attention_cases():
     # name, B, Sq, Sk, H, KV, hd, causal, window, q_offset, dtype
     return [
@@ -190,6 +203,15 @@ def run_attention_case(case, dev, flush, torch, F, ops, fa):
     tol = BF16_TOL if dname == "bfloat16" else F32_TOL
     if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
         fail(f"flash_attention {name}: max |kernel - plain| = {err} > tol {tol}")
+    if name in BATCH_INVARIANT:
+        i = b // 2
+        one = ops.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(one[0], got[i]):
+            fail(f"flash_attention {name}: batch element {i} alone differs from its row in the "
+                 f"batch of {b}")
+        print(f"  flash_attention | {name}: batch element {i} alone == its row in the batch "
+              f"of {b}, bitwise", flush=True)
     qpos = torch.arange(sq, device=dev)[:, None] + qoff
     kpos = torch.arange(sk, device=dev)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
@@ -244,6 +266,16 @@ def run_decode_case(case, dev, flush, torch, F, ops, fd, attn):
     for i, p in enumerate(pos):
         if p < 0 and torch.any(got[i, 0] != 0):
             fail(f"flash_decode {name}: empty slot {i} is not exact zeros")
+    if name in BATCH_INVARIANT:
+        for i in range(b):
+            one = ops.flash_decode(q[i:i + 1], k[i:i + 1], v[i:i + 1], kpos[i:i + 1],
+                                   posv[i:i + 1], **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(one[0], got[i]):
+                fail(f"flash_decode {name}: slot {i} alone differs from its row in the batch "
+                     f"of {b}")
+        print(f"  flash_decode | {name}: each of the {b} slots alone == its row in the batch, "
+              f"bitwise", flush=True)
     rowpos = posv[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)
     mask = attn.ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None], window)[:, None]
     qt, kt, vt = q.transpose(1, 2), k.to(qdt).transpose(1, 2), v.to(qdt).transpose(1, 2)
@@ -261,7 +293,10 @@ def run_decode_case(case, dev, flush, torch, F, ops, fd, attn):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[qname] * 1e3
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"  flash_decode | {name}: max_abs_err={err:.3g} kernel={ms:.4f} ms "
+    plan = fd.launch_plan(b, s, sq, h, kv, hd, qdt, kvdt, block_k=bk)
+    print(f"  flash_decode | {name}: {plan['route']} body, {plan['tiles']} tiles of "
+          f"{plan['block_k']} keys in {plan['chunks']} chunk(s); max_abs_err={err:.3g} "
+          f"kernel={ms:.4f} ms "
           f"plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
     return rec
@@ -280,6 +315,8 @@ def paged_cases():
          [30, 63, 64, 500], 64),
         ("paged empty slot", 3, 20, 20, 128, 16, (13, 2), 48, 2, 1, [-1, 0, 199], 0),
         ("paged multi-row Sq 4", 4, 48, 8, 128, 16, (19, 2), 96, 2, 4, [0, 126, 200, 296], 0),
+        ("paged 3 key chunks (40 blocks)", 2, 20, 20, 128, 16, (40, 0), 100, 2, 1, [639, 300],
+         0),
     ]
 
 
@@ -350,7 +387,9 @@ def run_paged_case(case, dev, flush, torch, F, ops, fd, attn):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"  flash_decode_paged | {name}: bitwise = flash_decode(block_k={bl}); "
+    plan = fd.paged_launch_plan(b, live + null, bl, sq, h, kv, hd, dt, dt)
+    print(f"  flash_decode_paged | {name}: {plan['route']} body, {plan['tiles']} tiles of "
+          f"{bl} keys in {plan['chunks']} chunk(s); bitwise = flash_decode(block_k={bl}); "
           f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"sdpa (pre-gathered)={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
@@ -717,6 +756,11 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    print("[chunk plan] flash_decode / flash_decode_paged, bf16 tensor-core body: a slot's "
+          "needed tiles in chunks of " + ", ".join(
+              f"{_build.chunk_tiles(bk)} tiles at block_k {bk}" for bk in (128, 64, 32, 16))
+          + f" ({_build.CHUNK_KEYS} keys; set by block_k alone), grid (KV, B, chunks)",
+          flush=True)
     print("[kernels] kernel vs plain version on the card", flush=True)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     recs = {}

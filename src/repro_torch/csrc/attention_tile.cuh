@@ -1,5 +1,9 @@
 // Block-level online-softmax attention shared by the three attention kernels
-// (flash_attention.cu, flash_decode.cu, flash_decode_paged.cu).
+// (flash_attention.cu, flash_decode.cu, flash_decode_paged.cu): the masks,
+// row maps and tile addresses (Mask, RowMap, TileRef, ContigTiles,
+// PagedTiles) of both tile bodies, and attend_rows, the float FMA body of
+// the float32 routes (and of bfloat16 at shapes the tensor-core body of
+// attention_mma.cuh does not take).
 //
 // One thread block owns `rows` query rows that all read the same K/V head.
 // It walks KV tiles [t_lo, t_hi) of `bk` keys; for each tile it
@@ -17,9 +21,8 @@
 //
 // The row order of every reduction depends on the block's own rows and
 // tiles only: a slot's output never depends on the batch around it.
-//
-// Plain FMAs on float tiles in shared memory are the simple first form;
-// mma.sync / wgmma and TMA-fed pipelines are later work (ROADMAP.md).
+// Float32 stays on float FMAs: TF32 tensor-core products would not meet
+// the float32 routes' 1e-4 check.
 #pragma once
 
 #include <cuda_bf16.h>

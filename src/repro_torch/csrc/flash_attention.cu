@@ -7,21 +7,41 @@
 // h / n_rep; keys past Sk are masked (the reference's kv-length mask on
 // its padded tail).  Online softmax over KV tiles in float32.
 //
-// Layout: one block per (q tile, batch * head), grid (ceil(Sq/bq), B*H).
-// On the TPU the KV axis was the innermost, sequential grid dimension
-// carrying (m, l, acc) in VMEM; here a loop inside the block takes its
-// place, bounded by the tile range the block's rows can reach under the
-// causal / window mask, so unreachable tiles cost nothing.
+// Bound on the card, at the main path's shapes (qwen1.5-4b, 8 x 256, H 20,
+// hd 128, causal): q, k, v and out are 41.9 MB, 0.0125 ms at 3.35 TB/s,
+// against 2.7 GFLOP of products, 0.0027 ms at 989 TFLOP/s: bytes.  At
+// recurrentgemma-2b's 2 x 2048 (hd 256, MQA) the products bind (0.043 ms).
 //
-// Bound on the card: at prefill lengths of a few hundred tokens the
-// function moves q, k, v and out once (bytes) at about as many FLOPs per
-// byte as hd, below the ~295 FLOPs per byte of the bf16 tensor cores, so
-// the bound is bytes; at long prompts it becomes operations.  This first
-// form computes with float FMAs from shared memory, not with tensor cores,
-// so it is bound by those FMA loops; mma.sync / wgmma tiles are later work.
-#include "attention_tile.cuh"
+// bfloat16, hd 64/128/256 (attend_rows_mma, attention_mma.cuh): the products
+// run on the tensor cores (mma.sync m16n8k16) with K/V tiles brought in by
+// cp.async two stages deep, so a tile's copy overlaps the previous tile's
+// products, and the softmax state stays in registers.  A block owns 64 rows,
+// 16 per warp.  Its rows are G heads of one kv group interleaved with the
+// query positions (row i: position i / G, head hg * G + i % G of the group;
+// G is the largest divisor of n_rep up to 16): the block stages each K/V
+// tile once for all of its heads, and its causal/window tile range covers
+// only its 64 / G positions.  Grid (B * KV * n_rep / G, ceil(Sq * G / 64)),
+// the deepest row tiles first.  A stage whose keys all pass the mask for a
+// warp's rows skips the per-key test.  On the TPU the KV axis was the
+// innermost, sequential grid dimension carrying (m, l, acc) in VMEM; here a
+// loop inside the block takes its place, bounded by the tile range the
+// block's rows can reach.
+//
+// float32 (and bf16 at other head sizes or tiles that are not a multiple of
+// 16 keys) keeps attend_rows (attention_tile.cuh): one block per (q tile of
+// bq rows, batch * head), float FMAs from shared memory, held at 1e-4.
+#include "attention_mma.cuh"
 
 namespace repro {
+
+// Tiles [lo, hi) of bk keys that rows at positions first..last can reach.
+__device__ __forceinline__ int2 tile_range(int first, int last, int Sk, int bk, int causal,
+                                           int window) {
+  const int kv_end = causal ? min(Sk, last + 1) : Sk;
+  const int kv_begin = window > 0 ? max(0, first - window + 1) : 0;
+  const int lo = kv_begin / bk;
+  return make_int2(lo, kv_end > kv_begin ? (kv_end + bk - 1) / bk : lo);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -35,15 +55,37 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.x * bq;
   const int rows = min(bq, Sq - q0);
   const int first = q0 + q_offset;  // absolute positions of the tile's rows
-  const int last = first + rows - 1;
-  const int kv_end = causal ? min(Sk, last + 1) : Sk;
-  const int kv_begin = window > 0 ? max(0, first - window + 1) : 0;
-  const int t_lo = kv_begin / bk;
-  const int t_hi = kv_end > kv_begin ? (kv_end + bk - 1) / bk : t_lo;
+  const int2 tr = tile_range(first, first + rows - 1, Sk, bk, causal, window);
   const RowMap rm{(((size_t)b * Sq + q0) * H + h) * hd, 1, (size_t)H * hd};
   const Mask mask{first, 1, causal, window};
   const ContigTiles tiles{((size_t)b * Sk * KV + g) * hd, (size_t)KV * hd, nullptr, Sk, bk};
-  attend_rows<T, T>(q, out, rm, rows, k, v, tiles, t_lo, t_hi, bk, hd, scale, mask);
+  attend_rows<T, T>(q, out, rm, rows, k, v, tiles, tr.x, tr.y, bk, hd, scale, mask);
+}
+
+template <int HD, int KW>
+__global__ void __launch_bounds__(mma::kThreads)
+    flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV,
+                               int G, int bk, int sb, int causal, int window, int q_offset,
+                               float scale_log2) {
+  const int n_rep = H / KV, groups = n_rep / G;
+  const int bgh = blockIdx.x;  // (batch, kv head, head group)
+  const int b = bgh / (KV * groups), rest = bgh - b * KV * groups;
+  const int g = rest / groups, hg = rest - g * groups;
+  // Row tiles from the last: under a causal mask the deepest rows reach the
+  // most tiles, and they start first.
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * mma::kRows;
+  const int rows = min(mma::kRows, Sq * G - r0);
+  const int2 tr = tile_range(q_offset + r0 / G, q_offset + (r0 + rows - 1) / G, Sk, bk,
+                             causal, window);
+  const RowMap rm{((size_t)b * Sq * H + (size_t)g * n_rep + (size_t)hg * G) * HD, G,
+                  (size_t)H * HD};
+  const Mask mask{q_offset, G, causal, window};
+  const ContigTiles tiles{((size_t)b * Sk * KV + g) * HD, (size_t)KV * HD, nullptr, Sk, bk};
+  mma::attend_rows_mma<HD, KW>(q, out, mma::Partial{nullptr, nullptr}, rm, r0, rows, k, v,
+                               tiles, tr.x, tr.y, bk, sb, scale_log2, mask);
 }
 
 template <typename T>
@@ -62,19 +104,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
+template <int HD, int KW>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                       int Sk, int H, int KV, int G, int bk, const mma::Plan& p, int causal,
+                       int window, int q_offset, float scale, cudaStream_t stream) {
+  const size_t smem = mma::smem_bytes(p, HD);
+  auto kernel = flash_attention_mma_kernel<HD, KW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * KV * (H / KV / G), (Sq * G + mma::kRows - 1) / mma::kRows);
+  kernel<<<grid, mma::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
+      G, bk, p.sb, causal, window, q_offset, scale * mma::kLog2e);
+  return cudaGetLastError();
+}
+
+// Heads of one kv group that share a block of the bf16 route.
+inline int heads_per_block(int n_rep) {
+  int G = 1;
+  for (int d = 1; d <= n_rep && d <= 16; ++d)
+    if (n_rep % d == 0) G = d;
+  return G;
+}
+
 }  // namespace repro
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t value.
+// dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 at hd 64/128/256 with bk
+// a multiple of 16 runs the tensor-core body (bq is then the fixed 64 rows of
+// a block); everything else runs attend_rows.  Returns a cudaError_t value.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Sq, int Sk, int H, int KV, int hd, int bq,
                                       int bk, int causal, int window, int q_offset,
                                       float scale, int dtype, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || bq <= 0 ||
-      bq > kMaxRows || bk <= 0 || bk > kMaxBlockK || (long long)B * H > 65535 ||
-      smem_bytes(bq, hd, bk) > kMaxSmem)
+      bq > kMaxRows || bk <= 0 || bk > kMaxBlockK)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
+  const mma::Plan p = mma::plan(mma::kRows, bk, hd);
+  if (dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256)) {
+    const int G = heads_per_block(H / KV);
+    if ((Sq * G + mma::kRows - 1) / mma::kRows > 65535 || mma::smem_bytes(p, hd) > kMaxSmem)
+      return cudaErrorInvalidValue;
+#define REPRO_FA_MMA(HD_, KW_)                                                              \
+  if (hd == HD_ && p.kw == KW_)                                                             \
+    return launch_mma<HD_, KW_>(q, k, v, out, B, Sq, Sk, H, KV, G, bk, p, causal, window,  \
+                                q_offset, scale, st);
+    REPRO_FA_MMA(64, 16) REPRO_FA_MMA(64, 32) REPRO_FA_MMA(64, 64)
+    REPRO_FA_MMA(128, 16) REPRO_FA_MMA(128, 32) REPRO_FA_MMA(128, 64)
+    REPRO_FA_MMA(256, 16) REPRO_FA_MMA(256, 32)
+#undef REPRO_FA_MMA
+    return cudaErrorInvalidValue;
+  }
+  if ((long long)B * H > 65535 || smem_bytes(bq, hd, bk) > kMaxSmem)
+    return cudaErrorInvalidValue;
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd, bq, bk, causal, window,
                                  q_offset, scale, st);

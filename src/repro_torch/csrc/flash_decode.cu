@@ -7,21 +7,36 @@
 // axis, rows = Sq * n_rep, so each K/V tile is read once for its whole
 // query-head group.
 //
-// Layout: one block per (kv head, slot), grid (KV, B).  The block loops over
-// its slot's first nt[b] KV tiles, nt read from device memory: that loop
-// bound replaces the TPU's index-map clamp plus pl.when, and nothing is
-// synchronised with the host.  A slot's reduction order depends on the slot
-// alone (no split-K whose split count follows the batch).
+// Bound on the card: bytes.  A step reads each needed K/V tile once; at the
+// main path's last step (qwen1.5-4b: B 8, 288 keys, KV 20, hd 128) that is
+// 23.6 MB, 0.0070 ms at 3.35 TB/s, at ~2 * rows FLOPs per value read, far
+// below the ~295 FLOPs per byte where the tensor cores would bind.  At
+// recurrentgemma-2b's (KV 1, hd 256) it is 2.4 MB, 0.0007 ms.
 //
-// Bound on the card: bytes.  Every decode step reads each needed K/V tile
-// once (B * KV * needed keys * hd * 2 values) and does ~2 * rows FLOPs per
-// value read, far below the ~295 FLOPs per byte where the tensor cores would
-// bind.  This first form reads each K/V element once into shared memory and
-// never again from device memory; its speed is limited by the plain FMA
-// loops over shared memory and by one block per (slot, kv head), which
-// leaves SMs idle at small batch.  Split-KV across blocks would break the
-// per-slot reduction order and is not used.
-#include "attention_tile.cuh"
+// bfloat16 queries (hd 64/128/256, bk a multiple of 16) run the tensor-core
+// body (attend_rows_mma, attention_mma.cuh) with a batch-invariant split
+// over the keys, so that a few slots and kv heads still fill the card:
+// - a slot's needed tiles are cut into chunks of chunk_tiles(bk) =
+//   256 / bk tiles (one tile when bk >= 256), a number set by bk alone;
+// - grid (KV, B, chunks), chunks = ceil(ceil(S / bk) / chunk_tiles) from the
+//   host's S; every block counts its slot's needed tiles nt[b] from kpos
+//   (block_needed_tiles: on the device, no host sync, no extra launch), and
+//   a block whose chunk starts at or past nt[b] exits;
+// - with one chunk the block writes its rows; otherwise every chunk writes
+//   its partial (m, l, acc) to scratch and combine_chunks_kernel merges a
+//   slot's chunks in ascending order.
+// So a slot's sums run in an order set by (rows, bk, hd) alone: its output is
+// bitwise the same whatever batch it is decoded in.  Inside a block the
+// rows are padded to 16 and every row count runs the mma fragments, also
+// one row (qwen1.5-4b, no GQA): the step is bound by its bytes, and the
+// padded products of a 64-key stage take a fraction of the stage's copy.
+// When rows fit one row group, the block's four warps split each stage's keys
+// (ks key parts) and merge them in fixed order at the end.  A float32 cache
+// under bf16 queries is rounded to bf16 on its way into shared memory.
+//
+// float32 queries (and bf16 at other head sizes or tiles) keep attend_rows
+// (attention_tile.cuh), one block per (kv head, slot), grid (KV, B).
+#include "attention_mma.cuh"
 
 namespace repro {
 
@@ -42,6 +57,33 @@ __global__ void __launch_bounds__(kThreads)
   attend_rows<TQ, TKV>(q, out, rm, sq * n_rep, k, v, tiles, 0, nt[b], bk, hd, scale, mask);
 }
 
+template <int HD, int KW, typename TKV>
+__global__ void __launch_bounds__(mma::kThreads)
+    flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q, const TKV* __restrict__ k,
+                            const TKV* __restrict__ v, const int* __restrict__ kpos,
+                            const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
+                            float* __restrict__ part_acc, float* __restrict__ part_ml,
+                            int* __restrict__ part_nt, int S, int sq, int H, int KV, int bk,
+                            int sb, int window, float scale_log2, int chunk_tiles,
+                            int chunks) {
+  const int g = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+  const int n_rep = H / KV, rows = sq * n_rep;
+  const int n_t = mma::block_needed_tiles(mma::ContigKeyPos{kpos + (size_t)b * S}, S, bk,
+                                          pos[b], sq, window);
+  if (c == 0 && chunks > 1 && threadIdx.x == 0) part_nt[b * KV + g] = n_t;
+  const int t_lo = c * chunk_tiles;
+  if (t_lo >= n_t) return;
+  const RowMap rm{((size_t)b * sq * H + (size_t)g * n_rep) * HD, n_rep, (size_t)H * HD};
+  const Mask mask{pos[b], n_rep, 1, window};
+  const ContigTiles tiles{((size_t)b * S * KV + g) * HD, (size_t)KV * HD,
+                          kpos + (size_t)b * S, S, bk};
+  const size_t slot = (((size_t)b * KV + g) * chunks + c) * rows;
+  const mma::Partial part = chunks > 1 ? mma::Partial{part_acc + slot * HD, part_ml + slot * 2}
+                                       : mma::Partial{nullptr, nullptr};
+  mma::attend_rows_mma<HD, KW>(q, out, part, rm, 0, rows, k, v, tiles, t_lo,
+                               min(t_lo + chunk_tiles, n_t), bk, sb, scale_log2, mask);
+}
+
 template <typename TQ, typename TKV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kpos,
                    const void* pos, const void* nt, void* out, int B, int S, int sq, int H,
@@ -59,20 +101,76 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kpos
   return cudaGetLastError();
 }
 
+template <int HD, int KW, typename TKV>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* kpos,
+                       const void* pos, void* out, void* scratch, int B,
+                       int S, int sq, int H, int KV, int bk, const mma::Plan& p, int window,
+                       float scale, int chunks, cudaStream_t stream) {
+  const size_t smem = mma::smem_bytes(p, HD);
+  auto kernel = flash_decode_mma_kernel<HD, KW, TKV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int rows = sq * (H / KV);
+  float* acc = static_cast<float*>(scratch);
+  float* ml = acc ? acc + (size_t)B * KV * chunks * rows * HD : nullptr;
+  int* part_nt = acc ? reinterpret_cast<int*>(ml + (size_t)B * KV * chunks * rows * 2) : nullptr;
+  const int ct = mma::chunk_tiles(bk);
+  kernel<<<dim3(KV, B, chunks), mma::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
+      static_cast<const TKV*>(v), static_cast<const int*>(kpos), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), acc, ml, part_nt, S, sq, H, KV, bk, p.sb, window,
+      scale * mma::kLog2e, ct, chunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || chunks == 1) return err;
+  const dim3 grid(KV, B, (rows * HD + mma::kThreads - 1) / mma::kThreads);
+  mma::combine_chunks_kernel<<<grid, mma::kThreads, 0, stream>>>(
+      acc, ml, part_nt, static_cast<__nv_bfloat16*>(out), sq, H, KV, HD, ct, chunks);
+  return cudaGetLastError();
+}
+
 }  // namespace repro
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t value.
+// dtype codes: 0 = float32, 1 = bfloat16.  `nt` (B) is needed_tiles, read
+// by the attend_rows route; the tensor-core route counts each slot's tiles
+// itself and ignores it.  `chunks` is that route's key-chunk count
+// (ceil(ceil(S / bk) / chunk_tiles(bk)); 1 on the attend_rows route); with
+// chunks > 1, `scratch` holds B * KV * (chunks * rows * (hd + 2) + 1)
+// 4-byte words.  Returns a cudaError_t value.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                    const void* kpos, const void* pos, const void* nt,
-                                   void* out, int B, int S, int sq, int H, int KV, int hd,
-                                   int bk, int window, float scale, int q_dtype,
-                                   int kv_dtype, void* stream) {
+                                   void* out, void* scratch, int B, int S, int sq, int H,
+                                   int KV, int hd, int bk, int window, float scale,
+                                   int q_dtype, int kv_dtype, int chunks, void* stream) {
   using namespace repro;
   if (B <= 0 || S <= 0 || sq <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || bk <= 0 ||
-      bk > kMaxBlockK || sq * (H / KV) > kMaxRows || B > 65535 ||
-      smem_bytes(sq * (H / KV), hd, bk) > kMaxSmem)
+      bk > kMaxBlockK || sq * (H / KV) > kMaxRows || B > 65535)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
+  const int rows = sq * (H / KV);
+  const mma::Plan p = mma::plan(rows, bk, hd);
+  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256) &&
+      (kv_dtype == 0 || kv_dtype == 1)) {
+    const int want = ((S + bk - 1) / bk + mma::chunk_tiles(bk) - 1) / mma::chunk_tiles(bk);
+    if (chunks != want || (chunks > 1 && !scratch) || chunks > 65535 ||
+        mma::smem_bytes(p, hd) > kMaxSmem)
+      return cudaErrorInvalidValue;
+#define REPRO_FD_MMA(HD_, KW_)                                                               \
+  if (hd == HD_ && p.kw == KW_) {                                                            \
+    if (kv_dtype == 1)                                                                       \
+      return launch_mma<HD_, KW_, __nv_bfloat16>(q, k, v, kpos, pos, out, scratch, B, S,     \
+                                                 sq, H, KV, bk, p, window, scale, chunks,    \
+                                                 st);                                        \
+    return launch_mma<HD_, KW_, float>(q, k, v, kpos, pos, out, scratch, B, S, sq, H, KV,   \
+                                       bk, p, window, scale, chunks, st);                    \
+  }
+    REPRO_FD_MMA(64, 16) REPRO_FD_MMA(64, 32) REPRO_FD_MMA(64, 64)
+    REPRO_FD_MMA(128, 16) REPRO_FD_MMA(128, 32) REPRO_FD_MMA(128, 64)
+    REPRO_FD_MMA(256, 16) REPRO_FD_MMA(256, 32)
+#undef REPRO_FD_MMA
+    return cudaErrorInvalidValue;
+  }
+  if (chunks != 1 || smem_bytes(rows, hd, bk) > kMaxSmem) return cudaErrorInvalidValue;
   if (q_dtype == 1 && kv_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, kpos, pos, nt, out, B, S, sq, H,
                                                 KV, hd, bk, window, scale, st);

@@ -36,6 +36,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROWS = 64
 MAX_BLOCK_K = 128
 MAX_SMEM = 232448
+# The tensor-core tile body of the bfloat16 attention routes (attention_mma.cuh).
+MMA_WARPS = 4
+MMA_ROWS = 16 * MMA_WARPS  # query rows of one block
+MMA_PAD = 8                # bf16 padding of a staged K/V/Q row
+MMA_HEAD_DIMS = (64, 128, 256)
+CHUNK_KEYS = 256           # keys of one decode chunk
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -52,6 +58,55 @@ def reset_launches() -> None:
 def smem_bytes(rows: int, hd: int, bk: int) -> int:
     """Dynamic shared memory of one block, as ``smem_bytes`` in the header."""
     return 4 * (2 * rows * hd + bk * (hd + 1) + rows * bk + 3 * rows) + 4 * bk
+
+
+def mma_plan(rows: int, bk: int, hd: int):
+    """How the tensor-core body splits a tile of ``bk`` keys for a block of
+    ``rows`` query rows (in row groups of 16), as ``mma::plan`` in
+    attention_mma.cuh: ``(ks, sb, kw)`` -- key parts, keys per stage (the
+    largest of 64, 32, 16 dividing bk with kw = sb / ks keys per warp,
+    kw <= 32 at hd > 128) -- or None when bk is not a multiple of 16."""
+    rg = -(-rows // 16)
+    rgp = 1 if rg <= 1 else 2 if rg <= 2 else 4
+    kw_max = 32 if hd > 128 else 64
+    for sb in (64, 32, 16):
+        if bk % sb:
+            continue
+        ks = min(MMA_WARPS // rgp, sb // 16)
+        if sb // ks <= kw_max:
+            return ks, sb, sb // ks
+    return None
+
+
+def mma_smem_bytes(rows: int, bk: int, hd: int) -> int:
+    """Dynamic shared memory of one tensor-core block (``mma::smem_bytes``):
+    Q rows, the two-stage K/V ring (or the key parts' merge buffer, which
+    reuses it), the staged key positions and the two stages' position spans."""
+    ks, sb, _ = mma_plan(rows, bk, hd)
+    q = (MMA_ROWS // ks) * (hd + MMA_PAD) * 2
+    ring = 4 * sb * (hd + MMA_PAD) * 2
+    merge = MMA_WARPS * 16 * (hd + 2) * 4 if ks > 1 else 0
+    return q + max(ring, merge) + 2 * sb * 4 + 16
+
+
+def uses_mma(dtype: torch.dtype, rows: int, bk: int, hd: int) -> bool:
+    """Whether a bfloat16 launch runs the tensor-core body (attention_mma.cuh)
+    rather than attend_rows: bfloat16 queries, hd in ``MMA_HEAD_DIMS`` and
+    bk a multiple of 16."""
+    return (dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+            and mma_plan(rows, bk, hd) is not None)
+
+
+def chunk_tiles(bk: int) -> int:
+    """Tiles of one decode key chunk: ``CHUNK_KEYS // bk`` (at least 1), set
+    by the tile size alone, never by the batch or the cache length."""
+    return max(1, CHUNK_KEYS // bk)
+
+
+def key_chunks(n_tiles: int, bk: int) -> int:
+    """Key chunks of a decode launch over ``n_tiles`` tiles of ``bk`` keys:
+    the grid's third axis."""
+    return -(-n_tiles // chunk_tiles(bk))
 
 
 def _nvcc() -> str:

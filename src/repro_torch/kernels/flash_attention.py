@@ -12,9 +12,16 @@ on CUDA tensors and runs ``flash_attention_plain``, the same tiles and masks
 as a loop in PyTorch, on CPU tensors.  Forward only: the backward waits for
 the training slice (ROADMAP.md).
 
-Tiles are 64 x 64 by default (the TPU kernel's are 128 x 128): a block keeps
-its float q rows, accumulator, scores and one K/V tile in shared memory, and
-at hd 128 a 64 x 64 tile pair needs 116 KB of the 227 KB a block may use.
+The kernel has two bodies (:func:`launch_plan` says which a shape takes):
+
+- bfloat16 at hd 64/128/256 runs on the tensor cores (``mma.sync``, K/V
+  tiles by ``cp.async`` two stages deep, ``csrc/attention_mma.cuh``): a
+  block owns 64 rows, 16 per warp, which interleave the query positions
+  with G heads of one kv group (G the largest divisor of n_rep up to 16);
+  ``block_q`` does not apply, ``block_k`` sets the tile range's grain;
+- float32, and bfloat16 at other head sizes, runs the float FMA body
+  (``attend_rows``) on tiles of ``block_q`` x ``block_k`` (64 x 64 by
+  default; the TPU kernel's are 128 x 128).
 """
 from __future__ import annotations
 
@@ -78,6 +85,45 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return out
 
 
+def heads_per_block(n_rep: int) -> int:
+    """Heads of one kv group that share a tensor-core block: the largest
+    divisor of n_rep up to 16 (``heads_per_block`` in the source)."""
+    return max(d for d in range(1, min(n_rep, 16) + 1) if n_rep % d == 0)
+
+
+def launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype, *,
+                block_q: int = 64, block_k: int = 64) -> dict:
+    """Shape admission of the CUDA kernel, as ``flash_attention_launch``
+    checks it: the body (``"mma"`` or ``"fma"``), tile sizes, grid and
+    dynamic shared memory of a launch.  Raises ValueError on a shape the
+    kernel cannot take.  Pure: the CPU tests call it."""
+    from repro_torch.kernels import _build
+
+    req = _build.require
+    req(min(b, sq, sk, h, kv, hd) > 0, "empty shape")
+    req(h % kv == 0, f"H={h} is not a multiple of KV={kv}")
+    req(dtype in _build.DTYPE_CODES, f"kernel takes float32 or bfloat16, got {dtype}")
+    req(hd * (4 if dtype == torch.float32 else 2) % 16 == 0,
+        f"hd={hd}: rows must be whole 16-byte vectors (the kernel's loads)")
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    req(0 < bq <= _build.MAX_ROWS, f"block_q={bq} outside 1..{_build.MAX_ROWS}")
+    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
+    if _build.uses_mma(dtype, _build.MMA_ROWS, bk, hd):
+        g = heads_per_block(h // kv)
+        grid = (b * h // g, -(-sq * g // _build.MMA_ROWS))
+        smem = _build.mma_smem_bytes(_build.MMA_ROWS, bk, hd)
+        plan = dict(route="mma", rows=_build.MMA_ROWS, heads_per_block=g,
+                    stage_keys=_build.mma_plan(_build.MMA_ROWS, bk, hd)[1])
+    else:
+        grid = (-(-sq // bq), b * h)
+        smem = _build.smem_bytes(bq, hd, bk)
+        plan = dict(route="fma", rows=bq)
+    req(grid[1] <= 65535, f"{grid[1]} blocks on the grid's second axis > 65535")
+    req(grid[0] < 2**31, f"{grid[0]} blocks on the grid's first axis")
+    req(smem <= _build.MAX_SMEM, f"hd={hd} too wide: {smem} bytes of shared memory")
+    return dict(plan, block_q=bq, block_k=bk, grid=grid, smem=smem)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
                     block_q: int = 64, block_k: int = 64):
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) with H % KV == 0, one dtype
@@ -101,29 +147,25 @@ def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, block_q, block_k
 
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    bq, bk = min(block_q, sq), min(block_k, sk)
     req = _build.require
     req(k.device == q.device and v.device == q.device, "all tensors on one device")
     req(k.shape == v.shape and k.shape[0] == b and k.shape[3] == hd,
         f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    req(h % kvh == 0, f"H={h} is not a multiple of KV={kvh}")
     req(q.dtype == k.dtype == v.dtype, "q, k and v share one dtype")
-    req(hd * k.element_size() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
-        "k/v rows must be whole, 16-byte aligned 16-byte vectors (the kernel's loads)")
+    plan = launch_plan(b, sq, sk, h, kvh, hd, q.dtype, block_q=block_q, block_k=block_k)
+    loaded = (q, k, v) if plan["route"] == "mma" else (k, v)  # by 16-byte copies
+    req(all(t.data_ptr() % 16 == 0 for t in loaded),
+        "q (tensor-core body) and k/v must be 16-byte aligned (the kernel's loads)")
     req(all(t.is_contiguous() for t in (q, k, v)), "contiguous tensors")
-    req(0 < bq <= _build.MAX_ROWS, f"block_q={bq} outside 1..{_build.MAX_ROWS}")
-    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
-    req(b * h <= 65535, f"B*H={b * h} > 65535 blocks")
-    req(_build.smem_bytes(bq, hd, bk) <= _build.MAX_SMEM, f"hd={hd} too wide")
-    code = _build.dtype_code(q)
     out = torch.empty_like(q)
     fn = _build.kernel_fn("flash_attention", "flash_attention_launch",
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
                           + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, sk, h, kvh, hd, bq, bk, int(causal), window, q_offset,
-                 hd ** -0.5, code, torch.cuda.current_stream().cuda_stream)
+                 b, sq, sk, h, kvh, hd, plan["block_q"], plan["block_k"], int(causal), window,
+                 q_offset, hd ** -0.5, _build.dtype_code(q),
+                 torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention", err)
     _build.LAUNCHES["flash_attention"] += 1
     return out

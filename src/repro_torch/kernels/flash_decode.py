@@ -10,14 +10,23 @@ vector ``kpos`` (−1 = empty) and per-slot positions ``pos``:
 - **Position masking.**  Row j of slot b attends ``0 <= kpos <= pos[b]+j``
   (and ``kpos > pos[b]+j-window`` for rolling caches).
 - **Per-slot tile skip.**  ``needed_tiles`` (on the device, no host sync)
-  counts the KV tiles a slot needs; the kernel loops over that many.
+  counts the KV tiles a slot needs and the kernel loops over that many; the
+  tensor-core body counts them the same way inside the kernel.
 
 A row with no valid keys returns exact zeros.  A slot's reduction order is
 its own, whatever batch it shares the call with.
 
 ``flash_decode`` launches the CUDA kernel (``csrc/flash_decode.cu``) on CUDA
 tensors and runs ``flash_decode_plain``, the same tiles and masks as a
-loop in PyTorch, on CPU tensors.
+loop in PyTorch, on CPU tensors.  On the card, bfloat16 queries at hd
+64/128/256 run the tensor-core body with a split over the keys: each slot's
+needed tiles are cut into chunks of ``chunk_tiles(block_k)`` tiles (256
+keys), one block per (kv head, slot, chunk), and a second small kernel
+merges a slot's chunk partials in ascending order.  The chunk size depends
+on ``block_k`` alone, so the split keeps every slot's result bitwise
+independent of the batch; ``flash_decode_paged`` at ``block_k = bl`` takes
+the same chunks.  :func:`launch_plan` and :func:`paged_launch_plan` give
+the body, chunk plan and shared memory of a launch.
 """
 from __future__ import annotations
 
@@ -97,6 +106,57 @@ def flash_decode_plain(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 12
             .reshape(b, sq, h, hd).to(q.dtype))
 
 
+def _plan(b, n_tiles, bk, sq, h, kv, hd, q_dtype, kv_dtype) -> dict:
+    from repro_torch.kernels import _build
+
+    req = _build.require
+    req(min(b, sq, h, kv, hd) > 0, "empty shape")
+    req(h % kv == 0, f"H={h} is not a multiple of KV={kv}")
+    for dt in (q_dtype, kv_dtype):
+        req(dt in _build.DTYPE_CODES, f"kernel takes float32 or bfloat16, got {dt}")
+    req(hd * (4 if kv_dtype == torch.float32 else 2) % 16 == 0,
+        f"hd={hd}: k/v rows must be whole 16-byte vectors (the kernel's loads)")
+    rows = sq * (h // kv)
+    req(rows <= _build.MAX_ROWS, f"Sq*n_rep={rows} > {_build.MAX_ROWS} rows")
+    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
+    req(b <= 65535, f"B={b} > 65535 blocks")
+    if _build.uses_mma(q_dtype, rows, bk, hd):
+        chunks = _build.key_chunks(n_tiles, bk)
+        ks, sb, _ = _build.mma_plan(rows, bk, hd)
+        plan = dict(route="mma", chunk_tiles=_build.chunk_tiles(bk), chunks=chunks,
+                    grid=(kv, b, chunks), key_parts=ks, stage_keys=sb,
+                    smem=_build.mma_smem_bytes(rows, bk, hd),
+                    scratch_floats=b * kv * (chunks * rows * (hd + 2) + 1) if chunks > 1
+                    else 0)
+    else:
+        plan = dict(route="fma", chunk_tiles=n_tiles, chunks=1, grid=(kv, b),
+                    smem=_build.smem_bytes(rows, hd, bk), scratch_floats=0)
+    req(plan["smem"] <= _build.MAX_SMEM, f"hd={hd} too wide: {plan['smem']} bytes of "
+        f"shared memory")
+    return dict(plan, rows=rows, block_k=bk, tiles=n_tiles)
+
+
+def launch_plan(b: int, s: int, sq: int, h: int, kv: int, hd: int, q_dtype, kv_dtype, *,
+                block_k: int = 128) -> dict:
+    """Shape admission of the ``flash_decode`` kernel, as
+    ``flash_decode_launch`` checks it: the body (``"mma"`` or ``"fma"``),
+    the tile size ``min(block_k, S)``, the key-chunk plan (``chunk_tiles``
+    per chunk, ``chunks`` on the grid's third axis, from S on the host), the
+    grid, the dynamic shared memory and the float32 scratch of the chunk
+    partials.  Raises ValueError on a shape the kernel cannot take.  Pure:
+    the CPU tests call it."""
+    bk = min(block_k, s)
+    return _plan(b, -(-s // bk), bk, sq, h, kv, hd, q_dtype, kv_dtype)
+
+
+def paged_launch_plan(b: int, nmax: int, bl: int, sq: int, h: int, kv: int, hd: int,
+                      q_dtype, kv_dtype) -> dict:
+    """:func:`launch_plan` of ``flash_decode_paged``: ``nmax`` tiles of
+    ``bl`` keys, the plan of ``flash_decode`` at ``block_k = bl`` on the
+    gathered (B, nmax·bl) layout."""
+    return _plan(b, nmax, bl, sq, h, kv, hd, q_dtype, kv_dtype)
+
+
 def flash_decode(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 128):
     """q: (B,Sq,H,hd); k/v: (B,S,KV,hd) with H % KV == 0 (float32 or
     bfloat16 storage, cast to q's dtype in the load); kpos: (B,S) int32;
@@ -118,33 +178,34 @@ def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
 
     b, sq, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    bk = min(block_k, s)
-    rows = sq * (h // max(kvh, 1))
     req = _build.require
     req(all(t.device == q.device for t in (k, v, kpos, pos)), "all tensors on one device")
     req(k.shape == v.shape and k.shape[0] == b and k.shape[3] == hd,
         f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    req(h % kvh == 0, f"H={h} is not a multiple of KV={kvh}")
     req(tuple(kpos.shape) == (b, s) and tuple(pos.shape) == (b,), "kpos (B,S), pos (B,)")
     req(k.dtype == v.dtype, "k and v share one storage dtype")
-    req(hd * k.element_size() % 16 == 0 and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
-        "k/v rows must be whole, 16-byte aligned 16-byte vectors (the kernel's loads)")
+    plan = launch_plan(b, s, sq, h, kvh, hd, q.dtype, k.dtype, block_k=block_k)
+    loaded = (q, k, v) if plan["route"] == "mma" else (k, v)  # by 16-byte copies
+    req(all(t.data_ptr() % 16 == 0 for t in loaded),
+        "q (tensor-core body) and k/v must be 16-byte aligned (the kernel's loads)")
     req(kpos.dtype == torch.int32 and pos.dtype == torch.int32, "kpos/pos are int32")
     req(all(t.is_contiguous() for t in (q, k, v, kpos, pos)), "contiguous tensors")
-    req(rows <= _build.MAX_ROWS, f"Sq*n_rep={rows} > {_build.MAX_ROWS} rows")
-    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
-    req(_build.smem_bytes(rows, hd, bk) <= _build.MAX_SMEM, f"hd={hd} too wide")
-    codes = _build.dtype_code(q), _build.dtype_code(k)
-    nt = needed_tiles(kpos, pos, window=window, block_k=bk, sq=sq)
+    bk = plan["block_k"]
+    # The tensor-core route counts each slot's tiles on the device itself.
+    nt = (needed_tiles(kpos, pos, window=window, block_k=bk, sq=sq)
+          if plan["route"] == "fma" else None)
     out = torch.empty_like(q)
+    scratch = (torch.empty(plan["scratch_floats"], dtype=torch.float32, device=q.device)
+               if plan["scratch_floats"] else None)
     fn = _build.kernel_fn("flash_decode", "flash_decode_launch",
-                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
-                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                          + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-                 pos.data_ptr(), nt.data_ptr(), out.data_ptr(),
-                 b, s, sq, h, kvh, hd, bk, window, hd ** -0.5, *codes,
-                 torch.cuda.current_stream().cuda_stream)
+                 pos.data_ptr(), nt.data_ptr() if nt is not None else None, out.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 b, s, sq, h, kvh, hd, bk, window, hd ** -0.5, _build.dtype_code(q),
+                 _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode", err)
     _build.LAUNCHES["flash_decode"] += 1
     return out
@@ -201,40 +262,40 @@ def _flash_decode_paged_cuda(q, k, v, kpos, tables, pos, *, window):
     b, sq, h, hd = q.shape
     n, bl, kvh = k.shape[0], k.shape[1], k.shape[2]
     nmax = tables.shape[1]
-    rows = sq * (h // max(kvh, 1))
     esz = k.element_size()
     req = _build.require
     req(all(t.device == q.device for t in (k, v, kpos, tables, pos)), "all tensors on one device")
     req(k.shape == v.shape and k.ndim == 4 and k.shape[3] == hd,
         f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
-    req(h % kvh == 0, f"H={h} is not a multiple of KV={kvh}")
     req(k.dtype == v.dtype and k.stride() == v.stride(), "k and v share one dtype and layout")
+    plan = paged_launch_plan(b, nmax, bl, sq, h, kvh, hd, q.dtype, k.dtype)
     req(tuple(k.stride()[1:]) == (kvh * hd, hd, 1),
         "each block's (bl, KV, hd) keys must be contiguous")
-    req(hd * esz % 16 == 0 and k.stride(0) * esz % 16 == 0
-        and k.data_ptr() % 16 == 0 and v.data_ptr() % 16 == 0,
-        "k/v rows and blocks must be 16-byte aligned (the kernel's loads)")
+    loaded = (q, k, v) if plan["route"] == "mma" else (k, v)  # by 16-byte copies
+    req(k.stride(0) * esz % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in loaded),
+        "q (tensor-core body) and the k/v blocks must be 16-byte aligned (the kernel's loads)")
     req(tuple(kpos.shape) == (n, bl) and kpos.stride(1) == 1, "kpos (N, bl), unit stride in a block")
     req(tuple(tables.shape) == (b, nmax) and tuple(pos.shape) == (b,), "tables (B,nmax), pos (B,)")
     req(all(t.dtype == torch.int32 for t in (kpos, tables, pos)), "kpos/tables/pos are int32")
     req(all(t.is_contiguous() for t in (q, tables, pos)), "q, tables and pos contiguous")
-    req(rows <= _build.MAX_ROWS, f"Sq*n_rep={rows} > {_build.MAX_ROWS} rows")
-    req(0 < bl <= _build.MAX_BLOCK_K, f"block_len={bl} outside 1..{_build.MAX_BLOCK_K}")
-    req(_build.smem_bytes(rows, hd, bl) <= _build.MAX_SMEM, f"hd={hd} too wide")
-    codes = _build.dtype_code(q), _build.dtype_code(k)
-    # Needed tiles on the device from the table-gathered positions: the
-    # tile-skip math of the contiguous kernel on each slot's logical view.
-    nt = needed_tiles(gather_pool(kpos, tables), pos, window=window, block_k=bl, sq=sq)
+    # Needed tiles on the device from the table-gathered positions (the
+    # tile-skip math of the contiguous kernel on each slot's logical view);
+    # the tensor-core route counts them through the table inside the kernel.
+    nt = (needed_tiles(gather_pool(kpos, tables), pos, window=window, block_k=bl, sq=sq)
+          if plan["route"] == "fma" else None)
     out = torch.empty_like(q)
+    scratch = (torch.empty(plan["scratch_floats"], dtype=torch.float32, device=q.device)
+               if plan["scratch_floats"] else None)
     fn = _build.kernel_fn("flash_decode_paged", "flash_decode_paged_launch",
-                          [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
-                          + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p])
+                          [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 2
+                          + [ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 3
+                          + [ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(), tables.data_ptr(),
-                 pos.data_ptr(), nt.data_ptr(), out.data_ptr(), b, nmax, bl, sq, h, kvh, hd,
-                 k.stride(0), kpos.stride(0), window, hd ** -0.5, *codes,
-                 torch.cuda.current_stream().cuda_stream)
+                 pos.data_ptr(), nt.data_ptr() if nt is not None else None, out.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None, b, nmax, bl, sq, h, kvh,
+                 hd, k.stride(0), kpos.stride(0), window, hd ** -0.5, _build.dtype_code(q),
+                 _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode_paged", err)
     _build.LAUNCHES["flash_decode_paged"] += 1
     return out

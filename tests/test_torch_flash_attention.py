@@ -93,3 +93,67 @@ def test_non_cpu_non_cuda_tensor_raises():
     q = torch.empty((1, 4, 2, 8), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q)
+
+
+# Shapes the card launches (chip_smoke.py's kernel cases and its main
+# paths' prefills): b, sq, sk, h, kv, hd, dtype, the body they must take.
+CHIP_SHAPES = {
+    "qwen1.5-4b prefill (main path, served)": (8, 256, 256, 20, 20, 128, "bfloat16", "mma"),
+    "qwen1.5-4b f32": (8, 256, 256, 20, 20, 128, "float32", "fma"),
+    "internlm2-20b widths": (2, 256, 256, 48, 8, 128, "bfloat16", "mma"),
+    "unaligned 300": (2, 300, 300, 20, 20, 128, "bfloat16", "mma"),
+    "q_offset 256": (2, 64, 320, 48, 8, 128, "bfloat16", "mma"),
+    "bidirectional 192": (2, 192, 192, 20, 20, 128, "bfloat16", "mma"),
+    "recurrentgemma-2b 8 x 256": (8, 256, 256, 10, 1, 256, "bfloat16", "mma"),
+    "recurrentgemma-2b 2 x 2048": (2, 2048, 2048, 10, 1, 256, "bfloat16", "mma"),
+    "recurrentgemma-2b 2 x 300": (2, 300, 300, 10, 1, 256, "bfloat16", "mma"),
+    "hd 256 f32": (2, 256, 256, 10, 1, 256, "float32", "fma"),
+}
+
+
+@pytest.mark.parametrize("name", list(CHIP_SHAPES))
+def test_launch_plan_admits_chip_shapes(name):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import heads_per_block, launch_plan
+
+    b, sq, sk, h, kv, hd, dtype, route = CHIP_SHAPES[name]
+    plan = launch_plan(b, sq, sk, h, kv, hd, getattr(torch, dtype))
+    assert plan["route"] == route
+    assert plan["smem"] <= _build.MAX_SMEM and plan["grid"][1] <= 65535
+    if route == "mma":
+        g = heads_per_block(h // kv)
+        assert plan["rows"] == _build.MMA_ROWS and (h // kv) % g == 0
+        # Every (position, head) row of the batch has one block.
+        assert plan["grid"] == (b * h // g, -(-sq * g // 64))
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 64, 64, 4, 3, 128, torch.bfloat16), "multiple of KV"),
+    ((1, 64, 64, 4, 4, 1024, torch.float32), "too wide"),
+    ((1, 64, 64, 4, 4, 6, torch.float32), "16-byte"),
+    ((1, 64, 64, 4, 4, 128, torch.float16), "float32 or bfloat16"),
+    ((70000, 64, 64, 1, 1, 128, torch.float32), "65535"),
+], ids=["gqa-ratio", "f32-too-wide", "unaligned-rows", "fp16", "grid"])
+def test_launch_plan_rejects(args, match):
+    from repro_torch.kernels.flash_attention import launch_plan
+
+    with pytest.raises(ValueError, match=match):
+        launch_plan(*args)
+
+
+@pytest.mark.parametrize("hd,block_k,route", [(128, 64, "mma"), (256, 64, "mma"),
+                                              (64, 32, "mma"), (96, 64, "fma"),
+                                              (128, 40, "fma")])
+def test_launch_plan_route_and_stages(hd, block_k, route):
+    """bf16 takes the tensor-core body at hd 64/128/256 and tiles of a
+    multiple of 16 keys; stages stay within the registers' reach (at most
+    32 keys a warp at hd 256)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import launch_plan
+
+    plan = launch_plan(2, 128, 128, 4, 4, hd, torch.bfloat16, block_k=block_k)
+    assert plan["route"] == route
+    if route == "mma":
+        ks, sb, kw = _build.mma_plan(64, block_k, hd)
+        assert (ks, plan["stage_keys"]) == (1, sb) and block_k % sb == 0
+        assert kw <= (32 if hd > 128 else 64)

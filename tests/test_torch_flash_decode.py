@@ -160,3 +160,95 @@ def test_non_cpu_non_cuda_tensor_raises():
     kpos = torch.empty((1, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_decode(q, q, q, kpos, kpos[:, 0])
+
+
+# Decode shapes the card launches (chip_smoke.py's cases and main paths):
+# b, s, sq, h, kv, hd, block_k, q dtype, cache dtype, body.
+CHIP_DECODE = {
+    "qwen1.5-4b last step (main path)": (8, 288, 1, 20, 20, 128, 128, "bfloat16", "bfloat16",
+                                         "mma"),
+    "qwen1.5-4b f32": (8, 288, 1, 20, 20, 128, 128, "float32", "float32", "fma"),
+    "internlm2-20b widths": (4, 300, 1, 48, 8, 128, 128, "bfloat16", "bfloat16", "mma"),
+    "multi-row Sq 3": (4, 300, 3, 48, 8, 128, 128, "bfloat16", "bfloat16", "mma"),
+    "64 rows": (2, 256, 8, 32, 4, 128, 64, "bfloat16", "bfloat16", "mma"),
+    "windowed ring 64": (4, 64, 1, 20, 20, 128, 32, "bfloat16", "bfloat16", "mma"),
+    "f32 cache, bf16 q": (2, 300, 1, 48, 8, 128, 128, "bfloat16", "float32", "mma"),
+    "recurrentgemma-2b (main path)": (8, 288, 1, 10, 1, 256, 128, "bfloat16", "bfloat16",
+                                      "mma"),
+    "recurrentgemma-2b wrapped ring": (2, 2048, 1, 10, 1, 256, 128, "bfloat16", "bfloat16",
+                                       "mma"),
+    "recurrentgemma-2b 2 x 300 + 8": (2, 308, 1, 10, 1, 256, 128, "bfloat16", "bfloat16",
+                                      "mma"),
+    "served one-shot at block_k 16": (8, 288, 1, 20, 20, 128, 16, "bfloat16", "bfloat16",
+                                      "mma"),
+}
+
+
+@pytest.mark.parametrize("name", list(CHIP_DECODE))
+def test_launch_plan_admits_chip_shapes(name):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import launch_plan
+
+    b, s, sq, h, kv, hd, bk, qdt, kvdt, route = CHIP_DECODE[name]
+    plan = launch_plan(b, s, sq, h, kv, hd, getattr(torch, qdt), getattr(torch, kvdt),
+                       block_k=bk)
+    assert plan["route"] == route and plan["smem"] <= _build.MAX_SMEM
+    if route == "mma":
+        assert plan["grid"] == (kv, b, plan["chunks"])
+        assert plan["chunks"] == -(-plan["tiles"] // plan["chunk_tiles"])
+        assert plan["scratch_floats"] == (
+            b * kv * (plan["chunks"] * plan["rows"] * (hd + 2) + 1) if plan["chunks"] > 1 else 0)
+    else:
+        assert plan["grid"] == (kv, b) and plan["chunks"] == 1
+
+
+@pytest.mark.parametrize("args,match", [
+    ((1, 64, 9, 8, 1, 128, torch.bfloat16, torch.bfloat16), "rows"),
+    ((1, 64, 1, 4, 3, 128, torch.bfloat16, torch.bfloat16), "multiple of KV"),
+    ((1, 64, 1, 4, 4, 1024, torch.float32, torch.float32), "too wide"),
+    ((1, 64, 1, 4, 4, 128, torch.bfloat16, torch.float8_e4m3fn), "float32 or bfloat16"),
+], ids=["rows", "gqa-ratio", "f32-too-wide", "fp8-cache"])
+def test_launch_plan_rejects(args, match):
+    from repro_torch.kernels.flash_decode import launch_plan
+
+    with pytest.raises(ValueError, match=match):
+        launch_plan(*args)
+
+
+@pytest.mark.parametrize("block_k", [16, 32, 64, 128])
+def test_chunk_plan_depends_on_block_k_alone(block_k):
+    """A slot's key chunks are chunk_tiles(block_k) tiles whatever the batch
+    and the cache length: the split never changes a slot's sums."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import launch_plan
+
+    want = max(1, _build.CHUNK_KEYS // block_k)
+    seen = set()
+    for b in (1, 2, 8, 64):
+        for s in (block_k, 3 * block_k + 5, 2048, 4096):
+            plan = launch_plan(b, s, 1, 20, 20, 128, torch.bfloat16, torch.bfloat16,
+                               block_k=block_k)
+            seen.add(plan["chunk_tiles"])
+            assert plan["chunks"] == -(-(-(-s // block_k)) // want)
+    assert seen == {want}
+
+
+@pytest.mark.parametrize("nmax,bl,sq,h,kv,hd", [
+    (18, 16, 1, 20, 20, 128),  # the served path's last step
+    (21, 16, 1, 48, 8, 128),
+    (21, 16, 4, 48, 8, 128),
+    (40, 16, 1, 20, 20, 128),  # three key chunks
+    (6, 32, 1, 10, 1, 256),
+])
+def test_paged_and_contiguous_take_the_same_chunks(nmax, bl, sq, h, kv, hd):
+    """flash_decode_paged over nmax blocks of bl keys runs flash_decode's
+    plan at block_k = bl on the gathered (B, nmax*bl) layout: same body,
+    chunks, grid and shared memory, hence the same bits."""
+    from repro_torch.kernels.flash_decode import launch_plan, paged_launch_plan
+
+    for b in (1, 8):
+        paged = paged_launch_plan(b, nmax, bl, sq, h, kv, hd, torch.bfloat16, torch.bfloat16)
+        contig = launch_plan(b, nmax * bl, sq, h, kv, hd, torch.bfloat16, torch.bfloat16,
+                             block_k=bl)
+        assert paged == contig
+        assert paged["route"] == "mma"
