@@ -22,9 +22,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              it).  ssm_scan and rglru_scan in float32 at 1e-4 at the
              recurrent main paths' shapes, a 2048-step case and odd cases
              (ssm: di not a multiple of a block's channels, N not a power
-             of two; rglru: S not a multiple of the unrolled steps), with a
-             nonzero start state; no single PyTorch call computes either
-             recurrence.  flash_decode_paged in bfloat16 over block pools
+             of two, N 32, and N 1 with di not a multiple of 4, which takes
+             the 4-byte copies; rglru: S not a multiple of the unrolled
+             steps), with a nonzero start state; no single PyTorch call
+             computes either recurrence.  Each ssm case prints its launch
+             plan and its SFU floor beside its bound (its exponentials at 16
+             a clock per SM at the card's maximum SM clock), and each of the
+             8 rows of the main-path ssm case computed alone must equal its
+             row of the batch, bitwise.  The build prints ssm_scan's
+             registers and spills per instance (ptxas).
+             flash_decode_paged in bfloat16 over block pools
              with a random block permutation: the served path's last step
              (B 8, H = KV = 20, hd 128, blocks of 16, 18 table entries, one
              layer's strided view of a 152-block (N, 40, 16, 20, 128)
@@ -141,7 +148,8 @@ def time_ms(fn, flush, iters: int) -> float:
 # Cases whose rows are also computed one batch element (prefill) or one slot
 # (decode) at a time and held bitwise against their row of the whole batch.
 BATCH_INVARIANT = {"prefill qwen1.5-4b (main path)", "decode qwen1.5-4b (main path)",
-                   "decode recurrentgemma-2b (hd 256, MQA, window 2048)"}
+                   "decode recurrentgemma-2b (hd 256, MQA, window 2048)",
+                   "falcon-mamba-7b prefill (main path)"}
 
 
 def attention_cases():
@@ -403,6 +411,8 @@ def scan_cases():
         ("ssm_scan", "2048 steps", (1, 2048, 8192, 16)),
         ("ssm_scan", "odd shape", (3, 100, 96, 8)),
         ("ssm_scan", "di and N odd", (2, 77, 100, 12)),
+        ("ssm_scan", "N 32", (2, 256, 2048, 32)),
+        ("ssm_scan", "N 1, di not a multiple of 4", (2, 99, 250, 1)),
         ("rglru_scan", "recurrentgemma-2b prefill (main path)", (8, 256, 2560)),
         ("rglru_scan", "2048 steps", (2, 2048, 2560)),
         ("rglru_scan", "odd shape", (3, 96, 48)),
@@ -410,13 +420,14 @@ def scan_cases():
     ]
 
 
-def run_scan_case(case, dev, flush, torch, ops, ss, rg):
+def run_scan_case(case, dev, flush, torch, ops, ss, rg, sm_clock_hz):
     """A scan kernel against its plain version in float32, inputs drawn as
     the reference's kernel suite draws them (tests/test_kernels.py) with a
     nonzero start state.  Bound: each input read once and each output
     written once at 3.35 TB/s, against the float32 operations at 67 TFLOP/s
     (ssm: 7 per state element and step, the exponential counted as one;
-    rglru: one FMA, 2)."""
+    rglru: one FMA, 2).  ssm_scan also prints its SFU floor: B*S*di*N
+    exponentials at 16 a clock per SM, at ``sm_clock_hz``."""
     kernel, name, shape = case
     g = torch.Generator(device=dev).manual_seed(len(name) + len(shape))
 
@@ -444,6 +455,24 @@ def run_scan_case(case, dev, flush, torch, ops, ss, rg):
         if not torch.allclose(x, y, atol=F32_TOL, rtol=F32_TOL):
             fail(f"{kernel} {name}: {what} differ from the plain version by up to "
                  f"{(x - y).abs().max().item()} > tol {F32_TOL}")
+    extra = ""
+    if kernel == "ssm_scan":
+        if name in BATCH_INVARIANT:
+            for i in range(b):
+                one = fn(*(t[i:i + 1] if t.dim() == 3 else t for t in ins))
+                torch.cuda.synchronize()
+                if not all(torch.equal(o[0], w[i]) for o, w in zip(one, got)):
+                    fail(f"ssm_scan {name}: row {i} alone differs from its row in the batch "
+                         f"of {b}")
+            print(f"  ssm_scan | {name}: each of the {b} rows alone == its row in the batch, "
+                  f"bitwise", flush=True)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sfu_ms = b * s * di * n / (16 * sms * sm_clock_hz) * 1e3
+        plan = ss.scan_plan(b, s, di, n, sms=sms)
+        extra = (f" SFU floor={sfu_ms:.4f} ms ({sm_clock_hz / 1e9:.3f} GHz, {sms} SMs); plan "
+                 f"{plan['kernel']}, {plan['channels']} channels a block, grid {plan['grid']}, "
+                 f"{plan['steps']} steps x {plan['stages']} stages, {plan['smem']} B shared, "
+                 f"16-byte copies dt/x {plan['vec_d']} B/C {plan['vec_n']}")
     ms = time_ms(lambda: fn(*ins), flush, 20)
     plain_ms = time_ms(lambda: plain(*ins), flush, 3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -451,9 +480,39 @@ def run_scan_case(case, dev, flush, torch, ops, ss, rg):
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     print(f"  {kernel} | {name} {shape}: max_abs_err={err:.3g} kernel={ms:.4f} ms "
-          f"plain={plain_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})",
-          flush=True)
+          f"plain={plain_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+          + extra, flush=True)
     return rec
+
+
+def ssm_ptxas(text):
+    """(instance NP, registers, spill line) of each ssm_scan kernel instance
+    in the ptxas output of its build; nothing when it was not built now."""
+    import re
+
+    found, inst, spill = [], None, ""
+    for line in (text or "").splitlines():
+        m = re.search(r"Compiling entry function '\S*ssm_scan_kernelILi(\d+)E", line)
+        if m:
+            inst = int(m.group(1))
+        elif inst is not None and "spill" in line:
+            spill = line.strip()
+        elif inst is not None and "Used" in line and "registers" in line:
+            found.append((inst, int(re.search(r"Used (\d+) registers", line).group(1)), spill))
+            inst = None
+    if text is not None and not found:
+        fail("no ssm_scan_kernel instance in ssm_scan's ptxas output")
+    return sorted(found)
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi clocks.max.sm: {smi.stderr.strip()}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
 
 
 def prefill_logits(cfg, params, batch, gen, dev):
@@ -755,6 +814,11 @@ def main() -> None:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    if "ssm_scan" not in out:
+        print("[ptxas] ssm_scan was built before this run: no ptxas output", flush=True)
+    for inst, regs, spills in ssm_ptxas(out.get("ssm_scan")):
+        print(f"[ptxas] ssm_scan_kernel<{inst}>: {regs} registers; {spills}", flush=True)
+    sm_clock_hz = max_sm_clock_hz()
 
     print("[chunk plan] flash_decode / flash_decode_paged, bf16 tensor-core body: a slot's "
           "needed tiles in chunks of " + ", ".join(
@@ -774,7 +838,7 @@ def main() -> None:
         rec = run_paged_case(case, dev, flush, torch, F, ops, fd, attn)
         recs.setdefault("flash_decode_paged", rec)
     for case in scan_cases():
-        rec = run_scan_case(case, dev, flush, torch, ops, ss, rg)
+        rec = run_scan_case(case, dev, flush, torch, ops, ss, rg, sm_clock_hz)
         recs.setdefault(case[0], rec)
     del flush
 

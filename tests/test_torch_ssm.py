@@ -2,9 +2,15 @@
 
 - The plain versions of ``ssm_scan`` and ``rglru_scan`` (CPU tensors) and
   the port's oracles against the JAX Pallas kernels in interpret mode and
-  the JAX oracles, on the cases of tests/test_kernels.py plus an ssm case
-  whose di is not a multiple of 32.  Tolerance 1e-4 (atol and rtol), that
+  the JAX oracles, on the cases of tests/test_kernels.py plus ssm cases
+  whose di is not a multiple of 32 and whose N is 1 and 32, the kernel's
+  smallest and largest state.  Tolerance 1e-4 (atol and rtol), that
   suite's own.
+- ``scan_plan``, the CUDA kernel's launch in Python: every channel in
+  exactly one block, N padded to the kernel's instances, refusals before
+  any launch, shared bytes that fit four blocks an SM and mirror the
+  source's constants, the grid at the main paths' widths, and a channel's
+  arithmetic (the kernel instance) independent of B.
 - Reduced falcon-mamba-7b, JAX parameters loaded with ``load_jax_params``:
   prefill, scalar- and vector-position decode logits and the ssm cache in
   float32 at 1e-4 (XLA and torch order float32 sums differently).  A
@@ -67,7 +73,7 @@ def ssm_inputs(seed, b, s, di, n):
 
 # b, s, di, n, chunk, block_d: tests/test_kernels.py's cases, then di = 40
 SSM_CASES = [(1, 64, 32, 8, 32, 32), (2, 128, 64, 16, 32, 16), (1, 256, 128, 8, 64, 128),
-             (2, 64, 40, 8, 32, 40)]
+             (2, 64, 40, 8, 32, 40), (2, 64, 40, 1, 32, 40), (1, 64, 32, 32, 32, 32)]
 
 
 @pytest.mark.parametrize("b,s,di,n,chunk,bd", SSM_CASES)
@@ -122,6 +128,104 @@ def test_scan_cuda_wrappers_check_before_launch():
         trg._rglru_scan_cuda(a, a, torch.zeros(2, 6))
     with pytest.raises(ValueError, match="cuda or cpu"):
         trg.rglru_scan(a.to("meta"), a.to("meta"), torch.zeros(2, 7, device="meta"))
+
+
+@pytest.mark.parametrize("b,di", [(1, 100), (3, 96), (2, 8192), (8, 8192), (1, 8192), (5, 33)])
+def test_scan_plan_covers_every_channel_once(b, di):
+    """Block x of batch row r holds channels [x * cpb, min((x + 1) * cpb,
+    di)), as the kernel's blockIdx and cols compute them: together they
+    hold each (row, channel) exactly once, whatever B and di."""
+    plan = tss.scan_plan(b, 16, di, 16)
+    cpb, (nx, ny) = plan["channels"], plan["grid"]
+    assert ny == b and plan["blocks"] == nx * ny and cpb in tss.CHANNEL_BLOCKS
+    hits = np.zeros((b, di), np.int64)
+    for r in range(ny):
+        for x in range(nx):
+            d0 = x * cpb
+            assert d0 < di  # no block without a live channel
+            hits[r, d0:min(d0 + cpb, di)] += 1
+    assert (hits == 1).all()
+
+
+@pytest.mark.parametrize("n,n_pad", [(1, 4), (4, 4), (5, 8), (12, 16), (16, 16), (17, 32),
+                                     (32, 32)])
+def test_scan_plan_pads_n_to_an_instance(n, n_pad):
+    plan = tss.scan_plan(2, 64, 256, n)
+    assert plan["n_pad"] == n_pad and plan["kernel"] == f"ssm_scan_kernel<{n_pad}>"
+    assert plan["vec_n"] == (n % 4 == 0)
+
+
+def test_scan_plan_refuses_before_any_launch():
+    """What the kernel does not take raises ValueError in the plan, and in
+    the CUDA wrapper before any build or launch (CPU tensors reach it only
+    by a direct call)."""
+    for n in (0, 33):
+        with pytest.raises(ValueError, match=f"N={n}"):
+            tss.scan_plan(2, 64, 256, n)
+    for dt in (torch.float64, torch.bfloat16, torch.float16):
+        with pytest.raises(ValueError, match="float32"):
+            tss.scan_plan(2, 64, 256, 16, dt)
+    with pytest.raises(ValueError, match="B=0"):
+        tss.scan_plan(0, 64, 256, 16)
+    reset_launch_counts()
+    wide = [torch.from_numpy(x) for x in ssm_inputs(0, 1, 4, 8, 33)]
+    with pytest.raises(ValueError, match="N=33"):
+        tss._ssm_scan_cuda(*wide)
+    ins = [torch.from_numpy(x) for x in ssm_inputs(0, 1, 4, 8, 4)]
+    with pytest.raises(ValueError, match="float32"):
+        tss._ssm_scan_cuda(*(t.bfloat16() for t in ins))
+    assert launch_counts()["ssm_scan"] == 0
+
+
+def test_scan_plan_mirrors_the_source_and_fits_shared_memory():
+    """The plan's stage constants are the CUDA source's, its shared bytes
+    are the source's ``smem_bytes`` (kStages stages of dt, x for the block's
+    channels and B, C rows padded to NP) within the 48 KB the launch takes
+    without opting in, and four blocks of up to 16 states fit on an SM with
+    the 1 KB each block reserves, as the launch bounds ask."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "ssm_scan.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kSteps") == tss.SCAN_STEPS and const("kStages") == tss.SCAN_STAGES
+    assert const("kMaxChannels") == max(tss.CHANNEL_BLOCKS)
+    for b, di, n in [(8, 8192, 16), (1, 8192, 16), (1, 96, 1), (64, 8192, 32)]:
+        plan = tss.scan_plan(b, 256, di, n)
+        want = 4 * plan["stages"] * 2 * plan["steps"] * (plan["channels"] + plan["n_pad"])
+        assert plan["smem"] == want <= 48 * 1024
+        if plan["n_pad"] <= 16:
+            assert 4 * (plan["smem"] + 1024) <= 228 * 1024
+
+
+def test_scan_plan_grid_at_the_main_paths_widths():
+    """falcon-mamba-7b (di 8192): at B 8 the 128-channel blocks already
+    give two blocks per SM of the H100's 132; at B 1 the plan takes the
+    smallest block, 32 channels, for 256 blocks, the most that whole-warp
+    blocks allow (8192 / 32 < 2 x 132)."""
+    main = tss.scan_plan(8, 256, 8192, 16)
+    assert main["channels"] == 128 and main["blocks"] == 512 >= 2 * tss.SM_COUNT
+    one = tss.scan_plan(1, 2048, 8192, 16)
+    assert one["channels"] == 32 and one["blocks"] == 8192 // 32
+    assert tss.scan_plan(2, 300, 8192, 16)["blocks"] >= 2 * tss.SM_COUNT
+    # another card's SM count moves the block size, never the instance
+    other = tss.scan_plan(8, 256, 8192, 16, sms=512)
+    assert other["channels"] == 64 and other["kernel"] == main["kernel"]
+
+
+def test_scan_plan_arithmetic_does_not_depend_on_b():
+    """A channel's arithmetic is fixed by the kernel instance (NP) and the
+    stage shape alone; only the block size and the grid follow B, so a row
+    computed alone gives the bits of its row in a batch."""
+    fixed = {"kernel", "n_pad", "steps", "stages", "vec_d", "vec_n"}
+    for n in (1, 12, 16, 32):
+        plans = [tss.scan_plan(b, 256, 8192, n) for b in (1, 2, 3, 8, 64)]
+        assert all({k: p[k] for k in fixed} == {k: plans[0][k] for k in fixed} for p in plans)
+        assert len({p["channels"] for p in plans}) > 1  # B does move the block size
 
 
 @pytest.fixture(scope="module")
