@@ -7,7 +7,7 @@ GPU.  Run from the repository root, with no arguments:
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
-2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (five
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (seven
              libraries), one nvcc each, all started together; then one line
              of the decode key-chunk plan.
 3. kernels -- each kernel against its plain PyTorch version on the card.
@@ -50,6 +50,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
              prints its body (tensor-core "mma" or FMA "fma") and its chunk
              plan; each case prints the kernel's and the plain version's
              time.
+   gemm   -- the row-invariant GEMM (``gemm_rowinv``) against torch.matmul,
+             its plain version, at qwen1.5-4b's decode and prefill shapes,
+             falcon-mamba-7b's in_proj, x_proj (N 288) and dt_proj (a
+             strided x), the tied head of recurrentgemma-2b (the transposed
+             layout), its block-diagonal gates (10 products, one launch),
+             odd shapes that take the plain loads, and the float32 route:
+             bfloat16 at 2e-2, float32 at 1e-4, each beside one cuBLAS call
+             (torch.matmul, here only).  ``rms_norm`` against its plain
+             version, beside F.rms_norm.  Held bitwise: row r of each kernel
+             at M = 1, 3, 8 and 2048 equals the same row computed alone (the
+             served-equals-one-shot contract); printed beside it, what
+             torch.matmul and PyTorch's mean give on the same rows.  Held
+             bitwise too: the per-row einsums of falcon-mamba-7b's decode
+             step, which stay PyTorch calls.
 4. main paths -- ``repro_torch.launch.serve`` one-shot generate,
              ``kernel_impl="cuda"``, random weights from the seed, one model
              at a time (each freed before the next):
@@ -73,23 +87,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
                40 (one prefill wave), flash_decode_paged 40 x 8 x 4 (four
                segments of 8 steps) and nothing else; no request may fail
                or be rejected, and every served stream must equal the same
-               8 prompts' one-shot generate as one batch of 8, bitwise
-               (the GEMM shapes of the 8-slot segment).  How many streams
-               equal their batch-1 one-shot is printed, not held
-               (ROADMAP.md C2).
+               8 prompts' one-shot generate as one batch of 8, and one-shot
+               generate of each prompt alone (batch 1), bitwise.
+             Every path also launches exactly one ``gemm_rowinv`` per
+             product of the models (projections, MLPs, gates, the head) and
+             one ``rms_norm`` per norm, in every forward pass: no product on
+             a CUDA tensor reaches torch.matmul.
              Each one-shot run's tokens must lie in range, and its first token be
              the argmax of its prefill.  Each is then held against the
              dense reference on the same weights one layer at a time,
              teacher-forced: every bf16 layer of the prefill (and, where a
              kernel serves decode, of the first decode step), fed the
              reference's input, must give an update within 2e-2 relative L2
-             of the reference layer's.  The first-token logits of the whole
+             of the reference layer's, the update measured before the bf16
+             residual add (the float32 sum of the layer's products that feed
+             the residual stream; the rounded y - x is printed beside it,
+             see ``layer_errors``).  The first-token logits of the whole
              stack are printed, not held: with random weights a deep stack
              is chaotic, and the float32 reference moves as far when its
              embeddings move by one ulp.  A profiler pass over one prefill
              and 8 decode steps prints the card's busy time against the
              wall time.
-5. results -- a JSON line of every kernel's numbers (launches: each
+5. coexec -- ``repro_torch.launch.serve --coexec --scheduler hguided
+             --verify`` on qwen1.5-4b --full, 8 x 256 + 32: HGuided packages
+             over two groups of cuda:0 (pod-a at power 2, pod-b at power 1,
+             a CUDA stream each), held bitwise equal to one-shot generate
+             (the launcher's --verify), every group with a package, and the
+             launch counts (packages + 1) times the one-shot path's.  Then
+             the paper's Listing 1 (examples/quickstart_torch.py) on
+             ``discover(DeviceMask.ALL)``, which must be exactly cpu:0 and
+             cuda:0, under HGuided(adaptive=True), no simulated speeds:
+             held correct with a package on each group; work share, balance
+             and packages printed.
+6. results -- a JSON line of every kernel's numbers (launches: each
              kernel's count on the first path that runs it; for
              flash_decode_paged, the served path), then the last line
              ``{"ok": true, "device": {...}}``.
@@ -485,6 +515,216 @@ def run_scan_case(case, dev, flush, torch, ops, ss, rg, sm_clock_hz):
     return rec
 
 
+def gemm_cases():
+    # name, M, K, N, weight layout ("kn": (K, N) row-major; "nk": stored
+    # transposed, a tied head), bias, dtype, block-diagonal blocks (0: none)
+    return [
+        ("qwen1.5-4b decode qkv width (main path)", 8, 2560, 7680, "kn", False, "bfloat16", 0),
+        ("qwen1.5-4b decode down_proj", 8, 6912, 2560, "kn", False, "bfloat16", 0),
+        ("qwen1.5-4b decode head", 8, 2560, 151936, "kn", False, "bfloat16", 0),
+        ("qwen1.5-4b prefill gate/up", 2048, 2560, 6912, "kn", False, "bfloat16", 0),
+        ("qwen1.5-4b prefill down_proj", 2048, 6912, 2560, "kn", False, "bfloat16", 0),
+        ("falcon-mamba-7b prefill in_proj", 2048, 4096, 16384, "kn", False, "bfloat16", 0),
+        ("qwen1.5-4b decode q with bias", 8, 2560, 2560, "kn", True, "bfloat16", 0),
+        ("recurrentgemma-2b decode tied head", 8, 2560, 256000, "nk", False, "bfloat16", 0),
+        ("falcon-mamba-7b prefill x_proj (N 288)", 2048, 8192, 288, "kn", False, "bfloat16", 0),
+        ("falcon-mamba-7b prefill dt_proj, strided x", 2048, 256, 8192, "kn", True,
+         "bfloat16", 0),
+        ("recurrentgemma-2b prefill gates, 10 blocks", 2048, 256, 256, "kn", True,
+         "bfloat16", 10),
+        ("odd shape, plain loads", 5, 36, 100, "kn", True, "bfloat16", 0),
+        ("odd shape, transposed, plain loads", 130, 100, 36, "nk", False, "bfloat16", 0),
+        ("M 1, ragged N", 1, 264, 1000, "kn", True, "bfloat16", 0),
+        ("float32 decode", 8, 2560, 2560, "kn", True, "float32", 0),
+        ("float32 prefill, ragged", 300, 256, 300, "nk", False, "float32", 0),
+        ("float32 gates, 10 blocks", 64, 256, 256, "kn", True, "float32", 10),
+    ]
+
+
+def gemm_operands(case, dev, torch):
+    """x, w, bias of a GEMM case: x ~ N(0, 1), w ~ N(0, 1/K) (outputs of
+    order 1, as a model's), the strided-x case reading dt_proj's input as
+    a view of x_proj's output (rows 288 apart)."""
+    name, m, k, n, layout, has_bias, dname, nb = case
+    dt = getattr(torch, dname)
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    if "strided" in name:
+        x = torch.randn((m, k + 32), generator=g, device=dev).to(dt)[:, :k]
+    elif nb:
+        x = torch.randn((m, nb, k), generator=g, device=dev).to(dt)
+    else:
+        x = torch.randn((m, k), generator=g, device=dev).to(dt)
+    wshape = (nb, k, n) if nb else (k, n)
+    w = (torch.randn(wshape, generator=g, device=dev) * k ** -0.5).to(dt)
+    if layout == "nk":
+        w = w.T.contiguous().T  # (K, N) view of an (N, K) row-major table
+    bias = None
+    if has_bias:
+        bias = torch.randn((nb, n) if nb else (n,), generator=g, device=dev).to(dt)
+    return x, w, bias
+
+
+def run_gemm_case(case, dev, flush, torch, gemm):
+    """The row-invariant GEMM against torch.matmul (its plain version; the
+    same call is the cuBLAS yardstick) at the tolerance of its dtype: both
+    round one float32 sum of the same products, summed in different
+    orders.  Bound: x, w (and bias) read once and y written once at
+    3.35 TB/s, against 2*M*N*K operations at the dtype's peak."""
+    name, m, k, n, layout, has_bias, dname, nb = case
+    x, w, bias = gemm_operands(case, dev, torch)
+    got = gemm.linear(x, w, bias)
+    torch.cuda.synchronize()
+    want = gemm.linear_plain(x, w, bias)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL if dname == "bfloat16" else F32_TOL
+    if got.shape != want.shape or not torch.allclose(got.float(), want.float(), atol=tol,
+                                                     rtol=tol):
+        fail(f"gemm_rowinv {name}: max |kernel - plain| = {err} > tol {tol}")
+    ms = time_ms(lambda: gemm.linear(x, w, bias), flush, 20)
+    plain_ms = time_ms(lambda: gemm.linear_plain(x, w, bias), flush, 20)
+    if nb:
+        lib_ms = time_ms(lambda: torch.matmul(x.transpose(0, 1), w), flush, 20)
+    else:
+        lib_ms = time_ms(lambda: torch.matmul(x, w), flush, 20)
+    blocks = max(nb, 1)
+    nbytes = x.element_size() * (m * k * blocks + k * n * blocks + m * n * blocks
+                                 + (bias.numel() if bias is not None else 0))
+    flops = 2 * m * n * k * blocks
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    o = gemm.operands(x, w, bias)
+    print(f"  gemm_rowinv | {name} (M {m}, K {k}, N {n}{f', {nb} blocks' if nb else ''}, w "
+          f"{'transposed' if o['wt'] else 'row-major'}{', bias' if has_bias else ''}, {dname}): "
+          f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"cuBLAS={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          flush=True)
+    return rec
+
+
+ROW_PROBE = (0, 1, 2, 3, 5, 7, 15, 16, 63, 64, 127, 128, 1000, 2047)
+
+
+def row_invariance(name, fn, x, torch, hold: bool) -> str:
+    """Row r of ``fn`` over the first M rows of x, for M in 1, 3, 8 and
+    2048, against the same row computed alone (M = 1), bitwise, for the
+    rows of ``ROW_PROBE`` below M.  Held (a failure) with ``hold``, else
+    counted and returned."""
+    alone = {r: fn(x[r:r + 1])[0] for r in ROW_PROBE}
+    bad = total = 0
+    for m in (1, 3, 8, 2048):
+        y = fn(x[:m])
+        for r in ROW_PROBE:
+            if r < m:
+                total += 1
+                if not torch.equal(y[r], alone[r]):
+                    bad += 1
+                    if hold:
+                        torch.cuda.synchronize()
+                        fail(f"{name}: row {r} of the M = {m} product differs from the same "
+                             f"row computed alone")
+    torch.cuda.synchronize()
+    return f"{total - bad}/{total} rows equal to the row alone"
+
+
+def run_row_checks(dev, torch, gemm, rn):
+    """The batch-invariance contract of the two row kernels, held bitwise;
+    beside it, printed, what torch.matmul (cuBLAS) and PyTorch's own
+    reductions give on the same rows: the fault the kernels repair."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    bf = torch.bfloat16
+    x = torch.randn((2048, 6912), generator=g, device=dev).to(bf)
+    for k, n, layout, has_bias in ((2560, 2560, "kn", True), (6912, 2560, "kn", False),
+                                   (2560, 151936, "kn", False), (2560, 256000, "nk", False),
+                                   (8192, 288, "kn", False)):
+        xk = x[:, :k] if k <= x.shape[1] else torch.randn((2048, k), generator=g,
+                                                           device=dev).to(bf)
+        w = (torch.randn((k, n) if layout == "kn" else (n, k), generator=g, device=dev)
+             * k ** -0.5).to(bf)
+        w = w if layout == "kn" else w.T
+        b = torch.randn((n,), generator=g, device=dev).to(bf) if has_bias else None
+        what = f"K {k}, N {n}{', transposed w' if layout == 'nk' else ''}{', bias' if b is not None else ''}"
+        held = row_invariance(f"gemm_rowinv {what}", lambda t: gemm.linear(t, w, b), xk, torch,
+                              True)
+        lib = row_invariance("torch.matmul", lambda t: gemm.linear_plain(t, w, b), xk, torch,
+                             False)
+        print(f"  gemm_rowinv | rows at M 1, 3, 8, 2048 vs alone, {what}: kernel {held} "
+              f"(held, bitwise); torch.matmul {lib} (printed)", flush=True)
+        del w
+    for d, dname in ((2560, "bfloat16"), (4096, "bfloat16"), (2560, "float32")):
+        dt = getattr(torch, dname)
+        xd = torch.randn((2048, d), generator=g, device=dev).to(dt)
+        wd = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+        held = row_invariance(f"rms_norm d {d}", lambda t: rn.rms_norm(t, wd, 1e-6), xd, torch,
+                              True)
+        lib = row_invariance("rms_norm_plain", lambda t: rn.rms_norm_plain(t, wd, 1e-6), xd,
+                             torch, False)
+        print(f"  rms_norm | rows at M 1, 3, 8, 2048 vs alone, d {d} {dname}: kernel {held} "
+              f"(held, bitwise); PyTorch's mean {lib} (printed)", flush=True)
+    # The per-row einsums of falcon-mamba-7b's decode step (models/mamba.py:
+    # the state readout and the one-step conv) stay PyTorch calls: held here
+    # as the contract needs them, each row at batch 1, 3 and 8 against the
+    # row alone.
+    di, n, ck = 8192, 16, 4
+    h = torch.randn((8, di, n), generator=g, device=dev)
+    c = torch.randn((8, n), generator=g, device=dev)
+    conv = torch.randn((8, ck, di), generator=g, device=dev).to(bf)
+    cw = torch.randn((di, ck), generator=g, device=dev).to(bf)
+    for what, fn in (("bdn,bn->bd (state readout)",
+                      lambda i, j: torch.einsum("bdn,bn->bd", h[i:j], c[i:j])),
+                     ("bkd,dk->bd (one-step conv)",
+                      lambda i, j: torch.einsum("bkd,dk->bd", conv[i:j], cw))):
+        for bsz in (1, 3, 8):
+            y = fn(0, bsz)
+            for r in range(bsz):
+                if not torch.equal(y[r], fn(r, r + 1)[0]):
+                    fail(f"einsum {what}: row {r} at batch {bsz} differs from the row alone")
+        print(f"  [rows] falcon-mamba-7b decode einsum {what}: every row at batch 1, 3 and 8 == "
+              f"the row alone (held, bitwise)", flush=True)
+
+
+def rms_norm_cases():
+    # name, rows, d, dtype, row stride (0: contiguous)
+    return [
+        ("qwen1.5-4b prefill (main path)", 2048, 2560, "bfloat16", 0),
+        ("qwen1.5-4b decode", 8, 2560, "bfloat16", 0),
+        ("falcon-mamba-7b prefill", 2048, 4096, "bfloat16", 0),
+        ("last rows of a prefill (strided)", 8, 2560, "bfloat16", 256 * 2560),
+        ("odd width", 7, 300, "bfloat16", 0),
+        ("float32", 2048, 2560, "float32", 0),
+    ]
+
+
+def run_rms_norm_case(case, dev, flush, torch, rn):
+    name, rows, d, dname, ld = case
+    dt = getattr(torch, dname)
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    if ld:
+        x = torch.randn((rows, ld // d, d), generator=g, device=dev).to(dt)[:, -1]
+    else:
+        x = torch.randn((rows, d), generator=g, device=dev).to(dt)
+    w = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+    got = rn.rms_norm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    want = rn.rms_norm_plain(x, w, 1e-6)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL if dname == "bfloat16" else F32_TOL
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"rms_norm {name}: max |kernel - plain| = {err} > tol {tol}")
+    ms = time_ms(lambda: rn.rms_norm(x, w, 1e-6), flush, 20)
+    plain_ms = time_ms(lambda: rn.rms_norm_plain(x, w, 1e-6), flush, 20)
+    lib_ms = time_ms(lambda: torch.nn.functional.rms_norm(x, (d,), w, 1e-6), flush, 20)
+    nbytes = x.element_size() * (2 * rows * d + d)
+    flops = 4 * rows * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  rms_norm | {name} ({rows} x {d}, {dname}): max_abs_err={err:.3g} "
+          f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms F.rms_norm={lib_ms:.4f} ms "
+          f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
+    return rec
+
+
 def ssm_ptxas(text):
     """(instance NP, registers, spill line) of each ssm_scan kernel instance
     in the ptxas output of its build; nothing when it was not built now."""
@@ -524,17 +764,45 @@ def prefill_logits(cfg, params, batch, gen, dev):
     return api.prefill(params, batch, cfg, zeros_cache(cfg, api, b, s + gen, device=dev))[0]
 
 
+# The products whose outputs a layer adds to the residual stream: the
+# attention output projection, the MLP's down projection, the Mamba and
+# RG-LRU mixers' output projections.
+RESIDUAL_FEEDS = (("attn", "wo"), ("mlp", "w_down"), ("out_proj",), ("mix", "wo"),
+                  ("mix", "out"))
+
+
+def residual_feeds(lp) -> set:
+    """data_ptr of each weight of layer params ``lp`` that feeds the
+    residual stream."""
+    ptrs = set()
+    for path in RESIDUAL_FEEDS:
+        t = lp
+        for key in path:
+            t = t.get(key) if isinstance(t, dict) else None
+        if t is not None:
+            ptrs.add(t.data_ptr())
+    return ptrs
+
+
 def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     """The bf16 prefill and (with ``"decode"`` in ``modes``) the first
-    decode step one layer at a time,
-    teacher-forced: every layer gets the reference path's input, runs once
-    through the kernels and once through the dense reference, and gives
-    the relative L2 distance of the two outputs' updates ``y - x``.  Both
-    caches receive the same inputs, so the decode step holds flash_decode
-    in the same way.  Random weights make a deep stack chaotic (see
-    ``run_main_path``), so this is where a tolerance can hold the kernels
-    at the main path's full width and depth."""
+    decode step one layer at a time, teacher-forced: every layer gets the
+    reference path's input, runs once through the kernels and once through
+    the dense reference, and gives the relative L2 distance of the two
+    layers' updates, each measured before the bf16 residual add: the sum,
+    in float32, of the outputs of the layer's products that feed the
+    residual stream (``RESIDUAL_FEEDS``).  ``errs[mode]`` holds these;
+    ``errs[mode + "_rounded"]`` the distance of the rounded updates
+    ``y - x``, printed only: where a layer adds less than half a bf16 ulp
+    of the stream (recurrentgemma-2b's later rec layers at decode add 0.2%
+    of it), ``y - x`` is the residual's rounding, and two paths whose
+    products round differently part there by whole ulps of the stream.
+    Both caches receive the same inputs, so the decode step holds
+    flash_decode in the same way.  Random weights make a deep stack
+    chaotic (see ``run_main_path``), so this is where a tolerance can hold
+    the kernels at the main path's full width and depth."""
     from repro_torch.models import get_model
+    from repro_torch.models import layers as L
     from repro_torch.models import rglru as R
     from repro_torch.models import transformer as T
     from repro_torch.serve import zeros_cache
@@ -547,14 +815,36 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     layers = [stack.stack_order(params, cache, cfg) for cache in caches]
     errs = {}
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
-    for mode in modes:  # the prefill fills both caches for the decode step
-        x = T.embed_tokens(params, tokens if mode == "prefill" else tokens[:, -1:], cfg)
-        errs[mode] = []
-        for (apply, lp, kc), (_, _, rc) in zip(*layers):
-            yk, yr = (apply(lp, x, positions, c, mode=mode, cache=cache, pos=s)[0]
-                      for c, cache in ((cfg, kc), (rcfg, rc)))
-            errs[mode].append(float((yk - yr).float().norm() / (yr - x).float().norm()))
-            x = yr
+    real_linear, feeds, fed = L.linear, set(), []
+
+    def linear(x, w, impl="reference", bias=None):
+        y = real_linear(x, w, impl, bias)
+        if w.data_ptr() in feeds:
+            fed.append(y.float())
+        return y
+
+    L.linear = linear
+    try:
+        for mode in modes:  # the prefill fills both caches for the decode step
+            x = T.embed_tokens(params, tokens if mode == "prefill" else tokens[:, -1:], cfg)
+            errs[mode], errs[mode + "_rounded"] = [], []
+            for (apply, lp, kc), (_, _, rc) in zip(*layers):
+                feeds.clear()
+                feeds.update(residual_feeds(lp))
+                outs = []
+                for c, cache in ((cfg, kc), (rcfg, rc)):
+                    fed.clear()
+                    y = apply(lp, x, positions, c, mode=mode, cache=cache, pos=s)[0]
+                    if not fed:
+                        fail(f"{cfg.name}: no residual-feeding product seen in a {mode} layer")
+                    outs.append((y, sum(fed)))
+                (yk, uk), (yr, ur) = outs
+                errs[mode].append(float((uk - ur).norm() / ur.norm()))
+                errs[mode + "_rounded"].append(
+                    float((yk - yr).float().norm() / (yr - x).float().norm()))
+                x = yr
+    finally:
+        L.linear = real_linear
     return errs
 
 
@@ -599,21 +889,45 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
     return out
 
 
+def row_kernel_launches(arch: str, forwards: int) -> dict:
+    """Launches of the two row kernels in ``forwards`` passes of the
+    full-width stack (a prefill or one decode step each): one GEMM per
+    product of models/ (dense layer: q, k, v, o and three MLP products;
+    Mamba layer: in_proj, x_proj, dt_proj, out_proj; recurrent layer: in_y,
+    in_x, the two block-diagonal gates and out, plus three MLP products),
+    one for the head; one rms_norm per norm of a layer and the final one."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    n = cfg.n_layers
+    if cfg.family == "dense":
+        gemm, norms = 7 * n + 1, 2 * n + 1
+    elif cfg.family == "ssm":
+        gemm, norms = 4 * n + 1, n + 1
+    else:
+        pat = cfg.block_pattern
+        kinds = list(pat) * (n // len(pat)) + list(pat[: n % len(pat)])
+        rec = kinds.count("rec")
+        gemm, norms = 8 * rec + 7 * (n - rec) + 1, 2 * n + 1
+    return {"gemm_rowinv": gemm * forwards, "rms_norm": norms * forwards}
+
+
 def main_paths():
     """(arch, requests, prompt length, generated, launches wanted, modes of
-    the per-layer check) of each main path, run in this order."""
-    def want(fa=0, fd=0, ss=0, rg=0):
+    the per-layer check) of each main path, run in this order.  Generate
+    runs ``gen`` passes: the prefill and gen - 1 decode steps."""
+    def want(arch, gen, fa=0, fd=0, ss=0, rg=0):
         return {"flash_attention": fa, "flash_decode": fd, "flash_decode_paged": 0,
-                "ssm_scan": ss, "rglru_scan": rg}
+                "ssm_scan": ss, "rglru_scan": rg, **row_kernel_launches(arch, gen)}
 
+    q, m, r = "qwen1.5-4b", "falcon-mamba-7b", "recurrentgemma-2b"
     return [
-        ("qwen1.5-4b", 8, 256, GEN, want(fa=40, fd=40 * (GEN - 1)), ("prefill", "decode")),
-        ("falcon-mamba-7b", 8, 256, GEN, want(ss=64), ("prefill",)),
-        ("recurrentgemma-2b", 8, 256, GEN, want(fa=8, fd=8 * (GEN - 1), rg=18),
-         ("prefill", "decode")),
-        ("recurrentgemma-2b", 2, 2048, 16, want(fa=8, fd=8 * 15, rg=18), ("prefill", "decode")),
-        ("falcon-mamba-7b", 2, 300, 8, want(ss=64), ("prefill",)),
-        ("recurrentgemma-2b", 2, 300, 8, want(fa=8, fd=8 * 7, rg=18), ("prefill", "decode")),
+        (q, 8, 256, GEN, want(q, GEN, fa=40, fd=40 * (GEN - 1)), ("prefill", "decode")),
+        (m, 8, 256, GEN, want(m, GEN, ss=64), ("prefill",)),
+        (r, 8, 256, GEN, want(r, GEN, fa=8, fd=8 * (GEN - 1), rg=18), ("prefill", "decode")),
+        (r, 2, 2048, 16, want(r, 16, fa=8, fd=8 * 15, rg=18), ("prefill", "decode")),
+        (m, 2, 300, 8, want(m, 8, ss=64), ("prefill",)),
+        (r, 2, 300, 8, want(r, 8, fa=8, fd=8 * 7, rg=18), ("prefill", "decode")),
     ]
 
 
@@ -657,20 +971,24 @@ def run_main_path(argv, dev, torch, modes) -> dict:
         fail("non-finite first-token logits")
     first_ok = bool((lk.argmax(-1)[:, 0].int().cpu().numpy() == toks[:, 0]).all())
     errs = layer_errors(cfg, cast, batch, dev, torch, modes)
+    rounded = {m: errs.pop(m + "_rounded") for m in modes}
     out = {"counts": counts, "arch": cfg.name, "layers": cfg.n_layers,
            "requests": args.requests, "prompt_len": args.prompt_len, "gen": args.gen,
            "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
            "peak_memory_bytes": result["peak_memory_bytes"],
            "first_token_is_prefill_argmax": first_ok,
            **{f"layer_rel_l2_max_bf16_{m}": max(e) for m, e in errs.items()},
+           **{f"layer_rel_l2_max_bf16_{m}_rounded_update": max(e) for m, e in rounded.items()},
            "logits_rel_l2_bf16": rel(lk, lr),
            "logits_rel_l2_f32": rel(lk32, lr32),
            "logits_rel_l2_bf16_reference_vs_f32_reference": rel(lr, lr32),
            "logits_rel_l2_f32_reference_embed_one_ulp": rel(ln32, lr32),
            "profile": profile_steps(cfg, cast, batch, dev, torch)}
     for mode, e in errs.items():
-        print(f"  per-layer bf16 {mode} update, kernel vs reference: max rel L2 {max(e):.3g} "
-              f"(tol {LAYER_REL_TOL}; layers 0-3: {[round(x, 5) for x in e[:4]]})")
+        print(f"  per-layer bf16 {mode} update before the residual add, kernel vs reference: "
+              f"max rel L2 {max(e):.3g} (tol {LAYER_REL_TOL}; layers 0-3: "
+              f"{[round(x, 5) for x in e[:4]]}); of the rounded update y - x (printed): max "
+              f"{max(rounded[mode]):.3g}")
     print(f"  first-token logits of all {cfg.n_layers} layers (printed, not held): kernel vs "
           f"reference rel L2 {out['logits_rel_l2_bf16']:.3g} in bf16 and "
           f"{out['logits_rel_l2_f32']:.3g} in float32; the bf16 reference vs the float32 "
@@ -693,7 +1011,7 @@ def run_served_path(dev, torch) -> dict:
     seed), with the launch counts zeroed just before and read just after
     and the span tracer on (the runtime's write-back spans).  Then its
     streams against one-shot generate of the same 8 prompts as one batch
-    (held, bitwise) and one at a time (counted)."""
+    and of each prompt alone (batch 1), both held, bitwise."""
     import numpy as np
 
     from repro_torch.core.trace import Tracer, set_tracer, tracer
@@ -717,7 +1035,7 @@ def run_served_path(dev, torch) -> dict:
     segs = -(-(args.gen - 1) // args.seg_len)
     want = {"flash_attention": cfg.n_layers, "flash_decode": 0,
             "flash_decode_paged": cfg.n_layers * args.seg_len * segs, "ssm_scan": 0,
-            "rglru_scan": 0}
+            "rglru_scan": 0, **row_kernel_launches(args.arch, 1 + args.seg_len * segs)}
     print(f"  launches {counts} (want {want})", flush=True)
     if counts != want:
         fail(f"served path launch counts {counts} != {want}")
@@ -739,6 +1057,9 @@ def run_served_path(dev, torch) -> dict:
     rows1 = int(sum(np.array_equal(served[i], generate(params, {"tokens": tokens[i:i + 1]},
                                                        args.gen)[0].cpu().numpy())
                     for i in range(args.requests)))
+    if rows1 != args.requests:
+        fail(f"served path: {rows1} of {args.requests} streams equal one-shot generate of "
+             f"their prompt alone (batch 1)")
     mem = s["memory"]
     spans = result.get("spans", {})
 
@@ -764,8 +1085,8 @@ def run_served_path(dev, torch) -> dict:
            "streams_equal_batch8_oneshot": rows8, "streams_equal_batch1_oneshot": rows1,
            "ttft_s": sorted(m["ttft"] for m in result["request_metrics"])}
     print(f"  served == one-shot generate of the same prompts as one batch of "
-          f"{args.requests}: {rows8}/{args.requests}; == one-shot at batch 1 (printed, not "
-          f"held): {rows1}/{args.requests}", flush=True)
+          f"{args.requests}: {rows8}/{args.requests}; == one-shot of each prompt alone "
+          f"(batch 1): {rows1}/{args.requests}; both held, bitwise", flush=True)
     peak = result["peak_memory_bytes"] or 0
     print(f"  {result['tokens_per_s']:.1f} tokens/s, {result['wall_s']:.3f} s, peak memory "
           f"{peak / 2**30:.2f} GiB; pool {mem['blocks_peak']}/"
@@ -776,6 +1097,89 @@ def run_served_path(dev, torch) -> dict:
           f"{out['prefill_dispatch_ms']} ms, write-back {out['prefill_write_back_ms']} ms",
           flush=True)
     return out, counts
+
+
+COEXEC_ARGV = ["--arch", "qwen1.5-4b", "--full", "--coexec", "--scheduler", "hguided",
+               "--verify", "--requests", "8", "--prompt-len", "256", "--gen", str(GEN),
+               "--seed", "0", "--kernel", "cuda"]
+
+
+def run_coexec_path(dev, torch) -> dict:
+    """The launcher's co-executed generate (``--coexec --scheduler hguided
+    --verify``): the 8 requests cut into HGuided packages over pod-a and
+    pod-b, two groups of cuda:0 with a CUDA stream each, every package a
+    one-shot generate of its requests.  The launcher asserts its tokens
+    bitwise equal to one-shot generate of the batch of 8 (``--verify``).
+    Launch counts are zeroed just before and read just after: every
+    package and the verifying one-shot run are each one generate, so every
+    kernel's count must be (packages + 1) times the one-shot path's.  Each
+    group must have run a package."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    ops.reset_launch_counts()
+    result = serve.main(COEXEC_ARGV)
+    counts = ops.launch_counts()
+    if not result.get("verified"):
+        fail("co-executed generate was not verified against one-shot generate")
+    pk = result["packages"]
+    n_pk = sum(len(v) for v in pk.values())
+    one = main_paths()[0][4]  # the one-shot qwen1.5-4b path's counts, 8 x 256 + GEN
+    want = {k: v * (n_pk + 1) for k, v in one.items()}
+    print(f"  launches {counts} (want {want}: {n_pk} packages + the verifying one-shot run, "
+          f"each a generate)", flush=True)
+    if counts != want:
+        fail(f"co-executed path launch counts {counts} != {want}")
+    if any(not sizes for sizes in pk.values()):
+        fail(f"a group ran no package: {pk}")
+    s = result["summary"]
+    args = serve.parse_args(COEXEC_ARGV)
+    out = {"arch": args.arch, "requests": args.requests, "prompt_len": args.prompt_len,
+           "gen": args.gen, "scheduler": args.scheduler, "packages": pk, "balance": s["balance"],
+           "work_share": s["work_share"], "wall_s": result["wall_s"],
+           "tokens_per_s": result["tokens_per_s"],
+           "per_group": s["per_device"], "verified_bitwise_vs_oneshot": True}
+    print(f"  packages {pk}; balance {s['balance']:.3f}; work share "
+          f"{ {k: round(v, 3) for k, v in s['work_share'].items()} }; wall "
+          f"{result['wall_s']:.3f} s ({result['tokens_per_s']:.1f} tokens/s); bitwise equal "
+          f"to one-shot generate (held)", flush=True)
+    return out
+
+
+def run_listing1(torch) -> dict:
+    """The paper's Listing 1 kernel (examples/quickstart_torch.py) on the
+    node's real pair: ``discover(DeviceMask.ALL)`` must give one ``cpu``
+    and one ``cuda:0`` group, and HGuided(adaptive=True) must give each a
+    package, with the output right.  No simulated speeds."""
+    import importlib.util
+
+    from repro_torch.core import DeviceMask, discover
+
+    groups = discover(DeviceMask.ALL)
+    names = [g.name for g in groups]
+    if names != ["cpu:0", "cuda:0"]:
+        fail(f"discover(DeviceMask.ALL) gave {names}, want ['cpu:0', 'cuda:0']")
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+    n = 1 << 24
+    res = qs.listing1(groups, n=n)
+    s = res["summary"]
+    per = s["per_device"]
+    if not res["correct"]:
+        fail("Listing 1 on cpu + cuda:0: wrong output")
+    if any(per.get(g, {}).get("packages", 0) < 1 for g in names):
+        fail(f"Listing 1: a group ran no package: {per}")
+    out = {"groups": names, "work_items": n, "n_packages": s["n_packages"],
+           "balance": s["balance"], "work_share": s["work_share"],
+           "response_time_s": s["response_time"],
+           "packages": {g: per[g]["packages"] for g in names}}
+    print(f"  groups {names}; {s['n_packages']} packages {out['packages']}; balance "
+          f"{s['balance']:.3f}; work share "
+          f"{ {k: round(v, 3) for k, v in s['work_share'].items()} }; "
+          f"{s['response_time'] * 1e3:.1f} ms; correct (held)", flush=True)
+    return out
 
 
 def main() -> None:
@@ -802,7 +1206,9 @@ def main() -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import gemm
     from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import attention as attn
 
@@ -840,7 +1246,19 @@ def main() -> None:
     for case in scan_cases():
         rec = run_scan_case(case, dev, flush, torch, ops, ss, rg, sm_clock_hz)
         recs.setdefault(case[0], rec)
+    print("[gemm] the row-invariant GEMM and rms_norm against their plain versions "
+          "(torch.matmul and PyTorch's mean), their timings beside cuBLAS and F.rms_norm, "
+          "and the rows' batch invariance", flush=True)
+    for case in gemm_cases():
+        rec = run_gemm_case(case, dev, flush, torch, gemm)
+        recs.setdefault("gemm_rowinv", rec)
+    for case in rms_norm_cases():
+        rec = run_rms_norm_case(case, dev, flush, torch, rn)
+        recs.setdefault("rms_norm", rec)
+    run_row_checks(dev, torch, gemm, rn)
     del flush
+    gc.collect()
+    torch.cuda.empty_cache()
 
     launches = {}  # each kernel's count on the first main path that runs it
     for arch, requests, prompt_len, gen, want, modes in main_paths():
@@ -880,6 +1298,17 @@ def main() -> None:
     print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
           flush=True)
 
+    print(f"[coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
+          f"qwen1.5-4b --full, 8 x 256 + {GEN}, groups pod-a (power 2) and pod-b (power 1) "
+          f"on cuda:0", flush=True)
+    cx = run_coexec_path(dev, torch)
+    print(json.dumps({"coexec_path": cx}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[coexec] the paper's Listing 1 (examples/quickstart_torch.py) on "
+          "discover(DeviceMask.ALL) under HGuided(adaptive=True)", flush=True)
+    print(json.dumps({"listing1": run_listing1(torch)}))
+
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:145"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
@@ -889,7 +1318,12 @@ def main() -> None:
                "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                             "src/repro/kernels/ssm_scan.py:66"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",
-                              "src/repro/kernels/rglru_scan.py:52")}
+                              "src/repro/kernels/rglru_scan.py:52"),
+               # No pallas_call: the JAX package's jnp products and norm.
+               "gemm_rowinv": ("src/repro_torch/csrc/gemm_rowinv.cu",
+                               "src/repro/models/layers.py:195"),
+               "rms_norm": ("src/repro_torch/csrc/rms_norm.cu",
+                            "src/repro/models/layers.py:15")}
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     **recs[n]) for n, (src, rep) in sources.items()]
     print(card, flush=True)  # again, beside the numbers it qualifies

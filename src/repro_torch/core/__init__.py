@@ -1,12 +1,12 @@
 """EngineCL core: the paper's runtime, ported from the JAX package.
 
-Tier-1: Program.  Tier-2: DeviceGroup, Runtime, RunHandle, the Static
-scheduler.  Tier-3: Introspector, ThroughputRater, Scheduler base,
-GroupExecutor, the span tracer and the observability layer.  The
-``EngineCL`` facade, ``discover`` and the Dynamic/HGuided schedulers come
-with co-execution across device groups (ROADMAP.md item A4).
+Tier-1: EngineCL, Program.  Tier-2: DeviceGroup, DeviceMask, discover,
+Runtime, RunHandle, the Static, Dynamic and HGuided schedulers.  Tier-3:
+Introspector, ThroughputRater, Scheduler base, GroupExecutor, the span
+tracer and the observability layer.
 """
 from repro_torch.core.device import DeviceGroup  # noqa: F401
+from repro_torch.core.engine import DeviceMask, EngineCL, discover  # noqa: F401
 from repro_torch.core.introspector import (  # noqa: F401
     Introspector,
     coexec_metrics,
@@ -29,6 +29,8 @@ from repro_torch.core.runtime import (  # noqa: F401
     Runtime,
 )
 from repro_torch.core.scheduler.base import Scheduler  # noqa: F401
+from repro_torch.core.scheduler.dynamic import Dynamic  # noqa: F401
+from repro_torch.core.scheduler.hguided import HGuided  # noqa: F401
 from repro_torch.core.scheduler.static import Static  # noqa: F401
 from repro_torch.core.trace import (  # noqa: F401
     Tracer,

@@ -2,9 +2,16 @@
 
 In the paper a Device wraps one OpenCL device and its command queue/thread.
 Here a DeviceGroup wraps one ``torch.device`` plus scheduling metadata: a
-relative compute ``power`` and a rated ``watts``.  On a CUDA device the
-group owns one CUDA stream, its command queue: every upload, kernel and
-write-back of the group's packages runs on it.
+relative compute ``power``, a rated ``watts``, a minimum package size and
+an optional *specialized kernel* (the paper's per-device kernel
+source/binary).  On a CUDA device the group owns one CUDA stream, its
+command queue: every upload, kernel and write-back of the group's packages
+runs on it.
+
+``sim_time_per_wi`` emulates a slower device (the load-balancing tests and
+benchmarks of the reference): after a package's real work the group idles
+to match a device of the given time per work-item.  Real co-execution
+across unlike devices (the CPU and a GPU from ``discover``) leaves it 0.
 
 Port of the JAX package's ``core/device.py``.  ``jax.jit(fn,
 donate_argnums=...)`` becomes a direct call: PyTorch runs eagerly, and a
@@ -15,18 +22,17 @@ power-of-two package ``_bucket`` are the reference's, so package geometry
 and transfer counts match it.
 
 The default device is ``cuda:0``; a group asked for CUDA raises when CUDA
-is missing.  The reference's per-group specialized kernels, minimum
-package sizes (for Dynamic/HGuided), simulated heterogeneous speeds and
-``patch_cached`` (slot migration) come with co-execution across groups
-(ROADMAP.md items A4 and A7).
+is missing.  The reference's ``patch_cached`` (slot migration) comes with
+multi-group serving (ROADMAP.md item A7).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 import weakref
 from collections import OrderedDict
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -41,6 +47,9 @@ class DeviceGroup:
         *,
         power: float = 1.0,
         watts: float = 0.0,
+        min_package_groups: int = 1,
+        kernel: Optional[Callable] = None,
+        sim_time_per_wi: float = 0.0,
         transfer_cache_entries: int = 128,
     ) -> None:
         self.name = name
@@ -63,6 +72,10 @@ class DeviceGroup:
         # observed throughput by watts when set, so scheduling optimizes
         # tokens/joule instead of raw tokens/s (Green Computing rating).
         self.watts = watts
+        self.min_package_groups = min_package_groups
+        self.specialized_kernel = kernel
+        self.sim_time_per_wi = sim_time_per_wi
+        self._sim_clock = 0.0  # simulated completion time of the last package
         # Device-resident transfer cache: (buffer version, offset, bucket) ->
         # padded device tensor.  Versions (program.buffer_version) change
         # when a buffer is rewritten/swapped, so hits are always
@@ -242,8 +255,9 @@ class DeviceGroup:
         ``size_wi`` (Program.write_outputs does).
         """
         # Nothing to compile (the reference's per-group jit): PyTorch runs
-        # the kernel eagerly, and donation is in-place reuse.
-        fn = program._kernel
+        # the (possibly specialized) kernel eagerly, and donation is
+        # in-place reuse.
+        fn = self.specialized_kernel or program._kernel
         bucket = self._bucket(size_wi, program.lws)
         donated = set(program.donated_ins)
         with self.stream_context():
@@ -262,6 +276,29 @@ class DeviceGroup:
                 event = torch.cuda.Event()
                 event.record(self.stream)
         return res, event
+
+    def simulate_service_time(self, size_wi: int, elapsed: float,
+                              cost_units: Optional[float] = None) -> None:
+        """Pad to the service time a device of this speed would need.
+
+        A real device computes packages *serially*, so the simulated clock
+        advances from the later of (previous simulated completion, actual
+        package start) — otherwise pipelined dispatch would let sleeps
+        overlap and produce impossible >S_max speedups.
+
+        ``cost_units`` (defaults to size_wi) lets irregular kernels charge
+        content-dependent work (Program.cost_fn)."""
+        if self.sim_time_per_wi <= 0:
+            return
+        target = (cost_units if cost_units is not None else size_wi) * self.sim_time_per_wi
+        now = time.perf_counter()
+        start = max(self._sim_clock, now - elapsed)
+        end = start + target
+        if end > now:
+            time.sleep(end - now)
+            self._sim_clock = end
+        else:
+            self._sim_clock = now
 
     @staticmethod
     def wait(event) -> None:

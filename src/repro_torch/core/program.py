@@ -18,8 +18,11 @@ consistently — the runtime slices work-items, never raw indices.
 Port of the JAX package's ``core/program.py``.  Host buffers are CPU
 ``torch`` tensors, not numpy arrays: the server's host mirrors hold KV
 caches in their compute dtype, and numpy has no bfloat16.  A numpy array
-given to ``out`` is wrapped (memory shared).  The version machinery is the
-reference's, unchanged.
+given to ``in_`` or ``out`` is wrapped (memory shared), and the same array
+always gets the same wrapper, so two Programs that share a numpy buffer
+share its host tensor: the run graph sees the shared buffer and the
+transfer cache its version, as the reference's do.  The version machinery
+is the reference's, unchanged.
 """
 from __future__ import annotations
 
@@ -78,6 +81,28 @@ def bump_version(buf) -> None:
             _versions[key] = next(_version_counter)
 
 
+# One live wrapper per numpy array: id(array) -> the tensor sharing its
+# memory.  The tensor holds the array, so while an entry lives its id names
+# that array and no other.
+_wrappers: "weakref.WeakValueDictionary[int, torch.Tensor]" = weakref.WeakValueDictionary()
+_wrappers_lock = threading.Lock()
+
+
+def host_tensor(buf) -> torch.Tensor:
+    """``buf`` as a CPU host tensor: a tensor as it is; a numpy array (or
+    anything ``np.asarray`` takes) wrapped without a copy, the same wrapper
+    for the same array."""
+    if isinstance(buf, torch.Tensor):
+        return buf
+    arr = np.asarray(buf)
+    with _wrappers_lock:
+        t = _wrappers.get(id(arr))
+        if t is None:
+            t = torch.as_tensor(arr)
+            _wrappers[id(arr)] = t
+    return t
+
+
 class Program:
     def __init__(self) -> None:
         self._ins: list[Any] = []
@@ -90,15 +115,18 @@ class Program:
         self._out_pattern = Fraction(1, 1)  # out elems per work-item
         self.gws: Optional[int] = None
         self.lws: int = 1
+        # Optional relative-cost model f(offset_wi, size_wi) -> work units
+        # (default: size).  Used only by simulated-heterogeneity DeviceGroups
+        # to model irregular kernels (Mandelbrot/Ray).
+        self.cost_fn: Optional[Callable[[int, int], float]] = None
 
     # -- buffers ---------------------------------------------------------
     def in_(self, buf) -> "Program":
-        self._ins.append(buf)
+        self._ins.append(host_tensor(buf))
         return self
 
     def out(self, buf) -> "Program":
-        self._outs.append(buf if isinstance(buf, torch.Tensor)
-                          else torch.as_tensor(np.asarray(buf)))
+        self._outs.append(host_tensor(buf))
         return self
 
     def out_pattern(self, out_elems: int, work_items: int = 1) -> "Program":

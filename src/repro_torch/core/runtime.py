@@ -26,9 +26,11 @@ kernel launches.  This module is that runtime for the JAX port:
 
 A worker waits for a package's device work on a CUDA event its group
 recorded right after the kernel's launches (the reference's
-``jax.block_until_ready``); CPU packages complete on return.  The
-``EngineCL`` facade of the reference comes with co-execution across device
-groups (ROADMAP.md item A4).
+``jax.block_until_ready``); CPU packages complete on return.
+
+``EngineCL`` is a facade over this: ``run()`` = ``submit()`` + wait, with
+identical blocking semantics; ``run_pipeline``/``run_iterative`` submit
+whole dependency chains and wait once at the end.
 """
 from __future__ import annotations
 
@@ -512,9 +514,13 @@ class Runtime:
                 if pending and (len(pending) >= self.pipeline_depth or pkg is None):
                     off, size, (res, event), t_enq = pending.pop(0)
                     group.wait(event)  # async: service time to completion
+                    t_dev = time.perf_counter()
+                    cost = prog.cost_fn(off, size) if prog.cost_fn else None
+                    group.simulate_service_time(size, t_dev - t_enq, cost)
                     t_end = time.perf_counter()
-                    # Device service time, measured ONCE — host write-back
-                    # below must not inflate what adaptive raters observe.
+                    # Device service time (plus simulated padding), measured
+                    # ONCE — host write-back below must not inflate what
+                    # adaptive raters (HGuided/ThroughputRater) observe.
                     service = t_end - t_enq
                     self._write_back(group, handle, off, size, res)
                     if tr.enabled:

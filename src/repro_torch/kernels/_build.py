@@ -12,7 +12,8 @@ The hash covers the sources and the flags, so an edited source builds anew.
 here runs at import: the CPU tests import every module without ``nvcc``.
 
 Every wrapper counts its launches in :data:`LAUNCHES`, a plain integer per
-kernel, incremented only where it launches its kernel.
+kernel, incremented (:func:`count`, under a lock: co-executing groups launch
+from their own worker threads) only where it launches its kernel.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("flash_attention", "flash_decode", "flash_decode_paged", "ssm_scan",
-           "rglru_scan")
+           "rglru_scan", "gemm_rowinv", "rms_norm")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' row and tile limits and shared-memory budget (attention_tile.cuh).
 MAX_ROWS = 64
@@ -46,13 +47,21 @@ CHUNK_KEYS = 256           # keys of one decode chunk
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict = {}
 _fns: dict = {}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count(name: str) -> None:
+    """One launch of kernel ``name``, counted where the wrapper launched it."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def smem_bytes(rows: int, hd: int, bk: int) -> int:

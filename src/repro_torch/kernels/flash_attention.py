@@ -167,5 +167,5 @@ def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, block_q, block_k
                  q_offset, hd ** -0.5, _build.dtype_code(q),
                  torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention", err)
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.count("flash_attention")
     return out

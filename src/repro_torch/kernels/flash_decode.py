@@ -207,7 +207,7 @@ def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
                  b, s, sq, h, kvh, hd, bk, window, hd ** -0.5, _build.dtype_code(q),
                  _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode", err)
-    _build.LAUNCHES["flash_decode"] += 1
+    _build.count("flash_decode")
     return out
 
 
@@ -297,5 +297,5 @@ def _flash_decode_paged_cuda(q, k, v, kpos, tables, pos, *, window):
                  hd, k.stride(0), kpos.stride(0), window, hd ** -0.5, _build.dtype_code(q),
                  _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode_paged", err)
-    _build.LAUNCHES["flash_decode_paged"] += 1
+    _build.count("flash_decode_paged")
     return out

@@ -13,7 +13,9 @@ from repro_torch.kernels.flash_decode import (  # noqa: F401
     flash_decode_paged,
     needed_tiles,
 )
+from repro_torch.kernels.gemm import linear  # noqa: F401
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: F401
+from repro_torch.kernels.rms_norm import rms_norm  # noqa: F401
 from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: F401
 
 

@@ -1,5 +1,5 @@
-"""Serving launcher: one-shot batched greedy generate, and the
-continuous-batching server.
+"""Serving launcher: one-shot batched greedy generate, co-executed
+generate, and the continuous-batching server.
 
     # one-shot generate on the card, through the CUDA kernels (the default)
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --full \\
@@ -7,6 +7,12 @@ continuous-batching server.
 
     # on the CPU, reduced config, kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --device cpu
+
+    # co-executed through the EngineCL runtime: the request batch split in
+    # packages over two groups of the run's device, checked bitwise
+    # against one-shot generate
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --coexec --scheduler hguided --verify --device cpu
 
     # the paged continuous-batching server, Poisson arrivals, checked
     # against one-shot generate of each prompt
@@ -18,10 +24,17 @@ cast once to the compute dtype); one-shot prompts are random tokens from
 ``--seed + 1``, server prompts and arrival gaps from ``--seed + 2`` (as the
 JAX launcher draws them).  Under ``--paged --kernel cuda`` the one-shot
 reference tiles its cache at the block length (``decode_block``), so the
-served streams and the reference run the same tile partition.  The
-co-executed mode (``--coexec``) and the server's speculative, chunked and
+served streams and the reference run the same tile partition.
+
+``--coexec`` runs one-shot generate as the kernel of an EngineCL Program
+over two DeviceGroups on the run's device, ``pod-a`` (power 2) and
+``pod-b`` (power 1), each with its own CUDA stream, as the JAX launcher's
+pair; the scheduler (``--scheduler``) cuts the requests into packages.
+Every row of the port's kernels is independent of its batch, so
+``--verify`` holds each package's tokens bitwise equal to one-shot
+generate of the whole batch.  The server's speculative, chunked and
 multi-group options of the JAX launcher are not ported yet (ROADMAP.md
-items A4, A5, A7).
+items A5, A7).
 """
 from __future__ import annotations
 
@@ -34,10 +47,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ShapeCell, get_config, reduced
+from repro_torch.core import DeviceGroup, Dynamic, EngineCL, HGuided, Program, Static
 from repro_torch.launch.specs import make_batch
 from repro_torch.models import KERNEL_IMPLS, get_model
 from repro_torch.models.params import materialize
-from repro_torch.serve import make_generate
+from repro_torch.serve import cast_params_cached, make_generate
+
+
+# --scheduler: a fresh scheduler of each kind, as the JAX launcher's.
+SCHEDULERS = {"static": Static, "dynamic": lambda: Dynamic(8), "hguided": HGuided}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -62,16 +80,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--seg-len", type=int, default=2)
     ap.add_argument("--max-wait-ms", type=float, default=10.0)
-    ap.add_argument("--scheduler", default="static", choices=["static"],
-                    help="engine scheduler (Dynamic and HGuided are not ported)")
+    ap.add_argument("--scheduler", default="static", choices=sorted(SCHEDULERS),
+                    help="engine scheduler")
+    ap.add_argument("--coexec", action="store_true",
+                    help="co-executed generate over two device groups of the "
+                         "run's device (pod-a at power 2, pod-b at power 1)")
     ap.add_argument("--paged", action="store_true",
                     help="serve from the paged KV block pool (block tables + "
                          "prefix cache)")
     ap.add_argument("--block-len", type=int, default=4,
                     help="tokens per KV block in --paged mode")
     ap.add_argument("--verify", action="store_true",
-                    help="server mode: assert every served stream equals "
-                         "one-shot generate of its prompt at batch 1")
+                    help="assert bit-identity to one-shot generate: every "
+                         "served stream to its prompt at batch 1 (server "
+                         "mode), the co-executed tokens to the whole batch "
+                         "(--coexec)")
     return ap.parse_args(argv)
 
 
@@ -118,7 +141,6 @@ def server_prompts(cfg, args):
 def run_server(cfg, api, params, args) -> dict:
     """Replay a seeded Poisson arrival trace through ``InferenceServer`` on
     one DeviceGroup of ``--device``."""
-    from repro_torch.core import DeviceGroup, Static
     from repro_torch.core.trace import tracer
     from repro_torch.serve.paged import PagedSpec
     from repro_torch.serve.server import InferenceServer
@@ -130,7 +152,7 @@ def run_server(cfg, api, params, args) -> dict:
     server = InferenceServer(
         cfg, api, params,
         groups=[DeviceGroup("serve:0", device=device)],
-        scheduler={"static": Static}[args.scheduler](),
+        scheduler=SCHEDULERS[args.scheduler](),
         buckets=(args.prompt_len,),
         max_batch=args.max_batch,
         seg_len=args.seg_len,
@@ -211,11 +233,75 @@ def run_server(cfg, api, params, args) -> dict:
     return result
 
 
+def coexec_groups(device):
+    """The JAX launcher's co-execution pair on one device: ``pod-a`` at
+    power 2 and ``pod-b`` at power 1, each with its own CUDA stream."""
+    return [DeviceGroup("pod-a", device=device, power=2.0),
+            DeviceGroup("pod-b", device=device, power=1.0)]
+
+
+def run_coexec(cfg, api, params, batch, args) -> dict:
+    """Split the request batch across device groups through the engine —
+    the same ``make_generate`` path, embedded as the package kernel.  Each
+    package is generated alone, on its group's stream."""
+    device = batch["tokens"].device
+    groups = coexec_groups(device)
+    generate = make_generate(cfg, api)
+    # Cast the parameters once, here, not concurrently on the workers.
+    cast_params_cached(params, cfg.compute_dtype)
+    if device.type == "cuda" and cfg.kernel_impl == "cuda":
+        # Build the kernel libraries here, not on a worker thread.
+        from repro_torch.kernels import _build
+
+        _build.build()
+
+    def kern(offset, tokens):
+        return generate(params, {"tokens": tokens}, args.gen)
+
+    out = torch.zeros((args.requests, args.gen), dtype=torch.int32)
+    prog = (Program().in_(batch["tokens"].cpu()).out(out).kernel(kern, "generate")
+            .work_items(args.requests, 1))
+    eng = EngineCL().use(*groups).scheduler(SCHEDULERS[args.scheduler]()).program(prog)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with eng:
+        eng.run()
+        wall = time.perf_counter() - t0
+        if eng.has_errors():
+            raise SystemExit("\n".join(eng.get_errors()))
+        s = eng.introspector.summary()
+        packages = {g.name: [] for g in groups}
+        for r in sorted(eng.introspector.records, key=lambda r: r.offset_wi):
+            packages[r.device].append(r.size_wi)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"co-exec generated {tuple(out.shape)} on {where} ({cfg.name}, kernel_impl="
+          f"{cfg.kernel_impl}, {args.scheduler}) in {wall:.3f}s: "
+          f"{out.numel() / wall:.1f} tokens/s balance={s['balance']:.3f} "
+          f"share={ {k: round(v, 3) for k, v in s['work_share'].items()} }")
+    for name, sizes in packages.items():
+        d = s["per_device"].get(name, {})
+        print(f"  {name}: packages {sizes}, busy {d.get('busy', 0.0):.3f}s, finish "
+              f"{d.get('finish', 0.0):.3f}s")
+    return {"tokens": out.numpy(), "wall_s": wall, "tokens_per_s": out.numel() / wall,
+            "summary": s, "packages": packages}
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     cfg, api, params = load_model(args)
     if args.server:
         return run_server(cfg, api, params, args)
+    if args.coexec:
+        batch = load_batch(cfg, args)
+        result = run_coexec(cfg, api, params, batch, args)
+        print(result["tokens"][: min(4, args.requests)])
+        if args.verify:
+            want = run_oneshot(cfg, api, params, batch, args.gen).cpu().numpy()
+            assert np.array_equal(result["tokens"], want), "co-exec != one-shot generate"
+            print("verify: co-exec output bit-identical to one-shot generate")
+            result["verified"] = True
+        return result
     return run_oneshot_main(cfg, api, params, args)
 
 

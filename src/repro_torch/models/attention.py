@@ -48,23 +48,26 @@ def cache_spec(cfg, batch: int, max_seq: int, window: int = 0) -> dict:
     }
 
 
-def _proj(x, w):
-    """einsum("bsd,d...->bs...", x, w) as one matrix product."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+def _proj(x, w, impl, bias=None):
+    """einsum("bsd,d...->bs...", x, w) (+ bias) as one matrix product."""
+    b = None if bias is None else bias.reshape(-1)
+    y = L.linear(x, w.reshape(w.shape[0], -1), impl, b)
+    return y.reshape(x.shape[:-1] + w.shape[1:])
 
 
 def _project_qkv(p, x, positions, cfg):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
-    if "bq" in p:  # bias before RoPE
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    impl = cfg.kernel_impl
+    # The bias (qwen's) is added before RoPE.
+    q, k, v = (_proj(x, p[w], impl, p.get(b)) for w, b in
+               (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _out_proj(out, wo):
+def _out_proj(out, wo, impl):
     """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
-    return out.flatten(2) @ wo.flatten(0, 1)
+    return L.linear(out.flatten(2), wo.flatten(0, 1), impl)
 
 
 def _write(cache, slot, k, v, positions):
@@ -89,7 +92,7 @@ def prefill_with_cache(p, x, positions, cfg, cache, *, window=0):
     slot = pos_w % cs if window else pos_w
     _write(cache, slot.long(), k_w, v_w, pos_w)
     out = L.attention(q, k, v, cfg, causal=True, window=window)
-    return _out_proj(out, p["wo"]), cache
+    return _out_proj(out, p["wo"], cfg.kernel_impl), cache
 
 
 def pos_vector(pos, b: int, device=None):
@@ -125,7 +128,7 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
         slot = positions % cs if window else positions  # (B, Sq)
         _write(cache, slot.long(), k, v, positions)
     out = cached_attention(q, cache, posv, cfg, window=window)
-    return _out_proj(out, p["wo"]), cache
+    return _out_proj(out, p["wo"], cfg.kernel_impl), cache
 
 
 def _paged_write(cache, kt, vt, positions, window):

@@ -5,20 +5,45 @@ Plain functions on tensors, in the JAX package's layouts: activations
 for ``preferred_element_type=float32`` the inputs are widened to float32
 before the product: the products of bf16 values are exact in float32, so
 only the order of the sums differs.
+
+Every product of an activation with a weight goes through :func:`linear`,
+and every norm through :func:`rms_norm`.  Under ``kernel_impl="cuda"``
+(``impl`` here) they run the row-invariant kernels of ``kernels/gemm.py``
+and ``kernels/rms_norm.py``, whose rows do not depend on the batch around
+them (the served-equals-one-shot contract); otherwise ``torch.matmul`` and
+PyTorch's reduction.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.gemm import linear_plain
+from repro_torch.kernels.rms_norm import rms_norm_plain
+
 NEG_INF = -1e30
 
 
-def rms_norm(x, weight, eps: float):
-    """Normalize in float32, cast back to x's dtype, *then* scale."""
-    x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * weight
+def rms_norm(x, weight, eps: float, impl: str = "reference"):
+    """Normalize in float32, cast back to x's dtype, *then* scale.
+    ``impl="cuda"``: the row-invariant kernel (its plain version for CPU
+    tensors)."""
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.rms_norm(x, weight, eps)
+    return rms_norm_plain(x, weight, eps)
+
+
+def linear(x, w, impl: str = "reference", bias=None):
+    """``x @ w (+ bias)``; a 3-D ``w`` (nb, K, N) is block-diagonal, x
+    (..., nb, K).  ``impl="cuda"``: the row-invariant GEMM (its plain
+    version for CPU tensors); otherwise ``torch.matmul``."""
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.linear(x, w, bias)
+    return linear_plain(x, w, bias)
 
 
 # ---------------------------------------------------------------- RoPE ----
@@ -161,9 +186,11 @@ def assoc_scan(a, b):
 # ----------------------------------------------------------------- MLP ----
 
 
-def swiglu(x, w_gate, w_up, w_down):
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+def swiglu(x, w_gate, w_up, w_down, impl: str = "reference"):
+    h = F.silu(linear(x, w_gate, impl)) * linear(x, w_up, impl)
+    return linear(h, w_down, impl)
 
 
-def geglu(x, w_gate, w_up, w_down):
-    return (F.gelu(x @ w_gate, approximate="tanh") * (x @ w_up)) @ w_down
+def geglu(x, w_gate, w_up, w_down, impl: str = "reference"):
+    h = F.gelu(linear(x, w_gate, impl), approximate="tanh") * linear(x, w_up, impl)
+    return linear(h, w_down, impl)

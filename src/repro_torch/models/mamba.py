@@ -72,9 +72,10 @@ def ssm_forward(p, x, cfg, h0=None):
     256-step chunk."""
     b, s, di = x.shape
     _, R, N = dims(cfg)
-    xdb = x @ p["x_proj"]  # (B,S,R+2N)
+    impl = cfg.kernel_impl
+    xdb = L.linear(x, p["x_proj"], impl)  # (B,S,R+2N)
     dt, B_ssm, C_ssm = torch.split(xdb, [R, N, N], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"]).float()  # (B,S,di)
+    dt = F.softplus(L.linear(dt, p["dt_proj"], impl, p["dt_bias"])).float()  # (B,S,di)
     A = -torch.exp(p["A_log"].float())  # (di, N)
     xf = x.float()
     Bf, Cf = B_ssm.float(), C_ssm.float()
@@ -112,8 +113,9 @@ def ssm_forward(p, x, cfg, h0=None):
 def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     """One Mamba layer; ``cache`` ({conv, ssm}) is updated in place."""
     del positions, pos
-    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    x_in, z = (h @ p["in_proj"]).chunk(2, dim=-1)
+    impl = cfg.kernel_impl
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps, impl)
+    x_in, z = L.linear(h, p["in_proj"], impl).chunk(2, dim=-1)
     h0 = cache["ssm"].float()
     if mode == "decode":
         # Roll the conv state: a one-step conv, then one scan step.
@@ -130,5 +132,5 @@ def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     else:
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     cache["ssm"].copy_(h_last)
-    out = (y * F.silu(z)) @ p["out_proj"]
+    out = L.linear(y * F.silu(z), p["out_proj"], impl)
     return x + out, cache

@@ -98,24 +98,23 @@ def rec_block_apply(p, x, cfg, cache):
     bsz, s, _ = x.shape
     nb = max(cfg.n_heads, 1)
     w = cfg.lru_width
-    h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    y_branch = F.gelu(h @ p["in_y"], approximate="tanh")  # (B,S,w)
-    x_branch = h @ p["in_x"]
+    impl = cfg.kernel_impl
+    h = L.rms_norm(x, p["norm"], cfg.norm_eps, impl)
+    y_branch = F.gelu(L.linear(h, p["in_y"], impl), approximate="tanh")  # (B,S,w)
+    x_branch = L.linear(h, p["in_x"], impl)
 
     # Causal depthwise conv (width 4) over the carried state and the input.
     conv_in = torch.cat([cache["conv"].to(x_branch.dtype), x_branch], dim=1)
     ck = p["conv_w"].shape[1]
     xc = sum(conv_in[:, i: i + s] * p["conv_w"][:, i] for i in range(ck)) + p["conv_b"]
 
-    # Block-diagonal gates as one batched product over the nb blocks.  The
-    # JAX package unrolls them per block to keep its CPU lowering
-    # batch-invariant; on the card one batched product is expected to need
-    # fewer launches than 2 * nb small ones per rec layer and step (not
-    # counted).  Batch invariance on the card is an open question of its
-    # own (ROADMAP.md C2).
+    # Block-diagonal gates: each one product of the nb blocks, one launch
+    # under the kernels (the JAX package unrolls them per block to keep its
+    # CPU lowering batch-invariant; the row-invariant GEMM is so by
+    # construction).
     xg = xc.reshape(bsz, s, nb, w // nb)
-    r = torch.sigmoid(torch.einsum("bsnw,nwv->bsnv", xg, p["gate_a"]) + p["gate_a_b"])
-    i = torch.sigmoid(torch.einsum("bsnw,nwv->bsnv", xg, p["gate_x"]) + p["gate_x_b"])
+    r = torch.sigmoid(L.linear(xg, p["gate_a"], impl, p["gate_a_b"]))
+    i = torch.sigmoid(L.linear(xg, p["gate_x"], impl, p["gate_x_b"]))
     r = r.reshape(bsz, s, w).float()
     i = i.reshape(bsz, s, w).float()
     log_a = -LRU_C * F.softplus(p["lam"].float()) * r
@@ -123,7 +122,7 @@ def rec_block_apply(p, x, cfg, cache):
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * xc.float()
     hs, h_last = _rglru_scan(a, gated, cache["h"].float(), impl=cfg.kernel_impl)
 
-    out = (hs.to(x.dtype) * y_branch) @ p["out"]
+    out = L.linear(hs.to(x.dtype) * y_branch, p["out"], impl)
     cache["conv"].copy_(conv_in[:, -(ck - 1):])
     cache["h"].copy_(h_last)
     return x + out, cache
@@ -165,14 +164,15 @@ def layer_apply(p, x, positions, cfg, *, kind, mode, cache, pos=None):
         x, _ = rec_block_apply(p["mix"], x, cfg, cache)
     else:
         ap = {k: v for k, v in p["mix"].items() if k != "norm"}
-        h = L.rms_norm(x, p["mix"]["norm"], cfg.norm_eps)
+        h = L.rms_norm(x, p["mix"]["norm"], cfg.norm_eps, cfg.kernel_impl)
         if mode == "prefill":
             a, _ = A.prefill_with_cache(ap, h, positions, cfg, cache, window=cfg.window)
         else:
             a, _ = A.decode_step(ap, h, pos, cfg, cache, window=cfg.window)
         x = x + a
-    h = L.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps)
-    x = x + L.geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    h = L.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps, cfg.kernel_impl)
+    x = x + L.geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"],
+                    cfg.kernel_impl)
     return x, cache
 
 

@@ -41,7 +41,8 @@ def dense_block_spec(cfg) -> dict:
 
 
 def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
-    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    impl = cfg.kernel_impl
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps, impl)
     if mode == "prefill":
         a, cache = A.prefill_with_cache(p["attn"], h, positions, cfg, cache,
                                         window=cfg.window)
@@ -50,8 +51,8 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     else:
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     x = x + a
-    h = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    h = L.rms_norm(x, p["norm2"], cfg.norm_eps, impl)
+    x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl)
     return x, cache
 
 
@@ -121,9 +122,11 @@ def embed_tokens(params, tokens, cfg):
 
 
 def logits_fn(params, x, cfg):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.kernel_impl)
+    # A tied head reads the embedding table as it is stored: (vocab, d)
+    # row-major is the transposed (N, K) layout the GEMM takes.
     head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    return (x @ head.to(x.dtype)).float()
+    return L.linear(x, head.to(x.dtype), cfg.kernel_impl).float()
 
 
 # ------------------------------------------------------------- public API

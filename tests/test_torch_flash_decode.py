@@ -151,7 +151,7 @@ def test_cpu_tensors_count_no_launch():
     flash_decode(q, k, k, kpos, torch.tensor([1], dtype=torch.int32))
     assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                "flash_decode_paged": 0, "ssm_scan": 0,
-                               "rglru_scan": 0}
+                               "rglru_scan": 0, "gemm_rowinv": 0, "rms_norm": 0}
 
 
 def test_non_cpu_non_cuda_tensor_raises():

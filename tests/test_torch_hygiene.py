@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither jax nor the JAX package, and the whole package imports with jax
-blocked."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
+example import neither jax nor the JAX package, and the whole package
+imports with jax blocked."""
 import ast
 import os
 import subprocess
@@ -11,7 +11,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "examples" / "quickstart_torch.py"]
+# Modules of the co-execution slice: the engine facade, the adaptive
+# schedulers and the two row-invariant kernels' wrappers.
+SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
+                 "kernels/gemm.py", "kernels/rms_norm.py")
 
 
 def _imports(path):
@@ -55,3 +60,23 @@ def test_chip_smoke_refuses_without_cuda():
                        capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_modules_are_checked(rel):
+    """Each new module exists, is among the files checked above, and
+    imports only torch, numpy, the standard library and the port."""
+    path = PORT / rel
+    assert path in FILES
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top in ("torch", "numpy", "repro_torch", "__future__") or \
+            top in sys.stdlib_module_names, f"{rel} imports {mod}"
+
+
+def test_kernel_sources_exist():
+    """Every kernel the build knows has its CUDA source in the package."""
+    from repro_torch.kernels import _build
+
+    for name in _build.KERNELS:
+        assert (_build.CSRC / f"{name}.cu").is_file(), name
