@@ -57,13 +57,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
              layout), its block-diagonal gates (10 products, one launch),
              odd shapes that take the plain loads, and the float32 route:
              bfloat16 at 2e-2, float32 at 1e-4, each beside one cuBLAS call
-             (torch.matmul, here only).  ``rms_norm`` against its plain
-             version, beside F.rms_norm.  Held bitwise: row r of each kernel
-             at M = 1, 3, 8 and 2048 equals the same row computed alone (the
-             served-equals-one-shot contract); printed beside it, what
-             torch.matmul and PyTorch's mean give on the same rows.  Held
-             bitwise too: the per-row einsums of falcon-mamba-7b's decode
-             step, which stay PyTorch calls.
+             (torch.matmul, here only).  Each line prints the plan
+             (``gemm.plan``: route, tile, stages, the K chain) and the rate
+             beside its bound.  ``rms_norm`` against its plain version,
+             beside F.rms_norm.  Held bitwise: row r of each kernel at M =
+             1, 3, 8, 64, 65, 300, 2048 and 4096 (the routes' boundaries, a
+             ragged tile, a 2 x 2048 prefill) equals the same row computed
+             alone (the served-equals-one-shot contract); at each GEMM shape
+             every bf16 route (wide, narrow, gemv, head, plain) gives the
+             same bits, and x misaligned by one element in a larger buffer
+             (the plain loads) the aligned rows' bits; printed beside it,
+             what torch.matmul and PyTorch's mean give on the same rows.
+             Held bitwise too: the per-row einsums of falcon-mamba-7b's
+             decode step, which stay PyTorch calls.  Then one ``[host]``
+             line: the wrappers' host time per call at the decode shapes
+             (``--host-us`` prints only that line, for the src/ beside the
+             script: a copy run from another checkout compares the two).
 4. main paths -- ``repro_torch.launch.serve`` one-shot generate,
              ``kernel_impl="cuda"``, random weights from the seed, one model
              at a time (each freed before the next):
@@ -94,7 +103,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              one ``rms_norm`` per norm, in every forward pass: no product on
              a CUDA tensor reaches torch.matmul.
              Each one-shot run's tokens must lie in range, and its first token be
-             the argmax of its prefill.  Each is then held against the
+             the argmax of its prefill; its JSON line counts the TMA maps
+             gemm_rowinv encoded during the run (host time: a cached map
+             costs none).  Each is then held against the
              dense reference on the same weights one layer at a time,
              teacher-forced: every bf16 layer of the prefill (and, where a
              kernel serves decode, of the first decode step), fed the
@@ -594,25 +605,30 @@ def run_gemm_case(case, dev, flush, torch, gemm):
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     o = gemm.operands(x, w, bias)
+    plan = gemm.plan(o["m"], o["n"], o["k"], o["wt"], o["tma"], batch=o["batch"], dtype=x.dtype)
+    rate = (f"{flops / ms / 1e9:.1f} TFLOP/s of {PEAK_FLOPS[dname] / 1e12:.0f}"
+            if rec["bound_by"] == "operations" else
+            f"{nbytes / ms / 1e9:.3f} TB/s of {HBM_BYTES_PER_S / 1e12:.2f}")
     print(f"  gemm_rowinv | {name} (M {m}, K {k}, N {n}{f', {nb} blocks' if nb else ''}, w "
           f"{'transposed' if o['wt'] else 'row-major'}{', bias' if has_bias else ''}, {dname}): "
-          f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-          f"cuBLAS={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})",
-          flush=True)
+          f"plan {plan.describe()}; max_abs_err={err:.3g} kernel={ms:.4f} ms ({rate}) "
+          f"plain={plain_ms:.4f} ms cuBLAS={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
     return rec
 
 
-ROW_PROBE = (0, 1, 2, 3, 5, 7, 15, 16, 63, 64, 127, 128, 1000, 2047)
+ROW_PROBE = (0, 1, 2, 3, 5, 7, 15, 16, 63, 64, 127, 128, 299, 1000, 2047, 4095)
+ROW_MS = (1, 3, 8, 64, 65, 300, 2048, 4096)  # the routes' boundaries, a ragged tile, 2 x 2048
 
 
-def row_invariance(name, fn, x, torch, hold: bool) -> str:
-    """Row r of ``fn`` over the first M rows of x, for M in 1, 3, 8 and
-    2048, against the same row computed alone (M = 1), bitwise, for the
-    rows of ``ROW_PROBE`` below M.  Held (a failure) with ``hold``, else
-    counted and returned."""
-    alone = {r: fn(x[r:r + 1])[0] for r in ROW_PROBE}
+def row_invariance(name, fn, x, torch, hold: bool, ms=ROW_MS) -> str:
+    """Row r of ``fn`` over the first M rows of x, for each M of ``ms``,
+    against the same row computed alone (M = 1), bitwise, for the rows of
+    ``ROW_PROBE`` below M.  Held (a failure) with ``hold``, else counted
+    and returned."""
+    alone = {r: fn(x[r:r + 1])[0] for r in ROW_PROBE if r < max(ms)}
     bad = total = 0
-    for m in (1, 3, 8, 2048):
+    for m in ms:
         y = fn(x[:m])
         for r in ROW_PROBE:
             if r < m:
@@ -627,17 +643,44 @@ def row_invariance(name, fn, x, torch, hold: bool) -> str:
     return f"{total - bad}/{total} rows equal to the row alone"
 
 
+def route_agreement(what, x, w, b, torch, gemm) -> str:
+    """Every bf16 route's product of the same M = 300 rows, bitwise equal to
+    the plan's (one k16 chain whatever the tile and the load path), on at
+    most 2048 columns of w (the plain loads are slow); and x misaligned by
+    one element in a larger buffer (the plain loads) equal to x's rows."""
+    xs, ws, bs = x[:300], w[:, :2048], None if b is None else b[:2048]
+    want = gemm.linear(xs, ws, bs)
+    routes = [r for r in gemm.ROUTES if r != "f32"]
+    for route in routes:
+        if not torch.equal(gemm.linear(xs, ws, bs, route=route), want):
+            torch.cuda.synchronize()
+            fail(f"gemm_rowinv {what}: route {route} differs from the plan's route")
+    buf = torch.empty(xs.numel() + 8, dtype=xs.dtype, device=xs.device)
+    xm = buf[1:1 + xs.numel()].view(xs.shape)
+    xm.copy_(xs)
+    o = gemm.operands(xm, ws, bs)
+    route = gemm.plan(o["m"], o["n"], o["k"], o["wt"], o["tma"]).route
+    if route != "plain" or not torch.equal(gemm.linear(xm, ws, bs), want):
+        torch.cuda.synchronize()
+        fail(f"gemm_rowinv {what}: x misaligned by one element (route {route}) differs from "
+             f"the aligned rows")
+    torch.cuda.synchronize()
+    return (f"routes {', '.join(routes)} equal at M 300; x misaligned by one element "
+            f"({route}) equal to the aligned rows")
+
+
 def run_row_checks(dev, torch, gemm, rn):
     """The batch-invariance contract of the two row kernels, held bitwise;
     beside it, printed, what torch.matmul (cuBLAS) and PyTorch's own
     reductions give on the same rows: the fault the kernels repair."""
     g = torch.Generator(device=dev).manual_seed(16)
     bf = torch.bfloat16
-    x = torch.randn((2048, 6912), generator=g, device=dev).to(bf)
+    x = torch.randn((4096, 6912), generator=g, device=dev).to(bf)
+    ms = ", ".join(map(str, ROW_MS))
     for k, n, layout, has_bias in ((2560, 2560, "kn", True), (6912, 2560, "kn", False),
                                    (2560, 151936, "kn", False), (2560, 256000, "nk", False),
                                    (8192, 288, "kn", False)):
-        xk = x[:, :k] if k <= x.shape[1] else torch.randn((2048, k), generator=g,
+        xk = x[:, :k] if k <= x.shape[1] else torch.randn((4096, k), generator=g,
                                                            device=dev).to(bf)
         w = (torch.randn((k, n) if layout == "kn" else (n, k), generator=g, device=dev)
              * k ** -0.5).to(bf)
@@ -648,18 +691,21 @@ def run_row_checks(dev, torch, gemm, rn):
                               True)
         lib = row_invariance("torch.matmul", lambda t: gemm.linear_plain(t, w, b), xk, torch,
                              False)
-        print(f"  gemm_rowinv | rows at M 1, 3, 8, 2048 vs alone, {what}: kernel {held} "
-              f"(held, bitwise); torch.matmul {lib} (printed)", flush=True)
+        agree = route_agreement(what, xk, w, b, torch, gemm)
+        print(f"  gemm_rowinv | rows at M {ms} vs alone, {what}: kernel {held} "
+              f"(held, bitwise); {agree} (held); torch.matmul {lib} (printed)", flush=True)
         del w
+    del x
     for d, dname in ((2560, "bfloat16"), (4096, "bfloat16"), (2560, "float32")):
         dt = getattr(torch, dname)
-        xd = torch.randn((2048, d), generator=g, device=dev).to(dt)
+        xd = torch.randn((4096, d), generator=g, device=dev).to(dt)
         wd = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
         held = row_invariance(f"rms_norm d {d}", lambda t: rn.rms_norm(t, wd, 1e-6), xd, torch,
                               True)
         lib = row_invariance("rms_norm_plain", lambda t: rn.rms_norm_plain(t, wd, 1e-6), xd,
                              torch, False)
-        print(f"  rms_norm | rows at M 1, 3, 8, 2048 vs alone, d {d} {dname}: kernel {held} "
+        print(f"  rms_norm | rows at M {ms} vs alone, d {d} {dname} (plan {rn.plan(d)}): "
+              f"kernel {held} "
               f"(held, bitwise); PyTorch's mean {lib} (printed)", flush=True)
     # The per-row einsums of falcon-mamba-7b's decode step (models/mamba.py:
     # the state readout and the one-step conv) stay PyTorch calls: held here
@@ -723,6 +769,36 @@ def run_rms_norm_case(case, dev, flush, torch, rn):
           f"kernel={ms:.4f} ms plain={plain_ms:.4f} ms F.rms_norm={lib_ms:.4f} ms "
           f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
     return rec
+
+
+def host_us(dev, torch, gemm, rn, calls: int = 1000) -> str:
+    """The wrappers' host time per call at qwen1.5-4b's decode shapes: the
+    mean over ``calls`` calls of ``gemm.linear`` (8 x 2560 by 2560 x 7680),
+    of the same with x at a new address each call (where the kernel caches
+    TMA maps, x's is encoded anew), and of ``rms_norm`` (8 x 2560),
+    launched back to back without a synchronize (decode is host-bound: this
+    is what a step pays a call)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn((8, 2560), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((2560, 7680), generator=g, device=dev).to(torch.bfloat16)
+    wn = torch.ones((2560,), device=dev, dtype=torch.bfloat16)
+    xs = torch.randn((8 * (calls + 100), 2560), generator=g, device=dev).to(torch.bfloat16)
+    out = []
+    for name, fn in (("gemm.linear 8x2560 @ 2560x7680", lambda i: gemm.linear(x, w)),
+                     ("the same with x at a new address each call",
+                      lambda i: gemm.linear(xs[8 * i:8 * i + 8], w)),
+                     ("rms_norm 8x2560", lambda i: rn.rms_norm(x, wn, 1e-6))):
+        for i in range(100):
+            fn(calls + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            fn(i)
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        out.append(f"{name} {us:.2f} us")
+    return (f"[host] wrapper host time per call, mean of {calls} calls without a synchronize: "
+            + "; ".join(out))
 
 
 def ssm_ptxas(text):
@@ -936,13 +1012,15 @@ def run_main_path(argv, dev, torch, modes) -> dict:
     before and read just after, then the checks of its prefill (and decode
     step, with ``"decode"`` in ``modes``) against the dense reference on
     the same weights (see ``layer_errors``)."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import gemm, ops
     from repro_torch.launch import serve
     from repro_torch.serve import cast_params_cached
 
+    maps = gemm.maps_encoded()
     ops.reset_launch_counts()
     result = serve.main(argv)
     counts = ops.launch_counts()
+    maps = gemm.maps_encoded() - maps
     toks = result["tokens"]
     args = serve.parse_args(argv)
     cfg, api, params = serve.load_model(args)
@@ -976,6 +1054,7 @@ def run_main_path(argv, dev, torch, modes) -> dict:
            "requests": args.requests, "prompt_len": args.prompt_len, "gen": args.gen,
            "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
            "peak_memory_bytes": result["peak_memory_bytes"],
+           "gemm_tma_maps_encoded": maps,
            "first_token_is_prefill_argmax": first_ok,
            **{f"layer_rel_l2_max_bf16_{m}": max(e) for m, e in errs.items()},
            **{f"layer_rel_l2_max_bf16_{m}_rounded_update": max(e) for m, e in rounded.items()},
@@ -1203,6 +1282,15 @@ def main() -> None:
           f"CUDA {torch.version.cuda}", flush=True)
     print(card, flush=True)
 
+    if "--host-us" in sys.argv[1:]:
+        # Only the wrappers' host time, of the src/ beside this script (run a
+        # copy of it from another checkout's root to compare two trees).
+        from repro_torch.kernels import gemm
+        from repro_torch.kernels import rms_norm as rn
+
+        print(host_us(dev, torch, gemm, rn), flush=True)
+        return
+
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
@@ -1218,7 +1306,7 @@ def main() -> None:
           f"into {_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
     for name, text in out.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Used" in line and "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     if "ssm_scan" not in out:
         print("[ptxas] ssm_scan was built before this run: no ptxas output", flush=True)
@@ -1256,6 +1344,7 @@ def main() -> None:
         rec = run_rms_norm_case(case, dev, flush, torch, rn)
         recs.setdefault("rms_norm", rec)
     run_row_checks(dev, torch, gemm, rn)
+    print(host_us(dev, torch, gemm, rn), flush=True)
     del flush
     gc.collect()
     torch.cuda.empty_cache()

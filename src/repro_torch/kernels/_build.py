@@ -17,6 +17,7 @@ from their own worker threads) only where it launches its kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import shutil
@@ -185,6 +186,19 @@ def kernel_fn(name: str, symbol: str, argtypes):
         fn.restype = ctypes.c_int
         _fns[(name, symbol)] = fn
     return fn
+
+
+@contextlib.contextmanager
+def on_device(device: torch.device):
+    """Make ``device`` current for a launch (only if it is not already)
+    and yield its current stream's raw handle, the wrappers' last
+    argument.  The host cost of every launch: decode is host-bound."""
+    idx = device.index
+    if torch.cuda.current_device() == idx:
+        yield torch._C._cuda_getCurrentRawStream(idx)
+    else:
+        with torch.cuda.device(idx):
+            yield torch._C._cuda_getCurrentRawStream(idx)
 
 
 def check(name: str, err: int) -> None:
