@@ -8,7 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
 2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (seven
-             libraries), one nvcc each, all started together; then one line
+             libraries; flash_decode's holds its chunk launch too), one
+             nvcc each, all started together; then one line
              of the decode key-chunk plan.
 3. kernels -- each kernel against its plain PyTorch version on the card.
              flash_attention and flash_decode at the main path's shapes, at
@@ -43,7 +44,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
              block_k = the block length on the gathered layout, and at 2e-2
              against its plain version; the ``scaled_dot_product_attention``
              yardstick runs on the pre-gathered contiguous layout (the
-             gather is not timed).  Batch invariance, bitwise: each slot of
+             gather is not timed).  ``[chunk]``: flash_decode's chunk
+             launch (``flash_decode_chunk``, chunked prefill's rows) on a
+             288-key cache at qwen1.5-4b widths, 8 slots x 64 rows at
+             cursors 0, 64, 128 and 192 of a 256 prompt, at internlm2-20b
+             widths (n_rep 6: 384 rows), ragged cursors with an empty slot
+             (exact zeros) and a decoding one, a chunk of 40, and float32:
+             at 2e-2 (f32 1e-4) against its plain version, and every
+             prefilling slot's rows bitwise against flash_attention's rows
+             of the whole prompt at the same positions; the sdpa yardstick
+             takes the same boolean mask.  Batch invariance, bitwise: each slot of
              the qwen1.5-4b and recurrentgemma-2b main-path decode cases, and
              one batch element of the qwen1.5-4b prefill case, computed
              alone must equal its row of the batch of 8.  Each decode case
@@ -98,6 +108,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
                or be rejected, and every served stream must equal the same
                8 prompts' one-shot generate as one batch of 8, and one-shot
                generate of each prompt alone (batch 1), bitwise.
+             - chunked prefill through the same server on the same
+               weights and prompts (``--chunk-len 64``), arrivals at 4/s
+               so that later prompts prefill beside decoding slots, beside
+               whole-prompt serving of the same arrivals, both under the
+               profiler (the card's busy share); then ``--chunk-len 40`` on
+               the contiguous layout, 4 requests.  Held: at least one
+               segment mixing decoding and prefilling slots; launches
+               exactly flash_attention 0, flash_decode 40 per chunk stage
+               and flash_decode_paged 40 per decode step (contiguous:
+               flash_decode 40 per chunk stage and per decode step; whole
+               prompt: flash_attention 40 per prefill wave); every stream
+               bitwise equal to the whole-prompt served streams and to
+               one-shot generate of its prompt alone.  Tokens/s and each
+               request's TTFT printed beside the whole-prompt run's.
              Every path also launches exactly one ``gemm_rowinv`` per
              product of the models (projections, MLPs, gates, the head) and
              one ``rms_norm`` per norm, in every forward pass: no product on
@@ -132,7 +156,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              and packages printed.
 6. results -- a JSON line of every kernel's numbers (launches: each
              kernel's count on the first path that runs it; for
-             flash_decode_paged, the served path), then the last line
+             flash_decode_paged, the served path; for flash_decode's chunk
+             launch, listed as flash_decode_chunk, its flash_decode count
+             on the chunked served path), then the last line
              ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -153,6 +179,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
 GEN = 32
 SPIN_CYCLES = 2_000_000  # ~1.1 ms at the H100's 1.755 GHz boost clock
+
+
+T0 = time.perf_counter()
+
+
+def at() -> str:
+    """Seconds since the script started, for the phase headers (the
+    script's whole run must stay within half of its time limit)."""
+    return f"[{time.perf_counter() - T0:.0f} s]"
 
 
 def fail(msg: str) -> None:
@@ -441,6 +476,112 @@ def run_paged_case(case, dev, flush, torch, F, ops, fd, attn):
           f"{bl} keys in {plan['chunks']} chunk(s); bitwise = flash_decode(block_k={bl}); "
           f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
           f"sdpa (pre-gathered)={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
+# The chunked served path's prompt, chunk and cache length.
+CHUNK_PLEN, CHUNK_LEN = 256, 64
+MAIN_CHUNK_CASE = "chunk qwen1.5-4b cursor 192 (main path)"
+
+
+def chunk_cases():
+    # name, B, H, KV, hd, chunk rows, cursors ("empty": a slot with no key at
+    # all, cursor 0; a cursor >= the prompt: a decoding slot, keys through
+    # cursor + 3), dtype.  Prompt 256, cache 288 (the served path's).
+    c = CHUNK_LEN
+    return [
+        *[(f"chunk qwen1.5-4b cursor {cur}" + (" (main path)" if cur == 192 else ""), 8, 20,
+           20, 128, c, [cur] * 8, "bfloat16") for cur in (0, 64, 128, 192)],
+        ("chunk internlm2-20b widths (n_rep 6: 384 rows), cursor 128", 4, 48, 8, 128, c,
+         [128] * 4, "bfloat16"),
+        ("chunk ragged cursors, one slot empty, one decoding", 4, 20, 20, 128, c,
+         [0, 100, "empty", 256], "bfloat16"),
+        ("chunk of 40 (does not divide 256)", 8, 20, 20, 128, 40,
+         [0, 40, 80, 120, 160, 200, 240, 216], "bfloat16"),
+        ("chunk qwen1.5-4b f32, cursor 128", 8, 20, 20, 128, c, [128] * 8, "float32"),
+    ]
+
+
+def run_chunk_case(case, dev, flush, torch, F, ops, fd, attn):
+    """flash_decode's chunk launch (``flash_decode_chunk``) on a 288-key
+    cache holding each slot's prompt keys through its chunk (stale random
+    k/v under kpos -1 past them).  Held at the bf16 2e-2 (float32: 1e-4)
+    against its plain version; each prefilling slot's rows held bitwise
+    against ``flash_attention``'s rows of the whole 256-token prompt at the
+    same positions (the chunked == whole-prompt contract), an empty slot's
+    rows exact zeros.  Timed beside ``scaled_dot_product_attention`` with
+    the same boolean mask over the same cache."""
+    name, b, h, kv, hd, sq, cursors, dname = case
+    dt = getattr(torch, dname)
+    s = CHUNK_PLEN + GEN
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    qfull = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt)
+    k = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt)
+    v = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt)
+    kpos = torch.full((b, s), -1, dtype=torch.int32, device=dev)
+    pos = []
+    for i, cur in enumerate(cursors):
+        if cur == "empty":
+            pos.append(0)
+            continue
+        end = min(CHUNK_PLEN, cur + sq) if cur < CHUNK_PLEN else cur + 3
+        kpos[i, :end] = torch.arange(end, dtype=torch.int32, device=dev)
+        pos.append(cur)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt)
+    for i, p in enumerate(pos):
+        n = min(sq, s - p)
+        q[i, :n] = qfull[i, p:p + n]
+    got = ops.flash_decode_chunk(q, k, v, kpos, posv)
+    torch.cuda.synchronize()
+    want = fd.flash_decode_chunk_plain(q, k, v, kpos, posv)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL if dname == "bfloat16" else F32_TOL
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"flash_decode_chunk {name}: max |kernel - plain| = {err} > tol {tol}")
+    whole = ops.flash_attention(*(x[:, :CHUNK_PLEN].contiguous() for x in (qfull, k, v)))
+    torch.cuda.synchronize()
+    rows = 0
+    for i, cur in enumerate(cursors):
+        if cur == "empty":
+            if torch.any(got[i] != 0):
+                fail(f"flash_decode_chunk {name}: empty slot {i} is not exact zeros")
+            continue
+        if cur >= CHUNK_PLEN:
+            continue
+        end = min(CHUNK_PLEN, cur + sq)
+        if not torch.equal(got[i, :end - cur], whole[i, cur:end]):
+            d = (got[i, :end - cur].float() - whole[i, cur:end].float()).abs().max()
+            fail(f"flash_decode_chunk {name}: slot {i}'s rows {cur}..{end - 1} differ from "
+                 f"flash_attention's prefill rows (max |diff| {d})")
+        rows += end - cur
+    rowpos = posv[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)
+    mask = attn.ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None], 0)[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
+    ms = time_ms(lambda: ops.flash_decode_chunk(q, k, v, kpos, posv), flush, 20)
+    plain_ms = time_ms(lambda: fd.flash_decode_chunk_plain(q, k, v, kpos, posv), flush, 5)
+    lib_ms = time_ms(lib, flush, 20)
+    # Bytes: q in, out, the keys and values of each slot's needed tiles
+    # (each read once), kpos and pos.
+    plan = fd.chunk_launch_plan(b, s, sq, h, kv, hd, dt, dt)
+    bk = plan["block_k"]
+    nt = fd.needed_tiles(kpos, posv, block_k=bk, sq=sq)
+    keys = int(torch.clamp(nt * bk, max=s).sum())
+    nbytes = (2 * keys * kv * hd * k.element_size() + 2 * q.numel() * q.element_size()
+              + kpos.numel() * 4 + posv.numel() * 4)
+    flops = 4 * hd * (h // kv) * kv * int(mask.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    grp = (f"{plan['key_parts']} key part(s), {plan['stage_keys']}-key stages"
+           if plan["route"] == "mma" else f"{plan['grid'][0]} position tile(s)")
+    print(f"  flash_decode_chunk | {name}: {plan['route']} body, grid {plan['grid']}, "
+          f"{plan['tiles']} tiles of {bk} keys, no key chunks, {grp}; {rows} prefill rows "
+          f"bitwise = flash_attention's; max_abs_err={err:.3g} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa (mask)={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
     return rec
 
@@ -1133,9 +1274,9 @@ def run_served_path(dev, torch) -> dict:
     if rows8 != args.requests:
         fail(f"served path: {rows8} of {args.requests} streams equal one-shot generate of "
              f"the same prompts as one batch of {args.requests}")
-    rows1 = int(sum(np.array_equal(served[i], generate(params, {"tokens": tokens[i:i + 1]},
-                                                       args.gen)[0].cpu().numpy())
-                    for i in range(args.requests)))
+    ones = np.stack([generate(params, {"tokens": tokens[i:i + 1]}, args.gen)[0].cpu().numpy()
+                     for i in range(args.requests)])
+    rows1 = int(sum(np.array_equal(a, b) for a, b in zip(served, ones)))
     if rows1 != args.requests:
         fail(f"served path: {rows1} of {args.requests} streams equal one-shot generate of "
              f"their prompt alone (batch 1)")
@@ -1175,7 +1316,167 @@ def run_served_path(dev, torch) -> dict:
           f"write-back {out['segment_write_back_ms']} ms; per prefill wave: dispatch "
           f"{out['prefill_dispatch_ms']} ms, write-back {out['prefill_write_back_ms']} ms",
           flush=True)
-    return out, counts
+    return out, counts, (served, ones)
+
+
+# The chunked served paths: the served path's model, prompts and lengths,
+# with arrivals spread (Poisson at 4 requests/s, a lone request boards after
+# 1 ms) so that later prompts prefill beside slots that already decode.
+SPREAD = ["--rate", "4", "--max-wait-ms", "1"]
+
+
+def _argv_with(argv, **flags):
+    out = list(argv)
+    for flag, value in flags.items():
+        flag = "--" + flag.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = value
+        else:
+            out += [flag, value]
+    return out
+
+
+def served_run(args, cfg, api, params, torch):
+    """The launcher's ``run_server`` with the launch counts zeroed just
+    before and read just after, the span tracer on (segment spans give the
+    chunk stages and mixed segments) and torch.profiler recording the
+    card's activity (its kernels' and copies' durations summed: the card's
+    busy time over the run's wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.trace import Tracer, set_tracer, tracer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    prev = tracer()
+    set_tracer(Tracer(capacity=1 << 17, enabled=True))
+    ops.reset_launch_counts()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result = serve.run_server(cfg, api, params, args)
+    finally:
+        counts = ops.launch_counts()
+        set_tracer(prev)
+    # The raw trace, not prof.events(): building the event tree of a
+    # run's ~10^5 kernels takes the host tens of seconds.
+    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+    s = result["stats"]
+    if (s["completed"] != args.requests or s["failed"] or s["rejected"]
+            or any(r is None for r in result["results"])):
+        fail(f"served path {args.chunk_len=}: {s['completed']} completed, {s['failed']} "
+             f"failed, {s['rejected']} rejected of {args.requests}")
+    return result, counts, busy
+
+
+def run_chunked_paths(dev, torch, whole) -> dict:
+    """Chunked prefill through the launcher's server on qwen1.5-4b's
+    weights, beside whole-prompt serving of the same arrivals:
+    1. ``--paged --block-len 16 --chunk-len 64``, the served path's 8 x 256
+       + 32 with spread arrivals, and the same arrivals served whole-prompt;
+    2. ``--chunk-len 40`` on the contiguous layout, 4 requests.
+    Held: no failure; at least one segment mixing decoding and prefilling
+    slots; launch counts exactly (chunked: flash_attention 0, flash_decode
+    n_layers per chunk stage, flash_decode_paged n_layers per decode step
+    (contiguous: flash_decode for both), one gemm_rowinv per product and one
+    rms_norm per norm of each chunk stage and decode step); every stream
+    bitwise equal to the whole-prompt served streams and to one-shot
+    generate of its prompt alone (batch 1).  Printed: tokens/s, each
+    request's TTFT and the card's busy share beside the whole-prompt run's
+    (the profiler adds host time to both)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.serve import make_generate
+
+    served_whole, ones = whole
+    argv = SERVER_ARGV + SPREAD
+    args_w = serve.parse_args(argv)
+    args_c = serve.parse_args(argv + ["--chunk-len", str(CHUNK_LEN)])
+    cfg, api, params = serve.load_model(args_c)
+    n = cfg.n_layers
+    out = {}
+    for label, args in (("whole_prompt", args_w), ("chunked", args_c)):
+        result, counts, busy = served_run(args, cfg, api, params, torch)
+        s = result["stats"]
+        steps = args.seg_len * s["segments"]
+        if label == "chunked":
+            stages = result["chunk_stages"]
+            want = {"flash_attention": 0, "flash_decode": n * stages,
+                    "flash_decode_paged": n * steps, "ssm_scan": 0, "rglru_scan": 0,
+                    **row_kernel_launches(args.arch, stages + steps)}
+        else:
+            stages = s["prefill_waves"]
+            want = {"flash_attention": n * stages, "flash_decode": 0,
+                    "flash_decode_paged": n * steps, "ssm_scan": 0, "rglru_scan": 0,
+                    **row_kernel_launches(args.arch, stages + steps)}
+        print(f"  {label}: launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"{label} served path launch counts {counts} != {want}")
+        got = np.stack(result["results"])
+        eq_whole = int(sum(np.array_equal(a, b) for a, b in zip(got, served_whole)))
+        eq_one = int(sum(np.array_equal(a, b) for a, b in zip(got, ones)))
+        if eq_whole != args.requests or eq_one != args.requests:
+            fail(f"{label} served path: {eq_whole}/{args.requests} streams equal the "
+                 f"whole-prompt served streams, {eq_one}/{args.requests} one-shot of each "
+                 f"prompt alone")
+        ttft = [m["ttft"] for m in result["request_metrics"]]
+        out[label] = {"wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
+                      "segments": s["segments"], "prefill_waves": s["prefill_waves"],
+                      "device_busy_ms": busy,
+                      "device_busy_share": busy / 1e3 / result["wall_s"],
+                      "ttft_s": ttft, "streams_equal_whole_served": eq_whole,
+                      "streams_equal_batch1_oneshot": eq_one}
+        if label == "chunked":
+            chunked_counts = counts
+            out[label].update(chunk_len=args.chunk_len, chunk_stages=stages,
+                              mixed_segments=result["mixed_segments"])
+            if result["mixed_segments"] < 1:
+                fail("chunked served path: no segment mixed decoding and prefilling slots")
+        print(f"  {label}: {result['tokens_per_s']:.1f} tokens/s, {result['wall_s']:.3f} s, "
+              f"{s['segments']} segments"
+              + (f" ({stages} with a chunk stage, {result['mixed_segments']} mixed)"
+                 if label == "chunked" else f", {stages} prefill waves")
+              + f"; card busy {busy:.1f} ms ({busy / 1e3 / result['wall_s']:.1%} of the wall, "
+              f"profiler on); TTFT s {[round(t, 3) for t in ttft]}; streams == whole-prompt "
+              f"served {eq_whole}/{args.requests}, == batch-1 one-shot {eq_one}/{args.requests}"
+              f" (held, bitwise)", flush=True)
+    # 2. Contiguous chunked serving, chunks of 40, against its own one-shot
+    # reference (decode tiles of 128: no --paged).
+    argv = [a for a in argv if a not in ("--paged",)]
+    argv = _argv_with(argv, requests="4", chunk_len="40")
+    args = serve.parse_args(argv)
+    ccfg = dataclasses.replace(cfg, decode_block=0)
+    capi = get_model(ccfg)
+    result, counts, busy = served_run(args, ccfg, capi, params, torch)
+    s = result["stats"]
+    stages, steps = result["chunk_stages"], args.seg_len * s["segments"]
+    want = {"flash_attention": 0, "flash_decode": n * (stages + steps), "flash_decode_paged": 0,
+            "ssm_scan": 0, "rglru_scan": 0, **row_kernel_launches(args.arch, stages + steps)}
+    print(f"  contiguous, chunks of 40: launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"contiguous chunked served path launch counts {counts} != {want}")
+    generate = make_generate(ccfg, capi)
+    eq_one = 0
+    for p, r in zip(result["prompts"], result["results"]):
+        tok = torch.from_numpy(p[None]).to(dev)
+        eq_one += int(np.array_equal(r, generate(params, {"tokens": tok}, args.gen)[0]
+                                     .cpu().numpy()))
+    if eq_one != args.requests:
+        fail(f"contiguous chunked served path: {eq_one}/{args.requests} streams equal one-shot "
+             f"generate of each prompt alone")
+    out["contiguous_chunk40"] = {"requests": args.requests, "wall_s": result["wall_s"],
+                                 "tokens_per_s": result["tokens_per_s"],
+                                 "segments": s["segments"], "chunk_stages": stages,
+                                 "mixed_segments": result["mixed_segments"],
+                                 "device_busy_ms": busy,
+                                 "streams_equal_batch1_oneshot": eq_one}
+    print(f"  contiguous, chunks of 40: {args.requests} requests, {s['segments']} segments "
+          f"({stages} with a chunk stage, {result['mixed_segments']} mixed), "
+          f"{result['tokens_per_s']:.1f} tokens/s; == batch-1 one-shot {eq_one}/{args.requests} "
+          f"(held, bitwise)", flush=True)
+    return out, chunked_counts
 
 
 COEXEC_ARGV = ["--arch", "qwen1.5-4b", "--full", "--coexec", "--scheduler", "hguided",
@@ -1314,12 +1615,12 @@ def main() -> None:
         print(f"[ptxas] ssm_scan_kernel<{inst}>: {regs} registers; {spills}", flush=True)
     sm_clock_hz = max_sm_clock_hz()
 
-    print("[chunk plan] flash_decode / flash_decode_paged, bf16 tensor-core body: a slot's "
+    print(at() + " [chunk plan] flash_decode / flash_decode_paged, bf16 tensor-core body: a slot's "
           "needed tiles in chunks of " + ", ".join(
               f"{_build.chunk_tiles(bk)} tiles at block_k {bk}" for bk in (128, 64, 32, 16))
           + f" ({_build.CHUNK_KEYS} keys; set by block_k alone), grid (KV, B, chunks)",
           flush=True)
-    print("[kernels] kernel vs plain version on the card", flush=True)
+    print(at() + " [kernels] kernel vs plain version on the card", flush=True)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     recs = {}
     for case in attention_cases():
@@ -1331,10 +1632,16 @@ def main() -> None:
     for case in paged_cases():
         rec = run_paged_case(case, dev, flush, torch, F, ops, fd, attn)
         recs.setdefault("flash_decode_paged", rec)
+    print(at() + " [chunk] flash_decode's chunk launch (chunked prefill's rows) against its plain "
+          "version and, bitwise, flash_attention's prefill rows", flush=True)
+    for case in chunk_cases():
+        rec = run_chunk_case(case, dev, flush, torch, F, ops, fd, attn)
+        if case[0] == MAIN_CHUNK_CASE:
+            recs["flash_decode_chunk"] = rec
     for case in scan_cases():
         rec = run_scan_case(case, dev, flush, torch, ops, ss, rg, sm_clock_hz)
         recs.setdefault(case[0], rec)
-    print("[gemm] the row-invariant GEMM and rms_norm against their plain versions "
+    print(at() + " [gemm] the row-invariant GEMM and rms_norm against their plain versions "
           "(torch.matmul and PyTorch's mean), their timings beside cuBLAS and F.rms_norm, "
           "and the rows' batch invariance", flush=True)
     for case in gemm_cases():
@@ -1351,7 +1658,7 @@ def main() -> None:
 
     launches = {}  # each kernel's count on the first main path that runs it
     for arch, requests, prompt_len, gen, want, modes in main_paths():
-        print(f"[main path] repro_torch.launch.serve one-shot generate, {arch} --full, "
+        print(at() + f" [main path] repro_torch.launch.serve one-shot generate, {arch} --full, "
               f"{requests} x {prompt_len} + {gen}", flush=True)
         argv = ["--arch", arch, "--full", "--requests", str(requests), "--prompt-len",
                 str(prompt_len), "--gen", str(gen), "--seed", "0", "--kernel", "cuda"]
@@ -1375,9 +1682,9 @@ def main() -> None:
         print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
               flush=True)
 
-    print(f"[served path] repro_torch.launch.serve --server --paged, qwen1.5-4b --full, "
+    print(at() + f" [served path] repro_torch.launch.serve --server --paged, qwen1.5-4b --full, "
           f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
-    sp, counts = run_served_path(dev, torch)
+    sp, counts, whole = run_served_path(dev, torch)
     print(json.dumps({"served_path": sp}))
     for name, n in counts.items():
         if n:
@@ -1387,14 +1694,27 @@ def main() -> None:
     print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
           flush=True)
 
-    print(f"[coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
+    print(at() + f" [chunked served path] repro_torch.launch.serve --server --paged --chunk-len "
+          f"{CHUNK_LEN}, qwen1.5-4b --full, 8 x 256 + {GEN}, block_len 16, seg_len 8, "
+          f"arrivals at 4/s, beside whole-prompt serving of the same arrivals; then "
+          f"contiguous --chunk-len 40, 4 requests", flush=True)
+    cp, counts = run_chunked_paths(dev, torch, whole)
+    print(json.dumps({"chunked_served_path": cp}))
+    launches["flash_decode_chunk"] = counts["flash_decode"]
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+          flush=True)
+
+    print(at() + f" [coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
           f"qwen1.5-4b --full, 8 x 256 + {GEN}, groups pod-a (power 2) and pod-b (power 1) "
           f"on cuda:0", flush=True)
     cx = run_coexec_path(dev, torch)
     print(json.dumps({"coexec_path": cx}))
     gc.collect()
     torch.cuda.empty_cache()
-    print("[coexec] the paper's Listing 1 (examples/quickstart_torch.py) on "
+    print(at() + " [coexec] the paper's Listing 1 (examples/quickstart_torch.py) on "
           "discover(DeviceMask.ALL) under HGuided(adaptive=True)", flush=True)
     print(json.dumps({"listing1": run_listing1(torch)}))
 
@@ -1402,6 +1722,10 @@ def main() -> None:
                                    "src/repro/kernels/flash_attention.py:145"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                                 "src/repro/kernels/flash_decode.py:195"),
+               # The chunk launch of flash_decode.cu: the JAX package's
+               # chunk rows call the same pallas_call at its prefill tile.
+               "flash_decode_chunk": ("src/repro_torch/csrc/flash_decode.cu",
+                                      "src/repro/kernels/flash_decode.py:195"),
                "flash_decode_paged": ("src/repro_torch/csrc/flash_decode_paged.cu",
                                       "src/repro/kernels/flash_decode.py:282"),
                "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
@@ -1415,6 +1739,7 @@ def main() -> None:
                             "src/repro/models/layers.py:15")}
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     **recs[n]) for n, (src, rep) in sources.items()]
+    print(at() + " [done] every phase passed", flush=True)
     print(card, flush=True)  # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

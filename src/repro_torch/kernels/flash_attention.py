@@ -28,6 +28,9 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# The prefill kernel's KV tile: its tile partition is the one chunked
+# prefill's rows (``flash_decode.flash_decode_chunk``) walk as well.
+BLOCK_K = 64
 
 
 def _tile_range(first: int, last: int, sk: int, bk: int, causal: bool, window: int):
@@ -40,7 +43,7 @@ def _tile_range(first: int, last: int, sk: int, bk: int, causal: bool, window: i
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = 0, block_q: int = 64, block_k: int = 64):
+                          q_offset: int = 0, block_q: int = 64, block_k: int = BLOCK_K):
     """The kernel's function in PyTorch: per q tile, a loop over the KV
     tiles its rows can reach, with the kernel's masks, float32 online
     softmax and explicit p = 0 for masked keys.  The CPU path, and the
@@ -92,7 +95,7 @@ def heads_per_block(n_rep: int) -> int:
 
 
 def launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype, *,
-                block_q: int = 64, block_k: int = 64) -> dict:
+                block_q: int = 64, block_k: int = BLOCK_K) -> dict:
     """Shape admission of the CUDA kernel, as ``flash_attention_launch``
     checks it: the body (``"mma"`` or ``"fma"``), tile sizes, grid and
     dynamic shared memory of a launch.  Raises ValueError on a shape the
@@ -125,7 +128,7 @@ def launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype, *,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
-                    block_q: int = 64, block_k: int = 64):
+                    block_q: int = 64, block_k: int = BLOCK_K):
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) with H % KV == 0, one dtype
     (float32 or bfloat16).  Returns (B,Sq,H,hd).
 

@@ -27,15 +27,25 @@ on ``block_k`` alone, so the split keeps every slot's result bitwise
 independent of the batch; ``flash_decode_paged`` at ``block_k = bl`` takes
 the same chunks.  :func:`launch_plan` and :func:`paged_launch_plan` give
 the body, chunk plan and shared memory of a launch.
+
+``flash_decode_chunk`` is the same kernel's chunk launch, for chunked
+prefill's rows (the JAX package calls ``flash_decode`` at its prefill tile
+size there, ``models/attention.py:chunk_attention``): any Sq, a grid over
+64-row groups of a kv head's rows, ``flash_attention``'s tiles walked from
+tile 0 in one pass (no key chunks) with a 64-row prefill block's key
+parts, so its rows are bitwise the prefill kernel's rows at the same
+positions.  :func:`chunk_launch_plan` gives its plan.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import BLOCK_K as PREFILL_BLOCK_K
 from repro_torch.models.attention import ragged_valid_mask
 
 NEG_INF = -1e30
+CHUNK_BLOCK_Q = 64  # query positions of one block of the chunk launch's FMA route
 
 
 def needed_tiles(kpos, pos, *, window: int = 0, block_k: int = 128, sq: int = 1):
@@ -206,6 +216,158 @@ def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
                  scratch.data_ptr() if scratch is not None else None,
                  b, s, sq, h, kvh, hd, bk, window, hd ** -0.5, _build.dtype_code(q),
                  _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
+    _build.check("flash_decode", err)
+    _build.count("flash_decode")
+    return out
+
+
+# --------------------------------------------------- chunked prefill rows
+
+
+def flash_decode_chunk_plain(q, k, v, kpos, pos, *, window: int = 0,
+                             block_k: int = PREFILL_BLOCK_K):
+    """The chunk launch's function in PyTorch: ``flash_attention_plain``'s
+    walk (query rows in blocks of 64 positions, KV tiles of ``block_k``
+    keys from tile 0 in one pass, the same float32 online softmax) with its
+    positional causal mask replaced by the recorded-position mask: row j of
+    slot b attends ``0 <= kpos <= pos[b] + j``.  Tiles past a row's needed
+    ones are fully masked and leave its sums unchanged, so a row equals
+    ``flash_attention_plain``'s row at the same position when the cache
+    holds that prompt's keys.  The CPU path, and the launch's oracle on the
+    card."""
+    b, sq, h, hd = q.shape
+    kvh = k.shape[2]
+    n_rep = h // kvh
+    bk = block_k
+    pos = pos.to(torch.int32)
+    n_hi = int(needed_tiles(kpos, pos, window=window, block_k=bk, sq=sq).max())
+    scale = hd ** -0.5
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, CHUNK_BLOCK_Q):
+        rows = min(CHUNK_BLOCK_Q, sq - q0)
+        qg = q[:, q0:q0 + rows].reshape(b, rows, kvh, n_rep, hd).float()
+        rowpos = pos[:, None] + q0 + torch.arange(rows, dtype=torch.int32, device=q.device)
+        m = torch.full((b, h, rows), NEG_INF, device=q.device)
+        l = torch.zeros((b, h, rows), device=q.device)
+        acc = torch.zeros((b, h, rows, hd), device=q.device)
+        for t in range(n_hi):
+            kb = k[:, t * bk:(t + 1) * bk].to(q.dtype)
+            vb = v[:, t * bk:(t + 1) * bk].to(q.dtype)
+            kc = kb.shape[1]
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kb.float()).reshape(b, h, rows, kc)
+            s = s * scale
+            valid = ragged_valid_mask(kpos[:, None, t * bk:(t + 1) * bk],
+                                      rowpos[:, :, None], window)[:, None]
+            s = torch.where(valid, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pg = p.to(vb.dtype).float().reshape(b, kvh, n_rep, rows, kc)
+            pv = torch.einsum("bgrqk,bkgd->bgrqd", pg, vb.float())
+            acc = acc * alpha[..., None] + pv.reshape(b, h, rows, hd)
+            m = m_new
+        o = acc / torch.clamp(l[..., None], min=1e-30)
+        out[:, q0:q0 + rows] = o.transpose(1, 2).to(q.dtype)
+    return out
+
+
+def chunk_launch_plan(b: int, s: int, sq: int, h: int, kv: int, hd: int, q_dtype, kv_dtype,
+                      *, block_k: int = PREFILL_BLOCK_K) -> dict:
+    """Shape admission of the chunk launch (``flash_decode_chunk_launch``):
+    the prefill kernel's plan on a ragged cache.  Tiles of ``block_k``
+    keys (not cut to S), walked in one pass from tile 0 (no key chunks, no
+    combine kernel); on the tensor-core body the key parts ``ks`` and stage
+    width of a 64-row prefill block whatever the chunk length, and a grid
+    over (kv head, slot, 64-row group of the slot's Sq·n_rep rows); on the
+    FMA body a grid over (64-position tile, slot x head), as
+    ``flash_attention``'s.  Any Sq.  Raises ValueError on a shape the
+    kernel cannot take.  Pure: the CPU tests call it."""
+    from repro_torch.kernels import _build
+
+    req = _build.require
+    req(min(b, s, sq, h, kv, hd) > 0, "empty shape")
+    req(h % kv == 0, f"H={h} is not a multiple of KV={kv}")
+    for dt in (q_dtype, kv_dtype):
+        req(dt in _build.DTYPE_CODES, f"kernel takes float32 or bfloat16, got {dt}")
+    req(hd * (4 if kv_dtype == torch.float32 else 2) % 16 == 0,
+        f"hd={hd}: k/v rows must be whole 16-byte vectors (the kernel's loads)")
+    bk = block_k
+    req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
+    rows = sq * (h // kv)
+    n_tiles = -(-s // bk)
+    if _build.uses_mma(q_dtype, _build.MMA_ROWS, bk, hd):
+        ks, sb, _ = _build.mma_plan(_build.MMA_ROWS, bk, hd)
+        plan = dict(route="mma", row_groups=-(-rows // _build.MMA_ROWS),
+                    grid=(kv, b, -(-rows // _build.MMA_ROWS)), key_parts=ks, stage_keys=sb,
+                    smem=_build.mma_smem_bytes(_build.MMA_ROWS, bk, hd))
+        req(b <= 65535 and plan["grid"][2] <= 65535, f"grid {plan['grid']} too large")
+    else:
+        bq = min(CHUNK_BLOCK_Q, sq)
+        plan = dict(route="fma", row_groups=-(-sq // bq), grid=(-(-sq // bq), b * h),
+                    smem=_build.smem_bytes(bq, hd, bk))
+        req(b * h <= 65535, f"{b * h} blocks on the grid's second axis > 65535")
+    req(plan["smem"] <= _build.MAX_SMEM, f"hd={hd} too wide: {plan['smem']} bytes of "
+        f"shared memory")
+    return dict(plan, rows=rows, block_k=bk, tiles=n_tiles, chunks=1)
+
+
+def flash_decode_chunk(q, k, v, kpos, pos, *, window: int = 0,
+                       block_k: int = PREFILL_BLOCK_K):
+    """Chunked prefill's rows: the multi-row mode of ``flash_decode`` at the
+    prefill kernel's partition.  q: (B,Sq,H,hd), any Sq, row j of slot b at
+    position ``pos[b] + j``; k/v: (B,S,KV,hd) the cache as stored (float32
+    or bfloat16, cast to q's dtype in the load); kpos: (B,S) int32 (−1 =
+    empty); pos: (B,) int32.  Returns (B,Sq,H,hd) in q.dtype.
+
+    Unlike :func:`flash_decode` the launch walks ``flash_attention``'s
+    tiles (``block_k`` 64) in one pass with a 64-row block's key parts, so
+    on the cache invariant that logical index i holds kpos ∈ {i, −1} a row
+    selects the same keys in the same stage order as the prefill row at
+    that position.  Counted under ``flash_decode`` in the launch counts.
+
+    CUDA tensors launch the kernel (``flash_decode_chunk_launch`` in
+    ``csrc/flash_decode.cu``) or raise; CPU tensors take
+    :func:`flash_decode_chunk_plain`."""
+    if q.device.type == "cpu":
+        return flash_decode_chunk_plain(q, k, v, kpos, pos, window=window, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_chunk runs on cuda or cpu tensors, got {q.device}")
+    return _flash_decode_chunk_cuda(q, k, v, kpos, pos, window=window, block_k=block_k)
+
+
+def _flash_decode_chunk_cuda(q, k, v, kpos, pos, *, window, block_k):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    b, sq, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    req = _build.require
+    req(all(t.device == q.device for t in (k, v, kpos, pos)), "all tensors on one device")
+    req(k.shape == v.shape and k.shape[0] == b and k.shape[3] == hd,
+        f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    req(tuple(kpos.shape) == (b, s) and tuple(pos.shape) == (b,), "kpos (B,S), pos (B,)")
+    req(k.dtype == v.dtype, "k and v share one storage dtype")
+    plan = chunk_launch_plan(b, s, sq, h, kvh, hd, q.dtype, k.dtype, block_k=block_k)
+    loaded = (q, k, v) if plan["route"] == "mma" else (k, v)  # by 16-byte copies
+    req(all(t.data_ptr() % 16 == 0 for t in loaded),
+        "q (tensor-core body) and k/v must be 16-byte aligned (the kernel's loads)")
+    req(kpos.dtype == torch.int32 and pos.dtype == torch.int32, "kpos/pos are int32")
+    req(all(t.is_contiguous() for t in (q, k, v, kpos, pos)), "contiguous tensors")
+    bk = plan["block_k"]
+    # The tensor-core route counts each block's tiles on the device itself.
+    nt = (needed_tiles(kpos, pos, window=window, block_k=bk, sq=sq)
+          if plan["route"] == "fma" else None)
+    out = torch.empty_like(q)
+    fn = _build.kernel_fn("flash_decode", "flash_decode_chunk_launch",
+                          [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float]
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    with _build.on_device(q.device) as stream:
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(), pos.data_ptr(),
+                 nt.data_ptr() if nt is not None else None, out.data_ptr(), b, s, sq, h, kvh,
+                 hd, bk, window, hd ** -0.5, _build.dtype_code(q), _build.dtype_code(k),
+                 stream)
     _build.check("flash_decode", err)
     _build.count("flash_decode")
     return out

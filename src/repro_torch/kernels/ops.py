@@ -10,6 +10,7 @@ from repro_torch.kernels._build import reset_launches as reset_launch_counts  # 
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_decode import (  # noqa: F401
     flash_decode,
+    flash_decode_chunk,
     flash_decode_paged,
     needed_tiles,
 )

@@ -19,6 +19,11 @@ generate, and the continuous-batching server.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --server --paged --device cpu --verify
 
+    # the same with chunked prefill: prompts advance 3 tokens per decode
+    # segment inside the segment Program, streams still bitwise one-shot's
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --server --paged --chunk-len 3 --device cpu --verify
+
 Weights are random (float32 masters drawn from ``--seed`` on the device,
 cast once to the compute dtype); one-shot prompts are random tokens from
 ``--seed + 1``, server prompts and arrival gaps from ``--seed + 2`` (as the
@@ -32,9 +37,8 @@ over two DeviceGroups on the run's device, ``pod-a`` (power 2) and
 pair; the scheduler (``--scheduler``) cuts the requests into packages.
 Every row of the port's kernels is independent of its batch, so
 ``--verify`` holds each package's tokens bitwise equal to one-shot
-generate of the whole batch.  The server's speculative, chunked and
-multi-group options of the JAX launcher are not ported yet (ROADMAP.md
-items A5, A7).
+generate of the whole batch.  The server's speculative and multi-group
+options of the JAX launcher are not ported yet (ROADMAP.md items A5, A7).
 """
 from __future__ import annotations
 
@@ -90,6 +94,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "prefix cache)")
     ap.add_argument("--block-len", type=int, default=4,
                     help="tokens per KV block in --paged mode")
+    ap.add_argument("--chunk-len", type=int, default=0,
+                    help="chunked prefill (server mode): advance each prompt "
+                         "this many tokens per decode segment inside the "
+                         "mixed-phase segment Program instead of running a "
+                         "whole-prompt prefill Program (0 = off).  Streams "
+                         "stay bitwise equal (--verify holds)")
     ap.add_argument("--verify", action="store_true",
                     help="assert bit-identity to one-shot generate: every "
                          "served stream to its prompt at batch 1 (server "
@@ -159,6 +169,7 @@ def run_server(cfg, api, params, args) -> dict:
         max_new_cap=max(args.gen, 1),
         max_wait_ms=args.max_wait_ms,
         paged=paged,
+        chunk_len=args.chunk_len,
     )
     if cuda and cfg.kernel_impl == "cuda":
         # Build the kernel libraries here, not on the runtime's worker
@@ -219,6 +230,18 @@ def run_server(cfg, api, params, args) -> dict:
         result["spans"] = {f"{n}/{k}": d for (n, k), d in sorted(spans.items())}
         for name, d in result["spans"].items():
             print(f"{name}: {d['count']} packages, {d['seconds'] / d['count'] * 1e3:.1f} ms each")
+        if args.chunk_len:
+            # The batcher's segment spans: a segment ran the chunk stage iff
+            # some slot was prefilling at its entry (chunk_tokens > 0), and
+            # mixed phases iff some slot decoded beside it (n_active > 0).
+            segs = [e["args"] for e in tr.chrome_events()
+                    if e.get("ph") == "X" and e["name"] == "segment"]
+            result["chunk_stages"] = sum(a["chunk_tokens"] > 0 for a in segs)
+            result["mixed_segments"] = sum(a["chunk_tokens"] > 0 and a["n_active"] > 0
+                                           for a in segs)
+            print(f"chunked prefill: chunk_len {args.chunk_len}, {len(segs)} segments, "
+                  f"{result['chunk_stages']} with a chunk stage, "
+                  f"{result['mixed_segments']} mixing decoding and prefilling slots")
     if args.verify:
         generate = make_generate(cfg, api)
         n = 0

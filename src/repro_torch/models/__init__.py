@@ -5,10 +5,14 @@
     api.cache_spec(cfg, batch, seq)       -> Spec tree (decode caches)
     api.prefill(params, batch, cfg, cache)-> (logits, cache)
     api.decode(params, token, pos, cfg, cache) -> (logits, cache)
+    api.prefill_chunk(params, tokens, posv, valid, cfg, cache, last_idx)
+        -> (logits, cache)   # chunked prefill; None when the family has
+                             # no chunked path (validate_chunked gates
+                             # serving accordingly)
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 KERNEL_IMPLS = ("reference", "cuda")
 
@@ -18,6 +22,7 @@ class ModelAPI(NamedTuple):
     cache_spec: Callable
     prefill: Callable
     decode: Callable
+    prefill_chunk: Optional[Callable] = None
 
 
 def get_model(cfg) -> ModelAPI:
@@ -26,7 +31,8 @@ def get_model(cfg) -> ModelAPI:
     if cfg.family in ("dense", "ssm"):
         from repro_torch.models import transformer as T
 
-        return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode)
+        chunk = T.prefill_chunk if cfg.family == "dense" else None
+        return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode, chunk)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru as R
 

@@ -9,8 +9,13 @@ place (``index_put_``) and returns the same dict.
 A cache carrying a ``"table"`` leaf is **paged**: k/v are a block pool
 ``(N, bl, KV, hd)`` (possibly one layer's strided view of a layer-stacked
 pool), ``pos`` is ``(N, bl)``, and ``table`` ``(B, nmax)`` maps each slot's
-logical tile to a physical block (see ``serve/paged.py``).  The chunk and
-mesh paths of the JAX module are not ported yet (ROADMAP.md).
+logical tile to a physical block (see ``serve/paged.py``).
+
+Chunked prefill (``chunk_step``, ``chunk_attention``) advances a slot's
+prompt by Sq rows at consecutive positions, row-masked by ``valid``: valid
+rows are written first and every row attends the cache as stored, so each
+attends exactly the keys the whole-prompt prefill row at its position
+would.  The mesh paths of the JAX module are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -129,6 +134,122 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
         _write(cache, slot.long(), k, v, positions)
     out = cached_attention(q, cache, posv, cfg, window=window)
     return _out_proj(out, p["wo"], cfg.kernel_impl), cache
+
+
+def chunk_step(p, x, posv, valid, cfg, cache, *, window=0):
+    """Mixed-phase prefill chunk: Sq prompt tokens per slot at consecutive
+    positions ``posv .. posv+Sq-1``, row-masked by ``valid`` (B, Sq).
+    Invalid rows (past the slot's prompt end, or rows of slots already
+    decoding, whose cursor sits at the prompt length) neither write the
+    cache nor leave attendable keys; their outputs are garbage and callers
+    must not consume them.  Valid rows scatter-then-attend like
+    :func:`decode_step`, so each attends precisely the keys the
+    whole-prompt prefill row at the same position would: that carries the
+    bit-identity contract across the chunk/whole seam.  The cache is
+    written in place."""
+    b, sq = x.shape[0], x.shape[1]
+    posv = pos_vector(posv, b, x.device)
+    positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
+    q, k, v = _project_qkv(p, x, positions, cfg)
+    if "table" in cache:
+        _paged_chunk_write(cache, k, v, positions, valid)
+    else:
+        _chunk_write(cache, k, v, positions, valid)
+    out = chunk_attention(q, cache, posv, cfg, window=window)
+    return _out_proj(out, p["wo"], cfg.kernel_impl), cache
+
+
+def _chunk_write(cache, kt, vt, positions, valid):
+    """Masked contiguous scatter of chunk rows, in place, with no host sync.
+    The JAX package scatters invalid rows out of bounds and drops them;
+    ``index_put_`` rejects such indices, and an invalid row's own position
+    may be a live entry (a decoding slot's rows sit at its decode
+    positions).  So every invalid row is sent to one *anchor* entry of its
+    slot and writes there the value that entry receives anyway: the first
+    valid row's new value, or, in a slot with no valid row, the entry's
+    current value.  Every index then receives one value, whatever order
+    the scatter runs in."""
+    b, sq = positions.shape
+    cs = cache["k"].shape[1]
+    ar = torch.arange(b, device=positions.device)
+    first = valid.to(torch.int32).argmax(dim=1)  # the first valid row (0: none)
+    some = valid.any(dim=1)
+    anchor = torch.where(some, positions[ar, first], torch.clamp(positions[:, 0], max=cs - 1))
+    slot = torch.where(valid, positions, anchor[:, None]).long()
+    for name, new in (("k", kt), ("v", vt), ("pos", positions)):
+        leaf = cache[name]
+        new = new.to(leaf.dtype)
+        tail = (1,) * (new.ndim - 2)
+        keep = torch.where(some.view(b, *tail), new[ar, first], leaf[ar, anchor.long()])
+        vals = torch.where(valid.view(b, sq, *tail), new, keep[:, None])
+        leaf.index_put_((ar[:, None], slot), vals)
+
+
+def _paged_chunk_write(cache, kt, vt, positions, valid):
+    """Masked paged scatter for chunk rows, in place: invalid rows are
+    redirected to the pool's sink block (block 0, never addressed by a
+    live table) instead of writing through the slot's table.  The tile
+    clamp only guards the table gather; masking happens on the resolved
+    physical block, so a slot's real table entries are never doctored."""
+    bl = cache["k"].shape[1]
+    nmax = cache["table"].shape[1]
+    blk = torch.clamp(positions // bl, max=nmax - 1).long()
+    off = (positions % bl).long()
+    bidx = torch.arange(positions.shape[0], device=positions.device)[:, None]
+    phys = torch.where(valid, cache["table"][bidx, blk], 0).long()
+    cache["k"].index_put_((phys, off), kt.to(cache["k"].dtype))
+    cache["v"].index_put_((phys, off), vt.to(cache["v"].dtype))
+    cache["pos"].index_put_((phys, off), positions.to(cache["pos"].dtype))
+    return cache
+
+
+def chunk_attention(q, cache, posv, cfg, *, window=0):
+    """Attention of chunk rows over the cache as stored: row j of slot b
+    attends recorded positions ``<= posv[b]+j``.
+
+    Under ``cfg.kernel_impl == "cuda"`` the rows go to ``flash_decode``'s
+    chunk launch (``kernels.flash_decode.flash_decode_chunk``), which walks
+    the prefill kernel's tile partition (``flash_attention``'s block_k),
+    not ``cfg.decode_block``: the one-shot reference for a chunk row is a
+    ``flash_attention`` prefill row, and equal partitions (plus the exact
+    zeros of the masked tail) make the two bitwise equal.  A paged cache is
+    gathered to the logical contiguous layout first for the same reason:
+    ``flash_decode_paged`` tiles at the block length.  Otherwise the dense
+    reference :func:`_chunk_dense`."""
+    from repro_torch.kernels.flash_decode import gather_pool
+
+    posv = pos_vector(posv, q.shape[0], q.device)
+    if "table" in cache:
+        tbl = cache["table"]
+        k, v, kpos = (gather_pool(cache[n], tbl) for n in ("k", "v", "pos"))
+    else:
+        k, v, kpos = cache["k"], cache["v"], cache["pos"]
+    if cfg.kernel_impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.flash_decode_chunk(q, k, v, kpos, posv, window=window)
+    return _chunk_dense(q, k, v, kpos, posv, window=window)
+
+
+def _chunk_dense(q, k, v, kpos, posv, *, window=0):
+    """Dense chunk attention: ``layers.naive_attention``'s term order (the
+    whole-prompt prefill reference: materialized ``repeat_kv``, full
+    softmax) with the positional causal mask replaced by the recorded-
+    position mask.  On the cache invariant that logical index i only ever
+    holds kpos ∈ {i, −1}, the two masks select the same keys and the masked
+    tail adds exact zeros, so chunk rows equal prefill rows bitwise.  Not
+    :func:`_ragged_dense`: the reference here is the prefill path, not the
+    decode path."""
+    b, sq, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    kk = L.repeat_kv(k.to(q.dtype), n_rep)
+    vv = L.repeat_kv(v.to(q.dtype), n_rep)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * (hd ** -0.5)
+    rowpos = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=q.device)
+    mask = ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None], window)
+    logits = logits.masked_fill(~mask[:, None], L.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
 
 
 def _paged_write(cache, kt, vt, positions, window):

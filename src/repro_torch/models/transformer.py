@@ -9,9 +9,10 @@ Block interface (as in the JAX package):
     block_spec(cfg) -> Spec tree for ONE layer
     block_apply(p, x, positions, cfg, *, mode, cache, pos) -> (x, cache)
 
-The ssm family (falcon-mamba) swaps the block for ``mamba.py``'s.
-Training, chunked prefill and the moe and vlm families are not ported yet
-(ROADMAP.md).
+The ssm family (falcon-mamba) swaps the block for ``mamba.py``'s.  The
+dense family also runs chunked prefill (``mode="chunk"``,
+:func:`prefill_chunk`).  Training and the moe and vlm families are not
+ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -48,6 +49,9 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
                                         window=cfg.window)
     elif mode == "decode":
         a, cache = A.decode_step(p["attn"], h, pos, cfg, cache, window=cfg.window)
+    elif mode == "chunk":  # mixed-phase prefill chunk; pos = (posv, valid)
+        posv, valid = pos
+        a, cache = A.chunk_step(p["attn"], h, posv, valid, cfg, cache, window=cfg.window)
     else:
         raise NotImplementedError(f"mode {mode!r} is not ported yet")
     x = x + a
@@ -140,6 +144,22 @@ def prefill(params, batch, cfg, cache):
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     x, cache = run_stack(params, x, positions, cfg, mode="prefill", cache=cache)
     return logits_fn(params, x[:, -1:], cfg), cache
+
+
+def prefill_chunk(params, tokens, posv, valid, cfg, cache, last_idx):
+    """Advance mixed-phase prefill cursors by one chunk (chunked prefill:
+    some slots of the batch may be decoding instead; their rows arrive
+    fully masked).  tokens: (B, L) prompt slice per slot; posv: (B,)
+    cursor base positions; valid: (B, L) row mask (False past the slot's
+    prompt end); last_idx: (B,) row of each slot's final prompt position
+    within this chunk (clipped: only meaningful for slots whose prompt
+    completes here).  Returns (logits (B, 1, V) at ``last_idx``, cache):
+    the logits row is the slot's first generated token's distribution,
+    bitwise ``prefill``'s last-row logits."""
+    x = embed_tokens(params, tokens, cfg)
+    x, cache = run_stack(params, x, None, cfg, mode="chunk", cache=cache, pos=(posv, valid))
+    x_last = x[torch.arange(x.shape[0], device=x.device), last_idx.long()][:, None]
+    return logits_fn(params, x_last, cfg), cache
 
 
 def decode(params, token, pos, cfg, cache):

@@ -1,6 +1,6 @@
 """Serving: prefill/decode steps, decode chains, one-shot generate, and the
-continuous-batching server (contiguous and paged KV) on the EngineCL
-runtime."""
+continuous-batching server (contiguous and paged KV, whole-prompt or
+chunked prefill) on the EngineCL runtime."""
 from repro_torch.serve.admission import (  # noqa: F401
     DeadlineAdmission,
     PoolAdmission,
@@ -11,6 +11,7 @@ from repro_torch.serve.batcher import (  # noqa: F401
     BatchGroup,
     Buckets,
     ModelKernels,
+    chunks_for,
     segments_for,
 )
 from repro_torch.serve.multigroup import MigrationPolicy, proportional_split  # noqa: F401
@@ -26,10 +27,12 @@ from repro_torch.serve.server import (  # noqa: F401
     InferenceServer,
     RequestHandle,
     ServeError,
+    validate_chunked,
 )
 from repro_torch.serve.step import (  # noqa: F401
     cache_batch_axes,
     cast_params_cached,
+    make_chunk_step,
     make_decode_chain,
     make_decode_step,
     make_generate,

@@ -31,9 +31,13 @@ garbage — shapes are static — until a joiner overwrites the full slot row).
 Requests *join* at segment boundaries after their prefill — submitted as
 its own Program, concurrently with the in-flight segment — completes.
 
-Host buffers are CPU torch tensors.  Speculative decoding (``draft``) and
-chunked prefill (``chunk_len > 0``) are not ported yet (ROADMAP.md item
-A5) and raise ``NotImplementedError``.
+With ``chunk_len > 0`` (chunked prefill) there is no prefill Program: a
+join arms its slot host-side and the segment Program doubles as the prefill
+engine, advancing each still-prefilling slot's cursor by one chunk before
+its decode steps (the *mixed* layouts).
+
+Host buffers are CPU torch tensors.  Speculative decoding (``draft``) is
+not ported yet (ROADMAP.md item A5) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from repro_torch.core.trace import tracer
 from repro_torch.models.params import Spec, tree_leaves, tree_map
 from repro_torch.serve.step import (
     cache_batch_axes,
+    make_chunk_step,
     make_decode_step,
     make_prefill_step,
     zeros_cache,
@@ -57,6 +62,13 @@ from repro_torch.serve.step import (
 
 NOT_PORTED_A5 = ("is not ported to repro_torch yet: ROADMAP.md item A5 "
                  "(the rest of the continuous-batching server)")
+
+
+def chunks_for(bucket: int, chunk_len: int, start: int = 0) -> int:
+    """Mixed-phase segments a prompt needs before its first token: the
+    prefill cursor advances ``chunk_len`` positions per segment from
+    ``start`` (> 0 when a paged prefix hit skips leading whole blocks)."""
+    return max(0, math.ceil((bucket - start) / max(1, chunk_len)))
 
 
 class Buckets:
@@ -234,6 +246,93 @@ class ModelKernels:
         self._seg_fns[key] = seg
         return seg
 
+    # ------------------------------------------------- mixed-phase kernels
+    #
+    # Chunked prefill: the decode segment Program doubles as the prefill
+    # engine.  Each segment first advances every still-prefilling slot's
+    # cursor by one chunk, then runs the ordinary decode loop over all
+    # slots.  The JAX package gates the chunk stage with ``lax.cond`` on the
+    # device cursors; here the batcher, which mirrors every cursor on the
+    # host (``req.chunk_pos``), passes the decision as the Program's one
+    # scalar argument, so no segment reads the card back.  A slot whose
+    # prefill completes in a segment emits only ``ctok`` (its first token,
+    # from the chunk's final prompt row) that segment and decodes from the
+    # next one: the decode loop's phase mask is the cursor as of segment
+    # entry, and still-prefilling slots' token/pos carries are restored
+    # after the loop (their in-loop decode writes land at positions >=
+    # bucket, which real decode overwrites before anything attends them).
+
+    def _mixed_body(self, decode, chunk, seg_len, bucket, tok, pos, pcur, ptoks, cache,
+                    run_chunk, cap=None):
+        """The chunk stage (when ``run_chunk``) and ``seg_len`` decode steps
+        of one mixed segment.  Returns (toks, tok', pos', pcur', ctok)."""
+        decoding = pcur >= bucket  # (b, 1), phase at segment entry
+        if run_chunk:
+            ctok, pcur2, cache = chunk(self.params, cache, ptoks, pcur)
+        else:
+            ctok, pcur2 = torch.zeros_like(tok), pcur.clone()
+        toks, tok2, pos2 = self._decode_loop(decode, seg_len, tok, pos, cache, cap=cap)
+        completed = ~decoding & (pcur2 >= bucket)
+        tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
+        pos_out = torch.where(decoding, pos2, pos)
+        return toks, tok_out, pos_out, pcur2, ctok
+
+    def mixed_segment_kernel(self, seg_len: int, bucket: int, chunk_len: int,
+                             max_seq: int) -> Callable:
+        """``fn(offset, tok, pos, pcur, ptoks, *cache_leaves, run_chunk) ->
+        (toks[b, seg_len], tok', pos', pcur', ctok, *cache_leaves')``: one
+        chunk stage (when ``run_chunk``) and ``seg_len`` decode steps.
+        ``pcur``: (b, 1) prefill cursor (``>= bucket``: decoding);
+        ``ptoks``: (b, bucket) padded-prompt buffer (a pure input, uploaded
+        once per join and served from the transfer cache after)."""
+        key = ("mixed", seg_len, bucket, chunk_len, max_seq)
+        fn = self._seg_fns.get(key)
+        if fn is not None:
+            return fn
+        decode = make_decode_step(self.cfg, self.api)
+        chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
+        bax = self.bax_leaves
+
+        def seg(offset, tok, pos, pcur, ptoks, *rest):
+            *leaves, run_chunk = rest
+            cache = self._unflatten([x.movedim(0, a).contiguous()
+                                     for x, a in zip(leaves, bax)])
+            outs = self._mixed_body(decode, chunk, seg_len, bucket, tok, pos, pcur, ptoks,
+                                    cache, run_chunk, cap=max_seq)
+            for x, c, a in zip(leaves, tree_leaves(cache), bax):
+                x.copy_(c.movedim(a, 0))
+            return (*outs, *leaves)
+
+        self._seg_fns[key] = seg
+        return seg
+
+    def paged_mixed_segment_kernel(self, seg_len: int, bucket: int,
+                                   chunk_len: int) -> Callable:
+        """Paged variant: ``fn(offset, tok, pos, pcur, ptoks, table,
+        *pool_leaves, run_chunk) -> (toks, tok', pos', pcur', ctok,
+        *pool_leaves')``.  Chunk writes resolve physical blocks through the
+        table like decode writes (invalid rows land in the sink block);
+        chunk rows gather the slot's blocks to the logical layout."""
+        key = ("paged_mixed", seg_len, bucket, chunk_len)
+        fn = self._seg_fns.get(key)
+        if fn is not None:
+            return fn
+        decode = make_decode_step(self.cfg, self.api)
+        chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
+        bax = self.bax_leaves
+        n_layers = self.cfg.n_layers
+
+        def seg(offset, tok, pos, pcur, ptoks, table, *rest):
+            *leaves, run_chunk = rest
+            cache = self._unflatten([x.movedim(0, a) for x, a in zip(leaves, bax)])
+            cache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
+            outs = self._mixed_body(decode, chunk, seg_len, bucket, tok, pos, pcur, ptoks,
+                                    cache, run_chunk)
+            return (*outs, *leaves)
+
+        self._seg_fns[key] = seg
+        return seg
+
     def prefill_kernel(self, max_seq: int) -> Callable:
         """``fn(offset, tokens[b, S_b]) -> (tok0[b, 1], *slot_leading_cache)``
         — batched prefill against a fresh ``zeros_cache``; rows are
@@ -262,8 +361,6 @@ class BatchGroup:
     def __init__(self, kernels: ModelKernels, runtime, scheduler,
                  bucket: int, n_slots: int, seg_len: int, max_seq: int,
                  chunk_len: int = 0, target=None) -> None:
-        if chunk_len:
-            raise NotImplementedError(f"chunked prefill (chunk_len > 0) {NOT_PORTED_A5}")
         self.kernels = kernels
         self.runtime = runtime
         self.scheduler = scheduler
@@ -271,7 +368,7 @@ class BatchGroup:
         self.n_slots = n_slots
         self.seg_len = seg_len
         self.max_seq = max_seq
-        self.chunk_len = 0
+        self.chunk_len = int(chunk_len)  # 0 = whole-prompt prefill Programs
         self.spec_k = 0
         # Device groups this batch's runs are pinned to (None = all runtime
         # groups).
@@ -300,6 +397,9 @@ class BatchGroup:
         tok = torch.zeros((n_slots, 1), dtype=torch.int32)
         pos = torch.zeros((n_slots, 1), dtype=torch.int32)
         leaves = kernels.leaf_mirrors(n_slots, self.max_seq)
+        if self.chunk_len:
+            self._build_mixed_program(tok, pos, leaves)
+            return
         toks_seg = torch.zeros((n_slots, seg_len), dtype=torch.int32)
         prog = Program().in_(tok).in_(pos)
         for b in leaves:
@@ -320,6 +420,40 @@ class BatchGroup:
         self._swap_pairs = [(0, 1), (1, 2)] + [
             (2 + i, 3 + i) for i in range(self.n_leaves)
         ]
+
+    def _build_mixed_program(self, tok, pos, leaves) -> None:
+        """Mixed-phase (chunked-prefill) segment Program, in the JAX
+        package's buffer order ``[tok, pos, pcur, ptoks, *leaves] ->
+        [toks, tok', pos', pcur', ctok, *leaves']``.  ``pcur`` (the per-slot
+        prefill cursor) is ping-ponged, initialized to ``bucket`` so empty
+        slots read as decoding; ``ptoks`` (the padded prompts) is a pure
+        non-donated input, one upload per join; ``ctok`` (each slot's first
+        generated token, meaningful the segment its prefill completes) is a
+        pure output, never swapped.  The chunk-stage flag rides as the
+        Program's scalar argument (:meth:`submit_segment`)."""
+        kernels, n_slots, seg_len = self.kernels, self.n_slots, self.seg_len
+        pcur = torch.full((n_slots, 1), self.bucket, dtype=torch.int32)
+        ptoks = torch.zeros((n_slots, self.bucket), dtype=torch.int32)
+        toks_seg = torch.zeros((n_slots, seg_len), dtype=torch.int32)
+        prog = Program().in_(tok).in_(pos).in_(pcur).in_(ptoks)
+        for b in leaves:
+            prog.in_(b)
+        prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
+        prog.out(torch.zeros_like(pcur)).out(torch.zeros_like(tok))  # pcur', ctok
+        for b in leaves:
+            prog.out(torch.zeros_like(b))
+        prog.kernel(kernels.mixed_segment_kernel(seg_len, self.bucket, self.chunk_len,
+                                                 self.max_seq),
+                    f"mixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}")
+        prog.args(False)
+        prog.donate(*range(4, 4 + len(leaves)))
+        prog.work_items(n_slots, 1)
+        self.prog = prog
+        self.n_leaves = len(leaves)
+        self._swap_pairs = [(0, 1), (1, 2), (2, 3)] + [
+            (4 + i, 5 + i) for i in range(self.n_leaves)
+        ]
+        self._ctok_out = 4
 
     # ------------------------------------------------------------- queries
     def free_slots(self) -> List[int]:
@@ -345,7 +479,8 @@ class BatchGroup:
         """KV memory accounting, comparable across layouts: contiguous
         groups allocate their full capacity up front (every slot row at
         ``max_seq``, whatever depth is recorded)."""
-        allocated = sum(b.nbytes for b in self.prog._ins[2:2 + self.n_leaves])
+        first_leaf = 2 + (2 if self.chunk_len else 0)
+        allocated = sum(b.nbytes for b in self.prog._ins[first_leaf:first_leaf + self.n_leaves])
         capacity = self.n_slots * self.max_seq
         return {
             "mode": "contiguous",
@@ -374,6 +509,20 @@ class BatchGroup:
         self._prefill_t0 = _now()
         tr = tracer()
         self._prefill_tr0 = tr.now() if tr.enabled else 0.0
+        if self.chunk_len:
+            # Chunked mode: there is no prefill Program.  Joining slots are
+            # armed host-side (merge) and the segment kernel's chunk stage
+            # does the prefill compute.  Planning still runs (the paged
+            # override pins whole-prompt cache hits there); the join state
+            # machine completes through an already-done handle.
+            from repro_torch.serve.paged import _DoneHandle
+
+            self._plan_prefill(requests)
+            self._prefill_prog = None
+            h = _DoneHandle()
+            self.prefill_handle = h
+            h.add_done_callback(lambda _h: notify())
+            return
         rows = self._plan_prefill(requests)
         if not rows:
             # Every request hit the whole-prompt cache: nothing to run, but
@@ -416,6 +565,8 @@ class BatchGroup:
         if h.has_errors():
             return {"joined": 0, "failed": list(wave), "errors": h.errors(),
                     "seconds": seconds}
+        if self.chunk_len:
+            return self._merge_chunked(wave, seconds)
         free = self.free_slots()
         tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
         leaf_bufs = self.prog._ins[2:]
@@ -436,6 +587,38 @@ class BatchGroup:
             self.prog.invalidate(b)
         return {"joined": len(wave), "failed": [], "seconds": seconds}
 
+    def _merge_chunked(self, wave, seconds: float) -> dict:
+        """Board a chunked join wave without a prefill Program: arm each
+        request's slot for the segment kernel's chunk stage (cursor 0,
+        prompt row uploaded, position leaves reset to −1: a chunked join
+        writes no full row, and stale k/v under kpos −1 is never attended,
+        so the big value leaves stay device-resident) and defer
+        ``req.board`` to the harvest of the segment whose chunk completes
+        the prompt (``ctok``)."""
+        free = self.free_slots()
+        tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
+        pcur_b, ptoks_b = self.prog._ins[2], self.prog._ins[3]
+        leaf_bufs = self.prog._ins[4:]
+        neg = self.kernels.leaf_neg_init(self.max_seq)
+        for req in wave:
+            slot = free.pop(0)
+            tok_b[slot, 0] = 0
+            pos_b[slot, 0] = self.bucket
+            pcur_b[slot, 0] = 0
+            ptoks_b[slot, :] = torch.from_numpy(req.prompt)
+            for dst, is_neg in zip(leaf_bufs, neg):
+                if is_neg:
+                    dst[slot] = -1
+            self.slots[slot] = req
+            req.slot = slot
+            req.chunk_pos = 0
+        for b in (tok_b, pos_b, pcur_b, ptoks_b):
+            self.prog.invalidate(b)
+        for dst, is_neg in zip(leaf_bufs, neg):
+            if is_neg:
+                self.prog.invalidate(dst)
+        return {"joined": len(wave), "failed": [], "seconds": seconds}
+
     # ------------------------------------------------------------ segments
     def submit_segment(self, notify: Callable) -> None:
         """Chain the next decode segment after the previous one.  The swap
@@ -447,6 +630,12 @@ class BatchGroup:
             for i_in, i_out in pairs:
                 prog.swap_buffers(i_in, i_out)
 
+        if self.chunk_len:
+            # The chunk stage runs iff some slot is still prefilling (its
+            # host-mirrored cursor short of the bucket).  The kernel reads
+            # the flag when the segment runs; it stays unchanged until the
+            # harvest, since the next segment is submitted only after it.
+            self.prog.args(any(r.chunk_pos < self.bucket for _, r in self.active()))
         after = [self.prev_handle] if self.prev_handle is not None else None
         self._seg_t0 = _now()
         tr = tracer()
@@ -473,10 +662,35 @@ class BatchGroup:
         toks_seg = self.prog._outs[0]
         n_active = 0
         finished = []
-        delivered = 0
+        delivered = chunk_tokens = 0
         tr = tracer()
         traced = tr.enabled
         for slot, req in self.active():
+            if self.chunk_len and req.chunk_pos < self.bucket:
+                # Prefilling at segment entry: the chunk stage advanced the
+                # cursor deterministically; mirror it host-side.  On the
+                # segment whose chunk reaches the bucket boundary the
+                # slot's first token is in ctok (a pure, never-swapped
+                # output whose host mirror the write-back refreshed); it
+                # boards here and decodes from the next segment on.
+                old = req.chunk_pos
+                req.chunk_pos = min(old + self.chunk_len, self.bucket)
+                chunk_tokens += req.chunk_pos - old
+                if traced:
+                    tr.async_instant("prefill_chunk", req.seq, slot=slot,
+                                     cursor=req.chunk_pos, tokens=req.chunk_pos - old)
+                if req.chunk_pos >= self.bucket:
+                    ctok = self.prog._outs[self._ctok_out]
+                    req.board(slot, int(ctok[slot, 0]))
+                    delivered += 1
+                    if traced:
+                        tr.async_instant("first_token", req.seq, slot=slot)
+                    self.tokens_written += min(self.bucket, self.max_seq)
+                    self._on_chunk_complete(slot, req)
+                    if req.remaining() <= 0:
+                        finished.append(req)
+                        self.release_slot(slot)
+                continue
             n_active += 1
             need = req.remaining()
             take = toks_seg[slot, : min(self.seg_len, need)].tolist()
@@ -493,10 +707,21 @@ class BatchGroup:
             tr.complete("segment", self._seg_tr0, self._seg_tr0 + seconds,
                         track="batcher", bucket=self.bucket,
                         n_active=n_active, finished=len(finished),
-                        chunk_tokens=0)
+                        chunk_tokens=chunk_tokens)
             self._seg_tr0 = 0.0
-        return {"n_active": n_active, "finished": finished, "seconds": seconds,
-                "tokens": delivered}
+        if self.telemetry is not None and chunk_tokens:
+            self.telemetry.count("chunk_tokens", chunk_tokens)
+        res = {"n_active": n_active, "finished": finished, "seconds": seconds,
+               "tokens": delivered}
+        if self.chunk_len:
+            res["chunk_tokens"] = chunk_tokens
+        return res
+
+    def _on_chunk_complete(self, slot: int, req) -> None:
+        """Hook fired when a slot's chunked prefill completes (its prompt KV
+        is now fully written).  The paged override registers the slot's
+        prompt blocks with the prefix cache here, the earliest moment their
+        content is valid to share."""
 
     def release_slot(self, slot: int) -> None:
         """Free one KV slot (request retired or failed).  The paged variant

@@ -1,7 +1,8 @@
 """Paged KV-cache memory subsystem: block pool, block tables, prefix reuse.
 
-Port of the JAX package's ``serve/paged.py`` for plain (non-speculative,
-whole-prompt prefill) segments; host mirrors are CPU torch tensors.
+Port of the JAX package's ``serve/paged.py`` for plain (non-speculative)
+segments, with whole-prompt or chunked prefill; host mirrors are CPU torch
+tensors.
 
 The contiguous serving path materializes ``max_batch`` full-``max_seq`` KV
 slot rows per :class:`~repro_torch.serve.batcher.BatchGroup`, so device memory
@@ -43,8 +44,13 @@ path the contract additionally requires the one-shot reference to tile its
 contiguous cache at ``block_len`` (``cfg.decode_block``): equal logical
 tile partitions make the online-softmax reduction identical term by term.
 
-Speculative and chunked-prefill layouts (ROADMAP.md item A5), slot
-migration between groups and elastic drain (item A7) are not ported.
+Chunked prefill rides the paged layout too (``_build_paged_mixed``): the
+chunk stage writes through the block table (invalid rows into the sink),
+whole-prompt prefix-cache hits board decoding at once, chain-cached
+leading blocks start a prompt's cursor past them, and a completed prompt
+registers its blocks with the prefix cache.  Speculative layouts
+(ROADMAP.md item A5), slot migration between groups and elastic drain
+(item A7) are not ported.
 """
 from __future__ import annotations
 
@@ -382,6 +388,11 @@ class PagedBatchGroup(BatchGroup):
         self.table = self.state.table  # all sink while no slot is boarded
         tok = torch.zeros((n_slots, 1), dtype=torch.int32)
         pos = torch.zeros((n_slots, 1), dtype=torch.int32)
+        self.slot_blocks: List[Optional[List[int]]] = [None] * n_slots
+        self._plans: List[_Plan] = []
+        if self.chunk_len:
+            self._build_paged_mixed(tok, pos, leaves)
+            return
         toks_seg = torch.zeros((n_slots, self.seg_len), dtype=torch.int32)
         prog = Program().in_(tok).in_(pos).in_(self.table)
         for b in leaves:
@@ -401,8 +412,36 @@ class PagedBatchGroup(BatchGroup):
         self._swap_pairs = [(0, 1), (1, 2)] + [
             (3 + i, 3 + i) for i in range(self.n_leaves)
         ]
-        self.slot_blocks: List[Optional[List[int]]] = [None] * n_slots
-        self._plans: List[_Plan] = []
+
+    def _build_paged_mixed(self, tok, pos, leaves) -> None:
+        """Chunked-prefill paged layout, in the JAX package's buffer order
+        ``[tok, pos, pcur, ptoks, table, *pool] -> [toks, tok', pos', pcur',
+        ctok, *pool']``: ``pcur``/``ptoks`` join the carry as in the
+        contiguous mixed Program, the block table stays a pure input, and
+        chunk writes resolve physical blocks through it (invalid rows land
+        in the sink block)."""
+        kernels, n_slots, seg_len = self.kernels, self.n_slots, self.seg_len
+        pcur = torch.full((n_slots, 1), self.bucket, dtype=torch.int32)
+        ptoks = torch.zeros((n_slots, self.bucket), dtype=torch.int32)
+        toks_seg = torch.zeros((n_slots, seg_len), dtype=torch.int32)
+        prog = Program().in_(tok).in_(pos).in_(pcur).in_(ptoks).in_(self.table)
+        for b in leaves:
+            prog.in_(b)
+        prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
+        prog.out(torch.zeros_like(pcur)).out(torch.zeros_like(tok))  # pcur', ctok
+        for b in leaves:
+            prog.out(torch.zeros_like(b))
+        prog.kernel(kernels.paged_mixed_segment_kernel(seg_len, self.bucket, self.chunk_len),
+                    f"pmixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}")
+        prog.args(False)
+        prog.donate(*range(5, 5 + len(leaves)))
+        prog.work_items(n_slots, 1)
+        self.prog = prog
+        self.n_leaves = len(leaves)
+        self._swap_pairs = [(0, 1), (1, 2), (2, 3)] + [
+            (5 + i, 5 + i) for i in range(self.n_leaves)
+        ]
+        self._ctok_out = 4
 
     # ----------------------------------------------------------- accounting
     def blocks_for(self, gen: int) -> int:
@@ -432,6 +471,8 @@ class PagedBatchGroup(BatchGroup):
         prefill row, a wave-mate with the identical padded prompt (prefill
         runs once for the shared blocks), or a whole-prompt prefix-cache hit
         (no prefill at all — blocks pinned here, table wired at merge)."""
+        if self.chunk_len:
+            return self._plan_chunked(requests)
         plans: List[_Plan] = []
         rows: List = []
         by_prompt: Dict[bytes, _Plan] = {}
@@ -467,6 +508,33 @@ class PagedBatchGroup(BatchGroup):
         self.pool.counters["prefill_rows"] += len(rows)
         return rows
 
+    def _plan_chunked(self, requests: Sequence) -> List:
+        """Chunked planning: there are no prefill rows.  A whole-prompt
+        cache hit still boards decoding at once (blocks pinned here, table
+        wired at merge); everything else chunks.  Wave-mate ("dup") sharing
+        is off (the mate's blocks hold no KV yet at plan time), but
+        completed prompts enter the chain and prompt caches for later waves
+        (:meth:`_on_chunk_complete`)."""
+        plans: List[_Plan] = []
+        tr = tracer()
+        for r in requests:
+            if self.prefix_enabled:
+                hit = self.pool.lookup_prompt(r.prompt.tobytes())
+                if hit is not None:
+                    blocks, tok0 = hit
+                    self.pool.incref(blocks)
+                    self.pool.counters["prefix_hits"] += 1
+                    self.pool.counters["prefill_rows_shared"] += 1
+                    if tr.enabled:
+                        tr.async_instant("prefix_hit", r.seq, kind="prompt",
+                                         blocks=len(blocks))
+                    plans.append(_Plan(r, "cached", pinned=list(blocks),
+                                       first_token=tok0))
+                    continue
+            plans.append(_Plan(r, "row"))
+        self._plans = plans
+        return []
+
     def merge_prefill(self) -> dict:
         h, wave, prog = self.prefill_handle, self.prefill_wave, self._prefill_prog
         plans, self._plans = self._plans, []
@@ -479,6 +547,8 @@ class PagedBatchGroup(BatchGroup):
                     self.pool.release(p.pinned)
             return {"joined": 0, "failed": list(wave), "errors": h.errors(),
                     "seconds": seconds}
+        if self.chunk_len:
+            return self._merge_chunked_paged(plans, seconds)
         tr = tracer()
         if tr.enabled and self._prefill_tr0:
             tr.complete("prefill_wave", self._prefill_tr0,
@@ -596,9 +666,107 @@ class PagedBatchGroup(BatchGroup):
         self._reset_kpos(fresh)
         return blocks + fresh, first, wrote or bool(fresh)
 
+    # ----------------------------------------------------- chunked prefill
+    def _merge_chunked_paged(self, plans: Sequence[_Plan], seconds: float) -> dict:
+        """Board a chunked join wave: whole-prompt cache hits wire their
+        pinned blocks and board decoding at once; everything else gets its
+        block reservation (chain-cached leading full blocks advance the
+        start cursor, so those positions are never chunked again) and
+        prefills through the segment kernel's chunk stage."""
+        free = self.free_slots()
+        tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
+        pcur_b, ptoks_b = self.prog._ins[2], self.prog._ins[3]
+        tr = tracer()
+        wrote_pool = False
+        for plan in plans:
+            slot = free.pop(0)
+            req = plan.req
+            n_total = self.blocks_for(req.gen)
+            if plan.kind == "cached":
+                # Whole-prompt hit: boards decoding now, no chunk segments.
+                fresh = self.pool.alloc(n_total - len(plan.pinned))
+                self._reset_kpos(fresh)
+                blocks = plan.pinned + fresh
+                pcur0, first = self.bucket, int(plan.first_token)
+                wrote_pool |= bool(fresh)
+            else:
+                lead = self._chain_head(req)
+                fresh = self.pool.alloc(n_total - len(lead))
+                self._reset_kpos(fresh)
+                blocks = lead + fresh
+                pcur0, first = len(lead) * self.block_len, 0
+                wrote_pool = True
+            self.slot_blocks[slot] = blocks
+            self.table[slot, :] = BlockPool.NULL
+            self.table[slot, : len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+            tok_b[slot, 0] = first
+            pos_b[slot, 0] = self.bucket
+            pcur_b[slot, 0] = pcur0
+            ptoks_b[slot, :] = torch.from_numpy(req.prompt)
+            self.slots[slot] = req
+            req.slot = slot
+            req.chunk_pos = pcur0
+            if pcur0 >= self.bucket:
+                req.board(slot, first)
+                if tr.enabled:
+                    tr.async_instant("first_token", req.seq, slot=slot)
+        for b in (tok_b, pos_b, pcur_b, ptoks_b):
+            self.prog.invalidate(b)
+        self.prog.invalidate(self.table)
+        if wrote_pool:
+            # _reset_kpos only touches the position leaves.
+            for leaf, neg in zip(self._pool_leaves(), self._neg_leaves):
+                if neg:
+                    self.prog.invalidate(leaf)
+        return {"joined": len(plans), "failed": [], "seconds": seconds}
+
+    def _chain_head(self, req) -> List[int]:
+        """Chain-cached leading full blocks of a chunking prompt, increfed.
+        Clamped so at least one prompt position is left to chunk: the
+        completing chunk's final prompt row is where ``ctok`` comes from."""
+        if not self.prefix_enabled:
+            return []
+        bl = self.block_len
+        key: tuple = ("root",)
+        lead: List[int] = []
+        for j in range((self.bucket - 1) // bl):
+            key = BlockPool.chain_key(key, req.prompt[j * bl:(j + 1) * bl])
+            hit = self.pool.lookup_chain(key)
+            if hit is None:
+                break
+            lead.append(hit)
+        if lead:
+            self.pool.incref(lead)
+            self.pool.counters["prefix_hits"] += 1
+            self.pool.counters["prefix_blocks_shared"] += len(lead)
+            tr = tracer()
+            if tr.enabled:
+                tr.async_instant("prefix_hit", req.seq, kind="chain", blocks=len(lead))
+        return lead
+
+    def _on_chunk_complete(self, slot: int, req) -> None:
+        """Chunk-completed prompt: its leading blocks now hold exactly the
+        KV whole-prompt prefill would have produced (bit-identity), so they
+        enter the prefix caches: chain entries per full block, plus a
+        whole-prompt entry for block-aligned prompts (a partial tail block
+        keeps receiving this request's decode appends and must not be
+        shared)."""
+        if not self.prefix_enabled:
+            return
+        bl, bucket, pool = self.block_len, self.bucket, self.pool
+        blocks = self.slot_blocks[slot]
+        n_full = bucket // bl
+        key: tuple = ("root",)
+        for j in range(n_full):
+            key = BlockPool.chain_key(key, req.prompt[j * bl:(j + 1) * bl])
+            if pool.lookup_chain(key) is None:
+                pool.register_chain(key, blocks[j])
+        if bucket % bl == 0:
+            pool.register_prompt(req.prompt.tobytes(), blocks[:n_full], req.tokens[0])
+
     # ------------------------------------------------- pool mirror plumbing
     def _pool_leaves(self) -> list:
-        return self.prog._ins[3:]
+        return self.prog._ins[3 + (2 if self.chunk_len else 0):]
 
     def _store_block(self, block: int, row: list, j: int) -> None:
         """Copy logical block ``j`` of one prefill slot row into physical
@@ -639,7 +807,10 @@ class PagedBatchGroup(BatchGroup):
     def harvest_segment(self) -> dict:
         res = super().harvest_segment()
         if "errors" not in res:
-            self.pool.note_tokens(res["n_active"] * self.seg_len)
+            # Chunked segments also wrote each prefilling slot's chunk of
+            # prompt positions.
+            self.pool.note_tokens(res["n_active"] * self.seg_len
+                                  + res.get("chunk_tokens", 0))
         self._gauge_pool()
         return res
 
@@ -665,7 +836,7 @@ class PagedBatchGroup(BatchGroup):
         objects, so the state must track whichever tensors hold the latest
         written-back KV when the next group generation picks them up."""
         self.state.leaves = list(self._pool_leaves())
-        self.state.table = self.prog._ins[2]
+        self.state.table = self.prog._ins[2 + (2 if self.chunk_len else 0)]
 
     def fail_all(self, errors: Sequence[str]) -> List[object]:
         for slot in range(self.n_slots):

@@ -26,10 +26,11 @@ decode arithmetic is batch-invariant (ROADMAP.md item C2 records where it
 is not).
 
 Ported: one DeviceGroup, the Static scheduler, contiguous or paged KV,
-whole-prompt prefill Programs.  Speculative decoding (``draft``), chunked
-prefill (``chunk_len``) (ROADMAP.md item A5), several DeviceGroups,
-``group_batches``, slot migration and elastic drain/join (item A7) raise
-``NotImplementedError``.
+whole-prompt prefill Programs or chunked prefill (``chunk_len``: the
+prompt advances inside the decode segments, ``validate_chunked``).
+Speculative decoding (``draft``, ROADMAP.md item A5), several
+DeviceGroups, ``group_batches``, slot migration and elastic drain/join
+(item A7) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,7 +48,13 @@ from repro_torch.core.scheduler.base import Scheduler
 from repro_torch.core.scheduler.static import Static
 from repro_torch.core.trace import tracer
 from repro_torch.serve.admission import DeadlineAdmission, PoolAdmission, edf_key
-from repro_torch.serve.batcher import BatchGroup, Buckets, ModelKernels, segments_for
+from repro_torch.serve.batcher import (
+    BatchGroup,
+    Buckets,
+    ModelKernels,
+    chunks_for,
+    segments_for,
+)
 from repro_torch.serve.multigroup import MigrationPolicy
 from repro_torch.serve.paged import (
     PagedBatchGroup,
@@ -62,7 +69,7 @@ from repro_torch.serve.telemetry import Telemetry
 NOT_PORTED_A7 = ("is not ported to repro_torch yet: ROADMAP.md item A7 "
                  "(multi-group serving, migration, elastic groups)")
 NOT_PORTED_A5 = ("is not ported to repro_torch yet: ROADMAP.md item A5 "
-                 "(speculative and chunked serving)")
+                 "(speculative serving)")
 
 
 class AdmissionError(RuntimeError):
@@ -193,6 +200,37 @@ class _Request:
         return self.gen - len(self.tokens)
 
 
+def validate_chunked(cfg, api, chunk_len: int) -> None:
+    """Fail fast on configurations chunked prefill cannot keep bitwise
+    equal to whole-prompt prefill.  The chunk stage replays the prompt
+    through the decode cache path (scatter, then attend the cache *as
+    stored*), so anything that makes the stored prefix differ from what
+    one-shot prefill would have attended is a configuration error, not a
+    runtime surprise."""
+    if chunk_len < 1:
+        raise ValueError(f"chunk_len must be >= 1: {chunk_len}")
+    if api.prefill_chunk is None:
+        raise ValueError(
+            f"family {cfg.family!r} has no chunked-prefill path: recurrent "
+            "state cannot replay a prompt in masked position chunks"
+        )
+    if cfg.window:
+        raise ValueError(
+            f"chunked prefill is incompatible with a rolling window "
+            f"({cfg.window}): chunk rows must attend the stored prompt "
+            "prefix, which the ring overwrites"
+        )
+    if cfg.cache_dtype:
+        raise ValueError(
+            "chunked prefill is incompatible with cache_dtype quantization: "
+            "later chunks would attend quantized keys where one-shot "
+            "prefill attends full-precision ones, breaking bit-identity"
+        )
+    if cfg.seq_shard_cache:
+        raise ValueError("chunked prefill is incompatible with "
+                         "seq_shard_cache (mesh decode is single-row)")
+
+
 class InferenceServer:
     """Accepts independent requests over time and serves them through
     continuously-batched prefill/decode-segment runs on the engine runtime.
@@ -215,6 +253,11 @@ class InferenceServer:
     paged            : PagedSpec: serve from a KV block pool (block tables,
                        prefix cache, copy-on-write) instead of contiguous
                        slot rows.
+    chunk_len        : chunked prefill (0 = off): joins run no prefill
+                       Program; each decode segment first advances every
+                       still-prefilling slot's prompt by ``chunk_len``
+                       tokens.  Streams stay bitwise those of whole-prompt
+                       serving.
     """
 
     def __init__(self, cfg, api, params, *,
@@ -237,8 +280,6 @@ class InferenceServer:
                  obs: Optional[EngineObs] = None) -> None:
         if draft is not None:
             raise NotImplementedError(f"speculative serving (draft=) {NOT_PORTED_A5}")
-        if chunk_len:
-            raise NotImplementedError(f"chunked prefill (chunk_len > 0) {NOT_PORTED_A5}")
         if group_batches or migration is not None:
             raise NotImplementedError(f"group_batches serving {NOT_PORTED_A7}")
         if groups is not None and len(groups) != 1:
@@ -252,7 +293,9 @@ class InferenceServer:
             validate_paged(cfg, self.groups, self.scheduler, paged,
                            group_batches=self.group_batches)
         self.draft = None
-        self.chunk_len = 0  # whole-prompt prefill Programs
+        self.chunk_len = int(chunk_len)  # 0 = whole-prompt prefill Programs
+        if self.chunk_len:
+            validate_chunked(cfg, api, self.chunk_len)
         self.pool_admission = PoolAdmission()
         self.kernels = kernels or ModelKernels(cfg, api, params)
         self.buckets = Buckets(buckets)
@@ -662,9 +705,9 @@ class InferenceServer:
         return segments_for(gen, self.seg_len)
 
     def _n_chunks(self, bucket: int) -> int:
-        """Mixed-phase segments a join spends prefilling: 0 in whole-prompt
-        mode, the only mode ported."""
-        return 0
+        """Mixed-phase segments a join spends prefilling (0 = whole-prompt
+        prefill)."""
+        return chunks_for(bucket, self.chunk_len) if self.chunk_len else 0
 
     def _advance_group(self, grp: BatchGroup, now: float) -> None:
         """Legacy single-batch advance: harvest/merge, board, chain."""
@@ -709,8 +752,9 @@ class InferenceServer:
         if (grp.seg_handle is None and grp.prefill_handle is not None
                 and grp.prefill_handle.done()):
             res = grp.merge_prefill()
-            self.admission.model.observe("prefill", grp.bucket, res["seconds"])
-            self.telemetry.observe("prefill_s", res["seconds"])
+            if not self.chunk_len:  # chunked joins run no prefill Program
+                self.admission.model.observe("prefill", grp.bucket, res["seconds"])
+                self.telemetry.observe("prefill_s", res["seconds"])
             tr = tracer()
             if res["failed"]:
                 self._postmortem(

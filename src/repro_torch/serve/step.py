@@ -1,5 +1,6 @@
 """Serving steps: prefill (prompt → cache), decode (one token, KV cache),
-and decode *chains* (N dependent tokens, device-resident).
+decode *chains* (N dependent tokens, device-resident) and the chunked
+prefill stage (``make_chunk_step``).
 
 Params are cast to the compute dtype once (``cast_params_cached``) and the
 cast copy is held beside the float32 masters for as long as they live: a
@@ -69,6 +70,37 @@ def make_decode_step(cfg, api):
         return _argmax_token(logits), cache
 
     return decode_step
+
+
+def make_chunk_step(cfg, api, bucket: int, chunk_len: int):
+    """One mixed-phase prefill-chunk stage over the whole batch (chunked
+    prefill: the decode segment Program advances still-prefilling slots'
+    cursors by ``chunk_len`` prompt tokens while other slots decode).
+
+    ``chunk(params, cache, ptoks, pcur) -> (ctok, pcur', cache)`` where
+    ``ptoks`` is the (B, bucket) padded-prompt buffer and ``pcur`` the
+    (B, 1) prefill cursor (``pcur >= bucket``: the slot is decoding, all
+    its rows arrive masked and its cache is untouched).  ``ctok`` is the
+    argmax of the logits at each slot's final prompt row, the slot's first
+    generated token, meaningful only for slots whose prefill completes this
+    chunk (``pcur < bucket <= pcur'``); bitwise whole-prompt prefill's
+    ``argmax(logits[:, -1])``.  Per-slot cursors stagger freely (paged
+    prefix-cache hits skip whole blocks), so chunk tokens are gathered per
+    slot with a clipped gather.  No host sync."""
+
+    def chunk(params, cache, ptoks, pcur):
+        params = cast_params_cached(params, cfg.compute_dtype)
+        base = pcur[:, 0]  # (B,)
+        positions = base[:, None] + torch.arange(chunk_len, dtype=torch.int32,
+                                                 device=pcur.device)
+        valid = positions < bucket
+        idx = torch.clamp(positions, 0, bucket - 1).long()
+        toks = torch.gather(ptoks, 1, idx)  # (B, chunk_len)
+        last_idx = torch.clamp(bucket - 1 - base, 0, chunk_len - 1)
+        logits, cache = api.prefill_chunk(params, toks, base, valid, cfg, cache, last_idx)
+        return _argmax_token(logits), torch.clamp(pcur + chunk_len, max=bucket), cache
+
+    return chunk
 
 
 def zeros_cache(cfg, api, batch: int, max_seq: int, *, device, dtype=None):

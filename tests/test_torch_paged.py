@@ -201,8 +201,11 @@ def test_paged_config_validation(weights):
     with pytest.raises(NotImplementedError, match="A7"):
         InferenceServer(cfg, api, params, paged=tpaged.PagedSpec(),
                         groups=[cpu("a"), cpu("b")])
-    with pytest.raises(NotImplementedError, match="A5"):
-        InferenceServer(cfg, api, params, groups=[cpu("a")], chunk_len=4)
+    # Chunked prefill is ported: chunk_len is validated, not refused.
+    with InferenceServer(cfg, api, params, groups=[cpu("a")], chunk_len=4) as srv:
+        assert srv.stats()["chunk_len"] == 4
+    with pytest.raises(ValueError, match="chunk_len"):
+        InferenceServer(cfg, api, params, groups=[cpu("a")], chunk_len=-1)
     with pytest.raises(NotImplementedError, match="A5"):
         InferenceServer(cfg, api, params, groups=[cpu("a")], draft=object())
     srv = InferenceServer(cfg, api, params, paged=tpaged.PagedSpec(), groups=[cpu("a")],
