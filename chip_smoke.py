@@ -53,7 +53,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
              at 2e-2 (f32 1e-4) against its plain version, and every
              prefilling slot's rows bitwise against flash_attention's rows
              of the whole prompt at the same positions; the sdpa yardstick
-             takes the same boolean mask.  Batch invariance, bitwise: each slot of
+             takes the same boolean mask.  ``[verify]``: speculative verify
+             launches (Sq = k + 1 rows, keys written through pos + k) of
+             flash_decode at qwen1.5-4b widths (the self-draft's two-row
+             first step on its cache of 16-key tiles, the served path's
+             shape; k 2 and k 4 on tiles of 128), internlm2-20b widths (k
+             2: 18 rows in two row blocks), rows across a 256-key chunk and
+             an empty slot, and of flash_decode_paged over a permuted pool
+             of 16-key blocks (qwen1.5-4b widths k 2, the served path's
+             verify, and internlm2-20b widths): every row bitwise its
+             one-row launch at pos + j over the same cache (the spec ==
+             plain contract), the paged ones also bitwise flash_decode at
+             block_k 16 on the gathered layout, all within 2e-2 of the
+             plain version; each line prints the plan (key parts, row
+             blocks, chunks) and the verify launch's time; the bound
+             counts the keys the rows attend.  Batch invariance, bitwise: each slot of
              the qwen1.5-4b and recurrentgemma-2b main-path decode cases, and
              one batch element of the qwen1.5-4b prefill case, computed
              alone must equal its row of the batch of 8.  Each decode case
@@ -122,6 +136,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
                bitwise equal to the whole-prompt served streams and to
                one-shot generate of its prompt alone.  Tokens/s and each
                request's TTFT printed beside the whole-prompt run's.
+             - speculative serving through the same server, arrivals 1 ms
+               apart (``run_spec_paths``): ``--draft self --draft-k 2``
+               paged, held at acceptance exactly 1.0, 2 segments and exact
+               launches (per segment step and layer: the draft's two-row
+               first step and one-row second step on flash_decode, the
+               target's 3-row verify on flash_decode_paged; the wave's
+               target and draft prefills on flash_attention), the
+               multi-row ones of the two decode kernels held apart; a weak
+               draft through the server API
+               (qwen1.5-4b cut to 4 layers, weights from seed 7, k 2,
+               contiguous, 4 requests), launches held against its segment
+               count; ``--draft self --chunk-len 64``; ``--draft self
+               --spec-gate`` (its probe/bypass/speculate counts printed).
+               Every stream bitwise equal to the whole-prompt served
+               streams and to one-shot generate of its prompt alone;
+               tokens/s, wall, TTFT and peak memory beside the whole-prompt
+               served path's of the same call.
              Every path also launches exactly one ``gemm_rowinv`` per
              product of the models (projections, MLPs, gates, the head) and
              one ``rms_norm`` per norm, in every forward pass: no product on
@@ -158,7 +189,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
              kernel's count on the first path that runs it; for
              flash_decode_paged, the served path; for flash_decode's chunk
              launch, listed as flash_decode_chunk, its flash_decode count
-             on the chunked served path), then the last line
+             on the chunked served path; for the multi-row launches of
+             flash_decode and flash_decode_paged, listed as
+             flash_decode_verify and flash_decode_paged_verify with the
+             [verify] cases of the self-draft served path's shapes, their
+             count on that path), then the last line
              ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -581,6 +616,131 @@ def run_chunk_case(case, dev, flush, torch, F, ops, fd, attn):
     print(f"  flash_decode_chunk | {name}: {plan['route']} body, grid {plan['grid']}, "
           f"{plan['tiles']} tiles of {bk} keys, no key chunks, {grp}; {rows} prefill rows "
           f"bitwise = flash_attention's; max_abs_err={err:.3g} kernel={ms:.4f} ms "
+          f"plain={plain_ms:.4f} ms sdpa (mask)={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
+# Speculative verify rows: a verify launch of Sq = k + 1 rows against each
+# row's one-row launch at pos + j over the same cache after the same writes.
+SPEC_K = 2
+# The self-draft served path's multi-row launches, at its shapes: the
+# draft's two-row first step (rows pos - 1, pos) on its contiguous cache,
+# which the paged path tiles at the block length, and the target's verify
+# on the pool.
+DRAFT_MAIN = "draft first step qwen1.5-4b, 2 rows, tiles of 16 (spec served path)"
+PAGED_VERIFY_MAIN = "verify paged qwen1.5-4b k 2, blocks of 16 (spec served path)"
+
+
+def verify_cases():
+    # name, B, H, KV, hd, k, pos, block_k (the tile, or the paged block
+    # length), S (contiguous) or (table entries, pool blocks) (paged, a
+    # permuted pool)
+    s = 256 + GEN + 8 * (SPEC_K + 1)  # the spec served path's cache
+    ragged = [256, 259, 262, 268, 271, 280, 283, 286]
+    nmax = s // 16
+    return [
+        (DRAFT_MAIN, 8, 20, 20, 128, 1, [p - 1 for p in ragged], 16, s),
+        ("verify qwen1.5-4b k 2", 8, 20, 20, 128, SPEC_K, ragged, 128, s),
+        ("verify qwen1.5-4b k 4", 8, 20, 20, 128, 4, ragged, 128, s),
+        ("verify internlm2-20b widths k 2 (18 rows: 2 row blocks)", 4, 48, 8, 128, 2,
+         [10, 150, 296, 77], 128, s),
+        ("verify across a 256-key chunk (k 4, rows past key 255)", 4, 20, 20, 128, 4,
+         [252, 254, 255, 250], 128, s),
+        ("verify empty slot", 3, 20, 20, 128, 2, [-1, 0, 190], 128, s),
+        (PAGED_VERIFY_MAIN, 8, 20, 20, 128, SPEC_K, ragged, 16, (nmax, 2 + 8 * nmax)),
+        ("verify paged internlm2-20b widths k 2", 4, 48, 8, 128, 2, [10, 150, 296, 77], 16,
+         (nmax, 2 + 4 * nmax)),
+    ]
+
+
+def run_verify_case(case, dev, flush, torch, F, ops, fd, attn):
+    """One speculative verify launch (Sq = k + 1 rows at pos .. pos + k, its
+    keys written through pos + k) held bitwise, row by row, against the
+    one-row launch at pos + j over the same cache (the spec == plain
+    contract on the card), and at 2e-2 against the plain version; an empty
+    slot's rows exact zeros.  Paged: a pool in a random block order, also
+    bitwise flash_decode at block_k = the block length on the gathered
+    layout.  Timed beside sdpa with the same mask.  The bound counts the
+    keys the rows attend (each slot's keys through pos + k, read once for
+    all its rows), their kpos and, paged, their table entries."""
+    import numpy as np
+
+    name, b, h, kv, hd, k, pos, bk, geom = case
+    dt, sq = torch.bfloat16, k + 1
+    paged = isinstance(geom, tuple)
+    s = bk * geom[0] if paged else geom
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt)
+    kk = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt)
+    vv = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt)
+    kp = np.full((b, s), -1, np.int32)
+    for i, p in enumerate(pos):
+        if p >= 0:
+            kp[i, :p + sq] = np.arange(p + sq)
+    kpos = torch.from_numpy(kp).to(dev)
+    posv = torch.tensor(pos, dtype=torch.int32, device=dev)
+    if paged:
+        (nmax, n_blocks), bl = geom, bk
+        rng = np.random.default_rng(len(name))
+        tables = torch.from_numpy(rng.permutation(np.arange(2, n_blocks))[: b * nmax]
+                                  .reshape(b, nmax).astype(np.int32)).to(dev)
+        idx = tables.reshape(-1).long()
+        pool = []
+        for x, fill in ((kk, 0), (vv, 0), (kpos, -1)):
+            pl = torch.full((n_blocks, bl) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=dev)
+            pl[idx] = x.reshape((b * nmax, bl) + tuple(x.shape[2:]))
+            pool.append(pl)
+        launch = lambda qq, pp: ops.flash_decode_paged(qq, *pool, tables, pp)  # noqa: E731
+        plain = lambda: fd.flash_decode_paged_plain(q, *pool, tables, posv)  # noqa: E731
+        plan = fd.paged_launch_plan(b, nmax, bl, sq, h, kv, hd, dt, dt)
+    else:
+        launch = lambda qq, pp: ops.flash_decode(qq, kk, vv, kpos, pp, block_k=bk)  # noqa: E731
+        plain = lambda: fd.flash_decode_plain(q, kk, vv, kpos, posv, block_k=bk)  # noqa: E731
+        plan = fd.launch_plan(b, s, sq, h, kv, hd, dt, dt, block_k=bk)
+    got = launch(q, posv)
+    torch.cuda.synchronize()
+    for j in range(sq):
+        one = launch(q[:, j:j + 1].contiguous(), posv + j)
+        torch.cuda.synchronize()
+        if not torch.equal(one[:, 0], got[:, j]):
+            d = (one[:, 0].float() - got[:, j].float()).abs().max()
+            fail(f"verify {name}: row {j} differs from the one-row launch at pos + {j} "
+                 f"(max |diff| {d})")
+    if paged:
+        contig = ops.flash_decode(q, kk, vv, kpos, posv, block_k=bk)
+        torch.cuda.synchronize()
+        if not torch.equal(got, contig):
+            fail(f"verify {name}: not bitwise flash_decode at block_k={bk} on the "
+                 f"gathered layout")
+    want = plain()
+    err = (got.float() - want.float()).abs().max().item()
+    if not torch.allclose(got.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL):
+        fail(f"verify {name}: max |kernel - plain| = {err} > tol {BF16_TOL}")
+    for i, p in enumerate(pos):
+        if p < 0 and torch.any(got[i] != 0):
+            fail(f"verify {name}: empty slot {i} is not exact zeros")
+    rowpos = posv[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)
+    mask = attn.ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None], 0)[:, None]
+    qt, kt, vt = q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
+    ms = time_ms(lambda: launch(q, posv), flush, 20)
+    plain_ms = time_ms(plain, flush, 5)
+    lib_ms = time_ms(lib, flush, 20)
+    keys = sum(p + sq for p in pos if p >= 0)  # each slot's keys through pos + k
+    entries = sum(-(-(p + sq) // bk) for p in pos if p >= 0)  # their table entries
+    nbytes = (2 * keys * kv * hd * 2 + keys * 4 + 2 * q.numel() * 2 + posv.numel() * 4
+              + (entries * 4 if paged else 0))
+    flops = 4 * hd * (h // kv) * kv * int(mask.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  {'flash_decode_paged' if paged else 'flash_decode'} verify | {name}: "
+          f"{plan['route']} body, {plan['key_parts']} key part(s) of {plan['stage_keys']}-key "
+          f"stages, {plan['row_blocks']} row block(s) of {plan['block_rows']} rows, "
+          f"{plan['tiles']} tiles of {bk} keys in {plan['chunks']} chunk(s); {b} x {sq} rows "
+          f"bitwise = their one-row launches; max_abs_err={err:.3g} kernel={ms:.4f} ms "
           f"plain={plain_ms:.4f} ms sdpa (mask)={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
     return rec
@@ -1106,17 +1266,18 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
     return out
 
 
-def row_kernel_launches(arch: str, forwards: int) -> dict:
+def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
     """Launches of the two row kernels in ``forwards`` passes of the
-    full-width stack (a prefill or one decode step each): one GEMM per
-    product of models/ (dense layer: q, k, v, o and three MLP products;
-    Mamba layer: in_proj, x_proj, dt_proj, out_proj; recurrent layer: in_y,
-    in_x, the two block-diagonal gates and out, plus three MLP products),
-    one for the head; one rms_norm per norm of a layer and the final one."""
+    full-width stack (a prefill or one decode step each; ``n_layers``
+    overrides the depth): one GEMM per product of models/ (dense layer: q,
+    k, v, o and three MLP products; Mamba layer: in_proj, x_proj, dt_proj,
+    out_proj; recurrent layer: in_y, in_x, the two block-diagonal gates and
+    out, plus three MLP products), one for the head; one rms_norm per norm
+    of a layer and the final one."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    n = cfg.n_layers
+    n = n_layers or cfg.n_layers
     if cfg.family == "dense":
         gemm, norms = 7 * n + 1, 2 * n + 1
     elif cfg.family == "ssm":
@@ -1253,9 +1414,8 @@ def run_served_path(dev, torch) -> dict:
         set_tracer(prev)
     s = result["stats"]
     segs = -(-(args.gen - 1) // args.seg_len)
-    want = {"flash_attention": cfg.n_layers, "flash_decode": 0,
-            "flash_decode_paged": cfg.n_layers * args.seg_len * segs, "ssm_scan": 0,
-            "rglru_scan": 0, **row_kernel_launches(args.arch, 1 + args.seg_len * segs)}
+    want = _launches(cfg.n_layers, fa=cfg.n_layers, fdp=cfg.n_layers * args.seg_len * segs,
+                     forwards=[(1 + args.seg_len * segs, cfg.n_layers)])
     print(f"  launches {counts} (want {want})", flush=True)
     if counts != want:
         fail(f"served path launch counts {counts} != {want}")
@@ -1403,14 +1563,10 @@ def run_chunked_paths(dev, torch, whole) -> dict:
         steps = args.seg_len * s["segments"]
         if label == "chunked":
             stages = result["chunk_stages"]
-            want = {"flash_attention": 0, "flash_decode": n * stages,
-                    "flash_decode_paged": n * steps, "ssm_scan": 0, "rglru_scan": 0,
-                    **row_kernel_launches(args.arch, stages + steps)}
+            want = _launches(n, fd=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
         else:
             stages = s["prefill_waves"]
-            want = {"flash_attention": n * stages, "flash_decode": 0,
-                    "flash_decode_paged": n * steps, "ssm_scan": 0, "rglru_scan": 0,
-                    **row_kernel_launches(args.arch, stages + steps)}
+            want = _launches(n, fa=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
         print(f"  {label}: launches {counts} (want {want})", flush=True)
         if counts != want:
             fail(f"{label} served path launch counts {counts} != {want}")
@@ -1452,8 +1608,7 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     result, counts, busy = served_run(args, ccfg, capi, params, torch)
     s = result["stats"]
     stages, steps = result["chunk_stages"], args.seg_len * s["segments"]
-    want = {"flash_attention": 0, "flash_decode": n * (stages + steps), "flash_decode_paged": 0,
-            "ssm_scan": 0, "rglru_scan": 0, **row_kernel_launches(args.arch, stages + steps)}
+    want = _launches(n, fd=n * (stages + steps), forwards=[(stages + steps, n)])
     print(f"  contiguous, chunks of 40: launches {counts} (want {want})", flush=True)
     if counts != want:
         fail(f"contiguous chunked served path launch counts {counts} != {want}")
@@ -1477,6 +1632,212 @@ def run_chunked_paths(dev, torch, whole) -> dict:
           f"{result['tokens_per_s']:.1f} tokens/s; == batch-1 one-shot {eq_one}/{args.requests} "
           f"(held, bitwise)", flush=True)
     return out, chunked_counts
+
+
+def _launches(n, fa=0, fd=0, fdp=0, forwards=(), arch="qwen1.5-4b") -> dict:
+    """A served path's wanted launch counts: the attention kernels' counts
+    and the row kernels' of each (forwards, layers) pair."""
+    want = {"flash_attention": fa, "flash_decode": fd,
+            "flash_decode_paged": fdp, "ssm_scan": 0, "rglru_scan": 0,
+            "gemm_rowinv": 0, "rms_norm": 0}
+    for f, layers in forwards:
+        for name, c in row_kernel_launches(arch, f, layers).items():
+            want[name] += c
+    return want
+
+
+def _streams_equal(result, want) -> int:
+    import numpy as np
+
+    return int(sum(np.array_equal(a, b) for a, b in zip(result["results"], want)))
+
+
+def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
+    """Speculative serving through the launcher's server on qwen1.5-4b's
+    weights (8 x 256 + 32, arrivals 1 ms apart, seg_len 8, the served
+    path's prompts):
+    1. ``--paged --draft self --draft-k 2``: acceptance exactly 1.0, so
+       every step emits k + 1 tokens and the segments and launches are
+       fixed: per segment step the draft's two-row first step and its
+       one-row second step (flash_decode) on the contiguous draft cache,
+       then the target's 3-row verify (flash_decode_paged), each once a
+       layer; the prefill wave runs the target's and the draft's prefill
+       (flash_attention twice a layer); the multi-row launches are held
+       apart (the first draft step and the verify);
+    2. a weak draft through the server API: ``DraftSpec`` of qwen1.5-4b's
+       config cut to 4 layers with weights from seed 7, k 2, on the
+       contiguous layout (decode tiles of 128), 4 requests: its verify rows
+       go to flash_decode, launches and multi-row launches held against
+       the segment count;
+    3. ``--draft self --chunk-len 64 --paged``;
+    4. ``--draft self --spec-gate --paged``: the gate's probe, bypass and
+       speculate counts printed (they depend on timing).
+    Every stream held bitwise equal to the whole-prompt served streams and
+    to one-shot generate of its prompt alone (batch 1)."""
+    from repro_torch.core import DeviceGroup
+    from repro_torch.core.trace import Tracer, set_tracer, tracer
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.models.params import materialize
+    from repro_torch.serve import DraftSpec, InferenceServer, make_generate
+
+    served_whole, ones = whole
+    k = SPEC_K
+    argv = SERVER_ARGV + ["--draft", "self", "--draft-k", str(k)]
+    args = serve.parse_args(argv)
+    cfg, api, params = serve.load_model(args)
+    n = cfg.n_layers
+    out = {}
+
+    def counted(run):
+        prev = tracer()
+        set_tracer(Tracer(capacity=1 << 17, enabled=True))
+        ops.reset_launch_counts()
+        try:
+            result = run()
+        finally:
+            counts = ops.launch_counts()
+            counts["multi_row"] = ops.multi_row_counts()
+            set_tracer(prev)
+        s = result["stats"]
+        if (s["completed"] != len(result["results"]) or s["failed"] or s["rejected"]
+                or any(r is None for r in result["results"])):
+            fail(f"spec served path: {s['completed']} completed, {s['failed']} failed, "
+                 f"{s['rejected']} rejected")
+        return result, counts, s
+
+    def held(label, result, refs):
+        eq_whole = _streams_equal(result, served_whole[:len(refs)])
+        eq_one = _streams_equal(result, refs)
+        if eq_whole != len(refs) or eq_one != len(refs):
+            fail(f"{label}: {eq_whole}/{len(refs)} streams equal the whole-prompt served "
+                 f"streams, {eq_one}/{len(refs)} one-shot generate of each prompt alone")
+        return eq_whole, eq_one
+
+    # 1. Self-draft on the paged pool.
+    result, counts, s = counted(lambda: serve.run_server(cfg, api, params, args))
+    steps = args.seg_len * s["segments"]
+    segs = -(-(args.gen - 1) // (args.seg_len * (k + 1)))
+    want = _launches(n, fa=2 * n * s["prefill_waves"], fd=k * n * steps, fdp=n * steps,
+                     forwards=[(2 * s["prefill_waves"] + (k + 1) * steps, n)])
+    want["multi_row"] = {"flash_decode": n * steps, "flash_decode_paged": n * steps}
+    print(f"  self draft, paged: launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"spec served path launch counts {counts} != {want}")
+    if s["prefill_waves"] != 1 or s["segments"] != segs:
+        fail(f"spec served path ran {s['prefill_waves']} prefill waves and {s['segments']} "
+             f"segments, want 1 and {segs}")
+    if s["acceptance"] != 1.0 or not s["tokens_accepted"] == s["tokens_drafted"] > 0:
+        fail(f"self draft: acceptance {s['acceptance']} ({s['tokens_accepted']}/"
+             f"{s['tokens_drafted']}), want exactly 1.0")
+    eq = held("self draft, paged", result, ones)
+    ttft = sorted(m["ttft"] for m in result["request_metrics"])
+    peak = result["peak_memory_bytes"] or 0
+    out["self_draft_paged"] = {
+        "k": k, "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
+        "peak_memory_bytes": result["peak_memory_bytes"], "segments": s["segments"],
+        "prefill_waves": s["prefill_waves"], "tokens_drafted": s["tokens_drafted"],
+        "tokens_accepted": s["tokens_accepted"], "acceptance": s["acceptance"],
+        "ttft_s": ttft, "streams_equal_whole_served": eq[0],
+        "streams_equal_batch1_oneshot": eq[1], "launches": counts,
+        "plain_served": {key: plain_sp[key] for key in ("tokens_per_s", "wall_s",
+                                                         "peak_memory_bytes", "ttft_s")}}
+    print(f"  self draft, paged: acceptance {s['acceptance']} ({s['tokens_accepted']}/"
+          f"{s['tokens_drafted']}), {s['segments']} segments; {result['tokens_per_s']:.1f} "
+          f"tokens/s, {result['wall_s']:.3f} s, TTFT s {[round(t, 3) for t in ttft]}, peak "
+          f"{peak / 2**30:.2f} GiB; whole-prompt served (this call): "
+          f"{plain_sp['tokens_per_s']:.1f} tokens/s, {plain_sp['wall_s']:.3f} s, TTFT s "
+          f"{[round(t, 3) for t in plain_sp['ttft_s']]}, peak "
+          f"{(plain_sp['peak_memory_bytes'] or 0) / 2**30:.2f} GiB; streams == whole-prompt "
+          f"served {eq[0]}/{len(ones)}, == batch-1 one-shot {eq[1]}/{len(ones)} (held, "
+          f"bitwise)", flush=True)
+
+    # 2. A weak draft through the server API, contiguous, 4 requests.
+    ccfg = dataclasses.replace(cfg, decode_block=0)
+    capi = get_model(ccfg)
+    dcfg = dataclasses.replace(ccfg, n_layers=4)
+    dapi = get_model(dcfg)
+    dparams = materialize(dapi.param_spec(dcfg), torch.Generator(device=dev).manual_seed(7),
+                          torch.float32, dev)
+    prompts = result["prompts"][:4]
+    generate = make_generate(ccfg, capi)
+    refs = [generate(params, {"tokens": torch.from_numpy(p[None]).to(dev)}, args.gen)[0]
+            .cpu().numpy() for p in prompts]
+
+    def weak():
+        srv = InferenceServer(ccfg, capi, params, groups=[DeviceGroup("serve:0", device=dev)],
+                              buckets=(args.prompt_len,), max_batch=args.max_batch,
+                              seg_len=args.seg_len, max_new_cap=args.gen,
+                              max_wait_ms=args.max_wait_ms,
+                              draft=DraftSpec(dcfg, dparams, k=k))
+        t0 = time.perf_counter()
+        with srv:
+            hs = []
+            for p in prompts:
+                time.sleep(1e-3)
+                hs.append(srv.submit(p, args.gen))
+            res = [h.result(timeout=600) for h in hs]
+            wall = time.perf_counter() - t0
+        return {"results": res, "stats": srv.stats(), "wall_s": wall,
+                "request_metrics": [h.metrics for h in hs]}
+
+    result, counts, s = counted(weak)
+    steps, waves = args.seg_len * s["segments"], s["prefill_waves"]
+    want = _launches(n, fa=(n + 4) * waves, fd=(k - 1) * 4 * steps + (n + 4) * steps,
+                     forwards=[(waves + steps, n), (waves + k * steps, 4)])
+    want["multi_row"] = {"flash_decode": (n + 4) * steps, "flash_decode_paged": 0}
+    print(f"  weak draft, contiguous: launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"weak-draft served path launch counts {counts} != {want}")
+    eq_one = _streams_equal(result, refs)
+    if eq_one != len(refs):
+        fail(f"weak draft: {eq_one}/{len(refs)} streams equal one-shot generate")
+    out["weak_draft_contiguous"] = {
+        "requests": len(prompts), "draft_layers": 4, "k": k, "segments": s["segments"],
+        "prefill_waves": waves, "acceptance": s["acceptance"],
+        "tokens_drafted": s["tokens_drafted"], "tokens_accepted": s["tokens_accepted"],
+        "wall_s": result["wall_s"], "streams_equal_batch1_oneshot": eq_one,
+        "launches": counts}
+    print(f"  weak draft (4 layers, seed 7), contiguous: acceptance {s['acceptance']:.3f} "
+          f"({s['tokens_accepted']}/{s['tokens_drafted']}), {s['segments']} segments, "
+          f"{result['wall_s']:.3f} s; streams == batch-1 one-shot {eq_one}/{len(refs)} "
+          f"(held, bitwise)", flush=True)
+
+    # 3. Self draft with chunked prefill, paged.
+    args_c = serve.parse_args(argv + ["--chunk-len", str(CHUNK_LEN)])
+    result, counts, s = counted(lambda: serve.run_server(cfg, api, params, args_c))
+    eq = held("self draft, chunked, paged", result, ones)
+    out["self_draft_chunked_paged"] = {
+        "chunk_len": CHUNK_LEN, "segments": s["segments"], "chunk_stages":
+        result.get("chunk_stages"), "acceptance": s["acceptance"],
+        "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
+        "streams_equal_whole_served": eq[0], "streams_equal_batch1_oneshot": eq[1],
+        "launches": counts}
+    print(f"  self draft, chunks of {CHUNK_LEN}, paged: {s['segments']} segments "
+          f"({result.get('chunk_stages')} with a chunk stage), acceptance "
+          f"{s['acceptance']:.3f}, {result['tokens_per_s']:.1f} tokens/s; launches {counts}; "
+          f"streams == whole-prompt served {eq[0]}/{len(ones)}, == batch-1 one-shot "
+          f"{eq[1]}/{len(ones)} (held, bitwise)", flush=True)
+
+    # 4. The gate.
+    args_g = serve.parse_args(argv + ["--spec-gate"])
+    result, counts, s = counted(lambda: serve.run_server(cfg, api, params, args_g))
+    eq = held("self draft, gated, paged", result, ones)
+    g = s["speculation"]
+    out["self_draft_gated_paged"] = {
+        "probes": g["probes"], "speculated_segments": g["speculated_segments"],
+        "bypassed_segments": g["bypassed_segments"], "segments": s["segments"],
+        "acceptance": s["acceptance"], "wall_s": result["wall_s"],
+        "tokens_per_s": result["tokens_per_s"], "streams_equal_whole_served": eq[0],
+        "streams_equal_batch1_oneshot": eq[1]}
+    print(f"  spec gate: {g['speculated_segments']} spec / {g['bypassed_segments']} plain "
+          f"segments, {g['probes']} probes (timing-dependent, printed); "
+          f"{result['tokens_per_s']:.1f} tokens/s; streams == whole-prompt served "
+          f"{eq[0]}/{len(ones)}, == batch-1 one-shot {eq[1]}/{len(ones)} (held, bitwise)",
+          flush=True)
+    spec_counts = out["self_draft_paged"]["launches"]
+    return out, spec_counts
 
 
 COEXEC_ARGV = ["--arch", "qwen1.5-4b", "--full", "--coexec", "--scheduler", "hguided",
@@ -1638,6 +1999,15 @@ def main() -> None:
         rec = run_chunk_case(case, dev, flush, torch, F, ops, fd, attn)
         if case[0] == MAIN_CHUNK_CASE:
             recs["flash_decode_chunk"] = rec
+    print(at() + " [verify] speculative verify rows (Sq = k + 1) of flash_decode and "
+          "flash_decode_paged against their one-row launches at pos + j, bitwise, and their "
+          "plain versions", flush=True)
+    for case in verify_cases():
+        rec = run_verify_case(case, dev, flush, torch, F, ops, fd, attn)
+        if case[0] == DRAFT_MAIN:
+            recs["flash_decode_verify"] = rec
+        elif case[0] == PAGED_VERIFY_MAIN:
+            recs["flash_decode_paged_verify"] = rec
     for case in scan_cases():
         rec = run_scan_case(case, dev, flush, torch, ops, ss, rg, sm_clock_hz)
         recs.setdefault(case[0], rec)
@@ -1701,6 +2071,17 @@ def main() -> None:
     cp, counts = run_chunked_paths(dev, torch, whole)
     print(json.dumps({"chunked_served_path": cp}))
     launches["flash_decode_chunk"] = counts["flash_decode"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(at() + f" [spec served path] repro_torch.launch.serve --server --paged --draft self "
+          f"--draft-k {SPEC_K}, qwen1.5-4b --full, 8 x 256 + {GEN}, block_len 16, seg_len 8, "
+          f"arrivals 1 ms apart; a weak 4-layer draft through the server API (contiguous); "
+          f"--draft self --chunk-len {CHUNK_LEN}; --draft self --spec-gate", flush=True)
+    spp, counts = run_spec_paths(dev, torch, whole, sp)
+    print(json.dumps({"spec_served_path": spp}))
+    launches["flash_decode_verify"] = counts["multi_row"]["flash_decode"]
+    launches["flash_decode_paged_verify"] = counts["multi_row"]["flash_decode_paged"]
     del whole
     gc.collect()
     torch.cuda.empty_cache()
@@ -1726,8 +2107,14 @@ def main() -> None:
                # chunk rows call the same pallas_call at its prefill tile.
                "flash_decode_chunk": ("src/repro_torch/csrc/flash_decode.cu",
                                       "src/repro/kernels/flash_decode.py:195"),
+               # The decode kernels' multi-row launches (Sq > 1), the mode
+               # of the JAX package's speculative step (serve/step.py:252).
+               "flash_decode_verify": ("src/repro_torch/csrc/flash_decode.cu",
+                                       "src/repro/kernels/flash_decode.py:195"),
                "flash_decode_paged": ("src/repro_torch/csrc/flash_decode_paged.cu",
                                       "src/repro/kernels/flash_decode.py:282"),
+               "flash_decode_paged_verify": ("src/repro_torch/csrc/flash_decode_paged.cu",
+                                             "src/repro/kernels/flash_decode.py:282"),
                "ssm_scan": ("src/repro_torch/csrc/ssm_scan.cu",
                             "src/repro/kernels/ssm_scan.py:66"),
                "rglru_scan": ("src/repro_torch/csrc/rglru_scan.cu",

@@ -20,8 +20,10 @@
 // its partial (m, l, O) for combine_chunks_kernel, which merges a slot's key
 // chunks in ascending order.
 //
-// Every order of summation here is fixed by (rows, bk, hd) and the block's
-// own tile range: a row's result does not depend on the batch around it, and
+// Every order of summation here is fixed by the plan (ks, sb) and the block's
+// own tile range: a row's result does not depend on the batch around it nor
+// on the other rows of its block (the decode launches take ks from one query
+// token's rows, so a verify row is bitwise its one-row launch), and
 // a paged tile (PagedTiles) gives the same bits as the same keys in a
 // contiguous tile (ContigTiles).
 //
@@ -256,7 +258,8 @@ __device__ __forceinline__ void emit2(bf16* __restrict__ out, const Partial& par
 }
 
 // Rows r0 .. r0 + rows - 1 of the RowMap (rows <= kRows) against KV tiles
-// [t_lo, t_hi) of bk keys, staged sb keys at a time (plan(rows, bk, HD)).
+// [t_lo, t_hi) of bk keys, staged sb keys at a time, in ks = sb / KW key parts
+// (rows <= kRows / ks).
 // Row r's position is mask.base + (r0 + r) / mask.div.
 template <int HD, int KW, typename TKV, typename Tiles>
 __device__ void attend_rows_mma(const bf16* __restrict__ q, bf16* __restrict__ out,

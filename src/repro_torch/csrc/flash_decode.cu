@@ -25,14 +25,23 @@
 // - with one chunk the block writes its rows; otherwise every chunk writes
 //   its partial (m, l, acc) to scratch and combine_chunks_kernel merges a
 //   slot's chunks in ascending order.
-// So a slot's sums run in an order set by (rows, bk, hd) alone: its output is
-// bitwise the same whatever batch it is decoded in.  Inside a block the
-// rows are padded to 16 and every row count runs the mma fragments, also
-// one row (qwen1.5-4b, no GQA): the step is bound by its bytes, and the
-// padded products of a 64-key stage take a fraction of the stage's copy.
-// When rows fit one row group, the block's four warps split each stage's keys
-// (ks key parts) and merge them in fixed order at the end.  A float32 cache
-// under bf16 queries is rounded to bf16 on its way into shared memory.
+// - the block's four warps split each stage's keys into ks key parts, merged
+//   in fixed order at the end, with ks = mma::plan(n_rep, bk, hd).ks: the
+//   plan of one query token's n_rep rows, never of Sq.  A multi-row launch
+//   (speculative verify: Sq = k + 1) whose rows outgrow one block's
+//   kRows / ks rows takes more row blocks, grid (KV * row blocks, B,
+//   chunks), each summing its rows' keys in the single-row order.
+// So a row's sums run in an order set by (n_rep, bk, hd) alone: its output is
+// bitwise the same whatever batch it is decoded in, and row j of a verify is
+// bitwise the one-row launch at pos + j.  Tiles and key chunks past a row's
+// position are wholly masked: p = 0 and alpha = exp2(0) = 1 leave its sums
+// as they were, and a chunk partial of (m = -1e30, l = 0, acc = 0) enters the
+// merge with weight exp2(-1e30 - m) = 0, after the row's own chunks.  Inside a
+// block the rows are padded to 16 and every row count runs the mma
+// fragments, also one row (qwen1.5-4b, no GQA): the step is bound by its
+// bytes, and the padded products of a 64-key stage take a fraction of the
+// stage's copy.  A float32 cache under bf16 queries is rounded to bf16 on its
+// way into shared memory.
 //
 // float32 queries (and bf16 at other head sizes or tiles) keep attend_rows
 // (attention_tile.cuh), one block per (kv head, slot), grid (KV, B).
@@ -64,24 +73,26 @@ __global__ void __launch_bounds__(mma::kThreads)
                             const int* __restrict__ pos, __nv_bfloat16* __restrict__ out,
                             float* __restrict__ part_acc, float* __restrict__ part_ml,
                             int* __restrict__ part_nt, int S, int sq, int H, int KV, int bk,
-                            int sb, int window, float scale_log2, int chunk_tiles,
-                            int chunks) {
-  const int g = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+                            int sb, int block_rows, int window, float scale_log2,
+                            int chunk_tiles, int chunks) {
+  const int rb = gridDim.x / KV;  // row blocks of one kv head
+  const int g = blockIdx.x / rb, b = blockIdx.y, c = blockIdx.z;
+  const int r0 = (blockIdx.x - g * rb) * block_rows;
   const int n_rep = H / KV, rows = sq * n_rep;
   const int n_t = mma::block_needed_tiles(mma::ContigKeyPos{kpos + (size_t)b * S}, S, bk,
                                           pos[b], sq, window);
-  if (c == 0 && chunks > 1 && threadIdx.x == 0) part_nt[b * KV + g] = n_t;
+  if (c == 0 && r0 == 0 && chunks > 1 && threadIdx.x == 0) part_nt[b * KV + g] = n_t;
   const int t_lo = c * chunk_tiles;
   if (t_lo >= n_t) return;
   const RowMap rm{((size_t)b * sq * H + (size_t)g * n_rep) * HD, n_rep, (size_t)H * HD};
   const Mask mask{pos[b], n_rep, 1, window};
   const ContigTiles tiles{((size_t)b * S * KV + g) * HD, (size_t)KV * HD,
                           kpos + (size_t)b * S, S, bk};
-  const size_t slot = (((size_t)b * KV + g) * chunks + c) * rows;
+  const size_t slot = (((size_t)b * KV + g) * chunks + c) * rows + r0;
   const mma::Partial part = chunks > 1 ? mma::Partial{part_acc + slot * HD, part_ml + slot * 2}
                                        : mma::Partial{nullptr, nullptr};
-  mma::attend_rows_mma<HD, KW>(q, out, part, rm, 0, rows, k, v, tiles, t_lo,
-                               min(t_lo + chunk_tiles, n_t), bk, sb, scale_log2, mask);
+  mma::attend_rows_mma<HD, KW>(q, out, part, rm, r0, min(block_rows, rows - r0), k, v, tiles,
+                               t_lo, min(t_lo + chunk_tiles, n_t), bk, sb, scale_log2, mask);
 }
 
 template <typename TQ, typename TKV>
@@ -112,15 +123,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = sq * (H / KV);
+  const int block_rows = mma::kRows / p.ks, rb = (rows + block_rows - 1) / block_rows;
   float* acc = static_cast<float*>(scratch);
   float* ml = acc ? acc + (size_t)B * KV * chunks * rows * HD : nullptr;
   int* part_nt = acc ? reinterpret_cast<int*>(ml + (size_t)B * KV * chunks * rows * 2) : nullptr;
   const int ct = mma::chunk_tiles(bk);
-  kernel<<<dim3(KV, B, chunks), mma::kThreads, smem, stream>>>(
+  kernel<<<dim3(KV * rb, B, chunks), mma::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(kpos), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), acc, ml, part_nt, S, sq, H, KV, bk, p.sb, window,
-      scale * mma::kLog2e, ct, chunks);
+      static_cast<__nv_bfloat16*>(out), acc, ml, part_nt, S, sq, H, KV, bk, p.sb, block_rows,
+      window, scale * mma::kLog2e, ct, chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
   const dim3 grid(KV, B, (rows * HD + mma::kThreads - 1) / mma::kThreads);
@@ -256,7 +268,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const int rows = sq * (H / KV);
-  const mma::Plan p = mma::plan(rows, bk, hd);
+  // The key parts of one query token's n_rep rows, whatever Sq (see above).
+  const mma::Plan p = mma::plan(H / KV, bk, hd);
   if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256) &&
       (kv_dtype == 0 || kv_dtype == 1)) {
     const int want = ((S + bk - 1) / bk + mma::chunk_tiles(bk) - 1) / mma::chunk_tiles(bk);

@@ -20,7 +20,8 @@
 // flash_decode's tensor-core body and key chunks (chunk_tiles(bl) tiles a
 // chunk, grid (KV, B, chunks), combine_chunks_kernel when chunks > 1); each
 // block counts its slot's needed tiles through the table row
-// (block_needed_tiles with PagedKeyPos).  float32 queries run attend_rows,
+// (block_needed_tiles with PagedKeyPos), and a multi-row launch takes
+// flash_decode's row blocks, with the key parts of one query token's rows.  float32 queries run attend_rows,
 // grid (KV, B), on needed tiles computed by the wrapper from the
 // table-gathered kpos.  Neither syncs with the host.  Logical tile t of a slot
 // holds the same keys as rows t*bl .. t*bl+bl-1 of the gathered contiguous
@@ -59,26 +60,28 @@ __global__ void __launch_bounds__(mma::kThreads)
                                   const int* __restrict__ tables, const int* __restrict__ pos,
                                   __nv_bfloat16* __restrict__ out, float* __restrict__ part_acc,
                                   float* __restrict__ part_ml, int* __restrict__ part_nt,
-                                  int nmax, int bl, int sb, int sq, int H, int KV,
-                                  long long blk_stride, long long kpos_blk_stride, int window,
-                                  float scale_log2, int chunk_tiles, int chunks) {
-  const int g = blockIdx.x, b = blockIdx.y, c = blockIdx.z;
+                                  int nmax, int bl, int sb, int block_rows, int sq, int H,
+                                  int KV, long long blk_stride, long long kpos_blk_stride,
+                                  int window, float scale_log2, int chunk_tiles, int chunks) {
+  const int rb = gridDim.x / KV;  // row blocks of one kv head
+  const int g = blockIdx.x / rb, b = blockIdx.y, c = blockIdx.z;
+  const int r0 = (blockIdx.x - g * rb) * block_rows;
   const int n_rep = H / KV, rows = sq * n_rep;
   const int n_t = mma::block_needed_tiles(
       mma::PagedKeyPos{tables + (size_t)b * nmax, kpos, (size_t)kpos_blk_stride, bl}, nmax * bl,
       bl, pos[b], sq, window);
-  if (c == 0 && chunks > 1 && threadIdx.x == 0) part_nt[b * KV + g] = n_t;
+  if (c == 0 && r0 == 0 && chunks > 1 && threadIdx.x == 0) part_nt[b * KV + g] = n_t;
   const int t_lo = c * chunk_tiles;
   if (t_lo >= n_t) return;
   const RowMap rm{((size_t)b * sq * H + (size_t)g * n_rep) * HD, n_rep, (size_t)H * HD};
   const Mask mask{pos[b], n_rep, 1, window};
   const PagedTiles tiles{tables + (size_t)b * nmax, (size_t)blk_stride, (size_t)g * HD,
                          (size_t)KV * HD, kpos, (size_t)kpos_blk_stride, bl};
-  const size_t slot = (((size_t)b * KV + g) * chunks + c) * rows;
+  const size_t slot = (((size_t)b * KV + g) * chunks + c) * rows + r0;
   const mma::Partial part = chunks > 1 ? mma::Partial{part_acc + slot * HD, part_ml + slot * 2}
                                        : mma::Partial{nullptr, nullptr};
-  mma::attend_rows_mma<HD, KW>(q, out, part, rm, 0, rows, k, v, tiles, t_lo,
-                               min(t_lo + chunk_tiles, n_t), bl, sb, scale_log2, mask);
+  mma::attend_rows_mma<HD, KW>(q, out, part, rm, r0, min(block_rows, rows - r0), k, v, tiles,
+                               t_lo, min(t_lo + chunk_tiles, n_t), bl, sb, scale_log2, mask);
 }
 
 template <int HD, int KW, typename TKV>
@@ -93,16 +96,17 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = sq * (H / KV);
+  const int block_rows = mma::kRows / p.ks, rb = (rows + block_rows - 1) / block_rows;
   float* acc = static_cast<float*>(scratch);
   float* ml = acc ? acc + (size_t)B * KV * chunks * rows * HD : nullptr;
   int* part_nt = acc ? reinterpret_cast<int*>(ml + (size_t)B * KV * chunks * rows * 2) : nullptr;
   const int ct = mma::chunk_tiles(bl);
-  kernel<<<dim3(KV, B, chunks), mma::kThreads, smem, stream>>>(
+  kernel<<<dim3(KV * rb, B, chunks), mma::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const TKV*>(k),
       static_cast<const TKV*>(v), static_cast<const int*>(kpos),
       static_cast<const int*>(tables), static_cast<const int*>(pos),
-      static_cast<__nv_bfloat16*>(out), acc, ml, part_nt, nmax, bl, p.sb, sq, H, KV, blk_stride,
-      kpos_blk_stride, window, scale * mma::kLog2e, ct, chunks);
+      static_cast<__nv_bfloat16*>(out), acc, ml, part_nt, nmax, bl, p.sb, block_rows, sq, H, KV,
+      blk_stride, kpos_blk_stride, window, scale * mma::kLog2e, ct, chunks);
   err = cudaGetLastError();
   if (err != cudaSuccess || chunks == 1) return err;
   const dim3 grid(KV, B, (rows * HD + mma::kThreads - 1) / mma::kThreads);
@@ -149,7 +153,7 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const int rows = sq * (H / KV);
-  const mma::Plan p = mma::plan(rows, bl, hd);
+  const mma::Plan p = mma::plan(H / KV, bl, hd);  // one token's rows: as flash_decode's
   if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256) &&
       (kv_dtype == 0 || kv_dtype == 1)) {
     const int want = (nmax + mma::chunk_tiles(bl) - 1) / mma::chunk_tiles(bl);

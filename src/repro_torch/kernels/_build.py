@@ -46,6 +46,9 @@ MMA_HEAD_DIMS = (64, 128, 256)
 CHUNK_KEYS = 256           # keys of one decode chunk
 
 LAUNCHES = {name: 0 for name in KERNELS}
+# Of those, the decode kernels' multi-row launches (Sq > 1: a speculative
+# verify, or a draft's two-row first step).
+MULTI_ROW = {"flash_decode": 0, "flash_decode_paged": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -55,14 +58,18 @@ _fns: dict = {}
 
 def reset_launches() -> None:
     with _count_lock:
-        for name in LAUNCHES:
-            LAUNCHES[name] = 0
+        for counts in (LAUNCHES, MULTI_ROW):
+            for name in counts:
+                counts[name] = 0
 
 
-def count(name: str) -> None:
-    """One launch of kernel ``name``, counted where the wrapper launched it."""
+def count(name: str, multi_row: bool = False) -> None:
+    """One launch of kernel ``name``, counted where the wrapper launched it
+    (also in ``MULTI_ROW`` when it ran more than one query row a slot)."""
     with _count_lock:
         LAUNCHES[name] += 1
+        if multi_row:
+            MULTI_ROW[name] += 1
 
 
 def smem_bytes(rows: int, hd: int, bk: int) -> int:

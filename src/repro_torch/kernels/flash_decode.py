@@ -28,6 +28,13 @@ independent of the batch; ``flash_decode_paged`` at ``block_k = bl`` takes
 the same chunks.  :func:`launch_plan` and :func:`paged_launch_plan` give
 the body, chunk plan and shared memory of a launch.
 
+The tensor-core body's key parts come from one query token's ``n_rep``
+rows (``_build.mma_plan(n_rep, bk, hd)``), never from Sq: a multi-row
+launch (speculative verify, Sq = k + 1) whose rows outgrow one block's
+``MMA_ROWS // ks`` rows takes more row blocks, each summing its rows' keys
+in the one-row order, so row j of a verify is bitwise the one-row launch at
+``pos + j`` (tiles and key chunks past a row's position add exact zeros).
+
 ``flash_decode_chunk`` is the same kernel's chunk launch, for chunked
 prefill's rows (the JAX package calls ``flash_decode`` at its prefill tile
 size there, ``models/attention.py:chunk_attention``): any Sq, a grid over
@@ -78,9 +85,15 @@ def _pad_cache(k, v, kpos, bk):
 def flash_decode_plain(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 128):
     """The kernel's function in PyTorch: a loop over KV tiles up to the
     batch's deepest needed tile, the same masks and online softmax in
-    float32, p rounded to the value dtype before PV.  The CPU path, and the
-    kernel's oracle on the card."""
+    float32, p rounded to the value dtype before PV.  Sq > 1 rows run one
+    query token at a time, row j as the one-row call at ``pos + j`` (the
+    kernel's contract: a verify row is bitwise its one-row launch).  The
+    CPU path, and the kernel's oracle on the card."""
     b, sq, h, hd = q.shape
+    if sq > 1:
+        return torch.cat([flash_decode_plain(q[:, j:j + 1], k, v, kpos, pos + j,
+                                             window=window, block_k=block_k)
+                          for j in range(sq)], dim=1)
     kvh = k.shape[2]
     n_rep = h // kvh
     rows = sq * n_rep
@@ -126,16 +139,22 @@ def _plan(b, n_tiles, bk, sq, h, kv, hd, q_dtype, kv_dtype) -> dict:
         req(dt in _build.DTYPE_CODES, f"kernel takes float32 or bfloat16, got {dt}")
     req(hd * (4 if kv_dtype == torch.float32 else 2) % 16 == 0,
         f"hd={hd}: k/v rows must be whole 16-byte vectors (the kernel's loads)")
-    rows = sq * (h // kv)
+    n_rep = h // kv
+    rows = sq * n_rep
     req(rows <= _build.MAX_ROWS, f"Sq*n_rep={rows} > {_build.MAX_ROWS} rows")
     req(0 < bk <= _build.MAX_BLOCK_K, f"block_k={bk} outside 1..{_build.MAX_BLOCK_K}")
     req(b <= 65535, f"B={b} > 65535 blocks")
-    if _build.uses_mma(q_dtype, rows, bk, hd):
+    if _build.uses_mma(q_dtype, n_rep, bk, hd):
         chunks = _build.key_chunks(n_tiles, bk)
-        ks, sb, _ = _build.mma_plan(rows, bk, hd)
+        # The key parts of one query token's n_rep rows, never of Sq: a
+        # verify row sums in the order of its one-row launch.
+        ks, sb, _ = _build.mma_plan(n_rep, bk, hd)
+        block_rows = _build.MMA_ROWS // ks
+        row_blocks = -(-rows // block_rows)
         plan = dict(route="mma", chunk_tiles=_build.chunk_tiles(bk), chunks=chunks,
-                    grid=(kv, b, chunks), key_parts=ks, stage_keys=sb,
-                    smem=_build.mma_smem_bytes(rows, bk, hd),
+                    grid=(kv * row_blocks, b, chunks), key_parts=ks, stage_keys=sb,
+                    block_rows=block_rows, row_blocks=row_blocks,
+                    smem=_build.mma_smem_bytes(n_rep, bk, hd),
                     scratch_floats=b * kv * (chunks * rows * (hd + 2) + 1) if chunks > 1
                     else 0)
     else:
@@ -217,7 +236,7 @@ def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
                  b, s, sq, h, kvh, hd, bk, window, hd ** -0.5, _build.dtype_code(q),
                  _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode", err)
-    _build.count("flash_decode")
+    _build.count("flash_decode", multi_row=sq > 1)
     return out
 
 
@@ -459,5 +478,5 @@ def _flash_decode_paged_cuda(q, k, v, kpos, tables, pos, *, window):
                  hd, k.stride(0), kpos.stride(0), window, hd ** -0.5, _build.dtype_code(q),
                  _build.dtype_code(k), plan["chunks"], torch.cuda.current_stream().cuda_stream)
     _build.check("flash_decode_paged", err)
-    _build.count("flash_decode_paged")
+    _build.count("flash_decode_paged", multi_row=sq > 1)
     return out

@@ -3,9 +3,11 @@
 Each wrapper launches its CUDA kernel on CUDA tensors (or raises) and runs
 its plain PyTorch version on CPU tensors.  Models select the kernels with
 ``cfg.kernel_impl = "cuda"``.  ``launch_counts()`` reads, and
-``reset_launch_counts()`` zeroes, the number of kernel launches so far.
+``reset_launch_counts()`` zeroes, the number of kernel launches so far;
+``multi_row_counts()`` reads how many of the decode kernels' launches ran
+more than one query row a slot.
 """
-from repro_torch.kernels._build import LAUNCHES
+from repro_torch.kernels._build import LAUNCHES, MULTI_ROW
 from repro_torch.kernels._build import reset_launches as reset_launch_counts  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.flash_decode import (  # noqa: F401
@@ -22,3 +24,7 @@ from repro_torch.kernels.ssm_scan import ssm_scan  # noqa: F401
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+def multi_row_counts() -> dict:
+    return dict(MULTI_ROW)

@@ -24,6 +24,11 @@ generate, and the continuous-batching server.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --server --paged --chunk-len 3 --device cpu --verify
 
+    # speculative serving: the target drafts for itself, k = 2 candidates a
+    # step verified in one multi-row decode, streams still bitwise one-shot's
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --server --paged --draft self --draft-k 2 --device cpu --verify
+
 Weights are random (float32 masters drawn from ``--seed`` on the device,
 cast once to the compute dtype); one-shot prompts are random tokens from
 ``--seed + 1``, server prompts and arrival gaps from ``--seed + 2`` (as the
@@ -37,8 +42,13 @@ over two DeviceGroups on the run's device, ``pod-a`` (power 2) and
 pair; the scheduler (``--scheduler``) cuts the requests into packages.
 Every row of the port's kernels is independent of its batch, so
 ``--verify`` holds each package's tokens bitwise equal to one-shot
-generate of the whole batch.  The server's speculative and multi-group
-options of the JAX launcher are not ported yet (ROADMAP.md items A5, A7).
+generate of the whole batch.  ``--draft`` serves speculatively: ``self``
+(the target's own weights, acceptance 1), ``reduced`` (the reduced config
+of ``--arch`` with weights from ``--seed + 3``) or an arch name whose
+reduced config drafts; the reduced configs share vocab 256, so at
+``--full`` only ``self`` passes ``validate_draft``.  The server's
+multi-group options of the JAX launcher are not ported yet (ROADMAP.md
+item A7).
 """
 from __future__ import annotations
 
@@ -100,6 +110,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "mixed-phase segment Program instead of running a "
                          "whole-prompt prefill Program (0 = off).  Streams "
                          "stay bitwise equal (--verify holds)")
+    ap.add_argument("--draft", default="",
+                    help="speculative decoding draft (server mode): 'self' "
+                         "(target params; acceptance 1), 'reduced' (fresh "
+                         "reduced same-arch params), or an arch name whose "
+                         "reduced config drafts.  Streams stay bitwise "
+                         "one-shot generate's (--verify holds)")
+    ap.add_argument("--draft-k", type=int, default=2,
+                    help="draft tokens proposed per verify step")
+    ap.add_argument("--spec-gate", action="store_true",
+                    help="auto-bypass speculation when the forecast speedup "
+                         "drops below 1 (plain segments, periodic re-probes); "
+                         "without it a --draft server drafts every segment")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request latency budget (server mode; 0 = none)")
     ap.add_argument("--verify", action="store_true",
                     help="assert bit-identity to one-shot generate: every "
                          "served stream to its prompt at batch 1 (server "
@@ -138,6 +162,27 @@ def run_oneshot(cfg, api, params, batch, gen: int):
     return make_generate(cfg, api)(params, batch, gen)
 
 
+def make_draft(cfg, params, args):
+    """``--draft`` as a DraftSpec, as the JAX launcher's ``_make_draft``:
+    ``self`` re-uses the target's config and params (acceptance 1),
+    ``reduced`` draws fresh params of the reduced same-arch config from
+    ``--seed + 3``, and any other value names an arch whose reduced config
+    drafts.  None without ``--draft``."""
+    from repro_torch.serve import DraftSpec
+
+    if not args.draft:
+        return None
+    if args.draft == "self":
+        return DraftSpec(cfg, params, k=args.draft_k, auto_bypass=args.spec_gate)
+    name = args.arch if args.draft == "reduced" else args.draft
+    dcfg = dataclasses.replace(reduced(get_config(name)), kernel_impl=args.kernel)
+    dapi = get_model(dcfg)
+    device = resolve_device(args.device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 3)
+    dparams = materialize(dapi.param_spec(dcfg), gen, torch.float32, device)
+    return DraftSpec(dcfg, dparams, k=args.draft_k, auto_bypass=args.spec_gate)
+
+
 def server_prompts(cfg, args):
     """The server's prompts and arrival gaps, drawn as the JAX launcher's
     ``run_server`` draws them (numpy ``default_rng(seed + 2)``)."""
@@ -169,8 +214,10 @@ def run_server(cfg, api, params, args) -> dict:
         max_new_cap=max(args.gen, 1),
         max_wait_ms=args.max_wait_ms,
         paged=paged,
+        draft=make_draft(cfg, params, args),
         chunk_len=args.chunk_len,
     )
+    deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     if cuda and cfg.kernel_impl == "cuda":
         # Build the kernel libraries here, not on the runtime's worker
         # thread at the first segment.
@@ -185,7 +232,7 @@ def run_server(cfg, api, params, args) -> dict:
         handles = []
         for p, gap in zip(prompts, gaps):
             time.sleep(gap)
-            handles.append(server.submit(p, args.gen))
+            handles.append(server.submit(p, args.gen, deadline_s=deadline))
         results = []
         for h in handles:
             # Wait for the *final* state before reading `rejected`.
@@ -201,6 +248,13 @@ def run_server(cfg, api, params, args) -> dict:
           f"kernel_impl={cfg.kernel_impl}) in {wall:.3f}s (rate {args.rate}/s, "
           f"{s['rejected']} rejected, {s['failed']} failed) {pct}"
           f"occupancy={s['occupancy_mean']:.2f} tokens/s={s['tokens_out'] / wall:.1f}")
+    if s["tokens_drafted"]:
+        print(f"speculation k={args.draft_k}: {s['tokens_accepted']}/{s['tokens_drafted']} "
+              f"draft tokens accepted (acceptance={s['acceptance']:.2f})")
+    if "speculation" in s:
+        g = s["speculation"]
+        print(f"spec gate: {g['speculated_segments']} spec / {g['bypassed_segments']} "
+              f"plain segments ({g['probes']} probes)")
     mem = s.get("memory", {})
     if mem.get("mode") == "paged":
         print(f"paged KV: peak {mem['blocks_peak']}/{mem['blocks_total']} "

@@ -75,12 +75,19 @@ def _out_proj(out, wo, impl):
     return L.linear(out.flatten(2), wo.flatten(0, 1), impl)
 
 
-def _write(cache, slot, k, v, positions):
-    # In place: the JAX package's .at[bidx, slot].set on a donated cache.
+def _write(cache, slot, k, v, positions, keep=None):
+    """In place: the JAX package's .at[bidx, slot].set on a donated cache.
+    ``keep`` (B, Sq) bool marks rows that leave their entry as stored: they
+    write the entry's current value back, so no host sync decides which
+    rows write."""
     bidx = torch.arange(k.shape[0], device=k.device)[:, None]
-    cache["k"].index_put_((bidx, slot), k.to(cache["k"].dtype))
-    cache["v"].index_put_((bidx, slot), v.to(cache["v"].dtype))
-    cache["pos"].index_put_((bidx, slot), positions.to(cache["pos"].dtype))
+    for name, new in (("k", k), ("v", v), ("pos", positions)):
+        leaf = cache[name]
+        new = new.to(leaf.dtype)
+        if keep is not None:
+            new = torch.where(keep.view(keep.shape + (1,) * (new.ndim - 2)),
+                              leaf[bidx, slot], new)
+        leaf.index_put_((bidx, slot), new)
 
 
 def prefill_with_cache(p, x, positions, cfg, cache, *, window=0):
@@ -121,7 +128,10 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
     tokens of a slot sit at consecutive positions ``pos .. pos+Sq-1``; all
     Sq keys are written into the cache *before* attention, and each query
     row masks at its own depth.  A paged cache (a ``"table"`` leaf) is
-    written through its block table instead of per-slot rows."""
+    written through its block table instead of per-slot rows.  A contiguous
+    cache may carry a ``"keep"`` leaf, (B, Sq) bool per layer: those rows
+    leave their entries as stored (the speculative draft's first step,
+    ``serve/step.py``)."""
     b, sq = x.shape[0], x.shape[1]
     posv = pos_vector(pos, b, x.device)
     positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
@@ -131,7 +141,7 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
     else:
         cs = cache["k"].shape[1]
         slot = positions % cs if window else positions  # (B, Sq)
-        _write(cache, slot.long(), k, v, positions)
+        _write(cache, slot.long(), k, v, positions, cache.get("keep"))
     out = cached_attention(q, cache, posv, cfg, window=window)
     return _out_proj(out, p["wo"], cfg.kernel_impl), cache
 

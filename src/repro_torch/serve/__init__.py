@@ -1,10 +1,11 @@
 """Serving: prefill/decode steps, decode chains, one-shot generate, and the
 continuous-batching server (contiguous and paged KV, whole-prompt or
-chunked prefill) on the EngineCL runtime."""
+chunked prefill, speculative decoding) on the EngineCL runtime."""
 from repro_torch.serve.admission import (  # noqa: F401
     DeadlineAdmission,
     PoolAdmission,
     ServiceModel,
+    SpecGate,
     edf_key,
 )
 from repro_torch.serve.batcher import (  # noqa: F401
@@ -13,6 +14,7 @@ from repro_torch.serve.batcher import (  # noqa: F401
     ModelKernels,
     chunks_for,
     segments_for,
+    spec_segments_for,
 )
 from repro_torch.serve.multigroup import MigrationPolicy, proportional_split  # noqa: F401
 from repro_torch.serve.paged import (  # noqa: F401
@@ -28,13 +30,16 @@ from repro_torch.serve.server import (  # noqa: F401
     RequestHandle,
     ServeError,
     validate_chunked,
+    validate_draft,
 )
 from repro_torch.serve.step import (  # noqa: F401
+    DraftSpec,
     cache_batch_axes,
     cast_params_cached,
     make_chunk_step,
     make_decode_chain,
     make_decode_step,
+    make_draft_verify_step,
     make_generate,
     make_prefill_step,
     zeros_cache,

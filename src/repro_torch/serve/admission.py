@@ -21,9 +21,6 @@ Estimates are optimistic by design (no queueing term): a request is only
 rejected when even the no-contention forecast misses its deadline.  Cold
 start admits everything — with no observations yet there is no defensible
 basis for rejection.
-
-A copy of the JAX package's module without ``SpecGate``, the speculation
-bypass, which comes with speculative serving (ROADMAP.md item A5).
 """
 from __future__ import annotations
 
@@ -231,6 +228,106 @@ class PoolAdmission:
     @staticmethod
     def admit_board(needed_blocks: int, available_blocks: float) -> bool:
         return needed_blocks <= available_blocks
+
+
+class SpecGate:
+    """Runtime on/off switch for speculative decoding.
+
+    Self-drafting can be a net slowdown: every segment pays the draft model
+    whether or not its tokens are accepted.  The gate forecasts the
+    speculative speedup from the same EMAs admission already maintains —
+
+        speedup = tokens_per_step(k) × plain_segment_s / spec_segment_s
+
+    — and bypasses drafting while the forecast is < 1.  Both segment
+    flavors are measured under their own keys (``seg_spec`` / ``seg_plain``
+    per bucket); while either side is cold the gate *probes* it (one
+    segment in the unmeasured mode), and afterwards it re-probes the losing
+    mode every ``probe_every`` segments so a drift in acceptance or draft
+    cost can flip the decision back.  Decisions are cheap: a host-side flag
+    the segment kernel branches on, so flipping modes never rebuilds the
+    batch."""
+
+    def __init__(self, model: ServiceModel, k: int, *,
+                 probe_every: int = 16) -> None:
+        self.model = model
+        self.k = int(k)
+        self.probe_every = max(1, int(probe_every))
+        self._lock = threading.Lock()
+        self._since_probe: Dict[int, int] = {}  # bucket -> segments since probe
+        self._probes = 0
+        self._bypassed = 0
+        self._speculated = 0
+        self._mode: Dict[int, bool] = {}  # bucket -> last decision
+        self.journal = None  # DecisionJournal, wired by the server when obs is on
+
+    def forecast_speedup(self, bucket: int) -> Optional[float]:
+        spec = self.model.estimate("seg_spec", bucket)
+        plain = self.model.estimate("seg_plain", bucket)
+        if spec is None or plain is None or spec <= 0.0:
+            return None
+        return self.model.tokens_per_step(self.k) * plain / spec
+
+    def decide(self, bucket: int) -> bool:
+        """True = run the next segment speculatively.  Call once per
+        submitted segment; accounts probe scheduling internally."""
+        spec = self.model.estimate("seg_spec", bucket)
+        plain = self.model.estimate("seg_plain", bucket)
+        with self._lock:
+            if spec is None:
+                speculate, probe = True, plain is not None  # measure spec first
+            elif plain is None:
+                speculate, probe = False, True  # one plain probe
+            else:
+                su = self.model.tokens_per_step(self.k) * plain / spec
+                speculate = su >= 1.0
+                n = self._since_probe.get(bucket, 0) + 1
+                probe = n >= self.probe_every
+                if probe:
+                    speculate = not speculate  # re-measure the losing mode
+                    self._since_probe[bucket] = 0
+                else:
+                    self._since_probe[bucket] = n
+            if probe:
+                self._probes += 1
+            if speculate:
+                self._speculated += 1
+            else:
+                self._bypassed += 1
+            prev = self._mode.get(bucket)
+            self._mode[bucket] = speculate
+            journal = self.journal
+        if journal is not None and prev is not None and prev != speculate:
+            su = (self.model.tokens_per_step(self.k) * plain / spec
+                  if spec and plain else None)
+            journal.record("spec_gate", bucket=bucket,
+                           mode="spec" if speculate else "plain",
+                           probe=probe, forecast_speedup=su)
+        return speculate
+
+    def speculating(self, bucket: int) -> bool:
+        """Forecast-only view (no probe accounting): is drafting currently
+        believed profitable for this bucket?"""
+        su = self.forecast_speedup(bucket)
+        return su is None or su >= 1.0
+
+    def stats(self, buckets=()) -> dict:
+        with self._lock:
+            out = {
+                "k": self.k,
+                "probes": self._probes,
+                "speculated_segments": self._speculated,
+                "bypassed_segments": self._bypassed,
+            }
+        per_bucket = {}
+        for b in buckets:
+            su = self.forecast_speedup(b)
+            per_bucket[b] = {
+                "forecast_speedup": su,
+                "mode": "spec" if (su is None or su >= 1.0) else "plain",
+            }
+        out["buckets"] = per_bucket
+        return out
 
 
 def edf_key(deadline: Optional[float], seq: int) -> Tuple[float, int]:

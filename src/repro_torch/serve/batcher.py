@@ -36,8 +36,13 @@ join arms its slot host-side and the segment Program doubles as the prefill
 engine, advancing each still-prefilling slot's cursor by one chunk before
 its decode steps (the *mixed* layouts).
 
-Host buffers are CPU torch tensors.  Speculative decoding (``draft``) is
-not ported yet (ROADMAP.md item A5) and raises ``NotImplementedError``.
+With a ``draft`` (speculative decoding) each segment step drafts ``k``
+candidates and verifies them in one multi-row decode (the *spec* layouts:
+a predecessor-token buffer, the draft cache's mirrors behind the target's,
+a token buffer of ``seg_len * (k + 1)`` with a per-slot count); a segment
+the ``SpecGate`` bypasses runs plain decode steps in the same layout.
+
+Host buffers are CPU torch tensors.
 """
 from __future__ import annotations
 
@@ -53,15 +58,15 @@ from repro_torch.core.program import Program
 from repro_torch.core.trace import tracer
 from repro_torch.models.params import Spec, tree_leaves, tree_map
 from repro_torch.serve.step import (
+    DraftSpec,
     cache_batch_axes,
     make_chunk_step,
     make_decode_step,
+    make_draft_verify_step,
     make_prefill_step,
+    write_start,
     zeros_cache,
 )
-
-NOT_PORTED_A5 = ("is not ported to repro_torch yet: ROADMAP.md item A5 "
-                 "(the rest of the continuous-batching server)")
 
 
 def chunks_for(bucket: int, chunk_len: int, start: int = 0) -> int:
@@ -100,6 +105,16 @@ def segments_for(new_tokens: int, seg_len: int) -> int:
     return max(0, math.ceil((new_tokens - 1) / seg_len))
 
 
+def spec_segments_for(new_tokens: int, seg_len: int, tokens_per_step: float) -> int:
+    """Expected decode segments under speculation: each of a segment's
+    ``seg_len`` draft/verify steps emits ``1 + acceptance * k`` tokens in
+    expectation (1..k+1 guaranteed).  ``tokens_per_step = 1.0`` degrades to
+    :func:`segments_for` exactly: the non-speculative accounting is the
+    zero-acceptance special case, so forecasts stay comparable."""
+    tps = max(1.0, float(tokens_per_step))
+    return max(0, math.ceil((new_tokens - 1) / (seg_len * tps)))
+
+
 def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -108,47 +123,73 @@ class ModelKernels:
     """Per-server kernel factory: every BatchGroup of the same geometry
     shares one kernel *object* per (kind, shape-key)."""
 
-    def __init__(self, cfg, api, params, draft=None) -> None:
-        if draft is not None:
-            raise NotImplementedError(f"speculative decoding (draft=) {NOT_PORTED_A5}")
+    def __init__(self, cfg, api, params, draft: Optional[DraftSpec] = None) -> None:
         self.cfg, self.api, self.params = cfg, api, params
         # Batch-axis geometry is max_seq-independent; probe with a tiny cache.
         self.bax = cache_batch_axes(cfg, api, 8)
         self.bax_leaves = tree_leaves(self.bax)
         self._seg_fns: dict = {}
         self._prefill_fns: dict = {}
-        self.draft = None
+        self.draft = draft
+        if draft is not None:
+            from repro_torch.models import get_model
+
+            self.dapi = get_model(draft.cfg)
+            self.dbax = cache_batch_axes(draft.cfg, self.dapi, 8)
+            self.dbax_leaves = tree_leaves(self.dbax)
 
     @property
     def spec_k(self) -> int:
-        """Draft depth (0 = speculation off; the only value ported)."""
-        return 0
+        """Draft depth (0 = speculation off)."""
+        return self.draft.k if self.draft is not None else 0
 
     def _leaf_specs(self, max_seq: int) -> list:
         return tree_leaves(self.api.cache_spec(self.cfg, 1, max_seq))
 
-    def _unflatten(self, leaves) -> dict:
-        """The cache tree with ``leaves`` in ``tree_leaves`` order."""
+    def _draft_leaf_specs(self, max_seq: int) -> list:
+        return tree_leaves(self.dapi.cache_spec(self.draft.cfg, 1, max_seq))
+
+    def _unflatten(self, leaves, bax=None) -> dict:
+        """The cache tree (of ``bax``'s structure, the target's by default)
+        with ``leaves`` in ``tree_leaves`` order."""
         it = iter(leaves)
-        return tree_map(lambda _: next(it), self.bax)
+        return tree_map(lambda _: next(it), self.bax if bax is None else bax)
+
+    @staticmethod
+    def _mirrors(specs, bax_leaves, compute_dtype, n_slots: int) -> List[torch.Tensor]:
+        out = []
+        for s, a in zip(specs, bax_leaves):
+            dt = _torch_dtype(s.dtype or compute_dtype)
+            shape = s.shape[:a] + s.shape[a + 1:]
+            fill = {"neg_ones": -1, "ones": 1}.get(s.init, 0)
+            out.append(torch.full((n_slots,) + tuple(shape), fill, dtype=dt))
+        return out
 
     def leaf_mirrors(self, n_slots: int, max_seq: int) -> List[torch.Tensor]:
         """Slot-leading host mirror buffers for every cache leaf, honoring
         each leaf's declared init (position leaves are −1 = empty, the same
         contract ``zeros_cache`` enforces on device), in the leaf's dtype
         (the compute dtype unless the spec says otherwise)."""
-        out = []
-        for s, a in zip(self._leaf_specs(max_seq), self.bax_leaves):
-            dt = _torch_dtype(s.dtype or self.cfg.compute_dtype)
-            shape = s.shape[:a] + s.shape[a + 1:]
-            fill = {"neg_ones": -1, "ones": 1}.get(s.init, 0)
-            out.append(torch.full((n_slots,) + tuple(shape), fill, dtype=dt))
-        return out
+        return self._mirrors(self._leaf_specs(max_seq), self.bax_leaves,
+                             self.cfg.compute_dtype, n_slots)
+
+    def draft_leaf_mirrors(self, n_slots: int, max_seq: int) -> List[torch.Tensor]:
+        """Slot-leading mirrors for the *draft* model's cache.  Always
+        contiguous slot rows, even when the target cache is paged: the draft
+        cache carries no bitwise obligation (its staleness only moves the
+        acceptance rate), so paging it would buy nothing."""
+        return self._mirrors(self._draft_leaf_specs(max_seq), self.dbax_leaves,
+                             self.draft.cfg.compute_dtype, n_slots)
 
     def leaf_neg_init(self, max_seq: int) -> List[bool]:
         """Which cache leaves record positions (init ``neg_ones``) — the
         leaves a paged pool must reset to −1 when a block is reallocated."""
         return [s.init == "neg_ones" for s in self._leaf_specs(max_seq)]
+
+    def draft_leaf_neg_init(self, max_seq: int) -> List[bool]:
+        """Draft-cache analog of :meth:`leaf_neg_init` (chunked joins reset
+        the position leaves of both caches in place of a prefill rewrite)."""
+        return [s.init == "neg_ones" for s in self._draft_leaf_specs(max_seq)]
 
     def leaf_seq_axes(self) -> List[int]:
         """Per-leaf sequence-axis index in *mirror* coordinates (slot axis
@@ -176,15 +217,14 @@ class ModelKernels:
     def _decode_loop(self, decode, seg_len, tok, pos, cache, cap=None):
         """``seg_len`` per-slot decode steps (the JAX ``lax.scan``):
         tokens, positions and the cache stay on the device.  ``cap`` clamps
-        the positions a step writes at (contiguous caches): an exited slot
-        decodes garbage past its row's end, which the JAX scatter drops and
-        ``index_put_`` would reject; clamped, it lands in the exited slot's
-        own last entry, which the next joiner's full-row write replaces."""
+        the positions a step writes at on a contiguous cache of ``cap``
+        positions (``step.write_start``; the speculative step clamps its k
+        + 1 rows the same way): an exited slot decodes garbage past its
+        row's end, which lands in its own last entries instead."""
         params = self.params
         toks = torch.empty((tok.shape[0], seg_len), dtype=torch.int32, device=tok.device)
         for i in range(seg_len):
-            p = pos[:, 0] if cap is None else torch.clamp(pos[:, 0], max=cap - 1)
-            tok, cache = decode(params, cache, tok, p)
+            tok, cache = decode(params, cache, tok, write_start(pos[:, 0], cap))
             pos = pos + 1
             toks[:, i] = tok[:, 0]
         return toks, tok, pos
@@ -352,6 +392,248 @@ class ModelKernels:
         self._prefill_fns[max_seq] = pre
         return pre
 
+    # ------------------------------------------------- speculative kernels
+    #
+    # The JAX package's segment branches on its ``spec_on`` input with
+    # ``lax.cond`` on the device.  Here the batcher, which sets the flag at
+    # submit (``SpecGate``), passes its host value as a Program argument
+    # beside the buffer (kept, unread, so that transfers match the JAX
+    # package's), and the branch is taken in Python: no segment reads the
+    # card back.  The draft cache is contiguous whatever the target's
+    # layout, so the draft/verify step clamps its writes at ``max_seq``, and
+    # its first draft step keeps the prompt's entries as prefill wrote them
+    # (``prompt_len``: the bucket).
+
+    def _spec_step(self, max_seq: int, bucket: int):
+        return make_draft_verify_step(self.cfg, self.api, self.draft.cfg, self.dapi,
+                                      self.draft.k, cap=max_seq, prompt_len=bucket)
+
+    def _spec_scan(self, seg_len: int, step, tok, ptok, pos, tcache, dcache):
+        """Shared draft/verify segment body: ``seg_len`` speculative steps,
+        each emitting 1..k+1 tokens, cursor-scattered into one flat
+        ``(b, seg_len*(k+1))`` buffer.  Beyond each slot's final cursor the
+        buffer holds rejected rows' argmaxes; harvest reads only
+        ``buf[:cnt]``.  Returns (buf, cnt, tok', ptok', pos')."""
+        k = self.draft.k
+        b, dev = tok.shape[0], tok.device
+        buf = torch.zeros((b, seg_len * (k + 1)), dtype=torch.int32, device=dev)
+        cur = torch.zeros((b,), dtype=torch.int32, device=dev)
+        rows = torch.arange(k + 1, device=dev)
+        p = pos[:, 0]
+        for _ in range(seg_len):
+            y, cnt, tok, ptok, p, tcache, dcache = step(self.params, self.draft.params,
+                                                        tcache, dcache, tok, ptok, p)
+            # All k+1 rows land at the cursor; the next step's scatter (at
+            # cur + cnt) overwrites the rejected overhang.
+            buf.scatter_(1, cur[:, None].long() + rows, y)
+            cur = cur + cnt
+        return buf, cur[:, None], tok, ptok, p[:, None]
+
+    def _plain_scan(self, seg_len: int, decode, tok, ptok, pos, tcache, cap):
+        """Bypass branch of the speculative segment: ``seg_len`` plain
+        decode steps on the target cache only, shaped like
+        :meth:`_spec_scan`'s outputs (``cnt = seg_len``, tokens in
+        ``buf[:seg_len]``).  Greedy decode emits the bits the draft/verify
+        path would; the draft cache is untouched (its staleness on a later
+        re-probe only lowers the acceptance rate)."""
+        k = self.draft.k
+        b, dev = tok.shape[0], tok.device
+        toks, tok2, pos2 = self._decode_loop(decode, seg_len, tok, pos, tcache, cap=cap)
+        buf = torch.zeros((b, seg_len * (k + 1)), dtype=torch.int32, device=dev)
+        buf[:, :seg_len] = toks
+        cnt = torch.full((b, 1), seg_len, dtype=torch.int32, device=dev)
+        # tok2's predecessor: the segment's second-to-last emission (or the
+        # incoming tok for seg_len 1), what the first draft step re-decodes
+        # when speculation resumes.
+        ptok2 = toks[:, seg_len - 2:seg_len - 1] if seg_len > 1 else tok
+        return buf, cnt, tok2, ptok2, pos2
+
+    def _gated_scan(self, seg_len: int, step, decode, spec_on: bool, tok, ptok, pos,
+                    tcache, dcache, cap):
+        """Draft/verify or plain decode, by the host's flag."""
+        if spec_on:
+            return self._spec_scan(seg_len, step, tok, ptok, pos, tcache, dcache)
+        return self._plain_scan(seg_len, decode, tok, ptok, pos, tcache, cap)
+
+    def _split(self, leaves, paged: bool):
+        """Target and draft caches in the models' layout from the segment's
+        slot-leading leaves: a contiguous cache as copies (written back by
+        :meth:`_write_back`), a paged pool as in-place views."""
+        nt = len(self.bax_leaves)
+        tl, dl = leaves[:nt], leaves[nt:]
+        if paged:
+            tcache = self._unflatten([x.movedim(0, a) for x, a in zip(tl, self.bax_leaves)])
+        else:
+            tcache = self._unflatten([x.movedim(0, a).contiguous()
+                                      for x, a in zip(tl, self.bax_leaves)])
+        dcache = self._unflatten([x.movedim(0, a).contiguous()
+                                  for x, a in zip(dl, self.dbax_leaves)], self.dbax)
+        return tcache, dcache
+
+    def _write_back(self, leaves, tcache, dcache, paged: bool) -> None:
+        nt = len(self.bax_leaves)
+        pairs = [] if paged else list(zip(leaves[:nt], tree_leaves(tcache), self.bax_leaves))
+        pairs += zip(leaves[nt:], tree_leaves(dcache), self.dbax_leaves)
+        for x, c, a in pairs:
+            x.copy_(c.movedim(a, 0))
+
+    def spec_segment_kernel(self, seg_len: int, bucket: int, max_seq: int) -> Callable:
+        """Speculative variant of :meth:`segment_kernel`: ``fn(offset, tok,
+        ptok, pos, *target_leaves, *draft_leaves, spec_on_buf, spec_on) ->
+        (toks[b, seg_len*(k+1)], cnt[b, 1], tok', ptok', pos', *leaves')``.
+        Each step drafts ``k`` candidates and verifies them in one multi-row
+        decode; slots advance 1..k+1 positions a step, ``cnt`` reporting how
+        many of the flat token buffer's entries are real."""
+        key = ("spec", seg_len, bucket, max_seq)
+        fn = self._seg_fns.get(key)
+        if fn is not None:
+            return fn
+        step = self._spec_step(max_seq, bucket)
+        decode = make_decode_step(self.cfg, self.api)
+
+        def seg(offset, tok, ptok, pos, *rest):
+            *leaves, _spec_on_buf, spec_on = rest
+            tcache, dcache = self._split(leaves, paged=False)
+            outs = self._gated_scan(seg_len, step, decode, spec_on, tok, ptok, pos,
+                                    tcache, dcache, max_seq)
+            self._write_back(leaves, tcache, dcache, paged=False)
+            return (*outs, *leaves)
+
+        self._seg_fns[key] = seg
+        return seg
+
+    def paged_spec_segment_kernel(self, seg_len: int, bucket: int, max_seq: int) -> Callable:
+        """Paged-target speculative segment: ``fn(offset, tok, ptok, pos,
+        table, *pool_leaves, *draft_leaves, spec_on_buf, spec_on) -> (toks,
+        cnt, tok', ptok', pos', *pool_leaves', *draft_leaves')``.  The
+        target resolves physical blocks through the table as
+        :meth:`paged_segment_kernel` does; the draft cache stays
+        contiguous."""
+        key = ("paged_spec", seg_len, bucket, max_seq)
+        fn = self._seg_fns.get(key)
+        if fn is not None:
+            return fn
+        step = self._spec_step(max_seq, bucket)
+        decode = make_decode_step(self.cfg, self.api)
+        n_layers = self.cfg.n_layers
+
+        def seg(offset, tok, ptok, pos, table, *rest):
+            *leaves, _spec_on_buf, spec_on = rest
+            tcache, dcache = self._split(leaves, paged=True)
+            tcache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
+            outs = self._gated_scan(seg_len, step, decode, spec_on, tok, ptok, pos,
+                                    tcache, dcache, None)
+            self._write_back(leaves, tcache, dcache, paged=True)
+            return (*outs, *leaves)
+
+        self._seg_fns[key] = seg
+        return seg
+
+    def _spec_mixed_body(self, step, decode, chunk, dchunk, seg_len, bucket, tok, ptok, pos,
+                         pcur, ptoks, tcache, dcache, run_chunk, spec_on, cap):
+        """One speculative mixed segment: the chunk stage advances both
+        caches' prompts (the target through the bitwise chunk path, the
+        draft through the same masked chunk path, its logits discarded),
+        then the gated scan.  A slot completing its prefill leaves with
+        ``tok' = ctok`` and ``ptok' = ptoks[:, bucket-1]`` (the prompt's last
+        token, which the first draft step re-decodes).  Returns (buf, cnt,
+        tok', ptok', pos', pcur', ctok)."""
+        decoding = pcur >= bucket  # (b, 1), phase at segment entry
+        if run_chunk:
+            ctok, pcur2, tcache = chunk(self.params, tcache, ptoks, pcur)
+            dchunk(self.draft.params, dcache, ptoks, pcur)
+        else:
+            ctok, pcur2 = torch.zeros_like(tok), pcur.clone()
+        buf, cnt, tok2, ptok2, pos2 = self._gated_scan(seg_len, step, decode, spec_on, tok,
+                                                       ptok, pos, tcache, dcache, cap)
+        completed = ~decoding & (pcur2 >= bucket)
+        last_ptok = ptoks[:, bucket - 1:bucket]
+        tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
+        ptok_out = torch.where(decoding, ptok2, torch.where(completed, last_ptok, ptok))
+        pos_out = torch.where(decoding, pos2, pos)
+        return buf, cnt, tok_out, ptok_out, pos_out, pcur2, ctok
+
+    def _spec_mixed_kernel(self, kind: str, seg_len: int, bucket: int, chunk_len: int,
+                           max_seq: int) -> Callable:
+        paged = kind == "paged_spec_mixed"
+        key = (kind, seg_len, bucket, chunk_len, max_seq)
+        fn = self._seg_fns.get(key)
+        if fn is not None:
+            return fn
+        step = self._spec_step(max_seq, bucket)
+        decode = make_decode_step(self.cfg, self.api)
+        chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
+        dchunk = make_chunk_step(self.draft.cfg, self.dapi, bucket, chunk_len)
+        n_layers = self.cfg.n_layers
+
+        def body(tok, ptok, pos, pcur, ptoks, table, rest):
+            *leaves, _spec_on_buf, run_chunk, spec_on = rest
+            tcache, dcache = self._split(leaves, paged)
+            if paged:
+                tcache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
+            outs = self._spec_mixed_body(step, decode, chunk, dchunk, seg_len, bucket, tok,
+                                         ptok, pos, pcur, ptoks, tcache, dcache, run_chunk,
+                                         spec_on, None if paged else max_seq)
+            self._write_back(leaves, tcache, dcache, paged)
+            return (*outs, *leaves)
+
+        if paged:
+            def seg(offset, tok, ptok, pos, pcur, ptoks, table, *rest):
+                return body(tok, ptok, pos, pcur, ptoks, table, rest)
+        else:
+            def seg(offset, tok, ptok, pos, pcur, ptoks, *rest):
+                return body(tok, ptok, pos, pcur, ptoks, None, rest)
+
+        self._seg_fns[key] = seg
+        return seg
+
+    def spec_mixed_segment_kernel(self, seg_len: int, bucket: int, chunk_len: int,
+                                  max_seq: int) -> Callable:
+        """Speculative mixed segment: ``fn(offset, tok, ptok, pos, pcur,
+        ptoks, *target_leaves, *draft_leaves, spec_on_buf, run_chunk,
+        spec_on) -> (toks, cnt, tok', ptok', pos', pcur', ctok,
+        *leaves')``."""
+        return self._spec_mixed_kernel("spec_mixed", seg_len, bucket, chunk_len, max_seq)
+
+    def paged_spec_mixed_segment_kernel(self, seg_len: int, bucket: int, chunk_len: int,
+                                        max_seq: int) -> Callable:
+        """Paged-target speculative mixed segment: ``fn(offset, tok, ptok,
+        pos, pcur, ptoks, table, *pool_leaves, *draft_leaves, spec_on_buf,
+        run_chunk, spec_on) -> (toks, cnt, tok', ptok', pos', pcur', ctok,
+        *leaves')``."""
+        return self._spec_mixed_kernel("paged_spec_mixed", seg_len, bucket, chunk_len,
+                                       max_seq)
+
+    def spec_prefill_kernel(self, max_seq: int) -> Callable:
+        """Prefill for speculative slots: the target *and* the draft prefill
+        over the same prompt rows, so a joining slot lands with both caches
+        populated through the prompt.  ``fn(offset, tokens) -> (tok0, ptok0,
+        *target_leaves, *draft_leaves)`` where ``ptok0`` is the padded
+        prompt's last token (position ``bucket - 1``), the predecessor the
+        first draft step rewrites."""
+        key = ("spec", max_seq)
+        fn = self._prefill_fns.get(key)
+        if fn is not None:
+            return fn
+        prefill = make_prefill_step(self.cfg, self.api)
+        dprefill = make_prefill_step(self.draft.cfg, self.dapi)
+        cfg, api, params = self.cfg, self.api, self.params
+        dcfg, dapi, dparams = self.draft.cfg, self.dapi, self.draft.params
+
+        def pre(offset, tokens):
+            b, dev = tokens.shape[0], tokens.device
+            cache = zeros_cache(cfg, api, b, max_seq, device=dev)
+            tok, cache = prefill(params, {"tokens": tokens}, cache)
+            dcache = zeros_cache(dcfg, dapi, b, max_seq, device=dev)
+            _, dcache = dprefill(dparams, {"tokens": tokens}, dcache)
+            ptok = tokens[:, -1:].to(torch.int32)
+            tl = [x.movedim(a, 0) for x, a in zip(tree_leaves(cache), self.bax_leaves)]
+            dl = [x.movedim(a, 0) for x, a in zip(tree_leaves(dcache), self.dbax_leaves)]
+            return (tok, ptok, *tl, *dl)
+
+        self._prefill_fns[key] = pre
+        return pre
+
 
 class BatchGroup:
     """One live continuous batch for one bucket.  All mutating methods are
@@ -369,10 +651,12 @@ class BatchGroup:
         self.seg_len = seg_len
         self.max_seq = max_seq
         self.chunk_len = int(chunk_len)  # 0 = whole-prompt prefill Programs
-        self.spec_k = 0
+        self.spec_k = kernels.spec_k  # draft depth; 0 = speculation off
         # Device groups this batch's runs are pinned to (None = all runtime
         # groups).
         self.target = list(target) if target else None
+        self.spec_gate = None  # set by the server when drafting (SpecGate)
+        self._seg_mode = "spec" if self.spec_k else "plain"
         self.slots: List[Optional[object]] = [None] * n_slots  # _Request per slot
         self.dead = False
         self.tokens_written = 0  # KV positions actually written (memory_stats)
@@ -400,6 +684,12 @@ class BatchGroup:
         if self.chunk_len:
             self._build_mixed_program(tok, pos, leaves)
             return
+        if self.spec_k:
+            self._build_spec_program(
+                [tok, None, pos], leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                kernels.spec_segment_kernel(seg_len, self.bucket, self.max_seq),
+                f"spec_seg{seg_len}_k{self.spec_k}")
+            return
         toks_seg = torch.zeros((n_slots, seg_len), dtype=torch.int32)
         prog = Program().in_(tok).in_(pos)
         for b in leaves:
@@ -421,6 +711,50 @@ class BatchGroup:
             (2 + i, 3 + i) for i in range(self.n_leaves)
         ]
 
+    def _build_spec_program(self, ctl, leaves, kernel, label: str, *, n_carried: int = 3,
+                            ctok_out=None) -> None:
+        """A speculative segment Program in the JAX package's buffer order:
+        ``[tok, ptok, pos, *rest_of_ctl, *leaves, spec_on] -> [toks, cnt,
+        tok', ptok', pos', *carried', (ctok), *leaves']``.  ``ctl`` lists
+        the control inputs (``None`` marks ``ptok``, made here); the first
+        ``n_carried`` ping-pong, the rest are pure inputs (the mixed
+        layouts' ``ptoks``, the paged block table).  The token buffer widens
+        to the per-segment emission cap ``seg_len*(k+1)`` with a per-slot
+        count of how much is real; ``spec_on`` rides last, after every
+        donated leaf, so the donate range and the leaf slices stay where
+        they are (the kernel reads the host's flag, its Program argument:
+        :meth:`submit_segment`).  Every cache leaf is donated; target leaves
+        ping-pong, and so do the draft's."""
+        n_slots, k = self.n_slots, self.spec_k
+        ctl = [torch.zeros((n_slots, 1), dtype=torch.int32) if b is None else b for b in ctl]
+        prog = Program()
+        for b in ctl + leaves:
+            prog.in_(b)
+        self._spec_on = torch.ones((n_slots, 1), dtype=torch.int32)
+        prog.in_(self._spec_on)
+        prog.out(torch.zeros((n_slots, self.seg_len * (k + 1)), dtype=torch.int32))
+        prog.out(torch.zeros((n_slots, 1), dtype=torch.int32))  # cnt
+        for b in ctl[:n_carried]:
+            prog.out(torch.zeros_like(b))
+        if ctok_out is not None:
+            prog.out(torch.zeros((n_slots, 1), dtype=torch.int32))
+        for b in leaves:
+            prog.out(torch.zeros_like(b))
+        prog.kernel(kernel, label)
+        prog.args(*((False,) if self.chunk_len else ()), True)
+        first = len(ctl)
+        prog.donate(*range(first, first + len(leaves)))
+        prog.work_items(n_slots, 1)
+        self.prog = prog
+        self.n_leaves = len(leaves)
+        # toks (out 0) and cnt (out 1) are read-only harvest buffers.
+        out0 = 2 + n_carried + (ctok_out is not None)
+        self._swap_pairs = [(i, 2 + i) for i in range(n_carried)] + [
+            (first + i, out0 + i) for i in range(self.n_leaves)
+        ]
+        if ctok_out is not None:
+            self._ctok_out = ctok_out
+
     def _build_mixed_program(self, tok, pos, leaves) -> None:
         """Mixed-phase (chunked-prefill) segment Program, in the JAX
         package's buffer order ``[tok, pos, pcur, ptoks, *leaves] ->
@@ -434,6 +768,15 @@ class BatchGroup:
         kernels, n_slots, seg_len = self.kernels, self.n_slots, self.seg_len
         pcur = torch.full((n_slots, 1), self.bucket, dtype=torch.int32)
         ptoks = torch.zeros((n_slots, self.bucket), dtype=torch.int32)
+        if self.spec_k:
+            self._build_spec_program(
+                [tok, None, pos, pcur, ptoks],
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                kernels.spec_mixed_segment_kernel(seg_len, self.bucket, self.chunk_len,
+                                                  self.max_seq),
+                f"spec_mixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}_k{self.spec_k}",
+                n_carried=4, ctok_out=6)
+            return
         toks_seg = torch.zeros((n_slots, seg_len), dtype=torch.int32)
         prog = Program().in_(tok).in_(pos).in_(pcur).in_(ptoks)
         for b in leaves:
@@ -479,7 +822,7 @@ class BatchGroup:
         """KV memory accounting, comparable across layouts: contiguous
         groups allocate their full capacity up front (every slot row at
         ``max_seq``, whatever depth is recorded)."""
-        first_leaf = 2 + (2 if self.chunk_len else 0)
+        first_leaf = (3 if self.spec_k else 2) + (2 if self.chunk_len else 0)
         allocated = sum(b.nbytes for b in self.prog._ins[first_leaf:first_leaf + self.n_leaves])
         capacity = self.n_slots * self.max_seq
         return {
@@ -536,10 +879,18 @@ class BatchGroup:
             tokens = torch.from_numpy(np.stack([r.prompt for r in rows]).astype(np.int32))
             prog = Program().in_(tokens)
             prog.out(torch.zeros((j, 1), dtype=torch.int32))
-            for b in self.kernels.leaf_mirrors(j, self.max_seq):
-                prog.out(b)
-            prog.kernel(self.kernels.prefill_kernel(self.max_seq),
-                        f"prefill_{self.bucket}")
+            if self.spec_k:
+                prog.out(torch.zeros((j, 1), dtype=torch.int32))  # ptok0
+                for b in (self.kernels.leaf_mirrors(j, self.max_seq)
+                          + self.kernels.draft_leaf_mirrors(j, self.max_seq)):
+                    prog.out(b)
+                prog.kernel(self.kernels.spec_prefill_kernel(self.max_seq),
+                            f"spec_prefill_{self.bucket}")
+            else:
+                for b in self.kernels.leaf_mirrors(j, self.max_seq):
+                    prog.out(b)
+                prog.kernel(self.kernels.prefill_kernel(self.max_seq),
+                            f"prefill_{self.bucket}")
             prog.work_items(j, 1)
             self._prefill_prog = prog
             h = self.runtime.submit(prog, self.scheduler, groups=self.target)
@@ -568,13 +919,21 @@ class BatchGroup:
         if self.chunk_len:
             return self._merge_chunked(wave, seconds)
         free = self.free_slots()
-        tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
-        leaf_bufs = self.prog._ins[2:]
-        tok0 = prog._outs[0]
-        wave_leaves = prog._outs[1:]
+        if self.spec_k:
+            tok_b, ptok_b, pos_b = self.prog._ins[:3]
+            leaf_bufs = self.prog._ins[3:3 + self.n_leaves]
+            tok0, ptok0 = prog._outs[0], prog._outs[1]
+            wave_leaves = prog._outs[2:]
+        else:
+            tok_b, ptok_b, pos_b = self.prog._ins[0], None, self.prog._ins[1]
+            leaf_bufs = self.prog._ins[2:]
+            tok0, ptok0 = prog._outs[0], None
+            wave_leaves = prog._outs[1:]
         for i, req in enumerate(wave):
             slot = free.pop(0)
             tok_b[slot, 0] = tok0[i, 0]
+            if ptok_b is not None:
+                ptok_b[slot, 0] = ptok0[i, 0]
             pos_b[slot, 0] = self.bucket
             for dst, src in zip(leaf_bufs, wave_leaves):
                 dst[slot] = src[i]
@@ -596,13 +955,21 @@ class BatchGroup:
         ``req.board`` to the harvest of the segment whose chunk completes
         the prompt (``ctok``)."""
         free = self.free_slots()
-        tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
-        pcur_b, ptoks_b = self.prog._ins[2], self.prog._ins[3]
-        leaf_bufs = self.prog._ins[4:]
-        neg = self.kernels.leaf_neg_init(self.max_seq)
+        if self.spec_k:
+            tok_b, ptok_b, pos_b, pcur_b, ptoks_b = self.prog._ins[:5]
+            leaf_bufs = self.prog._ins[5:5 + self.n_leaves]
+            neg = (self.kernels.leaf_neg_init(self.max_seq)
+                   + self.kernels.draft_leaf_neg_init(self.max_seq))
+        else:
+            tok_b, ptok_b, pos_b = self.prog._ins[0], None, self.prog._ins[1]
+            pcur_b, ptoks_b = self.prog._ins[2], self.prog._ins[3]
+            leaf_bufs = self.prog._ins[4:]
+            neg = self.kernels.leaf_neg_init(self.max_seq)
         for req in wave:
             slot = free.pop(0)
             tok_b[slot, 0] = 0
+            if ptok_b is not None:
+                ptok_b[slot, 0] = int(req.prompt[-1])
             pos_b[slot, 0] = self.bucket
             pcur_b[slot, 0] = 0
             ptoks_b[slot, :] = torch.from_numpy(req.prompt)
@@ -612,8 +979,9 @@ class BatchGroup:
             self.slots[slot] = req
             req.slot = slot
             req.chunk_pos = 0
-        for b in (tok_b, pos_b, pcur_b, ptoks_b):
-            self.prog.invalidate(b)
+        for b in (tok_b, ptok_b, pos_b, pcur_b, ptoks_b):
+            if b is not None:
+                self.prog.invalidate(b)
         for dst, is_neg in zip(leaf_bufs, neg):
             if is_neg:
                 self.prog.invalidate(dst)
@@ -625,6 +993,19 @@ class BatchGroup:
         epilogue runs worker-side, so the just-produced token/pos/cache
         buffers become the next segment's inputs *device-resident*."""
         assert self.seg_handle is None
+        spec = ()
+        if self.spec_k:
+            spec = (True,)
+            if self.spec_gate is not None:
+                # SpecGate auto-bypass: decide this segment's mode; the
+                # spec_on buffer is rewritten (one small re-upload) only
+                # when the mode changes, as in the JAX package.
+                want = 1 if self.spec_gate.decide(self.bucket) else 0
+                if int(self._spec_on[0, 0]) != want:
+                    self._spec_on[:] = want
+                    self.prog.invalidate(self._spec_on)
+                self._seg_mode = "spec" if want else "plain"
+                spec = (bool(want),)
 
         def epilogue(prog=self.prog, pairs=self._swap_pairs):
             for i_in, i_out in pairs:
@@ -633,9 +1014,11 @@ class BatchGroup:
         if self.chunk_len:
             # The chunk stage runs iff some slot is still prefilling (its
             # host-mirrored cursor short of the bucket).  The kernel reads
-            # the flag when the segment runs; it stays unchanged until the
+            # the flags when the segment runs; they stay unchanged until the
             # harvest, since the next segment is submitted only after it.
-            self.prog.args(any(r.chunk_pos < self.bucket for _, r in self.active()))
+            self.prog.args(any(r.chunk_pos < self.bucket for _, r in self.active()), *spec)
+        elif spec:
+            self.prog.args(*spec)
         after = [self.prev_handle] if self.prev_handle is not None else None
         self._seg_t0 = _now()
         tr = tracer()
@@ -660,9 +1043,10 @@ class BatchGroup:
         self.last_run_metrics = h.metrics
         # toks_seg is out 0 and never ping-ponged: stable across segments.
         toks_seg = self.prog._outs[0]
+        cnt = self.prog._outs[1] if self.spec_k else None
         n_active = 0
         finished = []
-        delivered = chunk_tokens = 0
+        emitted = drafted = accepted = delivered = chunk_tokens = 0
         tr = tracer()
         traced = tr.enabled
         for slot, req in self.active():
@@ -693,16 +1077,36 @@ class BatchGroup:
                 continue
             n_active += 1
             need = req.remaining()
-            take = toks_seg[slot, : min(self.seg_len, need)].tolist()
-            if traced:
-                tr.async_instant("decode_segment", req.seq, slot=slot,
-                                 tokens=len(take))
+            if self.spec_k:
+                # Ragged emission: this segment produced c tokens for the
+                # slot (seg_len steps, each 1 + its accepted draft depth).
+                # A bypassed (plain) segment reports c = seg_len and adds
+                # nothing to the draft accounting: plain segments must not
+                # pollute the acceptance EMA.
+                c = int(cnt[slot, 0])
+                take = toks_seg[slot, : min(c, need)].tolist()
+                emitted += c
+                if self._seg_mode == "spec":
+                    d, a = self.spec_k * self.seg_len, c - self.seg_len
+                    drafted += d
+                    accepted += a
+                    req.note_spec(d, a)
+                else:
+                    d = a = 0
+                if traced:
+                    tr.async_instant("decode_segment", req.seq, slot=slot,
+                                     tokens=len(take), drafted=d, accepted=a)
+            else:
+                take = toks_seg[slot, : min(self.seg_len, need)].tolist()
+                if traced:
+                    tr.async_instant("decode_segment", req.seq, slot=slot,
+                                     tokens=len(take))
             req.extend(take)
             delivered += len(take)
             if req.remaining() <= 0:
                 finished.append(req)
                 self.release_slot(slot)
-        self.tokens_written += n_active * self.seg_len
+        self.tokens_written += emitted if self.spec_k else n_active * self.seg_len
         if traced and self._seg_tr0:
             tr.complete("segment", self._seg_tr0, self._seg_tr0 + seconds,
                         track="batcher", bucket=self.bucket,
@@ -713,6 +1117,9 @@ class BatchGroup:
             self.telemetry.count("chunk_tokens", chunk_tokens)
         res = {"n_active": n_active, "finished": finished, "seconds": seconds,
                "tokens": delivered}
+        if self.spec_k:
+            res["drafted"], res["accepted"] = drafted, accepted
+            res["mode"] = self._seg_mode
         if self.chunk_len:
             res["chunk_tokens"] = chunk_tokens
         return res

@@ -1,6 +1,6 @@
 """Paged KV-cache memory subsystem: block pool, block tables, prefix reuse.
 
-Port of the JAX package's ``serve/paged.py`` for plain (non-speculative)
+Port of the JAX package's ``serve/paged.py``: plain and speculative
 segments, with whole-prompt or chunked prefill; host mirrors are CPU torch
 tensors.
 
@@ -48,9 +48,12 @@ Chunked prefill rides the paged layout too (``_build_paged_mixed``): the
 chunk stage writes through the block table (invalid rows into the sink),
 whole-prompt prefix-cache hits board decoding at once, chain-cached
 leading blocks start a prompt's cursor past them, and a completed prompt
-registers its blocks with the prefix cache.  Speculative layouts
-(ROADMAP.md item A5), slot migration between groups and elastic drain
-(item A7) are not ported.
+registers its blocks with the prefix cache.  Speculative layouts keep the
+target pool-backed and the draft cache in contiguous slot mirrors behind
+the pool leaves; under speculation every joiner runs its own prefill row
+(whole-prompt and wave-mate reuse are off: neither carries a draft cache),
+and only chain-level block sharing of the target stays.  Slot migration
+between groups and elastic drain (ROADMAP.md item A7) are not ported.
 """
 from __future__ import annotations
 
@@ -393,6 +396,17 @@ class PagedBatchGroup(BatchGroup):
         if self.chunk_len:
             self._build_paged_mixed(tok, pos, leaves)
             return
+        if self.spec_k:
+            # [tok, ptok, pos, table, *pool, *draft, spec_on]: the draft
+            # mirrors are per group, not kept in the PoolState (a group
+            # dissolves only when idle, and an idle group's draft rows
+            # belong to no live request).
+            self._build_spec_program(
+                [tok, None, pos, self.table],
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                kernels.paged_spec_segment_kernel(self.seg_len, self.bucket, self.max_seq),
+                f"spec_pseg{self.seg_len}_k{self.spec_k}")
+            return
         toks_seg = torch.zeros((n_slots, self.seg_len), dtype=torch.int32)
         prog = Program().in_(tok).in_(pos).in_(self.table)
         for b in leaves:
@@ -423,6 +437,16 @@ class PagedBatchGroup(BatchGroup):
         kernels, n_slots, seg_len = self.kernels, self.n_slots, self.seg_len
         pcur = torch.full((n_slots, 1), self.bucket, dtype=torch.int32)
         ptoks = torch.zeros((n_slots, self.bucket), dtype=torch.int32)
+        if self.spec_k:
+            # [tok, ptok, pos, pcur, ptoks, table, *pool, *draft, spec_on].
+            self._build_spec_program(
+                [tok, None, pos, pcur, ptoks, self.table],
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                kernels.paged_spec_mixed_segment_kernel(seg_len, self.bucket, self.chunk_len,
+                                                        self.max_seq),
+                f"spec_pmixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}_k{self.spec_k}",
+                n_carried=4, ctok_out=6)
+            return
         toks_seg = torch.zeros((n_slots, seg_len), dtype=torch.int32)
         prog = Program().in_(tok).in_(pos).in_(pcur).in_(ptoks).in_(self.table)
         for b in leaves:
@@ -451,7 +475,8 @@ class PagedBatchGroup(BatchGroup):
         module-level :func:`blocks_needed` so submit-time admission and
         boarding reservation can never desync."""
         return blocks_needed(self.bucket, gen, self.seg_len, self.block_len,
-                             window=self.window, max_seq=self.max_seq)
+                             window=self.window, max_seq=self.max_seq,
+                             spec_step=(self.spec_k + 1) if self.spec_k else 0)
 
     def reserve_estimate(self, req) -> int:
         return self.blocks_for(req.gen)
@@ -479,7 +504,12 @@ class PagedBatchGroup(BatchGroup):
         tr = tracer()
         for r in requests:
             pb = r.prompt.tobytes()
-            if self.prefix_enabled:
+            # Drafting: every joiner runs its own prefill row (the draft
+            # cache has to be produced for the slot, and neither the
+            # whole-prompt cache nor a wave-mate's target row carries it).
+            # Chain-level block sharing in _assign_blocks stays: target KV
+            # of identical prefixes is identical bits.
+            if self.prefix_enabled and not self.spec_k:
                 hit = self.pool.lookup_prompt(pb)
                 if hit is not None:
                     blocks, tok0 = hit
@@ -518,7 +548,7 @@ class PagedBatchGroup(BatchGroup):
         plans: List[_Plan] = []
         tr = tracer()
         for r in requests:
-            if self.prefix_enabled:
+            if self.prefix_enabled and not self.spec_k:
                 hit = self.pool.lookup_prompt(r.prompt.tobytes())
                 if hit is not None:
                     blocks, tok0 = hit
@@ -556,9 +586,17 @@ class PagedBatchGroup(BatchGroup):
                         bucket=self.bucket, wave=len(wave))
             self._prefill_tr0 = 0.0
         free = self.free_slots()
-        tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
-        tok0 = prog._outs[0] if prog is not None else None
-        wave_leaves = prog._outs[1:] if prog is not None else []
+        if self.spec_k:
+            tok_b, ptok_b, pos_b = self.prog._ins[:3]
+            draft_bufs = self.prog._ins[4 + self._n_pool:-1]
+            tok0, ptok0 = (prog._outs[0], prog._outs[1]) if prog is not None else (None, None)
+            wave_leaves = prog._outs[2:2 + self._n_pool] if prog is not None else []
+            draft_waves = prog._outs[2 + self._n_pool:] if prog is not None else []
+        else:
+            tok_b, ptok_b, pos_b = self.prog._ins[0], None, self.prog._ins[1]
+            draft_bufs, ptok0, draft_waves = [], None, []
+            tok0 = prog._outs[0] if prog is not None else None
+            wave_leaves = prog._outs[1:] if prog is not None else []
         wrote_pool = False
         for plan in plans:
             slot = free.pop(0)
@@ -568,6 +606,10 @@ class PagedBatchGroup(BatchGroup):
             self.table[slot, :] = BlockPool.NULL
             self.table[slot, : len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
             tok_b[slot, 0] = int(first)
+            if ptok_b is not None:
+                ptok_b[slot, 0] = ptok0[plan.row, 0]
+                for dst, src in zip(draft_bufs, draft_waves):
+                    dst[slot] = src[plan.row]
             pos_b[slot, 0] = self.bucket
             req = plan.req
             self.slots[slot] = req
@@ -578,6 +620,10 @@ class PagedBatchGroup(BatchGroup):
         # pool leaves only when some block was actually written (an all-
         # cached wave re-uploads just the small control buffers).
         self.prog.invalidate(tok_b)
+        if ptok_b is not None:
+            self.prog.invalidate(ptok_b)
+            for b in draft_bufs:
+                self.prog.invalidate(b)
         self.prog.invalidate(pos_b)
         self.prog.invalidate(self.table)
         if wrote_pool:
@@ -657,7 +703,7 @@ class PagedBatchGroup(BatchGroup):
             wrote = True
             blocks.append(b)
         first = int(tok0[plan.row, 0])
-        if self.prefix_enabled and not tail:
+        if self.prefix_enabled and not tail and not self.spec_k:
             # Durable whole-prompt entry (block-aligned prompts only: a
             # partial tail would be appended into by this very request,
             # leaving the entry pointing at mutated bytes).
@@ -674,8 +720,14 @@ class PagedBatchGroup(BatchGroup):
         start cursor, so those positions are never chunked again) and
         prefills through the segment kernel's chunk stage."""
         free = self.free_slots()
-        tok_b, pos_b = self.prog._ins[0], self.prog._ins[1]
-        pcur_b, ptoks_b = self.prog._ins[2], self.prog._ins[3]
+        if self.spec_k:
+            tok_b, ptok_b, pos_b, pcur_b, ptoks_b = self.prog._ins[:5]
+            draft_bufs = self.prog._ins[6 + self._n_pool:-1]
+            dneg = self.kernels.draft_leaf_neg_init(self.max_seq)
+        else:
+            tok_b, ptok_b, pos_b = self.prog._ins[0], None, self.prog._ins[1]
+            pcur_b, ptoks_b = self.prog._ins[2], self.prog._ins[3]
+            draft_bufs, dneg = [], []
         tr = tracer()
         wrote_pool = False
         for plan in plans:
@@ -700,6 +752,11 @@ class PagedBatchGroup(BatchGroup):
             self.table[slot, :] = BlockPool.NULL
             self.table[slot, : len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
             tok_b[slot, 0] = first
+            if ptok_b is not None:
+                ptok_b[slot, 0] = int(req.prompt[-1])
+                for dst, is_neg in zip(draft_bufs, dneg):
+                    if is_neg:
+                        dst[slot] = -1
             pos_b[slot, 0] = self.bucket
             pcur_b[slot, 0] = pcur0
             ptoks_b[slot, :] = torch.from_numpy(req.prompt)
@@ -710,21 +767,27 @@ class PagedBatchGroup(BatchGroup):
                 req.board(slot, first)
                 if tr.enabled:
                     tr.async_instant("first_token", req.seq, slot=slot)
-        for b in (tok_b, pos_b, pcur_b, ptoks_b):
-            self.prog.invalidate(b)
+        for b in (tok_b, ptok_b, pos_b, pcur_b, ptoks_b):
+            if b is not None:
+                self.prog.invalidate(b)
         self.prog.invalidate(self.table)
         if wrote_pool:
             # _reset_kpos only touches the position leaves.
             for leaf, neg in zip(self._pool_leaves(), self._neg_leaves):
                 if neg:
                     self.prog.invalidate(leaf)
+        for dst, is_neg in zip(draft_bufs, dneg):
+            if is_neg:
+                self.prog.invalidate(dst)
         return {"joined": len(plans), "failed": [], "seconds": seconds}
 
     def _chain_head(self, req) -> List[int]:
         """Chain-cached leading full blocks of a chunking prompt, increfed.
         Clamped so at least one prompt position is left to chunk: the
-        completing chunk's final prompt row is where ``ctok`` comes from."""
-        if not self.prefix_enabled:
+        completing chunk's final prompt row is where ``ctok`` comes from.
+        Speculative slots always chunk from 0: the draft cache has no
+        cached prefix to skip with."""
+        if not self.prefix_enabled or self.spec_k:
             return []
         bl = self.block_len
         key: tuple = ("root",)
@@ -751,7 +814,7 @@ class PagedBatchGroup(BatchGroup):
         whole-prompt entry for block-aligned prompts (a partial tail block
         keeps receiving this request's decode appends and must not be
         shared)."""
-        if not self.prefix_enabled:
+        if not self.prefix_enabled or self.spec_k:
             return
         bl, bucket, pool = self.block_len, self.bucket, self.pool
         blocks = self.slot_blocks[slot]
@@ -766,7 +829,8 @@ class PagedBatchGroup(BatchGroup):
 
     # ------------------------------------------------- pool mirror plumbing
     def _pool_leaves(self) -> list:
-        return self.prog._ins[3 + (2 if self.chunk_len else 0):]
+        base = (4 if self.spec_k else 3) + (2 if self.chunk_len else 0)
+        return self.prog._ins[base:base + self._n_pool]
 
     def _store_block(self, block: int, row: list, j: int) -> None:
         """Copy logical block ``j`` of one prefill slot row into physical
@@ -807,9 +871,12 @@ class PagedBatchGroup(BatchGroup):
     def harvest_segment(self) -> dict:
         res = super().harvest_segment()
         if "errors" not in res:
-            # Chunked segments also wrote each prefilling slot's chunk of
+            # Under speculation each slot advanced seg_len + its accepted
+            # draft tokens, the net new valid positions in its blocks;
+            # chunked segments also wrote each prefilling slot's chunk of
             # prompt positions.
             self.pool.note_tokens(res["n_active"] * self.seg_len
+                                  + res.get("accepted", 0)
                                   + res.get("chunk_tokens", 0))
         self._gauge_pool()
         return res
@@ -836,7 +903,8 @@ class PagedBatchGroup(BatchGroup):
         objects, so the state must track whichever tensors hold the latest
         written-back KV when the next group generation picks them up."""
         self.state.leaves = list(self._pool_leaves())
-        self.state.table = self.prog._ins[2 + (2 if self.chunk_len else 0)]
+        self.state.table = self.prog._ins[(3 if self.spec_k else 2)
+                                          + (2 if self.chunk_len else 0)]
 
     def fail_all(self, errors: Sequence[str]) -> List[object]:
         for slot in range(self.n_slots):

@@ -27,10 +27,11 @@ is not).
 
 Ported: one DeviceGroup, the Static scheduler, contiguous or paged KV,
 whole-prompt prefill Programs or chunked prefill (``chunk_len``: the
-prompt advances inside the decode segments, ``validate_chunked``).
-Speculative decoding (``draft``, ROADMAP.md item A5), several
+prompt advances inside the decode segments, ``validate_chunked``), and
+greedy speculative decoding (``draft``: draft/verify segments, with or
+without the ``SpecGate`` bypass, ``validate_draft``).  Several
 DeviceGroups, ``group_batches``, slot migration and elastic drain/join
-(item A7) raise ``NotImplementedError``.
+(ROADMAP.md item A7) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -47,13 +48,14 @@ from repro_torch.core.runtime import Runtime
 from repro_torch.core.scheduler.base import Scheduler
 from repro_torch.core.scheduler.static import Static
 from repro_torch.core.trace import tracer
-from repro_torch.serve.admission import DeadlineAdmission, PoolAdmission, edf_key
+from repro_torch.serve.admission import DeadlineAdmission, PoolAdmission, SpecGate, edf_key
 from repro_torch.serve.batcher import (
     BatchGroup,
     Buckets,
     ModelKernels,
     chunks_for,
     segments_for,
+    spec_segments_for,
 )
 from repro_torch.serve.multigroup import MigrationPolicy
 from repro_torch.serve.paged import (
@@ -64,12 +66,11 @@ from repro_torch.serve.paged import (
     pool_capacity,
     validate_paged,
 )
+from repro_torch.serve.step import DraftSpec
 from repro_torch.serve.telemetry import Telemetry
 
 NOT_PORTED_A7 = ("is not ported to repro_torch yet: ROADMAP.md item A7 "
                  "(multi-group serving, migration, elastic groups)")
-NOT_PORTED_A5 = ("is not ported to repro_torch yet: ROADMAP.md item A5 "
-                 "(speculative serving)")
 
 
 class AdmissionError(RuntimeError):
@@ -200,6 +201,43 @@ class _Request:
         return self.gen - len(self.tokens)
 
 
+def validate_draft(cfg, draft: DraftSpec) -> None:
+    """Fail fast on model pairs speculative serving cannot keep bitwise
+    equal to one-shot generate (the server's contract is exact equality, so
+    anything that breaks it is a configuration error).  On the kernel path
+    the verify's ``(k+1)·n_rep`` rows and the draft's two-row first step
+    must fit the decode kernels' row limit."""
+    if draft.cfg.vocab != cfg.vocab:
+        raise ValueError(
+            f"draft vocab {draft.cfg.vocab} != target vocab {cfg.vocab}: "
+            "speculative decoding requires a shared tokenizer/vocab"
+        )
+    for role, c in (("target", cfg), ("draft", draft.cfg)):
+        if c.family not in ("dense", "moe", "vlm"):
+            raise ValueError(
+                f"{role} family {c.family!r} cannot serve speculatively: "
+                "recurrent state (ssm/hybrid) has no per-position timeline "
+                "to roll rejected draft tokens back from"
+            )
+        if c.window:
+            raise ValueError(
+                f"{role} uses a rolling window ({c.window}): a multi-row "
+                "verify scatter would overwrite the oldest ring slots that "
+                "its own first row must still attend, breaking bit-identity"
+            )
+    if cfg.seq_shard_cache:
+        raise ValueError("speculative serving is incompatible with "
+                         "seq_shard_cache (mesh decode is single-row)")
+    from repro_torch.kernels._build import MAX_ROWS
+
+    for role, c, sq in (("target", cfg, draft.k + 1), ("draft", draft.cfg, 2)):
+        rows = sq * (c.n_heads // c.n_kv_heads)
+        if c.kernel_impl == "cuda" and rows > MAX_ROWS:
+            raise ValueError(
+                f"draft k={draft.k}: the {role}'s {sq}-row decode takes {rows} rows "
+                f"(Sq x n_rep), more than the decode kernels' {MAX_ROWS}")
+
+
 def validate_chunked(cfg, api, chunk_len: int) -> None:
     """Fail fast on configurations chunked prefill cannot keep bitwise
     equal to whole-prompt prefill.  The chunk stage replays the prompt
@@ -253,6 +291,11 @@ class InferenceServer:
     paged            : PagedSpec: serve from a KV block pool (block tables,
                        prefix cache, copy-on-write) instead of contiguous
                        slot rows.
+    draft            : DraftSpec for greedy speculative decoding: segments
+                       run draft-k-then-verify steps, emitting 1..k+1
+                       tokens per step while streams stay bitwise those of
+                       undrafted serving (greedy verify emits the target's
+                       own argmax chain whatever the draft's quality).
     chunk_len        : chunked prefill (0 = off): joins run no prefill
                        Program; each decode segment first advances every
                        still-prefilling slot's prompt by ``chunk_len``
@@ -272,14 +315,12 @@ class InferenceServer:
                  pad_id: int = 0,
                  kernels: Optional[ModelKernels] = None,
                  paged: Optional[PagedSpec] = None,
-                 draft=None,
+                 draft: Optional[DraftSpec] = None,
                  chunk_len: int = 0,
                  telemetry: Optional[Telemetry] = None,
                  group_batches: Optional[bool] = None,
                  migration: Optional[MigrationPolicy] = None,
                  obs: Optional[EngineObs] = None) -> None:
-        if draft is not None:
-            raise NotImplementedError(f"speculative serving (draft=) {NOT_PORTED_A5}")
         if group_batches or migration is not None:
             raise NotImplementedError(f"group_batches serving {NOT_PORTED_A7}")
         if groups is not None and len(groups) != 1:
@@ -292,12 +333,19 @@ class InferenceServer:
         if paged is not None:
             validate_paged(cfg, self.groups, self.scheduler, paged,
                            group_batches=self.group_batches)
-        self.draft = None
+        if draft is not None:
+            validate_draft(cfg, draft)
+        self.draft = draft
         self.chunk_len = int(chunk_len)  # 0 = whole-prompt prefill Programs
         if self.chunk_len:
             validate_chunked(cfg, api, self.chunk_len)
         self.pool_admission = PoolAdmission()
-        self.kernels = kernels or ModelKernels(cfg, api, params)
+        self.kernels = kernels or ModelKernels(cfg, api, params, draft=draft)
+        if draft is not None and self.kernels.spec_k != draft.k:
+            raise ValueError("kernels were built without this draft spec")
+        if self.chunk_len and draft is not None:
+            # The chunk stage advances the draft cache too.
+            validate_chunked(draft.cfg, self.kernels.dapi, self.chunk_len)
         self.buckets = Buckets(buckets)
         self.max_batch = int(max_batch)
         self.seg_len = int(seg_len)
@@ -316,6 +364,14 @@ class InferenceServer:
             enabled=tracer().enabled)
         self.obs.attach()
         self._last_counter_emit = 0.0
+        # Speculation auto-bypass (opt-in via DraftSpec.auto_bypass):
+        # forecast per bucket whether drafted segments beat plain ones and
+        # set the segments' mode accordingly, re-probing the losing mode
+        # periodically.  Ungated spec servers draft every segment.
+        self.spec_gate = (SpecGate(self.admission.model, draft.k)
+                          if draft is not None and draft.auto_bypass else None)
+        if self.spec_gate is not None and self.obs.enabled:
+            self.spec_gate.journal = self.obs.journal
         self._draining: set = set()
         self._policy = MigrationPolicy()  # one group: never migrates
         self.pad_id = pad_id
@@ -412,11 +468,15 @@ class InferenceServer:
         # ran yet); mean_occupancy is kept as an alias for older consumers.
         s["occupancy_mean"] = occ / s["segments"] if s["segments"] else 0.0
         s["mean_occupancy"] = s["occupancy_mean"]
+        s["acceptance"] = (s["tokens_accepted"] / s["tokens_drafted"]
+                           if s["tokens_drafted"] else None)
         s["transfers"] = {g.name: g.transfer_stats() for g in self.groups}
         s["memory"] = mem
         s["admission"] = self.admission.stats()
         s["decisions"] = self.obs.journal.snapshot()
         s["chunk_len"] = self.chunk_len
+        if self.spec_gate is not None:
+            s["speculation"] = self.spec_gate.stats(list(self.buckets.sizes))
         return s
 
     def metrics(self) -> dict:
@@ -426,7 +486,7 @@ class InferenceServer:
         last run metrics (which themselves carry the per-run transfer
         counters the Introspector records), and the streaming telemetry
         snapshot (rolling p50/p95/p99 + EMA for TTFT, inter-token latency,
-        queue wait, segment time, occupancy)."""
+        queue wait, segment time, acceptance, occupancy)."""
         with self._cv:
             mem = self._memory_fold()
             runs = {b: dict(g.last_run_metrics)
@@ -437,6 +497,14 @@ class InferenceServer:
             "efficiency": self._efficiency_snapshot(),
             "groups": {g.name: g.transfer_stats() for g in self.groups},
             "last_runs": runs,
+            "speculation": {
+                "k": self.draft.k if self.draft else 0,
+                "tokens_drafted": self._stats["tokens_drafted"],
+                "tokens_accepted": self._stats["tokens_accepted"],
+                "acceptance_ema": (
+                    self.admission.model.acceptance(self.draft.k)
+                    if self.draft else None),
+            },
             "telemetry": self.telemetry.snapshot(),
         }
 
@@ -566,7 +634,8 @@ class InferenceServer:
     def _blocks_needed(self, bucket: int, gen: int) -> int:
         return blocks_needed(bucket, gen, self.seg_len, self.paged.block_len,
                              window=self.kernels.cfg.window or 0,
-                             max_seq=self._max_seq(bucket))
+                             max_seq=self._max_seq(bucket),
+                             spec_step=(self.draft.k + 1) if self.draft else 0)
 
     def _pool_capacity(self, bucket: int) -> int:
         n_slots = self.max_batch
@@ -689,6 +758,7 @@ class InferenceServer:
                                      self.seg_len, self._max_seq(bucket),
                                      chunk_len=self.chunk_len)
                 grp.telemetry = self.telemetry
+                grp.spec_gate = self.spec_gate
                 self._groups[bucket] = grp
                 self._board(grp, now)
             else:
@@ -697,12 +767,27 @@ class InferenceServer:
         return timer
 
     def _max_seq(self, bucket: int) -> int:
+        if self.draft is not None:
+            # Speculative slots write every verify row: the deepest
+            # position a segment can touch is its start (<= bucket +
+            # max_new_cap - 2) plus seg_len * (k+1) rows; reserve the cap,
+            # not the expected acceptance.
+            return bucket + self.max_new_cap + self.seg_len * (self.draft.k + 1)
         return bucket + segments_for(self.max_new_cap, self.seg_len) * self.seg_len
 
     def _segments_left(self, gen: int, bucket: int) -> int:
         """Decode segments a request with ``gen`` tokens still owed needs —
-        the admission forecast's work unit."""
-        return segments_for(gen, self.seg_len)
+        the admission forecast's work unit.  Under speculation this uses the
+        observed expected tokens-per-step (1 + acceptance·k), so deadline
+        forecasts tighten as acceptance evidence accumulates; when the
+        bypass gate forecasts this bucket runs plain segments, so does the
+        forecast."""
+        if self.draft is None:
+            return segments_for(gen, self.seg_len)
+        if self.spec_gate is not None and not self.spec_gate.speculating(bucket):
+            return segments_for(gen, self.seg_len)
+        tps = self.admission.model.tokens_per_step(self.draft.k)
+        return spec_segments_for(gen, self.seg_len, tps)
 
     def _n_chunks(self, bucket: int) -> int:
         """Mixed-phase segments a join spends prefilling (0 = whole-prompt
@@ -732,6 +817,11 @@ class InferenceServer:
                 return False
             model = self.admission.model
             model.observe("segment", grp.bucket, res["seconds"])
+            mode = res.get("mode")
+            if mode is not None:
+                # Mode-split EMAs drive the SpecGate's speedup forecast.
+                model.observe("seg_spec" if mode == "spec" else "seg_plain",
+                              grp.bucket, res["seconds"])
             if gname is not None and res["seconds"] > 0:
                 # Capacity rate (slots, not occupancy: speed, not load) —
                 # the scheduler's placement signal for this member.
@@ -744,6 +834,12 @@ class InferenceServer:
             self.telemetry.observe("occupancy", res["n_active"])
             if self.obs.enabled or tracer().enabled:
                 self._note_segment(grp, gname, res)
+            drafted = res.get("drafted", 0)
+            if drafted:
+                self._stats["tokens_drafted"] += drafted
+                self._stats["tokens_accepted"] += res["accepted"]
+                model.observe_acceptance(self.draft.k, res["accepted"] / drafted)
+                self.telemetry.observe("acceptance", res["accepted"] / drafted)
             for req in res["finished"]:
                 self._retire(req)
         # Merging rewrites the segment Program's host mirrors, so it is only

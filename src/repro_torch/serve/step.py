@@ -1,6 +1,7 @@
 """Serving steps: prefill (prompt → cache), decode (one token, KV cache),
-decode *chains* (N dependent tokens, device-resident) and the chunked
-prefill stage (``make_chunk_step``).
+decode *chains* (N dependent tokens, device-resident), the chunked
+prefill stage (``make_chunk_step``) and the greedy draft/verify step of
+speculative decoding (``DraftSpec``, ``make_draft_verify_step``).
 
 Params are cast to the compute dtype once (``cast_params_cached``) and the
 cast copy is held beside the float32 masters for as long as they live: a
@@ -14,7 +15,9 @@ item A3).
 """
 from __future__ import annotations
 
+import dataclasses
 import weakref
+from typing import Any, Optional
 
 import torch
 
@@ -50,6 +53,17 @@ def cast_params_cached(tree, dtype):
 
 def _argmax_token(logits):
     return logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+
+
+def write_start(pos, cap: Optional[int], rows: int = 1):
+    """The position a step of ``rows`` consecutive rows writes from, on a
+    contiguous cache of ``cap`` positions (``None``: unclamped): ``pos``
+    clamped to ``cap - rows``.  An exited slot keeps decoding garbage past
+    its row's end, which the JAX scatter drops and ``index_put_`` would
+    reject; clamped, its rows land at distinct entries of its own row, which
+    the next joiner's write replaces.  A live slot never reaches the clamp:
+    the server reserves every position its segments can write."""
+    return pos if cap is None else torch.clamp(pos, max=cap - rows)
 
 
 def make_prefill_step(cfg, api):
@@ -175,3 +189,102 @@ def make_generate(cfg, api):
         return torch.cat([tok, toks], dim=1)
 
     return generate
+
+
+@dataclasses.dataclass(frozen=True)
+class DraftSpec:
+    """Speculative-decoding draft model: a small config sharing the target's
+    tokenizer/vocab, its own params, and the draft depth ``k`` (candidate
+    tokens proposed per verify step).  ``k = 1`` is the shallowest useful
+    draft: one candidate, 1–2 tokens emitted per step.
+
+    ``auto_bypass=True`` arms the server's ``SpecGate``: segments run
+    plain whenever the forecast speedup (tokens-per-step × measured
+    plain/spec segment-time ratio) drops below 1, with periodic re-probes
+    of the losing mode.  Off by default: an ungated spec server drafts
+    every segment, which keeps drafted/accepted accounting deterministic."""
+
+    cfg: Any
+    params: Any
+    k: int = 2
+    auto_bypass: bool = False
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"draft k must be >= 1, got {self.k}")
+
+
+def make_draft_verify_step(cfg, api, dcfg, dapi, k: int, *, prompt_len: int,
+                           cap: Optional[int] = None):
+    """One greedy speculative step: draft ``k`` candidates, verify all of
+    them (plus the carried token) in a single multi-row decode, accept the
+    longest matching prefix.
+
+    ``step(params, dparams, cache, dcache, tok, ptok, pos)`` returns
+    ``(y, cnt, tok', ptok', pos', cache, dcache)`` where ``y`` is (B, k+1)
+    verified greedy tokens of which the first ``cnt`` (1..k+1 per slot,
+    (B,) int32) are emitted this step; ``tok``/``ptok`` are (B, 1), the
+    pending token at position ``pos`` and its predecessor at ``pos - 1``;
+    ``pos`` is (B,) int32.  No host sync.
+
+    Greedy acceptance keeps the emitted bits exact: row ``j`` of the verify
+    attends the cache as sequential decode at ``pos + j`` would (its keys
+    through ``pos + j`` are written before attention, deeper rows' keys sit
+    beyond its mask), so ``y[:, j]`` is the token sequential decode gives,
+    provided the attention row is bitwise its one-row launch (the port's
+    kernels hold that, ``kernels/flash_decode.py``) and the products are
+    row-invariant (``kernels/gemm.py``).  Whether the draft guessed right
+    decides only how many rows are kept.  Rejected rows leave stale keys
+    above ``pos'``; the next step's writes cover them before any row
+    attends those positions.
+
+    The draft cache rides the same timeline: the first draft step is a
+    2-row decode of ``[ptok, tok]`` at ``pos - 1``, which both proposes the
+    first candidate and repairs the draft-cache hole at ``pos - 1`` left
+    when the previous step accepted every candidate.  A slot whose
+    ``pos - 1`` lies in its prompt (``prompt_len``, the padded prompt's
+    length) keeps that entry as its prefill (or chunk stage) wrote it: the
+    re-decoded row would come from the decode path, not the prefill's, and
+    the target's cache holds the prefill's bits there.  A self-draft then
+    holds the target's cache bit for bit and accepts every candidate, where
+    on a deep random-weight model that one difference alone makes its
+    proposals near random.  The JAX package's step re-decodes ``pos - 1``
+    always; the tokens the two steps emit are the same.
+
+    ``cap`` (contiguous target or draft caches of ``cap`` positions) clamps
+    where the step's rows write (:func:`write_start` of its k + 1 rows), so
+    an exited slot's rows stay inside its own row; a live slot never
+    reaches it (the server reserves ``seg_len * (k + 1)`` positions past
+    its last segment's start)."""
+
+    def step(params, dparams, cache, dcache, tok, ptok, pos):
+        params = cast_params_cached(params, cfg.compute_dtype)
+        dparams = cast_params_cached(dparams, dcfg.compute_dtype)
+        bidx = torch.arange(tok.shape[0], device=tok.device)
+        pw = write_start(pos, cap, k + 1)
+
+        # Draft k candidates autoregressively (small model, k tiny).
+        x0 = torch.cat([ptok, tok], dim=1)  # (B, 2) at pos-1, pos
+        keep = torch.stack([pw - 1 < prompt_len, torch.zeros_like(pw, dtype=torch.bool)], dim=1)
+        dc = dict(dcache, keep=keep[None].expand((dcfg.n_layers,) + tuple(keep.shape)))
+        dlog, _ = dapi.decode(dparams, x0, pw - 1, dcfg, dc)
+        ds = [_argmax_token(dlog)]
+        for j in range(1, k):
+            dlog, dcache = dapi.decode(dparams, ds[-1], pw + j, dcfg, dcache)
+            ds.append(_argmax_token(dlog))
+        drafts = torch.cat(ds, dim=1)  # (B, k)
+
+        # One multi-row verify over [tok, d1..dk] at pos..pos+k.
+        xs = torch.cat([tok, drafts], dim=1)  # (B, k+1)
+        logits, cache = api.decode(params, xs, pw, cfg, cache)
+        y = logits.argmax(dim=-1).to(torch.int32)  # (B, k+1)
+
+        # Longest prefix of drafts matching the target's own greedy chain.
+        match = (drafts == y[:, :k]).to(torch.int32)
+        acc = torch.cumprod(match, dim=1).sum(dim=1)
+        cnt = (acc + 1).to(torch.int32)  # emitted tokens this step: y[:, :cnt]
+        tok2 = y[bidx, acc][:, None]  # next pending token, at pos + cnt
+        ptok2 = xs[bidx, acc][:, None]  # its predecessor, at pos + cnt - 1
+        return y, cnt, tok2, ptok2, pos + cnt, cache, dcache
+
+    return step

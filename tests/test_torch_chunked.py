@@ -663,13 +663,17 @@ def test_validate_chunked_rejections(qwen):
         rcfg = tconfigs.reduced(tconfigs.get_config(arch))
         with pytest.raises(ValueError, match="family"):
             validate_chunked(rcfg, get_model(rcfg), 2)
-    # The server validates at construction; speculation stays refused.
+    # The server validates at construction, the draft too when chunking.
     cpu = DeviceGroup("v", device="cpu")
     with pytest.raises(ValueError, match="window"):
         InferenceServer(dataclasses.replace(cfg, window=4), api, params, groups=[cpu],
                         chunk_len=2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        InferenceServer(cfg, api, params, groups=[cpu], chunk_len=2, draft=object())
+    from repro_torch.serve import DraftSpec
+
+    rcfg = tconfigs.reduced(tconfigs.get_config("recurrentgemma-2b"))
+    with pytest.raises(ValueError, match="per-position timeline"):
+        InferenceServer(cfg, api, params, groups=[cpu], chunk_len=2,
+                        draft=DraftSpec(dataclasses.replace(rcfg, vocab=cfg.vocab), params))
 
 
 def test_service_model_segment_ema_feeds_chunked_forecast():

@@ -16,9 +16,11 @@ from repro.kernels import ref as jref
 from repro.kernels.ops import flash_decode as jax_flash_decode
 from repro.kernels.ops import needed_tiles as jax_needed_tiles
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_decode import flash_decode_paged_plain, flash_decode_plain
 from repro_torch.kernels.ops import (
     flash_decode,
     launch_counts,
+    multi_row_counts,
     needed_tiles,
     reset_launch_counts,
 )
@@ -149,9 +151,29 @@ def test_cpu_tensors_count_no_launch():
     k = torch.zeros((1, 4, 2, 8))
     kpos = torch.tensor([[0, 1, -1, -1]], dtype=torch.int32)
     flash_decode(q, k, k, kpos, torch.tensor([1], dtype=torch.int32))
+    flash_decode(torch.zeros((1, 2, 2, 8)), k, k, kpos, torch.tensor([0], dtype=torch.int32))
     assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                "flash_decode_paged": 0, "ssm_scan": 0,
                                "rglru_scan": 0, "gemm_rowinv": 0, "rms_norm": 0}
+    assert multi_row_counts() == {"flash_decode": 0, "flash_decode_paged": 0}
+
+
+def test_multi_row_launches_count_within_their_kernel():
+    """A multi-row launch (a verify, Sq > 1) counts once under its own
+    kernel and once more among the multi-row launches, the same way for
+    both decode kernels; a reset zeroes both."""
+    from repro_torch.kernels import _build
+
+    reset_launch_counts()
+    _build.count("flash_decode")
+    _build.count("flash_decode", multi_row=True)
+    _build.count("flash_decode_paged", multi_row=True)
+    assert launch_counts()["flash_decode"] == 2
+    assert launch_counts()["flash_decode_paged"] == 1
+    assert multi_row_counts() == {"flash_decode": 1, "flash_decode_paged": 1}
+    reset_launch_counts()
+    assert launch_counts()["flash_decode"] == 0
+    assert multi_row_counts() == {"flash_decode": 0, "flash_decode_paged": 0}
 
 
 def test_non_cpu_non_cuda_tensor_raises():
@@ -194,7 +216,8 @@ def test_launch_plan_admits_chip_shapes(name):
                        block_k=bk)
     assert plan["route"] == route and plan["smem"] <= _build.MAX_SMEM
     if route == "mma":
-        assert plan["grid"] == (kv, b, plan["chunks"])
+        assert plan["row_blocks"] == -(-sq * (h // kv) // plan["block_rows"])
+        assert plan["grid"] == (kv * plan["row_blocks"], b, plan["chunks"])
         assert plan["chunks"] == -(-plan["tiles"] // plan["chunk_tiles"])
         assert plan["scratch_floats"] == (
             b * kv * (plan["chunks"] * plan["rows"] * (hd + 2) + 1) if plan["chunks"] > 1 else 0)
@@ -252,3 +275,75 @@ def test_paged_and_contiguous_take_the_same_chunks(nmax, bl, sq, h, kv, hd):
                              block_k=bl)
         assert paged == contig
         assert paged["route"] == "mma"
+
+
+# --------------------------------------------------- speculative verify rows
+@pytest.mark.parametrize("n_rep", [1, 4, 6, 8])
+def test_verify_plan_splits_keys_as_one_row(n_rep):
+    """The tensor-core body's key parts and stage width depend on (bk, hd,
+    n_rep) alone: every Sq with Sq * n_rep <= MAX_ROWS takes the one-row
+    launch's plan (more row blocks where the rows outgrow one block), on
+    both decode kernels; past MAX_ROWS the wrapper's plan raises."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import launch_plan, paged_launch_plan
+
+    kv = 2
+    h = kv * n_rep
+    for bk, hd in ((128, 128), (16, 128), (64, 64), (128, 256)):
+        one = launch_plan(8, 312, 1, h, kv, hd, torch.bfloat16, torch.bfloat16, block_k=bk)
+        pone = paged_launch_plan(8, 20, 16, 1, h, kv, hd, torch.bfloat16, torch.bfloat16)
+        assert one["row_blocks"] == pone["row_blocks"] == 1
+        for sq in range(1, _build.MAX_ROWS // n_rep + 1):
+            for plan, ref in (
+                    (launch_plan(8, 312, sq, h, kv, hd, torch.bfloat16, torch.bfloat16,
+                                 block_k=bk), one),
+                    (paged_launch_plan(8, 20, 16, sq, h, kv, hd, torch.bfloat16,
+                                       torch.bfloat16), pone)):
+                assert plan["route"] == "mma"
+                for key in ("key_parts", "stage_keys", "block_rows", "chunks", "chunk_tiles",
+                            "smem"):
+                    assert plan[key] == ref[key], (bk, hd, sq, key)
+                assert plan["row_blocks"] == -(-sq * n_rep // plan["block_rows"])
+                assert plan["grid"] == (kv * plan["row_blocks"], 8, plan["chunks"])
+        with pytest.raises(ValueError, match="rows"):
+            launch_plan(8, 312, _build.MAX_ROWS // n_rep + 1, h, kv, hd, torch.bfloat16,
+                        torch.bfloat16, block_k=bk)
+        with pytest.raises(ValueError, match="rows"):
+            paged_launch_plan(8, 20, 16, _build.MAX_ROWS // n_rep + 1, h, kv, hd,
+                              torch.bfloat16, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_plain_verify_rows_equal_one_row_calls(n_rep, dtype, k):
+    """flash_decode_plain's row j at Sq = k + 1 (keys written through pos +
+    k) is bitwise its one-row call at pos + j over the same cache, across a
+    128-key tile seam, for an empty slot (exact zeros) and through the paged
+    plain version."""
+    rng = np.random.default_rng(n_rep * 10 + k)
+    b, s, kv, hd = 3, 300, 2, 32
+    h, sq, dt = kv * n_rep, k + 1, getattr(torch, dtype)
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, hd)).astype(np.float32)).to(dt)
+    kk = torch.from_numpy(rng.standard_normal((b, s, kv, hd)).astype(np.float32)).to(dt)
+    vv = torch.from_numpy(rng.standard_normal((b, s, kv, hd)).astype(np.float32)).to(dt)
+    pos = torch.tensor([126, -1, 290 - k], dtype=torch.int32)
+    kpos = torch.full((b, s), -1, dtype=torch.int32)
+    for i, p in enumerate(pos.tolist()):
+        if p >= 0:
+            kpos[i, :p + sq] = torch.arange(p + sq)
+    full = flash_decode_plain(q, kk, vv, kpos, pos)
+    assert torch.all(full[1] == 0)
+    for j in range(sq):
+        one = flash_decode_plain(q[:, j:j + 1], kk, vv, kpos, pos + j)
+        assert torch.equal(one[:, 0], full[:, j]), j
+    bl = 20
+    tables = torch.arange(2, 2 + b * (s // bl), dtype=torch.int32).reshape(b, s // bl)
+    pool = [torch.zeros((2 + b * (s // bl), bl) + tuple(x.shape[2:]), dtype=x.dtype)
+            for x in (kk, vv, kpos)]
+    for p, x in zip(pool, (kk, vv, kpos)):
+        p[2:] = x.reshape((-1, bl) + tuple(x.shape[2:]))
+    paged = flash_decode_paged_plain(q, *pool, tables, pos)
+    for j in range(sq):
+        one = flash_decode_paged_plain(q[:, j:j + 1], *pool, tables, pos + j)
+        assert torch.equal(one[:, 0], paged[:, j]), j

@@ -30,7 +30,7 @@ from repro_torch.core import DeviceGroup, Static
 from repro_torch.launch import serve as launcher
 from repro_torch.models import get_model
 from repro_torch.models import params as tparams
-from repro_torch.serve import make_generate
+from repro_torch.serve import DraftSpec, make_generate
 from repro_torch.serve import paged as tpaged
 from repro_torch.serve.admission import PoolAdmission
 from repro_torch.serve.server import AdmissionError, InferenceServer
@@ -206,8 +206,10 @@ def test_paged_config_validation(weights):
         assert srv.stats()["chunk_len"] == 4
     with pytest.raises(ValueError, match="chunk_len"):
         InferenceServer(cfg, api, params, groups=[cpu("a")], chunk_len=-1)
-    with pytest.raises(NotImplementedError, match="A5"):
-        InferenceServer(cfg, api, params, groups=[cpu("a")], draft=object())
+    # Speculative serving is ported: the draft is validated, not refused.
+    with pytest.raises(ValueError, match="rolling window"):
+        InferenceServer(cfg, api, params, groups=[cpu("a")],
+                        draft=DraftSpec(dataclasses.replace(cfg, window=8), params))
     srv = InferenceServer(cfg, api, params, paged=tpaged.PagedSpec(), groups=[cpu("a")],
                           buckets=(PLEN,))
     srv.close()
