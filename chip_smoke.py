@@ -172,10 +172,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
              stack are printed, not held: with random weights a deep stack
              is chaotic, and the float32 reference moves as far when its
              embeddings move by one ulp.  A profiler pass over one prefill
-             and 8 decode steps prints the card's busy time against the
-             wall time.
+             and 8 decode steps, eager and replayed as a CUDA graph, prints
+             the card's busy time against the wall time.
+             The decode loops run as CUDA graphs (``serve/graphs.py``): the
+             launcher's one-shot generate captures its chain before the
+             timed call and replays it once (held), and the servers replay
+             every segment loop.  ``[graph]`` lines: on each main path,
+             one-shot generate eager and graphed, two calls each, the
+             second timed, every call's tokens held bitwise the launcher's,
+             the graphed second call held to one replay that copies in the
+             token and the start position and no cache; every served path
+             above runs eager and graphed (``InferenceServer(graph=)``),
+             both held to the same launch counts and streams, the graphed
+             one to one replay a segment, and the paged served path's
+             segments after the first to copy in no pool leaf; each line
+             prints tokens/s, wall, TTFT, the host's dispatch and
+             write-back of each segment, captures and capture seconds,
+             copy-ins per replay and the TMA maps encoded (at warm-up and
+             capture: a replay encodes none).  A failed capture raises and
+             fails the run.
 5. coexec -- ``repro_torch.launch.serve --coexec --scheduler hguided
-             --verify`` on qwen1.5-4b --full, 8 x 256 + 32: HGuided packages
+             --verify`` on qwen1.5-4b --full, 8 x 256 + 32 (the packages'
+             generate eager, the verifying one graphed): HGuided packages
              over two groups of cuda:0 (pod-a at power 2, pod-b at power 1,
              a CUDA stream each), held bitwise equal to one-shot generate
              (the launcher's --verify), every group with a package, and the
@@ -185,7 +203,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              cuda:0, under HGuided(adaptive=True), no simulated speeds:
              held correct with a package on each group; work share, balance
              and packages printed.
-6. results -- a JSON line of every kernel's numbers (launches: each
+6. results -- the ``[graph]`` table, eager beside graphed for every main
+             and served path of this run, and its JSON line; a JSON line of
+             every kernel's numbers (launches: each
              kernel's count on the first path that runs it; for
              flash_decode_paged, the served path; for flash_decode's chunk
              launch, listed as flash_decode_chunk, its flash_decode count
@@ -1227,29 +1247,46 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
 
 def profile_steps(cfg, params, batch, dev, torch) -> dict:
     """torch.profiler over one prefill and then 8 decode steps of the
-    main path: the card's busy time (the sum of its kernels' durations)
-    against the host's wall time for each, and the kernels that take most
-    of the card's time.  The profiler adds host time of its own."""
+    main path, the steps both eager and replayed as a CUDA graph
+    (``make_decode_chain(graph=True)``, captured and run once before, on
+    the cache the first run returned, so the profiled replay copies no
+    cache in): the card's busy time (the sum of its kernels' durations, the
+    graph's kernels included) against the host's wall time for each, CUDA
+    events around each region (the card's span from its first to its last
+    operation, gaps included), and the kernels that take most of the card's
+    time.  The profiler adds host time of its own."""
     from collections import Counter
 
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels import gemm
     from repro_torch.models import get_model
     from repro_torch.serve import make_decode_chain, make_prefill_step, zeros_cache
 
     api = get_model(cfg)
     b, s = batch["tokens"].shape
-    prefill, chain = make_prefill_step(cfg, api), make_decode_chain(cfg, api)
+    prefill = make_prefill_step(cfg, api)
     cache = zeros_cache(cfg, api, b, s + 8, device=dev)
-    out, tok = {}, None
-    for region in ("prefill", "decode_8_steps"):
+    tok, cache = prefill(params, batch, cache)
+    graphed = make_decode_chain(cfg, api, graph=True)
+    t0 = time.perf_counter()
+    _, _, static = graphed(params, cache, tok, s, 8)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    regions = (("prefill", lambda: prefill(params, batch, cache)),
+               ("decode_8_steps", lambda: make_decode_chain(cfg, api)(params, cache, tok, s, 8)),
+               ("decode_8_steps_graph", lambda: graphed(params, static, tok, s, 8)))
+    out = {"graph_capture_s": graphed.graphs.capture_s,
+           "graph_first_call_s": first_s}
+    for region, run in regions:
         torch.cuda.synchronize()
+        maps = gemm.maps_encoded()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            if tok is None:
-                tok, cache = prefill(params, batch, cache)
-            else:
-                chain(params, cache, tok, s, 8)
+            ev[0].record()
+            run()
+            ev[1].record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         kern = Counter()
@@ -1257,12 +1294,83 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 kern[e.name[:80]] += e.time_range.elapsed_us() / 1e3
         busy = sum(kern.values())
+        span = ev[0].elapsed_time(ev[1])
+        maps = gemm.maps_encoded() - maps
+        if region.endswith("graph") and maps:
+            fail(f"{cfg.name}: a replay of the decode chain encoded {maps} TMA maps")
         out[region] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                       "top_kernels_ms": kern.most_common(6)}
+                       "device_span_ms": span, "top_kernels_ms": kern.most_common(6)}
         print(f"  [profile] {region}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
-              f"({'not measured' if busy == 0 else f'{busy / wall / 1e3:.1%}'})", flush=True)
+              f"({'not measured' if busy == 0 else f'{busy / wall / 1e3:.1%}'}), CUDA events "
+              f"{span:.1f} ms", flush=True)
         for name, ms in kern.most_common(6):
             print(f"    {ms:9.3f} ms  {name}")
+    st = graphed.graphs.stats()
+    out["graph_replays"] = st["replays"]
+    print(f"  [graph] decode 8 steps: eager busy {out['decode_8_steps']['device_busy_ms']:.1f} / "
+          f"wall {out['decode_8_steps']['wall_ms']:.1f} ms, graphed busy "
+          f"{out['decode_8_steps_graph']['device_busy_ms']:.1f} / wall "
+          f"{out['decode_8_steps_graph']['wall_ms']:.1f} ms (profiler on); capture "
+          f"{out['graph_capture_s']:.3f} s (warm-up included), first call {first_s:.3f} s; the "
+          f"replay encoded no TMA map (held)", flush=True)
+    return out
+
+
+def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
+    """One-shot generate of the main path's batch eager (``graph=False``)
+    and graphed (the chain captured first by ``generate.prepare``), two
+    calls each, the first under the span tracer (the graph's replay timed
+    by CUDA events), the second timed (host clock to the tokens on the
+    host).  Held: every call's tokens bitwise ``want`` (the launcher's graphed
+    run); the graphed generate captured once, replayed twice, and its
+    second call copied in the prefill's token and the start position only:
+    no cache (prefill wrote the graph's static cache)."""
+    import numpy as np
+
+    from repro_torch.core.trace import Tracer, set_tracer
+    from repro_torch.serve import make_generate
+
+    out = {}
+    for mode in ("eager", "graph"):
+        generate = make_generate(cfg, api, graph=mode == "graph")
+        capture_s = generate.prepare(params, batch, gen)
+        # The first, untimed call under the span tracer: the graph cache
+        # logs its replay with CUDA events around it.
+        prev = set_tracer(Tracer(enabled=True))
+        try:
+            firsts = generate(params, batch, gen).cpu().numpy()
+        finally:
+            set_tracer(prev)
+        torch.cuda.synchronize()
+        before = (generate.graphs.copy_ins, generate.graphs.copy_in_bytes) if generate.graphs else None
+        t0 = time.perf_counter()
+        toks = generate(params, batch, gen).cpu().numpy()
+        wall = time.perf_counter() - t0
+        if not (np.array_equal(firsts, want) and np.array_equal(toks, want)):
+            fail(f"{cfg.name}: {mode} one-shot tokens differ from the launcher's graphed run")
+        rec = {"tokens_per_s": toks.size / wall, "wall_s": wall, "capture_s": capture_s}
+        if mode == "graph":
+            st = generate.graphs.stats()
+            copies, nbytes = st["copy_ins"] - before[0], st["copy_in_bytes"] - before[1]
+            replay_ms = st["per_replay"][-1][3]
+            if (st["captures"], st["replays"], copies) != (1, 2, 2):
+                fail(f"{cfg.name}: graphed generate captured {st['captures']}, replayed "
+                     f"{st['replays']}, copied {copies} inputs in on its second call; want 1, 2, "
+                     f"2 (token and position)")
+            rec.update(captures=st["captures"], replays=st["replays"],
+                       second_call_copy_ins=copies, second_call_copy_in_bytes=nbytes,
+                       first_call_replay_device_ms=replay_ms,
+                       static_bytes=st["static_bytes"])
+        out[mode] = rec
+        del generate
+    print(f"  [graph] one-shot, second call: eager {out['eager']['tokens_per_s']:.1f} tokens/s "
+          f"({out['eager']['wall_s']:.3f} s), graphed {out['graph']['tokens_per_s']:.1f} tokens/s "
+          f"({out['graph']['wall_s']:.3f} s); capture {out['graph']['capture_s']:.3f} s; graphed "
+          f"tokens bitwise eager (held); second graphed call copied in "
+          f"{out['graph']['second_call_copy_ins']} inputs, "
+          f"{out['graph']['second_call_copy_in_bytes']} B (token and position, no cache; held); "
+          f"the first call's replay (the decode chain) took the card "
+          f"{out['graph']['first_call_replay_device_ms']} ms (CUDA events)", flush=True)
     return out
 
 
@@ -1328,7 +1436,15 @@ def run_main_path(argv, dev, torch, modes) -> dict:
     cfg, api, params = serve.load_model(args)
     if toks.shape != (args.requests, args.gen) or toks.min() < 0 or toks.max() >= cfg.vocab:
         fail(f"tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
+    g = result["graphs"]
+    if g["captures"] != 1 or g["replays"] != 1:
+        fail(f"the launcher's generate captured {g['captures']} and replayed {g['replays']} "
+             f"chain graphs, want 1 and 1")
+    print(f"  [graph] the launcher's decode chain: captured in {result['capture_s']:.3f} s before "
+          f"the timed call, replayed once; gemm_rowinv encoded {maps} TMA maps on this path "
+          f"(at the capture's warm-up and capture: a replay encodes none)", flush=True)
     batch = serve.load_batch(cfg, args)
+    modes_1shot = oneshot_modes(cfg, api, params, batch, args.gen, toks, torch)
     cast = cast_params_cached(params, cfg.compute_dtype)
 
     def rel(a, b):
@@ -1355,6 +1471,7 @@ def run_main_path(argv, dev, torch, modes) -> dict:
     out = {"counts": counts, "arch": cfg.name, "layers": cfg.n_layers,
            "requests": args.requests, "prompt_len": args.prompt_len, "gen": args.gen,
            "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
+           "capture_s": result["capture_s"], "oneshot_modes": modes_1shot,
            "peak_memory_bytes": result["peak_memory_bytes"],
            "gemm_tma_maps_encoded": maps,
            "first_token_is_prefill_argmax": first_ok,
@@ -1386,17 +1503,145 @@ SERVER_ARGV = ["--arch", "qwen1.5-4b", "--full", "--server", "--paged", "--block
                "--kernel", "cuda"]
 
 
+MODES = ("eager", "graph")
+
+
+def served_modes(run, torch, *, profiled=False, multi_row=False) -> dict:
+    """``run(graph)`` (the launcher's ``run_server``, or the server API) run
+    eager and then graphed (``InferenceServer(graph=)``), each with the
+    launch counts zeroed just before and read just after (with
+    ``multi_row``, also the decode kernels' multi-row launches), the span
+    tracer on (the runtime's dispatch and write-back spans, the batcher's
+    segment spans) and, with ``profiled``, torch.profiler recording the
+    card's activity (its kernels' and copies' durations summed: the card's
+    busy time).  No request may fail or be rejected, and in the graphed run
+    every segment must be a graph replay.  Returns ``{mode: (result,
+    counts, busy ms or None, record)}``, the record as
+    :func:`mode_record`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.trace import Tracer, set_tracer, tracer
+    from repro_torch.kernels import gemm, ops
+
+    out = {}
+    for mode in MODES:
+        # Free the previous run's server (its graphs and buffers), so that
+        # each run's peak memory is its own.
+        gc.collect()
+        prev, tr = tracer(), Tracer(capacity=1 << 17, enabled=True)
+        set_tracer(tr)
+        maps = gemm.maps_encoded()
+        ops.reset_launch_counts()
+        prof = None
+        try:
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    result = run(mode == "graph")
+            else:
+                result = run(mode == "graph")
+        finally:
+            counts = ops.launch_counts()
+            if multi_row:
+                counts["multi_row"] = ops.multi_row_counts()
+            set_tracer(prev)
+        maps = gemm.maps_encoded() - maps
+        # The runtime's host spans of each segment Program (not the prefill
+        # waves'): dispatch (the loop's launches, or its copy-ins and
+        # replay; the graphed run's first also its capture) and write-back.
+        host = {"dispatch": [], "write_back": []}
+        for e in tr.chrome_events():
+            if (e.get("ph") == "X" and e["name"] in host
+                    and "prefill" not in e["args"].get("kernel", "")):
+                host[e["name"]].append(e["dur"] / 1e3)
+        busy = None
+        if prof is not None:
+            # The raw trace, not prof.events(): building the event tree of a
+            # run's ~10^5 kernels takes the host tens of seconds.
+            busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                       if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
+        s = result["stats"]
+        if (s["completed"] != len(result["results"]) or s["failed"] or s["rejected"]
+                or any(r is None for r in result["results"])):
+            fail(f"served run ({mode}): {s['completed']} completed, {s['failed']} failed, "
+                 f"{s['rejected']} rejected of {len(result['results'])}")
+        g = s.get("graphs")
+        if (g is not None) != (mode == "graph") or (g and g["replays"] != s["segments"]):
+            fail(f"served run ({mode}): {s['segments']} segments, graph counters {g}: every "
+                 f"graphed segment must be one replay, and no eager one")
+        if g and g["warmup_clone_bytes"]:
+            fail(f"served run ({mode}): a capture warmed up on {g['warmup_clone_bytes']} bytes "
+                 f"of clones of a live cache; every loop must be captured before its first bind")
+        out[mode] = (result, counts, busy, mode_record(result, busy, maps, host))
+    return out
+
+
+def mode_record(result, busy, maps, host) -> dict:
+    """One served run's numbers: tokens/s, wall, TTFT, segments, the host's
+    dispatch and write-back of each segment (ms, the runtime's spans; the
+    graphed run's first segment also captures its loop), peak memory, TMA
+    maps encoded, the card's busy time where profiled, and the graph's
+    captures, capture seconds, replays and copy-ins per replay (count and
+    bytes)."""
+    s = result["stats"]
+    rec = {"tokens_per_s": result.get("tokens_per_s", s["tokens_out"] / result["wall_s"]),
+           "wall_s": result["wall_s"],
+           "ttft_s": sorted(m["ttft"] for m in result["request_metrics"]),
+           "segments": s["segments"], "dispatch_ms": host["dispatch"],
+           "write_back_ms": host["write_back"],
+           "peak_memory_bytes": result.get("peak_memory_bytes"),
+           "gemm_tma_maps_encoded": maps}
+    if busy is not None:
+        rec.update(device_busy_ms=busy, device_busy_share=busy / 1e3 / result["wall_s"])
+    g = s.get("graphs")
+    if g:
+        rec["graph"] = {"captures": g["captures"], "capture_s": g["capture_s"],
+                        "warmup_s": g["warmup_s"], "instantiate_s": g["instantiate_s"],
+                        "replays": g["replays"], "static_bytes": g["static_bytes"],
+                        "warmup_clone_bytes": g["warmup_clone_bytes"],
+                        "copy_ins": [r[1] for r in g["per_replay"]],
+                        "copy_in_bytes": [r[2] for r in g["per_replay"]],
+                        "replay_device_ms": [r[3] for r in g["per_replay"]]}
+    return rec
+
+
+def print_modes(label, recs) -> None:
+    """One line a mode, eager beside graphed."""
+    def ms(xs):
+        return "[" + ", ".join("?" if x is None else f"{x:.1f}" for x in xs) + "]"
+
+    for mode in MODES:
+        r = recs[mode]
+        t = r["ttft_s"]
+        line = (f"  [graph] {label}, {mode}: {r['tokens_per_s']:.1f} tokens/s, {r['wall_s']:.3f} s,"
+                f" TTFT {t[0]:.3f}-{t[-1]:.3f} s, {r['segments']} segments; host per segment: "
+                f"dispatch {ms(r['dispatch_ms'])} ms, write-back {ms(r['write_back_ms'])} ms")
+        if "device_busy_ms" in r:
+            line += f"; card busy {r['device_busy_ms']:.1f} ms ({r['device_busy_share']:.1%})"
+        if r["peak_memory_bytes"]:
+            line += f"; peak {r['peak_memory_bytes'] / 2**30:.2f} GiB"
+        g = r.get("graph")
+        if g:
+            line += (f"; {g['captures']} captures in {g['capture_s']:.3f} s (warm-up "
+                     f"{g['warmup_s']:.3f}, instantiation {g['instantiate_s']:.3f}; in its first "
+                     f"segment's dispatch; warm-up clones {g['warmup_clone_bytes']} bytes, "
+                     f"held at 0), {g['replays']} replays, copy-ins per replay "
+                     f"{list(zip(g['copy_ins'], g['copy_in_bytes']))} (count, bytes), each "
+                     f"replay's device time (CUDA events) {ms(g['replay_device_ms'])} ms; TMA maps "
+                     f"encoded {r['gemm_tma_maps_encoded']} (at warm-up and capture)")
+        print(line, flush=True)
+
+
 def run_served_path(dev, torch) -> dict:
     """The launcher's paged continuous-batching server (``run_server``) on
     qwen1.5-4b's weights (the one-shot path's, drawn again from the same
-    seed), with the launch counts zeroed just before and read just after
-    and the span tracer on (the runtime's write-back spans).  Then its
-    streams against one-shot generate of the same 8 prompts as one batch
-    and of each prompt alone (batch 1), both held, bitwise."""
+    seed), eager and graphed (:func:`served_modes`).  Held for both: the
+    launch counts, one prefill wave and 4 segments, and the streams against
+    one-shot generate of the same 8 prompts as one batch and of each prompt
+    alone (batch 1), bitwise; for the graphed run, every replay after the
+    first copies in no pool leaf (the pool is the loop's own buffers,
+    handed back through the runtime)."""
     import numpy as np
 
-    from repro_torch.core.trace import Tracer, set_tracer, tracer
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.serve import make_generate
 
@@ -1404,42 +1649,40 @@ def run_served_path(dev, torch) -> dict:
     cfg, api, params = serve.load_model(args)
     if cfg.decode_block != args.block_len:
         fail(f"--paged --kernel cuda left decode_block at {cfg.decode_block}")
-    prev = tracer()
-    set_tracer(Tracer(capacity=1 << 17, enabled=True))
-    ops.reset_launch_counts()
-    try:
-        result = serve.run_server(cfg, api, params, args)
-    finally:
-        counts = ops.launch_counts()
-        set_tracer(prev)
-    s = result["stats"]
+    runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args, graph=graph), torch)
     segs = -(-(args.gen - 1) // args.seg_len)
     want = _launches(cfg.n_layers, fa=cfg.n_layers, fdp=cfg.n_layers * args.seg_len * segs,
                      forwards=[(1 + args.seg_len * segs, cfg.n_layers)])
-    print(f"  launches {counts} (want {want})", flush=True)
-    if counts != want:
-        fail(f"served path launch counts {counts} != {want}")
-    if (s["completed"] != args.requests or s["failed"] or s["rejected"]
-            or any(r is None for r in result["results"])):
-        fail(f"served path: {s['completed']} completed, {s['failed']} failed, "
-             f"{s['rejected']} rejected of {args.requests}")
-    if s["prefill_waves"] != 1 or s["segments"] != segs:
-        fail(f"served path ran {s['prefill_waves']} prefill waves and {s['segments']} "
-             f"segments, want 1 and {segs}")
-    served = np.stack(result["results"])
-    tokens = torch.from_numpy(np.stack(result["prompts"])).to(dev)
-    generate = make_generate(cfg, api)
-    one8 = generate(params, {"tokens": tokens}, args.gen).cpu().numpy()
-    rows8 = int(sum(np.array_equal(a, b) for a, b in zip(served, one8)))
-    if rows8 != args.requests:
-        fail(f"served path: {rows8} of {args.requests} streams equal one-shot generate of "
-             f"the same prompts as one batch of {args.requests}")
-    ones = np.stack([generate(params, {"tokens": tokens[i:i + 1]}, args.gen)[0].cpu().numpy()
-                     for i in range(args.requests)])
-    rows1 = int(sum(np.array_equal(a, b) for a, b in zip(served, ones)))
-    if rows1 != args.requests:
-        fail(f"served path: {rows1} of {args.requests} streams equal one-shot generate of "
-             f"their prompt alone (batch 1)")
+    one8 = ones = None
+    for mode, (result, counts, _, rec) in runs.items():
+        s = result["stats"]
+        print(f"  {mode}: launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"served path ({mode}) launch counts {counts} != {want}")
+        if s["prefill_waves"] != 1 or s["segments"] != segs:
+            fail(f"served path ({mode}) ran {s['prefill_waves']} prefill waves and "
+                 f"{s['segments']} segments, want 1 and {segs}")
+        served = np.stack(result["results"])
+        if one8 is None:
+            tokens = torch.from_numpy(np.stack(result["prompts"])).to(dev)
+            generate = make_generate(cfg, api)
+            one8 = generate(params, {"tokens": tokens}, args.gen).cpu().numpy()
+            ones = np.stack([generate(params, {"tokens": tokens[i:i + 1]}, args.gen)[0]
+                             .cpu().numpy() for i in range(args.requests)])
+        rows8 = int(sum(np.array_equal(a, b) for a, b in zip(served, one8)))
+        rows1 = int(sum(np.array_equal(a, b) for a, b in zip(served, ones)))
+        if rows8 != args.requests or rows1 != args.requests:
+            fail(f"served path ({mode}): {rows8}/{args.requests} streams equal one-shot generate "
+                 f"of the same prompts as one batch, {rows1}/{args.requests} of each prompt "
+                 f"alone (batch 1)")
+        if mode == "graph":
+            pool = s["memory"]["kv_bytes_device"]
+            later = rec["graph"]["copy_in_bytes"][1:]
+            if any(b >= pool // 4 for b in later):
+                fail(f"served path: graphed segments after the first copied in {later} B "
+                     f"(the pool holds {pool} B)")
+    result, counts, _, _ = runs["graph"]
+    s = result["stats"]
     mem = s["memory"]
     spans = result.get("spans", {})
 
@@ -1462,21 +1705,26 @@ def run_served_path(dev, torch) -> dict:
            "segment_dispatch_ms": per_package_ms(f"dispatch/decode_pseg{args.seg_len}"),
            "prefill_write_back_ms": per_package_ms(f"write_back/prefill_{args.prompt_len}"),
            "prefill_dispatch_ms": per_package_ms(f"dispatch/prefill_{args.prompt_len}"),
-           "streams_equal_batch8_oneshot": rows8, "streams_equal_batch1_oneshot": rows1,
-           "ttft_s": sorted(m["ttft"] for m in result["request_metrics"])}
+           "streams_equal_batch8_oneshot": args.requests,
+           "streams_equal_batch1_oneshot": args.requests,
+           "ttft_s": sorted(m["ttft"] for m in result["request_metrics"]),
+           "modes": {m: r[3] for m, r in runs.items()}}
     print(f"  served == one-shot generate of the same prompts as one batch of "
-          f"{args.requests}: {rows8}/{args.requests}; == one-shot of each prompt alone "
-          f"(batch 1): {rows1}/{args.requests}; both held, bitwise", flush=True)
+          f"{args.requests}: {args.requests}/{args.requests}; == one-shot of each prompt alone "
+          f"(batch 1): {args.requests}/{args.requests}; both held, bitwise, eager and graphed",
+          flush=True)
     peak = result["peak_memory_bytes"] or 0
-    print(f"  {result['tokens_per_s']:.1f} tokens/s, {result['wall_s']:.3f} s, peak memory "
-          f"{peak / 2**30:.2f} GiB; pool {mem['blocks_peak']}/"
+    print(f"  graphed: {result['tokens_per_s']:.1f} tokens/s, {result['wall_s']:.3f} s, peak "
+          f"memory {peak / 2**30:.2f} GiB; pool {mem['blocks_peak']}/"
           f"{mem['blocks_total']} blocks at peak ({mem['kv_bytes_allocated']} B allocated, "
           f"{mem['kv_bytes_touched']} B touched, {mem['kv_bytes_device']} B on the card); "
-          f"per segment: host dispatch of its 8 steps {out['segment_dispatch_ms']} ms, host "
-          f"write-back {out['segment_write_back_ms']} ms; per prefill wave: dispatch "
+          f"per segment (mean, the first one's capture included): host dispatch of its 8 steps "
+          f"{out['segment_dispatch_ms']} ms, host write-back {out['segment_write_back_ms']} ms; "
+          f"per prefill wave: dispatch "
           f"{out['prefill_dispatch_ms']} ms, write-back {out['prefill_write_back_ms']} ms",
           flush=True)
-    return out, counts, (served, ones)
+    print_modes("served, arrivals 1 ms apart", out["modes"])
+    return out, counts, (np.stack(result["results"]), ones)
 
 
 # The chunked served paths: the served path's model, prompts and lengths,
@@ -1496,54 +1744,22 @@ def _argv_with(argv, **flags):
     return out
 
 
-def served_run(args, cfg, api, params, torch):
-    """The launcher's ``run_server`` with the launch counts zeroed just
-    before and read just after, the span tracer on (segment spans give the
-    chunk stages and mixed segments) and torch.profiler recording the
-    card's activity (its kernels' and copies' durations summed: the card's
-    busy time over the run's wall time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core.trace import Tracer, set_tracer, tracer
-    from repro_torch.kernels import ops
-    from repro_torch.launch import serve
-
-    prev = tracer()
-    set_tracer(Tracer(capacity=1 << 17, enabled=True))
-    ops.reset_launch_counts()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            result = serve.run_server(cfg, api, params, args)
-    finally:
-        counts = ops.launch_counts()
-        set_tracer(prev)
-    # The raw trace, not prof.events(): building the event tree of a
-    # run's ~10^5 kernels takes the host tens of seconds.
-    busy = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
-    s = result["stats"]
-    if (s["completed"] != args.requests or s["failed"] or s["rejected"]
-            or any(r is None for r in result["results"])):
-        fail(f"served path {args.chunk_len=}: {s['completed']} completed, {s['failed']} "
-             f"failed, {s['rejected']} rejected of {args.requests}")
-    return result, counts, busy
-
-
 def run_chunked_paths(dev, torch, whole) -> dict:
     """Chunked prefill through the launcher's server on qwen1.5-4b's
-    weights, beside whole-prompt serving of the same arrivals:
+    weights, beside whole-prompt serving of the same arrivals, each eager
+    and graphed, under the profiler (:func:`served_modes`):
     1. ``--paged --block-len 16 --chunk-len 64``, the served path's 8 x 256
        + 32 with spread arrivals, and the same arrivals served whole-prompt;
     2. ``--chunk-len 40`` on the contiguous layout, 4 requests.
-    Held: no failure; at least one segment mixing decoding and prefilling
-    slots; launch counts exactly (chunked: flash_attention 0, flash_decode
-    n_layers per chunk stage, flash_decode_paged n_layers per decode step
-    (contiguous: flash_decode for both), one gemm_rowinv per product and one
-    rms_norm per norm of each chunk stage and decode step); every stream
-    bitwise equal to the whole-prompt served streams and to one-shot
-    generate of its prompt alone (batch 1).  Printed: tokens/s, each
-    request's TTFT and the card's busy share beside the whole-prompt run's
-    (the profiler adds host time to both)."""
+    Held for every run: no failure; at least one segment mixing decoding
+    and prefilling slots; launch counts exactly (chunked: flash_attention
+    0, flash_decode n_layers per chunk stage, flash_decode_paged n_layers
+    per decode step (contiguous: flash_decode for both), one gemm_rowinv per
+    product and one rms_norm per norm of each chunk stage and decode step);
+    every stream bitwise equal to the whole-prompt served streams and to
+    one-shot generate of its prompt alone (batch 1).  Printed: tokens/s,
+    each request's TTFT and the card's busy share beside the whole-prompt
+    run's (the profiler adds host time to both)."""
     import numpy as np
 
     from repro_torch.launch import serve
@@ -1558,46 +1774,54 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     n = cfg.n_layers
     out = {}
     for label, args in (("whole_prompt", args_w), ("chunked", args_c)):
-        result, counts, busy = served_run(args, cfg, api, params, torch)
+        runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args, graph=graph),
+                            torch, profiled=True)
+        for mode, (result, counts, busy, _) in runs.items():
+            s = result["stats"]
+            steps = args.seg_len * s["segments"]
+            if label == "chunked":
+                stages = result["chunk_stages"]
+                want = _launches(n, fd=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
+            else:
+                stages = s["prefill_waves"]
+                want = _launches(n, fa=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
+            print(f"  {label} ({mode}): launches {counts} (want {want})", flush=True)
+            if counts != want:
+                fail(f"{label} served path ({mode}) launch counts {counts} != {want}")
+            got = np.stack(result["results"])
+            eq_whole = int(sum(np.array_equal(a, b) for a, b in zip(got, served_whole)))
+            eq_one = int(sum(np.array_equal(a, b) for a, b in zip(got, ones)))
+            if eq_whole != args.requests or eq_one != args.requests:
+                fail(f"{label} served path ({mode}): {eq_whole}/{args.requests} streams equal "
+                     f"the whole-prompt served streams, {eq_one}/{args.requests} one-shot of "
+                     f"each prompt alone")
+            if label == "chunked" and result["mixed_segments"] < 1:
+                fail(f"chunked served path ({mode}): no segment mixed decoding and prefilling "
+                     f"slots")
+            ttft = [m["ttft"] for m in result["request_metrics"]]
+            print(f"  {label} ({mode}): {result['tokens_per_s']:.1f} tokens/s, "
+                  f"{result['wall_s']:.3f} s, {s['segments']} segments"
+                  + (f" ({stages} with a chunk stage, {result['mixed_segments']} mixed)"
+                     if label == "chunked" else f", {stages} prefill waves")
+                  + f"; card busy {busy:.1f} ms ({busy / 1e3 / result['wall_s']:.1%} of the "
+                  f"wall, profiler on); TTFT s {[round(t, 3) for t in ttft]}; streams == "
+                  f"whole-prompt served {eq_whole}/{args.requests}, == batch-1 one-shot "
+                  f"{eq_one}/{args.requests} (held, bitwise)", flush=True)
+        result, counts, busy, _ = runs["graph"]
         s = result["stats"]
-        steps = args.seg_len * s["segments"]
-        if label == "chunked":
-            stages = result["chunk_stages"]
-            want = _launches(n, fd=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
-        else:
-            stages = s["prefill_waves"]
-            want = _launches(n, fa=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
-        print(f"  {label}: launches {counts} (want {want})", flush=True)
-        if counts != want:
-            fail(f"{label} served path launch counts {counts} != {want}")
-        got = np.stack(result["results"])
-        eq_whole = int(sum(np.array_equal(a, b) for a, b in zip(got, served_whole)))
-        eq_one = int(sum(np.array_equal(a, b) for a, b in zip(got, ones)))
-        if eq_whole != args.requests or eq_one != args.requests:
-            fail(f"{label} served path: {eq_whole}/{args.requests} streams equal the "
-                 f"whole-prompt served streams, {eq_one}/{args.requests} one-shot of each "
-                 f"prompt alone")
-        ttft = [m["ttft"] for m in result["request_metrics"]]
         out[label] = {"wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
                       "segments": s["segments"], "prefill_waves": s["prefill_waves"],
                       "device_busy_ms": busy,
                       "device_busy_share": busy / 1e3 / result["wall_s"],
-                      "ttft_s": ttft, "streams_equal_whole_served": eq_whole,
-                      "streams_equal_batch1_oneshot": eq_one}
+                      "ttft_s": [m["ttft"] for m in result["request_metrics"]],
+                      "streams_equal_whole_served": args.requests,
+                      "streams_equal_batch1_oneshot": args.requests,
+                      "modes": {m: r[3] for m, r in runs.items()}}
         if label == "chunked":
             chunked_counts = counts
-            out[label].update(chunk_len=args.chunk_len, chunk_stages=stages,
+            out[label].update(chunk_len=args.chunk_len, chunk_stages=result["chunk_stages"],
                               mixed_segments=result["mixed_segments"])
-            if result["mixed_segments"] < 1:
-                fail("chunked served path: no segment mixed decoding and prefilling slots")
-        print(f"  {label}: {result['tokens_per_s']:.1f} tokens/s, {result['wall_s']:.3f} s, "
-              f"{s['segments']} segments"
-              + (f" ({stages} with a chunk stage, {result['mixed_segments']} mixed)"
-                 if label == "chunked" else f", {stages} prefill waves")
-              + f"; card busy {busy:.1f} ms ({busy / 1e3 / result['wall_s']:.1%} of the wall, "
-              f"profiler on); TTFT s {[round(t, 3) for t in ttft]}; streams == whole-prompt "
-              f"served {eq_whole}/{args.requests}, == batch-1 one-shot {eq_one}/{args.requests}"
-              f" (held, bitwise)", flush=True)
+        print_modes(f"{label.replace('_', ' ')}, arrivals at 4/s", out[label]["modes"])
     # 2. Contiguous chunked serving, chunks of 40, against its own one-shot
     # reference (decode tiles of 128: no --paged).
     argv = [a for a in argv if a not in ("--paged",)]
@@ -1605,32 +1829,37 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     args = serve.parse_args(argv)
     ccfg = dataclasses.replace(cfg, decode_block=0)
     capi = get_model(ccfg)
-    result, counts, busy = served_run(args, ccfg, capi, params, torch)
-    s = result["stats"]
-    stages, steps = result["chunk_stages"], args.seg_len * s["segments"]
-    want = _launches(n, fd=n * (stages + steps), forwards=[(stages + steps, n)])
-    print(f"  contiguous, chunks of 40: launches {counts} (want {want})", flush=True)
-    if counts != want:
-        fail(f"contiguous chunked served path launch counts {counts} != {want}")
+    runs = served_modes(lambda graph: serve.run_server(ccfg, capi, params, args, graph=graph),
+                        torch, profiled=True)
     generate = make_generate(ccfg, capi)
-    eq_one = 0
-    for p, r in zip(result["prompts"], result["results"]):
-        tok = torch.from_numpy(p[None]).to(dev)
-        eq_one += int(np.array_equal(r, generate(params, {"tokens": tok}, args.gen)[0]
-                                     .cpu().numpy()))
-    if eq_one != args.requests:
-        fail(f"contiguous chunked served path: {eq_one}/{args.requests} streams equal one-shot "
-             f"generate of each prompt alone")
+    refs = [generate(params, {"tokens": torch.from_numpy(p[None]).to(dev)}, args.gen)[0]
+            .cpu().numpy() for p in runs["graph"][0]["prompts"]]
+    for mode, (result, counts, busy, _) in runs.items():
+        s = result["stats"]
+        stages, steps = result["chunk_stages"], args.seg_len * s["segments"]
+        want = _launches(n, fd=n * (stages + steps), forwards=[(stages + steps, n)])
+        print(f"  contiguous, chunks of 40 ({mode}): launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"contiguous chunked served path ({mode}) launch counts {counts} != {want}")
+        eq_one = _streams_equal(result, refs)
+        if eq_one != args.requests:
+            fail(f"contiguous chunked served path ({mode}): {eq_one}/{args.requests} streams "
+                 f"equal one-shot generate of each prompt alone")
+        print(f"  contiguous, chunks of 40 ({mode}): {args.requests} requests, {s['segments']} "
+              f"segments ({stages} with a chunk stage, {result['mixed_segments']} mixed), "
+              f"{result['tokens_per_s']:.1f} tokens/s; == batch-1 one-shot "
+              f"{eq_one}/{args.requests} (held, bitwise)", flush=True)
+    result, _, busy, _ = runs["graph"]
+    s = result["stats"]
     out["contiguous_chunk40"] = {"requests": args.requests, "wall_s": result["wall_s"],
                                  "tokens_per_s": result["tokens_per_s"],
-                                 "segments": s["segments"], "chunk_stages": stages,
+                                 "segments": s["segments"],
+                                 "chunk_stages": result["chunk_stages"],
                                  "mixed_segments": result["mixed_segments"],
                                  "device_busy_ms": busy,
-                                 "streams_equal_batch1_oneshot": eq_one}
-    print(f"  contiguous, chunks of 40: {args.requests} requests, {s['segments']} segments "
-          f"({stages} with a chunk stage, {result['mixed_segments']} mixed), "
-          f"{result['tokens_per_s']:.1f} tokens/s; == batch-1 one-shot {eq_one}/{args.requests} "
-          f"(held, bitwise)", flush=True)
+                                 "streams_equal_batch1_oneshot": args.requests,
+                                 "modes": {m: r[3] for m, r in runs.items()}}
+    print_modes("contiguous, chunks of 40", out["contiguous_chunk40"]["modes"])
     return out, chunked_counts
 
 
@@ -1655,7 +1884,8 @@ def _streams_equal(result, want) -> int:
 def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
     """Speculative serving through the launcher's server on qwen1.5-4b's
     weights (8 x 256 + 32, arrivals 1 ms apart, seg_len 8, the served
-    path's prompts):
+    path's prompts), each eager and graphed (:func:`served_modes`; the
+    graphed runs replay the draft/verify scan, and the gate's bypass):
     1. ``--paged --draft self --draft-k 2``: acceptance exactly 1.0, so
        every step emits k + 1 tokens and the segments and launches are
        fixed: per segment step the draft's two-row first step and its
@@ -1675,8 +1905,6 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
     Every stream held bitwise equal to the whole-prompt served streams and
     to one-shot generate of its prompt alone (batch 1)."""
     from repro_torch.core import DeviceGroup
-    from repro_torch.core.trace import Tracer, set_tracer, tracer
-    from repro_torch.kernels import ops
     from repro_torch.launch import serve
     from repro_torch.models import get_model
     from repro_torch.models.params import materialize
@@ -1690,23 +1918,6 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
     n = cfg.n_layers
     out = {}
 
-    def counted(run):
-        prev = tracer()
-        set_tracer(Tracer(capacity=1 << 17, enabled=True))
-        ops.reset_launch_counts()
-        try:
-            result = run()
-        finally:
-            counts = ops.launch_counts()
-            counts["multi_row"] = ops.multi_row_counts()
-            set_tracer(prev)
-        s = result["stats"]
-        if (s["completed"] != len(result["results"]) or s["failed"] or s["rejected"]
-                or any(r is None for r in result["results"])):
-            fail(f"spec served path: {s['completed']} completed, {s['failed']} failed, "
-                 f"{s['rejected']} rejected")
-        return result, counts, s
-
     def held(label, result, refs):
         eq_whole = _streams_equal(result, served_whole[:len(refs)])
         eq_one = _streams_equal(result, refs)
@@ -1716,22 +1927,27 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
         return eq_whole, eq_one
 
     # 1. Self-draft on the paged pool.
-    result, counts, s = counted(lambda: serve.run_server(cfg, api, params, args))
-    steps = args.seg_len * s["segments"]
-    segs = -(-(args.gen - 1) // (args.seg_len * (k + 1)))
-    want = _launches(n, fa=2 * n * s["prefill_waves"], fd=k * n * steps, fdp=n * steps,
-                     forwards=[(2 * s["prefill_waves"] + (k + 1) * steps, n)])
-    want["multi_row"] = {"flash_decode": n * steps, "flash_decode_paged": n * steps}
-    print(f"  self draft, paged: launches {counts} (want {want})", flush=True)
-    if counts != want:
-        fail(f"spec served path launch counts {counts} != {want}")
-    if s["prefill_waves"] != 1 or s["segments"] != segs:
-        fail(f"spec served path ran {s['prefill_waves']} prefill waves and {s['segments']} "
-             f"segments, want 1 and {segs}")
-    if s["acceptance"] != 1.0 or not s["tokens_accepted"] == s["tokens_drafted"] > 0:
-        fail(f"self draft: acceptance {s['acceptance']} ({s['tokens_accepted']}/"
-             f"{s['tokens_drafted']}), want exactly 1.0")
-    eq = held("self draft, paged", result, ones)
+    runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args, graph=graph),
+                        torch, multi_row=True)
+    for mode, (result, counts, _, _) in runs.items():
+        s = result["stats"]
+        steps = args.seg_len * s["segments"]
+        segs = -(-(args.gen - 1) // (args.seg_len * (k + 1)))
+        want = _launches(n, fa=2 * n * s["prefill_waves"], fd=k * n * steps, fdp=n * steps,
+                         forwards=[(2 * s["prefill_waves"] + (k + 1) * steps, n)])
+        want["multi_row"] = {"flash_decode": n * steps, "flash_decode_paged": n * steps}
+        print(f"  self draft, paged ({mode}): launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"spec served path ({mode}) launch counts {counts} != {want}")
+        if s["prefill_waves"] != 1 or s["segments"] != segs:
+            fail(f"spec served path ({mode}) ran {s['prefill_waves']} prefill waves and "
+                 f"{s['segments']} segments, want 1 and {segs}")
+        if s["acceptance"] != 1.0 or not s["tokens_accepted"] == s["tokens_drafted"] > 0:
+            fail(f"self draft ({mode}): acceptance {s['acceptance']} ({s['tokens_accepted']}/"
+                 f"{s['tokens_drafted']}), want exactly 1.0")
+        eq = held(f"self draft, paged ({mode})", result, ones)
+    result, counts, _, _ = runs["graph"]
+    s = result["stats"]
     ttft = sorted(m["ttft"] for m in result["request_metrics"])
     peak = result["peak_memory_bytes"] or 0
     out["self_draft_paged"] = {
@@ -1742,16 +1958,18 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
         "ttft_s": ttft, "streams_equal_whole_served": eq[0],
         "streams_equal_batch1_oneshot": eq[1], "launches": counts,
         "plain_served": {key: plain_sp[key] for key in ("tokens_per_s", "wall_s",
-                                                         "peak_memory_bytes", "ttft_s")}}
-    print(f"  self draft, paged: acceptance {s['acceptance']} ({s['tokens_accepted']}/"
+                                                         "peak_memory_bytes", "ttft_s")},
+        "modes": {m: r[3] for m, r in runs.items()}}
+    print(f"  self draft, paged (graphed): acceptance {s['acceptance']} ({s['tokens_accepted']}/"
           f"{s['tokens_drafted']}), {s['segments']} segments; {result['tokens_per_s']:.1f} "
           f"tokens/s, {result['wall_s']:.3f} s, TTFT s {[round(t, 3) for t in ttft]}, peak "
-          f"{peak / 2**30:.2f} GiB; whole-prompt served (this call): "
+          f"{peak / 2**30:.2f} GiB; whole-prompt served, graphed (this call): "
           f"{plain_sp['tokens_per_s']:.1f} tokens/s, {plain_sp['wall_s']:.3f} s, TTFT s "
           f"{[round(t, 3) for t in plain_sp['ttft_s']]}, peak "
           f"{(plain_sp['peak_memory_bytes'] or 0) / 2**30:.2f} GiB; streams == whole-prompt "
           f"served {eq[0]}/{len(ones)}, == batch-1 one-shot {eq[1]}/{len(ones)} (held, "
-          f"bitwise)", flush=True)
+          f"bitwise, eager and graphed)", flush=True)
+    print_modes("self draft k 2, paged", out["self_draft_paged"]["modes"])
 
     # 2. A weak draft through the server API, contiguous, 4 requests.
     ccfg = dataclasses.replace(cfg, decode_block=0)
@@ -1765,12 +1983,12 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
     refs = [generate(params, {"tokens": torch.from_numpy(p[None]).to(dev)}, args.gen)[0]
             .cpu().numpy() for p in prompts]
 
-    def weak():
+    def weak(graph):
         srv = InferenceServer(ccfg, capi, params, groups=[DeviceGroup("serve:0", device=dev)],
                               buckets=(args.prompt_len,), max_batch=args.max_batch,
                               seg_len=args.seg_len, max_new_cap=args.gen,
                               max_wait_ms=args.max_wait_ms,
-                              draft=DraftSpec(dcfg, dparams, k=k))
+                              draft=DraftSpec(dcfg, dparams, k=k), graph=graph)
         t0 = time.perf_counter()
         with srv:
             hs = []
@@ -1782,60 +2000,76 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
         return {"results": res, "stats": srv.stats(), "wall_s": wall,
                 "request_metrics": [h.metrics for h in hs]}
 
-    result, counts, s = counted(weak)
-    steps, waves = args.seg_len * s["segments"], s["prefill_waves"]
-    want = _launches(n, fa=(n + 4) * waves, fd=(k - 1) * 4 * steps + (n + 4) * steps,
-                     forwards=[(waves + steps, n), (waves + k * steps, 4)])
-    want["multi_row"] = {"flash_decode": (n + 4) * steps, "flash_decode_paged": 0}
-    print(f"  weak draft, contiguous: launches {counts} (want {want})", flush=True)
-    if counts != want:
-        fail(f"weak-draft served path launch counts {counts} != {want}")
-    eq_one = _streams_equal(result, refs)
-    if eq_one != len(refs):
-        fail(f"weak draft: {eq_one}/{len(refs)} streams equal one-shot generate")
+    runs = served_modes(weak, torch, multi_row=True)
+    for mode, (result, counts, _, _) in runs.items():
+        s = result["stats"]
+        steps, waves = args.seg_len * s["segments"], s["prefill_waves"]
+        want = _launches(n, fa=(n + 4) * waves, fd=(k - 1) * 4 * steps + (n + 4) * steps,
+                         forwards=[(waves + steps, n), (waves + k * steps, 4)])
+        want["multi_row"] = {"flash_decode": (n + 4) * steps, "flash_decode_paged": 0}
+        print(f"  weak draft, contiguous ({mode}): launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"weak-draft served path ({mode}) launch counts {counts} != {want}")
+        eq_one = _streams_equal(result, refs)
+        if eq_one != len(refs):
+            fail(f"weak draft ({mode}): {eq_one}/{len(refs)} streams equal one-shot generate")
+    result, counts, _, _ = runs["graph"]
+    s = result["stats"]
     out["weak_draft_contiguous"] = {
         "requests": len(prompts), "draft_layers": 4, "k": k, "segments": s["segments"],
-        "prefill_waves": waves, "acceptance": s["acceptance"],
+        "prefill_waves": s["prefill_waves"], "acceptance": s["acceptance"],
         "tokens_drafted": s["tokens_drafted"], "tokens_accepted": s["tokens_accepted"],
-        "wall_s": result["wall_s"], "streams_equal_batch1_oneshot": eq_one,
-        "launches": counts}
-    print(f"  weak draft (4 layers, seed 7), contiguous: acceptance {s['acceptance']:.3f} "
-          f"({s['tokens_accepted']}/{s['tokens_drafted']}), {s['segments']} segments, "
-          f"{result['wall_s']:.3f} s; streams == batch-1 one-shot {eq_one}/{len(refs)} "
-          f"(held, bitwise)", flush=True)
+        "wall_s": result["wall_s"], "streams_equal_batch1_oneshot": len(refs),
+        "launches": counts, "modes": {m: r[3] for m, r in runs.items()}}
+    print(f"  weak draft (4 layers, seed 7), contiguous (graphed): acceptance "
+          f"{s['acceptance']:.3f} ({s['tokens_accepted']}/{s['tokens_drafted']}), "
+          f"{s['segments']} segments, {result['wall_s']:.3f} s; streams == batch-1 one-shot "
+          f"{len(refs)}/{len(refs)} (held, bitwise, eager and graphed)", flush=True)
+    print_modes("weak 4-layer draft, contiguous, 4 requests", out["weak_draft_contiguous"]["modes"])
 
     # 3. Self draft with chunked prefill, paged.
     args_c = serve.parse_args(argv + ["--chunk-len", str(CHUNK_LEN)])
-    result, counts, s = counted(lambda: serve.run_server(cfg, api, params, args_c))
-    eq = held("self draft, chunked, paged", result, ones)
+    runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args_c, graph=graph),
+                        torch, multi_row=True)
+    for mode, (result, _, _, _) in runs.items():
+        eq = held(f"self draft, chunked, paged ({mode})", result, ones)
+    result, counts, _, _ = runs["graph"]
+    s = result["stats"]
     out["self_draft_chunked_paged"] = {
         "chunk_len": CHUNK_LEN, "segments": s["segments"], "chunk_stages":
         result.get("chunk_stages"), "acceptance": s["acceptance"],
         "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
         "streams_equal_whole_served": eq[0], "streams_equal_batch1_oneshot": eq[1],
-        "launches": counts}
-    print(f"  self draft, chunks of {CHUNK_LEN}, paged: {s['segments']} segments "
+        "launches": counts, "modes": {m: r[3] for m, r in runs.items()}}
+    print(f"  self draft, chunks of {CHUNK_LEN}, paged (graphed): {s['segments']} segments "
           f"({result.get('chunk_stages')} with a chunk stage), acceptance "
           f"{s['acceptance']:.3f}, {result['tokens_per_s']:.1f} tokens/s; launches {counts}; "
           f"streams == whole-prompt served {eq[0]}/{len(ones)}, == batch-1 one-shot "
-          f"{eq[1]}/{len(ones)} (held, bitwise)", flush=True)
+          f"{eq[1]}/{len(ones)} (held, bitwise, eager and graphed)", flush=True)
+    print_modes(f"self draft, chunks of {CHUNK_LEN}", out["self_draft_chunked_paged"]["modes"])
 
     # 4. The gate.
     args_g = serve.parse_args(argv + ["--spec-gate"])
-    result, counts, s = counted(lambda: serve.run_server(cfg, api, params, args_g))
-    eq = held("self draft, gated, paged", result, ones)
+    runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args_g, graph=graph),
+                        torch)
+    for mode, (result, _, _, _) in runs.items():
+        eq = held(f"self draft, gated, paged ({mode})", result, ones)
+        g = result["stats"]["speculation"]
+        print(f"  spec gate ({mode}): {g['speculated_segments']} spec / "
+              f"{g['bypassed_segments']} plain segments, {g['probes']} probes "
+              f"(timing-dependent, printed); {result['tokens_per_s']:.1f} tokens/s; streams == "
+              f"whole-prompt served {eq[0]}/{len(ones)}, == batch-1 one-shot "
+              f"{eq[1]}/{len(ones)} (held, bitwise)", flush=True)
+    result, _, _, _ = runs["graph"]
+    s = result["stats"]
     g = s["speculation"]
     out["self_draft_gated_paged"] = {
         "probes": g["probes"], "speculated_segments": g["speculated_segments"],
         "bypassed_segments": g["bypassed_segments"], "segments": s["segments"],
         "acceptance": s["acceptance"], "wall_s": result["wall_s"],
         "tokens_per_s": result["tokens_per_s"], "streams_equal_whole_served": eq[0],
-        "streams_equal_batch1_oneshot": eq[1]}
-    print(f"  spec gate: {g['speculated_segments']} spec / {g['bypassed_segments']} plain "
-          f"segments, {g['probes']} probes (timing-dependent, printed); "
-          f"{result['tokens_per_s']:.1f} tokens/s; streams == whole-prompt served "
-          f"{eq[0]}/{len(ones)}, == batch-1 one-shot {eq[1]}/{len(ones)} (held, bitwise)",
-          flush=True)
+        "streams_equal_batch1_oneshot": eq[1], "modes": {m: r[3] for m, r in runs.items()}}
+    print_modes("self draft k 2, --spec-gate", out["self_draft_gated_paged"]["modes"])
     spec_counts = out["self_draft_paged"]["launches"]
     return out, spec_counts
 
@@ -1921,6 +2155,35 @@ def run_listing1(torch) -> dict:
           f"{ {k: round(v, 3) for k, v in s['work_share'].items()} }; "
           f"{s['response_time'] * 1e3:.1f} ms; correct (held)", flush=True)
     return out
+
+
+def print_graph_summary(summary, card) -> None:
+    """The ``[graph]`` phase's table: each main path's decode (8 steps,
+    profiler on) and one-shot generate, and each served path, eager beside
+    graphed, all from this run; then the same as a JSON line."""
+    import statistics
+
+    print(at() + f" [graph] eager beside graphed decode, this run ({card})", flush=True)
+    for r in summary["main_paths"]:
+        print(f"  {r['path']}: decode 8 steps busy / wall eager {r['decode_8_device_busy_ms_eager']:.1f}"
+              f" / {r['decode_8_wall_ms_eager']:.1f} ms, graphed "
+              f"{r['decode_8_device_busy_ms_graph']:.1f} / {r['decode_8_wall_ms_graph']:.1f} ms; "
+              f"one-shot tokens/s (second call) eager {r['tokens_per_s_eager']:.1f}, graphed "
+              f"{r['tokens_per_s_graph']:.1f}; capture {r['capture_s']:.3f} s", flush=True)
+
+    def median(xs):
+        return f"{statistics.median(xs):.1f}" if xs else "none"
+    for label, modes in summary["served_paths"]:
+        e, g = modes["eager"], modes["graph"]
+        print(f"  {label}: tokens/s eager {e['tokens_per_s']:.1f}, graphed {g['tokens_per_s']:.1f};"
+              f" wall {e['wall_s']:.3f} / {g['wall_s']:.3f} s; TTFT max {e['ttft_s'][-1]:.3f} / "
+              f"{g['ttft_s'][-1]:.3f} s; host dispatch per segment, median eager "
+              f"{median(e['dispatch_ms'])} ms, graphed after the first "
+              f"{median(g['dispatch_ms'][1:])} ms (first, with the capture: "
+              f"{median(g['dispatch_ms'][:1])}); write-back median {median(e['write_back_ms'])} / "
+              f"{median(g['write_back_ms'])} ms", flush=True)
+    print(json.dumps({"graph": {"main_paths": summary["main_paths"],
+                                "served_paths": dict(summary["served_paths"])}}))
 
 
 def main() -> None:
@@ -2027,6 +2290,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     launches = {}  # each kernel's count on the first main path that runs it
+    summary = {"main_paths": [], "served_paths": []}  # the [graph] phase's table
     for arch, requests, prompt_len, gen, want, modes in main_paths():
         print(at() + f" [main path] repro_torch.launch.serve one-shot generate, {arch} --full, "
               f"{requests} x {prompt_len} + {gen}", flush=True)
@@ -2044,6 +2308,15 @@ def main() -> None:
         if not mp["first_token_is_prefill_argmax"]:
             fail(f"{arch}: generate's first token is not the argmax of its prefill logits")
         print(json.dumps({"main_path": mp}))
+        prof, om = mp["profile"], mp["oneshot_modes"]
+        summary["main_paths"].append({
+            "path": f"{arch} {requests} x {prompt_len} + {gen}",
+            **{f"decode_8_{k}_{m}": prof[r][k] for m, r in (("eager", "decode_8_steps"),
+                                                           ("graph", "decode_8_steps_graph"))
+               for k in ("device_busy_ms", "wall_ms")},
+            "tokens_per_s_eager": om["eager"]["tokens_per_s"],
+            "tokens_per_s_graph": om["graph"]["tokens_per_s"],
+            "capture_s": om["graph"]["capture_s"]})
         for name, n in counts.items():
             if n:
                 launches.setdefault(name, n)
@@ -2056,6 +2329,7 @@ def main() -> None:
           f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
     sp, counts, whole = run_served_path(dev, torch)
     print(json.dumps({"served_path": sp}))
+    summary["served_paths"].append(("whole prompt, arrivals 1 ms apart", sp["modes"]))
     for name, n in counts.items():
         if n:
             launches.setdefault(name, n)
@@ -2070,6 +2344,10 @@ def main() -> None:
           f"contiguous --chunk-len 40, 4 requests", flush=True)
     cp, counts = run_chunked_paths(dev, torch, whole)
     print(json.dumps({"chunked_served_path": cp}))
+    summary["served_paths"] += [("whole prompt, arrivals at 4/s", cp["whole_prompt"]["modes"]),
+                                ("chunked (64), the same arrivals", cp["chunked"]["modes"]),
+                                ("contiguous chunked (40), 4 requests",
+                                 cp["contiguous_chunk40"]["modes"])]
     launches["flash_decode_chunk"] = counts["flash_decode"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -2080,6 +2358,11 @@ def main() -> None:
           f"--draft self --chunk-len {CHUNK_LEN}; --draft self --spec-gate", flush=True)
     spp, counts = run_spec_paths(dev, torch, whole, sp)
     print(json.dumps({"spec_served_path": spp}))
+    summary["served_paths"] += [
+        ("self-draft k 2, paged", spp["self_draft_paged"]["modes"]),
+        ("weak 4-layer draft, contiguous, 4 requests", spp["weak_draft_contiguous"]["modes"]),
+        ("self-draft k 2, chunks of 64", spp["self_draft_chunked_paged"]["modes"]),
+        ("self-draft k 2, --spec-gate", spp["self_draft_gated_paged"]["modes"])]
     launches["flash_decode_verify"] = counts["multi_row"]["flash_decode"]
     launches["flash_decode_paged_verify"] = counts["multi_row"]["flash_decode_paged"]
     del whole
@@ -2126,6 +2409,7 @@ def main() -> None:
                             "src/repro/models/layers.py:15")}
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     **recs[n]) for n, (src, rep) in sources.items()]
+    print_graph_summary(summary, card)
     print(at() + " [done] every phase passed", flush=True)
     print(card, flush=True)  # again, beside the numbers it qualifies
     print(json.dumps({"kernels": kernels}))

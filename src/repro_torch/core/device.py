@@ -254,9 +254,11 @@ class DeviceGroup:
         Inputs are padded to the bucket size; callers must trim outputs to
         ``size_wi`` (Program.write_outputs does).
         """
-        # Nothing to compile (the reference's per-group jit): PyTorch runs
-        # the (possibly specialized) kernel eagerly, and donation is
-        # in-place reuse.
+        # Nothing to compile here (the reference's per-group jit): PyTorch
+        # runs the (possibly specialized) kernel, and donation is in-place
+        # reuse.  A kernel may replay CUDA graphs of its own decode loops
+        # (serve/graphs.py); a Program-level counterpart of the
+        # reference's compile_kernel is not ported (ROADMAP.md A3d).
         fn = self.specialized_kernel or program._kernel
         bucket = self._bucket(size_wi, program.lws)
         donated = set(program.donated_ins)

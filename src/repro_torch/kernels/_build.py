@@ -13,7 +13,11 @@ here runs at import: the CPU tests import every module without ``nvcc``.
 
 Every wrapper counts its launches in :data:`LAUNCHES`, a plain integer per
 kernel, incremented (:func:`count`, under a lock: co-executing groups launch
-from their own worker threads) only where it launches its kernel.
+from their own worker threads) only where it launches its kernel.  While a
+:func:`recording` is open on a thread (a CUDA graph's capture, which
+launches nothing), that thread's counts go to the recording's
+:class:`Tally` instead, and each replay of the graph adds the tally
+(``serve/graphs.py``).
 """
 from __future__ import annotations
 
@@ -54,6 +58,43 @@ _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict = {}
 _fns: dict = {}
+_recording = threading.local()
+
+
+class Tally:
+    """The launches counted while a recording was open: what one replay of
+    the graph captured under it launches."""
+
+    def __init__(self) -> None:
+        self.launches: dict = {}
+        self.multi_row: dict = {}
+
+    def note(self, name: str, multi_row: bool) -> None:
+        self.launches[name] = self.launches.get(name, 0) + 1
+        if multi_row:
+            self.multi_row[name] = self.multi_row.get(name, 0) + 1
+
+    def replayed(self) -> None:
+        """Add one replay's launches to :data:`LAUNCHES` and
+        :data:`MULTI_ROW`."""
+        with _count_lock:
+            for name, n in self.launches.items():
+                LAUNCHES[name] += n
+            for name, n in self.multi_row.items():
+                MULTI_ROW[name] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's launches into a fresh :class:`Tally` (yielded)
+    instead of :data:`LAUNCHES` until the block ends.  Other threads keep
+    counting as before."""
+    tally, prev = Tally(), getattr(_recording, "tally", None)
+    _recording.tally = tally
+    try:
+        yield tally
+    finally:
+        _recording.tally = prev
 
 
 def reset_launches() -> None:
@@ -65,7 +106,12 @@ def reset_launches() -> None:
 
 def count(name: str, multi_row: bool = False) -> None:
     """One launch of kernel ``name``, counted where the wrapper launched it
-    (also in ``MULTI_ROW`` when it ran more than one query row a slot)."""
+    (also in ``MULTI_ROW`` when it ran more than one query row a slot), or
+    in the open recording's tally."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally.note(name, multi_row)
+        return
     with _count_lock:
         LAUNCHES[name] += 1
         if multi_row:

@@ -36,6 +36,13 @@ JAX launcher draws them).  Under ``--paged --kernel cuda`` the one-shot
 reference tiles its cache at the block length (``decode_block``), so the
 served streams and the reference run the same tile partition.
 
+On ``cuda`` one-shot generate and the server replay their decode loops as
+CUDA graphs (``serve/graphs.py``; the JAX launcher jits them): the one-shot
+chain is captured before the timed call, and its capture time is reported
+apart (``capture_s``); the server captures each segment loop at its first
+segment.  Co-execution keeps the eager loop, as the JAX launcher passes
+``jit=False`` there.
+
 ``--coexec`` runs one-shot generate as the kernel of an EngineCL Program
 over two DeviceGroups on the run's device, ``pod-a`` (power 2) and
 ``pod-b`` (power 1), each with its own CUDA stream, as the JAX launcher's
@@ -193,9 +200,10 @@ def server_prompts(cfg, args):
     return prompts, gaps
 
 
-def run_server(cfg, api, params, args) -> dict:
+def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
     """Replay a seeded Poisson arrival trace through ``InferenceServer`` on
-    one DeviceGroup of ``--device``."""
+    one DeviceGroup of ``--device``; ``graph=False`` runs the segment loops
+    eagerly (``InferenceServer(graph=)``)."""
     from repro_torch.core.trace import tracer
     from repro_torch.serve.paged import PagedSpec
     from repro_torch.serve.server import InferenceServer
@@ -216,6 +224,7 @@ def run_server(cfg, api, params, args) -> dict:
         paged=paged,
         draft=make_draft(cfg, params, args),
         chunk_len=args.chunk_len,
+        graph=graph,
     )
     deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     if cuda and cfg.kernel_impl == "cuda":
@@ -271,9 +280,10 @@ def run_server(cfg, api, params, args) -> dict:
     tr = tracer()
     if tr.enabled:  # installed by the caller (set_tracer)
         # The runtime's spans per kernel label: "dispatch" is the host time
-        # of issuing a package's kernel (eager PyTorch: the whole decode
-        # loop), "write_back" the host copy of its outputs (the decode
-        # segment writes its whole cache, the paged pool, back).
+        # of issuing a package's kernel (the decode loop's launches, or its
+        # copy-ins and replay; a segment loop's first also its capture),
+        # "write_back" the host copy of its outputs (the decode segment
+        # writes its whole cache, the paged pool, back).
         spans: dict = {}
         for e in tr.chrome_events():
             if e.get("ph") == "X" and e["name"] in ("dispatch", "write_back"):
@@ -323,7 +333,9 @@ def run_coexec(cfg, api, params, batch, args) -> dict:
     package is generated alone, on its group's stream."""
     device = batch["tokens"].device
     groups = coexec_groups(device)
-    generate = make_generate(cfg, api)
+    # Eager, as the JAX launcher's jit=False: the packages' graphs would
+    # need a Program-level counterpart of the group's compile_kernel.
+    generate = make_generate(cfg, api, graph=False)
     # Cast the parameters once, here, not concurrently on the workers.
     cast_params_cached(params, cfg.compute_dtype)
     if device.type == "cuda" and cfg.kernel_impl == "cuda":
@@ -383,17 +395,25 @@ def main(argv=None) -> dict:
 
 
 def run_oneshot_main(cfg, api, params, args) -> dict:
+    """One-shot generate of the request batch, timed; on the card the
+    decode chain's graph is captured first, outside the timed call
+    (``capture_s``; ``graphs``: the chain's GraphCache counters)."""
     batch = load_batch(cfg, args)
     cuda = batch["tokens"].device.type == "cuda"
+    generate = make_generate(cfg, api)
+    capture_s = generate.prepare(params, batch, args.gen)
     if cuda:
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    toks = run_oneshot(cfg, api, params, batch, args.gen).cpu().numpy()
+    toks = generate(params, batch, args.gen).cpu().numpy()
     wall = time.perf_counter() - t0
     result = {
         "tokens": toks,
         "wall_s": wall,
         "tokens_per_s": toks.size / wall,
+        "capture_s": capture_s,
+        "graphs": generate.graphs.stats() if generate.graphs is not None else None,
         "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else None,
     }
     where = torch.cuda.get_device_name() if cuda else "cpu"
@@ -401,7 +421,8 @@ def run_oneshot_main(cfg, api, params, args) -> dict:
            if cuda else "")
     print(f"generated {toks.shape} on {where} ({cfg.name}, kernel_impl="
           f"{cfg.kernel_impl}) in {wall:.3f}s: {result['tokens_per_s']:.1f} "
-          f"tokens/s{mem}")
+          f"tokens/s{mem}" + (f" (its decode chain captured before, in {capture_s:.3f}s)"
+                              if capture_s else ""))
     print(np.asarray(toks[: min(4, args.requests)]))
     return result
 

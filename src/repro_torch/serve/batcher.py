@@ -12,7 +12,8 @@ formed batch and the runtime —
   shared by every group of the same geometry: a *prefill* kernel (prompt
   rows → first token + slot-leading cache rows) and a *decode-segment*
   kernel (``seg_len`` per-slot decode steps; the JAX ``lax.scan`` is a
-  Python loop).
+  CUDA graph on the card, captured once per shape and replayed, and a
+  Python loop with ``graph=False`` or on the CPU: ``serve/graphs.py``).
 - ``BatchGroup``     — one live continuous batch: ``n_slots`` KV-cache
   slots backed by slot-leading host mirror buffers that form a single
   ``Program``, decoding in fixed-length segments submitted through
@@ -57,6 +58,7 @@ import torch
 from repro_torch.core.program import Program
 from repro_torch.core.trace import tracer
 from repro_torch.models.params import Spec, tree_leaves, tree_map
+from repro_torch.serve import graphs
 from repro_torch.serve.step import (
     DraftSpec,
     cache_batch_axes,
@@ -121,10 +123,19 @@ def _torch_dtype(name: str) -> torch.dtype:
 
 class ModelKernels:
     """Per-server kernel factory: every BatchGroup of the same geometry
-    shares one kernel *object* per (kind, shape-key)."""
+    shares one kernel *object* per (kind, shape-key).
 
-    def __init__(self, cfg, api, params, draft: Optional[DraftSpec] = None) -> None:
+    ``graph=True``: each segment's decode loop (plain, paged, the mixed
+    kernels' decode part, the speculative scan and its bypass) is captured
+    in a CUDA graph once per shape and replayed (``self.graphs``, the
+    counterpart of the JAX group's jit of its ``lax.scan``); the chunk
+    stage and prefill stay eager.  ``graph=False`` runs every loop
+    eagerly."""
+
+    def __init__(self, cfg, api, params, draft: Optional[DraftSpec] = None, *,
+                 graph: bool = True) -> None:
         self.cfg, self.api, self.params = cfg, api, params
+        self.graphs = graphs.GraphCache() if graph else None
         # Batch-axis geometry is max_seq-independent; probe with a tiny cache.
         self.bax = cache_batch_axes(cfg, api, 8)
         self.bax_leaves = tree_leaves(self.bax)
@@ -229,7 +240,70 @@ class ModelKernels:
             toks[:, i] = tok[:, 0]
         return toks, tok, pos
 
-    def segment_kernel(self, seg_len: int, max_seq: int) -> Callable:
+    # ------------------------------------------------- the bound loops
+    #
+    # A segment's loop reads its cache from static buffers (serve/graphs.py)
+    # of its group's bucket, the scope that keeps two live groups' state
+    # apart: a contiguous cache is copied into them in the model's layout
+    # (the JAX package's per-segment relayout, moving the bytes
+    # ``.contiguous()`` moved) and written back after; a paged pool's leaves
+    # are the buffers themselves from the second segment on (the loop hands
+    # them back as the segment's outputs, and the runtime's donated handoff
+    # returns them), so the pool is copied in only when a join re-uploads
+    # it.
+
+    def _consts(self) -> tuple:
+        return (self.params,) if self.draft is None else (self.params, self.draft.params)
+
+    def _bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
+              bucket: int) -> graphs.Loop:
+        return graphs.bind(self.graphs, name, steps, ints, inputs, body, self._consts(),
+                           scope=bucket)
+
+    def _cache_in(self, leaves, paged: bool) -> list:
+        """The target cache's loop inputs from the segment's leaves: views
+        in the model's layout (contiguous: copied in, written back) or the
+        pool leaves as they are (paged: used in place)."""
+        if paged:
+            return list(leaves)
+        return [x.movedim(0, a) for x, a in zip(leaves, self.bax_leaves)]
+
+    def _cache_tree(self, leaves, table=None) -> dict:
+        """The target cache tree over a loop's buffers: the model's layout,
+        or per-layer views of the pool with the block table broadcast over
+        the layers (the decode path resolves physical blocks through its
+        ``"table"`` leaf)."""
+        if table is None:
+            return self._unflatten(leaves)
+        cache = self._unflatten([x.movedim(0, a) for x, a in zip(leaves, self.bax_leaves)])
+        cache["table"] = table[None].expand((self.cfg.n_layers,) + tuple(table.shape))
+        return cache
+
+    @staticmethod
+    def _copy_back(views, statics) -> None:
+        """Write a loop's buffers back through the views they were copied
+        from (nothing where the loop ran on the view's own storage)."""
+        for x, s in zip(views, statics):
+            if not graphs.same_storage(x, s):
+                x.copy_(s)
+
+    def _decode_bind(self, decode, seg_len: int, bucket: int, cap, tok, pos, cache_in,
+                     table=None):
+        """The segment's ``seg_len`` decode steps (:meth:`_decode_loop`) as
+        one bound loop over (tok, pos, the cache and, paged, the table) in
+        ``bucket``'s scope: returns (toks, tok', pos')."""
+        paged = table is not None
+        inputs = {"tok": tok, "pos": pos, "cache": cache_in}
+        if paged:
+            inputs["table"] = table
+
+        def body(st, n):
+            return self._decode_loop(decode, n, st["tok"], st["pos"],
+                                     self._cache_tree(st["cache"], st.get("table")), cap=cap)
+
+        return self._bind("decode", seg_len, (cap, paged), inputs, body, bucket)
+
+    def segment_kernel(self, seg_len: int, bucket: int, max_seq: int) -> Callable:
         """``fn(offset, tok, pos, *cache_leaves) ->
         (toks[b, seg_len], tok', pos', *cache_leaves')`` — ``seg_len``
         per-slot decode steps (vector ``pos``: slots may sit at different
@@ -239,49 +313,46 @@ class ModelKernels:
         once per segment and back once (the decode kernel reads a
         contiguous cache); the donated leaves are written back in place and
         returned as the outputs.  ``max_seq`` is the slots' timeline
-        length (see ``_decode_loop``)."""
-        key = (seg_len, max_seq)
+        length (see ``_decode_loop``); ``bucket`` the group's, its loop's
+        scope."""
+        key = (seg_len, bucket, max_seq)
         fn = self._seg_fns.get(key)
         if fn is not None:
             return fn
         decode = make_decode_step(self.cfg, self.api)
-        bax = self.bax_leaves
 
         def seg(offset, tok, pos, *leaves):
-            cache = self._unflatten([x.movedim(0, a).contiguous()
-                                     for x, a in zip(leaves, bax)])
-            toks, tok, pos = self._decode_loop(decode, seg_len, tok, pos, cache,
-                                               cap=max_seq)
-            for x, c, a in zip(leaves, tree_leaves(cache), bax):
-                x.copy_(c.movedim(a, 0))
+            views = self._cache_in(leaves, paged=False)
+            loop = self._decode_bind(decode, seg_len, bucket, max_seq, tok, pos, views)
+            toks, tok, pos = loop()
+            self._copy_back(views, loop.statics["cache"])
             return (toks, tok, pos, *leaves)
 
         self._seg_fns[key] = seg
         return seg
 
-    def paged_segment_kernel(self, seg_len: int) -> Callable:
+    def paged_segment_kernel(self, seg_len: int, bucket: int) -> Callable:
         """Paged variant of :meth:`segment_kernel`: ``fn(offset, tok, pos,
         table, *pool_leaves) -> (toks, tok', pos', *pool_leaves')``.  Pool
         leaves are block-leading ``(n_blocks, layers, block_len, ...)``; the
         per-slot block table is broadcast across the layer axis so each
         layer's cache view carries it, and the decode path
         (``attention._paged_write`` / ``cached_attention``) recognizes the
-        ``"table"`` leaf and resolves physical blocks.  The pool is never
-        copied: each layer reads and writes its strided view of the donated
-        pool leaves in place, and those leaves are returned as outputs."""
-        key = ("paged", seg_len)
+        ``"table"`` leaf and resolves physical blocks.  The pool is not
+        copied per segment: each layer reads and writes its strided view of
+        the loop's pool buffers in place, and those are the outputs: buffers
+        of ``bucket``'s scope, whose next segment takes them back."""
+        key = ("paged", seg_len, bucket)
         fn = self._seg_fns.get(key)
         if fn is not None:
             return fn
         decode = make_decode_step(self.cfg, self.api)
-        bax = self.bax_leaves
-        n_layers = self.cfg.n_layers
 
         def seg(offset, tok, pos, table, *leaves):
-            cache = self._unflatten([x.movedim(0, a) for x, a in zip(leaves, bax)])
-            cache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
-            toks, tok, pos = self._decode_loop(decode, seg_len, tok, pos, cache)
-            return (toks, tok, pos, *leaves)
+            loop = self._decode_bind(decode, seg_len, bucket, None, tok, pos,
+                                     self._cache_in(leaves, paged=True), table)
+            toks, tok, pos = loop()
+            return (toks, tok, pos, *loop.statics["cache"])
 
         self._seg_fns[key] = seg
         return seg
@@ -294,7 +365,9 @@ class ModelKernels:
     # slots.  The JAX package gates the chunk stage with ``lax.cond`` on the
     # device cursors; here the batcher, which mirrors every cursor on the
     # host (``req.chunk_pos``), passes the decision as the Program's one
-    # scalar argument, so no segment reads the card back.  A slot whose
+    # scalar argument, so no segment reads the card back.  The chunk stage
+    # runs eagerly on the loop's buffers, before the loop (the JAX package
+    # runs it outside its scan).  A slot whose
     # prefill completes in a segment emits only ``ctok`` (its first token,
     # from the chunk's final prompt row) that segment and decodes from the
     # next one: the decode loop's phase mask is the cursor as of segment
@@ -302,16 +375,16 @@ class ModelKernels:
     # after the loop (their in-loop decode writes land at positions >=
     # bucket, which real decode overwrites before anything attends them).
 
-    def _mixed_body(self, decode, chunk, seg_len, bucket, tok, pos, pcur, ptoks, cache,
-                    run_chunk, cap=None):
-        """The chunk stage (when ``run_chunk``) and ``seg_len`` decode steps
-        of one mixed segment.  Returns (toks, tok', pos', pcur', ctok)."""
+    def _mixed_body(self, loop, chunk, bucket, tok, pos, pcur, ptoks, run_chunk):
+        """The chunk stage (when ``run_chunk``) on the bound decode loop's
+        cache, then the loop.  Returns (toks, tok', pos', pcur', ctok)."""
         decoding = pcur >= bucket  # (b, 1), phase at segment entry
         if run_chunk:
-            ctok, pcur2, cache = chunk(self.params, cache, ptoks, pcur)
+            cache = self._cache_tree(loop.statics["cache"], loop.statics.get("table"))
+            ctok, pcur2, _ = chunk(self.params, cache, ptoks, pcur)
         else:
             ctok, pcur2 = torch.zeros_like(tok), pcur.clone()
-        toks, tok2, pos2 = self._decode_loop(decode, seg_len, tok, pos, cache, cap=cap)
+        toks, tok2, pos2 = loop()
         completed = ~decoding & (pcur2 >= bucket)
         tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
         pos_out = torch.where(decoding, pos2, pos)
@@ -331,16 +404,13 @@ class ModelKernels:
             return fn
         decode = make_decode_step(self.cfg, self.api)
         chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
-        bax = self.bax_leaves
 
         def seg(offset, tok, pos, pcur, ptoks, *rest):
             *leaves, run_chunk = rest
-            cache = self._unflatten([x.movedim(0, a).contiguous()
-                                     for x, a in zip(leaves, bax)])
-            outs = self._mixed_body(decode, chunk, seg_len, bucket, tok, pos, pcur, ptoks,
-                                    cache, run_chunk, cap=max_seq)
-            for x, c, a in zip(leaves, tree_leaves(cache), bax):
-                x.copy_(c.movedim(a, 0))
+            views = self._cache_in(leaves, paged=False)
+            loop = self._decode_bind(decode, seg_len, bucket, max_seq, tok, pos, views)
+            outs = self._mixed_body(loop, chunk, bucket, tok, pos, pcur, ptoks, run_chunk)
+            self._copy_back(views, loop.statics["cache"])
             return (*outs, *leaves)
 
         self._seg_fns[key] = seg
@@ -359,16 +429,13 @@ class ModelKernels:
             return fn
         decode = make_decode_step(self.cfg, self.api)
         chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
-        bax = self.bax_leaves
-        n_layers = self.cfg.n_layers
 
         def seg(offset, tok, pos, pcur, ptoks, table, *rest):
             *leaves, run_chunk = rest
-            cache = self._unflatten([x.movedim(0, a) for x, a in zip(leaves, bax)])
-            cache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
-            outs = self._mixed_body(decode, chunk, seg_len, bucket, tok, pos, pcur, ptoks,
-                                    cache, run_chunk)
-            return (*outs, *leaves)
+            loop = self._decode_bind(decode, seg_len, bucket, None, tok, pos,
+                                     self._cache_in(leaves, paged=True), table)
+            outs = self._mixed_body(loop, chunk, bucket, tok, pos, pcur, ptoks, run_chunk)
+            return (*outs, *loop.statics["cache"])
 
         self._seg_fns[key] = seg
         return seg
@@ -448,34 +515,54 @@ class ModelKernels:
         ptok2 = toks[:, seg_len - 2:seg_len - 1] if seg_len > 1 else tok
         return buf, cnt, tok2, ptok2, pos2
 
-    def _gated_scan(self, seg_len: int, step, decode, spec_on: bool, tok, ptok, pos,
-                    tcache, dcache, cap):
-        """Draft/verify or plain decode, by the host's flag."""
-        if spec_on:
-            return self._spec_scan(seg_len, step, tok, ptok, pos, tcache, dcache)
-        return self._plain_scan(seg_len, decode, tok, ptok, pos, tcache, cap)
-
-    def _split(self, leaves, paged: bool):
-        """Target and draft caches in the models' layout from the segment's
-        slot-leading leaves: a contiguous cache as copies (written back by
-        :meth:`_write_back`), a paged pool as in-place views."""
+    def _spec_bind(self, step, decode, seg_len: int, bucket: int, max_seq: int,
+                   spec_on: bool, tok, ptok, pos, leaves, table=None):
+        """The segment's speculative scan (draft/verify, by the host's
+        ``spec_on``) or its bypass (plain decode) as one bound loop over
+        (tok, ptok, pos, the target cache, the draft cache and, paged, the
+        table) in ``bucket``'s scope.  Returns (loop, the target's inputs,
+        the draft's inputs); the loop returns (buf, cnt, tok', ptok', pos').
+        The draft cache is contiguous whatever the target's layout: copied
+        in and written back (:meth:`_spec_done`).  A gated server may take
+        either branch in any segment, so both are captured at the scope's
+        first bind, before its buffers hold a cache (a later capture would
+        warm up on clones of the pool and the draft cache)."""
+        paged = table is not None
         nt = len(self.bax_leaves)
-        tl, dl = leaves[:nt], leaves[nt:]
+        t_in = self._cache_in(leaves[:nt], paged)
+        d_in = [x.movedim(0, a) for x, a in zip(leaves[nt:], self.dbax_leaves)]
+        inputs = {"tok": tok, "ptok": ptok, "pos": pos, "cache": t_in, "draft": d_in}
         if paged:
-            tcache = self._unflatten([x.movedim(0, a) for x, a in zip(tl, self.bax_leaves)])
-        else:
-            tcache = self._unflatten([x.movedim(0, a).contiguous()
-                                      for x, a in zip(tl, self.bax_leaves)])
-        dcache = self._unflatten([x.movedim(0, a).contiguous()
-                                  for x, a in zip(dl, self.dbax_leaves)], self.dbax)
-        return tcache, dcache
+            inputs["table"] = table
+        cap = None if paged else max_seq
 
-    def _write_back(self, leaves, tcache, dcache, paged: bool) -> None:
+        def branch(on: bool):
+            def body(st, n):
+                tcache = self._cache_tree(st["cache"], st.get("table"))
+                if on:
+                    dcache = self._unflatten(st["draft"], self.dbax)
+                    return self._spec_scan(n, step, st["tok"], st["ptok"], st["pos"],
+                                           tcache, dcache)
+                return self._plain_scan(n, decode, st["tok"], st["ptok"], st["pos"],
+                                        tcache, cap)
+            return ("spec" if on else "spec_bypass", seg_len,
+                    (self.draft.k, max_seq, paged), inputs, body)
+
+        if (self.draft.auto_bypass and self.graphs is not None
+                and self.graphs.accepts(tok.device)):
+            self.graphs.capture(*branch(not spec_on), self._consts(), bucket)
+        loop = self._bind(*branch(spec_on), bucket)
+        return loop, t_in, d_in
+
+    def _spec_done(self, loop, leaves, t_in, d_in, paged: bool) -> list:
+        """Write the contiguous caches back from the loop's buffers; the
+        segment's output leaves (a paged target's are the loop's pool
+        buffers)."""
         nt = len(self.bax_leaves)
-        pairs = [] if paged else list(zip(leaves[:nt], tree_leaves(tcache), self.bax_leaves))
-        pairs += zip(leaves[nt:], tree_leaves(dcache), self.dbax_leaves)
-        for x, c, a in pairs:
-            x.copy_(c.movedim(a, 0))
+        if not paged:
+            self._copy_back(t_in, loop.statics["cache"])
+        self._copy_back(d_in, loop.statics["draft"])
+        return (list(loop.statics["cache"]) if paged else list(leaves[:nt])) + list(leaves[nt:])
 
     def spec_segment_kernel(self, seg_len: int, bucket: int, max_seq: int) -> Callable:
         """Speculative variant of :meth:`segment_kernel`: ``fn(offset, tok,
@@ -484,23 +571,7 @@ class ModelKernels:
         Each step drafts ``k`` candidates and verifies them in one multi-row
         decode; slots advance 1..k+1 positions a step, ``cnt`` reporting how
         many of the flat token buffer's entries are real."""
-        key = ("spec", seg_len, bucket, max_seq)
-        fn = self._seg_fns.get(key)
-        if fn is not None:
-            return fn
-        step = self._spec_step(max_seq, bucket)
-        decode = make_decode_step(self.cfg, self.api)
-
-        def seg(offset, tok, ptok, pos, *rest):
-            *leaves, _spec_on_buf, spec_on = rest
-            tcache, dcache = self._split(leaves, paged=False)
-            outs = self._gated_scan(seg_len, step, decode, spec_on, tok, ptok, pos,
-                                    tcache, dcache, max_seq)
-            self._write_back(leaves, tcache, dcache, paged=False)
-            return (*outs, *leaves)
-
-        self._seg_fns[key] = seg
-        return seg
+        return self._spec_kernel("spec", seg_len, bucket, 0, max_seq)
 
     def paged_spec_segment_kernel(self, seg_len: int, bucket: int, max_seq: int) -> Callable:
         """Paged-target speculative segment: ``fn(offset, tok, ptok, pos,
@@ -509,43 +580,26 @@ class ModelKernels:
         target resolves physical blocks through the table as
         :meth:`paged_segment_kernel` does; the draft cache stays
         contiguous."""
-        key = ("paged_spec", seg_len, bucket, max_seq)
-        fn = self._seg_fns.get(key)
-        if fn is not None:
-            return fn
-        step = self._spec_step(max_seq, bucket)
-        decode = make_decode_step(self.cfg, self.api)
-        n_layers = self.cfg.n_layers
+        return self._spec_kernel("paged_spec", seg_len, bucket, 0, max_seq)
 
-        def seg(offset, tok, ptok, pos, table, *rest):
-            *leaves, _spec_on_buf, spec_on = rest
-            tcache, dcache = self._split(leaves, paged=True)
-            tcache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
-            outs = self._gated_scan(seg_len, step, decode, spec_on, tok, ptok, pos,
-                                    tcache, dcache, None)
-            self._write_back(leaves, tcache, dcache, paged=True)
-            return (*outs, *leaves)
-
-        self._seg_fns[key] = seg
-        return seg
-
-    def _spec_mixed_body(self, step, decode, chunk, dchunk, seg_len, bucket, tok, ptok, pos,
-                         pcur, ptoks, tcache, dcache, run_chunk, spec_on, cap):
+    def _spec_mixed_body(self, loop, chunk, dchunk, bucket, tok, ptok, pos, pcur, ptoks,
+                         run_chunk):
         """One speculative mixed segment: the chunk stage advances both
-        caches' prompts (the target through the bitwise chunk path, the
-        draft through the same masked chunk path, its logits discarded),
-        then the gated scan.  A slot completing its prefill leaves with
-        ``tok' = ctok`` and ``ptok' = ptoks[:, bucket-1]`` (the prompt's last
-        token, which the first draft step re-decodes).  Returns (buf, cnt,
-        tok', ptok', pos', pcur', ctok)."""
+        caches' prompts on the bound scan's buffers (the target through the
+        bitwise chunk path, the draft through the same masked chunk path,
+        its logits discarded), then the scan.  A slot completing its
+        prefill leaves with ``tok' = ctok`` and ``ptok' = ptoks[:, bucket-1]``
+        (the prompt's last token, which the first draft step re-decodes).
+        Returns (buf, cnt, tok', ptok', pos', pcur', ctok)."""
         decoding = pcur >= bucket  # (b, 1), phase at segment entry
         if run_chunk:
-            ctok, pcur2, tcache = chunk(self.params, tcache, ptoks, pcur)
-            dchunk(self.draft.params, dcache, ptoks, pcur)
+            tcache = self._cache_tree(loop.statics["cache"], loop.statics.get("table"))
+            ctok, pcur2, _ = chunk(self.params, tcache, ptoks, pcur)
+            dchunk(self.draft.params, self._unflatten(loop.statics["draft"], self.dbax),
+                   ptoks, pcur)
         else:
             ctok, pcur2 = torch.zeros_like(tok), pcur.clone()
-        buf, cnt, tok2, ptok2, pos2 = self._gated_scan(seg_len, step, decode, spec_on, tok,
-                                                       ptok, pos, tcache, dcache, cap)
+        buf, cnt, tok2, ptok2, pos2 = loop()
         completed = ~decoding & (pcur2 >= bucket)
         last_ptok = ptoks[:, bucket - 1:bucket]
         tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
@@ -553,36 +607,48 @@ class ModelKernels:
         pos_out = torch.where(decoding, pos2, pos)
         return buf, cnt, tok_out, ptok_out, pos_out, pcur2, ctok
 
-    def _spec_mixed_kernel(self, kind: str, seg_len: int, bucket: int, chunk_len: int,
-                           max_seq: int) -> Callable:
-        paged = kind == "paged_spec_mixed"
+    def _spec_kernel(self, kind: str, seg_len: int, bucket: int, chunk_len: int,
+                     max_seq: int) -> Callable:
+        """The four speculative segment kernels (``kind``: spec, paged_spec,
+        spec_mixed, paged_spec_mixed), in the JAX package's buffer
+        orders."""
+        paged, mixed = kind.startswith("paged"), kind.endswith("mixed")
         key = (kind, seg_len, bucket, chunk_len, max_seq)
         fn = self._seg_fns.get(key)
         if fn is not None:
             return fn
         step = self._spec_step(max_seq, bucket)
         decode = make_decode_step(self.cfg, self.api)
-        chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
-        dchunk = make_chunk_step(self.draft.cfg, self.dapi, bucket, chunk_len)
-        n_layers = self.cfg.n_layers
+        if mixed:
+            chunk = make_chunk_step(self.cfg, self.api, bucket, chunk_len)
+            dchunk = make_chunk_step(self.draft.cfg, self.dapi, bucket, chunk_len)
 
         def body(tok, ptok, pos, pcur, ptoks, table, rest):
-            *leaves, _spec_on_buf, run_chunk, spec_on = rest
-            tcache, dcache = self._split(leaves, paged)
-            if paged:
-                tcache["table"] = table[None].expand((n_layers,) + tuple(table.shape))
-            outs = self._spec_mixed_body(step, decode, chunk, dchunk, seg_len, bucket, tok,
-                                         ptok, pos, pcur, ptoks, tcache, dcache, run_chunk,
-                                         spec_on, None if paged else max_seq)
-            self._write_back(leaves, tcache, dcache, paged)
-            return (*outs, *leaves)
+            if mixed:
+                *leaves, _spec_on_buf, run_chunk, spec_on = rest
+            else:
+                *leaves, _spec_on_buf, spec_on = rest
+            loop, t_in, d_in = self._spec_bind(step, decode, seg_len, bucket, max_seq, spec_on,
+                                               tok, ptok, pos, leaves, table)
+            if mixed:
+                outs = self._spec_mixed_body(loop, chunk, dchunk, bucket, tok, ptok, pos,
+                                             pcur, ptoks, run_chunk)
+            else:
+                outs = loop()
+            return (*outs, *self._spec_done(loop, leaves, t_in, d_in, paged))
 
-        if paged:
+        if mixed and paged:
             def seg(offset, tok, ptok, pos, pcur, ptoks, table, *rest):
                 return body(tok, ptok, pos, pcur, ptoks, table, rest)
-        else:
+        elif mixed:
             def seg(offset, tok, ptok, pos, pcur, ptoks, *rest):
                 return body(tok, ptok, pos, pcur, ptoks, None, rest)
+        elif paged:
+            def seg(offset, tok, ptok, pos, table, *rest):
+                return body(tok, ptok, pos, None, None, table, rest)
+        else:
+            def seg(offset, tok, ptok, pos, *rest):
+                return body(tok, ptok, pos, None, None, None, rest)
 
         self._seg_fns[key] = seg
         return seg
@@ -593,7 +659,7 @@ class ModelKernels:
         ptoks, *target_leaves, *draft_leaves, spec_on_buf, run_chunk,
         spec_on) -> (toks, cnt, tok', ptok', pos', pcur', ctok,
         *leaves')``."""
-        return self._spec_mixed_kernel("spec_mixed", seg_len, bucket, chunk_len, max_seq)
+        return self._spec_kernel("spec_mixed", seg_len, bucket, chunk_len, max_seq)
 
     def paged_spec_mixed_segment_kernel(self, seg_len: int, bucket: int, chunk_len: int,
                                         max_seq: int) -> Callable:
@@ -601,8 +667,7 @@ class ModelKernels:
         pos, pcur, ptoks, table, *pool_leaves, *draft_leaves, spec_on_buf,
         run_chunk, spec_on) -> (toks, cnt, tok', ptok', pos', pcur', ctok,
         *leaves')``."""
-        return self._spec_mixed_kernel("paged_spec_mixed", seg_len, bucket, chunk_len,
-                                       max_seq)
+        return self._spec_kernel("paged_spec_mixed", seg_len, bucket, chunk_len, max_seq)
 
     def spec_prefill_kernel(self, max_seq: int) -> Callable:
         """Prefill for speculative slots: the target *and* the draft prefill
@@ -697,7 +762,7 @@ class BatchGroup:
         prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
         for b in leaves:
             prog.out(torch.zeros_like(b))
-        prog.kernel(kernels.segment_kernel(seg_len, self.max_seq), f"decode_seg{seg_len}")
+        prog.kernel(kernels.segment_kernel(seg_len, self.bucket, self.max_seq), f"decode_seg{seg_len}")
         # Donate the cache-leaf inputs: each segment updates the KV slots in
         # place on the device instead of copying the cache per segment.
         # Safe because segments chain serially (after=prev) and the donated

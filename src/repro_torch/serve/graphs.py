@@ -1,0 +1,279 @@
+"""CUDA graphs of the decode loops: the port's counterpart of the JAX
+package's jitted ``lax.scan``s.
+
+The JAX package never dispatches a decode step from Python: one-shot
+generate jits its chain (``jax.jit(chain, static_argnums=(4,))``) and every
+server segment kernel is a ``lax.scan`` that its DeviceGroup compiles once
+per group.  Here the same loops are captured once per shape in a CUDA graph
+and replayed.  A graph launches the kernels that the eager loop launches, in
+the same order on the same shapes, so every stream keeps its bits; the host
+issues one replay where it issued every launch of every layer of every step.
+
+:class:`GraphCache` holds the captured loops of one owner (a one-shot
+generate's chain, a server's ``ModelKernels``), keyed by the loop's name,
+step count and static ints, the shapes and dtypes of its inputs, their
+device, its scope, and the identity of the weights the graph reads by
+address (``consts``, which the entry keeps alive).  Never by an input's
+address: a fresh cache of a captured shape replays, as a jitted function is
+not recompiled for new buffers.
+
+A loop reads and writes static buffers, one per input, shared by role and
+shape among the loops of one scope (a speculative segment and its bypass
+share one set).  A scope is the state's owner: a server's loops take their
+group's bucket, so two groups live at once never share a cache buffer, even
+where their shapes agree (a paged pool's do whenever its block count is
+fixed).  Binding a loop to its inputs copies in only the inputs whose
+storage is not already the static buffer, and the loop hands back the
+static buffers: a caller that feeds them back next time (the paged pool,
+through the runtime's donated handoff; one-shot generate's cache, which
+prefill writes in place) copies nothing.  A replay's outputs are the
+graph's own tensors, overwritten by its next replay.
+
+A loop body takes its step count: ``body(statics, n)``.  Capture runs it
+first for one step, as a warm-up (library loads, shared-memory opt-ins, the
+TMA encoder's entry point, the weights' cast to the compute dtype: every
+step launches the same kernels, so one step takes them all), with its
+launches counted nowhere, and then for its real count under
+``torch.cuda.graph(..., capture_error_mode="thread_local")`` on the inputs'
+device, the wrappers' counts going to a recording (``kernels/_build.py``);
+each replay adds that tally to the launch counts.  The warm-up writes the
+static buffers, so an owner captures a scope's loops before the scope's
+first bind (a gated server captures the speculative scan and its bypass
+together); a capture over buffers that already hold a caller's state warms
+up on clones of them instead, which costs their size in memory.  A replay
+runs on the current stream: the DeviceGroup's under the runtime.  While the
+span tracer is on, each replay is logged with its copy-ins and timed by
+CUDA events (:meth:`GraphCache.stats`).
+
+The loops of one owner run one at a time (a server's segments do).  CPU
+tensors run the loop eagerly, as every kernel runs its plain version there.
+On CUDA tensors a failed capture or replay raises: there is no eager
+fallback.
+"""
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import Callable
+
+import torch
+
+from repro_torch.core.trace import tracer
+from repro_torch.kernels import _build
+from repro_torch.models.params import tree_leaves
+
+
+def _items(inputs: dict):
+    """(role, index, tensor) of each input; a role holds a tensor (index
+    None) or a list of tensors."""
+    for role, v in inputs.items():
+        if isinstance(v, (list, tuple)):
+            for i, t in enumerate(v):
+                yield role, i, t
+        else:
+            yield role, None, v
+
+
+def _rebuild(inputs: dict, fn) -> dict:
+    return {role: [fn(role, i, t) for i, t in enumerate(v)] if isinstance(v, (list, tuple))
+            else fn(role, None, v) for role, v in inputs.items()}
+
+
+def same_storage(x: torch.Tensor, s: torch.Tensor) -> bool:
+    """Whether ``x`` is the buffer ``s`` itself (no copy needed)."""
+    return (x.data_ptr() == s.data_ptr() and x.dtype == s.dtype
+            and tuple(x.shape) == tuple(s.shape) and x.stride() == s.stride())
+
+
+class Loop:
+    """A loop bound to its inputs.  ``statics`` holds the buffers it reads
+    and writes, by role (a graph's static buffers; on the eager path the
+    inputs themselves, made contiguous); ``loop()`` runs it and returns its
+    outputs."""
+
+    def __init__(self, statics: dict, run: Callable) -> None:
+        self.statics = statics
+        self._run = run
+
+    def __call__(self):
+        return self._run()
+
+
+def bind(graphs, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
+         consts: tuple = (), scope=None) -> Loop:
+    """``body(statics, steps) -> outputs`` bound to ``inputs``: captured
+    and replayed through ``graphs`` where it takes the inputs' device, run
+    eagerly when ``graphs`` is None or the inputs lie on the CPU."""
+    dev = next(_items(inputs))[2].device
+    if graphs is None or not graphs.accepts(dev):
+        statics = _rebuild(inputs, lambda r, i, t: t.contiguous())
+        return Loop(statics, lambda: body(statics, steps))
+    return graphs.bind(name, steps, ints, inputs, body, consts, scope)
+
+
+class _Entry:
+    __slots__ = ("graph", "outputs", "tally", "consts")
+
+
+class GraphCache:
+    """The captured loops of one owner and their static buffers.  Counters:
+    ``captures``, ``capture_s`` (all of capturing: warm-up, recording the
+    loop, instantiating the graph), ``warmup_s`` and ``instantiate_s`` of
+    it, ``warmup_clone_bytes`` (buffers cloned because a capture found them
+    holding a caller's state), ``replays``, ``copy_ins`` and ``copy_in_bytes`` (inputs copied into
+    static buffers), and ``log``, one ``(loop, copy-ins, bytes, events)``
+    per replay made while the span tracer is on, the events (CUDA events
+    recorded around the replay on the card, else None) giving its device
+    time in :meth:`stats`."""
+
+    def __init__(self) -> None:
+        self._entries: dict = {}
+        self._buffers: dict = {}
+        self._live: set = set()  # buffers whose content a caller relies on
+        self._streams: dict = {}
+        self._lock = threading.Lock()
+        self.captures = 0
+        self.capture_s = 0.0
+        self.warmup_s = 0.0
+        self.instantiate_s = 0.0
+        self.warmup_clone_bytes = 0
+        self.replays = 0
+        self.copy_ins = 0
+        self.copy_in_bytes = 0
+        self.log: collections.deque = collections.deque(maxlen=4096)
+
+    @staticmethod
+    def accepts(device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    @staticmethod
+    def key(name: str, steps: int, ints: tuple, inputs: dict, consts: tuple = (),
+            scope=None) -> tuple:
+        """The cache key of loop ``name``: its step count and static ints,
+        each input's role, shape and dtype, the device, the scope, and the
+        identity of each leaf of ``consts`` (the weights).  No input's
+        address."""
+        items = list(_items(inputs))
+        devices = {t.device for _, _, t in items}
+        if len(devices) != 1:
+            raise ValueError(f"loop {name!r} takes inputs on one device, got {devices}")
+        metas = tuple((r, i, tuple(t.shape), t.dtype) for r, i, t in items)
+        return (name, steps, tuple(ints), metas, str(devices.pop()), scope,
+                tuple(id(leaf) for c in consts for leaf in tree_leaves(c)))
+
+    def statics(self, likes: dict, device=None, scope=None) -> dict:
+        """The static buffers of ``scope`` for inputs shaped like ``likes``
+        (meta tensors will do, with ``device``), by role: made zero-filled
+        on first use (a warm-up then reads valid block tables and
+        positions) and shared by every loop of this cache and scope that
+        takes that role at that shape."""
+        def get(role, i, t):
+            dev = torch.device(device) if device is not None else t.device
+            k = (scope, role, i, tuple(t.shape), t.dtype, str(dev))
+            buf = self._buffers.get(k)
+            if buf is None:
+                buf = self._buffers[k] = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+            return buf
+        return _rebuild(likes, get)
+
+    def capture(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
+                consts: tuple = (), scope=None):
+        """The entry of loop ``name`` on inputs shaped like ``inputs``,
+        captured now if this cache has none, and its static buffers."""
+        key = self.key(name, steps, ints, inputs, consts, scope)
+        with self._lock:
+            statics = self.statics(inputs, scope=scope)
+            entry = self._entries.get(key)
+            if entry is None:
+                entry = self._entries[key] = self._capture(statics, body, steps, consts)
+        return entry, statics
+
+    def bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
+             consts: tuple = (), scope=None) -> Loop:
+        """Loop ``name`` bound to ``inputs``: captured if new, each input
+        copied into its static buffer unless it is that buffer."""
+        entry, statics = self.capture(name, steps, ints, inputs, body, consts, scope)
+        n = nbytes = 0
+        for (_, _, x), (_, _, s) in zip(_items(inputs), _items(statics)):
+            self._live.add(id(s))
+            if not same_storage(x, s):
+                s.copy_(x)
+                n += 1
+                nbytes += x.numel() * x.element_size()
+        self.copy_ins += n
+        self.copy_in_bytes += nbytes
+
+        dev = next(_items(statics))[2].device
+
+        def run():
+            logged, events = tracer().enabled, None
+            if logged and dev.type == "cuda":
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            entry.graph.replay()
+            if events is not None:
+                events[1].record()
+            entry.tally.replayed()
+            self.replays += 1
+            if logged:
+                self.log.append((name, n, nbytes, events))
+            return entry.outputs
+
+        return Loop(statics, run)
+
+    def _capture(self, statics: dict, body: Callable, steps: int, consts: tuple) -> _Entry:
+        t0 = time.perf_counter()
+
+        def scratch(role, i, s):
+            if id(s) not in self._live:
+                return s
+            self.warmup_clone_bytes += s.numel() * s.element_size()
+            return s.clone()
+
+        warm = _rebuild(statics, scratch)
+        with _build.recording():  # the warm-up's launches count nowhere
+            body(warm, 1)
+        del warm
+        self.warmup_s += time.perf_counter() - t0
+        with _build.recording() as tally:
+            graph, outputs = self._record(statics, lambda st: body(st, steps))
+        entry = _Entry()
+        entry.graph, entry.outputs, entry.tally, entry.consts = graph, outputs, tally, consts
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
+        return entry
+
+    def _record(self, statics: dict, run: Callable):
+        """Capture ``run(statics)`` in a CUDA graph on the buffers' device:
+        (the graph, its outputs)."""
+        dev = next(_items(statics))[2].device
+        with torch.cuda.device(dev):
+            stream = self._streams.get(dev)
+            if stream is None:
+                stream = self._streams[dev] = torch.cuda.Stream(dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                outputs = run(statics)
+                t0 = time.perf_counter()
+            self.instantiate_s += time.perf_counter() - t0  # capture_end instantiates
+        return graph, outputs
+
+    def stats(self) -> dict:
+        return {"captures": self.captures, "capture_s": self.capture_s,
+                "warmup_s": self.warmup_s, "instantiate_s": self.instantiate_s,
+                "warmup_clone_bytes": self.warmup_clone_bytes, "replays": self.replays, "copy_ins": self.copy_ins,
+                "copy_in_bytes": self.copy_in_bytes,
+                "static_bytes": sum(b.numel() * b.element_size()
+                                    for b in self._buffers.values()),
+                "per_replay": [[name, n, nbytes, _elapsed_ms(ev)]
+                               for name, n, nbytes, ev in self.log]}
+
+
+def _elapsed_ms(events):
+    """A replay's device time from its events, once the card has run it
+    (None before, or off the card)."""
+    if events is None or not events[1].query():
+        return None
+    return events[0].elapsed_time(events[1])

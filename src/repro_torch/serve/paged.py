@@ -414,7 +414,7 @@ class PagedBatchGroup(BatchGroup):
         prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
         for b in leaves:
             prog.out(torch.zeros_like(b))
-        prog.kernel(kernels.paged_segment_kernel(self.seg_len),
+        prog.kernel(kernels.paged_segment_kernel(self.seg_len, self.bucket),
                     f"decode_pseg{self.seg_len}")
         # Donate the pool-leaf inputs: segments update the shared blocks in
         # place on the device (consume-on-donate keeps the transfer cache

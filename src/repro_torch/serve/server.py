@@ -301,6 +301,10 @@ class InferenceServer:
                        still-prefilling slot's prompt by ``chunk_len``
                        tokens.  Streams stay bitwise those of whole-prompt
                        serving.
+    graph            : replay each segment's decode loop as a CUDA graph
+                       on the card (``ModelKernels``; ``stats()["graphs"]``
+                       counts captures, replays and copy-ins); False runs
+                       the loops eagerly.  Ignored with ``kernels``.
     """
 
     def __init__(self, cfg, api, params, *,
@@ -317,6 +321,7 @@ class InferenceServer:
                  paged: Optional[PagedSpec] = None,
                  draft: Optional[DraftSpec] = None,
                  chunk_len: int = 0,
+                 graph: bool = True,
                  telemetry: Optional[Telemetry] = None,
                  group_batches: Optional[bool] = None,
                  migration: Optional[MigrationPolicy] = None,
@@ -340,7 +345,7 @@ class InferenceServer:
         if self.chunk_len:
             validate_chunked(cfg, api, self.chunk_len)
         self.pool_admission = PoolAdmission()
-        self.kernels = kernels or ModelKernels(cfg, api, params, draft=draft)
+        self.kernels = kernels or ModelKernels(cfg, api, params, draft=draft, graph=graph)
         if draft is not None and self.kernels.spec_k != draft.k:
             raise ValueError("kernels were built without this draft spec")
         if self.chunk_len and draft is not None:
@@ -477,6 +482,8 @@ class InferenceServer:
         s["chunk_len"] = self.chunk_len
         if self.spec_gate is not None:
             s["speculation"] = self.spec_gate.stats(list(self.buckets.sizes))
+        if self.kernels.graphs is not None:
+            s["graphs"] = self.kernels.graphs.stats()
         return s
 
     def metrics(self) -> dict:

@@ -10,8 +10,10 @@ serving loop calls prefill/decode many times against the same parameters.
 The KV cache is written in place; a cache passed to a step is updated and
 returned, not copied (the JAX package donated it to the jitted step).
 
-Tracer spans around prefill and the chain are not ported yet (ROADMAP.md
-item A3).
+The decode chain runs as a CUDA graph on the card (``make_decode_chain(...,
+graph=True)``, ``make_generate``'s default): captured once per shape and
+replayed, as the JAX package jits it (``serve/graphs.py``).  ``graph=False``
+is the eager loop, which CPU tensors always run.
 """
 from __future__ import annotations
 
@@ -21,7 +23,10 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.core.trace import tracer
+from repro_torch.models.attention import pos_vector
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.serve.graphs import GraphCache
 
 # (leaf ids, dtype) -> cast tree, dropped when any source leaf is collected.
 _cast_cache: dict = {}
@@ -127,13 +132,20 @@ def zeros_cache(cfg, api, batch: int, max_seq: int, *, device, dtype=None):
 
     def mk(s):
         ldt = getattr(torch, s.dtype) if s.dtype else dt
-        if s.init == "neg_ones":
-            return torch.full(s.shape, -1, dtype=ldt, device=device)
-        if s.init == "ones":
-            return torch.ones(s.shape, dtype=ldt, device=device)
-        return torch.zeros(s.shape, dtype=ldt, device=device)
+        return torch.full(s.shape, _INIT_FILL.get(s.init, 0), dtype=ldt, device=device)
 
     return tree_map(mk, api.cache_spec(cfg, batch, max_seq))
+
+
+_INIT_FILL = {"neg_ones": -1, "ones": 1}
+
+
+def reset_cache(cfg, api, cache, batch: int, max_seq: int) -> None:
+    """Refill ``cache`` (in place) with each leaf's declared init, as
+    :func:`zeros_cache` makes it."""
+    specs = tree_leaves(api.cache_spec(cfg, batch, max_seq))
+    for leaf, s in zip(tree_leaves(cache), specs):
+        leaf.fill_(_INIT_FILL.get(s.init, 0))
 
 
 def cache_batch_axes(cfg, api, max_seq: int):
@@ -150,44 +162,136 @@ def cache_batch_axes(cfg, api, max_seq: int):
     return tree_map(ax, api.cache_spec(cfg, 1, max_seq), api.cache_spec(cfg, 2, max_seq))
 
 
-def make_decode_chain(cfg, api):
+def _unflatten(structure, leaves):
+    """A tree of ``structure``'s shape with ``leaves`` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), structure)
+
+
+def make_decode_chain(cfg, api, *, graph: bool = False):
     """Multi-step greedy decode with device-resident handoff: ``n_steps``
     dependent decode steps whose tokens, positions and KV cache stay on the
     device, with no host synchronization per token.
     ``decode_chain(params, cache, token, pos, n_steps)`` returns
-    ``(tokens[b, n_steps], last_token, cache)``."""
+    ``(tokens[b, n_steps], last_token, cache)``; ``pos`` is the first
+    step's position, an int or an int32 tensor on the device (a scalar or
+    (B,)).
+
+    ``graph=True`` (the JAX package's ``jax.jit(chain, static_argnums=(4,),
+    donate_argnums=(1,))``): on CUDA tensors the chain is captured in a CUDA
+    graph once per (n_steps, shapes, weights) and replayed
+    (``serve/graphs.py``); an int ``pos`` becomes a device tensor outside
+    the graph, so one graph serves every start position.  The cache is
+    copied into the graph's static cache unless it is that cache, and the
+    static cache is returned: as a donated JAX buffer, the cache passed in
+    is consumed.  ``decode_chain.graphs`` is the GraphCache and
+    ``decode_chain.capture(params, cache, token, pos, n_steps)`` captures
+    without running."""
     decode = make_decode_step(cfg, api)
 
     def decode_chain(params, cache, token, pos, n_steps: int):
-        b = token.shape[0]
-        toks = torch.empty((b, n_steps), dtype=torch.int32, device=token.device)
-        posv = torch.full((b,), int(pos), dtype=torch.int32, device=token.device)
+        b, dev = token.shape[0], token.device
+        toks = torch.empty((b, n_steps), dtype=torch.int32, device=dev)
+        posv = pos_vector(pos, b, dev)
         for i in range(n_steps):
             token, cache = decode(params, cache, token, posv + i)
             toks[:, i] = token[:, 0]
         return toks, token, cache
 
-    return decode_chain
+    if not graph:
+        return decode_chain
+    graphs = GraphCache()
+
+    def loop(params, cache, token, pos, n_steps):
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), int(pos), dtype=torch.int32, device=token.device)
+        inputs = {"token": token, "pos": pos.to(token.device, torch.int32),
+                  "cache": tree_leaves(cache)}
+
+        def body(st, n):
+            toks, tok, _ = decode_chain(params, _unflatten(cache, st["cache"]), st["token"],
+                                        st["pos"], n)
+            return toks, tok
+
+        return ("decode_chain", n_steps, (), inputs, body, (params,))
+
+    def graphed_chain(params, cache, token, pos, n_steps: int):
+        if n_steps == 0 or not graphs.accepts(token.device):
+            return decode_chain(params, cache, token, pos, n_steps)
+        bound = graphs.bind(*loop(params, cache, token, pos, n_steps))
+        toks, tok = bound()
+        return toks.clone(), tok.clone(), _unflatten(cache, bound.statics["cache"])
+
+    def capture(params, cache, token, pos, n_steps: int):
+        graphs.capture(*loop(params, cache, token, pos, n_steps))
+
+    graphed_chain.graphs = graphs
+    graphed_chain.capture = capture
+    return graphed_chain
 
 
-def make_generate(cfg, api):
+def make_generate(cfg, api, *, graph: bool = True):
     """One-shot batched generate: prefill + device-resident decode chain.
 
     Returned ``generate(params, batch, gen, *, cache=None)`` produces
     ``(b, gen)`` greedy int32 tokens on the tokens' device; ``cache``
     defaults to a fresh ``zeros_cache`` sized ``prompt_len + gen`` (a
-    caller-provided cache is consumed: written in place)."""
+    caller-provided cache is consumed).
+
+    ``graph=True`` mirrors the JAX package's ``jit=True``: on the card the
+    chain replays a CUDA graph (:func:`make_decode_chain`), and with
+    ``cache=None`` prefill writes straight into the graph's static cache,
+    refilled with its declared init, so a second call of the same shape
+    copies no cache.  ``graph=False`` is the eager loop.  Prefill stays
+    eager.  ``generate.prepare(params, batch, gen)`` captures the chain of
+    that shape ahead of a timed call and returns the seconds it took (0 when
+    nothing was captured); ``generate.graphs`` is the chain's GraphCache
+    (None when ``graph=False``).  Tracer spans ``generate.prefill`` (batch,
+    seq) and ``generate.chain`` (steps) cover the host's share of each, as
+    in the JAX package."""
     prefill = make_prefill_step(cfg, api)
-    chain = make_decode_chain(cfg, api)
+    chain = make_decode_chain(cfg, api, graph=graph)
+    graphs = chain.graphs if graph else None
+
+    def static_cache(params, tokens, gen: int):
+        """The chain graph's static cache for this shape (the chain
+        captured first if new), or None where the chain runs eagerly."""
+        b, s = tokens.shape
+        dev = tokens.device
+        if graphs is None or gen < 2 or not graphs.accepts(dev):
+            return None
+        like = zeros_cache(cfg, api, b, s + gen, device="meta")
+        st = graphs.statics({"cache": tree_leaves(like)}, dev)
+        cache = _unflatten(like, st["cache"])
+        tok = graphs.statics({"token": torch.empty((b, 1), dtype=torch.int32,
+                                                   device="meta")}, dev)["token"]
+        chain.capture(params, cache, tok, s, gen - 1)
+        return cache
 
     def generate(params, batch, gen: int, *, cache=None):
-        b, s = batch["tokens"].shape
+        tr = tracer()
+        tokens = batch["tokens"]
+        b, s = tokens.shape
         if cache is None:
-            cache = zeros_cache(cfg, api, b, s + gen, device=batch["tokens"].device)
-        tok, cache = prefill(params, batch, cache)
-        toks, _, _ = chain(params, cache, tok, s, gen - 1)
+            cache = static_cache(params, tokens, gen)
+            if cache is not None:
+                reset_cache(cfg, api, cache, b, s + gen)
+            else:
+                cache = zeros_cache(cfg, api, b, s + gen, device=tokens.device)
+        with tr.span("generate.prefill", track="generate", batch=b, seq=s):
+            tok, cache = prefill(params, batch, cache)
+        with tr.span("generate.chain", track="generate", steps=gen - 1):
+            toks, _, _ = chain(params, cache, tok, s, gen - 1)
         return torch.cat([tok, toks], dim=1)
 
+    def prepare(params, batch, gen: int) -> float:
+        before = graphs.capture_s if graphs is not None else 0.0
+        static_cache(params, batch["tokens"], gen)
+        return (graphs.capture_s - before) if graphs is not None else 0.0
+
+    generate.prepare = prepare
+    generate.graphs = graphs
     return generate
 
 
