@@ -172,32 +172,55 @@ Phases, each fatal on failure (non-zero exit, no result line):
              stack are printed, not held: with random weights a deep stack
              is chaotic, and the float32 reference moves as far when its
              embeddings move by one ulp.  A profiler pass over one prefill
-             and 8 decode steps, eager and replayed as a CUDA graph, prints
-             the card's busy time against the wall time.
-             The decode loops run as CUDA graphs (``serve/graphs.py``): the
-             launcher's one-shot generate captures its chain before the
-             timed call and replays it once (held), and the servers replay
-             every segment loop.  ``[graph]`` lines: on each main path,
-             one-shot generate eager and graphed, two calls each, the
-             second timed, every call's tokens held bitwise the launcher's,
-             the graphed second call held to one replay that copies in the
-             token and the start position and no cache; every served path
-             above runs eager and graphed (``InferenceServer(graph=)``),
-             both held to the same launch counts and streams, the graphed
-             one to one replay a segment, and the paged served path's
-             segments after the first to copy in no pool leaf; each line
-             prints tokens/s, wall, TTFT, the host's dispatch and
-             write-back of each segment, captures and capture seconds,
+             and 8 decode steps, eager and replayed as CUDA graphs
+             (one-shot generate's own prefill and chain graphs), prints the
+             card's busy time against the wall time, and for the graphed
+             regions every kernel's device time and launches, by kernel and,
+             for gemm_rowinv, by product (``[B7]``, per decode step and per
+             prefill).
+             Prefill and the decode loops run as CUDA graphs
+             (``serve/graphs.py``): the launcher's one-shot generate
+             captures its prefill and chain before the timed call and
+             replays each once (held), the servers replay every segment
+             loop (a chunked one with and without its chunk stage) and
+             every prefill wave (the group's compiled kernel).  ``[graph]``
+             lines: on each main path, one-shot generate eager (prefill
+             and chain eager) and graphed, two calls each, the second
+             timed, every call's tokens held bitwise the launcher's, the
+             graphed second call held to two replays that copy in the
+             prompt tokens only; every served path above runs eager and
+             graphed (``InferenceServer(graph=)``), both held to the same
+             launch counts and streams, the graphed one to one replay a
+             segment and one group replay a prefill wave, no capture
+             warming up on clones, and the paged served path's segments
+             after the first to copy in no pool leaf; each line prints
+             tokens/s, wall, TTFT, the host's dispatch, write-back and
+             epilogue of each segment, captures and their seconds by loop
+             and phase (warm-up, begin, recording, instantiation),
              copy-ins per replay and the TMA maps encoded (at warm-up and
-             capture: a replay encodes none).  A failed capture raises and
-             fails the run.
+             capture: a replay encodes none); the two chunked paths run
+             graphed once more with the profiler off (CUPTI's tracing of
+             a graph launch costs the host time per node), held to the
+             same counts and streams.  ``[C8]``: the whole-prompt
+             served path graphed with the parent tree's host clone of every
+             swapped buffer and pageable mirrors, then swapped in place
+             with pageable mirrors, beside this tree's (in place, pinned):
+             streams and launch counts held equal, epilogue and write-back
+             per segment printed.  A failed capture raises and fails the
+             run.
 5. coexec -- ``repro_torch.launch.serve --coexec --scheduler hguided
-             --verify`` on qwen1.5-4b --full, 8 x 256 + 32 (the packages'
-             generate eager, the verifying one graphed): HGuided packages
-             over two groups of cuda:0 (pod-a at power 2, pod-b at power 1,
-             a CUDA stream each), held bitwise equal to one-shot generate
-             (the launcher's --verify), every group with a package, and the
-             launch counts (packages + 1) times the one-shot path's.  Then
+             --verify`` on qwen1.5-4b --full, 8 x 256 + 32: HGuided
+             packages over two groups of cuda:0 (pod-a at power 2, pod-b
+             at power 1, a CUDA stream each), each package the eager
+             generate which the group captures per package shape and
+             replays (its capture in the package's time and the balance),
+             held bitwise equal to one-shot generate (the launcher's
+             --verify), every group with a package and one replay a
+             package, and the launch counts (packages + 1) times the
+             one-shot path's; then the same with the groups' graphs off,
+             held bitwise equal, launches packages times the one-shot
+             path's; tokens/s, balance and each package's time printed.
+             Then
              the paper's Listing 1 (examples/quickstart_torch.py) on
              ``discover(DeviceMask.ALL)``, which must be exactly cpu:0 and
              cuda:0, under HGuided(adaptive=True), no simulated speeds:
@@ -221,6 +244,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -1245,86 +1269,291 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     return errs
 
 
-def profile_steps(cfg, params, batch, dev, torch) -> dict:
-    """torch.profiler over one prefill and then 8 decode steps of the
-    main path, the steps both eager and replayed as a CUDA graph
-    (``make_decode_chain(graph=True)``, captured and run once before, on
-    the cache the first run returned, so the profiled replay copies no
-    cache in): the card's busy time (the sum of its kernels' durations, the
-    graph's kernels included) against the host's wall time for each, CUDA
-    events around each region (the card's span from its first to its last
-    operation, gaps included), and the kernels that take most of the card's
-    time.  The profiler adds host time of its own."""
-    from collections import Counter
+# The port's kernels by their CUDA symbols (csrc/), longest match first.
+KERNEL_SYMBOLS = (("flash_decode_paged", "flash_decode_paged"),
+                  ("flash_decode_chunk", "flash_decode_chunk"),
+                  # The decode kernels' merge of a slot's key chunks.
+                  ("combine_chunks_kernel", "flash_decode_combine"),
+                  ("flash_decode", "flash_decode"), ("flash_attention", "flash_attention"),
+                  ("gemm_wgmma_kernel", "gemm_rowinv"), ("gemm_f32_kernel", "gemm_rowinv"),
+                  ("rms_norm_kernel", "rms_norm"), ("ssm_scan_kernel", "ssm_scan"),
+                  ("rglru_scan_kernel", "rglru_scan"))
 
+
+def kernel_group(name: str) -> str:
+    """A device kernel's group: the port kernel its symbol belongs to, else
+    PyTorch's kernel name without namespace and template arguments."""
+    for sym, group in KERNEL_SYMBOLS:
+        if sym in name:
+            return group
+    short = name.replace("(anonymous namespace)::", "")
+    if short.startswith("std::enable_if"):  # a return type ahead of the name
+        short = short.split(">::type", 1)[-1]
+    parts = short.split("<")[0].split("(")[0].replace("void ", "").strip().split("::")
+    return "torch:" + "::".join(parts[-2:] if parts[-1] == "kernel" else parts[-1:])[:48]
+
+
+def gemm_ops(params, run, torch) -> list:
+    """The parameter each ``gemm_rowinv`` call of ``run()`` multiplies by,
+    in launch order (the tree path of the weight's storage in ``params``,
+    the cast weights the model reads; the tied head is the embedding)."""
+    from repro_torch.kernels import ops
+
+    names = {}
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(v, path + (str(k),))
+        elif isinstance(tree, torch.Tensor):
+            # Stacks of layers (``layers``, or ``units`` of a block pattern
+            # whose positions are ``l<i>_<kind>``) name one product.
+            names[tree.untyped_storage().data_ptr()] = ".".join(
+                re.sub(r"^l\d+_", "", p) for p in path if p not in ("layers", "units"))
+    walk(params, ())
+    seq, real = [], ops.linear
+
+    def recorded(x, w, *a, **kw):
+        seq.append(names.get(w.untyped_storage().data_ptr(), "?"))
+        return real(x, w, *a, **kw)
+
+    ops.linear = recorded
+    try:
+        run()
+    finally:
+        ops.linear = real
+    return seq
+
+
+def by_kernel(events, ops_seq, per: int) -> dict:
+    """Device time (ms) and launches of a region's kernels, grouped by
+    kernel and, for ``gemm_rowinv``, by the product each launch computes
+    (``ops_seq``, the eager launch order, which a graph keeps), each
+    divided by ``per`` (the region's steps).  Where the trace lost a
+    launch, the products are labelled step by step instead: a decode step
+    ends at its argmax (PyTorch's one ``reduce_kernel`` a step), and only
+    the steps whose trace holds every launch are labelled
+    (``gemm_steps_labelled``; ``gemm_by_op`` None when none is)."""
+    kernels = {}
+    for name, ms in events:
+        d = kernels.setdefault(kernel_group(name), [0, 0.0])
+        d[0] += 1
+        d[1] += ms
+    steps, step = [], []
+    for name, ms in events:
+        if kernel_group(name) == "gemm_rowinv":
+            step.append(ms)
+        elif per > 1 and "reduce_kernel" in name:
+            steps.append(step)
+            step = []
+    steps.append(step)
+    if sum(map(len, steps)) == len(ops_seq):
+        full, seq, n_labelled = [[ms for st in steps for ms in st]], ops_seq, per
+    else:
+        seq = ops_seq[:len(ops_seq) // per]
+        full = [st for st in steps if len(st) == len(seq)] if per > 1 else []
+        n_labelled = len(full)
+    gemm = {}
+    for st in full:
+        for ms, op in zip(st, seq):
+            d = gemm.setdefault(op, [0, 0.0])
+            d[0] += 1
+            d[1] += ms
+
+    def table(d, n):
+        return {k: {"launches": c / n, "ms": t / n}
+                for k, (c, t) in sorted(d.items(), key=lambda kv: -kv[1][1])}
+    return {"kernels": table(kernels, per),
+            "gemm_by_op": table(gemm, n_labelled) if full else None,
+            "gemm_steps_labelled": n_labelled if full else 0}
+
+
+PROFILE_PAD = 32  # spin kernels ahead of each profiled region
+
+
+def trace_losses(want: list, got: list, window: int = 8, skip: int = 16) -> list:
+    """Where a trace's kernel names ``got`` lack launches of ``want`` (the
+    same work's names, launched in the same order): ``(index in want,
+    launches lacking, the first one's name, the name before it)`` per gap,
+    names shortened to their kernel group.  A greedy walk: at a mismatch,
+    the fewest names skipped in ``want`` (a loss) or in ``got`` (a launch
+    the other region lacks) after which ``window`` names agree."""
+    def agree(i, j):
+        return want[i:i + window] == got[j:j + window]
+
+    out, i, j = [], 0, 0
+    while i < len(want) and j < len(got):
+        if want[i] == got[j]:
+            i, j = i + 1, j + 1
+            continue
+        for k in range(1, skip + 1):
+            if agree(i + k, j):
+                out.append((i, k, kernel_group(want[i]),
+                            kernel_group(want[i - 1]) if i else "the start"))
+                i += k
+                break
+            if agree(i, j + k):
+                j += k
+                break
+        else:
+            i, j = i + 1, j + 1  # no resync within reach: step past both
+    if i < len(want):
+        out.append((i, len(want) - i, kernel_group(want[i]),
+                    kernel_group(want[i - 1]) if i else "the start"))
+    return out
+
+
+def gemm_launches(events) -> int:
+    return sum(kernel_group(name) == "gemm_rowinv" for _, name, _ in events)
+
+
+def profile_steps(cfg, params, batch, dev, torch) -> dict:
+    """torch.profiler over one prefill and then 8 decode steps of the main
+    path, each both eager and replayed as CUDA graphs (one-shot generate's
+    own: ``make_generate(...).prefill`` replays its prefill graph, which
+    writes the chain graph's static cache, and ``.chain`` its chain of 8
+    steps on it; both captured before by ``generate.prepare``): the card's
+    busy time (the sum of its kernels' durations, the graphs' kernels
+    included) against the host's wall time for each, CUDA events around
+    each region (the card's span from its first to its last operation, gaps
+    included), and, for the graphed regions, every kernel's device time and
+    launches, by kernel and, for ``gemm_rowinv``, by product (B7; per step
+    for the decode region).  The profiler adds host time of its own, and
+    its trace lacks the first few launches after it starts, so a pad of
+    spin kernels runs ahead of each region (``pad_launches_traced``: how
+    many of them the trace held), and the eager decode region starts at a
+    device position, as the graphed one does, so that the two launch the
+    same kernels in the same order (``trace_losses`` compares them)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import gemm
     from repro_torch.models import get_model
-    from repro_torch.serve import make_decode_chain, make_prefill_step, zeros_cache
+    from repro_torch.serve import make_decode_chain, make_generate, make_prefill_step, zeros_cache
 
     api = get_model(cfg)
     b, s = batch["tokens"].shape
+    steps = 8
     prefill = make_prefill_step(cfg, api)
-    cache = zeros_cache(cfg, api, b, s + 8, device=dev)
+    cache = zeros_cache(cfg, api, b, s + steps + 1, device=dev)
     tok, cache = prefill(params, batch, cache)
-    graphed = make_decode_chain(cfg, api, graph=True)
+    generate = make_generate(cfg, api)
     t0 = time.perf_counter()
-    _, _, static = graphed(params, cache, tok, s, 8)
+    capture_s = generate.prepare(params, batch, steps + 1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    gtok, gpos, gcache, kw = generate.prefill(params, batch, steps + 1)
+    torch.cuda.synchronize()
+    eager_chain = make_decode_chain(cfg, api)
+    # A device start position, as the graphed chain takes: the two regions
+    # then launch the same kernels in the same order.
+    spos = torch.tensor(s, dtype=torch.int32, device=dev)
     regions = (("prefill", lambda: prefill(params, batch, cache)),
-               ("decode_8_steps", lambda: make_decode_chain(cfg, api)(params, cache, tok, s, 8)),
-               ("decode_8_steps_graph", lambda: graphed(params, static, tok, s, 8)))
-    out = {"graph_capture_s": graphed.graphs.capture_s,
-           "graph_first_call_s": first_s}
+               ("decode_8_steps", lambda: eager_chain(params, cache, tok, spos, steps)),
+               ("prefill_graph", lambda: generate.prefill(params, batch, steps + 1)),
+               ("decode_8_steps_graph",
+                lambda: generate.chain(params, gcache, gtok, gpos, steps, **kw)))
+    ops_seq = {"prefill_graph": gemm_ops(params, lambda: prefill(params, batch, cache), torch),
+               "decode_8_steps_graph": gemm_ops(
+                   params, lambda: eager_chain(params, cache, tok, spos, steps), torch)}
+    out = {"graph_capture_s": capture_s, "graph_first_call_s": first_s,
+           "graph_loops": generate.graphs.stats()["loops"]}
+    names = {}  # each region's kernel names in launch order
     for region, run in regions:
         torch.cuda.synchronize()
         maps = gemm.maps_encoded()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # The trace lacks the first launches after the profiler starts
+            # (eager and graphed regions alike): spin kernels ahead of the
+            # region take that loss, and are left out of its events.
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             ev[0].record()
             run()
             ev[1].record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        kern = Counter()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                kern[e.name[:80]] += e.time_range.elapsed_us() / 1e3
-        busy = sum(kern.values())
+        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
+                        for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        pad = sum("spin_kernel" in name for _, name, _ in events)
+        events = [e for e in events if "spin_kernel" not in e[1]]
+        names[region] = [name for _, name, _ in events]
+        busy = sum(ms for _, _, ms in events)
         span = ev[0].elapsed_time(ev[1])
         maps = gemm.maps_encoded() - maps
         if region.endswith("graph") and maps:
-            fail(f"{cfg.name}: a replay of the decode chain encoded {maps} TMA maps")
-        out[region] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                       "device_span_ms": span, "top_kernels_ms": kern.most_common(6)}
+            fail(f"{cfg.name}: a replay of the {region} graph encoded {maps} TMA maps")
+        out[region] = {"wall_ms": wall * 1e3, "device_busy_ms": busy, "device_span_ms": span,
+                       "pad_launches_traced": pad}
+        if region.endswith("graph"):
+            # A graph launches the eager region's kernels in the same order:
+            # where its trace lacks one, say which, and where in the order.
+            lost = trace_losses(names[region[:-len("_graph")]], names[region])
+            out[region]["trace_losses"] = lost
+            for i, n, name, before in lost:
+                print(f"  [profile] {region}: the trace lacks {n} launch(es) of the eager "
+                      f"region's {len(names[region[:-len('_graph')]])}, at launch {i} "
+                      f"({name}, after {before})", flush=True)
         print(f"  [profile] {region}: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
               f"({'not measured' if busy == 0 else f'{busy / wall / 1e3:.1%}'}), CUDA events "
-              f"{span:.1f} ms", flush=True)
-        for name, ms in kern.most_common(6):
-            print(f"    {ms:9.3f} ms  {name}")
-    st = graphed.graphs.stats()
+              f"{span:.1f} ms; the trace holds {pad} of the {PROFILE_PAD} pad launches ahead "
+              f"of it", flush=True)
+        if region in ops_seq:
+            per = steps if region.startswith("decode") else 1
+            bk = by_kernel([(name, ms) for _, name, ms in events], ops_seq[region], per)
+            out[region].update(bk)
+            unit = "a step" if per > 1 else "a prefill"
+            print(f"  [B7] {cfg.name} {region}, per {unit.split()[-1]}: by kernel (launches, ms) "
+                  + "; ".join(f"{k} {d['launches']:g}, {d['ms']:.3f}"
+                              for k, d in bk["kernels"].items()), flush=True)
+            print(f"  [B7] {cfg.name} {region}, gemm_rowinv by product (launches, ms {unit}): "
+                  + ("; ".join(f"{k} {d['launches']:g}, {d['ms']:.3f}"
+                               for k, d in bk["gemm_by_op"].items())
+                     + (f" (the {bk['gemm_steps_labelled']} of {per} steps whose trace "
+                        f"holds every launch)" if bk["gemm_steps_labelled"] < per else "")
+                     if bk["gemm_by_op"] is not None else
+                     f"not measured (the trace held {gemm_launches(events)} of "
+                     f"{len(ops_seq[region])} launches)"), flush=True)
+    st = generate.graphs.stats()
     out["graph_replays"] = st["replays"]
-    print(f"  [graph] decode 8 steps: eager busy {out['decode_8_steps']['device_busy_ms']:.1f} / "
+    if st["warmup_clone_bytes"]:
+        fail(f"{cfg.name}: generate's captures warmed up on {st['warmup_clone_bytes']} B of clones")
+    print(f"  [graph] prefill: eager busy {out['prefill']['device_busy_ms']:.1f} / wall "
+          f"{out['prefill']['wall_ms']:.1f} ms, graphed busy "
+          f"{out['prefill_graph']['device_busy_ms']:.1f} / wall "
+          f"{out['prefill_graph']['wall_ms']:.1f} ms; decode 8 steps: eager busy "
+          f"{out['decode_8_steps']['device_busy_ms']:.1f} / "
           f"wall {out['decode_8_steps']['wall_ms']:.1f} ms, graphed busy "
           f"{out['decode_8_steps_graph']['device_busy_ms']:.1f} / wall "
-          f"{out['decode_8_steps_graph']['wall_ms']:.1f} ms (profiler on); capture "
-          f"{out['graph_capture_s']:.3f} s (warm-up included), first call {first_s:.3f} s; the "
-          f"replay encoded no TMA map (held)", flush=True)
+          f"{out['decode_8_steps_graph']['wall_ms']:.1f} ms (profiler on); capture of both "
+          f"{capture_s:.3f} s ({loops_line(out['graph_loops'])}); no replay encoded a TMA map "
+          f"(held)", flush=True)
     return out
 
 
+def loops_line(loops: dict) -> str:
+    """Capture seconds per loop, split by phase."""
+    return "; ".join(f"{name} x{d['captures']}: "
+                     + (f"waiting {d['wait_s']:.3f}, " if d["wait_s"] else "")
+                     + f"warm-up {d['warmup_s']:.3f}, begin {d['begin_s']:.3f}, recording "
+                     f"{d['record_s']:.3f}, instantiation {d['instantiate_s']:.3f} s"
+                     for name, d in loops.items())
+
+
 def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
-    """One-shot generate of the main path's batch eager (``graph=False``)
-    and graphed (the chain captured first by ``generate.prepare``), two
-    calls each, the first under the span tracer (the graph's replay timed
-    by CUDA events), the second timed (host clock to the tokens on the
-    host).  Held: every call's tokens bitwise ``want`` (the launcher's graphed
-    run); the graphed generate captured once, replayed twice, and its
-    second call copied in the prefill's token and the start position only:
-    no cache (prefill wrote the graph's static cache)."""
+    """One-shot generate of the main path's batch eager (``graph=False``:
+    eager prefill and chain) and graphed (prefill and the chain captured
+    first by ``generate.prepare``), two calls each, the first under the
+    span tracer (the graphs' replays timed by CUDA events), the second
+    timed (host clock to the tokens on the host).  Held: every call's
+    tokens bitwise ``want`` (the launcher's graphed run); the graphed
+    generate captured its two graphs once, with no warm-up clone, and
+    replayed each once a call, its second call copying in the prompt tokens
+    only (the prefill graph writes the chain's static cache, token and
+    start position)."""
     import numpy as np
 
     from repro_torch.core.trace import Tracer, set_tracer
@@ -1352,14 +1581,15 @@ def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
         if mode == "graph":
             st = generate.graphs.stats()
             copies, nbytes = st["copy_ins"] - before[0], st["copy_in_bytes"] - before[1]
-            replay_ms = st["per_replay"][-1][3]
-            if (st["captures"], st["replays"], copies) != (1, 2, 2):
+            replay_ms = {name: ms for name, _, _, ms in st["per_replay"][:2]}
+            if (st["captures"], st["replays"], copies, st["warmup_clone_bytes"]) != (2, 4, 1, 0):
                 fail(f"{cfg.name}: graphed generate captured {st['captures']}, replayed "
-                     f"{st['replays']}, copied {copies} inputs in on its second call; want 1, 2, "
-                     f"2 (token and position)")
+                     f"{st['replays']}, copied {copies} inputs in on its second call, cloned "
+                     f"{st['warmup_clone_bytes']} B for warm-ups; want 2, 4, 1 (the prompt "
+                     f"tokens), 0")
             rec.update(captures=st["captures"], replays=st["replays"],
                        second_call_copy_ins=copies, second_call_copy_in_bytes=nbytes,
-                       first_call_replay_device_ms=replay_ms,
+                       first_call_replay_device_ms=replay_ms, loops=st["loops"],
                        static_bytes=st["static_bytes"])
         out[mode] = rec
         del generate
@@ -1368,9 +1598,9 @@ def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
           f"({out['graph']['wall_s']:.3f} s); capture {out['graph']['capture_s']:.3f} s; graphed "
           f"tokens bitwise eager (held); second graphed call copied in "
           f"{out['graph']['second_call_copy_ins']} inputs, "
-          f"{out['graph']['second_call_copy_in_bytes']} B (token and position, no cache; held); "
-          f"the first call's replay (the decode chain) took the card "
-          f"{out['graph']['first_call_replay_device_ms']} ms (CUDA events)", flush=True)
+          f"{out['graph']['second_call_copy_in_bytes']} B (the prompt tokens; held); the first "
+          f"call's replays took the card {out['graph']['first_call_replay_device_ms']} ms (CUDA "
+          f"events); capture {loops_line(out['graph']['loops'])}", flush=True)
     return out
 
 
@@ -1437,12 +1667,14 @@ def run_main_path(argv, dev, torch, modes) -> dict:
     if toks.shape != (args.requests, args.gen) or toks.min() < 0 or toks.max() >= cfg.vocab:
         fail(f"tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
     g = result["graphs"]
-    if g["captures"] != 1 or g["replays"] != 1:
+    if g["captures"] != 2 or g["replays"] != 2 or g["warmup_clone_bytes"]:
         fail(f"the launcher's generate captured {g['captures']} and replayed {g['replays']} "
-             f"chain graphs, want 1 and 1")
-    print(f"  [graph] the launcher's decode chain: captured in {result['capture_s']:.3f} s before "
-          f"the timed call, replayed once; gemm_rowinv encoded {maps} TMA maps on this path "
-          f"(at the capture's warm-up and capture: a replay encodes none)", flush=True)
+             f"graphs, cloning {g['warmup_clone_bytes']} B for warm-ups; want 2 and 2 (prefill "
+             f"and the decode chain), 0")
+    print(f"  [graph] the launcher's prefill and decode chain: captured in "
+          f"{result['capture_s']:.3f} s before the timed call, replayed once each; gemm_rowinv "
+          f"encoded {maps} TMA maps on this path (at the captures' warm-ups and recordings: a "
+          f"replay encodes none)", flush=True)
     batch = serve.load_batch(cfg, args)
     modes_1shot = oneshot_modes(cfg, api, params, batch, args.gen, toks, torch)
     cast = cast_params_cached(params, cfg.compute_dtype)
@@ -1506,16 +1738,18 @@ SERVER_ARGV = ["--arch", "qwen1.5-4b", "--full", "--server", "--paged", "--block
 MODES = ("eager", "graph")
 
 
-def served_modes(run, torch, *, profiled=False, multi_row=False) -> dict:
+def served_modes(run, torch, *, profiled=False, multi_row=False, modes=MODES) -> dict:
     """``run(graph)`` (the launcher's ``run_server``, or the server API) run
     eager and then graphed (``InferenceServer(graph=)``), each with the
     launch counts zeroed just before and read just after (with
     ``multi_row``, also the decode kernels' multi-row launches), the span
-    tracer on (the runtime's dispatch and write-back spans, the batcher's
-    segment spans) and, with ``profiled``, torch.profiler recording the
-    card's activity (its kernels' and copies' durations summed: the card's
-    busy time).  No request may fail or be rejected, and in the graphed run
-    every segment must be a graph replay.  Returns ``{mode: (result,
+    tracer on (the runtime's dispatch, write-back and epilogue spans, the
+    batcher's segment spans) and, with ``profiled``, torch.profiler
+    recording the card's activity (its kernels' and copies' durations
+    summed: the card's busy time).  No request may fail or be rejected; in
+    the graphed run every segment must be a graph replay and every prefill
+    wave a replay of the group's graph, and no capture may warm up on
+    clones; the eager run captures nothing.  Returns ``{mode: (result,
     counts, busy ms or None, record)}``, the record as
     :func:`mode_record`."""
     from torch.profiler import ProfilerActivity, profile
@@ -1524,7 +1758,7 @@ def served_modes(run, torch, *, profiled=False, multi_row=False) -> dict:
     from repro_torch.kernels import gemm, ops
 
     out = {}
-    for mode in MODES:
+    for mode in modes:
         # Free the previous run's server (its graphs and buffers), so that
         # each run's peak memory is its own.
         gc.collect()
@@ -1547,8 +1781,11 @@ def served_modes(run, torch, *, profiled=False, multi_row=False) -> dict:
         maps = gemm.maps_encoded() - maps
         # The runtime's host spans of each segment Program (not the prefill
         # waves'): dispatch (the loop's launches, or its copy-ins and
-        # replay; the graphed run's first also its capture) and write-back.
-        host = {"dispatch": [], "write_back": []}
+        # replay; the graphed run's first also its capture), write-back and
+        # the epilogue (the ping-pong swap of its buffers); the dispatch's
+        # upload (its inputs' transfers: re-uploads of mirrors a join
+        # rewrote, cache hits otherwise).
+        host = {"dispatch": [], "upload": [], "write_back": [], "runtime.epilogue": []}
         for e in tr.chrome_events():
             if (e.get("ph") == "X" and e["name"] in host
                     and "prefill" not in e["args"].get("kernel", "")):
@@ -1571,6 +1808,14 @@ def served_modes(run, torch, *, profiled=False, multi_row=False) -> dict:
         if g and g["warmup_clone_bytes"]:
             fail(f"served run ({mode}): a capture warmed up on {g['warmup_clone_bytes']} bytes "
                  f"of clones of a live cache; every loop must be captured before its first bind")
+        waves = 0 if s["chunk_len"] else s["prefill_waves"]
+        for name, gg in s["group_graphs"].items():
+            want = (waves, 0) if mode == "graph" else (0, 0)
+            if (gg["replays"], gg["warmup_clone_bytes"]) != want or (
+                    mode == "eager" and gg["captures"]):
+                fail(f"served run ({mode}): group {name} replayed {gg['replays']} prefill graphs "
+                     f"({gg['captures']} captures, warm-up clones {gg['warmup_clone_bytes']} B); "
+                     f"want {want[0]} (one a prefill wave) and 0 B, none eager")
         out[mode] = (result, counts, busy, mode_record(result, busy, maps, host))
     return out
 
@@ -1587,7 +1832,8 @@ def mode_record(result, busy, maps, host) -> dict:
            "wall_s": result["wall_s"],
            "ttft_s": sorted(m["ttft"] for m in result["request_metrics"]),
            "segments": s["segments"], "dispatch_ms": host["dispatch"],
-           "write_back_ms": host["write_back"],
+           "write_back_ms": host["write_back"], "epilogue_ms": host["runtime.epilogue"],
+           "upload_ms": host["upload"],
            "peak_memory_bytes": result.get("peak_memory_bytes"),
            "gemm_tma_maps_encoded": maps}
     if busy is not None:
@@ -1600,7 +1846,14 @@ def mode_record(result, busy, maps, host) -> dict:
                         "warmup_clone_bytes": g["warmup_clone_bytes"],
                         "copy_ins": [r[1] for r in g["per_replay"]],
                         "copy_in_bytes": [r[2] for r in g["per_replay"]],
-                        "replay_device_ms": [r[3] for r in g["per_replay"]]}
+                        "replay_device_ms": [r[3] for r in g["per_replay"]],
+                        "loops": g["loops"]}
+    waves = [gg for gg in s["group_graphs"].values() if gg["captures"]]
+    if waves:
+        rec["prefill_graph"] = {"captures": sum(gg["captures"] for gg in waves),
+                                "replays": sum(gg["replays"] for gg in waves),
+                                "output_copy_bytes": sum(gg["output_copy_bytes"] for gg in waves),
+                                "loops": {k: v for gg in waves for k, v in gg["loops"].items()}}
     return rec
 
 
@@ -1609,12 +1862,12 @@ def print_modes(label, recs) -> None:
     def ms(xs):
         return "[" + ", ".join("?" if x is None else f"{x:.1f}" for x in xs) + "]"
 
-    for mode in MODES:
-        r = recs[mode]
+    for mode, r in recs.items():
         t = r["ttft_s"]
         line = (f"  [graph] {label}, {mode}: {r['tokens_per_s']:.1f} tokens/s, {r['wall_s']:.3f} s,"
                 f" TTFT {t[0]:.3f}-{t[-1]:.3f} s, {r['segments']} segments; host per segment: "
-                f"dispatch {ms(r['dispatch_ms'])} ms, write-back {ms(r['write_back_ms'])} ms")
+                f"dispatch {ms(r['dispatch_ms'])} ms (of it upload {ms(r['upload_ms'])} ms), "
+                f"write-back {ms(r['write_back_ms'])} ms, epilogue {ms(r['epilogue_ms'])} ms")
         if "device_busy_ms" in r:
             line += f"; card busy {r['device_busy_ms']:.1f} ms ({r['device_busy_share']:.1%})"
         if r["peak_memory_bytes"]:
@@ -1627,8 +1880,45 @@ def print_modes(label, recs) -> None:
                      f"held at 0), {g['replays']} replays, copy-ins per replay "
                      f"{list(zip(g['copy_ins'], g['copy_in_bytes']))} (count, bytes), each "
                      f"replay's device time (CUDA events) {ms(g['replay_device_ms'])} ms; TMA maps "
-                     f"encoded {r['gemm_tma_maps_encoded']} (at warm-up and capture)")
+                     f"encoded {r['gemm_tma_maps_encoded']} (at warm-up and capture); capture "
+                     f"by loop: {loops_line(g['loops'])}")
+        p = r.get("prefill_graph")
+        if p:
+            line += (f"; prefill waves: {p['replays']} replays of {p['captures']} group graphs "
+                     f"(results copied out: {p['output_copy_bytes']} B), capture "
+                     f"{loops_line(p['loops'])}")
         print(line, flush=True)
+
+
+def host_round_trip_variants(run, torch) -> dict:
+    """The served run graphed as the parent tree ran its host side, then
+    with C8 repaired but C8b not: (1) ``Program.swap_buffers`` cloning the
+    old input on the host each swap (the parent's code) with pageable
+    mirrors; (2) the swap in place (this tree's), pageable mirrors.  This
+    tree's own graphed run (pinned mirrors on a CUDA group) is
+    :func:`served_modes`'s.  Returns ``{label: (result, counts, busy,
+    record)}``."""
+    from repro_torch.core import program as tprogram
+    from repro_torch.serve import batcher
+
+    real_swap, real_pin = tprogram.Program.swap_buffers, batcher.BatchGroup._pinned_mirrors
+
+    def cloning_swap(self, i_in, i_out):
+        new_in = self._outs[i_out]
+        new_out = self._ins[i_in].clone()
+        self._ins[i_in], self._outs[i_out] = new_in, new_out
+        tprogram.bump_version(new_out)
+
+    out = {}
+    for label, swap in (("clone, pageable", cloning_swap), ("in place, pageable", real_swap)):
+        tprogram.Program.swap_buffers = swap
+        batcher.BatchGroup._pinned_mirrors = lambda self: False
+        try:
+            out[label] = served_modes(run, torch, modes=("graph",))["graph"]
+        finally:
+            tprogram.Program.swap_buffers = real_swap
+            batcher.BatchGroup._pinned_mirrors = real_pin
+    return out
 
 
 def run_served_path(dev, torch) -> dict:
@@ -1649,7 +1939,9 @@ def run_served_path(dev, torch) -> dict:
     cfg, api, params = serve.load_model(args)
     if cfg.decode_block != args.block_len:
         fail(f"--paged --kernel cuda left decode_block at {cfg.decode_block}")
-    runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args, graph=graph), torch)
+    run = lambda graph: serve.run_server(cfg, api, params, args, graph=graph)  # noqa: E731
+    variants = host_round_trip_variants(run, torch)
+    runs = served_modes(run, torch)
     segs = -(-(args.gen - 1) // args.seg_len)
     want = _launches(cfg.n_layers, fa=cfg.n_layers, fdp=cfg.n_layers * args.seg_len * segs,
                      forwards=[(1 + args.seg_len * segs, cfg.n_layers)])
@@ -1682,6 +1974,11 @@ def run_served_path(dev, torch) -> dict:
                 fail(f"served path: graphed segments after the first copied in {later} B "
                      f"(the pool holds {pool} B)")
     result, counts, _, _ = runs["graph"]
+    for label, (vres, vcounts, _, _) in variants.items():
+        if vcounts != counts or not all(np.array_equal(a, b) for a, b in
+                                        zip(vres["results"], result["results"])):
+            fail(f"served path ({label}): launch counts {vcounts} or streams differ from the "
+                 f"pinned, in-place run's")
     s = result["stats"]
     mem = s["memory"]
     spans = result.get("spans", {})
@@ -1708,7 +2005,9 @@ def run_served_path(dev, torch) -> dict:
            "streams_equal_batch8_oneshot": args.requests,
            "streams_equal_batch1_oneshot": args.requests,
            "ttft_s": sorted(m["ttft"] for m in result["request_metrics"]),
-           "modes": {m: r[3] for m, r in runs.items()}}
+           "modes": {m: r[3] for m, r in runs.items()},
+           "host_round_trip": {**{label: r[3] for label, r in variants.items()},
+                               "in place, pinned": runs["graph"][3]}}
     print(f"  served == one-shot generate of the same prompts as one batch of "
           f"{args.requests}: {args.requests}/{args.requests}; == one-shot of each prompt alone "
           f"(batch 1): {args.requests}/{args.requests}; both held, bitwise, eager and graphed",
@@ -1724,6 +2023,11 @@ def run_served_path(dev, torch) -> dict:
           f"{out['prefill_dispatch_ms']} ms, write-back {out['prefill_write_back_ms']} ms",
           flush=True)
     print_modes("served, arrivals 1 ms apart", out["modes"])
+    print(at() + " [C8] the segment's host round trip, graphed, this call: the parent's host "
+          "clone of every swapped buffer with pageable mirrors, the swap in place with pageable "
+          "mirrors, the swap in place with pinned mirrors (streams and launch counts held equal)",
+          flush=True)
+    print_modes("served, arrivals 1 ms apart", out["host_round_trip"])
     return out, counts, (np.stack(result["results"]), ones)
 
 
@@ -1742,6 +2046,20 @@ def _argv_with(argv, **flags):
         else:
             out += [flag, value]
     return out
+
+
+def graphed_unprofiled(run, torch, counts, results, label) -> dict:
+    """``run`` graphed once more without the profiler (CUPTI's tracing of a
+    graph launch costs the host time per node), held to ``counts`` and
+    ``results`` bitwise; its record (:func:`mode_record`), printed."""
+    import numpy as np
+
+    res, c, _, rec = served_modes(run, torch, modes=("graph",))["graph"]
+    if c != counts or not all(np.array_equal(a, b) for a, b in zip(res["results"], results)):
+        fail(f"{label} (graphed, profiler off): launch counts {c} or streams differ from the "
+             f"profiled graphed run's")
+    print_modes(f"{label}, profiler off", {"graph": rec})
+    return rec
 
 
 def run_chunked_paths(dev, torch, whole) -> dict:
@@ -1817,11 +2135,15 @@ def run_chunked_paths(dev, torch, whole) -> dict:
                       "streams_equal_whole_served": args.requests,
                       "streams_equal_batch1_oneshot": args.requests,
                       "modes": {m: r[3] for m, r in runs.items()}}
+        print_modes(f"{label.replace('_', ' ')}, arrivals at 4/s", out[label]["modes"])
         if label == "chunked":
             chunked_counts = counts
             out[label].update(chunk_len=args.chunk_len, chunk_stages=result["chunk_stages"],
-                              mixed_segments=result["mixed_segments"])
-        print_modes(f"{label.replace('_', ' ')}, arrivals at 4/s", out[label]["modes"])
+                              mixed_segments=result["mixed_segments"],
+                              graph_profiler_off=graphed_unprofiled(
+                                  lambda graph: serve.run_server(cfg, api, params, args,
+                                                                 graph=graph),
+                                  torch, counts, result["results"], "chunked (64)"))
     # 2. Contiguous chunked serving, chunks of 40, against its own one-shot
     # reference (decode tiles of 128: no --paged).
     argv = [a for a in argv if a not in ("--paged",)]
@@ -1860,6 +2182,9 @@ def run_chunked_paths(dev, torch, whole) -> dict:
                                  "streams_equal_batch1_oneshot": args.requests,
                                  "modes": {m: r[3] for m, r in runs.items()}}
     print_modes("contiguous, chunks of 40", out["contiguous_chunk40"]["modes"])
+    out["contiguous_chunk40"]["graph_profiler_off"] = graphed_unprofiled(
+        lambda graph: serve.run_server(ccfg, capi, params, args, graph=graph), torch,
+        runs["graph"][1], result["results"], "contiguous chunked (40)")
     return out, chunked_counts
 
 
@@ -2083,41 +2408,82 @@ def run_coexec_path(dev, torch) -> dict:
     """The launcher's co-executed generate (``--coexec --scheduler hguided
     --verify``): the 8 requests cut into HGuided packages over pod-a and
     pod-b, two groups of cuda:0 with a CUDA stream each, every package a
-    one-shot generate of its requests.  The launcher asserts its tokens
-    bitwise equal to one-shot generate of the batch of 8 (``--verify``).
-    Launch counts are zeroed just before and read just after: every
-    package and the verifying one-shot run are each one generate, so every
-    kernel's count must be (packages + 1) times the one-shot path's.  Each
-    group must have run a package."""
+    one-shot generate of its requests, which each group captures whole per
+    package shape and replays (``DeviceGroup.compile_kernel``; the capture
+    lands in a shape's first package, in the balance too, as the
+    reference's compile does).  The launcher asserts its tokens bitwise
+    equal to one-shot generate of the batch of 8 (``--verify``).  Then the
+    same with the kernel run eagerly (``run_coexec(graph=False)`` marks it
+    ``graphs.passthrough``: no group may capture or replay), its tokens
+    held bitwise equal to the graphed run's.  Balance is the introspector's
+    (earliest over latest group finish), captures and one group's wait for
+    the other's capture included; the scheduler's observed service times
+    leave that wait out.  Launch counts are
+    zeroed just before and read just after each run: every package (and the
+    verifying one-shot run) is one generate, so every kernel's count must be
+    (packages (+ 1)) times the one-shot path's.  Each group must have run a
+    package and, graphed, replayed one graph per package, captured once per
+    package shape, with no warm-up clone."""
+    import numpy as np
+
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
+    one = main_paths()[0][4]  # the one-shot qwen1.5-4b path's counts, 8 x 256 + GEN
+    args = serve.parse_args(COEXEC_ARGV)
+    out = {"arch": args.arch, "requests": args.requests, "prompt_len": args.prompt_len,
+           "gen": args.gen, "scheduler": args.scheduler}
     ops.reset_launch_counts()
     result = serve.main(COEXEC_ARGV)
     counts = ops.launch_counts()
     if not result.get("verified"):
         fail("co-executed generate was not verified against one-shot generate")
-    pk = result["packages"]
-    n_pk = sum(len(v) for v in pk.values())
-    one = main_paths()[0][4]  # the one-shot qwen1.5-4b path's counts, 8 x 256 + GEN
-    want = {k: v * (n_pk + 1) for k, v in one.items()}
-    print(f"  launches {counts} (want {want}: {n_pk} packages + the verifying one-shot run, "
-          f"each a generate)", flush=True)
-    if counts != want:
-        fail(f"co-executed path launch counts {counts} != {want}")
-    if any(not sizes for sizes in pk.values()):
-        fail(f"a group ran no package: {pk}")
-    s = result["summary"]
-    args = serve.parse_args(COEXEC_ARGV)
-    out = {"arch": args.arch, "requests": args.requests, "prompt_len": args.prompt_len,
-           "gen": args.gen, "scheduler": args.scheduler, "packages": pk, "balance": s["balance"],
-           "work_share": s["work_share"], "wall_s": result["wall_s"],
-           "tokens_per_s": result["tokens_per_s"],
-           "per_group": s["per_device"], "verified_bitwise_vs_oneshot": True}
-    print(f"  packages {pk}; balance {s['balance']:.3f}; work share "
-          f"{ {k: round(v, 3) for k, v in s['work_share'].items()} }; wall "
-          f"{result['wall_s']:.3f} s ({result['tokens_per_s']:.1f} tokens/s); bitwise equal "
-          f"to one-shot generate (held)", flush=True)
+    runs = {"graph": (result, counts, 1)}
+    gc.collect()
+    cfg, api, params = serve.load_model(args)
+    batch = serve.load_batch(cfg, args)
+    ops.reset_launch_counts()
+    eager = serve.run_coexec(cfg, api, params, batch, args, graph=False)
+    runs["eager"] = (eager, ops.launch_counts(), 0)
+    if not np.array_equal(eager["tokens"], result["tokens"]):
+        fail("eager co-executed tokens differ from the graphed (verified) ones")
+    for mode in ("eager", "graph"):
+        res, counts, extra = runs[mode]
+        pk = res["packages"]
+        n_pk = sum(len(v) for v in pk.values())
+        want = {k: v * (n_pk + extra) for k, v in one.items()}
+        print(f"  {mode}: launches {counts} (want {want}: {n_pk} packages"
+              + (" + the verifying one-shot run" if extra else "") + ", each a generate)",
+              flush=True)
+        if counts != want:
+            fail(f"co-executed path ({mode}) launch counts {counts} != {want}")
+        if any(not sizes for sizes in pk.values()):
+            fail(f"a group ran no package ({mode}): {pk}")
+        graphs = res["graphs"]
+        for name, sizes in pk.items():
+            g = graphs.get(name)
+            shapes = len({serve.DeviceGroup._bucket(n, 1) for n in sizes})
+            if mode == "graph" and (g is None or (g["replays"], g["captures"],
+                                                  g["warmup_clone_bytes"]) != (len(sizes),
+                                                                               shapes, 0)):
+                fail(f"co-executed path: group {name} ran packages {sizes} with graph counters "
+                     f"{g}: want one replay a package, one capture a package shape, no clone")
+            if mode == "eager" and (g is None or g["captures"] or g["replays"]):
+                fail(f"co-executed path (eager): group {name} captured or replayed graphs: {g}")
+        s = res["summary"]
+        out[mode] = {"packages": pk, "balance": s["balance"], "work_share": s["work_share"],
+                     "wall_s": res["wall_s"], "tokens_per_s": res["tokens_per_s"],
+                     "package_s": res["package_s"], "per_group": s["per_device"],
+                     "graphs": graphs}
+        print(f"  [coexec] {mode}: packages {pk}; balance {s['balance']:.3f}; work share "
+              f"{ {k: round(v, 3) for k, v in s['work_share'].items()} }; wall "
+              f"{res['wall_s']:.3f} s ({res['tokens_per_s']:.1f} tokens/s); each package's "
+              f"service time in run order (s) "
+              f"{ {k: [round(x, 3) for x in v] for k, v in res['package_s'].items()} }"
+              + ("".join(f"; {name}: {g['captures']} captures, {g['replays']} replays, capture "
+                         f"{loops_line(g['loops'])}" for name, g in graphs.items())
+                 if graphs else "") + "; bitwise equal to one-shot generate (held)", flush=True)
+    out["verified_bitwise_vs_oneshot"] = True
     return out
 
 
@@ -2165,11 +2531,14 @@ def print_graph_summary(summary, card) -> None:
 
     print(at() + f" [graph] eager beside graphed decode, this run ({card})", flush=True)
     for r in summary["main_paths"]:
-        print(f"  {r['path']}: decode 8 steps busy / wall eager {r['decode_8_device_busy_ms_eager']:.1f}"
-              f" / {r['decode_8_wall_ms_eager']:.1f} ms, graphed "
-              f"{r['decode_8_device_busy_ms_graph']:.1f} / {r['decode_8_wall_ms_graph']:.1f} ms; "
-              f"one-shot tokens/s (second call) eager {r['tokens_per_s_eager']:.1f}, graphed "
-              f"{r['tokens_per_s_graph']:.1f}; capture {r['capture_s']:.3f} s", flush=True)
+        print(f"  {r['path']}: prefill busy / wall eager {r['prefill_device_busy_ms_eager']:.1f} / "
+              f"{r['prefill_wall_ms_eager']:.1f} ms, graphed {r['prefill_device_busy_ms_graph']:.1f}"
+              f" / {r['prefill_wall_ms_graph']:.1f} ms; decode 8 steps busy / wall eager "
+              f"{r['decode_8_device_busy_ms_eager']:.1f} / {r['decode_8_wall_ms_eager']:.1f} ms, "
+              f"graphed {r['decode_8_device_busy_ms_graph']:.1f} / "
+              f"{r['decode_8_wall_ms_graph']:.1f} ms; one-shot tokens/s (second call) eager "
+              f"{r['tokens_per_s_eager']:.1f}, graphed {r['tokens_per_s_graph']:.1f}; capture "
+              f"{r['capture_s']:.3f} s", flush=True)
 
     def median(xs):
         return f"{statistics.median(xs):.1f}" if xs else "none"
@@ -2180,10 +2549,18 @@ def print_graph_summary(summary, card) -> None:
               f"{g['ttft_s'][-1]:.3f} s; host dispatch per segment, median eager "
               f"{median(e['dispatch_ms'])} ms, graphed after the first "
               f"{median(g['dispatch_ms'][1:])} ms (first, with the capture: "
-              f"{median(g['dispatch_ms'][:1])}); write-back median {median(e['write_back_ms'])} / "
-              f"{median(g['write_back_ms'])} ms", flush=True)
+              f"{median(g['dispatch_ms'][:1])}; upload in it, median after the first "
+              f"{median(g['upload_ms'][1:])}); write-back median {median(e['write_back_ms'])} / "
+              f"{median(g['write_back_ms'])} ms; epilogue median {median(e['epilogue_ms'])} / "
+              f"{median(g['epilogue_ms'])} ms", flush=True)
+    c = summary["coexec"]
+    print(f"  co-execution, qwen1.5-4b 8 x 256 + {GEN}, HGuided over pod-a and pod-b: tokens/s "
+          f"eager {c['eager']['tokens_per_s']:.1f}, graphed {c['graph']['tokens_per_s']:.1f} "
+          f"(captures included); balance {c['eager']['balance']:.3f} / "
+          f"{c['graph']['balance']:.3f}", flush=True)
     print(json.dumps({"graph": {"main_paths": summary["main_paths"],
-                                "served_paths": dict(summary["served_paths"])}}))
+                                "served_paths": dict(summary["served_paths"]),
+                                "coexec": c}}))
 
 
 def main() -> None:
@@ -2311,8 +2688,11 @@ def main() -> None:
         prof, om = mp["profile"], mp["oneshot_modes"]
         summary["main_paths"].append({
             "path": f"{arch} {requests} x {prompt_len} + {gen}",
-            **{f"decode_8_{k}_{m}": prof[r][k] for m, r in (("eager", "decode_8_steps"),
-                                                           ("graph", "decode_8_steps_graph"))
+            **{f"{p}_{k}_{m}": prof[r][k]
+               for p, m, r in (("decode_8", "eager", "decode_8_steps"),
+                               ("decode_8", "graph", "decode_8_steps_graph"),
+                               ("prefill", "eager", "prefill"),
+                               ("prefill", "graph", "prefill_graph"))
                for k in ("device_busy_ms", "wall_ms")},
             "tokens_per_s_eager": om["eager"]["tokens_per_s"],
             "tokens_per_s_graph": om["graph"]["tokens_per_s"],
@@ -2376,6 +2756,8 @@ def main() -> None:
           f"on cuda:0", flush=True)
     cx = run_coexec_path(dev, torch)
     print(json.dumps({"coexec_path": cx}))
+    summary["coexec"] = {m: {k: cx[m][k] for k in ("tokens_per_s", "wall_s", "balance")}
+                         for m in MODES}
     gc.collect()
     torch.cuda.empty_cache()
     print(at() + " [coexec] the paper's Listing 1 (examples/quickstart_torch.py) on "

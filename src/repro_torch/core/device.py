@@ -13,10 +13,13 @@ benchmarks of the reference): after a package's real work the group idles
 to match a device of the given time per work-item.  Real co-execution
 across unlike devices (the CPU and a GPU from ``discover``) leaves it 0.
 
-Port of the JAX package's ``core/device.py``.  ``jax.jit(fn,
-donate_argnums=...)`` becomes a direct call: PyTorch runs eagerly, and a
-donated input is a device tensor the kernel updates in place and hands
-back as its output.  The transfer cache (``(id, version, lo, hi, need)``
+Port of the JAX package's ``core/device.py``.  The reference's
+``compile_kernel``, a per-group ``jax.jit(fn, donate_argnums=...)``, is
+here a CUDA graph of the kernel per package shape, captured at that
+shape's first package and replayed on the group's stream
+(:meth:`DeviceGroup.compile_kernel`, ``serve/graphs.py``); the CPU group
+and kernels marked ``graphs.passthrough`` run eagerly.  A donated input is a device tensor the kernel may update in
+place and hand back as its output.  The transfer cache (``(id, version, lo, hi, need)``
 keys, ``stash_output`` handoffs, ``consume`` on donated inputs) and the
 power-of-two package ``_bucket`` are the reference's, so package geometry
 and transfer counts match it.
@@ -37,6 +40,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.core.program import buffer_version
+from repro_torch.core.trace import tracer
 
 
 class DeviceGroup:
@@ -67,6 +71,14 @@ class DeviceGroup:
         else:
             raise ValueError(f"unsupported device {self.device}: use cuda or cpu")
         self.devices = [self.device]
+        # compile_kernel's graphs (the reference's per-group jit): a CUDA
+        # group's own GraphCache, None on the CPU, where kernels run eagerly.
+        self.graphs = None
+        if self.device.type == "cuda":
+            from repro_torch.serve.graphs import GraphCache
+
+            self.graphs = GraphCache()
+        self._compiled: dict = {}
         self.power = power
         # Rated board power (0 = unrated).  Rate-aware placement divides
         # observed throughput by watts when set, so scheduling optimizes
@@ -100,6 +112,37 @@ class DeviceGroup:
         if self.stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self.stream)
+
+    def compile_kernel(self, program) -> Callable:
+        """The group's callable for the (possibly specialized) kernel, keyed
+        as the reference keys its per-group jit (the kernel, its name, the
+        donated inputs): on a CUDA group, one graph per package shape
+        (``graphs.compiled``); the kernel as it is on the CPU group and for
+        a kernel marked ``graphs.passthrough`` (one that binds graphs of its
+        own, or one its owner runs eagerly)."""
+        fn = self.specialized_kernel or program._kernel
+        if (self.graphs is None or not self.graphs.accepts(self.device)
+                or getattr(fn, "graph_passthrough", False)):
+            return fn
+        # Kernel signature is (offset, *ins, *args): donated input i is
+        # argument i + 1.
+        donate = tuple(1 + i for i in program.donated_ins)
+        key = (id(fn), program._kernel_name, donate)
+        compiled = self._compiled.get(key)
+        if compiled is None:
+            from repro_torch.serve.graphs import compiled as compile_graph
+
+            compiled = self._compiled[key] = compile_graph(
+                self.graphs, fn, key, len(program._ins), self.device, program._kernel_name)
+        return compiled
+
+    @property
+    def capture_wait_s(self) -> float:
+        """Seconds this group's captures have waited for another group's
+        capture to end (one capture runs at a time in the process): not
+        this group's work, so the runtime leaves it out of the service
+        time its scheduler observes."""
+        return self.graphs.wait_s if self.graphs is not None else 0.0
 
     @staticmethod
     def _bucket(size_wi: int, lws: int) -> int:
@@ -249,17 +292,14 @@ class DeviceGroup:
         """Run one package on this group's stream; returns ``(results,
         event)`` without waiting for the device: ``event`` (None on the
         CPU) is recorded after the kernel's last launch, and
-        :meth:`wait` blocks on it.
+        :meth:`wait` blocks on it.  While the span tracer is on, an
+        ``upload`` span covers the inputs' transfers (cache hits and
+        host-to-device copies).
 
         Inputs are padded to the bucket size; callers must trim outputs to
         ``size_wi`` (Program.write_outputs does).
         """
-        # Nothing to compile here (the reference's per-group jit): PyTorch
-        # runs the (possibly specialized) kernel, and donation is in-place
-        # reuse.  A kernel may replay CUDA graphs of its own decode loops
-        # (serve/graphs.py); a Program-level counterpart of the
-        # reference's compile_kernel is not ported (ROADMAP.md A3d).
-        fn = self.specialized_kernel or program._kernel
+        fn = self.compile_kernel(program)
         bucket = self._bucket(size_wi, program.lws)
         donated = set(program.donated_ins)
         with self.stream_context():
@@ -267,11 +307,16 @@ class DeviceGroup:
                 # Work the caller enqueued on the default stream (the
                 # parameters, a cache it filled) precedes this package.
                 self.stream.wait_stream(torch.cuda.default_stream(self.device))
+            t0, n0 = time.perf_counter(), self.n_transfers
             ins = [
                 self._input_slice(program, b, offset_wi, size_wi, bucket,
                                   consume=i in donated)
                 for i, b in enumerate(program._ins)
             ]
+            tr = tracer()
+            if tr.enabled:
+                tr.complete("upload", t0, time.perf_counter(), track=f"group/{self.name}",
+                            kernel=program.label, transfers=self.n_transfers - n0)
             res = fn(offset_wi, *ins, *program._args)
             event = None
             if self.stream is not None:

@@ -276,16 +276,22 @@ class Program:
     def swap_buffers(self, i_in: int, i_out: int) -> None:
         """Ping-pong one (input, output) buffer pair between iterations.
 
-        The just-written output becomes the next iteration's input; the old
-        input is cloned so the kernel keeps a writable output of its own.
-        The swapped-in buffer's version is NOT bumped: its contents are
-        exactly what the producing run wrote (and already re-versioned), so
-        still-on-device result slices stay servable from the transfer cache —
-        iterative chains hand buffers off device-resident instead of
-        re-uploading.  The fresh output copy is a new array the cache has
-        never seen; bumping it is a defensive no-op."""
+        The just-written output becomes the next iteration's input, and the
+        old input, made contiguous, the next output: ``.contiguous()``, the
+        counterpart of the reference's ``np.ascontiguousarray``, returns
+        the buffer itself when it is contiguous already, so the pair swaps
+        in place with no host copy (a served segment's cache leaves are
+        the pool's size).  No device tensor shares a host buffer's storage
+        (uploads copy, and a stashed handoff is the kernel's own result),
+        so writing the old input as the next output touches no live device
+        state.  The swapped-in buffer's version is NOT bumped: its contents
+        are exactly what the producing run wrote (and already re-versioned),
+        so still-on-device result slices stay servable from the transfer
+        cache — iterative chains hand buffers off device-resident instead
+        of re-uploading.  The new output's version IS bumped: its transfers
+        cached under its life as an input must not serve the next run."""
         new_in = self._outs[i_out]
-        new_out = self._ins[i_in].clone()
+        new_out = self._ins[i_in].contiguous()
         self._ins[i_in], self._outs[i_out] = new_in, new_out
         bump_version(new_out)
 

@@ -183,10 +183,15 @@ class RunHandle:
             last = self._pending_workers <= 0
         if last:
             if self._epilogue is not None and not self.has_errors():
+                t0 = time.perf_counter()
                 try:
                     self._epilogue()
                 except BaseException:  # noqa: BLE001 — must surface, not hang
                     self.record_error(f"epilogue: {traceback.format_exc()}")
+                tr = tracer()
+                if tr.enabled:
+                    tr.complete("runtime.epilogue", t0, time.perf_counter(), track="runtime",
+                                kernel=self.program.label)
             if self._started:
                 self.introspector.end_run()
             self._finalize()
@@ -491,28 +496,31 @@ class Runtime:
         # worker thread, so the cumulative-counter delta around this run is
         # exactly what this run caused on this group.
         xfer0, hits0 = group.n_transfers, group.n_cache_hits
-        pending: list = []  # (offset, size, result, t_enqueue)
+        pending: list = []  # (offset, size, result, t_enqueue, capture wait)
         try:
             while True:
                 pkg = sched.next_package(group)
                 if pkg is not None:
                     off, size = pkg
-                    t_enq = time.perf_counter()
+                    t_enq, wait0 = time.perf_counter(), group.capture_wait_s
                     res = group.execute_chunk(prog, off, size)  # async: (results, event)
+                    # Waiting for another group's graph capture is not this
+                    # group's service time.
+                    wait = group.capture_wait_s - wait0
                     if tr.enabled:
                         # Host-side dispatch cost only: the device compute is
                         # still in flight — it becomes the "execute" span.
                         tr.complete("dispatch", t_enq, time.perf_counter(),
                                     track=track, kernel=prog.label,
                                     offset=off, size=size)
-                    pending.append((off, size, res, t_enq))
+                    pending.append((off, size, res, t_enq, wait))
                 if pkg is None and not pending:
                     break
                 # Block on the oldest package once the pipeline is full (or
                 # the stream ended) — transfers/compute of newer packages
                 # overlap with this wait.
                 if pending and (len(pending) >= self.pipeline_depth or pkg is None):
-                    off, size, (res, event), t_enq = pending.pop(0)
+                    off, size, (res, event), t_enq, wait = pending.pop(0)
                     group.wait(event)  # async: service time to completion
                     t_dev = time.perf_counter()
                     cost = prog.cost_fn(off, size) if prog.cost_fn else None
@@ -521,7 +529,7 @@ class Runtime:
                     # Device service time (plus simulated padding), measured
                     # ONCE — host write-back below must not inflate what
                     # adaptive raters (HGuided/ThroughputRater) observe.
-                    service = t_end - t_enq
+                    service = t_end - t_enq - wait
                     self._write_back(group, handle, off, size, res)
                     if tr.enabled:
                         tr.complete("write_back", t_end, time.perf_counter(),

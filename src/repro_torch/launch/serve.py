@@ -36,12 +36,14 @@ JAX launcher draws them).  Under ``--paged --kernel cuda`` the one-shot
 reference tiles its cache at the block length (``decode_block``), so the
 served streams and the reference run the same tile partition.
 
-On ``cuda`` one-shot generate and the server replay their decode loops as
-CUDA graphs (``serve/graphs.py``; the JAX launcher jits them): the one-shot
-chain is captured before the timed call, and its capture time is reported
-apart (``capture_s``); the server captures each segment loop at its first
-segment.  Co-execution keeps the eager loop, as the JAX launcher passes
-``jit=False`` there.
+On ``cuda`` one-shot generate, the server and co-execution replay CUDA
+graphs (``serve/graphs.py``; the JAX launcher jits the same): one-shot
+prefill and its chain are captured before the timed call, and their capture
+time is reported apart (``capture_s``); the server captures each segment
+loop at its first segment and each prefill wave's shape at its first wave;
+co-execution embeds the eager generate (the JAX launcher's ``jit=False``),
+which each group captures whole at a package shape's first package and
+replays (``DeviceGroup.compile_kernel``).
 
 ``--coexec`` runs one-shot generate as the kernel of an EngineCL Program
 over two DeviceGroups on the run's device, ``pod-a`` (power 2) and
@@ -72,7 +74,7 @@ from repro_torch.core import DeviceGroup, Dynamic, EngineCL, HGuided, Program, S
 from repro_torch.launch.specs import make_batch
 from repro_torch.models import KERNEL_IMPLS, get_model
 from repro_torch.models.params import materialize
-from repro_torch.serve import cast_params_cached, make_generate
+from repro_torch.serve import cast_params_cached, graphs, make_generate
 
 
 # --scheduler: a fresh scheduler of each kind, as the JAX launcher's.
@@ -322,19 +324,26 @@ def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
 
 def coexec_groups(device):
     """The JAX launcher's co-execution pair on one device: ``pod-a`` at
-    power 2 and ``pod-b`` at power 1, each with its own CUDA stream."""
+    power 2 and ``pod-b`` at power 1, each with its own CUDA stream and its
+    own graphs of the package kernel."""
     return [DeviceGroup("pod-a", device=device, power=2.0),
             DeviceGroup("pod-b", device=device, power=1.0)]
 
 
-def run_coexec(cfg, api, params, batch, args) -> dict:
+def run_coexec(cfg, api, params, batch, args, *, graph: bool = True) -> dict:
     """Split the request batch across device groups through the engine —
     the same ``make_generate`` path, embedded as the package kernel.  Each
-    package is generated alone, on its group's stream."""
+    package is generated alone, on its group's stream.  The kernel is the
+    eager generate (the JAX launcher's ``jit=False``); each CUDA group
+    captures it whole per package shape and replays it
+    (``DeviceGroup.compile_kernel``), as the reference's group jits it, so
+    the first package of a shape carries its capture, in the balance too
+    (the reference's carries its compile); the time one group's capture
+    waits for the other's is left out of what the scheduler observes
+    (``DeviceGroup.capture_wait_s``).  ``graph=False`` marks the kernel
+    ``graphs.passthrough``, so the packages run eagerly."""
     device = batch["tokens"].device
     groups = coexec_groups(device)
-    # Eager, as the JAX launcher's jit=False: the packages' graphs would
-    # need a Program-level counterpart of the group's compile_kernel.
     generate = make_generate(cfg, api, graph=False)
     # Cast the parameters once, here, not concurrently on the workers.
     cast_params_cached(params, cfg.compute_dtype)
@@ -346,6 +355,9 @@ def run_coexec(cfg, api, params, batch, args) -> dict:
 
     def kern(offset, tokens):
         return generate(params, {"tokens": tokens}, args.gen)
+
+    if not graph:
+        graphs.passthrough(kern)
 
     out = torch.zeros((args.requests, args.gen), dtype=torch.int32)
     prog = (Program().in_(batch["tokens"].cpu()).out(out).kernel(kern, "generate")
@@ -361,8 +373,11 @@ def run_coexec(cfg, api, params, batch, args) -> dict:
             raise SystemExit("\n".join(eng.get_errors()))
         s = eng.introspector.summary()
         packages = {g.name: [] for g in groups}
+        package_s = {g.name: [] for g in groups}  # each package's service time, in run order
         for r in sorted(eng.introspector.records, key=lambda r: r.offset_wi):
             packages[r.device].append(r.size_wi)
+        for r in sorted(eng.introspector.records, key=lambda r: r.t_start):
+            package_s[r.device].append(r.seconds)
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"co-exec generated {tuple(out.shape)} on {where} ({cfg.name}, kernel_impl="
           f"{cfg.kernel_impl}, {args.scheduler}) in {wall:.3f}s: "
@@ -373,7 +388,8 @@ def run_coexec(cfg, api, params, batch, args) -> dict:
         print(f"  {name}: packages {sizes}, busy {d.get('busy', 0.0):.3f}s, finish "
               f"{d.get('finish', 0.0):.3f}s")
     return {"tokens": out.numpy(), "wall_s": wall, "tokens_per_s": out.numel() / wall,
-            "summary": s, "packages": packages}
+            "summary": s, "packages": packages, "package_s": package_s,
+            "graphs": {g.name: g.graphs.stats() for g in groups if g.graphs is not None}}
 
 
 def main(argv=None) -> dict:
@@ -396,8 +412,8 @@ def main(argv=None) -> dict:
 
 def run_oneshot_main(cfg, api, params, args) -> dict:
     """One-shot generate of the request batch, timed; on the card the
-    decode chain's graph is captured first, outside the timed call
-    (``capture_s``; ``graphs``: the chain's GraphCache counters)."""
+    prefill and decode chain graphs are captured first, outside the timed
+    call (``capture_s``; ``graphs``: their GraphCache counters)."""
     batch = load_batch(cfg, args)
     cuda = batch["tokens"].device.type == "cuda"
     generate = make_generate(cfg, api)
@@ -421,7 +437,8 @@ def run_oneshot_main(cfg, api, params, args) -> dict:
            if cuda else "")
     print(f"generated {toks.shape} on {where} ({cfg.name}, kernel_impl="
           f"{cfg.kernel_impl}) in {wall:.3f}s: {result['tokens_per_s']:.1f} "
-          f"tokens/s{mem}" + (f" (its decode chain captured before, in {capture_s:.3f}s)"
+          f"tokens/s{mem}" + (f" (its prefill and decode chain captured before, in "
+                              f"{capture_s:.3f}s)"
                               if capture_s else ""))
     print(np.asarray(toks[: min(4, args.requests)]))
     return result

@@ -10,10 +10,13 @@ formed batch and the runtime —
   prompt).
 - ``ModelKernels``   — the Program kernels, built once per server and
   shared by every group of the same geometry: a *prefill* kernel (prompt
-  rows → first token + slot-leading cache rows) and a *decode-segment*
-  kernel (``seg_len`` per-slot decode steps; the JAX ``lax.scan`` is a
-  CUDA graph on the card, captured once per shape and replayed, and a
-  Python loop with ``graph=False`` or on the CPU: ``serve/graphs.py``).
+  rows → first token + slot-leading cache rows; on the card the group that
+  runs it replays a CUDA graph of it per wave shape,
+  ``DeviceGroup.compile_kernel``) and a *decode-segment* kernel
+  (``seg_len`` per-slot decode steps, with a chunk stage first in the
+  mixed layouts; the JAX ``lax.scan`` is a CUDA graph on the card,
+  captured once per shape and replayed, and a Python loop with
+  ``graph=False`` or on the CPU: ``serve/graphs.py``).
 - ``BatchGroup``     — one live continuous batch: ``n_slots`` KV-cache
   slots backed by slot-leading host mirror buffers that form a single
   ``Program``, decoding in fixed-length segments submitted through
@@ -43,7 +46,7 @@ a predecessor-token buffer, the draft cache's mirrors behind the target's,
 a token buffer of ``seg_len * (k + 1)`` with a per-slot count); a segment
 the ``SpecGate`` bypasses runs plain decode steps in the same layout.
 
-Host buffers are CPU torch tensors.
+Host buffers are CPU torch tensors, page-locked on a CUDA group.
 """
 from __future__ import annotations
 
@@ -121,16 +124,26 @@ def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
+def host_zeros_like(b: torch.Tensor) -> torch.Tensor:
+    """A zero host buffer shaped like ``b``, page-locked where ``b`` is: a
+    ping-pong output swaps with its input every segment, so the two are
+    pinned alike."""
+    return torch.zeros(b.shape, dtype=b.dtype, pin_memory=b.is_pinned())
+
+
 class ModelKernels:
     """Per-server kernel factory: every BatchGroup of the same geometry
     shares one kernel *object* per (kind, shape-key).
 
-    ``graph=True``: each segment's decode loop (plain, paged, the mixed
-    kernels' decode part, the speculative scan and its bypass) is captured
-    in a CUDA graph once per shape and replayed (``self.graphs``, the
-    counterpart of the JAX group's jit of its ``lax.scan``); the chunk
-    stage and prefill stay eager.  ``graph=False`` runs every loop
-    eagerly."""
+    ``graph=True``: each segment's loop (plain, paged, mixed with and
+    without its chunk stage, the speculative scan and its bypass) is
+    captured in a CUDA graph once per shape and replayed (``self.graphs``,
+    the counterpart of the JAX group's jit of its ``lax.scan``); the
+    segment kernels are marked ``graphs.passthrough``, so that the group
+    never captures them whole.  The prefill kernels are captured and
+    replayed by the group that runs them (``DeviceGroup.compile_kernel``,
+    as the reference's group jits them).  ``graph=False`` runs every loop
+    eagerly, prefill included."""
 
     def __init__(self, cfg, api, params, draft: Optional[DraftSpec] = None, *,
                  graph: bool = True) -> None:
@@ -167,30 +180,34 @@ class ModelKernels:
         return tree_map(lambda _: next(it), self.bax if bax is None else bax)
 
     @staticmethod
-    def _mirrors(specs, bax_leaves, compute_dtype, n_slots: int) -> List[torch.Tensor]:
+    def _mirrors(specs, bax_leaves, compute_dtype, n_slots: int,
+                 pin: bool) -> List[torch.Tensor]:
         out = []
         for s, a in zip(specs, bax_leaves):
             dt = _torch_dtype(s.dtype or compute_dtype)
             shape = s.shape[:a] + s.shape[a + 1:]
             fill = {"neg_ones": -1, "ones": 1}.get(s.init, 0)
-            out.append(torch.full((n_slots,) + tuple(shape), fill, dtype=dt))
+            out.append(torch.full((n_slots,) + tuple(shape), fill, dtype=dt, pin_memory=pin))
         return out
 
-    def leaf_mirrors(self, n_slots: int, max_seq: int) -> List[torch.Tensor]:
+    def leaf_mirrors(self, n_slots: int, max_seq: int, pin: bool = False) -> List[torch.Tensor]:
         """Slot-leading host mirror buffers for every cache leaf, honoring
         each leaf's declared init (position leaves are −1 = empty, the same
         contract ``zeros_cache`` enforces on device), in the leaf's dtype
-        (the compute dtype unless the spec says otherwise)."""
+        (the compute dtype unless the spec says otherwise); in page-locked
+        memory with ``pin`` (a CUDA group's: its copies to and from the
+        card then skip the staging through pageable memory)."""
         return self._mirrors(self._leaf_specs(max_seq), self.bax_leaves,
-                             self.cfg.compute_dtype, n_slots)
+                             self.cfg.compute_dtype, n_slots, pin)
 
-    def draft_leaf_mirrors(self, n_slots: int, max_seq: int) -> List[torch.Tensor]:
+    def draft_leaf_mirrors(self, n_slots: int, max_seq: int,
+                           pin: bool = False) -> List[torch.Tensor]:
         """Slot-leading mirrors for the *draft* model's cache.  Always
         contiguous slot rows, even when the target cache is paged: the draft
         cache carries no bitwise obligation (its staleness only moves the
         acceptance rate), so paging it would buy nothing."""
         return self._mirrors(self._draft_leaf_specs(max_seq), self.dbax_leaves,
-                             self.draft.cfg.compute_dtype, n_slots)
+                             self.draft.cfg.compute_dtype, n_slots, pin)
 
     def leaf_neg_init(self, max_seq: int) -> List[bool]:
         """Which cache leaves record positions (init ``neg_ones``) — the
@@ -328,7 +345,7 @@ class ModelKernels:
             self._copy_back(views, loop.statics["cache"])
             return (toks, tok, pos, *leaves)
 
-        self._seg_fns[key] = seg
+        self._seg_fns[key] = graphs.passthrough(seg)
         return seg
 
     def paged_segment_kernel(self, seg_len: int, bucket: int) -> Callable:
@@ -354,7 +371,7 @@ class ModelKernels:
             toks, tok, pos = loop()
             return (toks, tok, pos, *loop.statics["cache"])
 
-        self._seg_fns[key] = seg
+        self._seg_fns[key] = graphs.passthrough(seg)
         return seg
 
     # ------------------------------------------------- mixed-phase kernels
@@ -363,11 +380,12 @@ class ModelKernels:
     # engine.  Each segment first advances every still-prefilling slot's
     # cursor by one chunk, then runs the ordinary decode loop over all
     # slots.  The JAX package gates the chunk stage with ``lax.cond`` on the
-    # device cursors; here the batcher, which mirrors every cursor on the
-    # host (``req.chunk_pos``), passes the decision as the Program's one
-    # scalar argument, so no segment reads the card back.  The chunk stage
-    # runs eagerly on the loop's buffers, before the loop (the JAX package
-    # runs it outside its scan).  A slot whose
+    # device cursors inside its jitted scan; here the batcher, which
+    # mirrors every cursor on the host (``req.chunk_pos``), passes the
+    # decision as the Program's one scalar argument, so no segment reads
+    # the card back, and the segment replays one of its scope's two loops:
+    # the chunk stage, the decode loop and the restores of still-prefilling
+    # slots in one graph, or the same without the chunk stage.  A slot whose
     # prefill completes in a segment emits only ``ctok`` (its first token,
     # from the chunk's final prompt row) that segment and decodes from the
     # next one: the decode loop's phase mask is the cursor as of segment
@@ -375,20 +393,56 @@ class ModelKernels:
     # after the loop (their in-loop decode writes land at positions >=
     # bucket, which real decode overwrites before anything attends them).
 
-    def _mixed_body(self, loop, chunk, bucket, tok, pos, pcur, ptoks, run_chunk):
-        """The chunk stage (when ``run_chunk``) on the bound decode loop's
-        cache, then the loop.  Returns (toks, tok', pos', pcur', ctok)."""
-        decoding = pcur >= bucket  # (b, 1), phase at segment entry
-        if run_chunk:
-            cache = self._cache_tree(loop.statics["cache"], loop.statics.get("table"))
-            ctok, pcur2, _ = chunk(self.params, cache, ptoks, pcur)
-        else:
-            ctok, pcur2 = torch.zeros_like(tok), pcur.clone()
-        toks, tok2, pos2 = loop()
-        completed = ~decoding & (pcur2 >= bucket)
-        tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
-        pos_out = torch.where(decoding, pos2, pos)
-        return toks, tok_out, pos_out, pcur2, ctok
+    def _bind_entry(self, entries: dict, chosen, device, bucket: int) -> graphs.Loop:
+        """Bind loop ``entries[chosen]`` (``(name, steps, ints, inputs,
+        body)``) in ``bucket``'s scope.  On graphs every entry of the scope
+        is captured at its first bind, before its buffers hold a cache, so
+        that no capture warms up on clones of a live cache whichever entry
+        a later segment takes."""
+        if self.graphs is not None and self.graphs.accepts(device):
+            for k, e in entries.items():
+                if k != chosen:
+                    self.graphs.capture(*e, self._consts(), bucket)
+        return self._bind(*entries[chosen], bucket)
+
+    @staticmethod
+    def _chunk_stage(chunk, params, cache, tok, pcur, ptoks, run_chunk: bool):
+        """The chunk stage on ``cache`` (or, without it, its neutral
+        outputs): (ctok, pcur')."""
+        if not run_chunk:
+            return torch.zeros_like(tok), pcur.clone()
+        ctok, pcur2, _ = chunk(params, cache, ptoks, pcur)
+        return ctok, pcur2
+
+    def _mixed_bind(self, decode, chunk, seg_len: int, bucket: int, chunk_len: int, cap,
+                    run_chunk: bool, tok, pos, pcur, ptoks, cache_in, table=None):
+        """One mixed segment as a bound loop over (tok, pos, pcur, ptoks,
+        the cache and, paged, the table) in ``bucket``'s scope: the chunk
+        stage (when ``run_chunk``), ``seg_len`` decode steps and the
+        restores.  The loop returns (toks, tok', pos', pcur', ctok)."""
+        paged = table is not None
+        inputs = {"tok": tok, "pos": pos, "pcur": pcur, "ptoks": ptoks, "cache": cache_in}
+        if paged:
+            inputs["table"] = table
+
+        def entry(with_chunk: bool):
+            def body(st, n):
+                cache = self._cache_tree(st["cache"], st.get("table"))
+                tok, pos, pcur = st["tok"], st["pos"], st["pcur"]
+                decoding = pcur >= bucket  # (b, 1), phase at segment entry
+                ctok, pcur2 = self._chunk_stage(chunk, self.params, cache, tok, pcur,
+                                                st["ptoks"], with_chunk)
+                toks, tok2, pos2 = self._decode_loop(decode, n, tok, pos, cache, cap=cap)
+                completed = ~decoding & (pcur2 >= bucket)
+                tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
+                pos_out = torch.where(decoding, pos2, pos)
+                return toks, tok_out, pos_out, pcur2, ctok
+
+            return ("mixed+chunk" if with_chunk else "mixed", seg_len,
+                    (cap, paged, chunk_len), inputs, body)
+
+        return self._bind_entry({c: entry(c) for c in (True, False)}, run_chunk,
+                                tok.device, bucket)
 
     def mixed_segment_kernel(self, seg_len: int, bucket: int, chunk_len: int,
                              max_seq: int) -> Callable:
@@ -408,12 +462,13 @@ class ModelKernels:
         def seg(offset, tok, pos, pcur, ptoks, *rest):
             *leaves, run_chunk = rest
             views = self._cache_in(leaves, paged=False)
-            loop = self._decode_bind(decode, seg_len, bucket, max_seq, tok, pos, views)
-            outs = self._mixed_body(loop, chunk, bucket, tok, pos, pcur, ptoks, run_chunk)
+            loop = self._mixed_bind(decode, chunk, seg_len, bucket, chunk_len, max_seq,
+                                    run_chunk, tok, pos, pcur, ptoks, views)
+            outs = loop()
             self._copy_back(views, loop.statics["cache"])
             return (*outs, *leaves)
 
-        self._seg_fns[key] = seg
+        self._seg_fns[key] = graphs.passthrough(seg)
         return seg
 
     def paged_mixed_segment_kernel(self, seg_len: int, bucket: int,
@@ -432,12 +487,13 @@ class ModelKernels:
 
         def seg(offset, tok, pos, pcur, ptoks, table, *rest):
             *leaves, run_chunk = rest
-            loop = self._decode_bind(decode, seg_len, bucket, None, tok, pos,
-                                     self._cache_in(leaves, paged=True), table)
-            outs = self._mixed_body(loop, chunk, bucket, tok, pos, pcur, ptoks, run_chunk)
+            loop = self._mixed_bind(decode, chunk, seg_len, bucket, chunk_len, None, run_chunk,
+                                    tok, pos, pcur, ptoks, self._cache_in(leaves, paged=True),
+                                    table)
+            outs = loop()
             return (*outs, *loop.statics["cache"])
 
-        self._seg_fns[key] = seg
+        self._seg_fns[key] = graphs.passthrough(seg)
         return seg
 
     def prefill_kernel(self, max_seq: int) -> Callable:
@@ -456,7 +512,7 @@ class ModelKernels:
             leaves = [x.movedim(a, 0) for x, a in zip(tree_leaves(cache), bax)]
             return (tok, *leaves)
 
-        self._prefill_fns[max_seq] = pre
+        self._prefill_fns[max_seq] = pre if self.graphs is not None else graphs.passthrough(pre)
         return pre
 
     # ------------------------------------------------- speculative kernels
@@ -516,42 +572,75 @@ class ModelKernels:
         return buf, cnt, tok2, ptok2, pos2
 
     def _spec_bind(self, step, decode, seg_len: int, bucket: int, max_seq: int,
-                   spec_on: bool, tok, ptok, pos, leaves, table=None):
+                   spec_on: bool, tok, ptok, pos, leaves, table=None, mixed=None):
         """The segment's speculative scan (draft/verify, by the host's
         ``spec_on``) or its bypass (plain decode) as one bound loop over
-        (tok, ptok, pos, the target cache, the draft cache and, paged, the
-        table) in ``bucket``'s scope.  Returns (loop, the target's inputs,
-        the draft's inputs); the loop returns (buf, cnt, tok', ptok', pos').
+        (tok, ptok, pos, the target cache, the draft cache, and, paged, the
+        table) in ``bucket``'s scope.  ``mixed`` (the mixed layouts: the
+        chunk steps of both models, pcur, ptoks and the host's
+        ``run_chunk``) adds pcur and ptoks to the inputs and, when
+        ``run_chunk``, the chunk stage to the loop: it advances both
+        caches' prompts on the loop's buffers (the target through the
+        bitwise chunk path, the draft through the same masked chunk path,
+        its logits discarded) before the scan, and the loop restores
+        still-prefilling slots after it; a slot completing its prefill
+        leaves with ``tok' = ctok`` and ``ptok' = ptoks[:, bucket-1]`` (the
+        prompt's last token, which the first draft step re-decodes).
+        Returns (loop, the target's inputs, the draft's inputs); the loop
+        returns (buf, cnt, tok', ptok', pos') and, mixed, (pcur', ctok).
         The draft cache is contiguous whatever the target's layout: copied
-        in and written back (:meth:`_spec_done`).  A gated server may take
-        either branch in any segment, so both are captured at the scope's
-        first bind, before its buffers hold a cache (a later capture would
-        warm up on clones of the pool and the draft cache)."""
+        in and written back (:meth:`_spec_done`).  Every entry a segment of
+        this server may take (spec or bypass when gated, with or without a
+        chunk stage when mixed) is captured at the scope's first bind,
+        before its buffers hold a cache."""
         paged = table is not None
         nt = len(self.bax_leaves)
         t_in = self._cache_in(leaves[:nt], paged)
         d_in = [x.movedim(0, a) for x, a in zip(leaves[nt:], self.dbax_leaves)]
         inputs = {"tok": tok, "ptok": ptok, "pos": pos, "cache": t_in, "draft": d_in}
+        if mixed is not None:
+            chunk, dchunk, pcur, ptoks, run_chunk = mixed
+            inputs.update(pcur=pcur, ptoks=ptoks)
         if paged:
             inputs["table"] = table
         cap = None if paged else max_seq
 
-        def branch(on: bool):
+        def entry(on: bool, with_chunk: bool):
             def body(st, n):
                 tcache = self._cache_tree(st["cache"], st.get("table"))
+                dcache = self._unflatten(st["draft"], self.dbax)
+                tok, ptok, pos = st["tok"], st["ptok"], st["pos"]
+                if mixed is not None:
+                    pcur, ptoks = st["pcur"], st["ptoks"]
+                    decoding = pcur >= bucket  # (b, 1), phase at segment entry
+                    ctok, pcur2 = self._chunk_stage(chunk, self.params, tcache, tok, pcur,
+                                                    ptoks, with_chunk)
+                    if with_chunk:
+                        dchunk(self.draft.params, dcache, ptoks, pcur)
                 if on:
-                    dcache = self._unflatten(st["draft"], self.dbax)
-                    return self._spec_scan(n, step, st["tok"], st["ptok"], st["pos"],
-                                           tcache, dcache)
-                return self._plain_scan(n, decode, st["tok"], st["ptok"], st["pos"],
-                                        tcache, cap)
-            return ("spec" if on else "spec_bypass", seg_len,
+                    outs = self._spec_scan(n, step, tok, ptok, pos, tcache, dcache)
+                else:
+                    outs = self._plain_scan(n, decode, tok, ptok, pos, tcache, cap)
+                if mixed is None:
+                    return outs
+                buf, cnt, tok2, ptok2, pos2 = outs
+                completed = ~decoding & (pcur2 >= bucket)
+                last_ptok = ptoks[:, bucket - 1:bucket]
+                tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
+                ptok_out = torch.where(decoding, ptok2,
+                                       torch.where(completed, last_ptok, ptok))
+                pos_out = torch.where(decoding, pos2, pos)
+                return buf, cnt, tok_out, ptok_out, pos_out, pcur2, ctok
+
+            name = ("spec" if on else "spec_bypass") + ("_mixed" if mixed is not None else "")
+            return (name + ("+chunk" if with_chunk else ""), seg_len,
                     (self.draft.k, max_seq, paged), inputs, body)
 
-        if (self.draft.auto_bypass and self.graphs is not None
-                and self.graphs.accepts(tok.device)):
-            self.graphs.capture(*branch(not spec_on), self._consts(), bucket)
-        loop = self._bind(*branch(spec_on), bucket)
+        ons = (True, False) if self.draft.auto_bypass else (spec_on,)
+        chunks = (True, False) if mixed is not None else (False,)
+        entries = {(on, c): entry(on, c) for on in ons for c in chunks}
+        loop = self._bind_entry(entries, (spec_on, mixed is not None and run_chunk),
+                                tok.device, bucket)
         return loop, t_in, d_in
 
     def _spec_done(self, loop, leaves, t_in, d_in, paged: bool) -> list:
@@ -582,31 +671,6 @@ class ModelKernels:
         contiguous."""
         return self._spec_kernel("paged_spec", seg_len, bucket, 0, max_seq)
 
-    def _spec_mixed_body(self, loop, chunk, dchunk, bucket, tok, ptok, pos, pcur, ptoks,
-                         run_chunk):
-        """One speculative mixed segment: the chunk stage advances both
-        caches' prompts on the bound scan's buffers (the target through the
-        bitwise chunk path, the draft through the same masked chunk path,
-        its logits discarded), then the scan.  A slot completing its
-        prefill leaves with ``tok' = ctok`` and ``ptok' = ptoks[:, bucket-1]``
-        (the prompt's last token, which the first draft step re-decodes).
-        Returns (buf, cnt, tok', ptok', pos', pcur', ctok)."""
-        decoding = pcur >= bucket  # (b, 1), phase at segment entry
-        if run_chunk:
-            tcache = self._cache_tree(loop.statics["cache"], loop.statics.get("table"))
-            ctok, pcur2, _ = chunk(self.params, tcache, ptoks, pcur)
-            dchunk(self.draft.params, self._unflatten(loop.statics["draft"], self.dbax),
-                   ptoks, pcur)
-        else:
-            ctok, pcur2 = torch.zeros_like(tok), pcur.clone()
-        buf, cnt, tok2, ptok2, pos2 = loop()
-        completed = ~decoding & (pcur2 >= bucket)
-        last_ptok = ptoks[:, bucket - 1:bucket]
-        tok_out = torch.where(decoding, tok2, torch.where(completed, ctok, tok))
-        ptok_out = torch.where(decoding, ptok2, torch.where(completed, last_ptok, ptok))
-        pos_out = torch.where(decoding, pos2, pos)
-        return buf, cnt, tok_out, ptok_out, pos_out, pcur2, ctok
-
     def _spec_kernel(self, kind: str, seg_len: int, bucket: int, chunk_len: int,
                      max_seq: int) -> Callable:
         """The four speculative segment kernels (``kind``: spec, paged_spec,
@@ -628,13 +692,10 @@ class ModelKernels:
                 *leaves, _spec_on_buf, run_chunk, spec_on = rest
             else:
                 *leaves, _spec_on_buf, spec_on = rest
-            loop, t_in, d_in = self._spec_bind(step, decode, seg_len, bucket, max_seq, spec_on,
-                                               tok, ptok, pos, leaves, table)
-            if mixed:
-                outs = self._spec_mixed_body(loop, chunk, dchunk, bucket, tok, ptok, pos,
-                                             pcur, ptoks, run_chunk)
-            else:
-                outs = loop()
+            loop, t_in, d_in = self._spec_bind(
+                step, decode, seg_len, bucket, max_seq, spec_on, tok, ptok, pos, leaves, table,
+                (chunk, dchunk, pcur, ptoks, run_chunk) if mixed else None)
+            outs = loop()
             return (*outs, *self._spec_done(loop, leaves, t_in, d_in, paged))
 
         if mixed and paged:
@@ -650,7 +711,7 @@ class ModelKernels:
             def seg(offset, tok, ptok, pos, *rest):
                 return body(tok, ptok, pos, None, None, None, rest)
 
-        self._seg_fns[key] = seg
+        self._seg_fns[key] = graphs.passthrough(seg)
         return seg
 
     def spec_mixed_segment_kernel(self, seg_len: int, bucket: int, chunk_len: int,
@@ -696,7 +757,7 @@ class ModelKernels:
             dl = [x.movedim(a, 0) for x, a in zip(tree_leaves(dcache), self.dbax_leaves)]
             return (tok, ptok, *tl, *dl)
 
-        self._prefill_fns[key] = pre
+        self._prefill_fns[key] = pre if self.graphs is not None else graphs.passthrough(pre)
         return pre
 
 
@@ -727,6 +788,7 @@ class BatchGroup:
         self.tokens_written = 0  # KV positions actually written (memory_stats)
         self.last_run_metrics: dict = {}
         self.telemetry = None  # set by the owning InferenceServer
+        self.pin = self._pinned_mirrors()
         self._build_segment_program()
         self.seg_handle = None
         self.prev_handle = None
@@ -739,19 +801,26 @@ class BatchGroup:
         self._prefill_t0 = 0.0
         self._prefill_tr0 = 0.0  # tracer-clock start (0 = not traced)
 
+    def _pinned_mirrors(self) -> bool:
+        """Whether this batch's cache mirrors are page-locked: on a CUDA
+        group (the reference has no counterpart; pinning changes no bits)."""
+        groups = self.target or self.runtime.groups
+        return any(g.device.type == "cuda" for g in groups)
+
     def _build_segment_program(self) -> None:
         """Contiguous layout: slot-leading mirrors, ping-pong in/out pairs
         (PagedBatchGroup overrides this with pool buffers + block table)."""
         kernels, n_slots, seg_len = self.kernels, self.n_slots, self.seg_len
         tok = torch.zeros((n_slots, 1), dtype=torch.int32)
         pos = torch.zeros((n_slots, 1), dtype=torch.int32)
-        leaves = kernels.leaf_mirrors(n_slots, self.max_seq)
+        leaves = kernels.leaf_mirrors(n_slots, self.max_seq, self.pin)
         if self.chunk_len:
             self._build_mixed_program(tok, pos, leaves)
             return
         if self.spec_k:
             self._build_spec_program(
-                [tok, None, pos], leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                [tok, None, pos],
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq, self.pin),
                 kernels.spec_segment_kernel(seg_len, self.bucket, self.max_seq),
                 f"spec_seg{seg_len}_k{self.spec_k}")
             return
@@ -761,7 +830,7 @@ class BatchGroup:
             prog.in_(b)
         prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
         for b in leaves:
-            prog.out(torch.zeros_like(b))
+            prog.out(host_zeros_like(b))
         prog.kernel(kernels.segment_kernel(seg_len, self.bucket, self.max_seq), f"decode_seg{seg_len}")
         # Donate the cache-leaf inputs: each segment updates the KV slots in
         # place on the device instead of copying the cache per segment.
@@ -800,11 +869,11 @@ class BatchGroup:
         prog.out(torch.zeros((n_slots, self.seg_len * (k + 1)), dtype=torch.int32))
         prog.out(torch.zeros((n_slots, 1), dtype=torch.int32))  # cnt
         for b in ctl[:n_carried]:
-            prog.out(torch.zeros_like(b))
+            prog.out(host_zeros_like(b))
         if ctok_out is not None:
             prog.out(torch.zeros((n_slots, 1), dtype=torch.int32))
         for b in leaves:
-            prog.out(torch.zeros_like(b))
+            prog.out(host_zeros_like(b))
         prog.kernel(kernel, label)
         prog.args(*((False,) if self.chunk_len else ()), True)
         first = len(ctl)
@@ -836,7 +905,7 @@ class BatchGroup:
         if self.spec_k:
             self._build_spec_program(
                 [tok, None, pos, pcur, ptoks],
-                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq, self.pin),
                 kernels.spec_mixed_segment_kernel(seg_len, self.bucket, self.chunk_len,
                                                   self.max_seq),
                 f"spec_mixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}_k{self.spec_k}",
@@ -849,7 +918,7 @@ class BatchGroup:
         prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
         prog.out(torch.zeros_like(pcur)).out(torch.zeros_like(tok))  # pcur', ctok
         for b in leaves:
-            prog.out(torch.zeros_like(b))
+            prog.out(host_zeros_like(b))
         prog.kernel(kernels.mixed_segment_kernel(seg_len, self.bucket, self.chunk_len,
                                                  self.max_seq),
                     f"mixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}")
@@ -946,13 +1015,13 @@ class BatchGroup:
             prog.out(torch.zeros((j, 1), dtype=torch.int32))
             if self.spec_k:
                 prog.out(torch.zeros((j, 1), dtype=torch.int32))  # ptok0
-                for b in (self.kernels.leaf_mirrors(j, self.max_seq)
-                          + self.kernels.draft_leaf_mirrors(j, self.max_seq)):
+                for b in (self.kernels.leaf_mirrors(j, self.max_seq, self.pin)
+                          + self.kernels.draft_leaf_mirrors(j, self.max_seq, self.pin)):
                     prog.out(b)
                 prog.kernel(self.kernels.spec_prefill_kernel(self.max_seq),
                             f"spec_prefill_{self.bucket}")
             else:
-                for b in self.kernels.leaf_mirrors(j, self.max_seq):
+                for b in self.kernels.leaf_mirrors(j, self.max_seq, self.pin):
                     prog.out(b)
                 prog.kernel(self.kernels.prefill_kernel(self.max_seq),
                             f"prefill_{self.bucket}")

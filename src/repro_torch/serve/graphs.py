@@ -1,16 +1,19 @@
-"""CUDA graphs of the decode loops: the port's counterpart of the JAX
-package's jitted ``lax.scan``s.
+"""CUDA graphs: the port's counterpart of what the JAX package jits.
 
-The JAX package never dispatches a decode step from Python: one-shot
-generate jits its chain (``jax.jit(chain, static_argnums=(4,))``) and every
-server segment kernel is a ``lax.scan`` that its DeviceGroup compiles once
-per group.  Here the same loops are captured once per shape in a CUDA graph
-and replayed.  A graph launches the kernels that the eager loop launches, in
-the same order on the same shapes, so every stream keeps its bits; the host
-issues one replay where it issued every launch of every layer of every step.
+The JAX package never dispatches a step from Python: one-shot generate jits
+its prefill and its chain (``jax.jit(chain, static_argnums=(4,))``), every
+server segment kernel is a ``lax.scan`` (its chunk stage behind a
+``lax.cond``) that its DeviceGroup compiles once per group, and a
+DeviceGroup jits every Program kernel it runs (``compile_kernel``: the
+server's prefill waves, co-execution's packages).  Here the same work is
+captured once per shape in a CUDA graph and replayed.  A graph launches the
+kernels that the eager code launches, in the same order on the same
+shapes, so every stream keeps its bits; the host makes one replay where it
+made every launch of every layer of every step.
 
 :class:`GraphCache` holds the captured loops of one owner (a one-shot
-generate's chain, a server's ``ModelKernels``), keyed by the loop's name,
+generate's prefill and chain, a server's ``ModelKernels``, a DeviceGroup's
+compiled kernels), keyed by the loop's name,
 step count and static ints, the shapes and dtypes of its inputs, their
 device, its scope, and the identity of the weights the graph reads by
 address (``consts``, which the entry keeps alive).  Never by an input's
@@ -39,11 +42,26 @@ device, the wrappers' counts going to a recording (``kernels/_build.py``);
 each replay adds that tally to the launch counts.  The warm-up writes the
 static buffers, so an owner captures a scope's loops before the scope's
 first bind (a gated server captures the speculative scan and its bypass
-together); a capture over buffers that already hold a caller's state warms
-up on clones of them instead, which costs their size in memory.  A replay
-runs on the current stream: the DeviceGroup's under the runtime.  While the
-span tracer is on, each replay is logged with its copy-ins and timed by
-CUDA events (:meth:`GraphCache.stats`).
+together, a chunked one its loop with and without the chunk stage;
+one-shot generate its prefill and chain per (batch, prompt, gen)); a
+capture over buffers that already hold a caller's state (a public chain
+called again at a new step count over the cache it returned) warms up on
+clones of them instead, which costs their size in memory
+(``warmup_clone_bytes``).  A replay runs on the
+current stream: the DeviceGroup's under the runtime.  While the span
+tracer is on, each replay is logged with its copy-ins and timed by CUDA
+events (:meth:`GraphCache.stats`).  One capture (warm-up and recording)
+runs at a time in the process (``torch.cuda.graph`` synchronizes the
+device on entry); other threads keep launching on their own streams
+meanwhile, and a capture's wait for another's is counted apart
+(``wait_s``), so that a DeviceGroup's scheduler does not take it for the
+group's work.
+
+A body need not be a step loop: one-shot generate's prefill
+(``serve/step.py``) and a DeviceGroup's compiled Program kernels
+(:func:`compiled`, the counterpart of the reference's
+``DeviceGroup.compile_kernel``: the server's prefill waves, co-execution's
+packages) take one step.
 
 The loops of one owner run one at a time (a server's segments do).  CPU
 tensors run the loop eagerly, as every kernel runs its plain version there.
@@ -62,6 +80,16 @@ import torch
 from repro_torch.core.trace import tracer
 from repro_torch.kernels import _build
 from repro_torch.models.params import tree_leaves
+
+
+# One capture at a time in the process: torch.cuda.graph synchronizes the
+# whole device and empties the allocator's cache on entry, which must not
+# happen under another thread's capture (two DeviceGroups of one card).
+# The warm-up is inside too: two threads' eager warm-ups only contend for
+# the interpreter lock, so the first capture ends sooner taken alone.
+# Reentrant, so that a capture nested in a capture raises CUDA's error
+# instead of waiting on itself.
+_CAPTURE_LOCK = threading.RLock()
 
 
 def _items(inputs: dict):
@@ -118,14 +146,24 @@ class _Entry:
 
 class GraphCache:
     """The captured loops of one owner and their static buffers.  Counters:
-    ``captures``, ``capture_s`` (all of capturing: warm-up, recording the
-    loop, instantiating the graph), ``warmup_s`` and ``instantiate_s`` of
-    it, ``warmup_clone_bytes`` (buffers cloned because a capture found them
-    holding a caller's state), ``replays``, ``copy_ins`` and ``copy_in_bytes`` (inputs copied into
-    static buffers), and ``log``, one ``(loop, copy-ins, bytes, events)``
-    per replay made while the span tracer is on, the events (CUDA events
-    recorded around the replay on the card, else None) giving its device
-    time in :meth:`stats`."""
+    ``captures``, ``capture_s`` (all of capturing) and its phases:
+    ``wait_s`` (waiting for another thread's capture to end),
+    ``warmup_s`` (the uncounted warm-up step), ``begin_s`` (entering
+    ``torch.cuda.graph``: a device synchronize, the allocator's
+    ``empty_cache``, the capture's start), ``record_s`` (running the loop
+    under capture) and ``instantiate_s`` (ending the capture, which
+    instantiates the graph), in total and per loop name (``loops``);
+    ``warmup_clone_bytes`` (buffers cloned because a capture found them
+    holding a caller's state), ``replays``, ``copy_ins`` and
+    ``copy_in_bytes`` (inputs copied into static buffers),
+    ``output_copies`` and ``output_copy_bytes`` (a compiled kernel's
+    outputs copied out of the graph's memory, :func:`compiled`), and
+    ``log``, one ``(loop, copy-ins, bytes, events)`` per replay made while
+    the span tracer is on, the events (CUDA events recorded around the
+    replay on the card, else None) giving its device time in
+    :meth:`stats`."""
+
+    PHASES = ("wait_s", "warmup_s", "begin_s", "record_s", "instantiate_s")
 
     def __init__(self) -> None:
         self._entries: dict = {}
@@ -135,12 +173,14 @@ class GraphCache:
         self._lock = threading.Lock()
         self.captures = 0
         self.capture_s = 0.0
-        self.warmup_s = 0.0
-        self.instantiate_s = 0.0
+        self.wait_s = 0.0
+        self.loops: dict = {}  # name -> captures and seconds of each phase
         self.warmup_clone_bytes = 0
         self.replays = 0
         self.copy_ins = 0
         self.copy_in_bytes = 0
+        self.output_copies = 0
+        self.output_copy_bytes = 0
         self.log: collections.deque = collections.deque(maxlen=4096)
 
     @staticmethod
@@ -186,7 +226,8 @@ class GraphCache:
             statics = self.statics(inputs, scope=scope)
             entry = self._entries.get(key)
             if entry is None:
-                entry = self._entries[key] = self._capture(statics, body, steps, consts)
+                entry = self._entries[key] = self._capture(name, key, statics, body, steps,
+                                                           consts)
         return entry, statics
 
     def bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
@@ -223,52 +264,138 @@ class GraphCache:
 
         return Loop(statics, run)
 
-    def _capture(self, statics: dict, body: Callable, steps: int, consts: tuple) -> _Entry:
+    def _capture(self, name: str, key: tuple, statics: dict, body: Callable, steps: int,
+                 consts: tuple) -> _Entry:
+        phases = dict.fromkeys(self.PHASES, 0.0)
         t0 = time.perf_counter()
+        with _CAPTURE_LOCK:
+            t1 = time.perf_counter()
 
-        def scratch(role, i, s):
-            if id(s) not in self._live:
-                return s
-            self.warmup_clone_bytes += s.numel() * s.element_size()
-            return s.clone()
+            def scratch(role, i, s):
+                if id(s) not in self._live:
+                    return s
+                self.warmup_clone_bytes += s.numel() * s.element_size()
+                return s.clone()
 
-        warm = _rebuild(statics, scratch)
-        with _build.recording():  # the warm-up's launches count nowhere
-            body(warm, 1)
-        del warm
-        self.warmup_s += time.perf_counter() - t0
-        with _build.recording() as tally:
-            graph, outputs = self._record(statics, lambda st: body(st, steps))
+            warm = _rebuild(statics, scratch)
+            with _build.recording():  # the warm-up's launches count nowhere
+                body(warm, 1)
+            del warm
+            phases["warmup_s"] = time.perf_counter() - t1
+            with _build.recording() as tally:
+                graph, outputs, timed = self._record(statics, lambda st: body(st, steps))
+        phases.update(timed)
+        phases["wait_s"] = t1 - t0  # another thread's capture ahead of this one
+        self.wait_s += phases["wait_s"]
         entry = _Entry()
         entry.graph, entry.outputs, entry.tally, entry.consts = graph, outputs, tally, consts
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
+        loop = self.loops.setdefault(name, dict(captures=0, **dict.fromkeys(self.PHASES, 0.0)))
+        loop["captures"] += 1
+        for k, v in phases.items():
+            loop[k] += v
         return entry
 
     def _record(self, statics: dict, run: Callable):
         """Capture ``run(statics)`` in a CUDA graph on the buffers' device:
-        (the graph, its outputs)."""
+        (the graph, its outputs, the seconds of each recording phase)."""
         dev = next(_items(statics))[2].device
         with torch.cuda.device(dev):
             stream = self._streams.get(dev)
             if stream is None:
                 stream = self._streams[dev] = torch.cuda.Stream(dev)
             graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+                t1 = time.perf_counter()
                 outputs = run(statics)
-                t0 = time.perf_counter()
-            self.instantiate_s += time.perf_counter() - t0  # capture_end instantiates
-        return graph, outputs
+                t2 = time.perf_counter()
+            t3 = time.perf_counter()  # capture_end instantiates
+        return graph, outputs, {"begin_s": t1 - t0, "record_s": t2 - t1,
+                                "instantiate_s": t3 - t2}
 
     def stats(self) -> dict:
-        return {"captures": self.captures, "capture_s": self.capture_s,
-                "warmup_s": self.warmup_s, "instantiate_s": self.instantiate_s,
-                "warmup_clone_bytes": self.warmup_clone_bytes, "replays": self.replays, "copy_ins": self.copy_ins,
-                "copy_in_bytes": self.copy_in_bytes,
+        totals = {k: sum(loop[k] for loop in self.loops.values()) for k in self.PHASES}
+        return {"captures": self.captures, "capture_s": self.capture_s, **totals,
+                "loops": {name: dict(loop) for name, loop in self.loops.items()},
+                "warmup_clone_bytes": self.warmup_clone_bytes, "replays": self.replays,
+                "copy_ins": self.copy_ins, "copy_in_bytes": self.copy_in_bytes,
+                "output_copies": self.output_copies,
+                "output_copy_bytes": self.output_copy_bytes,
                 "static_bytes": sum(b.numel() * b.element_size()
                                     for b in self._buffers.values()),
                 "per_replay": [[name, n, nbytes, _elapsed_ms(ev)]
                                for name, n, nbytes, ev in self.log]}
+
+
+def passthrough(fn: Callable) -> Callable:
+    """Mark a Program kernel that :meth:`DeviceGroup.compile_kernel` hands
+    over as it is, never capturing it: one that binds graphs of its own (a
+    server's segment kernels: a capture never nests in another), or one
+    whose owner asked for eager loops (``graph=False``)."""
+    fn.graph_passthrough = True
+    return fn
+
+
+# A Program's scalar argument reaches a compiled kernel as a 0-dim device
+# tensor of this dtype, as the reference's jit traces it (a Python float
+# as a weakly typed float32).
+_SCALAR_DTYPES = ((bool, torch.bool), (int, torch.int64), (float, torch.float32))
+
+
+def _device_arg(a, device, name: str):
+    """Program argument ``a`` as a compiled kernel's input: a Python scalar
+    as a 0-dim device tensor, copied in each call (one graph serves every
+    value), a tensor on the group's device as it is."""
+    for kind, dtype in _SCALAR_DTYPES:
+        if isinstance(a, kind):
+            return torch.full((), a, dtype=dtype, device=device)
+    dev = torch.device(device)
+    if isinstance(a, torch.Tensor) and a.device.type == dev.type and (
+            dev.index is None or a.device.index == dev.index):
+        return a
+    raise TypeError(f"kernel {name!r}: a compiled kernel takes Program arguments that are "
+                    f"Python scalars or tensors on {device}, not {type(a).__name__}"
+                    + (f" on {a.device}" if isinstance(a, torch.Tensor) else "")
+                    + "; pass host data as a Program input, or mark the kernel "
+                    "graphs.passthrough")
+
+
+def compiled(graphs: GraphCache, fn: Callable, key: tuple, n_ins: int, device,
+             name: str) -> Callable:
+    """A DeviceGroup's callable for Program kernel ``fn`` (the reference's
+    ``jax.jit(fn, donate_argnums=...)``, keyed by ``key``): ``(offset,
+    *ins, *args) -> outputs`` replaying one graph of ``fn`` per package
+    shape and argument types, captured at that shape's first package, each
+    in a scope of its own.  As the reference's jit traces them, the package
+    offset reaches ``fn`` as an int64 device scalar and each scalar
+    argument as a device scalar of its type (:func:`_device_arg`), copied
+    in each call: one graph serves every offset and every value.  So a
+    compiled kernel reads them as values, never as shapes or Python
+    conditions (the eager path, the CPU group's and a passthrough
+    kernel's, hands it Python numbers).  The outputs are copied out of the
+    graph's memory on the current stream (``output_copies``): the next
+    replay overwrites the graph's own tensors, and a package's results
+    outlive it, in the runtime's pipelined write-back and as a stashed
+    handoff to a dependent run."""
+    def run(offset, *rest):
+        ins = list(rest[:n_ins])
+        inputs = {"offset": torch.full((), int(offset), dtype=torch.int64, device=device),
+                  "ins": ins, "args": [_device_arg(a, device, name) for a in rest[n_ins:]]}
+
+        def body(st, n):
+            out = fn(st["offset"], *st["ins"], *st["args"])
+            return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+        scope = (key, tuple((tuple(t.shape), t.dtype) for t in ins + inputs["args"]))
+        outs = graphs.bind(name, 1, (key,), inputs, body, (fn,), scope)()
+        copies = tuple(o.clone() for o in outs)
+        graphs.output_copies += len(copies)
+        graphs.output_copy_bytes += sum(o.numel() * o.element_size() for o in copies)
+        return copies if len(copies) != 1 else copies[0]
+
+    return run
 
 
 def _elapsed_ms(events):

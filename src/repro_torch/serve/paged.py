@@ -65,7 +65,7 @@ import torch
 
 from repro_torch.core.program import Program
 from repro_torch.core.trace import tracer
-from repro_torch.serve.batcher import BatchGroup, segments_for
+from repro_torch.serve.batcher import BatchGroup, host_zeros_like, segments_for
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,7 +373,7 @@ class PagedBatchGroup(BatchGroup):
         kernels, n_slots, bl = self.kernels, self.n_slots, self.block_len
         n_blocks = pool_blocks(self.spec, n_slots, self.nmax)
         if self.state.pool is None:
-            leaves = kernels.leaf_mirrors(n_blocks, bl)
+            leaves = kernels.leaf_mirrors(n_blocks, bl, self.pin)
             self.state.pool = BlockPool(
                 n_blocks, block_len=bl,
                 bytes_per_block=sum(b.nbytes for b in leaves) // n_blocks,
@@ -403,7 +403,7 @@ class PagedBatchGroup(BatchGroup):
             # belong to no live request).
             self._build_spec_program(
                 [tok, None, pos, self.table],
-                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq, self.pin),
                 kernels.paged_spec_segment_kernel(self.seg_len, self.bucket, self.max_seq),
                 f"spec_pseg{self.seg_len}_k{self.spec_k}")
             return
@@ -413,7 +413,7 @@ class PagedBatchGroup(BatchGroup):
             prog.in_(b)
         prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
         for b in leaves:
-            prog.out(torch.zeros_like(b))
+            prog.out(host_zeros_like(b))
         prog.kernel(kernels.paged_segment_kernel(self.seg_len, self.bucket),
                     f"decode_pseg{self.seg_len}")
         # Donate the pool-leaf inputs: segments update the shared blocks in
@@ -441,7 +441,7 @@ class PagedBatchGroup(BatchGroup):
             # [tok, ptok, pos, pcur, ptoks, table, *pool, *draft, spec_on].
             self._build_spec_program(
                 [tok, None, pos, pcur, ptoks, self.table],
-                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq),
+                leaves + kernels.draft_leaf_mirrors(n_slots, self.max_seq, self.pin),
                 kernels.paged_spec_mixed_segment_kernel(seg_len, self.bucket, self.chunk_len,
                                                         self.max_seq),
                 f"spec_pmixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}_k{self.spec_k}",
@@ -454,7 +454,7 @@ class PagedBatchGroup(BatchGroup):
         prog.out(toks_seg).out(torch.zeros_like(tok)).out(torch.zeros_like(pos))
         prog.out(torch.zeros_like(pcur)).out(torch.zeros_like(tok))  # pcur', ctok
         for b in leaves:
-            prog.out(torch.zeros_like(b))
+            prog.out(host_zeros_like(b))
         prog.kernel(kernels.paged_mixed_segment_kernel(seg_len, self.bucket, self.chunk_len),
                     f"pmixed_seg{seg_len}_b{self.bucket}_c{self.chunk_len}")
         prog.args(False)

@@ -301,10 +301,13 @@ class InferenceServer:
                        still-prefilling slot's prompt by ``chunk_len``
                        tokens.  Streams stay bitwise those of whole-prompt
                        serving.
-    graph            : replay each segment's decode loop as a CUDA graph
-                       on the card (``ModelKernels``; ``stats()["graphs"]``
-                       counts captures, replays and copy-ins); False runs
-                       the loops eagerly.  Ignored with ``kernels``.
+    graph            : replay each segment's loop as a CUDA graph on the
+                       card (``ModelKernels``; ``stats()["graphs"]`` counts
+                       captures, replays and copy-ins), and let the group
+                       replay the prefill waves' graphs
+                       (``DeviceGroup.compile_kernel``;
+                       ``stats()["group_graphs"]``); False runs them all
+                       eagerly.  Ignored with ``kernels``.
     """
 
     def __init__(self, cfg, api, params, *,
@@ -484,6 +487,9 @@ class InferenceServer:
             s["speculation"] = self.spec_gate.stats(list(self.buckets.sizes))
         if self.kernels.graphs is not None:
             s["graphs"] = self.kernels.graphs.stats()
+        # The groups' compiled kernels: the prefill waves' graphs.
+        s["group_graphs"] = {g.name: g.graphs.stats() for g in self.groups
+                             if g.graphs is not None}
         return s
 
     def metrics(self) -> dict:

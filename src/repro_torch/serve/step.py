@@ -10,10 +10,11 @@ serving loop calls prefill/decode many times against the same parameters.
 The KV cache is written in place; a cache passed to a step is updated and
 returned, not copied (the JAX package donated it to the jitted step).
 
-The decode chain runs as a CUDA graph on the card (``make_decode_chain(...,
-graph=True)``, ``make_generate``'s default): captured once per shape and
-replayed, as the JAX package jits it (``serve/graphs.py``).  ``graph=False``
-is the eager loop, which CPU tensors always run.
+The decode chain and one-shot prefill run as CUDA graphs on the card
+(``make_decode_chain(..., graph=True)``, ``make_generate``'s default):
+captured once per shape and replayed, as the JAX package jits them
+(``serve/graphs.py``).  ``graph=False`` is the eager loop, which CPU tensors
+always run.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import torch
 from repro_torch.core.trace import tracer
 from repro_torch.models.attention import pos_vector
 from repro_torch.models.params import tree_leaves, tree_map
-from repro_torch.serve.graphs import GraphCache
+from repro_torch.serve.graphs import GraphCache, same_storage
 
 # (leaf ids, dtype) -> cast tree, dropped when any source leaf is collected.
 _cast_cache: dict = {}
@@ -216,15 +217,15 @@ def make_decode_chain(cfg, api, *, graph: bool = False):
 
         return ("decode_chain", n_steps, (), inputs, body, (params,))
 
-    def graphed_chain(params, cache, token, pos, n_steps: int):
+    def graphed_chain(params, cache, token, pos, n_steps: int, *, scope=None):
         if n_steps == 0 or not graphs.accepts(token.device):
             return decode_chain(params, cache, token, pos, n_steps)
-        bound = graphs.bind(*loop(params, cache, token, pos, n_steps))
+        bound = graphs.bind(*loop(params, cache, token, pos, n_steps), scope)
         toks, tok = bound()
         return toks.clone(), tok.clone(), _unflatten(cache, bound.statics["cache"])
 
-    def capture(params, cache, token, pos, n_steps: int):
-        graphs.capture(*loop(params, cache, token, pos, n_steps))
+    def capture(params, cache, token, pos, n_steps: int, *, scope=None):
+        graphs.capture(*loop(params, cache, token, pos, n_steps), scope)
 
     graphed_chain.graphs = graphs
     graphed_chain.capture = capture
@@ -239,58 +240,102 @@ def make_generate(cfg, api, *, graph: bool = True):
     defaults to a fresh ``zeros_cache`` sized ``prompt_len + gen`` (a
     caller-provided cache is consumed).
 
-    ``graph=True`` mirrors the JAX package's ``jit=True``: on the card the
-    chain replays a CUDA graph (:func:`make_decode_chain`), and with
-    ``cache=None`` prefill writes straight into the graph's static cache,
-    refilled with its declared init, so a second call of the same shape
-    copies no cache.  ``graph=False`` is the eager loop.  Prefill stays
-    eager.  ``generate.prepare(params, batch, gen)`` captures the chain of
-    that shape ahead of a timed call and returns the seconds it took (0 when
-    nothing was captured); ``generate.graphs`` is the chain's GraphCache
-    (None when ``graph=False``).  Tracer spans ``generate.prefill`` (batch,
-    seq) and ``generate.chain`` (steps) cover the host's share of each, as
-    in the JAX package."""
+    ``graph=True`` mirrors the JAX package's ``jit=True`` (its
+    ``jax.jit(prefill, donate_argnums=(2,))`` and jitted chain): on the card,
+    with ``cache=None`` and ``gen >= 2``, prefill and the chain each replay
+    a CUDA graph of their own, captured at the shape's first call
+    (``serve/graphs.py``), in a scope per (batch, prompt length, gen).  The
+    prefill graph reads a static token buffer, refills the chain graph's
+    static cache with its declared init and prefills it in place, and
+    writes the chain's static token and start position; the chain then
+    copies nothing in, so a call copies in only the prompt tokens.  A
+    caller-provided cache, ``gen < 2``, CPU tensors and ``graph=False`` run
+    prefill eagerly (the chain replays its graph wherever it takes CUDA
+    tensors and ``graph=True``).  ``generate.prepare(params, batch, gen)``
+    captures both graphs of that shape ahead of a timed call and returns the
+    seconds it took (0 when nothing was captured); ``generate.graphs`` is
+    their GraphCache (None when ``graph=False``); ``generate.prefill(params,
+    batch, gen)`` and ``generate.chain`` are its two stages (the profiler
+    times them apart).  Tracer spans
+    ``generate.prefill`` (batch, seq) and ``generate.chain`` (steps) cover
+    the host's share of each, as in the JAX package."""
     prefill = make_prefill_step(cfg, api)
     chain = make_decode_chain(cfg, api, graph=graph)
     graphs = chain.graphs if graph else None
 
-    def static_cache(params, tokens, gen: int):
-        """The chain graph's static cache for this shape (the chain
-        captured first if new), or None where the chain runs eagerly."""
+    def prefill_loop(params, tokens, st, like, gen: int):
+        """The prefill graph's loop over (tokens, the chain's static cache,
+        token and start position)."""
+        b, s = tokens.shape
+        inputs = {"tokens": tokens, "cache": st["cache"], "token": st["token"],
+                  "pos": st["pos"]}
+
+        def body(bs, n):
+            cache = _unflatten(like, bs["cache"])
+            reset_cache(cfg, api, cache, b, s + gen)
+            tok, out = prefill(params, {"tokens": bs["tokens"]}, cache)
+            for leaf, buf in zip(tree_leaves(out), bs["cache"]):
+                if not same_storage(leaf, buf):  # every family writes in place
+                    buf.copy_(leaf)
+            bs["token"].copy_(tok)
+            bs["pos"].fill_(s)
+            return ()
+
+        return ("prefill", 1, (), inputs, body, (params,))
+
+    def statics(params, tokens, gen: int):
+        """(scope, the static buffers, the cache's structure) of this
+        shape's graphs, both captured first if new; None where prefill runs
+        eagerly."""
         b, s = tokens.shape
         dev = tokens.device
         if graphs is None or gen < 2 or not graphs.accepts(dev):
             return None
+        scope = ("generate", b, s, gen)
         like = zeros_cache(cfg, api, b, s + gen, device="meta")
-        st = graphs.statics({"cache": tree_leaves(like)}, dev)
-        cache = _unflatten(like, st["cache"])
-        tok = graphs.statics({"token": torch.empty((b, 1), dtype=torch.int32,
-                                                   device="meta")}, dev)["token"]
-        chain.capture(params, cache, tok, s, gen - 1)
-        return cache
+        meta = {"tokens": torch.empty((b, s), dtype=tokens.dtype, device="meta"),
+                "cache": tree_leaves(like),
+                "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+                "pos": torch.empty((), dtype=torch.int32, device="meta")}
+        st = graphs.statics(meta, dev, scope)
+        chain.capture(params, _unflatten(like, st["cache"]), st["token"], st["pos"], gen - 1,
+                      scope=scope)
+        graphs.capture(*prefill_loop(params, st["tokens"], st, like, gen), scope)
+        return scope, st, like
+
+    def run_prefill(params, batch, gen: int, cache=None):
+        """generate's prefill: (first token, the chain's start position,
+        the cache, the chain's keyword arguments), from the prefill graph
+        where generate replays one."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        graphed = statics(params, tokens, gen) if cache is None else None
+        if graphed is None:
+            if cache is None:
+                cache = zeros_cache(cfg, api, b, s + gen, device=tokens.device)
+            tok, cache = prefill(params, batch, cache)
+            return tok, s, cache, {}
+        scope, st, like = graphed
+        graphs.bind(*prefill_loop(params, tokens, st, like, gen), scope)()
+        return st["token"], st["pos"], _unflatten(like, st["cache"]), {"scope": scope}
 
     def generate(params, batch, gen: int, *, cache=None):
         tr = tracer()
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        if cache is None:
-            cache = static_cache(params, tokens, gen)
-            if cache is not None:
-                reset_cache(cfg, api, cache, b, s + gen)
-            else:
-                cache = zeros_cache(cfg, api, b, s + gen, device=tokens.device)
+        b, s = batch["tokens"].shape
         with tr.span("generate.prefill", track="generate", batch=b, seq=s):
-            tok, cache = prefill(params, batch, cache)
+            tok, pos, cache, kw = run_prefill(params, batch, gen, cache)
         with tr.span("generate.chain", track="generate", steps=gen - 1):
-            toks, _, _ = chain(params, cache, tok, s, gen - 1)
+            toks, _, _ = chain(params, cache, tok, pos, gen - 1, **kw)
         return torch.cat([tok, toks], dim=1)
 
     def prepare(params, batch, gen: int) -> float:
         before = graphs.capture_s if graphs is not None else 0.0
-        static_cache(params, batch["tokens"], gen)
+        statics(params, batch["tokens"], gen)
         return (graphs.capture_s - before) if graphs is not None else 0.0
 
     generate.prepare = prepare
+    generate.prefill = run_prefill
+    generate.chain = chain
     generate.graphs = graphs
     return generate
 

@@ -13,10 +13,17 @@ apart from the card:
   the JAX package's;
 - ``CPUReplay``, a GraphCache whose "graph" reruns the captured loop on its
   static buffers and writes the same output tensors each replay, as a CUDA
-  graph does: through it the chain and the server's loops (plain,
-  contiguous and paged, the mixed kernels' decode part, the speculative
-  scan and its bypass) use the static buffers, copy-ins and write-backs
-  exactly as on the card, and must give the eager streams bitwise.
+  graph does: through it one-shot prefill and its chain, the server's
+  loops (plain, contiguous and paged, the mixed loops with and without
+  their chunk stage, the speculative scan and its bypass, each with and
+  without a chunk stage) and a DeviceGroup's compiled kernels (the prefill
+  waves, co-execution's packages) use the static buffers, copy-ins and
+  write-backs exactly as on the card, and must give the eager streams
+  bitwise; two prefill waves of one shape keep the first's handed-off
+  leaves; no capture warms up on clones of a live cache; a compiled
+  kernel's scalar arguments are device scalars (one graph for every
+  value); a capture's wait for another thread's capture is left out of the
+  service time the scheduler observes.
 """
 import dataclasses
 import threading
@@ -35,6 +42,7 @@ from repro.core import trace as jtrace
 from repro.models import get_model as jax_get_model
 from repro.models import params as jparams
 from repro_torch import configs as tconfigs
+from repro_torch import core as tcore
 from repro_torch.core import DeviceGroup
 from repro_torch.core import trace as ttrace
 from repro_torch.kernels import _build
@@ -82,7 +90,7 @@ class CPUReplay(graphs.GraphCache):
                 for o, r in zip(outputs, results):
                     o.copy_(r)
 
-        return Replay(), outputs
+        return Replay(), outputs, {}
 
 
 def _weights(arch, seed=0):
@@ -159,8 +167,10 @@ def test_chain_tensor_pos_matches_jax(model, monkeypatch):
 def test_generate_graph_matches_eager_and_jax(model, monkeypatch):
     """make_generate(graph=True) on CPU tensors is bitwise graph=False and
     equal to the JAX package's make_generate; through CPUReplay too, where
-    a second call of the same shape captures nothing and copies no cache
-    (prefill wrote the graph's static cache in place)."""
+    prefill and the chain replay a graph each, a second call of the same
+    shape captures nothing, and a call copies in the prompt tokens only
+    (the prefill graph writes the chain's static cache, token and start
+    position in place)."""
     jcfg, japi, jp, tcfg, tapi, tp = model
     prompts = np.random.default_rng(4).integers(0, tcfg.vocab, (3, 7)).astype(np.int32)
     gen = 5
@@ -180,13 +190,17 @@ def test_generate_graph_matches_eager_and_jax(model, monkeypatch):
         np.testing.assert_array_equal(replayed(tp, batch, gen).numpy(), eager)
         copies.append(replayed.graphs.copy_ins - sum(copies))
     st = replayed.graphs.stats()
-    assert (st["captures"], st["replays"]) == (1, 2)
-    # Each call copies in the prefill's token and the start position only.
-    assert copies == [2, 2]
-    # Another batch is another shape; the first shape's graph stays.
+    assert (st["captures"], st["replays"]) == (2, 4)
+    assert {n: d["captures"] for n, d in st["loops"].items()} == {"prefill": 1,
+                                                                 "decode_chain": 1}
+    # Each call copies in the prompt tokens only.
+    assert copies == [1, 1]
+    # Another batch is another shape; the first shape's graphs stay, and
+    # the new shape's captures find no live buffer of the first's.
     np.testing.assert_array_equal(replayed(tp, {"tokens": batch["tokens"][:1]}, gen).numpy(),
                                   eager[:1])
-    assert replayed.graphs.stats()["captures"] == 2
+    st = replayed.graphs.stats()
+    assert st["captures"] == 4 and st["warmup_clone_bytes"] == 0
 
 
 def test_graph_key_ignores_addresses():
@@ -285,13 +299,15 @@ def _serve(cfg, params, prompts, gens, *, replay, draft=None, buckets=(PLEN,), *
     its graph cache logs each replay's copy-ins."""
     api = get_model(cfg)
     kernels = ModelKernels(cfg, api, params, draft=draft, graph=replay)
+    group = DeviceGroup("g", device="cpu")
     if replay:
         kernels.graphs = CPUReplay()
+        group.graphs = CPUReplay()  # the prefill waves' graphs
     kw.setdefault("max_batch", 2)
     kw.setdefault("seg_len", 2)
     prev = ttrace.set_tracer(ttrace.Tracer(enabled=replay))
     try:
-        with InferenceServer(cfg, api, params, groups=[DeviceGroup("g", device="cpu")],
+        with InferenceServer(cfg, api, params, groups=[group],
                              buckets=buckets, max_new_cap=16, max_wait_ms=5.0,
                              kernels=kernels, draft=draft, **kw) as srv:
             handles = []
@@ -313,15 +329,19 @@ SERVED = {
     "spec": {"draft": "self"},
     "spec_paged_gated": {"draft": "gated", "paged": PagedSpec(block_len=4)},
     "spec_chunked_paged": {"draft": "self", "chunk_len": 3, "paged": PagedSpec(block_len=4)},
+    "spec_chunked_gated": {"draft": "gated", "chunk_len": 3},
 }
 
 
 @pytest.mark.parametrize("layout", list(SERVED))
 def test_server_loops_replay_bitwise_eager(qwen, layout):
-    """Every server loop through CPUReplay serves the eager server's
-    streams bitwise, each equal to one-shot generate of its prompt; no loop
-    is captured twice, and none on a live cache; a paged pool is copied in
-    only where a join re-uploads it, never on a segment that only
+    """Every server loop through CPUReplay, and every prefill wave through
+    the group's compiled kernel, serves the eager server's streams bitwise,
+    each equal to one-shot generate of its prompt; no loop is captured
+    twice, and none on a live cache; a chunked server replays its loop with
+    and without the chunk stage; the group captures the prefill kernels
+    only (the segment kernels bind graphs of their own); a paged pool is
+    copied in only where a join re-uploads it, never on a segment that only
     decodes."""
     cfg, params = qwen
     kw = dict(SERVED[layout])
@@ -342,11 +362,24 @@ def test_server_loops_replay_bitwise_eager(qwen, layout):
             e, generate(params, {"tokens": torch.from_numpy(p[None])}, n)[0].numpy())
     g = stats["graphs"]
     assert g["replays"] == stats["segments"] > 0
-    # One loop a server, two when gated (the scan and its bypass, captured
-    # together before the first segment): no capture warms up on clones of
-    # a live cache.
-    assert g["captures"] == (2 if layout.endswith("gated") else 1)
+    # One loop a server, times two when gated (the scan and its bypass),
+    # times two when chunked (with and without the chunk stage), all
+    # captured together before the first segment: no capture warms up on
+    # clones of a live cache.
+    chunked, gated = "chunk_len" in kw, layout.endswith("gated")
+    assert g["captures"] == (1 + gated) * (1 + chunked)
     assert g["warmup_clone_bytes"] == 0
+    names = {r[0] for r in g["per_replay"]}
+    if chunked:
+        assert any(n.endswith("+chunk") for n in names)
+        assert any(not n.endswith("+chunk") for n in names)
+    w = stats["group_graphs"]["g"]
+    assert w["replays"] == (0 if chunked else stats["prefill_waves"])
+    assert set(w["loops"]) <= {f"prefill_{PLEN}", f"spec_prefill_{PLEN}"}
+    assert w["warmup_clone_bytes"] == 0
+    assert w["output_copies"] == w["replays"] * (len(tparams.tree_leaves(
+        get_model(cfg).cache_spec(cfg, 1, 8))) * (2 if "draft" in kw else 1) + 1
+        + ("draft" in kw))
     moved = [r[2] for r in g["per_replay"]]
     if "paged" in kw:
         # The pool comes back as the loop's own buffers: only a segment
@@ -388,3 +421,198 @@ def test_two_live_buckets_keep_their_pools(qwen):
     for by_scope in pools.values():
         assert set(by_scope) == {8, 16}
         assert by_scope[8][0] == by_scope[16][0] and by_scope[8][1] != by_scope[16][1]
+
+
+# ------------------------------------- DeviceGroup.compile_kernel's graphs
+def test_prefill_waves_keep_their_handoff(qwen):
+    """Two prefill waves of one shape through the group's compiled kernel,
+    the second replayed before anything consumed the first's device-resident
+    handoff: a dependent run reading the first wave's leaves through the
+    transfer cache gets the first wave's leaves, bitwise the eager wave's.
+    A package's results are copied out of the graph's memory, which the
+    second replay overwrites."""
+    cfg, params = qwen
+    kernels = ModelKernels(cfg, get_model(cfg), params)
+    group = DeviceGroup("g", device="cpu")
+    group.graphs = CPUReplay()
+    rt = tcore.Runtime([group])
+    rng = np.random.default_rng(30)
+    waves = []
+    try:
+        for _ in range(2):
+            tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, PLEN)).astype(np.int32))
+            prog = tcore.Program().in_(tokens).out(torch.zeros((2, 1), dtype=torch.int32))
+            for b in kernels.leaf_mirrors(2, 16):
+                prog.out(b)
+            prog.kernel(kernels.prefill_kernel(16), f"prefill_{PLEN}").work_items(2, 1)
+            rt.submit(prog, tcore.Static()).result()
+            waves.append(prog)
+        first = waves[0]
+        # The consumer reads the first wave's outputs: served from the stash.
+        copies = [torch.zeros_like(b) for b in first._outs]
+        consumer = tcore.Program()
+        for b in first._outs:
+            consumer.in_(b)
+        for b in copies:
+            consumer.out(b)
+        consumer.kernel(graphs.passthrough(lambda off, *xs: tuple(x.clone() for x in xs)),
+                        "read").work_items(2, 1)
+        hits = group.n_cache_hits
+        rt.submit(consumer, tcore.Static()).result()
+        assert group.n_cache_hits - hits == len(first._outs)  # the device handoff
+    finally:
+        rt.shutdown()
+    want = ModelKernels(cfg, get_model(cfg), params, graph=False).prefill_kernel(16)(
+        0, first._ins[0])
+    st = group.graphs.stats()
+    assert (st["captures"], st["replays"]) == (1, 2)
+    for c, h, w in zip(copies, first._outs, want):
+        assert torch.equal(h, w)
+        assert torch.equal(c, w)
+
+
+def test_compiled_kernel_offsets_and_passthrough():
+    """One graph per package shape serves every offset: the offset reaches
+    the kernel as a device scalar.  Dynamic packages of one size over one
+    group capture once and replay per package, bitwise the eager kernel's
+    result, the pipelined write-back reading results copied out of the
+    graph's memory; a kernel marked passthrough is never captured."""
+    n = 64
+    x = torch.arange(n, dtype=torch.float32)
+    results = {}
+    for mode in ("eager", "replay", "passthrough"):
+        group = DeviceGroup("g", device="cpu")
+        if mode != "eager":
+            group.graphs = CPUReplay()
+
+        def kern(off, a):
+            return a * 2 + off
+
+        if mode == "passthrough":
+            graphs.passthrough(kern)
+        y = torch.zeros(n)
+        prog = tcore.Program().in_(x).out(y).kernel(kern, "k").work_items(n, 8)
+        with tcore.EngineCL().use(group).scheduler(tcore.Dynamic(8)).program(prog) as eng:
+            eng.run()
+            assert not eng.has_errors(), eng.get_errors()
+        results[mode] = (y.clone(), group.graphs.stats() if group.graphs else None)
+    want = x * 2 + torch.repeat_interleave(torch.arange(0, n, 8), 8)
+    for mode, (y, _) in results.items():
+        assert torch.equal(y, want), mode
+    st = results["replay"][1]
+    assert (st["captures"], st["replays"], st["output_copies"]) == (1, 8, 8)
+    assert results["passthrough"][1]["captures"] == 0
+
+
+def test_compiled_kernel_scalar_args():
+    """A Program's scalar arguments reach a compiled kernel as device
+    scalars, copied in each call, as the reference's jit traces them: a
+    float argument that changes between runs replays the one graph of its
+    package shape, bitwise the eager kernel's result with the Python
+    float; an argument that is neither a Python scalar nor a tensor on the
+    group's device is refused with a TypeError."""
+    n = 32
+    x = torch.from_numpy(np.random.default_rng(50).standard_normal(n).astype(np.float32))
+
+    def kern(off, a, scale, shift):
+        return a * scale * a + shift
+
+    replay = DeviceGroup("g", device="cpu")
+    replay.graphs = CPUReplay()
+    for scale, shift in ((3.0, -1.0), (0.1, 2.5), (-7.25, 1e-3)):
+        ys = {}
+        for mode, group in (("eager", DeviceGroup("g", device="cpu")), ("replay", replay)):
+            y = torch.zeros(n)
+            prog = (tcore.Program().in_(x).out(y).kernel(kern, "k").args(scale, shift)
+                    .work_items(n, 8))
+            with tcore.EngineCL().use(group).scheduler(tcore.Static()).program(prog) as eng:
+                eng.run()
+                assert not eng.has_errors(), eng.get_errors()
+            ys[mode] = y
+        assert torch.equal(ys["replay"], ys["eager"]), (scale, shift)
+    st = replay.graphs.stats()
+    assert (st["captures"], st["replays"]) == (1, 3)
+    for bad in (np.float32(1.0), [1.0], np.ones(2, np.float32)):
+        fn = replay.compile_kernel(tcore.Program().in_(x).out(torch.zeros(n))
+                                   .kernel(kern, "k").args(bad, 0.0))
+        with pytest.raises(TypeError, match="compiled kernel takes Program arguments"):
+            fn(0, x, bad, 0.0)
+
+
+def test_capture_wait_is_not_service_time():
+    """A package whose capture waits for another thread's capture (one
+    runs at a time in the process) reports that wait as its group's
+    ``capture_wait_s``, and the scheduler observes the package's service
+    time without it."""
+    observed = []
+
+    class Recording(tcore.Static):
+        def clone(self):  # the runtime runs a clone of the engine's scheduler
+            return Recording()
+
+        def observe(self, device, size_wi, seconds):
+            observed.append(seconds)
+            super().observe(device, size_wi, seconds)
+
+    group = DeviceGroup("g", device="cpu")
+    group.graphs = CPUReplay()
+    x = torch.arange(8, dtype=torch.float32)
+    prog = tcore.Program().in_(x).out(torch.zeros(8)).kernel(lambda off, a: a + 1, "k")
+    prog.work_items(8, 8)
+    held, release = threading.Event(), threading.Event()
+
+    def hold():
+        with graphs._CAPTURE_LOCK:
+            held.set()
+            release.wait(5)
+
+    holder = threading.Thread(target=hold)
+    holder.start()
+    held.wait(5)
+    threading.Timer(0.3, release.set).start()
+    t0 = time.perf_counter()
+    with tcore.EngineCL().use(group).scheduler(Recording()).program(prog) as eng:
+        eng.run()
+        assert not eng.has_errors(), eng.get_errors()
+    wall = time.perf_counter() - t0
+    holder.join()
+    assert group.capture_wait_s >= 0.25
+    assert group.graphs.stats()["wait_s"] == group.capture_wait_s
+    assert len(observed) == 1 and observed[0] <= wall - group.capture_wait_s
+
+
+@pytest.mark.parametrize("scheduler", ["static", "hguided"])
+def test_coexec_packages_replay_bitwise_oneshot(qwen, scheduler):
+    """Co-executed generate over two groups (pod-a and pod-b) whose compiled
+    kernels replay graphs of the whole eager generate: every package's
+    tokens equal one-shot generate of the batch, as the launcher's
+    ``--coexec --verify`` holds; each group replays once per package and
+    captures once per package shape it met."""
+    from repro_torch.launch import serve as launcher
+
+    cfg, params = qwen
+    api = get_model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(40).integers(0, cfg.vocab, (6, PLEN))
+                              .astype(np.int32))
+    gen = 5
+    want = make_generate(cfg, api)(params, {"tokens": tokens}, gen).numpy()
+    generate = make_generate(cfg, api, graph=False)
+    groups = launcher.coexec_groups("cpu")
+    for g in groups:
+        g.graphs = CPUReplay()
+    out = torch.zeros((6, gen), dtype=torch.int32)
+    prog = (tcore.Program().in_(tokens).out(out)
+            .kernel(lambda off, t: generate(params, {"tokens": t}, gen), "generate")
+            .work_items(6, 1))
+    eng = tcore.EngineCL().use(*groups).scheduler(launcher.SCHEDULERS[scheduler]())
+    with eng.program(prog):
+        eng.run()
+        assert not eng.has_errors(), eng.get_errors()
+        recs = list(eng.introspector.records)
+    np.testing.assert_array_equal(out.numpy(), want)
+    for g in groups:
+        sizes = [r.size_wi for r in recs if r.device == g.name]
+        st = g.graphs.stats()
+        assert st["replays"] == len(sizes) > 0
+        assert st["captures"] == len({tcore.DeviceGroup._bucket(s, 1) for s in sizes})
+        assert st["warmup_clone_bytes"] == 0

@@ -101,6 +101,77 @@ def test_swap_chain_with_donated_input():
     assert got["torch"]["xfer"][0][0] == 3  # state, const, re-uploaded state
 
 
+def test_swap_reuses_the_old_input_as_output():
+    """swap_buffers copies no contiguous buffer: after each run of a donated
+    ping-pong chain the next output is the old input object and the next
+    input the old output, as in the reference (``np.ascontiguousarray``).
+    The port's kernel updates its donated input in place, as the server's
+    segment kernels do, so a device tensor sharing a host buffer's storage
+    on the CPU group would corrupt the chain: every run's state and the
+    transfer counts must be the reference's."""
+    n, iters = 64, 5
+
+    def scenario(core, arr, group):
+        g = group("solo")
+        rt = core.Runtime([g])
+        x = arr(np.arange(n, dtype=np.float32) + 1.0)
+        c = arr(np.full(n, 2.0, np.float32))
+        y = arr(np.zeros(n, np.float32))
+        if core is tcore:
+            def kern(off, a, cc):
+                return a.mul_(cc)
+        else:
+            def kern(off, a, cc):
+                return a * cc
+        prog = core.Program().in_(x).in_(c).out(y).kernel(kern, "double").work_items(n, 8)
+        prog.donate(0)
+        same, states, prev = [], [], None
+        for _ in range(iters):
+            old_in, old_out = prog._ins[0], prog._outs[0]
+            prev = rt.submit(prog, core.Static(), after=[prev] if prev else None,
+                             epilogue=lambda: prog.swap_buffers(0, 0))
+            prev.result()
+            same.append((prog._ins[0] is old_out, prog._outs[0] is old_in))
+            states.append(as_np(prog._ins[0]).copy())
+        rt.shutdown()
+        return {"same": same, "states": states, "xfer": counters([g])}
+
+    got = run_both(scenario)
+    assert got["torch"]["same"] == got["jax"]["same"] == [(True, True)] * iters
+    for t, j in zip(got["torch"]["states"], got["jax"]["states"]):
+        np.testing.assert_array_equal(t, j)
+    np.testing.assert_array_equal(got["torch"]["states"][-1],
+                                  (np.arange(n, dtype=np.float32) + 1.0) * 2.0 ** iters)
+    assert got["torch"]["xfer"] == got["jax"]["xfer"]
+
+
+def test_epilogue_span_per_run():
+    """The run epilogue is timed: one ``runtime.epilogue`` span per run that
+    has one, named by the Program's kernel, on the runtime's track."""
+    from repro_torch.core import trace
+
+    g = tcore.DeviceGroup("solo", device="cpu")
+    rt = tcore.Runtime([g])
+    x, y = torch.ones(8), torch.zeros(8)
+    prog = tcore.Program().in_(x).out(y).kernel(lambda o, a: a + 1, "inc").work_items(8, 1)
+    prev = trace.set_tracer(trace.Tracer(enabled=True))
+    try:
+        h = None
+        for _ in range(3):
+            h = rt.submit(prog, tcore.Static(), after=[h] if h else None,
+                          epilogue=lambda: prog.swap_buffers(0, 0))
+        h.result()
+        rt.submit(prog, tcore.Static()).result()  # no epilogue, no span
+        spans = [e for e in trace.tracer().chrome_events()
+                 if e.get("ph") == "X" and e["name"] == "runtime.epilogue"]
+    finally:
+        trace.set_tracer(prev)
+        rt.shutdown()
+    assert len(spans) == 3
+    assert all(e["args"]["kernel"] == "inc" for e in spans)
+    np.testing.assert_array_equal(prog._ins[0].numpy(), 4.0)
+
+
 def test_linked_pipeline_hands_off_device_resident():
     """x -> 2x -> +1 -> /2 through shared host buffers, submitted without
     waiting: only the source is uploaded, the intermediates are served
