@@ -2399,6 +2399,251 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
     return out, spec_counts
 
 
+# The multi-group served path (run A): the served path's model, prompts,
+# lengths and arrivals (1 ms apart) on two CUDA-stream groups of the card,
+# pod-a (power 2) and pod-b (power 1), HGuided, pod-b drained after the
+# fourth submission.  A lone request boards after 1 ms (the served path
+# waits up to 200 ms for a full batch): so the first requests board on both
+# groups before the drain, where with the whole batch queued first pod-b,
+# drained by then, would receive none.
+MULTIGROUP_ARGV = _argv_with(SERVER_ARGV, max_wait_ms="1") + [
+    "--groups", "2", "--scheduler", "hguided", "--drain-after", "4", "--verify",
+    "--http-port", "0"]
+# Run B's slots: pod-a 8, pod-b 4 (Static's 2:1 split of 12, one each at
+# least), so the 8 requests leave free slots for the forced migrations.
+MULTIGROUP_B_SLOTS = 12
+
+
+def _http_probe(http, torch) -> dict:
+    """``/metrics``, ``/healthz`` and ``/stats`` of a live server's
+    ``ObsHTTP`` through urllib (127.0.0.1): status codes, the exposition's
+    metric families, the health body and the stats' placement."""
+    import urllib.request
+
+    from repro_torch.serve import parse_exposition
+
+    out = {}
+    for path in ("/metrics", "/healthz", "/stats"):
+        with urllib.request.urlopen(http.url(path), timeout=30) as r:
+            body = r.read().decode()
+            out[path] = {"status": r.status, "content_type": r.headers["Content-Type"]}
+        if path == "/metrics":
+            out[path]["families"] = len(parse_exposition(body))
+        else:
+            out[path]["body"] = json.loads(body)
+    return out
+
+
+def _per_group(result, stats, entries, label, card) -> dict:
+    """Each group's numbers of one multi-group run, printed a line a group:
+    segments and prefill waves it ran, its segment loops' captures (graph
+    entries of its scope) and prefill graphs' captures, the seconds its
+    packages waited for another thread's capture, its transfers, the
+    migrated rows patched in place and refused, slots migrated in and out,
+    and the tokens its segments delivered per second of the run's wall."""
+    from collections import Counter
+
+    loops = Counter(k[5][1] for k in entries)
+    wall = result["wall_s"]
+    ttft = max(m["ttft"] for m in result["request_metrics"])
+    out = {}
+    for name, d in stats["placement"]["per_group"].items():
+        gg = stats["group_graphs"].get(name, {})
+        rec = {**d, "loop_captures": loops.get(name, 0),
+               "prefill_captures": gg.get("captures", 0),
+               "capture_wait_s": result["groups"][name]["capture_wait_s"],
+               "transfers": stats["transfers"][name]["transfers"],
+               **stats["placement"]["patches"][name],
+               "tokens_per_s": d["tokens"] / wall}
+        out[name] = rec
+        print(f"  [multigroup] {label}, {name}: {rec['segments']} segments, "
+              f"{rec['prefill_waves']} prefill waves, {rec['loop_captures']} loop captures + "
+              f"{rec['prefill_captures']} prefill graph captures, capture wait "
+              f"{rec['capture_wait_s']:.3f} s, {rec['transfers']} transfers, "
+              f"{rec['patched']} rows patched in place / {rec['missed']} refused, migrations "
+              f"in {rec['migrations_in']} out {rec['migrations_out']}, "
+              f"{rec['tokens_per_s']:.1f} tokens/s of its segments; run wall {wall:.3f} s, "
+              f"TTFT max {ttft:.3f} s ({card})", flush=True)
+    return out
+
+
+def run_multigroup_paths(dev, torch, whole, card) -> dict:
+    """Multi-group serving on two CUDA-stream groups of the card, graphed.
+
+    Run A, the launcher (``run_server``, :data:`MULTIGROUP_ARGV`): paged,
+    one sub-batch and one block pool per group, join waves placed by
+    ``plan_wave`` on HGuided's weights, pod-b drained after the fourth
+    submission (its slots migrate to pod-a at segment boundaries), the
+    launcher's ``--verify`` (every stream bitwise one-shot generate of its
+    prompt alone).  While the server is still up (every request answered),
+    ``ObsHTTP``'s ``/metrics``, ``/healthz`` and ``/stats`` are read through
+    urllib, and the launch counts, zeroed just before the run, are read:
+    flash_attention n_layers a prefill wave, flash_decode_paged n_layers x
+    seg_len a segment of either member, the row kernels a forward each.
+    Held: no failure, streams bitwise the single-group served path's and
+    batch-1 one-shot's, at least one migration, pod-b drained and reported
+    ``ready: false`` by ``/healthz``, each group ran prefill waves, pod-a
+    segments, at least one slot left pod-b (drained while its first wave
+    is in flight, pod-b decodes nothing: a draining member runs segments
+    only while no other member can take its slots), every segment a
+    replay, no warm-up clone.
+
+    Run B, ``InferenceServer`` directly: contiguous KV, the same prompts,
+    ``ForceMigrate`` (a migration at every common boundary), pod-a and
+    pod-b of ``serve.coexec_groups``; the migrated rows go through
+    ``DeviceGroup.patch_cached``.  Held as run A, with flash_decode in
+    place of flash_decode_paged, and both groups must run segments; patches
+    and refusals counted."""
+    import numpy as np
+
+    from repro_torch.core import Static
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import ForceMigrate, InferenceServer
+
+    served_whole, ones = whole
+    args = serve.parse_args(MULTIGROUP_ARGV)
+    cfg, api, params = serve.load_model(args)
+    n, seg = cfg.n_layers, args.seg_len
+    out = {"card": card}
+
+    def held(label, result, stats, counts, entries, want, decoders):
+        res = result["results"]
+        if (stats["completed"] != len(res) or stats["failed"] or stats["rejected"]
+                or any(r is None for r in res)):
+            fail(f"{label}: {stats['completed']} completed, {stats['failed']} failed, "
+                 f"{stats['rejected']} rejected of {len(res)}")
+        rows_w = int(sum(np.array_equal(a, b) for a, b in zip(res, served_whole)))
+        rows_1 = int(sum(np.array_equal(a, b) for a, b in zip(res, ones)))
+        if rows_w != len(res) or rows_1 != len(res):
+            fail(f"{label}: {rows_w}/{len(res)} streams equal the single-group served path's, "
+                 f"{rows_1}/{len(res)} one-shot generate's of each prompt alone")
+        print(f"  {label}: launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"{label} launch counts {counts} != {want}")
+        if stats["slot_migrations"] < 1:
+            fail(f"{label}: no slot migrated")
+        per = stats["placement"]["per_group"]
+        if set(per) != {"pod-a", "pod-b"} or any(d["prefill_waves"] < 1 for d in per.values()) \
+                or any(per[name]["segments"] < 1 for name in decoders):
+            fail(f"{label}: each group must run prefill waves, and {decoders} segments: {per}")
+        g = stats["graphs"]
+        if g["replays"] != stats["segments"] or g["warmup_clone_bytes"]:
+            fail(f"{label}: {stats['segments']} segments, {g['replays']} replays, warm-up clones "
+                 f"{g['warmup_clone_bytes']} B: every segment one replay, no clone")
+        scopes = {k[5] for k in entries}
+        if not ({(args.prompt_len, g) for g in decoders} <= scopes
+                <= {(args.prompt_len, "pod-a"), (args.prompt_len, "pod-b")}):
+            fail(f"{label}: segment loops' scopes {sorted(scopes)}")
+        for name, gg in stats["group_graphs"].items():
+            if gg["replays"] != per[name]["prefill_waves"] or gg["warmup_clone_bytes"]:
+                fail(f"{label}: group {name} replayed {gg['replays']} prefill graphs for "
+                     f"{per[name]['prefill_waves']} waves (warm-up clones "
+                     f"{gg['warmup_clone_bytes']} B)")
+        print(f"  {label}: {len(res)}/{len(res)} streams bitwise the single-group served "
+              f"path's and batch-1 one-shot's; {stats['slot_migrations']} migrations; "
+              f"{stats['prefill_waves']} prefill waves, {stats['segments']} segments, all "
+              f"replays, warm-up clones 0 B", flush=True)
+
+    # -- run A: the launcher, paged, HGuided, pod-b drained -------------------
+    live = {}
+
+    def probe(server, http):
+        live["counts"] = ops.launch_counts()
+        live["stats"] = server.stats()
+        live["entries"] = list(server.kernels.graphs._entries)
+        live["http"] = _http_probe(http, torch)
+
+    gc.collect()
+    ops.reset_launch_counts()
+    ra = serve.run_server(cfg, api, params, args, live=probe)
+    sa = live["stats"]
+    want = _launches(n, fa=n * sa["prefill_waves"], fdp=n * seg * sa["segments"],
+                     forwards=[(sa["prefill_waves"] + seg * sa["segments"], n)])
+    # pod-b is drained at the fourth submission, while its first prefill
+    # wave (and its capture) is still in flight: its slots leave through the
+    # drain's migrations before it decodes, so only pod-a must run segments.
+    held("run A (launcher, paged, HGuided, drain)", ra, sa, live["counts"], live["entries"],
+         want, ("pod-a",))
+    if ra["drained"] != "pod-b" or sa["placement"]["draining"] != ["pod-b"]:
+        fail(f"run A: drained {ra['drained']}, draining {sa['placement']['draining']}")
+    per_b = sa["placement"]["per_group"]["pod-b"]
+    if per_b["migrations_out"] < 1:
+        fail(f"run A: no slot left the drained pod-b: {per_b}")
+    h = live["http"]
+    health = h["/healthz"]["body"]
+    if (any(h[p]["status"] != 200 for p in h) or health["status"] != "ok"
+            or health["groups"]["pod-b"]["ready"] is not False
+            or not health["groups"]["pod-b"]["draining"]
+            or health["groups"]["pod-a"]["ready"] is not True
+            or h["/metrics"]["families"] < 1
+            or h["/stats"]["body"]["slot_migrations"] != sa["slot_migrations"]):
+        fail(f"run A: the live endpoints answered {h}")
+    print(f"  run A endpoints (ObsHTTP on 127.0.0.1, read live): /metrics "
+          f"{h['/metrics']['status']} ({h['/metrics']['families']} metric families), /healthz "
+          f"{h['/healthz']['status']} (status {health['status']}, pod-b ready "
+          f"{health['groups']['pod-b']['ready']}, draining "
+          f"{health['groups']['pod-b']['draining']}), /stats {h['/stats']['status']}",
+          flush=True)
+    out["run_a"] = {"argv": MULTIGROUP_ARGV, "wall_s": ra["wall_s"],
+                    "tokens_per_s": ra["tokens_per_s"],
+                    "ttft_s": sorted(m["ttft"] for m in ra["request_metrics"]),
+                    "slot_migrations": sa["slot_migrations"], "drained": ra["drained"],
+                    "prefill_waves": sa["prefill_waves"], "segments": sa["segments"],
+                    "member_slots": sa["placement"]["member_slots"],
+                    "launches": live["counts"], "peak_memory_bytes": ra["peak_memory_bytes"],
+                    "graphs": {k: sa["graphs"][k] for k in ("captures", "capture_s", "wait_s",
+                                                            "replays", "output_copies")},
+                    "endpoints": {p: h[p]["status"] for p in h},
+                    "per_group": _per_group(ra, sa, live["entries"], "run A", card)}
+    del ra, live
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- run B: the server API, contiguous, ForceMigrate ----------------------
+    prompts, gaps = serve.server_prompts(cfg, serve.parse_args(SERVER_ARGV))
+    groups = serve.coexec_groups(dev)
+    policy = ForceMigrate()
+    ops.reset_launch_counts()
+    server = InferenceServer(cfg, api, params, groups=groups, scheduler=Static(),
+                             group_batches=True, migration=policy, buckets=(args.prompt_len,),
+                             max_batch=MULTIGROUP_B_SLOTS, seg_len=seg, max_new_cap=args.gen,
+                             max_wait_ms=200.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with server:
+        handles = []
+        for p, gap in zip(prompts, gaps):
+            time.sleep(gap)
+            handles.append(server.submit(p, args.gen))
+        results = [hd.result(timeout=600) for hd in handles]
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        sb = server.stats()
+        entries = list(server.kernels.graphs._entries)
+    rb = {"results": results, "wall_s": wall,
+          "request_metrics": [hd.metrics for hd in handles],
+          "groups": {g.name: {"capture_wait_s": g.capture_wait_s} for g in groups}}
+    want = _launches(n, fa=n * sb["prefill_waves"], fd=n * seg * sb["segments"],
+                     forwards=[(sb["prefill_waves"] + seg * sb["segments"], n)])
+    held("run B (server API, contiguous, ForceMigrate)", rb, sb, counts, entries, want,
+         ("pod-a", "pod-b"))
+    patches = sb["placement"]["patches"]
+    if sum(p["patched"] for p in patches.values()) < 1:
+        fail(f"run B: no migrated row went through patch_cached: {patches}")
+    out["run_b"] = {"member_slots": sb["placement"]["member_slots"], "wall_s": wall,
+                    "tokens_per_s": sb["tokens_out"] / wall,
+                    "ttft_s": sorted(m["ttft"] for m in rb["request_metrics"]),
+                    "slot_migrations": sb["slot_migrations"],
+                    "moves_planned": policy.moves_planned,
+                    "prefill_waves": sb["prefill_waves"], "segments": sb["segments"],
+                    "launches": counts, "patches": patches,
+                    "graphs": {k: sb["graphs"][k] for k in ("captures", "capture_s", "wait_s",
+                                                            "replays", "output_copies")},
+                    "per_group": _per_group(rb, sb, entries, "run B", card)}
+    return out
+
+
 COEXEC_ARGV = ["--arch", "qwen1.5-4b", "--full", "--coexec", "--scheduler", "hguided",
                "--verify", "--requests", "8", "--prompt-len", "256", "--gen", str(GEN),
                "--seed", "0", "--kernel", "cuda"]
@@ -2745,6 +2990,17 @@ def main() -> None:
         ("self-draft k 2, --spec-gate", spp["self_draft_gated_paged"]["modes"])]
     launches["flash_decode_verify"] = counts["multi_row"]["flash_decode"]
     launches["flash_decode_paged_verify"] = counts["multi_row"]["flash_decode_paged"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(at() + f" [multigroup] run A: repro_torch.launch.serve --server --paged --groups 2 "
+          f"--scheduler hguided --drain-after 4 --verify --http-port 0, qwen1.5-4b --full, "
+          f"8 x 256 + {GEN}, block_len 16, seg_len 8, arrivals 1 ms apart, a lone request "
+          f"boarding after 1 ms; run B: "
+          f"InferenceServer, contiguous, ForceMigrate, {MULTIGROUP_B_SLOTS} slots; groups "
+          f"pod-a (power 2) and pod-b (power 1), two streams of cuda:0, graphed", flush=True)
+    mg = run_multigroup_paths(dev, torch, whole, card)
+    print(json.dumps({"multigroup": mg}))
     del whole
     gc.collect()
     torch.cuda.empty_cache()

@@ -25,8 +25,12 @@ power-of-two package ``_bucket`` are the reference's, so package geometry
 and transfer counts match it.
 
 The default device is ``cuda:0``; a group asked for CUDA raises when CUDA
-is missing.  The reference's ``patch_cached`` (slot migration) comes with
-multi-group serving (ROADMAP.md item A7).
+is missing.  Slot migration between a server's per-group batches patches
+the rows it moved into the destination group's device-resident copy of a
+mirror in place (:meth:`DeviceGroup.patch_cached`, on the group's stream).
+While a group runs a package's kernel, :func:`running_group` names it on
+that thread: a server's segment kernels scope their graphs' static buffers
+by it, so that two groups of one card never share a cache buffer.
 """
 from __future__ import annotations
 
@@ -41,6 +45,16 @@ import torch
 
 from repro_torch.core.program import buffer_version
 from repro_torch.core.trace import tracer
+
+# The group whose package kernel this thread is running (each group runs
+# its packages on a worker thread of its own).
+_running = threading.local()
+
+
+def running_group() -> Optional["DeviceGroup"]:
+    """The DeviceGroup whose package kernel runs on this thread (None
+    outside :meth:`DeviceGroup.execute_chunk`)."""
+    return getattr(_running, "group", None)
 
 
 class DeviceGroup:
@@ -106,6 +120,14 @@ class DeviceGroup:
         self._tracked_ids: set = set()
         self.n_transfers = 0  # host -> device copies of kernel inputs
         self.n_cache_hits = 0
+        # Slot migration's row patches (patch_cached): applied in place,
+        # and refused (the caller re-uploads the buffer instead).
+        self.n_patches = 0
+        self.n_patch_misses = 0
+        # Seconds this group's packages waited for another thread's capture
+        # of a graph that lives outside self.graphs (a server's segment
+        # loops, ``graphs.GraphCache._capture`` credits them here).
+        self.loop_wait_s = 0.0
 
     def stream_context(self):
         """Make this group's stream current (a no-op on the CPU)."""
@@ -139,10 +161,11 @@ class DeviceGroup:
     @property
     def capture_wait_s(self) -> float:
         """Seconds this group's captures have waited for another group's
-        capture to end (one capture runs at a time in the process): not
-        this group's work, so the runtime leaves it out of the service
-        time its scheduler observes."""
-        return self.graphs.wait_s if self.graphs is not None else 0.0
+        capture to end (one capture runs at a time in the process), its
+        compiled kernels' and its packages' segment loops' alike: not this
+        group's work, so the runtime leaves it out of the service time its
+        scheduler observes."""
+        return (self.graphs.wait_s if self.graphs is not None else 0.0) + self.loop_wait_s
 
     @staticmethod
     def _bucket(size_wi: int, lws: int) -> int:
@@ -288,6 +311,53 @@ class DeviceGroup:
         self._cache_put((id(host_buf), version, lo, hi, 0),
                         dev_result[: hi - lo], host_buf)
 
+    def patch_cached(self, program, host_buf, rows, values) -> bool:
+        """Patch leading-axis rows of this group's stashed device copy of
+        ``host_buf`` in place, *without* a version bump.
+
+        Slot migration rewrites a few rows of a mirror the destination group
+        already holds device-resident (the full-range ``stash_output`` entry
+        from its last segment).  Re-uploading the whole mirror would be
+        O(buffer); this is O(rows).  The caller must have already written the
+        same rows into the host mirror, so host and device stay coherent
+        under the *unchanged* version token.  ``values`` must be a tensor of
+        its own, not a view of the mirror (the upload may still read it
+        after the mirror's next write-back).
+
+        The rows are written into the stashed tensor itself (``index_copy_``
+        on this group's stream, after its last segment's work and before its
+        next's): a paged member's pool leaves are its segment loop's static
+        buffers, which its next replay reads in place, and a contiguous
+        member's next upload serves that tensor from the cache.
+
+        Returns False (caller must ``invalidate`` instead) when no full-range
+        stash exists — first segment on this group, entry LRU-evicted, or the
+        buffer is uncacheable (a Program output, or unversioned).  On
+        success, every *other* cached entry for this buffer id is evicted
+        (padded variants under the same version would otherwise serve stale
+        rows) and exactly one transfer is counted for the O(rows) upload."""
+        version = (None if any(b is host_buf for b in program._outs)
+                   else buffer_version(host_buf))
+        base_key = (id(host_buf), version, 0, len(host_buf), 0)
+        with self._xfer_lock:
+            self._drain_dead()
+            base = self._xfer_cache.get(base_key) if version is not None else None
+            if base is None:
+                self.n_patch_misses += 1
+                return False
+            for k in [k for k in self._xfer_cache
+                      if k[0] == id(host_buf) and k != base_key]:
+                del self._xfer_cache[k]
+        idx = torch.as_tensor(list(rows), dtype=torch.long)
+        with self.stream_context():
+            base.index_copy_(0, idx.to(self.device, non_blocking=True),
+                             values.to(self.device, base.dtype, non_blocking=True))
+        with self._xfer_lock:
+            self.n_transfers += 1
+            self.n_patches += 1
+            self._xfer_cache.move_to_end(base_key)
+        return True
+
     def execute_chunk(self, program, offset_wi: int, size_wi: int):
         """Run one package on this group's stream; returns ``(results,
         event)`` without waiting for the device: ``event`` (None on the
@@ -317,7 +387,11 @@ class DeviceGroup:
             if tr.enabled:
                 tr.complete("upload", t0, time.perf_counter(), track=f"group/{self.name}",
                             kernel=program.label, transfers=self.n_transfers - n0)
-            res = fn(offset_wi, *ins, *program._args)
+            _running.group = self
+            try:
+                res = fn(offset_wi, *ins, *program._args)
+            finally:
+                _running.group = None
             event = None
             if self.stream is not None:
                 event = torch.cuda.Event()

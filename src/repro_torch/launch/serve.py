@@ -29,6 +29,13 @@ generate, and the continuous-batching server.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
         --server --paged --draft self --draft-k 2 --device cpu --verify
 
+    # multi-group serving: one sub-batch and one block pool per group
+    # (pod-a, pod-b), waves placed by rate, pod-b drained after 4 requests
+    # (its slots migrate to pod-a), streams still bitwise one-shot's
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b \\
+        --server --paged --groups 2 --scheduler hguided --drain-after 4 \\
+        --device cpu --verify
+
 Weights are random (float32 masters drawn from ``--seed`` on the device,
 cast once to the compute dtype); one-shot prompts are random tokens from
 ``--seed + 1``, server prompts and arrival gaps from ``--seed + 2`` (as the
@@ -55,14 +62,22 @@ generate of the whole batch.  ``--draft`` serves speculatively: ``self``
 (the target's own weights, acceptance 1), ``reduced`` (the reduced config
 of ``--arch`` with weights from ``--seed + 3``) or an arch name whose
 reduced config drafts; the reduced configs share vocab 256, so at
-``--full`` only ``self`` passes ``validate_draft``.  The server's
-multi-group options of the JAX launcher are not ported yet (ROADMAP.md
-item A7).
+``--full`` only ``self`` passes ``validate_draft``.
+
+``--groups N`` serves on N groups of the run's device (on ``cuda``, N
+streams of one card), ``pod-a`` at power 2 and the others at power 1, as
+the JAX launcher's simulated pods, with one sub-batch per group
+(``group_batches``); ``--drain-after K`` drains the last group after the
+K-th submission.  ``--http-port`` serves ``/metrics``, ``/healthz`` and
+``/stats`` for the run (``ObsHTTP``), ``--metrics-every`` prints rolling
+telemetry, ``--trace-out`` writes a Chrome trace of any mode, and
+``--crash-dir`` takes the flight recorder's bundles.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -138,6 +153,37 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "served stream to its prompt at batch 1 (server "
                          "mode), the co-executed tokens to the whole batch "
                          "(--coexec)")
+    ap.add_argument("--groups", type=int, default=1,
+                    help="server mode: co-execute across N device groups of "
+                         "the run's device (pod-a at power 2, the rest at "
+                         "power 1), one batch (and, under --paged, one KV "
+                         "block pool) per group; wave placement and slot "
+                         "migration follow --scheduler")
+    ap.add_argument("--drain-after", type=int, default=0,
+                    help="server mode with --groups >1: after this many "
+                         "submissions, drain the last group: its decode "
+                         "slots migrate to the surviving groups at segment "
+                         "boundaries (--verify still holds)")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON of the run (load "
+                         "in Perfetto / chrome://tracing); every mode")
+    ap.add_argument("--http-port", type=int, default=-1,
+                    help="server mode: serve live /metrics (Prometheus), "
+                         "/healthz (liveness + per-group readiness) and "
+                         "/stats (JSON) on 127.0.0.1:PORT for the run "
+                         "(0 = ephemeral port, -1 = off); also turns on the "
+                         "efficiency accounting and the decision journal")
+    ap.add_argument("--http-hold-s", type=float, default=0.0,
+                    help="server mode with --http-port: keep the live server "
+                         "and its endpoints up this many seconds after the "
+                         "replay drains, for external scrapers")
+    ap.add_argument("--crash-dir", default="crashes",
+                    help="directory for the flight recorder's post-mortem "
+                         "bundles (written on engine failure)")
+    ap.add_argument("--metrics-every", type=float, default=0.0,
+                    help="server mode: print rolling telemetry (completed, "
+                         "TTFT/ITL quantiles) every N seconds, plus the "
+                         "Prometheus exposition at exit (0 = off)")
     return ap.parse_args(argv)
 
 
@@ -202,11 +248,43 @@ def server_prompts(cfg, args):
     return prompts, gaps
 
 
-def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
+def serve_groups(device, n: int):
+    """The server's device groups on ``device``: one, ``serve:0``, or the
+    JAX launcher's ``--groups N`` pods, ``pod-a`` at power 2 and the rest
+    at power 1 (on ``cuda``, each with its own stream)."""
+    if n <= 1:
+        return [DeviceGroup("serve:0", device=device)]
+    return [DeviceGroup(f"pod-{chr(ord('a') + i)}", device=device,
+                        power=2.0 if i == 0 else 1.0) for i in range(n)]
+
+
+def _metrics_pump(server, stop: threading.Event, every: float) -> None:
+    """Periodic rolling-telemetry print (``--metrics-every``): completed /
+    rejected counts plus windowed TTFT and inter-token-latency quantiles."""
+    def ms(v):
+        return "-" if v is None else f"{v * 1e3:.1f}ms"
+
+    while not stop.wait(every):
+        tel = server.telemetry
+        print(f"[metrics] completed={int(tel.counter('requests_completed'))} "
+              f"rejected={int(tel.counter('requests_rejected'))} "
+              f"ttft_p50={ms(tel.quantile('ttft_s', 0.5))} "
+              f"ttft_p99={ms(tel.quantile('ttft_s', 0.99))} "
+              f"itl_p50={ms(tel.quantile('itl_s', 0.5))} "
+              f"queue_p50={ms(tel.quantile('queue_wait_s', 0.5))}",
+              flush=True)
+
+
+def run_server(cfg, api, params, args, *, graph: bool = True, live=None) -> dict:
     """Replay a seeded Poisson arrival trace through ``InferenceServer`` on
-    one DeviceGroup of ``--device``; ``graph=False`` runs the segment loops
-    eagerly (``InferenceServer(graph=)``)."""
+    ``--groups`` DeviceGroups of ``--device``; ``graph=False`` runs the
+    segment loops eagerly (``InferenceServer(graph=)``).  ``live(server,
+    http)``, if given, runs once every request is answered, while the
+    server (and, with ``--http-port``, its endpoints: ``http`` is the
+    ``ObsHTTP``, else None) is still up."""
+    from repro_torch.core.obs import EngineObs
     from repro_torch.core.trace import tracer
+    from repro_torch.serve.http import ObsHTTP
     from repro_torch.serve.paged import PagedSpec
     from repro_torch.serve.server import InferenceServer
 
@@ -214,9 +292,12 @@ def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
     device = resolve_device(args.device)
     cuda = device.type == "cuda"
     paged = PagedSpec(block_len=args.block_len) if args.paged else None
+    groups = serve_groups(device, args.groups)
+    obs = EngineObs(enabled=args.http_port >= 0 or tracer().enabled,
+                    crash_dir=args.crash_dir)
     server = InferenceServer(
         cfg, api, params,
-        groups=[DeviceGroup("serve:0", device=device)],
+        groups=groups,
         scheduler=SCHEDULERS[args.scheduler](),
         buckets=(args.prompt_len,),
         max_batch=args.max_batch,
@@ -227,6 +308,9 @@ def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
         draft=make_draft(cfg, params, args),
         chunk_len=args.chunk_len,
         graph=graph,
+        # --groups opts into per-group batches even for contiguous KV.
+        group_batches=True if args.groups > 1 else None,
+        obs=obs,
     )
     deadline = args.deadline_ms / 1e3 if args.deadline_ms else None
     if cuda and cfg.kernel_impl == "cuda":
@@ -238,18 +322,49 @@ def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    http = None
+    if args.http_port >= 0:
+        http = ObsHTTP(server, port=args.http_port)
+        print(f"[obs-http] serving /metrics /healthz /stats on {http.url()}", flush=True)
+    stop = threading.Event()
+    pump = None
+    if args.metrics_every > 0:
+        pump = threading.Thread(target=_metrics_pump, args=(server, stop, args.metrics_every),
+                                name="metrics-pump", daemon=True)
+        pump.start()
+    drained = None
     t0 = time.perf_counter()
-    with server:
-        handles = []
-        for p, gap in zip(prompts, gaps):
-            time.sleep(gap)
-            handles.append(server.submit(p, args.gen, deadline_s=deadline))
-        results = []
-        for h in handles:
-            # Wait for the *final* state before reading `rejected`.
-            h.wait(timeout=600)
-            results.append(None if h.rejected else h.result(timeout=600))
-        wall = time.perf_counter() - t0
+    try:
+        with server:
+            handles = []
+            for i, (p, gap) in enumerate(zip(prompts, gaps)):
+                time.sleep(gap)
+                handles.append(server.submit(p, args.gen, deadline_s=deadline))
+                if (args.drain_after and i + 1 == args.drain_after
+                        and server.group_batches and len(groups) > 1):
+                    drained = groups[-1].name
+                    server.drain_group(drained)
+            results = []
+            for h in handles:
+                # Wait for the *final* state before reading `rejected`.
+                h.wait(timeout=600)
+                results.append(None if h.rejected else h.result(timeout=600))
+            wall = time.perf_counter() - t0
+            if live is not None:
+                live(server, http)
+            if http is not None and args.http_hold_s > 0:
+                # Keep the live server and its endpoints up so an external
+                # scraper can probe a healthy engine, not a closed one.
+                print(f"[obs-http] holding {args.http_hold_s:.0f}s for scrapes", flush=True)
+                time.sleep(args.http_hold_s)
+    finally:
+        if http is not None:
+            http.close()
+        if pump is not None:
+            stop.set()
+            pump.join(timeout=5)
+    if pump is not None:
+        print(server.prometheus(), end="")
     s = server.stats()
     lat = sorted(h.metrics["latency"] for h in handles if not h.rejected)
     pct = (f"p50={lat[len(lat) // 2] * 1e3:.0f}ms "
@@ -259,6 +374,10 @@ def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
           f"kernel_impl={cfg.kernel_impl}) in {wall:.3f}s (rate {args.rate}/s, "
           f"{s['rejected']} rejected, {s['failed']} failed) {pct}"
           f"occupancy={s['occupancy_mean']:.2f} tokens/s={s['tokens_out'] / wall:.1f}")
+    if server.group_batches:
+        print(f"multi-group: slots={s['placement']['member_slots']} "
+              f"migrations={s['slot_migrations']}"
+              + (f" drained={drained}" if drained else ""))
     if s["tokens_drafted"]:
         print(f"speculation k={args.draft_k}: {s['tokens_accepted']}/{s['tokens_drafted']} "
               f"draft tokens accepted (acceptance={s['acceptance']:.2f})")
@@ -274,7 +393,9 @@ def run_server(cfg, api, params, args, *, graph: bool = True) -> dict:
               f"{mem['prefix_hits']} prefix hits, {mem['cow']} CoW, "
               f"{s['deferred']} boardings deferred")
     result = {
-        "prompts": prompts, "results": results, "stats": s, "wall_s": wall,
+        "prompts": prompts, "results": results, "stats": s, "wall_s": wall, "drained": drained,
+        "groups": {g.name: {"capture_wait_s": g.capture_wait_s, **g.transfer_stats()}
+                   for g in groups},
         "tokens_per_s": s["tokens_out"] / wall,
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
         "request_metrics": [h.metrics for h in handles],
@@ -393,21 +514,30 @@ def run_coexec(cfg, api, params, batch, args, *, graph: bool = True) -> dict:
 
 
 def main(argv=None) -> dict:
+    from repro_torch.core.trace import Tracer, set_tracer, tracer
+
     args = parse_args(argv)
     cfg, api, params = load_model(args)
-    if args.server:
-        return run_server(cfg, api, params, args)
-    if args.coexec:
-        batch = load_batch(cfg, args)
-        result = run_coexec(cfg, api, params, batch, args)
-        print(result["tokens"][: min(4, args.requests)])
-        if args.verify:
-            want = run_oneshot(cfg, api, params, batch, args.gen).cpu().numpy()
-            assert np.array_equal(result["tokens"], want), "co-exec != one-shot generate"
-            print("verify: co-exec output bit-identical to one-shot generate")
-            result["verified"] = True
-        return result
-    return run_oneshot_main(cfg, api, params, args)
+    prev = set_tracer(Tracer(capacity=1 << 17, enabled=True)) if args.trace_out else None
+    try:
+        if args.server:
+            return run_server(cfg, api, params, args)
+        if args.coexec:
+            batch = load_batch(cfg, args)
+            result = run_coexec(cfg, api, params, batch, args)
+            print(result["tokens"][: min(4, args.requests)])
+            if args.verify:
+                want = run_oneshot(cfg, api, params, batch, args.gen).cpu().numpy()
+                assert np.array_equal(result["tokens"], want), "co-exec != one-shot generate"
+                print("verify: co-exec output bit-identical to one-shot generate")
+                result["verified"] = True
+            return result
+        return run_oneshot_main(cfg, api, params, args)
+    finally:
+        if args.trace_out:
+            doc = tracer().write(args.trace_out)
+            set_tracer(prev)
+            print(f"trace: {len(doc['traceEvents'])} events -> {args.trace_out}")
 
 
 def run_oneshot_main(cfg, api, params, args) -> dict:

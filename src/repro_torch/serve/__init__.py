@@ -1,6 +1,8 @@
-"""Serving: prefill/decode steps, decode chains, one-shot generate, and the
+"""Serving: prefill/decode steps, decode chains, one-shot generate, the
 continuous-batching server (contiguous and paged KV, whole-prompt or
-chunked prefill, speculative decoding) on the EngineCL runtime."""
+chunked prefill, speculative decoding, one DeviceGroup or several with
+slot migration between them) on the EngineCL runtime, and its live
+observability endpoints (``ObsHTTP``)."""
 from repro_torch.serve.admission import (  # noqa: F401
     DeadlineAdmission,
     PoolAdmission,
@@ -16,7 +18,14 @@ from repro_torch.serve.batcher import (  # noqa: F401
     segments_for,
     spec_segments_for,
 )
-from repro_torch.serve.multigroup import MigrationPolicy, proportional_split  # noqa: F401
+from repro_torch.serve.http import ObsHTTP  # noqa: F401
+from repro_torch.serve.multigroup import (  # noqa: F401
+    ForceMigrate,
+    MigrationPolicy,
+    RateBalancer,
+    plan_wave,
+    proportional_split,
+)
 from repro_torch.serve.paged import (  # noqa: F401
     BlockPool,
     PagedBatchGroup,

@@ -58,6 +58,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.device import running_group
 from repro_torch.core.program import Program
 from repro_torch.core.trace import tracer
 from repro_torch.models.params import Spec, tree_leaves, tree_map
@@ -260,8 +261,11 @@ class ModelKernels:
     # ------------------------------------------------- the bound loops
     #
     # A segment's loop reads its cache from static buffers (serve/graphs.py)
-    # of its group's bucket, the scope that keeps two live groups' state
-    # apart: a contiguous cache is copied into them in the model's layout
+    # of its scope, the batch's bucket and the DeviceGroup that runs the
+    # package (``_scope``), which keeps two live batches' state apart: two
+    # buckets' batches, two groups' member batches of one bucket, the
+    # packages one slot-split segment sends to two groups at once.  A
+    # contiguous cache is copied into them in the model's layout
     # (the JAX package's per-segment relayout, moving the bytes
     # ``.contiguous()`` moved) and written back after; a paged pool's leaves
     # are the buffers themselves from the second segment on (the loop hands
@@ -272,10 +276,26 @@ class ModelKernels:
     def _consts(self) -> tuple:
         return (self.params,) if self.draft is None else (self.params, self.draft.params)
 
+    @staticmethod
+    def _scope(bucket: int) -> tuple:
+        """The scope of a loop bound now: ``bucket`` and the name of the
+        DeviceGroup running the segment's package on this thread (None
+        when called outside a group)."""
+        group = running_group()
+        return (bucket, group.name if group is not None else None)
+
     def _bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
               bucket: int) -> graphs.Loop:
-        return graphs.bind(self.graphs, name, steps, ints, inputs, body, self._consts(),
-                           scope=bucket)
+        """Loop ``name`` bound in ``bucket``'s scope.  A replay's outputs
+        (tokens, carries: never a cache) are copied out of the graph's
+        memory: a group may run two packages of one shape in one segment
+        (a slot-split batch), and the second replay overwrites the first's
+        outputs before their write-back."""
+        loop = graphs.bind(self.graphs, name, steps, ints, inputs, body, self._consts(),
+                           scope=self._scope(bucket))
+        if self.graphs is None or not self.graphs.accepts(inputs["tok"].device):
+            return loop
+        return graphs.Loop(loop.statics, lambda: self.graphs.copy_out(loop()))
 
     def _cache_in(self, leaves, paged: bool) -> list:
         """The target cache's loop inputs from the segment's leaves: views
@@ -402,7 +422,7 @@ class ModelKernels:
         if self.graphs is not None and self.graphs.accepts(device):
             for k, e in entries.items():
                 if k != chosen:
-                    self.graphs.capture(*e, self._consts(), bucket)
+                    self.graphs.capture(*e, self._consts(), self._scope(bucket))
         return self._bind(*entries[chosen], bucket)
 
     @staticmethod
@@ -1269,6 +1289,74 @@ class BatchGroup:
         additionally releases the slot's blocks and re-points its table at
         the sink block."""
         self.slots[slot] = None
+
+    # ------------------------------------------------------------ migration
+    def at_boundary(self) -> bool:
+        """True between runs: no segment or prefill in flight, so the host
+        mirrors are the authoritative slot state (every package was written
+        back and the epilogue swap ran)."""
+        return self.seg_handle is None and self.prefill_handle is None
+
+    def can_accept_migration(self, src: "BatchGroup", slot: int) -> bool:
+        """Could ``src``'s ``slot`` move here right now?  Requires a free
+        slot and a quiescent destination — a prefill in flight would race
+        the wave merge for the free slot we are about to fill."""
+        return (not self.dead and self.at_boundary()
+                and bool(self.free_slots()))
+
+    def migrate_slot_to(self, slot: int, dst: "BatchGroup") -> bool:
+        """Move one active request — tokens, positions, and its entire KV
+        slot state — into a free slot of ``dst``.  Legal only at a segment
+        boundary on both sides: after the epilogue swap, ``prog._ins`` rows
+        ARE the current state (write-back keeps host mirrors coherent), so
+        migration is a host row copy plus an O(rows)/O(blocks) device patch
+        (:meth:`DeviceGroup.patch_cached`) — never a full-cache rewrite.
+        The stream stays bitwise: decode is deterministic in the slot state,
+        and the copied rows are exactly the state the source would have
+        decoded from (between groups of one kind of device: a kernel's
+        plain version and the kernel may differ in their last bits).
+        Returns False (no partial
+        effects) when either side is busy, ``dst`` is full, or its pool
+        cannot cover the blocks."""
+        req = self.slots[slot]
+        if req is None or self.dead or dst.dead or dst is self:
+            return False
+        if self.seg_handle is not None or not dst.can_accept_migration(self, slot):
+            return False
+        d = dst.free_slots()[0]
+        if not self._copy_slot_state(slot, dst, d):
+            return False
+        dst.slots[d] = req
+        req.slot = d
+        self.release_slot(slot)
+        return True
+
+    def _row_bufs(self) -> List[torch.Tensor]:
+        """The slot-leading input buffers a migration must carry (everything
+        except ``spec_on``, which is group-local gate state)."""
+        bufs = list(self.prog._ins)
+        return bufs[:-1] if self.spec_k else bufs
+
+    def _copy_slot_state(self, slot: int, dst: "BatchGroup", d: int) -> bool:
+        """Contiguous layout: copy the slot row of every input buffer
+        (token/pos controls + every cache-leaf mirror) into ``dst``'s row
+        ``d`` and propagate the rows to ``dst``'s device copies."""
+        for src_buf, dst_buf in zip(self._row_bufs(), dst._row_bufs()):
+            dst_buf[d] = src_buf[slot]
+            dst._patch_or_invalidate(dst_buf, [d])
+        return True
+
+    def _patch_or_invalidate(self, buf: torch.Tensor, rows: Sequence[int]) -> None:
+        """Propagate freshly written host-mirror rows to this batch's device
+        groups: in-place O(rows) patch of the stashed device copy when one
+        exists (version unchanged — host and device now agree again), full
+        invalidation (one re-upload next segment) otherwise.  The rows are
+        gathered into a tensor of their own first: the mirror is page-locked
+        on a CUDA group, and its next write-back must not race the upload."""
+        groups = self.target or self.runtime.groups
+        vals = buf[torch.as_tensor(list(rows), dtype=torch.long)]
+        if not all(g.patch_cached(self.prog, buf, rows, vals) for g in groups):
+            self.prog.invalidate(buf)
 
     def fail_all(self, errors: Sequence[str]) -> List[object]:
         """A segment failed: group state is unrecoverable (mirrors may hold

@@ -23,9 +23,11 @@ not recompiled for new buffers.
 A loop reads and writes static buffers, one per input, shared by role and
 shape among the loops of one scope (a speculative segment and its bypass
 share one set).  A scope is the state's owner: a server's loops take their
-group's bucket, so two groups live at once never share a cache buffer, even
-where their shapes agree (a paged pool's do whenever its block count is
-fixed).  Binding a loop to its inputs copies in only the inputs whose
+batch's bucket and the DeviceGroup that runs the package, so two batches
+live at once (two buckets, two groups' members of one bucket, on streams of
+one card) never share a cache buffer, even where their shapes agree (a
+paged pool's do whenever its block count is fixed).  Binding a loop to its
+inputs copies in only the inputs whose
 storage is not already the static buffer, and the loop hands back the
 static buffers: a caller that feeds them back next time (the paged pool,
 through the runtime's donated handoff; one-shot generate's cache, which
@@ -63,7 +65,10 @@ A body need not be a step loop: one-shot generate's prefill
 ``DeviceGroup.compile_kernel``: the server's prefill waves, co-execution's
 packages) take one step.
 
-The loops of one owner run one at a time (a server's segments do).  CPU
+The loops of one scope run one at a time (a batch's segments do); loops of
+two scopes may run at once, each on its group's worker thread and stream
+(two groups' members of one server), and bind and replay without waiting
+for each other; only their captures take turns.  CPU
 tensors run the loop eagerly, as every kernel runs its plain version there.
 On CUDA tensors a failed capture or replay raises: there is no eager
 fallback.
@@ -77,6 +82,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.device import running_group
 from repro_torch.core.trace import tracer
 from repro_torch.kernels import _build
 from repro_torch.models.params import tree_leaves
@@ -156,8 +162,9 @@ class GraphCache:
     ``warmup_clone_bytes`` (buffers cloned because a capture found them
     holding a caller's state), ``replays``, ``copy_ins`` and
     ``copy_in_bytes`` (inputs copied into static buffers),
-    ``output_copies`` and ``output_copy_bytes`` (a compiled kernel's
-    outputs copied out of the graph's memory, :func:`compiled`), and
+    ``output_copies`` and ``output_copy_bytes`` (a replay's outputs
+    copied out of the graph's memory: a compiled kernel's, :func:`compiled`,
+    and a server segment loop's), and
     ``log``, one ``(loop, copy-ins, bytes, events)`` per replay made while
     the span tracer is on, the events (CUDA events recorded around the
     replay on the card, else None) giving its device time in
@@ -225,9 +232,11 @@ class GraphCache:
         with self._lock:
             statics = self.statics(inputs, scope=scope)
             entry = self._entries.get(key)
-            if entry is None:
-                entry = self._entries[key] = self._capture(name, key, statics, body, steps,
-                                                           consts)
+        if entry is None:
+            # Outside the cache's lock: another group's thread binds its
+            # own scope's loops meanwhile, and waits only for the capture
+            # lock when it captures too.
+            entry = self._capture(name, key, statics, body, steps, consts)
         return entry, statics
 
     def bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
@@ -242,8 +251,9 @@ class GraphCache:
                 s.copy_(x)
                 n += 1
                 nbytes += x.numel() * x.element_size()
-        self.copy_ins += n
-        self.copy_in_bytes += nbytes
+        with self._lock:
+            self.copy_ins += n
+            self.copy_in_bytes += nbytes
 
         dev = next(_items(statics))[2].device
 
@@ -257,12 +267,23 @@ class GraphCache:
             if events is not None:
                 events[1].record()
             entry.tally.replayed()
-            self.replays += 1
-            if logged:
-                self.log.append((name, n, nbytes, events))
+            with self._lock:
+                self.replays += 1
+                if logged:
+                    self.log.append((name, n, nbytes, events))
             return entry.outputs
 
         return Loop(statics, run)
+
+    def copy_out(self, outputs) -> tuple:
+        """Copies of a replay's ``outputs`` out of the graph's memory, on
+        the current stream (the next replay overwrites the graph's own
+        tensors), counted in ``output_copies`` and ``output_copy_bytes``."""
+        copies = tuple(o.clone() for o in outputs)
+        with self._lock:
+            self.output_copies += len(copies)
+            self.output_copy_bytes += sum(o.numel() * o.element_size() for o in copies)
+        return copies
 
     def _capture(self, name: str, key: tuple, statics: dict, body: Callable, steps: int,
                  consts: tuple) -> _Entry:
@@ -270,6 +291,10 @@ class GraphCache:
         t0 = time.perf_counter()
         with _CAPTURE_LOCK:
             t1 = time.perf_counter()
+            with self._lock:
+                entry = self._entries.get(key)
+            if entry is not None:  # captured by another thread meanwhile
+                return entry
 
             def scratch(role, i, s):
                 if id(s) not in self._live:
@@ -284,17 +309,26 @@ class GraphCache:
             phases["warmup_s"] = time.perf_counter() - t1
             with _build.recording() as tally:
                 graph, outputs, timed = self._record(statics, lambda st: body(st, steps))
-        phases.update(timed)
-        phases["wait_s"] = t1 - t0  # another thread's capture ahead of this one
-        self.wait_s += phases["wait_s"]
-        entry = _Entry()
-        entry.graph, entry.outputs, entry.tally, entry.consts = graph, outputs, tally, consts
-        self.captures += 1
-        self.capture_s += time.perf_counter() - t0
-        loop = self.loops.setdefault(name, dict(captures=0, **dict.fromkeys(self.PHASES, 0.0)))
-        loop["captures"] += 1
-        for k, v in phases.items():
-            loop[k] += v
+            phases.update(timed)
+            phases["wait_s"] = t1 - t0  # another thread's capture ahead of this one
+            entry = _Entry()
+            entry.graph, entry.outputs, entry.tally, entry.consts = graph, outputs, tally, consts
+            with self._lock:
+                self._entries[key] = entry
+                self.wait_s += phases["wait_s"]
+                self.captures += 1
+                self.capture_s += time.perf_counter() - t0
+                loop = self.loops.setdefault(name, dict(captures=0,
+                                                        **dict.fromkeys(self.PHASES, 0.0)))
+                loop["captures"] += 1
+                for k, v in phases.items():
+                    loop[k] += v
+        group = running_group()
+        if group is not None and group.graphs is not self:
+            # The wait of a group's package for another thread's capture
+            # of a loop outside the group's own cache (a server's segment
+            # loops): not the group's work either.
+            group.loop_wait_s += phases["wait_s"]
         return entry
 
     def _record(self, statics: dict, run: Callable):
@@ -389,10 +423,7 @@ def compiled(graphs: GraphCache, fn: Callable, key: tuple, n_ins: int, device,
             return tuple(out) if isinstance(out, (tuple, list)) else (out,)
 
         scope = (key, tuple((tuple(t.shape), t.dtype) for t in ins + inputs["args"]))
-        outs = graphs.bind(name, 1, (key,), inputs, body, (fn,), scope)()
-        copies = tuple(o.clone() for o in outs)
-        graphs.output_copies += len(copies)
-        graphs.output_copy_bytes += sum(o.numel() * o.element_size() for o in copies)
+        copies = graphs.copy_out(graphs.bind(name, 1, (key,), inputs, body, (fn,), scope)())
         return copies if len(copies) != 1 else copies[0]
 
     return run

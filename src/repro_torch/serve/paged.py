@@ -52,8 +52,10 @@ registers its blocks with the prefix cache.  Speculative layouts keep the
 target pool-backed and the draft cache in contiguous slot mirrors behind
 the pool leaves; under speculation every joiner runs its own prefill row
 (whole-prompt and wave-mate reuse are off: neither carries a draft cache),
-and only chain-level block sharing of the target stays.  Slot migration
-between groups and elastic drain (ROADMAP.md item A7) are not ported.
+and only chain-level block sharing of the target stays.  Under the
+server's ``group_batches`` regime each DeviceGroup owns a pool (and a
+prefix-cache namespace), and a slot migrating between groups copies its
+blocks into fresh blocks of the destination's pool (``_copy_slot_state``).
 """
 from __future__ import annotations
 
@@ -340,8 +342,9 @@ class PagedBatchGroup(BatchGroup):
     blocks and scatter prefill rows block-wise into the pool mirrors; exits
     decref, pointing the dead slot's table at the sink block.  Pool buffers
     are indivisible — the slot axis cannot be split across devices that do
-    not share the pool — so each PagedBatchGroup runs on exactly one
-    DeviceGroup."""
+    not share the pool — so each PagedBatchGroup is pinned to exactly one
+    DeviceGroup; multi-group paged serving runs one group (and one pool)
+    per device via the server's ``group_batches`` regime."""
 
     def __init__(self, kernels, runtime, scheduler, bucket: int,
                  n_slots: int, seg_len: int, max_seq: int,
@@ -867,6 +870,52 @@ class PagedBatchGroup(BatchGroup):
         # that may be reallocated to live requests.
         self.table[slot, :] = BlockPool.SINK
         self.prog.invalidate(self.table)
+
+    # ------------------------------------------------------- slot migration
+    def can_accept_migration(self, src, slot) -> bool:
+        if not super().can_accept_migration(src, slot):
+            return False
+        need = len(src.slot_blocks[slot] or ())
+        return self.pool.free_count + self.pool.reclaimable() >= need
+
+    def _row_bufs(self) -> list:
+        """Slot-row-leading inputs only: the control carries, plus (when
+        drafting) the contiguous draft-cache mirrors.  The table and the
+        pool leaves are block-addressed and migrate separately."""
+        nctl = (3 if self.spec_k else 2) + (2 if self.chunk_len else 0)
+        bufs = list(self.prog._ins[:nctl])
+        if self.spec_k:
+            bufs += list(self.prog._ins[nctl + 1 + self._n_pool:-1])
+        return bufs
+
+    def _copy_slot_state(self, slot, dst, d) -> bool:
+        """Paged handoff: allocate fresh blocks in the destination pool,
+        copy the slot's physical block rows across (O(blocks), not
+        O(max_seq)), rewrite the destination table row, then move the
+        control/draft rows.  Allocation happens FIRST so failure leaves no
+        partial effects; the copied bytes are the slot's exact KV timeline,
+        so decode from them is bitwise the source's (shared source blocks
+        become private destination copies — sharing is lost, bits are
+        not)."""
+        src_blocks = self.slot_blocks[slot] or []
+        try:
+            new_blocks = dst.pool.alloc(len(src_blocks))
+        except RuntimeError:
+            return False
+        if src_blocks:
+            src_idx = torch.as_tensor(src_blocks, dtype=torch.long)
+            dst_idx = torch.as_tensor(new_blocks, dtype=torch.long)
+            for s_leaf, d_leaf in zip(self._pool_leaves(), dst._pool_leaves()):
+                d_leaf[dst_idx] = s_leaf[src_idx]
+                dst._patch_or_invalidate(d_leaf, new_blocks)
+        dst.table[d, :] = BlockPool.NULL
+        dst.table[d, : len(new_blocks)] = torch.as_tensor(new_blocks, dtype=torch.int32)
+        dst._patch_or_invalidate(dst.table, [d])
+        for s_buf, d_buf in zip(self._row_bufs(), dst._row_bufs()):
+            d_buf[d] = s_buf[slot]
+            dst._patch_or_invalidate(d_buf, [d])
+        dst.slot_blocks[d] = list(new_blocks)
+        return True
 
     def harvest_segment(self) -> dict:
         res = super().harvest_segment()

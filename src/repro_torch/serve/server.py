@@ -12,7 +12,7 @@ knows how to co-execute one data-parallel Program:
                     form/join/exit at decode-segment boundaries
                                     │
                                     ▼
-            BatchGroup Programs ──Runtime.submit(after=…)──▶ DeviceGroup
+            BatchGroup Programs ──Runtime.submit(after=…)──▶ DeviceGroups
 
 ``submit`` is thread-safe and non-blocking: it returns a ``RequestHandle``
 future (``result()/done()``, latency metrics).  A single batcher thread
@@ -25,13 +25,25 @@ batch it shares slots with and however segments interleave, as long as the
 decode arithmetic is batch-invariant (ROADMAP.md item C2 records where it
 is not).
 
-Ported: one DeviceGroup, the Static scheduler, contiguous or paged KV,
-whole-prompt prefill Programs or chunked prefill (``chunk_len``: the
-prompt advances inside the decode segments, ``validate_chunked``), and
-greedy speculative decoding (``draft``: draft/verify segments, with or
-without the ``SpecGate`` bypass, ``validate_draft``).  Several
-DeviceGroups, ``group_batches``, slot migration and elastic drain/join
-(ROADMAP.md item A7) raise ``NotImplementedError``.
+Contiguous or paged KV, whole-prompt prefill Programs or chunked prefill
+(``chunk_len``: the prompt advances inside the decode segments,
+``validate_chunked``), greedy speculative decoding (``draft``: draft/verify
+segments, with or without the ``SpecGate`` bypass, ``validate_draft``), on
+one DeviceGroup or several.  On several, either one batch's slot axis is
+split across the groups each segment (Dynamic/HGuided, contiguous KV), or
+``group_batches`` runs one sub-batch (and, paged, one block pool) per
+group: join waves placed by ``plan_wave`` on the scheduler's placement
+weights, decode slots migrating between members at segment boundaries
+(``RateBalancer``, ``ForceMigrate``, ``drain_group``), groups joining and
+draining on the live server (``join_group``, ``drain_group``,
+``distributed.elastic.ElasticServeGroups``).  The weights live on one
+device, so a server's groups are groups of that device: on one card,
+streams of it, each member's segment loops in a graph scope of their own
+(``ModelKernels``).  The bitwise contract holds across groups of one kind
+of device; a stream moving between ``cpu`` (the kernels' plain versions)
+and ``cuda`` (the kernels) could not keep its bits, and the server adds no
+refusal for it (the JAX package has none): its groups must share the
+weights' device.
 """
 from __future__ import annotations
 
@@ -57,7 +69,12 @@ from repro_torch.serve.batcher import (
     segments_for,
     spec_segments_for,
 )
-from repro_torch.serve.multigroup import MigrationPolicy
+from repro_torch.serve.multigroup import (
+    MigrationPolicy,
+    RateBalancer,
+    plan_wave,
+    proportional_split,
+)
 from repro_torch.serve.paged import (
     PagedBatchGroup,
     PagedSpec,
@@ -68,9 +85,6 @@ from repro_torch.serve.paged import (
 )
 from repro_torch.serve.step import DraftSpec
 from repro_torch.serve.telemetry import Telemetry
-
-NOT_PORTED_A7 = ("is not ported to repro_torch yet: ROADMAP.md item A7 "
-                 "(multi-group serving, migration, elastic groups)")
 
 
 class AdmissionError(RuntimeError):
@@ -276,9 +290,21 @@ class InferenceServer:
     Parameters
     ----------
     cfg, api, params : the model triple (as used by ``make_generate``);
-                       params on the group's device.
-    groups           : one DeviceGroup (default: ``DeviceGroup("serve:0")``
-                       on ``cuda:0``, which raises without CUDA).
+                       params on the groups' device.
+    groups           : DeviceGroups to co-execute on (default:
+                       ``DeviceGroup("serve:0")`` on ``cuda:0``, which
+                       raises without CUDA).  With several groups plus a
+                       Dynamic/HGuided scheduler, each batch's slot axis is
+                       split across them — the paper's co-execution regime.
+    group_batches    : run one sub-batch (and, paged, one block pool +
+                       prefix-cache namespace) per DeviceGroup instead of
+                       slot-splitting a single batch: join waves are placed
+                       by the scheduler's rate-aware placement weights and
+                       decode slots migrate between members at segment
+                       boundaries (Dynamic/HGuided).  Default: on for
+                       multi-group paged serving, off otherwise.
+    migration        : MigrationPolicy override (default RateBalancer for
+                       rebalancing schedulers under group_batches).
     scheduler        : engine scheduler for slot partitioning (default Static).
     buckets          : prompt-length shape buckets (right-padding contract).
     max_batch        : KV slots per bucket group == max decode batch.
@@ -329,15 +355,18 @@ class InferenceServer:
                  group_batches: Optional[bool] = None,
                  migration: Optional[MigrationPolicy] = None,
                  obs: Optional[EngineObs] = None) -> None:
-        if group_batches or migration is not None:
-            raise NotImplementedError(f"group_batches serving {NOT_PORTED_A7}")
-        if groups is not None and len(groups) != 1:
-            raise NotImplementedError(f"serving on {len(groups)} DeviceGroups {NOT_PORTED_A7}")
         self.groups = list(groups) if groups else [DeviceGroup("serve:0")]
         self.runtime = Runtime(self.groups)
         self.scheduler = scheduler or Static()
         self.paged = paged
-        self.group_batches = False
+        # Per-group sub-batch regime: one (Paged)BatchGroup — and, paged,
+        # one block pool — per DeviceGroup, with rate-aware wave placement
+        # and slot migration between members.  Default on for multi-group
+        # paged serving (a single pool cannot be slot-split); contiguous
+        # multi-group keeps the slot-splitting co-execution unless opted in.
+        self.group_batches = (bool(group_batches)
+                              if group_batches is not None
+                              else (paged is not None and len(self.groups) > 1))
         if paged is not None:
             validate_paged(cfg, self.groups, self.scheduler, paged,
                            group_batches=self.group_batches)
@@ -381,13 +410,28 @@ class InferenceServer:
         if self.spec_gate is not None and self.obs.enabled:
             self.spec_gate.journal = self.obs.journal
         self._draining: set = set()
-        self._policy = MigrationPolicy()  # one group: never migrates
+        # Per-member decode-slot counts are fixed at construction (paged
+        # PoolState shapes must stay stable across group re-forms):
+        # max_batch total slots split power-proportionally, one minimum.
+        # Rate-awareness lives in wave placement and migration instead.
+        self._member_slots: dict = {}
+        if self.group_batches:
+            shares = proportional_split(
+                self.scheduler.placement_weights(self.groups),
+                self.max_batch, minimum=1)
+            self._member_slots = {g.name: s
+                                  for g, s in zip(self.groups, shares)}
+        self._policy = migration if migration is not None else (
+            RateBalancer()
+            if self.group_batches and self.scheduler.rebalances()
+            else MigrationPolicy())
         self.pad_id = pad_id
         self._cv = threading.Condition()
         self._poke = False  # wake-up latch: survives notifies that fire
         # while the batcher itself holds the cv
         self._pending: dict = {}        # bucket -> EDF-sorted [_Request]
-        self._groups: dict = {}         # bucket -> BatchGroup
+        self._groups: dict = {}         # bucket -> BatchGroup, or a
+        #   {group name: member BatchGroup} map under group_batches
         self._seq = itertools.count()
         self._closing = False
         self._stats = {
@@ -397,9 +441,15 @@ class InferenceServer:
             "deferred": 0, "tokens_drafted": 0, "tokens_accepted": 0,
             "slot_migrations": 0,
         }
+        # group name -> counters of its members (group_batches):
+        # segments, prefill waves, tokens the segments delivered, slots
+        # migrated in and out (stats()["placement"]["per_group"]).
+        self._per_group: dict = {}
         self._mem_totals: dict = {}  # bucket -> folded memory_stats of
         #   dissolved contiguous groups (per-bucket lineage, max-rule)
-        self._pool_states: dict = {}  # bucket -> PoolState
+        # bucket -> PoolState; (bucket, group name) under group_batches —
+        # each DeviceGroup owns a pool + prefix namespace.
+        self._pool_states: dict = {}
         self._thread = threading.Thread(
             target=self._loop, name="enginecl-batcher", daemon=True
         )
@@ -485,6 +535,16 @@ class InferenceServer:
         s["chunk_len"] = self.chunk_len
         if self.spec_gate is not None:
             s["speculation"] = self.spec_gate.stats(list(self.buckets.sizes))
+        if self.group_batches:
+            s["placement"] = {
+                "member_slots": dict(self._member_slots),
+                "draining": sorted(self._draining),
+                "per_group": {k: dict(v) for k, v in self._per_group.items()},
+                # Migrated rows patched in place on the destination's
+                # device copy, and refused (that buffer re-uploaded).
+                "patches": {g.name: {"patched": g.n_patches, "missed": g.n_patch_misses}
+                            for g in self.groups},
+            }
         if self.kernels.graphs is not None:
             s["graphs"] = self.kernels.graphs.stats()
         # The groups' compiled kernels: the prefill waves' graphs.
@@ -502,8 +562,13 @@ class InferenceServer:
         queue wait, segment time, acceptance, occupancy)."""
         with self._cv:
             mem = self._memory_fold()
-            runs = {b: dict(g.last_run_metrics)
-                    for b, g in self._groups.items()}
+            if self.group_batches:
+                runs = {f"{b}:{nm}": dict(m.last_run_metrics)
+                        for b, ms in self._groups.items()
+                        for nm, m in ms.items()}
+            else:
+                runs = {b: dict(g.last_run_metrics)
+                        for b, g in self._groups.items()}
         self._gauge_memory(mem)
         return {
             "memory": mem,
@@ -623,7 +688,13 @@ class InferenceServer:
                 self._fold_memory_into(per_bucket.setdefault(b, {}),
                                        st.pool.stats())
         for b, g in self._groups.items():
-            if not isinstance(g, PagedBatchGroup):
+            if isinstance(g, dict):  # group_batches: member map
+                for nm, m in g.items():
+                    if not isinstance(m, PagedBatchGroup):
+                        self._fold_memory_into(
+                            per_bucket.setdefault((b, nm), {}),
+                            m.memory_stats())
+            elif not isinstance(g, PagedBatchGroup):
                 self._fold_memory_into(per_bucket.setdefault(b, {}),
                                        g.memory_stats())
         acc: dict = {}
@@ -651,7 +722,12 @@ class InferenceServer:
                              spec_step=(self.draft.k + 1) if self.draft else 0)
 
     def _pool_capacity(self, bucket: int) -> int:
-        n_slots = self.max_batch
+        # Under group_batches each member owns a pool sized for its slot
+        # share; a request is servable if the largest member's pool can
+        # cover it.
+        n_slots = (max(self._member_slots.values())
+                   if self.group_batches and self._member_slots
+                   else self.max_batch)
         return pool_capacity(self.paged, n_slots,
                              self._max_seq(bucket),
                              self.kernels.cfg.window or 0)
@@ -720,7 +796,11 @@ class InferenceServer:
                 victims.extend(q)
                 q.clear()
             for grp in self._groups.values():
-                victims.extend(grp.fail_all([repr(exc)]))
+                if isinstance(grp, dict):
+                    for m in grp.values():
+                        victims.extend(m.fail_all([repr(exc)]))
+                else:
+                    victims.extend(grp.fail_all([repr(exc)]))
             self._groups.clear()
             tr = tracer()
             for req in victims:
@@ -740,7 +820,25 @@ class InferenceServer:
         # 1. advance live groups (harvest finished segments, merge prefills,
         #    board joiners, chain next segments, dissolve idle groups).
         for bucket in list(self._groups):
-            grp = self._groups[bucket]
+            entry = self._groups[bucket]
+            if isinstance(entry, dict):  # group_batches: member map
+                self._advance_members(bucket, entry, now)
+                for nm in list(entry):
+                    m = entry[nm]
+                    if m.dead or (m.idle()
+                                  and (not self._pending.get(bucket)
+                                       or nm in self._draining)):
+                        if isinstance(m, PagedBatchGroup):
+                            m.detach()
+                        else:
+                            self._fold_memory_into(
+                                self._mem_totals.setdefault((bucket, nm), {}),
+                                m.memory_stats())
+                        del entry[nm]
+                if not entry:
+                    del self._groups[bucket]
+                continue
+            grp = entry
             self._advance_group(grp, now)
             if grp.dead or (grp.idle() and not self._pending.get(bucket)):
                 if isinstance(grp, PagedBatchGroup):
@@ -758,6 +856,12 @@ class InferenceServer:
             oldest = min(r.handle.t_arrival for r in q)
             expires = oldest + self.max_wait_s
             if len(q) >= self.max_batch or now >= expires or self._closing:
+                if self.group_batches:
+                    members: dict = {}
+                    self._groups[bucket] = members
+                    self._ensure_members(bucket, members)
+                    self._board_members(bucket, members, now, set())
+                    continue
                 if self.paged is not None:
                     state = self._pool_states.setdefault(bucket, PoolState())
                     grp = PagedBatchGroup(self.kernels, self.runtime,
@@ -842,6 +946,7 @@ class InferenceServer:
                 model.observe_rate(grp.bucket, gname, rate)
                 self.telemetry.gauge(f"group_rate_{gname}", rate)
             self._stats["segments"] += 1
+            self._count_group(grp, segments=1, tokens=res["tokens"])
             self._stats["occupancy_sum"] += res["n_active"]
             self.telemetry.observe("segment_s", res["seconds"])
             self.telemetry.observe("occupancy", res["n_active"])
@@ -893,9 +998,11 @@ class InferenceServer:
         return True
 
     def _meter_key(self, gname: Optional[str]) -> str:
-        """Utilization-meter key for a harvested batch: the lone group's
-        name (a named member under multi-group serving, which is not
-        ported)."""
+        """Utilization-meter key for a harvested batch: the member's
+        DeviceGroup under group_batches, the lone group's name otherwise,
+        and a pseudo-group for slot-split co-execution (its segments span
+        groups — busy attribution still comes per-device from the
+        Introspector stream)."""
         if gname is not None:
             return gname
         return self.groups[0].name if len(self.groups) == 1 else "_batch"
@@ -928,6 +1035,201 @@ class InferenceServer:
             if snap.get("efficiency") is not None:
                 tr.counter("efficiency", efficiency=snap["efficiency"],
                            balance=snap["balance"])
+
+    # ------------------------------------------------- group_batches regime
+    def _make_member(self, bucket: int, g: DeviceGroup):
+        """One per-DeviceGroup sub-batch: pinned to its group (``target``),
+        driven by a private Static scheduler (the single member device
+        takes every slot in one package), sized by the fixed slot split."""
+        n_slots = self._member_slots.get(g.name, 0)
+        if n_slots < 1:
+            return None
+        if self.paged is not None:
+            state = self._pool_states.setdefault((bucket, g.name),
+                                                 PoolState())
+            grp = PagedBatchGroup(self.kernels, self.runtime, Static(),
+                                  bucket, n_slots, self.seg_len,
+                                  self._max_seq(bucket), self.paged, state,
+                                  chunk_len=self.chunk_len, target=[g])
+        else:
+            grp = BatchGroup(self.kernels, self.runtime, Static(), bucket,
+                             n_slots, self.seg_len, self._max_seq(bucket),
+                             chunk_len=self.chunk_len, target=[g])
+        grp.telemetry = self.telemetry
+        grp.spec_gate = self.spec_gate
+        return grp
+
+    def _ensure_members(self, bucket: int, members: dict) -> None:
+        """Instantiate missing members (initial formation, and groups that
+        joined the live server since this bucket's members formed)."""
+        for g in self.groups:
+            if g.name in self._draining or g.name in members:
+                continue
+            m = self._make_member(bucket, g)
+            if m is not None:
+                members[g.name] = m
+
+    def _advance_members(self, bucket: int, members: dict,
+                         now: float) -> None:
+        """One scheduling pass over a bucket's member groups: harvest and
+        merge each, apply drain and policy migrations at the boundaries
+        that line up, place the join wave, chain next segments."""
+        self._ensure_members(bucket, members)
+        for nm in list(members):
+            self._harvest_merge(members[nm], nm)
+        live = {nm: m for nm, m in members.items() if not m.dead}
+        hold: set = set()
+        if len(live) > 1:
+            self._drain_migrations(live)
+            weights = self._member_weights(bucket, live)
+            moves, hold = self._policy.plan(live, weights)
+            for src, slot, dst in moves:
+                ok = live[src].migrate_slot_to(slot, live[dst])
+                if ok:
+                    self._stats["slot_migrations"] += 1
+                    self.telemetry.count("slot_migrations")
+                    self._count_group(live[src], migrations_out=1)
+                    self._count_group(live[dst], migrations_in=1)
+                self.obs.decision(
+                    "migration", bucket=bucket, src=src, slot=slot, dst=dst,
+                    outcome="moved" if ok else "blocked",
+                    reason=type(self._policy).__name__,
+                    weights={k: round(w, 4) for k, w in weights.items()},
+                    **getattr(self._policy, "last_info", {}))
+        self._board_members(bucket, live, now, hold)
+        for nm, grp in live.items():
+            if grp.seg_handle is not None or nm in hold:
+                continue
+            if nm in self._draining and any(grp.slots):
+                others = [m for o, m in live.items()
+                          if o != nm and o not in self._draining]
+                if others and any(not m.at_boundary() for m in others):
+                    # An acceptor's boundary is coming: hold this member's
+                    # slots at the boundary so they can migrate out then.
+                    continue
+            if any(grp.slots):
+                grp.submit_segment(self._notify)
+
+    def _drain_migrations(self, members: dict) -> None:
+        """Move every slot of draining members that can leave right now to
+        a non-draining member at a boundary with room."""
+        for nm in list(members):
+            if nm not in self._draining:
+                continue
+            grp = members[nm]
+            if not grp.at_boundary():
+                continue
+            for slot, req in enumerate(list(grp.slots)):
+                if req is None:
+                    continue
+                for onm, other in members.items():
+                    if onm == nm or onm in self._draining:
+                        continue
+                    if grp.migrate_slot_to(slot, other):
+                        self._stats["slot_migrations"] += 1
+                        self.telemetry.count("slot_migrations")
+                        self._count_group(grp, migrations_out=1)
+                        self._count_group(other, migrations_in=1)
+                        self.obs.decision(
+                            "migration", src=nm, slot=slot, dst=onm,
+                            outcome="moved", reason="drain")
+                        break
+
+    def _member_weights(self, bucket: int, members: dict) -> dict:
+        devs = [g for g in self.groups if g.name in members]
+        rates = {g.name: self.admission.model.rate(bucket, g.name)
+                 for g in devs}
+        return {g.name: w for g, w in
+                zip(devs, self.scheduler.placement_weights(devs, rates))}
+
+    def _board_members(self, bucket: int, members: dict, now: float,
+                       hold: set) -> None:
+        """Place the pending join wave across boardable members: the
+        scheduler's placement weights (observed per-group rates for
+        adaptive schedulers, fixed proportions for Static) pick how many
+        requests each member prefills this wave."""
+        q = self._pending.get(bucket)
+        if not q:
+            return
+        devs = [g for g in self.groups
+                if g.name in members and g.name not in hold
+                and g.name not in self._draining
+                and members[g.name].prefill_handle is None]
+        if not devs:
+            return
+        rates = {g.name: self.admission.model.rate(bucket, g.name)
+                 for g in devs}
+        weights = self.scheduler.placement_weights(devs, rates)
+        caps = [len(members[g.name].free_slots()) for g in devs]
+        loads = [sum(1 for r in members[g.name].slots if r is not None)
+                 for g in devs]
+        counts = plan_wave(weights, caps, loads, len(q))
+        if self.obs.enabled and any(counts):
+            self.obs.decision(
+                "placement", bucket=bucket, queue=len(q), reason="plan_wave",
+                weights={g.name: round(w, 4)
+                         for g, w in zip(devs, weights)},
+                rates={g.name: rates[g.name] for g in devs},
+                caps={g.name: c for g, c in zip(devs, caps)},
+                loads={g.name: ld for g, ld in zip(devs, loads)},
+                outcome={g.name: c for g, c in zip(devs, counts)})
+        for g, c in zip(devs, counts):
+            if c > 0:
+                self._board(members[g.name], now, limit=c)
+
+    def _count_group(self, grp: BatchGroup, **deltas) -> None:
+        """Add ``deltas`` to the counters of the DeviceGroup a member is
+        pinned to (nothing for an unpinned batch)."""
+        if grp.target:
+            d = self._per_group.setdefault(grp.target[0].name, dict.fromkeys(
+                ("segments", "prefill_waves", "tokens", "migrations_in",
+                 "migrations_out"), 0))
+            for k, v in deltas.items():
+                d[k] += v
+
+    # --------------------------------------------------------- elastic API
+    def join_group(self, group: DeviceGroup) -> None:
+        """Attach a DeviceGroup to the live server (elastic scale-out) —
+        or reactivate a draining one by name.  The runtime spins up its
+        worker thread immediately; it becomes a boarding and migration
+        target for every bucket at the next scheduling pass."""
+        with self._cv:
+            if not self.group_batches:
+                raise RuntimeError(
+                    "join_group requires group_batches serving")
+            if any(g.name == group.name for g in self.groups):
+                self._draining.discard(group.name)
+                self.obs.decision("elastic", action="reactivate",
+                                  group=group.name)
+                self._cv.notify_all()
+                return
+            self.runtime.add_group(group)
+            self.groups.append(group)
+            shares = proportional_split(
+                self.scheduler.placement_weights(self.groups),
+                self.max_batch, minimum=1)
+            self._member_slots[group.name] = shares[len(self.groups) - 1]
+            self.obs.decision("elastic", action="join", group=group.name,
+                              slots=self._member_slots[group.name])
+            self._cv.notify_all()
+
+    def drain_group(self, name: str) -> None:
+        """Stop placing work on ``name`` and migrate its decode slots out
+        at segment boundaries; its per-bucket members dissolve once empty.
+        The DeviceGroup stays attached (``join_group`` reactivates it)."""
+        with self._cv:
+            if not self.group_batches:
+                raise RuntimeError(
+                    "drain_group requires group_batches serving")
+            if not any(g.name == name for g in self.groups):
+                raise ValueError(f"unknown group {name!r}")
+            active = [g.name for g in self.groups
+                      if g.name not in self._draining]
+            if name in active and len(active) <= 1:
+                raise ValueError("cannot drain the only active group")
+            self._draining.add(name)
+            self.obs.decision("elastic", action="drain", group=name)
+            self._cv.notify_all()
 
     def _board(self, grp: BatchGroup, now: float,
                limit: Optional[int] = None) -> None:
@@ -988,6 +1290,7 @@ class InferenceServer:
             wave.append(req)
         if wave:
             self._stats["prefill_waves"] += 1
+            self._count_group(grp, prefill_waves=1)
             grp.start_prefill(wave, self._notify)
 
     def _reject(self, req: _Request, tr, reason: str, kind: str) -> None:

@@ -418,9 +418,11 @@ def test_two_live_buckets_keep_their_pools(qwen):
     for (scope, role, i, shape, _, _), buf in kernels.graphs._buffers.items():
         if role == "cache":
             pools.setdefault(i, {})[scope] = (shape, buf.data_ptr())
+    # A scope is the batch's bucket and the group that runs its packages.
     for by_scope in pools.values():
-        assert set(by_scope) == {8, 16}
-        assert by_scope[8][0] == by_scope[16][0] and by_scope[8][1] != by_scope[16][1]
+        assert set(by_scope) == {(8, "g"), (16, "g")}
+        a, b = by_scope[(8, "g")], by_scope[(16, "g")]
+        assert a[0] == b[0] and a[1] != b[1]
 
 
 # ------------------------------------- DeviceGroup.compile_kernel's graphs

@@ -13,10 +13,13 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "examples" / "quickstart_torch.py"]
-# Modules of the co-execution slice: the engine facade, the adaptive
-# schedulers and the two row-invariant kernels' wrappers.
+# Modules of the co-execution slice (the engine facade, the adaptive
+# schedulers and the two row-invariant kernels' wrappers) and of the
+# multi-group slice (placement and migration, elastic groups, the
+# observability endpoints).
 SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
-                 "kernels/gemm.py", "kernels/rms_norm.py")
+                 "kernels/gemm.py", "kernels/rms_norm.py", "serve/multigroup.py",
+                 "distributed/elastic.py", "distributed/__init__.py", "serve/http.py")
 
 
 def _imports(path):

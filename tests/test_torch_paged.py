@@ -198,9 +198,15 @@ def test_oversize_request_rejected_at_submit(weights):
 def test_paged_config_validation(weights):
     cfg, api, params = port_model(weights, "reference")
     cpu = lambda n: DeviceGroup(n, device="cpu")  # noqa: E731
-    with pytest.raises(NotImplementedError, match="A7"):
+    # Multi-group paged serving is ported: one pool per group by default;
+    # a single pool across groups cannot be slot-split.
+    with InferenceServer(cfg, api, params, paged=tpaged.PagedSpec(),
+                         groups=[cpu("a"), cpu("b")], buckets=(PLEN,)) as srv:
+        assert srv.group_batches
+        assert srv.stats()["placement"]["member_slots"] == {"a": 2, "b": 2}
+    with pytest.raises(ValueError, match="group_batches"):
         InferenceServer(cfg, api, params, paged=tpaged.PagedSpec(),
-                        groups=[cpu("a"), cpu("b")])
+                        groups=[cpu("a"), cpu("b")], group_batches=False)
     # Chunked prefill is ported: chunk_len is validated, not refused.
     with InferenceServer(cfg, api, params, groups=[cpu("a")], chunk_len=4) as srv:
         assert srv.stats()["chunk_len"] == 4
