@@ -7,14 +7,17 @@ GPU.  Run from the repository root, with no arguments:
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
-2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (seven
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (eight
              libraries; flash_decode's holds its chunk launch too), one
              nvcc each, all started together; then one line
              of the decode key-chunk plan.
 3. kernels -- each kernel against its plain PyTorch version on the card.
              flash_attention and flash_decode at the main path's shapes, at
              internlm2-20b and recurrentgemma-2b widths (hd 256, MQA n_rep
-             10, window 2048, a wrapped decode ring), multi-row, windowed,
+             10, window 2048, a wrapped decode ring), at the MoE paths'
+             widths (arctic-480b's GQA groups of 7, kimi-k2-1t-a32b's hd
+             112, each held batch-invariant bitwise, and flash_decode_paged
+             at both), multi-row, windowed,
              empty-slot and unaligned cases: bfloat16 at 2e-2 (atol and
              rtol, the reference suite's bf16 tolerance), float32 at 1e-4
              (the kernel's FMA sums and the plain version's cuBLAS products
@@ -113,6 +116,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
                length, 2 x 300 x 8, which the TPU kernels could not take:
                ssm_scan 64; rglru_scan 18, flash_attention 8, flash_decode
                8 x 7.
+             - the MoE family at full width, bf16 weights from seed 0
+               (``run_moe_path``): arctic-480b cut to 2 layers (about 55.4
+               GB) and kimi-k2-1t-a32b cut to 1 (about 38.8 GB), one at a
+               time.  First ``[moe kernel]`` on the model's layer-0
+               experts: ``moe_gemm`` (gate/up fused through the row map,
+               and down over the buffer) at a random routing of the decode
+               (8 tokens) and prefill (8 x 256) shapes, within 2e-2 rel.
+               L2 of ``moe_gemm_plain`` (the reference's dense einsum),
+               timed beside its bound, ``torch.bmm`` over the capacity
+               buffer and a ``torch.matmul`` loop over the filled experts
+               (counts read on the host); a routed row bitwise equal at 1,
+               3 and 8 rows of its expert (C 8) and 8 and 48 (C 48).  Then
+               the launcher's graphed one-shot generate
+               (``run_oneshot_main``) of 8 x 256 + 32: launches exactly
+               flash_attention n, flash_decode n x 31, moe_gemm 2n, and the
+               row kernels' counts (the router and arctic's dense residual
+               among the products) each forward; the first token the
+               prefill's argmax; the per-layer check of the prefill and the
+               first decode step (``layer_errors``, the moe_ffn output among
+               the residual feeds); the assignments each layer's prefill
+               drops.  Arctic also runs one-shot eager beside graphed, the
+               ``[B7]`` profile, and the paged server (``run_moe_served``:
+               the 8 prompts in one wave, eager and graphed, launches exact,
+               streams bitwise one-shot generate of the same batch; beside
+               it each prompt alone, held only where no prefill dropped).
              - the paged continuous-batching server on qwen1.5-4b's
                weights (``run_server`` of the launcher, ``--server --paged
                --block-len 16 --seg-len 8 --max-batch 8``), 8 requests x
@@ -304,7 +332,9 @@ def time_ms(fn, flush, iters: int) -> float:
 # (decode) at a time and held bitwise against their row of the whole batch.
 BATCH_INVARIANT = {"prefill qwen1.5-4b (main path)", "decode qwen1.5-4b (main path)",
                    "decode recurrentgemma-2b (hd 256, MQA, window 2048)",
-                   "falcon-mamba-7b prefill (main path)"}
+                   "falcon-mamba-7b prefill (main path)",
+                   "prefill arctic-480b (n_rep 7)", "decode arctic-480b (n_rep 7)",
+                   "prefill kimi-k2-1t-a32b (hd 112)", "decode kimi-k2-1t-a32b (hd 112)"}
 
 
 def attention_cases():
@@ -321,6 +351,9 @@ def attention_cases():
         ("prefill recurrentgemma-2b 2048 tokens", 2, 2048, 2048, 10, 1, 256, True, 2048, 0,
          "bfloat16"),
         ("prefill hd 256 f32", 2, 256, 256, 10, 1, 256, True, 2048, 0, "float32"),
+        # The MoE paths' attention: arctic's GQA groups of 7 heads, kimi's hd 112.
+        ("prefill arctic-480b (n_rep 7)", 8, 256, 256, 56, 8, 128, True, 0, 0, "bfloat16"),
+        ("prefill kimi-k2-1t-a32b (hd 112)", 8, 256, 256, 64, 8, 112, True, 0, 0, "bfloat16"),
     ]
 
 
@@ -348,6 +381,10 @@ def decode_cases():
          [last] * 8, 2048, 128, "bfloat16", "bfloat16"),
         ("decode recurrentgemma-2b, wrapped 2048 ring", 2, 2048, 10, 1, 256, 1, [2062, 4000],
          2048, 128, "bfloat16", "bfloat16"),
+        ("decode arctic-480b (n_rep 7)", 8, 256 + GEN, 56, 8, 128, 1, [last] * 8, 0, 128,
+         "bfloat16", "bfloat16"),
+        ("decode kimi-k2-1t-a32b (hd 112)", 8, 256 + GEN, 64, 8, 112, 1, [last] * 8, 0, 128,
+         "bfloat16", "bfloat16"),
     ]
 
 
@@ -437,8 +474,13 @@ def run_decode_case(case, dev, flush, torch, F, ops, fd, attn):
             if not torch.equal(one[0], got[i]):
                 fail(f"flash_decode {name}: slot {i} alone differs from its row in the batch "
                      f"of {b}")
-        print(f"  flash_decode | {name}: each of the {b} slots alone == its row in the batch, "
-              f"bitwise", flush=True)
+        three = ops.flash_decode(q[:3], k[:3], v[:3], kpos[:3], posv[:3], **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(three, got[:3]):
+            fail(f"flash_decode {name}: slots 0-2 as a batch of 3 differ from their rows in the "
+                 f"batch of {b}")
+        print(f"  flash_decode | {name}: each of the {b} slots alone, and slots 0-2 as a batch "
+              f"of 3, == their rows in the batch, bitwise", flush=True)
     rowpos = posv[:, None] + torch.arange(sq, device=dev, dtype=torch.int32)
     mask = attn.ragged_valid_mask(kpos[:, None, :], rowpos[:, :, None], window)[:, None]
     qt, kt, vt = q.transpose(1, 2), k.to(qdt).transpose(1, 2), v.to(qdt).transpose(1, 2)
@@ -480,6 +522,10 @@ def paged_cases():
         ("paged multi-row Sq 4", 4, 48, 8, 128, 16, (19, 2), 96, 2, 4, [0, 126, 200, 296], 0),
         ("paged 3 key chunks (40 blocks)", 2, 20, 20, 128, 16, (40, 0), 100, 2, 1, [639, 300],
          0),
+        ("paged arctic-480b served last step (n_rep 7)", 8, 56, 8, 128, 16, (18, 0), 152, 2, 1,
+         [last] * 8, 0),
+        ("paged kimi-k2-1t-a32b widths (hd 112)", 4, 64, 8, 112, 16, (19, 2), 96, 2, 1,
+         [10, 150, 299, 77], 0),
     ]
 
 
@@ -1186,10 +1232,11 @@ def prefill_logits(cfg, params, batch, gen, dev):
 
 
 # The products whose outputs a layer adds to the residual stream: the
-# attention output projection, the MLP's down projection, the Mamba and
-# RG-LRU mixers' output projections.
-RESIDUAL_FEEDS = (("attn", "wo"), ("mlp", "w_down"), ("out_proj",), ("mix", "wo"),
-                  ("mix", "out"))
+# attention output projection, the MLP's down projection (arctic's dense
+# residual branch's too), the Mamba and RG-LRU mixers' output projections;
+# a MoE layer also adds its moe_ffn output (``layer_errors``).
+RESIDUAL_FEEDS = (("attn", "wo"), ("mlp", "w_down"), ("dense_mlp", "w_down"), ("out_proj",),
+                  ("mix", "wo"), ("mix", "out"))
 
 
 def residual_feeds(lp) -> set:
@@ -1224,6 +1271,7 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     the kernels at the main path's full width and depth."""
     from repro_torch.models import get_model
     from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
     from repro_torch.models import rglru as R
     from repro_torch.models import transformer as T
     from repro_torch.serve import zeros_cache
@@ -1244,7 +1292,14 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
             fed.append(y.float())
         return y
 
-    L.linear = linear
+    real_ffn = M.moe_ffn
+
+    def moe_ffn(x, p, cfg):
+        y = real_ffn(x, p, cfg)
+        fed.append(y.float().view(b, -1, y.shape[-1]))
+        return y
+
+    L.linear, M.moe_ffn = linear, moe_ffn
     try:
         for mode in modes:  # the prefill fills both caches for the decode step
             x = T.embed_tokens(params, tokens if mode == "prefill" else tokens[:, -1:], cfg)
@@ -1265,7 +1320,7 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
                     float((yk - yr).float().norm() / (yr - x).float().norm()))
                 x = yr
     finally:
-        L.linear = real_linear
+        L.linear, M.moe_ffn = real_linear, real_ffn
     return errs
 
 
@@ -1276,7 +1331,8 @@ KERNEL_SYMBOLS = (("flash_decode_paged", "flash_decode_paged"),
                   ("combine_chunks_kernel", "flash_decode_combine"),
                   ("flash_decode", "flash_decode"), ("flash_attention", "flash_attention"),
                   ("gemm_wgmma_kernel", "gemm_rowinv"), ("gemm_f32_kernel", "gemm_rowinv"),
-                  ("rms_norm_kernel", "rms_norm"), ("ssm_scan_kernel", "ssm_scan"),
+                  ("rms_norm_kernel", "rms_norm"), ("moe_gemm_kernel", "moe_gemm"),
+                  ("ssm_scan_kernel", "ssm_scan"),
                   ("rglru_scan_kernel", "rglru_scan"))
 
 
@@ -1608,16 +1664,21 @@ def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
     """Launches of the two row kernels in ``forwards`` passes of the
     full-width stack (a prefill or one decode step each; ``n_layers``
     overrides the depth): one GEMM per product of models/ (dense layer: q,
-    k, v, o and three MLP products; Mamba layer: in_proj, x_proj, dt_proj,
-    out_proj; recurrent layer: in_y, in_x, the two block-diagonal gates and
-    out, plus three MLP products), one for the head; one rms_norm per norm
-    of a layer and the final one."""
+    k, v, o and three MLP products; MoE layer: q, k, v, o, the router and,
+    with a dense residual, its three products; Mamba layer: in_proj,
+    x_proj, dt_proj, out_proj; recurrent layer: in_y, in_x, the two
+    block-diagonal gates and out, plus three MLP products), one for the
+    head; one rms_norm per norm of a layer and the final one; two
+    ``moe_gemm`` per MoE layer (gate and up fused, then down)."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     n = n_layers or cfg.n_layers
+    moe = 0
     if cfg.family == "dense":
         gemm, norms = 7 * n + 1, 2 * n + 1
+    elif cfg.family == "moe":
+        gemm, norms, moe = (5 + 3 * cfg.dense_residual) * n + 1, 2 * n + 1, 2 * n
     elif cfg.family == "ssm":
         gemm, norms = 4 * n + 1, n + 1
     else:
@@ -1625,7 +1686,8 @@ def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
         kinds = list(pat) * (n // len(pat)) + list(pat[: n % len(pat)])
         rec = kinds.count("rec")
         gemm, norms = 8 * rec + 7 * (n - rec) + 1, 2 * n + 1
-    return {"gemm_rowinv": gemm * forwards, "rms_norm": norms * forwards}
+    return {"gemm_rowinv": gemm * forwards, "rms_norm": norms * forwards,
+            "moe_gemm": moe * forwards}
 
 
 def main_paths():
@@ -2193,7 +2255,7 @@ def _launches(n, fa=0, fd=0, fdp=0, forwards=(), arch="qwen1.5-4b") -> dict:
     and the row kernels' of each (forwards, layers) pair."""
     want = {"flash_attention": fa, "flash_decode": fd,
             "flash_decode_paged": fdp, "ssm_scan": 0, "rglru_scan": 0,
-            "gemm_rowinv": 0, "rms_norm": 0}
+            "gemm_rowinv": 0, "rms_norm": 0, "moe_gemm": 0}
     for f, layers in forwards:
         for name, c in row_kernel_launches(arch, f, layers).items():
             want[name] += c
@@ -2808,6 +2870,315 @@ def print_graph_summary(summary, card) -> None:
                                 "coexec": c}}))
 
 
+# ------------------------------------------------------------------ MoE
+# The MoE paths: (arch, depth) at full width, the depth cut so the weights
+# fit one card in bf16 (arctic-480b's two layers hold about 55.4 GB,
+# kimi-k2-1t-a32b's one about 38.8 GB).  Only arctic serves.
+MOE_PATHS = (("arctic-480b", 2), ("kimi-k2-1t-a32b", 1))
+# moe_gemm replaces no pallas_call: the reference's expert einsums.
+MOE_REPLACES = "src/repro/models/moe.py:112"
+
+
+def moe_model(arch, depth, dev, torch):
+    """(cfg, api, bf16 params on the card, seconds to draw them): the
+    published config cut to ``depth`` layers, weights from seed 0, drawn
+    in bf16 (the launcher's float32 masters would not fit)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.params import materialize
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth, kernel_impl="cuda")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = materialize(api.param_spec(cfg), torch.Generator(device=dev).manual_seed(0),
+                         torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    return cfg, api, params, time.perf_counter() - t0
+
+
+def moe_route(cfg, tokens, dev, torch, seed):
+    """A random top-k routing of ``tokens`` tokens, as ``models.moe``
+    dispatches it at the call's capacity: (C, rows, count)."""
+    from repro_torch.models import moe
+
+    E, K = cfg.n_experts, cfg.top_k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = moe.top_k(torch.randn(tokens, E, generator=g, device=dev), K)[1].reshape(-1)
+    C = moe.capacity(tokens, cfg)
+    _, _, rows, count = moe.dispatch(ids, torch.ones(ids.shape, dtype=torch.bfloat16, device=dev),
+                                     torch.arange(ids.numel(), device=dev) // K, E, C)
+    return C, rows, count
+
+
+def run_moe_gemm_case(cfg, ex, tokens, fused, dev, flush, torch) -> dict:
+    """``moe_gemm`` against ``moe_gemm_plain`` (the reference's dense
+    einsum over the whole capacity buffer) on layer 0's expert weights, at
+    a random routing of ``tokens`` tokens: gate and up fused over the
+    token rows through the row map, or down over the buffer.  bf16, rel.
+    L2 within 2e-2.  Timed beside ``torch.bmm`` over the whole capacity
+    buffer (the reference's function as written; two calls for gate and
+    up) and a ``torch.matmul`` loop over the filled experts, counts read
+    on the host.  Bound: the weights of the experts that hold rows, the
+    filled rows of A read once and the whole output written once, against
+    2 x rows x K x N operations a product."""
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ops
+
+    C, rows, count = moe_route(cfg, tokens, dev, torch, 7 + tokens + fused)
+    g = torch.Generator(device=dev).manual_seed(tokens)
+    if fused:
+        w, wu = ex["w_gate"], ex["w_up"]
+        x = torch.randn(tokens, cfg.d_model, generator=g, device=dev).bfloat16()
+        args, buf = (x, w, count, rows, wu), mg.capacity_buffer(x, count, rows)
+    else:
+        w, wu = ex["w_down"], None
+        buf = mg.capacity_buffer(torch.randn(tokens, cfg.d_ff, generator=g, device=dev)
+                                 .bfloat16(), count, rows)
+        args = (buf, w, count)
+    E, K, N = w.shape
+    got = ops.moe_gemm(*args)
+    torch.cuda.synchronize()
+    want = mg.moe_gemm_plain(*args)
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    err = (got.float() - want.float()).abs().max().item()
+    name = (f"{cfg.name} {'decode' if tokens <= 8 else 'prefill'} "
+            f"{'gate/up fused' if fused else 'down'}")
+    if not torch.isfinite(got).all() or rel > BF16_TOL:
+        fail(f"moe_gemm {name}: rel L2 {rel} > {BF16_TOL}")
+    iters = 20 if tokens <= 8 else 5
+    ms = time_ms(lambda: ops.moe_gemm(*args), flush, iters)
+    plain_ms = time_ms(lambda: mg.moe_gemm_plain(*args), flush, iters)
+    bmm_ms = time_ms(lambda: [torch.bmm(buf, t) for t in (w, wu) if t is not None], flush, iters)
+    live = [(e, c) for e, c in enumerate(count.tolist()) if c]
+
+    def loop():
+        counts = count.tolist()  # the host read a graph could not capture
+        for e, c in enumerate(counts):
+            if c:
+                for t in (w, wu):
+                    if t is not None:
+                        torch.matmul(buf[e, :c], t[e])
+    loop_ms = time_ms(loop, flush, iters)
+    nw = 2 if fused else 1
+    filled = sum(c for _, c in live)
+    nbytes = 2 * (nw * len(live) * K * N + filled * K + E * C * N)
+    flops = 2 * nw * filled * K * N
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               library_ms=None if fused else bmm_ms, library_loop_ms=loop_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  moe_gemm | {name} (E {E}, C {C}, K {K}, N {N}; {len(live)} experts hold "
+          f"{filled} rows): rel L2 {rel:.3g}, max_abs_err={err:.3g}; kernel={ms:.4f} ms "
+          f"({nbytes / ms / 1e9:.3f} TB/s of {HBM_BYTES_PER_S / 1e12:.2f}) plain={plain_ms:.4f} ms "
+          f"torch.bmm over the buffer{' x2' if fused else ''}={bmm_ms:.4f} ms torch.matmul loop "
+          f"over the filled experts={loop_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    return rec
+
+
+def moe_row_contract(cfg, ex, dev, torch) -> None:
+    """Held bitwise: a routed row of ``moe_gemm`` (gate/up fused, and
+    down) gives the same bits with 1, 3 and 8 rows in its expert at C 8,
+    and with 8 and 48 rows at C 48, other experts filled beside it; and
+    the unfused row equals ``gemm_rowinv``'s product of the same row and
+    expert (printed: the same k16 chain)."""
+    from repro_torch.kernels import moe_gemm as mg
+    from repro_torch.kernels import ops
+
+    E = cfg.n_experts
+    e0 = min(5, E - 2)  # the expert whose row is held; the last one filled beside it
+    g = torch.Generator(device=dev).manual_seed(11)
+    xs = {True: torch.randn(48, cfg.d_model, generator=g, device=dev).bfloat16(),
+          False: torch.randn(48, cfg.d_ff, generator=g, device=dev).bfloat16()}
+    same_as_gemm = []
+    for fused in (True, False):
+        x, first = xs[fused], None
+        for n, C in ((1, 8), (3, 8), (8, 8), (8, 48), (48, 48)):
+            rows = torch.full((E, C), -1, dtype=torch.int32, device=dev)
+            rows[e0, :n] = torch.arange(n, dtype=torch.int32, device=dev)
+            rows[E - 1, :min(n, 4)] = torch.arange(min(n, 4), dtype=torch.int32, device=dev) + 3
+            count = (rows >= 0).sum(1).to(torch.int32)
+            if fused:
+                y = ops.moe_gemm(x, ex["w_gate"], count, rows, ex["w_up"])
+            else:
+                y = ops.moe_gemm(mg.capacity_buffer(x, count, rows), ex["w_down"], count)
+                same_as_gemm.append(bool(torch.equal(y[e0, 0], ops.linear(x[:1], ex["w_down"][e0])[0])))
+            torch.cuda.synchronize()
+            first = y[e0, 0].clone() if first is None else first
+            if not torch.equal(y[e0, 0], first) or not (y[e0, n:] == 0).all():
+                fail(f"moe_gemm row contract ({'gate/up' if fused else 'down'}): row 0 of "
+                     f"expert {e0} with {n} rows at C {C} differs from its bits with 1 row at C 8, "
+                     f"or rows past the count are not zero")
+    print(f"  moe_gemm rows bitwise equal at 1, 3, 8 rows (C 8) and 8, 48 rows (C 48), gate/up "
+          f"and down (held); the down row equals gemm_rowinv's product of the same row: "
+          f"{same_as_gemm} (printed)", flush=True)
+
+
+def moe_drops(cfg, api, params, tokens, dev, torch) -> list:
+    """Assignments each layer of an eager prefill of ``tokens`` drops."""
+    from repro_torch.models import moe
+    from repro_torch.serve import make_prefill_step, zeros_cache
+
+    b, s = tokens.shape
+    with moe.dropped_assignments() as drops:
+        make_prefill_step(cfg, api)(params, {"tokens": tokens},
+                                    zeros_cache(cfg, api, b, s + 1, device=dev))
+    return [int(d) for d in drops]
+
+
+def run_moe_path(arch, depth, dev, torch) -> dict:
+    """One MoE arch at full width and cut depth: the ``[moe kernel]``
+    cases and the row contract on its layer-0 experts, then the
+    launcher's one-shot generate (``run_oneshot_main``, graphed) of 8 x 256
+    + 32 with exact launch counts and the per-layer reference check of the
+    prefill and the first decode step; for arctic also one-shot generate
+    eager beside graphed, the ``[B7]`` profile and the paged server."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import gemm, ops
+    from repro_torch.launch import serve
+    from repro_torch.models.params import tree_leaves, tree_map
+
+    cfg, api, params, draw_s = moe_model(arch, depth, dev, torch)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"  {cfg.name}, {depth} of {get_config(arch).n_layers} layers, bf16 weights "
+          f"{nbytes / 1e9:.1f} GB ({nbytes / 2**30:.1f} GiB) drawn in {draw_s:.1f} s", flush=True)
+    ex = tree_map(lambda a: a[0], params["layers"])["experts"]
+    print(at() + f" [moe kernel] moe_gemm against its plain version on {arch}'s layer-0 experts",
+          flush=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    recs = {(t, f): run_moe_gemm_case(cfg, ex, t, f, dev, flush, torch)
+            for t in (8, 8 * 256) for f in (True, False)}
+    moe_row_contract(cfg, ex, dev, torch)
+    del ex, flush
+    argv = ["--arch", arch, "--full", "--requests", "8", "--prompt-len", "256", "--gen",
+            str(GEN), "--seed", "0", "--kernel", "cuda"]
+    args = serve.parse_args(argv)
+    print(at() + f" [moe path] the launcher's one-shot generate (run_oneshot_main, graphed), "
+          f"{arch} at depth {depth}, {args.requests} x {args.prompt_len} + {args.gen}", flush=True)
+    maps = gemm.maps_encoded()
+    ops.reset_launch_counts()
+    result = serve.run_oneshot_main(cfg, api, params, args)
+    counts = ops.launch_counts()
+    maps = gemm.maps_encoded() - maps
+    want = {"flash_attention": depth, "flash_decode": depth * (GEN - 1), "flash_decode_paged": 0,
+            "ssm_scan": 0, "rglru_scan": 0, **row_kernel_launches(arch, GEN, depth)}
+    print(f"  launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"{arch} launch counts {counts} != {want}")
+    toks = result["tokens"]
+    if toks.shape != (args.requests, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"{arch}: tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
+    batch = serve.load_batch(cfg, args)
+    lk = prefill_logits(cfg, params, batch, GEN, dev)
+    lr = prefill_logits(dataclasses.replace(cfg, kernel_impl="reference"), params, batch, GEN, dev)
+    if not (torch.isfinite(lk).all() and torch.isfinite(lr).all()):
+        fail(f"{arch}: non-finite first-token logits")
+    first_ok = bool((lk.argmax(-1)[:, 0].int().cpu().numpy() == toks[:, 0]).all())
+    if not first_ok:
+        fail(f"{arch}: generate's first token is not the argmax of its prefill logits")
+    drops = moe_drops(cfg, api, params, batch["tokens"], dev, torch)
+    errs = layer_errors(cfg, params, batch, dev, torch, ("prefill", "decode"))
+    rounded = {m: errs.pop(m + "_rounded") for m in ("prefill", "decode")}
+    for mode, e in errs.items():
+        print(f"  per-layer bf16 {mode} update before the residual add, kernel vs reference: "
+              f"{[round(x, 5) for x in e]} (tol {LAYER_REL_TOL}); rounded update y - x "
+              f"(printed): {[round(x, 5) for x in rounded[mode]]}", flush=True)
+        if max(e) > LAYER_REL_TOL:
+            fail(f"{arch}: a bf16 {mode} layer through the kernels disagrees with the reference")
+    rel = float((lk - lr).norm() / lr.norm())
+    print(f"  first-token logits kernel vs reference rel L2 {rel:.3g} (printed); first token = "
+          f"argmax of the prefill (held); assignments dropped by the prefill of 8 x "
+          f"{args.prompt_len}, per layer: {drops} of {8 * args.prompt_len * cfg.top_k}; "
+          f"{result['tokens_per_s']:.1f} tokens/s graphed, capture {result['capture_s']:.3f} s, "
+          f"peak {(result['peak_memory_bytes'] or 0) / 2**30:.2f} GiB, TMA maps encoded {maps}",
+          flush=True)
+    out = {"arch": arch, "layers": depth, "weights_bytes": nbytes, "draw_s": draw_s,
+           "counts": counts, "tokens_per_s": result["tokens_per_s"], "wall_s": result["wall_s"],
+           "capture_s": result["capture_s"], "peak_memory_bytes": result["peak_memory_bytes"],
+           "prefill_drops_per_layer": drops, "logits_rel_l2_bf16": rel,
+           "gemm_tma_maps_encoded": maps,
+           **{f"layer_rel_l2_bf16_{m}": e for m, e in errs.items()},
+           "moe_gemm": {f"{'decode' if t <= 8 else 'prefill'} {'gate/up' if f else 'down'}": r
+                        for (t, f), r in recs.items()}}
+    if arch == "arctic-480b":
+        from repro_torch.serve import make_generate
+
+        ops.reset_launch_counts()
+        eager = make_generate(cfg, api, graph=False)(params, batch, GEN).cpu().numpy()
+        eager_counts = ops.launch_counts()
+        print(f"  eager one-shot generate: launches {eager_counts} (held equal to the graphed "
+              f"run's), tokens bitwise the graphed run's: {bool((eager == toks).all())} (held)",
+              flush=True)
+        if eager_counts != want or not (eager == toks).all():
+            fail(f"{arch}: eager one-shot generate launched {eager_counts} or gave other tokens")
+        out["oneshot_modes"] = oneshot_modes(cfg, api, params, batch, GEN, toks, torch)
+        out["profile"] = profile_steps(cfg, params, batch, dev, torch)
+        out["served"] = run_moe_served(cfg, api, params, dev, torch)
+    return out, counts, recs[(8, False)]
+
+
+def run_moe_served(cfg, api, params, dev, torch) -> dict:
+    """The launcher's paged server (``run_server``) on the MoE path's
+    weights, 8 x 256 + 32, blocks of 16, segments of 8, 8 slots, arrivals
+    1 ms apart and a 200 ms wait, so that the 8 prompts board in one wave:
+    eager and graphed (:func:`served_modes`), launch counts exact, every
+    stream bitwise one-shot generate of the same 8 prompts as one batch
+    (capacity is the wave's, as one-shot's).  Beside it, printed and held
+    only where neither side's prefill dropped an assignment: each stream
+    against one-shot generate of its prompt alone (batch 1, capacity 8)."""
+    import numpy as np
+
+    from repro_torch.launch import serve
+    from repro_torch.serve import make_generate
+
+    args = serve.parse_args(_argv_with(SERVER_ARGV, arch=cfg.name))
+    scfg = dataclasses.replace(cfg, decode_block=args.block_len)
+    print(at() + f" [moe served path] run_server --paged, {cfg.name} at depth {cfg.n_layers}, "
+          f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
+    run = lambda graph: serve.run_server(scfg, api, params, args, graph=graph)  # noqa: E731
+    runs = served_modes(run, torch)
+    n = cfg.n_layers
+    segs = -(-(args.gen - 1) // args.seg_len)
+    want = _launches(n, fa=n, fdp=n * args.seg_len * segs,
+                     forwards=[(1 + args.seg_len * segs, n)], arch=cfg.name)
+    prompts = runs["eager"][0]["prompts"]
+    tokens = torch.from_numpy(np.stack(prompts)).to(dev)
+    generate = make_generate(scfg, api)
+    one8 = generate(params, {"tokens": tokens}, args.gen).cpu().numpy()
+    ones = [generate(params, {"tokens": tokens[i:i + 1]}, args.gen)[0].cpu().numpy()
+            for i in range(args.requests)]
+    drops8 = moe_drops(scfg, api, params, tokens, dev, torch)
+    drops1 = [moe_drops(scfg, api, params, tokens[i:i + 1], dev, torch)
+              for i in range(args.requests)]
+    for mode, (result, counts, _, rec) in runs.items():
+        s = result["stats"]
+        print(f"  {mode}: launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"MoE served path ({mode}) launch counts {counts} != {want}")
+        if s["prefill_waves"] != 1 or s["segments"] != segs:
+            fail(f"MoE served path ({mode}) ran {s['prefill_waves']} prefill waves and "
+                 f"{s['segments']} segments, want 1 (all 8 prompts in one wave) and {segs}")
+        eq8 = _streams_equal(result, one8)
+        eq1 = [bool(np.array_equal(a, b)) for a, b in zip(result["results"], ones)]
+        must = [i for i in range(args.requests) if not any(drops8) and not any(drops1[i])]
+        print(f"  {mode}: served == one-shot of the same 8 prompts as one batch: "
+              f"{eq8}/{args.requests} (held); == one-shot of each prompt alone: {sum(eq1)}/"
+              f"{args.requests} {eq1} (held where no prefill dropped: prompts {must}); "
+              f"assignments dropped per layer by the batch-8 prefill {drops8}, by each batch-1 "
+              f"prefill {drops1}", flush=True)
+        if eq8 != args.requests or not all(eq1[i] for i in must):
+            fail(f"MoE served path ({mode}): streams differ from one-shot generate")
+    print_modes(f"{cfg.name} served, arrivals 1 ms apart", {m: r[3] for m, r in runs.items()})
+    result = runs["graph"][0]
+    return {"modes": {m: r[3] for m, r in runs.items()}, "counts": runs["graph"][1],
+            "streams_equal_batch8_oneshot": args.requests,
+            "streams_equal_batch1_oneshot": [bool(np.array_equal(a, b)) for a, b in
+                                             zip(result["results"], ones)],
+            "prefill_drops_batch8": drops8, "prefill_drops_batch1": drops1,
+            "tokens_per_s": result["tokens_per_s"], "wall_s": result["wall_s"]}
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
@@ -2950,6 +3321,35 @@ def main() -> None:
         print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
               flush=True)
 
+    for arch, depth in MOE_PATHS:
+        print(at() + f" [moe path] {arch} at full width, depth {depth}, bf16", flush=True)
+        mo, counts, rec = run_moe_path(arch, depth, dev, torch)
+        print(json.dumps({"moe_path": mo}))
+        recs.setdefault("moe_gemm", rec)
+        if "profile" in mo:
+            prof, om = mo["profile"], mo["oneshot_modes"]
+            summary["main_paths"].append({
+                "path": f"{arch} (depth {depth}) 8 x 256 + {GEN}",
+                **{f"{p}_{k}_{m}": prof[r][k]
+                   for p, m, r in (("decode_8", "eager", "decode_8_steps"),
+                                   ("decode_8", "graph", "decode_8_steps_graph"),
+                                   ("prefill", "eager", "prefill"),
+                                   ("prefill", "graph", "prefill_graph"))
+                   for k in ("device_busy_ms", "wall_ms")},
+                "tokens_per_s_eager": om["eager"]["tokens_per_s"],
+                "tokens_per_s_graph": om["graph"]["tokens_per_s"],
+                "capture_s": om["graph"]["capture_s"]})
+            summary["served_paths"].append((f"{arch} served, arrivals 1 ms apart",
+                                            mo["served"]["modes"]))
+        for name, n in counts.items():
+            if n:
+                launches.setdefault(name, n)
+        del mo
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+              flush=True)
+
     print(at() + f" [served path] repro_torch.launch.serve --server --paged, qwen1.5-4b --full, "
           f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
     sp, counts, whole = run_served_path(dev, torch)
@@ -3044,7 +3444,8 @@ def main() -> None:
                "gemm_rowinv": ("src/repro_torch/csrc/gemm_rowinv.cu",
                                "src/repro/models/layers.py:195"),
                "rms_norm": ("src/repro_torch/csrc/rms_norm.cu",
-                            "src/repro/models/layers.py:15")}
+                            "src/repro/models/layers.py:15"),
+               "moe_gemm": ("src/repro_torch/csrc/moe_gemm.cu", MOE_REPLACES)}
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     **recs[n]) for n, (src, rep) in sources.items()]
     print_graph_summary(summary, card)

@@ -7,8 +7,12 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # Register the ported architectures (import side effects).
 from repro_torch.configs import (  # noqa: F401
+    arctic_480b,
+    codeqwen15_7b,
     falcon_mamba_7b,
+    granite_34b,
     internlm2_20b,
+    kimi_k2_1t,
     qwen15_4b,
     recurrentgemma_2b,
 )

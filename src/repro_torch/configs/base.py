@@ -85,12 +85,8 @@ _REGISTRY: dict = {}
 # Archs of the JAX package whose family or config the port has not taken
 # over yet, with the ROADMAP.md item that brings each in.
 UNPORTED = {
-    "arctic-480b": "A9 (moe family)",
-    "kimi-k2-1t-a32b": "A9 (moe family)",
     "whisper-tiny": "A9 (audio family)",
     "paligemma-3b": "A9 (vlm prefix-LM attention)",
-    "codeqwen1.5-7b": "A2 (further dense configs)",
-    "granite-34b": "A2 (further dense configs)",
 }
 
 

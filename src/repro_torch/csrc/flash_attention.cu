@@ -12,7 +12,7 @@
 // against 2.7 GFLOP of products, 0.0027 ms at 989 TFLOP/s: bytes.  At
 // recurrentgemma-2b's 2 x 2048 (hd 256, MQA) the products bind (0.043 ms).
 //
-// bfloat16, hd 64/128/256 (attend_rows_mma, attention_mma.cuh): the products
+// bfloat16, hd 64/112/128/256 (attend_rows_mma, attention_mma.cuh): the products
 // run on the tensor cores (mma.sync m16n8k16) with K/V tiles brought in by
 // cp.async two stages deep, so a tile's copy overlaps the previous tile's
 // products, and the softmax state stays in registers.  A block owns 64 rows,
@@ -131,7 +131,7 @@ inline int heads_per_block(int n_rep) {
 
 }  // namespace repro
 
-// dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 at hd 64/128/256 with bk
+// dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 at hd 64/112/128/256 with bk
 // a multiple of 16 runs the tensor-core body (bq is then the fixed 64 rows of
 // a block); everything else runs attend_rows.  Returns a cudaError_t value.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
@@ -144,7 +144,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const mma::Plan p = mma::plan(mma::kRows, bk, hd);
-  if (dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256)) {
+  if (dtype == 1 && p.sb > 0 && (hd == 64 || hd == 112 || hd == 128 || hd == 256)) {
     const int G = heads_per_block(H / KV);
     if ((Sq * G + mma::kRows - 1) / mma::kRows > 65535 || mma::smem_bytes(p, hd) > kMaxSmem)
       return cudaErrorInvalidValue;
@@ -153,6 +153,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return launch_mma<HD_, KW_>(q, k, v, out, B, Sq, Sk, H, KV, G, bk, p, causal, window,  \
                                 q_offset, scale, st);
     REPRO_FA_MMA(64, 16) REPRO_FA_MMA(64, 32) REPRO_FA_MMA(64, 64)
+    REPRO_FA_MMA(112, 16) REPRO_FA_MMA(112, 32) REPRO_FA_MMA(112, 64)
     REPRO_FA_MMA(128, 16) REPRO_FA_MMA(128, 32) REPRO_FA_MMA(128, 64)
     REPRO_FA_MMA(256, 16) REPRO_FA_MMA(256, 32)
 #undef REPRO_FA_MMA

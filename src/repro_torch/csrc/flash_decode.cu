@@ -13,7 +13,7 @@
 // below the ~295 FLOPs per byte where the tensor cores would bind.  At
 // recurrentgemma-2b's (KV 1, hd 256) it is 2.4 MB, 0.0007 ms.
 //
-// bfloat16 queries (hd 64/128/256, bk a multiple of 16) run the tensor-core
+// bfloat16 queries (hd 64/112/128/256, bk a multiple of 16) run the tensor-core
 // body (attend_rows_mma, attention_mma.cuh) with a batch-invariant split
 // over the keys, so that a few slots and kv heads still fill the card:
 // - a slot's needed tiles are cut into chunks of chunk_tiles(bk) =
@@ -270,7 +270,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   const int rows = sq * (H / KV);
   // The key parts of one query token's n_rep rows, whatever Sq (see above).
   const mma::Plan p = mma::plan(H / KV, bk, hd);
-  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256) &&
+  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 112 || hd == 128 || hd == 256) &&
       (kv_dtype == 0 || kv_dtype == 1)) {
     const int want = ((S + bk - 1) / bk + mma::chunk_tiles(bk) - 1) / mma::chunk_tiles(bk);
     if (chunks != want || (chunks > 1 && !scratch) || chunks > 65535 ||
@@ -286,6 +286,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
                                        bk, p, window, scale, chunks, st);                    \
   }
     REPRO_FD_MMA(64, 16) REPRO_FD_MMA(64, 32) REPRO_FD_MMA(64, 64)
+    REPRO_FD_MMA(112, 16) REPRO_FD_MMA(112, 32) REPRO_FD_MMA(112, 64)
     REPRO_FD_MMA(128, 16) REPRO_FD_MMA(128, 32) REPRO_FD_MMA(128, 64)
     REPRO_FD_MMA(256, 16) REPRO_FD_MMA(256, 32)
 #undef REPRO_FD_MMA
@@ -309,7 +310,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
 
 // The chunk launch (see above).  `nt` (B) is needed_tiles at sq rows, read
 // by the attend_rows route; the tensor-core route counts each block's tiles
-// itself and ignores it.  bfloat16 queries at hd 64/128/256 with bk a
+// itself and ignores it.  bfloat16 queries at hd 64/112/128/256 with bk a
 // multiple of 16 run the tensor-core body with the plan of a 64-row block.
 // Returns a cudaError_t value.
 extern "C" int flash_decode_chunk_launch(const void* q, const void* k, const void* v,
@@ -323,7 +324,7 @@ extern "C" int flash_decode_chunk_launch(const void* q, const void* k, const voi
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const mma::Plan p = mma::plan(mma::kRows, bk, hd);
-  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256) &&
+  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 112 || hd == 128 || hd == 256) &&
       (kv_dtype == 0 || kv_dtype == 1)) {
     if ((sq * (H / KV) + mma::kRows - 1) / mma::kRows > 65535 ||
         mma::smem_bytes(p, hd) > kMaxSmem)
@@ -337,6 +338,7 @@ extern "C" int flash_decode_chunk_launch(const void* q, const void* k, const voi
                                              p, window, scale, st);                          \
   }
     REPRO_FDC_MMA(64, 16) REPRO_FDC_MMA(64, 32) REPRO_FDC_MMA(64, 64)
+    REPRO_FDC_MMA(112, 16) REPRO_FDC_MMA(112, 32) REPRO_FDC_MMA(112, 64)
     REPRO_FDC_MMA(128, 16) REPRO_FDC_MMA(128, 32) REPRO_FDC_MMA(128, 64)
     REPRO_FDC_MMA(256, 16) REPRO_FDC_MMA(256, 32)
 #undef REPRO_FDC_MMA

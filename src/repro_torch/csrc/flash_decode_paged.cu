@@ -154,7 +154,7 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
   const auto st = static_cast<cudaStream_t>(stream);
   const int rows = sq * (H / KV);
   const mma::Plan p = mma::plan(H / KV, bl, hd);  // one token's rows: as flash_decode's
-  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 128 || hd == 256) &&
+  if (q_dtype == 1 && p.sb > 0 && (hd == 64 || hd == 112 || hd == 128 || hd == 256) &&
       (kv_dtype == 0 || kv_dtype == 1)) {
     const int want = (nmax + mma::chunk_tiles(bl) - 1) / mma::chunk_tiles(bl);
     if (chunks != want || (chunks > 1 && !scratch) || chunks > 65535 ||
@@ -172,6 +172,7 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k, const voi
                                        window, scale, chunks, st);                           \
   }
     REPRO_FDP_MMA(64, 16) REPRO_FDP_MMA(64, 32) REPRO_FDP_MMA(64, 64)
+    REPRO_FDP_MMA(112, 16) REPRO_FDP_MMA(112, 32) REPRO_FDP_MMA(112, 64)
     REPRO_FDP_MMA(128, 16) REPRO_FDP_MMA(128, 32) REPRO_FDP_MMA(128, 64)
     REPRO_FDP_MMA(256, 16) REPRO_FDP_MMA(256, 32)
 #undef REPRO_FDP_MMA

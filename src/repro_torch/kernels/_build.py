@@ -5,10 +5,14 @@ Each ``csrc/<name>.cu`` compiles on its own, with a plain C interface, into
 ``.gitignore``):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC --split-compile=8 \\
+         -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The hash covers the sources and the flags, so an edited source builds anew.
-:func:`build` starts one ``nvcc`` per missing library, all at once.  Nothing
+:func:`build` starts one ``nvcc`` per missing library, all at once; each
+splits its optimizer over up to 8 threads (``--split-compile``), which
+takes flash_decode.cu's many attention instances from about 60 s to 25 s
+on the H100's host.  Nothing
 here runs at import: the CPU tests import every module without ``nvcc``.
 
 Every wrapper counts its launches in :data:`LAUNCHES`, a plain integer per
@@ -34,9 +38,9 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--split-compile=8")
 KERNELS = ("flash_attention", "flash_decode", "flash_decode_paged", "ssm_scan",
-           "rglru_scan", "gemm_rowinv", "rms_norm")
+           "rglru_scan", "gemm_rowinv", "rms_norm", "moe_gemm")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' row and tile limits and shared-memory budget (attention_tile.cuh).
 MAX_ROWS = 64
@@ -46,7 +50,7 @@ MAX_SMEM = 232448
 MMA_WARPS = 4
 MMA_ROWS = 16 * MMA_WARPS  # query rows of one block
 MMA_PAD = 8                # bf16 padding of a staged K/V/Q row
-MMA_HEAD_DIMS = (64, 128, 256)
+MMA_HEAD_DIMS = (64, 112, 128, 256)
 CHUNK_KEYS = 256           # keys of one decode chunk
 
 LAUNCHES = {name: 0 for name in KERNELS}

@@ -14,7 +14,7 @@ the training slice (ROADMAP.md).
 
 The kernel has two bodies (:func:`launch_plan` says which a shape takes):
 
-- bfloat16 at hd 64/128/256 runs on the tensor cores (``mma.sync``, K/V
+- bfloat16 at hd 64/112/128/256 runs on the tensor cores (``mma.sync``, K/V
   tiles by ``cp.async`` two stages deep, ``csrc/attention_mma.cuh``): a
   block owns 64 rows, 16 per warp, which interleave the query positions
   with G heads of one kv group (G the largest divisor of n_rep up to 16);

@@ -19,7 +19,7 @@ its own, whatever batch it shares the call with.
 ``flash_decode`` launches the CUDA kernel (``csrc/flash_decode.cu``) on CUDA
 tensors and runs ``flash_decode_plain``, the same tiles and masks as a
 loop in PyTorch, on CPU tensors.  On the card, bfloat16 queries at hd
-64/128/256 run the tensor-core body with a split over the keys: each slot's
+64/112/128/256 run the tensor-core body with a split over the keys: each slot's
 needed tiles are cut into chunks of ``chunk_tiles(block_k)`` tiles (256
 keys), one block per (kv head, slot, chunk), and a second small kernel
 merges a slot's chunk partials in ascending order.  The chunk size depends

@@ -1,0 +1,126 @@
+"""Grouped, row-invariant expert products of the MoE family: the capacity
+buffer's three expert einsums (``ecd,edf->ecf`` for gate and up,
+``ecf,efd->ecd`` for down) without the capacity rows and experts a call
+does not fill.
+
+The JAX package computes them with plain ``jnp`` einsums over every expert
+and every capacity row (``src/repro/models/moe.py:112-117``); no Pallas
+kernel corresponds to this one.  The einsum as written streams every
+expert's weights: arctic-480b's three leaves hold 26.8 GB a layer, yet a
+decode step of 8 tokens at top-2 reaches at most 16 of its 128 experts.
+An empty capacity row gives a zero product that the combine never reads,
+so skipping it computes the same function.
+
+The CUDA kernel (``csrc/moe_gemm.cu``) takes ``count`` (E,) -- the filled
+rows of each expert -- and, for gate and up, a row map ``rows`` (E, C):
+slot (e, c) holds token row ``rows[e, c]`` of ``x`` (-1: a zero row), so
+the (E, C, d) buffer is never materialized.  Both live on the device and
+the kernel reads them there: no host sync, so a graph captures it.  Each
+output element is one chain of ``wgmma`` k16 products in ascending k,
+fixed by K alone (the ``gemv`` route of ``gemm_rowinv``), so a routed row
+gives the same bits whatever ``count``, C or the other experts.  Rows
+past ``count[e]`` are written as zeros and neither read nor multiplied.
+
+``moe_gemm(x, w, count, rows, w_up)`` launches the kernel on CUDA tensors
+(or raises) and runs :func:`moe_gemm_plain` on CPU tensors.  The model
+launches it twice a layer: gate and up fused (``w_up`` given: the output
+is ``silu(x @ w) * (x @ w_up)``), then down on that output.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def capacity_buffer(x, count, rows=None):
+    """The (E, C, K) capacity buffer the products read: ``x`` itself when
+    ``rows`` is None, else token row ``rows[e, c]`` of ``x`` (T, K) at
+    slot (e, c), zeros where ``rows`` is negative; zeros from row
+    ``count[e]`` on."""
+    if rows is not None:
+        buf = x[rows.clamp(min=0).long()]
+        buf = torch.where((rows >= 0)[..., None], buf, x.new_zeros(()))
+    else:
+        buf = x
+    c = torch.arange(buf.shape[1], device=buf.device)
+    live = c[None, :] < count[:, None]
+    return torch.where(live[..., None], buf, buf.new_zeros(()))
+
+
+def moe_gemm_plain(x, w, count, rows=None, w_up=None):
+    """The kernel's function in PyTorch: the reference's dense einsum over
+    the whole capacity buffer (:func:`capacity_buffer`), fused with
+    ``silu(. @ w) * (. @ w_up)`` when ``w_up`` is given.  The CPU path, and
+    the kernel's oracle on the card."""
+    buf = capacity_buffer(x, count, rows)
+    y = torch.einsum("eck,ekn->ecn", buf, w)
+    if w_up is None:
+        return y
+    return F.silu(y) * torch.einsum("eck,ekn->ecn", buf, w_up)
+
+
+def moe_gemm(x, w, count, rows=None, w_up=None):
+    """w, w_up: (E, K, N), the JAX tree's expert leaves; count: (E,) int32
+    filled rows per expert; rows: (E, C) int32 token row of each slot of
+    ``x`` (T, K), or None with ``x`` the (E, C, K) buffer itself.  Returns
+    (E, C, N) in x's dtype.
+
+    CUDA tensors launch the kernel (bfloat16 only; or raise); CPU tensors
+    take :func:`moe_gemm_plain`."""
+    if x.device.type == "cpu":
+        return moe_gemm_plain(x, w, count, rows, w_up)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gemm runs on cuda or cpu tensors, got {x.device}")
+    return _moe_gemm_cuda(x, w, count, rows, w_up)
+
+
+def _moe_gemm_cuda(x, w, count, rows, w_up):
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    if x.dtype != torch.bfloat16 or w.dtype != x.dtype or (w_up is not None
+                                                           and w_up.dtype != x.dtype):
+        raise TypeError(f"moe_gemm takes bfloat16 x and weights, got {x.dtype}, {w.dtype}")
+    tensors = [t for t in (x, w, count, rows, w_up) if t is not None]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("all tensors on one device")
+    e, k, n = w.shape
+    if w_up is not None and tuple(w_up.shape) != (e, k, n):
+        raise ValueError(f"w_up {tuple(w_up.shape)} != w {tuple(w.shape)}")
+    if count.dtype != torch.int32 or tuple(count.shape) != (e,):
+        raise ValueError(f"count must be int32 ({e},), got {count.dtype} {tuple(count.shape)}")
+    if rows is not None:
+        if rows.dtype != torch.int32 or rows.dim() != 2 or rows.shape[0] != e:
+            raise ValueError(f"rows must be int32 ({e}, C), got {rows.dtype} "
+                             f"{tuple(rows.shape)}")
+        if x.dim() != 2 or x.shape[1] != k:
+            raise ValueError(f"x {tuple(x.shape)} must be token rows (T, {k})")
+        c = rows.shape[1]
+    else:
+        if x.dim() != 3 or tuple(x.shape) != (e, x.shape[1], k):
+            raise ValueError(f"x {tuple(x.shape)} must be the buffer ({e}, C, {k})")
+        c = x.shape[1]
+    xr = x.reshape(-1, k)
+    if xr.stride(-1) != 1 or (xr.shape[0] > 1 and xr.stride(0) % 8):
+        xr = xr.contiguous()
+    lda = xr.stride(0) if xr.shape[0] > 1 else k
+    ws = [t.contiguous() for t in (w, w_up) if t is not None]
+    if k % 8 or n % 8 or any(t.data_ptr() % 16 for t in [xr] + ws):
+        raise ValueError(f"moe_gemm needs K, N multiples of 8 and 16-byte aligned operands "
+                         f"(K {k}, N {n})")
+    cnt = count.contiguous()
+    rmap = None if rows is None else rows.contiguous()
+    y = torch.empty((e, c, n), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    fn = _build.kernel_fn("moe_gemm", "moe_gemm_launch",
+                          [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                          + [ctypes.c_longlong, ctypes.c_void_p])
+    with _build.on_device(x.device) as stream:
+        err = fn(xr.data_ptr(), 0 if rmap is None else rmap.data_ptr(), cnt.data_ptr(),
+                 ws[0].data_ptr(), ws[1].data_ptr() if len(ws) > 1 else 0, y.data_ptr(),
+                 e, c, k, n, lda, stream)
+    _build.check("moe_gemm", err)
+    _build.count("moe_gemm")
+    return y

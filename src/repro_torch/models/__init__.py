@@ -28,10 +28,10 @@ class ModelAPI(NamedTuple):
 def get_model(cfg) -> ModelAPI:
     if cfg.kernel_impl not in KERNEL_IMPLS:
         raise ValueError(f"kernel_impl {cfg.kernel_impl!r} is not one of {KERNEL_IMPLS}")
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "moe", "ssm"):
         from repro_torch.models import transformer as T
 
-        chunk = T.prefill_chunk if cfg.family == "dense" else None
+        chunk = T.prefill_chunk if cfg.family != "ssm" else None
         return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode, chunk)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru as R

@@ -1,4 +1,5 @@
-"""Decoder LM of the dense and ssm families: the layer stack, embed and head.
+"""Decoder LM of the dense, moe and ssm families: the layer stack, embed and
+head.
 
 Parameters keep the JAX package's tree: per-layer leaves stacked along a
 leading ``n_layers`` dim.  The JAX ``lax.scan`` over layers becomes a loop
@@ -9,10 +10,11 @@ Block interface (as in the JAX package):
     block_spec(cfg) -> Spec tree for ONE layer
     block_apply(p, x, positions, cfg, *, mode, cache, pos) -> (x, cache)
 
-The ssm family (falcon-mamba) swaps the block for ``mamba.py``'s.  The
-dense family also runs chunked prefill (``mode="chunk"``,
-:func:`prefill_chunk`).  Training and the moe and vlm families are not
-ported yet (ROADMAP.md).
+The moe family (arctic, kimi-k2) swaps the block for ``moe.py``'s, which
+keeps the dense block's attention and cache; the ssm family (falcon-mamba)
+for ``mamba.py``'s.  The dense and moe families also run chunked prefill
+(``mode="chunk"``, :func:`prefill_chunk`).  Training and the vlm family are
+not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models import mamba
+from repro_torch.models import mamba, moe
 from repro_torch.models.params import Spec, stack_layers, tree_map
 
 
@@ -71,6 +73,7 @@ def dense_cache_spec(cfg, batch: int, max_seq: int) -> dict:
 # serves.
 FAMILIES = {
     "dense": (dense_block_spec, dense_block_apply, dense_cache_spec),
+    "moe": (moe.moe_block_spec, moe.moe_block_apply, dense_cache_spec),
     "ssm": (mamba.mamba_block_spec, mamba.mamba_block_apply,
             lambda cfg, batch, max_seq: mamba.ssm_cache_spec(cfg, batch)),
 }

@@ -154,7 +154,8 @@ def test_cpu_tensors_count_no_launch():
     flash_decode(torch.zeros((1, 2, 2, 8)), k, k, kpos, torch.tensor([0], dtype=torch.int32))
     assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                "flash_decode_paged": 0, "ssm_scan": 0,
-                               "rglru_scan": 0, "gemm_rowinv": 0, "rms_norm": 0}
+                               "rglru_scan": 0, "gemm_rowinv": 0, "rms_norm": 0,
+                               "moe_gemm": 0}
     assert multi_row_counts() == {"flash_decode": 0, "flash_decode_paged": 0}
 
 

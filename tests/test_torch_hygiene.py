@@ -14,12 +14,14 @@ PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                       ROOT / "examples" / "quickstart_torch.py"]
 # Modules of the co-execution slice (the engine facade, the adaptive
-# schedulers and the two row-invariant kernels' wrappers) and of the
+# schedulers and the two row-invariant kernels' wrappers), of the
 # multi-group slice (placement and migration, elastic groups, the
-# observability endpoints).
+# observability endpoints) and of the MoE slice (the block, the grouped
+# expert GEMM's wrapper).
 SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
                  "kernels/gemm.py", "kernels/rms_norm.py", "serve/multigroup.py",
-                 "distributed/elastic.py", "distributed/__init__.py", "serve/http.py")
+                 "distributed/elastic.py", "distributed/__init__.py", "serve/http.py",
+                 "models/moe.py", "kernels/moe_gemm.py")
 
 
 def _imports(path):

@@ -43,7 +43,8 @@ def weights(request):
     return jcfg, jparams_, tcfg, tparams.load_jax_params(np_tree, tcfg, "cpu")
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["falcon-mamba-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ARCHS + ["falcon-mamba-7b", "recurrentgemma-2b", "arctic-480b",
+                                  "kimi-k2-1t-a32b", "codeqwen1.5-7b", "granite-34b"])
 def test_configs_are_copies(arch):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
@@ -52,7 +53,7 @@ def test_configs_are_copies(arch):
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        tconfigs.get_config("arctic-480b")
+        tconfigs.get_config("whisper-tiny")
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
 
