@@ -4,6 +4,8 @@ GPU.  Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
+(``--host-us`` runs only the ``[host]`` line.)
+
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
@@ -124,11 +126,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                and down over the buffer) at a random routing of the decode
                (8 tokens) and prefill (8 x 256) shapes, within 2e-2 rel.
                L2 of ``moe_gemm_plain`` (the reference's dense einsum),
-               timed beside its bound, ``torch.bmm`` over the capacity
-               buffer and a ``torch.matmul`` loop over the filled experts
-               (counts read on the host); a routed row bitwise equal at 1,
-               3 and 8 rows of its expert (C 8) and 8 and 48 (C 48).  Then
-               the launcher's graphed one-shot generate
+               each case's plan printed, timed beside its bound,
+               ``torch.bmm`` over the capacity buffer and a
+               ``torch.matmul`` loop over the filled experts (counts read
+               on the host); a routed row bitwise equal at 1, 3 and 8 rows
+               of its expert (C 8) and 8 and 48 (C 48), rows past the
+               counts zero, and the down row equal to ``gemm_rowinv``'s
+               product.  Then the launcher's graphed one-shot generate
                (``run_oneshot_main``) of 8 x 256 + 32: launches exactly
                flash_attention n, flash_decode n x 31, moe_gemm 2n, and the
                row kernels' counts (the router and arctic's dense residual
@@ -2936,6 +2940,7 @@ def run_moe_gemm_case(cfg, ex, tokens, fused, dev, flush, torch) -> dict:
                                  .bfloat16(), count, rows)
         args = (buf, w, count)
     E, K, N = w.shape
+    p = mg.plan(E, C, K, N, fused, torch.cuda.get_device_properties(dev).multi_processor_count)
     got = ops.moe_gemm(*args)
     torch.cuda.synchronize()
     want = mg.moe_gemm_plain(*args)
@@ -2964,25 +2969,28 @@ def run_moe_gemm_case(cfg, ex, tokens, fused, dev, flush, torch) -> dict:
     nbytes = 2 * (nw * len(live) * K * N + filled * K + E * C * N)
     flops = 2 * nw * filled * K * N
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bfloat16"] * 1e3
-    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=None if fused else bmm_ms, library_loop_ms=loop_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=bmm_ms,
+               library_loop_ms=loop_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               plan=p.describe())
     print(f"  moe_gemm | {name} (E {E}, C {C}, K {K}, N {N}; {len(live)} experts hold "
-          f"{filled} rows): rel L2 {rel:.3g}, max_abs_err={err:.3g}; kernel={ms:.4f} ms "
-          f"({nbytes / ms / 1e9:.3f} TB/s of {HBM_BYTES_PER_S / 1e12:.2f}) plain={plain_ms:.4f} ms "
-          f"torch.bmm over the buffer{' x2' if fused else ''}={bmm_ms:.4f} ms torch.matmul loop "
-          f"over the filled experts={loop_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']})", flush=True)
+          f"{filled} rows), plan {p.describe()}: rel L2 {rel:.3g}, max_abs_err={err:.3g}; "
+          f"kernel={ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s of "
+          f"{HBM_BYTES_PER_S / 1e12:.2f}, {rec['bound_ms'] / ms:.0%} of the bound) "
+          f"plain={plain_ms:.4f} ms torch.bmm over the buffer{' x2' if fused else ''}="
+          f"{bmm_ms:.4f} ms torch.matmul loop over the filled experts={loop_ms:.4f} ms "
+          f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})", flush=True)
     return rec
 
 
 def moe_row_contract(cfg, ex, dev, torch) -> None:
     """Held bitwise: a routed row of ``moe_gemm`` (gate/up fused, and
     down) gives the same bits with 1, 3 and 8 rows in its expert at C 8,
-    and with 8 and 48 rows at C 48, other experts filled beside it; and
-    the unfused row equals ``gemm_rowinv``'s product of the same row and
-    expert (printed: the same k16 chain)."""
+    and with 8 and 48 rows at C 48, other experts filled beside it; every
+    row past an expert's count is zero (the store loop and the
+    epilogue); and the down row equals ``gemm_rowinv``'s product of the
+    same row and expert (the same k16 chain).  The fused row against
+    PyTorch's silu(gemm_rowinv) * gemm_rowinv is printed."""
     from repro_torch.kernels import moe_gemm as mg
     from repro_torch.kernels import ops
 
@@ -2991,7 +2999,11 @@ def moe_row_contract(cfg, ex, dev, torch) -> None:
     g = torch.Generator(device=dev).manual_seed(11)
     xs = {True: torch.randn(48, cfg.d_model, generator=g, device=dev).bfloat16(),
           False: torch.randn(48, cfg.d_ff, generator=g, device=dev).bfloat16()}
-    same_as_gemm = []
+    x1 = xs[True][:1]
+    fused_as_torch = torch.nn.functional.silu(ops.linear(x1, ex["w_gate"][e0])) * ops.linear(
+        x1, ex["w_up"][e0])
+    down_as_gemm = ops.linear(xs[False][:1], ex["w_down"][e0])
+    same_fused = []
     for fused in (True, False):
         x, first = xs[fused], None
         for n, C in ((1, 8), (3, 8), (8, 8), (8, 48), (48, 48)):
@@ -2999,20 +3011,26 @@ def moe_row_contract(cfg, ex, dev, torch) -> None:
             rows[e0, :n] = torch.arange(n, dtype=torch.int32, device=dev)
             rows[E - 1, :min(n, 4)] = torch.arange(min(n, 4), dtype=torch.int32, device=dev) + 3
             count = (rows >= 0).sum(1).to(torch.int32)
+            past = torch.arange(C, device=dev)[None, :] >= count[:, None]
             if fused:
                 y = ops.moe_gemm(x, ex["w_gate"], count, rows, ex["w_up"])
             else:
                 y = ops.moe_gemm(mg.capacity_buffer(x, count, rows), ex["w_down"], count)
-                same_as_gemm.append(bool(torch.equal(y[e0, 0], ops.linear(x[:1], ex["w_down"][e0])[0])))
             torch.cuda.synchronize()
             first = y[e0, 0].clone() if first is None else first
-            if not torch.equal(y[e0, 0], first) or not (y[e0, n:] == 0).all():
+            if not torch.equal(y[e0, 0], first) or not (y[past] == 0).all():
                 fail(f"moe_gemm row contract ({'gate/up' if fused else 'down'}): row 0 of "
-                     f"expert {e0} with {n} rows at C {C} differs from its bits with 1 row at C 8, "
-                     f"or rows past the count are not zero")
-    print(f"  moe_gemm rows bitwise equal at 1, 3, 8 rows (C 8) and 8, 48 rows (C 48), gate/up "
-          f"and down (held); the down row equals gemm_rowinv's product of the same row: "
-          f"{same_as_gemm} (printed)", flush=True)
+                     f"expert {e0} with {n} rows at C {C} differs from its bits with 1 row at "
+                     f"C 8, or a row past its expert's count is not zero")
+            if fused:
+                same_fused.append(bool(torch.equal(y[e0, 0], fused_as_torch[0])))
+            elif not torch.equal(y[e0, 0], down_as_gemm[0]):
+                fail(f"moe_gemm row contract (down): row 0 of expert {e0} with {n} rows at "
+                     f"C {C} differs from gemm_rowinv's product of it")
+    print(f"  moe_gemm rows bitwise equal at 1, 3, 8 rows (C 8) and 8, 48 rows (C 48), "
+          f"gate/up and down, rows past the counts zero, the down row equal to gemm_rowinv's "
+          f"product (held); the gate/up row equal to silu(gemm_rowinv) * gemm_rowinv in "
+          f"PyTorch: {sum(same_fused)}/{len(same_fused)} (printed)", flush=True)
 
 
 def moe_drops(cfg, api, params, tokens, dev, torch) -> list:

@@ -16,6 +16,7 @@ bitwise one-shot generate of the same batch.
 Tolerance 1e-4 on float32 outputs: XLA and torch order float32 sums
 differently on the CPU.  Routing decisions (expert ids, the keep mask) are
 compared exactly."""
+import bisect
 import dataclasses
 
 import numpy as np
@@ -341,3 +342,141 @@ def test_server_streams_equal_one_shot_of_the_batch(arctic, impl, paged):
     if not any(int(d) for d in drops):
         for got, a in zip(served, alone):
             np.testing.assert_array_equal(got, a)
+
+
+# ---- moe_gemm's launch plan and tile walk (pure: no card) ----
+
+@pytest.mark.parametrize("fused", [True, False], ids=["gate-up", "down"])
+def test_moe_gemm_plan_follows_the_shape_alone(fused):
+    """The tile and stages follow ``fused`` alone, at every C, K, N and E
+    (decode's C 8 takes prefill's tile); the grid is one wave, at most one
+    block an SM of the card and at most the tiles a call could fill.  The
+    counts never reach the plan."""
+    bn = tmoe_gemm.PART if fused else 2 * tmoe_gemm.PART
+    for C in (8, 16, 24, 48, 56, 64, 128):
+        for K, N in ((7168, 4864), (4864, 7168), (7168, 2048), (2048, 7168), (24, 16)):
+            for E in (1, 4, 128, 384):
+                for sms in (132, 114, 78):
+                    p = tmoe_gemm.plan(E, C, K, N, fused, sms)
+                    assert p.tile == (tmoe_gemm.BM, bn, tmoe_gemm.BK) == (64, bn, 64)
+                    assert p.stages == tmoe_gemm.STAGES == 5
+                    most = E * -(-C // 64) * -(-N // bn)
+                    assert p.blocks == min(sms, most)
+    assert tmoe_gemm.plan(128, 8, 4864, 7168, False, 132).blocks == 132   # arctic decode down
+    assert tmoe_gemm.plan(4, 8, 24, 16, fused, 132).blocks == 4
+
+
+@pytest.mark.parametrize("K", [16, 24, 2048, 4864, 7168, 7176])
+def test_moe_gemm_chain_follows_K_alone(K):
+    """At every C, E, N, card and both forms, one chain of ceil(K/16) k16
+    steps with no split: what keeps a row's bits whatever C or the other
+    rows of its tile, and equal to ``gemm_rowinv``'s chain of the same
+    K."""
+    from repro_torch.kernels import gemm
+
+    chains = {tmoe_gemm.plan(E, C, K, 4096, fused, sms).chain
+              for E in (4, 128, 384) for C in (8, 16, 48, 200) for fused in (True, False)
+              for sms in (132, 78)}
+    assert chains == {("k16", -(-K // 16), 1)}
+    assert chains == {gemm.plan(m, 4096, K, 0, True).chain for m in (1, 8, 300)}
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+# Operands the kernel does not take, each refused before a build or launch.
+BAD_OPERANDS = {
+    "float32": (lambda: (torch.zeros(3, 8, 16), torch.zeros(3, 16, 24),
+                         torch.tensor([2, 0, 8], dtype=torch.int32)), TypeError),
+    "experts past MAX_E": (lambda: (_bf16(513, 8, 16), _bf16(513, 16, 24),
+                                    torch.zeros(513, dtype=torch.int32)), ValueError),
+    "int64 count": (lambda: (_bf16(3, 8, 16), _bf16(3, 16, 24),
+                             torch.tensor([2, 0, 8])), ValueError),
+    "row map of another E": (lambda: (_bf16(5, 16), _bf16(3, 16, 24),
+                                      torch.zeros(3, dtype=torch.int32),
+                                      torch.zeros(4, 8, dtype=torch.int32)), ValueError),
+    "buffer of another K": (lambda: (_bf16(3, 8, 32), _bf16(3, 16, 24),
+                                     torch.zeros(3, dtype=torch.int32)), ValueError),
+    "K not a multiple of 8": (lambda: (_bf16(3, 8, 12), _bf16(3, 12, 24),
+                                       torch.zeros(3, dtype=torch.int32)), ValueError),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_OPERANDS))
+def test_moe_gemm_refuses_operands_the_kernel_does_not_take(case):
+    """The CUDA wrapper's checks, which run before the kernel is built or
+    launched: bfloat16 only, at most ``MAX_E`` experts (the kernel's
+    shared-memory count table), int32 counts of (E,), a row map of (E, C),
+    the buffer's K that of the weights, K and N multiples of 8.  A tensor
+    on a device other than cuda or cpu is refused by ``moe_gemm`` itself."""
+    make, err = BAD_OPERANDS[case]
+    with pytest.raises(err):
+        tmoe_gemm._moe_gemm_cuda(*make(), *[None] * (5 - len(make())))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tmoe_gemm.moe_gemm(*[t.to("meta") for t in make()])
+
+
+def _counts(rng, E, C):
+    """Per-expert counts with empty experts, full ones and everything
+    between (and counts past C, which the kernel clamps)."""
+    kind = rng.integers(0, 4, E)
+    cnt = np.where(kind == 0, 0, np.where(kind == 1, C, rng.integers(0, C + 1, E)))
+    cnt[rng.integers(0, E)] = C + 5
+    return cnt.astype(np.int32)
+
+
+def _walk(count, C, N, p, blocks):
+    """A model of the walk ``csrc/moe_gemm.cu`` documents: for each of
+    ``blocks`` blocks, the tiles (expert, first row, first column) it
+    computes, in order.  Row tiles are ``ceil(min(count[e], C) / BM)`` an
+    expert, prefix-summed; tile t is the (t // tiles_n)-th filled row tile,
+    column tile t % tiles_n; block b takes t = b, b + blocks, ..."""
+    bm, bn, _ = p.tile
+    pre = [0]
+    for c in count:
+        pre.append(pre[-1] + -(-min(max(int(c), 0), C) // bm))
+    tiles_n = -(-N // bn)
+    out = []
+    for b in range(blocks):
+        mine = []
+        for t in range(b, pre[-1] * tiles_n, blocks):
+            u, nt = divmod(t, tiles_n)
+            e = bisect.bisect_right(pre, u) - 1
+            mine.append((e, (u - pre[e]) * bm, nt * bn))
+        out.append(mine)
+    return out
+
+
+@pytest.mark.parametrize("E,C,N", [(4, 8, 24), (128, 8, 7168), (128, 48, 4864),
+                                   (384, 56, 7168), (384, 8, 2048), (16, 200, 256)])
+def test_moe_gemm_walk_visits_every_filled_tile_once(E, C, N):
+    """The walk's scheme, as a model (``_walk``; the card's rel. L2 and
+    rows-past-count checks in chip_smoke.py cover the kernel itself):
+    under the plan's tile, fused or not, at the plan's grid and at other
+    block counts, it visits every filled (expert, row tile, column tile)
+    exactly once and no empty one; the epilogues' rows and the zero store
+    loop's (every row from an expert's first unfilled row tile on) cover
+    each of the E x C rows exactly once."""
+    rng = np.random.default_rng(E * 1000 + C)
+    for trial in range(3):
+        cnt = _counts(rng, E, C)
+        for fused in (True, False):
+            p = tmoe_gemm.plan(E, C, 7168, N, fused, 132)
+            bm, bn, _ = p.tile
+            filled = {(e, m0, n0) for e in range(E)
+                      for m0 in range(0, min(int(cnt[e]), C), bm)
+                      for n0 in range(0, N, bn)}
+            for blocks in {p.blocks, 1, 7, 264}:
+                walk = _walk(cnt, C, N, p, blocks)
+                assert len(walk) == blocks
+                seen = [t for mine in walk for t in mine]
+                assert len(seen) == len(set(seen)) and set(seen) == filled
+                for mine in walk:  # each block in ascending tile order
+                    assert mine == sorted(mine)
+            rows = np.zeros((E, C), np.int32)
+            for e, m0, _ in {(e, m0, 0) for e, m0, _ in filled}:
+                rows[e, m0:m0 + bm] += 1
+            for e in range(E):  # the store loop: rows past the filled tiles
+                rows[e, min(-(-min(int(cnt[e]), C) // bm) * bm, C):] += 1
+            assert (rows == 1).all()
