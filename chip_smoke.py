@@ -9,7 +9,7 @@ GPU.  Run from the repository root, with no arguments:
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
-2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (eight
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (nine
              libraries; flash_decode's holds its chunk launch too), one
              nvcc each, all started together; then one line
              of the decode key-chunk plan.
@@ -25,8 +25,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (the kernel's FMA sums and the plain version's cuBLAS products
              run in different orders); one ``scaled_dot_product_attention``
              call is timed beside each (here only; the port never calls
-             it).  ssm_scan and rglru_scan in float32 at 1e-4 at the
-             recurrent main paths' shapes, a 2048-step case and odd cases
+             it).  The audio and vlm paths' shapes: whisper-tiny's encoder
+             (32 x 1500 x 1500, hd 64, bidirectional), its cross-attention
+             at prefill (Sq 4, Sk 1500) and its decoder's causal prefill,
+             paligemma-3b's prefix-LM prefill (8 x 288, hd 256, MQA, prefix
+             256; sdpa takes the same boolean mask) and a float32 prefix
+             case with a window; whisper's cross-attention decode over 1500
+             valid keys and its self-attention decode.  ssm_scan and
+             rglru_scan in float32 at 1e-4 at the recurrent main paths' shapes, a 2048-step case and odd cases
              (ssm: di not a multiple of a block's channels, N not a power
              of two, N 32, and N 1 with di not a multiple of 4, which takes
              the 4-byte copies; rglru: S not a multiple of the unrolled
@@ -89,7 +95,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              (torch.matmul, here only).  Each line prints the plan
              (``gemm.plan``: route, tile, stages, the K chain) and the rate
              beside its bound.  ``rms_norm`` against its plain version,
-             beside F.rms_norm.  Held bitwise: row r of each kernel at M =
+             beside F.rms_norm; ``layer_norm`` against its plain version at
+             whisper-tiny's shapes (48000 x 384, 32 x 384, strided last
+             rows), odd and wide rows and float32, beside F.layer_norm, and
+             its rows bitwise at M 1, 3, 8 and 48000; whisper-tiny's
+             encoder fc1 and its tied head (N 51865: the ``plain`` route)
+             beside cuBLAS.  Held bitwise: row r of each kernel at M =
              1, 3, 8, 64, 65, 300, 2048 and 4096 (the routes' boundaries, a
              ragged tile, a 2 x 2048 prefill) equals the same row computed
              alone (the served-equals-one-shot contract); at each GEMM shape
@@ -240,6 +251,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              streams and launch counts held equal, epilogue and write-back
              per segment printed.  A failed capture raises and fails the
              run.
+             - ``[a9 path]``, the audio and vlm families
+               (``run_a9_path``): whisper-tiny, 4 + 4 layers, 32 requests x
+               4 prompt tokens (and 1500 frames) + 124 generated (a 30 s
+               window's transcript in 128 of its 448 positions):
+               flash_attention 12, flash_decode 8 x 123 (self and cross),
+               gemm_rowinv 65 + 33 x 123, layer_norm 22 + 13 x 123;
+               paligemma-3b, 18 layers, 8 x (256 patches + 32) + 32:
+               flash_attention 18 (prefix-LM mode), flash_decode 18 x 31
+               and the dense row-kernel counts.  Each: graphed == eager
+               (a call copying in the tokens and the frames or patches),
+               every layer of the prefill and of the first decode step
+               (whisper's encoder layers too) within 2e-2 of the reference
+               impl, teacher-forced; the whole stack's logits printed.
 5. coexec -- ``repro_torch.launch.serve --coexec --scheduler hguided
              --verify`` on qwen1.5-4b --full, 8 x 256 + 32: HGuided
              packages over two groups of cuda:0 (pod-a at power 2, pod-b
@@ -252,6 +276,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              one-shot path's; then the same with the groups' graphs off,
              held bitwise equal, launches packages times the one-shot
              path's; tokens/s, balance and each package's time printed.
+             Then whisper-tiny's 32 x 4 + 124 the same way, graphed only:
+             its frames a Program input sliced with the requests, the
+             package graphs taking them as inputs; bitwise one-shot, its
+             launches (packages + 1) times the one-shot path's.
              Then
              the paper's Listing 1 (examples/quickstart_torch.py) on
              ``discover(DeviceMask.ALL)``, which must be exactly cpu:0 and
@@ -268,7 +296,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
              flash_decode and flash_decode_paged, listed as
              flash_decode_verify and flash_decode_paged_verify with the
              [verify] cases of the self-draft served path's shapes, their
-             count on that path), then the last line
+             count on that path; layer_norm's on the whisper-tiny path;
+             flash_attention's prefix-LM mode, listed as
+             flash_attention_prefix with paligemma-3b's case, its count on
+             that path), then the last line
              ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -289,6 +320,15 @@ LAYER_REL_TOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 outside them
 GEN = 32
+# The A9 paths' shapes: whisper-tiny transcribes a 30 s window (1500 frames)
+# from a 4-token prompt into 128 of its 448 positions; paligemma-3b
+# captions 256 patches + a 32-token prompt.
+WHISPER_B, WHISPER_PROMPT, WHISPER_GEN = 32, 4, 124
+WHISPER_ENCODER = "prefill whisper-tiny encoder (hd 64, bidirectional 1500)"
+WHISPER_CROSS = "prefill whisper-tiny cross-attention (Sq 4, Sk 1500)"
+WHISPER_CROSS_DECODE = "decode whisper-tiny cross-attention (S 1500, every key valid)"
+PALIGEMMA_PREFIX = "prefill paligemma-3b prefix-LM (hd 256, MQA, P 256)"
+WHISPER_HEAD = "whisper-tiny decode tied head (N 51865, plain route)"
 SPIN_CYCLES = 2_000_000  # ~1.1 ms at the H100's 1.755 GHz boost clock
 
 
@@ -338,11 +378,12 @@ BATCH_INVARIANT = {"prefill qwen1.5-4b (main path)", "decode qwen1.5-4b (main pa
                    "decode recurrentgemma-2b (hd 256, MQA, window 2048)",
                    "falcon-mamba-7b prefill (main path)",
                    "prefill arctic-480b (n_rep 7)", "decode arctic-480b (n_rep 7)",
-                   "prefill kimi-k2-1t-a32b (hd 112)", "decode kimi-k2-1t-a32b (hd 112)"}
+                   "prefill kimi-k2-1t-a32b (hd 112)", "decode kimi-k2-1t-a32b (hd 112)",
+                   WHISPER_ENCODER, WHISPER_CROSS, PALIGEMMA_PREFIX, WHISPER_CROSS_DECODE}
 
 
 def attention_cases():
-    # name, B, Sq, Sk, H, KV, hd, causal, window, q_offset, dtype
+    # name, B, Sq, Sk, H, KV, hd, causal, window, q_offset, dtype[, prefix_len]
     return [
         ("prefill qwen1.5-4b (main path)", 8, 256, 256, 20, 20, 128, True, 0, 0, "bfloat16"),
         ("prefill qwen1.5-4b f32", 8, 256, 256, 20, 20, 128, True, 0, 0, "float32"),
@@ -358,6 +399,16 @@ def attention_cases():
         # The MoE paths' attention: arctic's GQA groups of 7 heads, kimi's hd 112.
         ("prefill arctic-480b (n_rep 7)", 8, 256, 256, 56, 8, 128, True, 0, 0, "bfloat16"),
         ("prefill kimi-k2-1t-a32b (hd 112)", 8, 256, 256, 64, 8, 112, True, 0, 0, "bfloat16"),
+        # The A9 paths: whisper-tiny's encoder and cross-attention at prefill
+        # (hd 64, bidirectional, Sk 1500 not a multiple of the tile), its
+        # decoder's causal prefill, and paligemma-3b's prefix-LM prefill.
+        (WHISPER_ENCODER, WHISPER_B, 1500, 1500, 6, 6, 64, False, 0, 0, "bfloat16"),
+        (WHISPER_CROSS, WHISPER_B, WHISPER_PROMPT, 1500, 6, 6, 64, False, 0, 0, "bfloat16"),
+        ("prefill whisper-tiny decoder self (causal, Sq 4)", WHISPER_B, WHISPER_PROMPT,
+         WHISPER_PROMPT, 6, 6, 64, True, 0, 0, "bfloat16"),
+        (PALIGEMMA_PREFIX, 8, 288, 288, 8, 1, 256, True, 0, 0, "bfloat16", 256),
+        ("prefill prefix-LM f32, GQA, window 64", 2, 200, 200, 8, 2, 64, True, 64, 0,
+         "float32", 96),
     ]
 
 
@@ -389,17 +440,24 @@ def decode_cases():
          "bfloat16", "bfloat16"),
         ("decode kimi-k2-1t-a32b (hd 112)", 8, 256 + GEN, 64, 8, 112, 1, [last] * 8, 0, 128,
          "bfloat16", "bfloat16"),
+        # whisper-tiny's decode: cross-attention over the 1500 encoder keys,
+        # every one valid, and self-attention at the path's last step.
+        (WHISPER_CROSS_DECODE, WHISPER_B, 1500, 6, 6, 64, 1, [1499] * WHISPER_B, 0, 128,
+         "bfloat16", "bfloat16"),
+        ("decode whisper-tiny self (hd 64)", WHISPER_B, WHISPER_PROMPT + WHISPER_GEN, 6, 6, 64,
+         1, [WHISPER_PROMPT + WHISPER_GEN - 2] * WHISPER_B, 0, 128, "bfloat16", "bfloat16"),
     ]
 
 
 def run_attention_case(case, dev, flush, torch, F, ops, fa):
-    name, b, sq, sk, h, kv, hd, causal, window, qoff, dname = case
+    name, b, sq, sk, h, kv, hd, causal, window, qoff, dname, *rest = case
+    prefix = rest[0] if rest else 0
     dt = getattr(torch, dname)
     g = torch.Generator(device=dev).manual_seed(len(name))
     q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt)
     k = torch.randn((b, sk, kv, hd), generator=g, device=dev).to(dt)
     v = torch.randn((b, sk, kv, hd), generator=g, device=dev).to(dt)
-    kw = dict(causal=causal, window=window, q_offset=qoff)
+    kw = dict(causal=causal, window=window, q_offset=qoff, prefix_len=prefix)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want = fa.flash_attention_plain(q, k, v, **kw)
@@ -419,12 +477,13 @@ def run_attention_case(case, dev, flush, torch, F, ops, fa):
     qpos = torch.arange(sq, device=dev)[:, None] + qoff
     kpos = torch.arange(sk, device=dev)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+    pre = (qpos < prefix) & (kpos < prefix)
     if causal:
-        mask &= kpos <= qpos
+        mask &= (kpos <= qpos) | pre
     if window > 0:
-        mask &= kpos > qpos - window
+        mask &= (kpos > qpos - window) | pre
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    plain_causal = causal and window == 0 and qoff == 0 and sq == sk
+    plain_causal = causal and window == 0 and qoff == 0 and sq == sk and not prefix
     lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, attn_mask=None if plain_causal else mask, is_causal=plain_causal,
         enable_gqa=h != kv)
@@ -437,7 +496,9 @@ def run_attention_case(case, dev, flush, torch, F, ops, fa):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dname] * 1e3
     rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"  flash_attention | {name}: max_abs_err={err:.3g} kernel={ms:.4f} ms "
+    plan = fa.launch_plan(b, sq, sk, h, kv, hd, dt, prefix_len=prefix)
+    print(f"  flash_attention | {name}: {plan['route']} body; max_abs_err={err:.3g} "
+          f"kernel={ms:.4f} ms "
           f"plain={plain_ms:.4f} ms sdpa={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})", flush=True)
     return rec
@@ -944,6 +1005,11 @@ def gemm_cases():
         ("float32 decode", 8, 2560, 2560, "kn", True, "float32", 0),
         ("float32 prefill, ragged", 300, 256, 300, "nk", False, "float32", 0),
         ("float32 gates, 10 blocks", 64, 256, 256, "kn", True, "float32", 10),
+        # whisper-tiny: the encoder's fc1 over 32 x 1500 frames, and the tied
+        # head, whose N 51865 (not a multiple of 8) takes the plain route.
+        ("whisper-tiny prefill encoder fc1 (M 48000)", WHISPER_B * 1500, 384, 1536, "kn", True,
+         "bfloat16", 0),
+        (WHISPER_HEAD, WHISPER_B, 384, 51865, "nk", False, "bfloat16", 0),
     ]
 
 
@@ -1074,7 +1140,7 @@ def run_row_checks(dev, torch, gemm, rn):
     ms = ", ".join(map(str, ROW_MS))
     for k, n, layout, has_bias in ((2560, 2560, "kn", True), (6912, 2560, "kn", False),
                                    (2560, 151936, "kn", False), (2560, 256000, "nk", False),
-                                   (8192, 288, "kn", False)):
+                                   (8192, 288, "kn", False), (384, 51865, "nk", False)):
         xk = x[:, :k] if k <= x.shape[1] else torch.randn((4096, k), generator=g,
                                                            device=dev).to(bf)
         w = (torch.randn((k, n) if layout == "kn" else (n, k), generator=g, device=dev)
@@ -1166,6 +1232,79 @@ def run_rms_norm_case(case, dev, flush, torch, rn):
     return rec
 
 
+def layer_norm_cases():
+    # name, rows, d, dtype, row stride (0: contiguous)
+    return [
+        ("whisper-tiny encoder, 32 x 1500 rows (main path)", WHISPER_B * 1500, 384, "bfloat16",
+         0),
+        ("whisper-tiny decode", WHISPER_B, 384, "bfloat16", 0),
+        ("whisper-tiny last rows of a prefill (strided)", WHISPER_B, 384, "bfloat16",
+         WHISPER_PROMPT * 384),
+        ("odd width", 7, 300, "bfloat16", 0),
+        ("wide rows, the loop that reads x again", 64, 5000, "bfloat16", 0),
+        ("float32", 2048, 384, "float32", 0),
+    ]
+
+
+def run_layer_norm_case(case, dev, flush, torch, ln):
+    """``layer_norm`` against its plain version at the tolerance of its
+    dtype, beside ``F.layer_norm`` (the library call: one fused pass, the
+    same function up to the cast before the scale).  Bound: x read and y
+    written once, w and b read, at 3.35 TB/s."""
+    from repro_torch.kernels.rms_norm import plan as norm_plan
+
+    name, rows, d, dname, ld = case
+    dt = getattr(torch, dname)
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    # A mean away from 0, as the centred variance must take it.
+    x = (torch.randn((rows, ld // d, d) if ld else (rows, d), generator=g, device=dev) * 3
+         + 1).to(dt)
+    if ld:
+        x = x[:, -1]
+    w = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+    b = (0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+    got = ln.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    want = ln.layer_norm_plain(x, w, b, 1e-5)
+    err = (got.float() - want.float()).abs().max().item()
+    tol = BF16_TOL if dname == "bfloat16" else F32_TOL
+    if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
+        fail(f"layer_norm {name}: max |kernel - plain| = {err} > tol {tol}")
+    ms = time_ms(lambda: ln.layer_norm(x, w, b, 1e-5), flush, 20)
+    plain_ms = time_ms(lambda: ln.layer_norm_plain(x, w, b, 1e-5), flush, 20)
+    lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(x, (d,), w, b, 1e-5), flush, 20)
+    nbytes = x.element_size() * (2 * rows * d + 2 * d)
+    flops = 8 * rows * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["float32"] * 1e3
+    rec = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+    print(f"  layer_norm | {name} ({rows} x {d}, {dname}, plan {norm_plan(d)}): "
+          f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+          f"F.layer_norm={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          flush=True)
+    return rec
+
+
+def run_layer_norm_rows(dev, torch, ln):
+    """layer_norm's rows bitwise at M 1, 3, 8 and 32 x 1500 (whisper's
+    decode, a ragged block, the prefill's encoder rows) against the same
+    row alone, in bf16 and float32; PyTorch's own LayerNorm beside it,
+    printed."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    ms = (1, 3, 8, WHISPER_B * 1500)
+    for d, dname in ((384, "bfloat16"), (384, "float32"), (300, "bfloat16")):
+        dt = getattr(torch, dname)
+        x = (torch.randn((max(ms), d), generator=g, device=dev) * 3 + 1).to(dt)
+        w = (1 + 0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+        b = (0.1 * torch.randn((d,), generator=g, device=dev)).to(dt)
+        held = row_invariance(f"layer_norm d {d} {dname}", lambda t: ln.layer_norm(t, w, b, 1e-5),
+                              x, torch, True, ms=ms)
+        lib = row_invariance("F.layer_norm", lambda t: torch.nn.functional.layer_norm(
+            t, (d,), w, b, 1e-5), x, torch, False, ms=ms)
+        print(f"  layer_norm | rows at M {', '.join(map(str, ms))} vs alone, d {d} {dname}: "
+              f"kernel {held} (held, bitwise); F.layer_norm {lib} (printed)", flush=True)
+
+
 def host_us(dev, torch, gemm, rn, calls: int = 1000) -> str:
     """The wrappers' host time per call at qwen1.5-4b's decode shapes: the
     mean over ``calls`` calls of ``gemm.linear`` (8 x 2560 by 2560 x 7680),
@@ -1229,18 +1368,22 @@ def max_sm_clock_hz() -> float:
 def prefill_logits(cfg, params, batch, gen, dev):
     from repro_torch.models import get_model
     from repro_torch.serve import zeros_cache
+    from repro_torch.serve.step import prefix_len
 
     api = get_model(cfg)
     b, s = batch["tokens"].shape
-    return api.prefill(params, batch, cfg, zeros_cache(cfg, api, b, s + gen, device=dev))[0]
+    cache = zeros_cache(cfg, api, b, prefix_len(cfg) + s + gen, device=dev)
+    return api.prefill(params, batch, cfg, cache)[0]
 
 
 # The products whose outputs a layer adds to the residual stream: the
 # attention output projection, the MLP's down projection (arctic's dense
-# residual branch's too), the Mamba and RG-LRU mixers' output projections;
+# residual branch's too), the Mamba and RG-LRU mixers' output projections,
+# whisper's self- and cross-attention outputs and its MLP's second product;
 # a MoE layer also adds its moe_ffn output (``layer_errors``).
 RESIDUAL_FEEDS = (("attn", "wo"), ("mlp", "w_down"), ("dense_mlp", "w_down"), ("out_proj",),
-                  ("mix", "wo"), ("mix", "out"))
+                  ("mix", "wo"), ("mix", "out"), ("self_attn", "wo"), ("cross_attn", "wo"),
+                  ("mlp", "w_out"))
 
 
 def residual_feeds(lp) -> set:
@@ -1279,11 +1422,16 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     from repro_torch.models import rglru as R
     from repro_torch.models import transformer as T
     from repro_torch.serve import zeros_cache
+    from repro_torch.serve.step import prefix_len
 
     stack = R if cfg.family == "hybrid" else T
     rcfg = dataclasses.replace(cfg, kernel_impl="reference")
     tokens = batch["tokens"]
     b, s = tokens.shape
+    # The vlm family's prefill runs its patches ahead of the prompt, under
+    # the prefix-LM mask.
+    pre = prefix_len(cfg)
+    s += pre
     caches = [zeros_cache(c, get_model(c), b, s + 1, device=dev) for c in (cfg, rcfg)]
     layers = [stack.stack_order(params, cache, cfg) for cache in caches]
     errs = {}
@@ -1307,6 +1455,10 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     try:
         for mode in modes:  # the prefill fills both caches for the decode step
             x = T.embed_tokens(params, tokens if mode == "prefill" else tokens[:, -1:], cfg)
+            kw = {}
+            if pre and mode == "prefill":
+                x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+                kw = {"prefix_len": pre}
             errs[mode], errs[mode + "_rounded"] = [], []
             for (apply, lp, kc), (_, _, rc) in zip(*layers):
                 feeds.clear()
@@ -1314,7 +1466,7 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
                 outs = []
                 for c, cache in ((cfg, kc), (rcfg, rc)):
                     fed.clear()
-                    y = apply(lp, x, positions, c, mode=mode, cache=cache, pos=s)[0]
+                    y = apply(lp, x, positions, c, mode=mode, cache=cache, pos=s, **kw)[0]
                     if not fed:
                         fail(f"{cfg.name}: no residual-feeding product seen in a {mode} layer")
                     outs.append((y, sum(fed)))
@@ -1328,6 +1480,73 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
     return errs
 
 
+def encdec_layer_errors(cfg, params, batch, dev, torch) -> dict:
+    """``layer_errors`` for the audio family: every encoder layer, then
+    every decoder layer of the prefill and of the first decode step (at
+    position S), one at a time, teacher-forced: each gets the reference
+    path's input (the decoder layers the reference's encoder output too),
+    runs once through the kernels and once through the dense reference on
+    a cache of its own, and gives the relative L2 distance of the two
+    updates before the bf16 residual add (the float32 sum of the outputs
+    of its ``wo`` and ``w_out`` products, biases included).  Returns
+    ``{"encoder": [...], "prefill": [...], "decode": [...]}`` and each
+    with ``_rounded`` (the rounded ``y - x``, printed)."""
+    from repro_torch.models import get_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper as W
+    from repro_torch.serve import zeros_cache
+
+    rcfg = dataclasses.replace(cfg, kernel_impl="reference")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    caches = [zeros_cache(c, get_model(c), b, s + 1, device=dev) for c in (cfg, rcfg)]
+    real_linear, feeds, fed = L.linear, set(), []
+
+    def linear(x, w, impl="reference", bias=None):
+        y = real_linear(x, w, impl, bias)
+        if w.data_ptr() in feeds:
+            fed.append(y.float())
+        return y
+
+    def run(name, lps, x, step):
+        errs[name], errs[name + "_rounded"] = [], []
+        for i, lp in enumerate(lps):
+            feeds.clear()
+            feeds.update(residual_feeds(lp))
+            outs = []
+            for c, cache in ((cfg, caches[0]), (rcfg, caches[1])):
+                fed.clear()
+                y = step(lp, x, c, cache, i)
+                if not fed:
+                    fail(f"{cfg.name}: no residual-feeding product seen in a {name} layer")
+                outs.append((y, sum(fed)))
+            (yk, uk), (yr, ur) = outs
+            errs[name].append(float((uk - ur).norm() / ur.norm()))
+            errs[name + "_rounded"].append(
+                float((yk - yr).float().norm() / (yr - x).float().norm()))
+            x = yr
+        return x
+
+    errs = {}
+    enc = [W._layer(params["enc_layers"], i) for i in range(cfg.enc_layers)]
+    dec = [W._layer(params["dec_layers"], i) for i in range(cfg.n_layers)]
+    L.linear = linear
+    try:
+        x = run("encoder", enc, W.encoder_input(batch["frames"], cfg),
+                lambda lp, x, c, cache, i: W._enc_layer(lp, x, c))
+        post = params["enc_ln_post"]
+        enc_out = L.layer_norm(x, post["w"], post["b"], cfg.norm_eps, "reference")
+        x, _ = W.decoder_input(params, tokens, cfg)
+        run("prefill", dec, x, lambda lp, x, c, cache, i: W._dec_layer(
+            lp, x, enc_out, c, mode="prefill", cache=W._layer(cache, i), posv=None))
+        x, posv = W.decoder_input(params, tokens[:, -1:], cfg, s)
+        run("decode", dec, x, lambda lp, x, c, cache, i: W._dec_layer(
+            lp, x, None, c, mode="decode", cache=W._layer(cache, i), posv=posv))
+    finally:
+        L.linear = real_linear
+    return errs
+
+
 # The port's kernels by their CUDA symbols (csrc/), longest match first.
 KERNEL_SYMBOLS = (("flash_decode_paged", "flash_decode_paged"),
                   ("flash_decode_chunk", "flash_decode_chunk"),
@@ -1335,7 +1554,8 @@ KERNEL_SYMBOLS = (("flash_decode_paged", "flash_decode_paged"),
                   ("combine_chunks_kernel", "flash_decode_combine"),
                   ("flash_decode", "flash_decode"), ("flash_attention", "flash_attention"),
                   ("gemm_wgmma_kernel", "gemm_rowinv"), ("gemm_f32_kernel", "gemm_rowinv"),
-                  ("rms_norm_kernel", "rms_norm"), ("moe_gemm_kernel", "moe_gemm"),
+                  ("rms_norm_kernel", "rms_norm"), ("layer_norm_kernel", "layer_norm"),
+                  ("moe_gemm_kernel", "moe_gemm"),
                   ("ssm_scan_kernel", "ssm_scan"),
                   ("rglru_scan_kernel", "rglru_scan"))
 
@@ -1489,9 +1709,12 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
     from repro_torch.kernels import gemm
     from repro_torch.models import get_model
     from repro_torch.serve import make_decode_chain, make_generate, make_prefill_step, zeros_cache
+    from repro_torch.serve.step import prefix_len
 
+    t_start = time.perf_counter()
     api = get_model(cfg)
     b, s = batch["tokens"].shape
+    s += prefix_len(cfg)  # the vlm family's patches sit ahead of the prompt
     steps = 8
     prefill = make_prefill_step(cfg, api)
     cache = zeros_cache(cfg, api, b, s + steps + 1, device=dev)
@@ -1535,9 +1758,11 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
             ev[1].record()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us() / 1e3)
-                        for e in prof.events()
-                        if e.device_type == torch.autograd.DeviceType.CUDA)
+        # The raw trace, not prof.events(): building the event tree of a
+        # region's CPU ops and kernels takes the host seconds.
+        events = sorted((e.start_ns(), e.name(), e.duration_ns() / 1e6)
+                        for e in prof.profiler.kineto_results.events()
+                        if e.device_type() == torch.autograd.DeviceType.CUDA)
         pad = sum("spin_kernel" in name for _, name, _ in events)
         events = [e for e in events if "spin_kernel" not in e[1]]
         names[region] = [name for _, name, _ in events]
@@ -1590,7 +1815,7 @@ def profile_steps(cfg, params, batch, dev, torch) -> dict:
           f"{out['decode_8_steps_graph']['device_busy_ms']:.1f} / wall "
           f"{out['decode_8_steps_graph']['wall_ms']:.1f} ms (profiler on); capture of both "
           f"{capture_s:.3f} s ({loops_line(out['graph_loops'])}); no replay encoded a TMA map "
-          f"(held)", flush=True)
+          f"(held); the pass took {time.perf_counter() - t_start:.1f} s", flush=True)
     return out
 
 
@@ -1611,9 +1836,10 @@ def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
     timed (host clock to the tokens on the host).  Held: every call's
     tokens bitwise ``want`` (the launcher's graphed run); the graphed
     generate captured its two graphs once, with no warm-up clone, and
-    replayed each once a call, its second call copying in the prompt tokens
-    only (the prefill graph writes the chain's static cache, token and
-    start position)."""
+    replayed each once a call, its second call copying in the batch's
+    leaves only, the prompt tokens (and the audio family's frames or the vlm
+    family's patches): the prefill graph writes the chain's static cache,
+    token and start position."""
     import numpy as np
 
     from repro_torch.core.trace import Tracer, set_tracer
@@ -1642,11 +1868,13 @@ def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
             st = generate.graphs.stats()
             copies, nbytes = st["copy_ins"] - before[0], st["copy_in_bytes"] - before[1]
             replay_ms = {name: ms for name, _, _, ms in st["per_replay"][:2]}
-            if (st["captures"], st["replays"], copies, st["warmup_clone_bytes"]) != (2, 4, 1, 0):
+            leaves = len(batch)
+            if (st["captures"], st["replays"], copies, st["warmup_clone_bytes"]) != (
+                    2, 4, leaves, 0):
                 fail(f"{cfg.name}: graphed generate captured {st['captures']}, replayed "
                      f"{st['replays']}, copied {copies} inputs in on its second call, cloned "
-                     f"{st['warmup_clone_bytes']} B for warm-ups; want 2, 4, 1 (the prompt "
-                     f"tokens), 0")
+                     f"{st['warmup_clone_bytes']} B for warm-ups; want 2, 4, {leaves} (the "
+                     f"batch's leaves {sorted(batch)}), 0")
             rec.update(captures=st["captures"], replays=st["replays"],
                        second_call_copy_ins=copies, second_call_copy_in_bytes=nbytes,
                        first_call_replay_device_ms=replay_ms, loops=st["loops"],
@@ -1658,40 +1886,52 @@ def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
           f"({out['graph']['wall_s']:.3f} s); capture {out['graph']['capture_s']:.3f} s; graphed "
           f"tokens bitwise eager (held); second graphed call copied in "
           f"{out['graph']['second_call_copy_ins']} inputs, "
-          f"{out['graph']['second_call_copy_in_bytes']} B (the prompt tokens; held); the first "
+          f"{out['graph']['second_call_copy_in_bytes']} B ({' and '.join(sorted(batch))}; "
+          f"held); the first "
           f"call's replays took the card {out['graph']['first_call_replay_device_ms']} ms (CUDA "
           f"events); capture {loops_line(out['graph']['loops'])}", flush=True)
     return out
 
 
 def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
-    """Launches of the two row kernels in ``forwards`` passes of the
+    """Launches of the row kernels in ``forwards`` passes of the
     full-width stack (a prefill or one decode step each; ``n_layers``
-    overrides the depth): one GEMM per product of models/ (dense layer: q,
-    k, v, o and three MLP products; MoE layer: q, k, v, o, the router and,
-    with a dense residual, its three products; Mamba layer: in_proj,
-    x_proj, dt_proj, out_proj; recurrent layer: in_y, in_x, the two
-    block-diagonal gates and out, plus three MLP products), one for the
+    overrides the depth): one GEMM per product of models/ (dense and vlm
+    layer: q, k, v, o and three MLP products; MoE layer: q, k, v, o, the
+    router and, with a dense residual, its three products; Mamba layer:
+    in_proj, x_proj, dt_proj, out_proj; recurrent layer: in_y, in_x, the
+    two block-diagonal gates and out, plus three MLP products), one for the
     head; one rms_norm per norm of a layer and the final one; two
-    ``moe_gemm`` per MoE layer (gate and up fused, then down)."""
+    ``moe_gemm`` per MoE layer (gate and up fused, then down).  The audio
+    family's first pass is its prefill, the rest decode steps: a prefill
+    runs per encoder layer q, k, v, o and two MLP products and two
+    layer_norms, then the encoder's final norm, per decoder layer its self
+    q, k, v, o, its cross q, k, v (over the frames), o and two MLP products
+    and three norms, then the final norm and the head; a decode step per
+    decoder layer 8 products (no cross k, v: they are cached) and three
+    norms, then the final norm and the head."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     n = n_layers or cfg.n_layers
     moe = 0
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         gemm, norms = 7 * n + 1, 2 * n + 1
     elif cfg.family == "moe":
         gemm, norms, moe = (5 + 3 * cfg.dense_residual) * n + 1, 2 * n + 1, 2 * n
     elif cfg.family == "ssm":
         gemm, norms = 4 * n + 1, n + 1
+    elif cfg.family == "audio":
+        e, steps = cfg.enc_layers, forwards - 1
+        return {"gemm_rowinv": 6 * e + 10 * n + 1 + (8 * n + 1) * steps, "rms_norm": 0,
+                "moe_gemm": 0, "layer_norm": 2 * e + 3 * n + 2 + (3 * n + 1) * steps}
     else:
         pat = cfg.block_pattern
         kinds = list(pat) * (n // len(pat)) + list(pat[: n % len(pat)])
         rec = kinds.count("rec")
         gemm, norms = 8 * rec + 7 * (n - rec) + 1, 2 * n + 1
     return {"gemm_rowinv": gemm * forwards, "rms_norm": norms * forwards,
-            "moe_gemm": moe * forwards}
+            "moe_gemm": moe * forwards, "layer_norm": 0}
 
 
 def main_paths():
@@ -1793,6 +2033,134 @@ def run_main_path(argv, dev, torch, modes) -> dict:
           f"{out['logits_rel_l2_f32_reference_embed_one_ulp']:.3g}", flush=True)
     print(f"  generate's first token = argmax of its prefill logits: {first_ok}", flush=True)
     return out
+
+
+def a9_paths():
+    """(arch, requests, prompt length, generated, launches wanted) of the
+    audio and vlm families' one-shot paths, full width and depth.
+    whisper-tiny: flash_attention on every encoder layer and, at the
+    prefill, on each decoder layer's causal self-attention and its
+    cross-attention over the 1500 frames; flash_decode twice a decoder
+    layer a step (self over the cache, cross over the encoder's keys).
+    paligemma-3b: the dense counts, its 18 prefills in prefix-LM mode."""
+    def want(arch, gen, fa, fd):
+        return {"flash_attention": fa, "flash_decode": fd, "flash_decode_paged": 0,
+                "ssm_scan": 0, "rglru_scan": 0, **row_kernel_launches(arch, gen)}
+
+    from repro_torch.configs import get_config
+
+    w, p = get_config("whisper-tiny"), get_config("paligemma-3b")
+    return [
+        (w.name, WHISPER_B, WHISPER_PROMPT, WHISPER_GEN,
+         want(w.name, WHISPER_GEN, w.enc_layers + 2 * w.n_layers,
+              2 * w.n_layers * (WHISPER_GEN - 1))),
+        (p.name, 8, 32, GEN, want(p.name, GEN, p.n_layers, p.n_layers * (GEN - 1))),
+    ]
+
+
+def run_a9_path(argv, dev, torch) -> dict:
+    """The launcher's one-shot generate of an audio or vlm model (its batch
+    carries frames or image patches) with the launch counts zeroed just
+    before and read just after; then one-shot generate eager and graphed
+    (``oneshot_modes``: graphed bits = eager bits, a call copying in the
+    tokens and the frames or patches); every layer of the prefill and of
+    the first decode step (whisper: every encoder layer too) held within
+    2e-2 relative L2 of the reference impl's (``kernel_impl="reference"``:
+    dense torch attention, torch.matmul, PyTorch's norms) on the same bf16
+    weights, teacher-forced (``layer_errors``, ``encdec_layer_errors``);
+    the first token the prefill's argmax; the profiler pass
+    (``profile_steps``: busy against wall, ``[B7]``).  The prefill's
+    last-row logits of the whole stack are printed beside, not held: with
+    random weights the float32 reference moves as far when its input (the
+    frames, the token embeddings) moves by one ulp."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import cast_params_cached
+
+    ops.reset_launch_counts()
+    result = serve.main(argv)
+    counts = ops.launch_counts()
+    toks = result["tokens"]
+    args = serve.parse_args(argv)
+    cfg, api, params = serve.load_model(args)
+    if toks.shape != (args.requests, args.gen) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"{cfg.name}: tokens of shape {toks.shape} in [{toks.min()}, {toks.max()}]")
+    g = result["graphs"]
+    if g["captures"] != 2 or g["replays"] != 2 or g["warmup_clone_bytes"]:
+        fail(f"{cfg.name}: the launcher's generate captured {g['captures']} and replayed "
+             f"{g['replays']} graphs, cloning {g['warmup_clone_bytes']} B; want 2, 2, 0")
+    batch = serve.load_batch(cfg, args)
+    modes = oneshot_modes(cfg, api, params, batch, args.gen, toks, torch)
+    cast = cast_params_cached(params, cfg.compute_dtype)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    ref = dataclasses.replace(cfg, kernel_impl="reference")
+    lk = prefill_logits(cfg, cast, batch, args.gen, dev)
+    lr = prefill_logits(ref, cast, batch, args.gen, dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ref32 = dataclasses.replace(ref, compute_dtype="float32")
+    lk32 = prefill_logits(f32, params, batch, args.gen, dev)
+    lr32 = prefill_logits(ref32, params, batch, args.gen, dev)
+    # The stack's input one float32 ulp off: the frames (the encoder's
+    # input) for the audio family, the token embeddings for the vlm family.
+    inf = torch.tensor(float("inf"), device=dev)
+    if cfg.family == "audio":
+        nudged = dict(batch, frames=torch.nextafter(batch["frames"].float(), inf))
+        ln32 = prefill_logits(ref32, params, nudged, args.gen, dev)
+    else:
+        nudged = dict(params, embed=torch.nextafter(params["embed"], inf))
+        ln32 = prefill_logits(ref32, nudged, batch, args.gen, dev)
+    del nudged
+    if not all(torch.isfinite(x).all() for x in (lk, lr, lk32, lr32, ln32)):
+        fail(f"{cfg.name}: non-finite first-token logits")
+    first_ok = bool((lk.argmax(-1)[:, 0].int().cpu().numpy() == toks[:, 0]).all())
+    if cfg.family == "audio":
+        errs = encdec_layer_errors(cfg, cast, batch, dev, torch)
+    else:
+        errs = layer_errors(cfg, cast, batch, dev, torch, ("prefill", "decode"))
+    rounded = {m: errs.pop(m + "_rounded") for m in list(errs) if not m.endswith("_rounded")}
+    out = {"counts": counts, "arch": cfg.name, "layers": cfg.n_layers,
+           "requests": args.requests, "prompt_len": args.prompt_len, "gen": args.gen,
+           "wall_s": result["wall_s"], "tokens_per_s": result["tokens_per_s"],
+           "capture_s": result["capture_s"], "oneshot_modes": modes,
+           "peak_memory_bytes": result["peak_memory_bytes"],
+           "first_token_is_prefill_argmax": first_ok,
+           **{f"layer_rel_l2_max_bf16_{m}": max(e) for m, e in errs.items()},
+           **{f"layer_rel_l2_max_bf16_{m}_rounded_update": max(e) for m, e in rounded.items()},
+           "logits_rel_l2_bf16": rel(lk, lr), "logits_rel_l2_f32": rel(lk32, lr32),
+           "logits_rel_l2_bf16_reference_vs_f32_reference": rel(lr, lr32),
+           "logits_rel_l2_f32_reference_input_one_ulp": rel(ln32, lr32)}
+    for mode, e in errs.items():
+        print(f"  per-layer bf16 {mode} update before the residual add, kernel vs reference: "
+              f"max rel L2 {max(e):.3g} (held, tol {LAYER_REL_TOL}; layers 0-3: "
+              f"{[round(x, 5) for x in e[:4]]}); of the rounded update y - x (printed): max "
+              f"{max(rounded[mode]):.3g}", flush=True)
+    print(f"  {cfg.name}: prefill last-row logits of the whole stack (printed, not held), "
+          f"kernels vs reference impl: rel L2 {out['logits_rel_l2_bf16']:.3g} in bf16, "
+          f"{out['logits_rel_l2_f32']:.3g} in float32; the bf16 reference vs the float32 "
+          f"reference {out['logits_rel_l2_bf16_reference_vs_f32_reference']:.3g}; the float32 "
+          f"reference vs itself with its {'frames' if cfg.family == 'audio' else 'embeddings'} "
+          f"one ulp off {out['logits_rel_l2_f32_reference_input_one_ulp']:.3g}; generate's "
+          f"first token = "
+          f"argmax of its prefill logits: {first_ok}; one-shot {result['tokens_per_s']:.1f} "
+          f"tokens/s, capture {result['capture_s']:.3f} s, peak memory "
+          f"{(result['peak_memory_bytes'] or 0) / 2**30:.2f} GiB", flush=True)
+    for mode, e in errs.items():
+        if max(e) > LAYER_REL_TOL:
+            fail(f"{cfg.name}: a bf16 {mode} layer through the kernels disagrees with the "
+                 f"reference ({max(e):.3g})")
+    if not first_ok:
+        fail(f"{cfg.name}: generate's first token is not the argmax of its prefill logits")
+    out["profile"] = profile_steps(cfg, cast, batch, dev, torch)
+    return out
+
+
+WHISPER_COEXEC_ARGV = ["--arch", "whisper-tiny", "--full", "--coexec", "--scheduler", "hguided",
+                       "--verify", "--requests", str(WHISPER_B), "--prompt-len",
+                       str(WHISPER_PROMPT), "--gen", str(WHISPER_GEN), "--seed", "0",
+                       "--kernel", "cuda"]
 
 
 SERVER_ARGV = ["--arch", "qwen1.5-4b", "--full", "--server", "--paged", "--block-len", "16",
@@ -2259,7 +2627,7 @@ def _launches(n, fa=0, fd=0, fdp=0, forwards=(), arch="qwen1.5-4b") -> dict:
     and the row kernels' of each (forwards, layers) pair."""
     want = {"flash_attention": fa, "flash_decode": fd,
             "flash_decode_paged": fdp, "ssm_scan": 0, "rglru_scan": 0,
-            "gemm_rowinv": 0, "rms_norm": 0, "moe_gemm": 0}
+            "gemm_rowinv": 0, "rms_norm": 0, "moe_gemm": 0, "layer_norm": 0}
     for f, layers in forwards:
         for name, c in row_kernel_launches(arch, f, layers).items():
             want[name] += c
@@ -2715,7 +3083,7 @@ COEXEC_ARGV = ["--arch", "qwen1.5-4b", "--full", "--coexec", "--scheduler", "hgu
                "--seed", "0", "--kernel", "cuda"]
 
 
-def run_coexec_path(dev, torch) -> dict:
+def run_coexec_path(dev, torch, argv=COEXEC_ARGV, one=None, modes=MODES) -> dict:
     """The launcher's co-executed generate (``--coexec --scheduler hguided
     --verify``): the 8 requests cut into HGuided packages over pod-a and
     pod-b, two groups of cuda:0 with a CUDA stream each, every package a
@@ -2734,31 +3102,36 @@ def run_coexec_path(dev, torch) -> dict:
     verifying one-shot run) is one generate, so every kernel's count must be
     (packages (+ 1)) times the one-shot path's.  Each group must have run a
     package and, graphed, replayed one graph per package, captured once per
-    package shape, with no warm-up clone."""
+    package shape, with no warm-up clone.  ``argv`` and ``one`` (the
+    one-shot path's counts) name another co-executed path, ``modes`` the
+    runs it takes (the audio family's frames reach each package as a
+    Program input, sliced with its requests)."""
     import numpy as np
 
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
 
-    one = main_paths()[0][4]  # the one-shot qwen1.5-4b path's counts, 8 x 256 + GEN
-    args = serve.parse_args(COEXEC_ARGV)
+    if one is None:
+        one = main_paths()[0][4]  # the one-shot qwen1.5-4b path's counts, 8 x 256 + GEN
+    args = serve.parse_args(argv)
     out = {"arch": args.arch, "requests": args.requests, "prompt_len": args.prompt_len,
            "gen": args.gen, "scheduler": args.scheduler}
     ops.reset_launch_counts()
-    result = serve.main(COEXEC_ARGV)
+    result = serve.main(argv)
     counts = ops.launch_counts()
     if not result.get("verified"):
         fail("co-executed generate was not verified against one-shot generate")
     runs = {"graph": (result, counts, 1)}
     gc.collect()
-    cfg, api, params = serve.load_model(args)
-    batch = serve.load_batch(cfg, args)
-    ops.reset_launch_counts()
-    eager = serve.run_coexec(cfg, api, params, batch, args, graph=False)
-    runs["eager"] = (eager, ops.launch_counts(), 0)
-    if not np.array_equal(eager["tokens"], result["tokens"]):
-        fail("eager co-executed tokens differ from the graphed (verified) ones")
-    for mode in ("eager", "graph"):
+    if "eager" in modes:
+        cfg, api, params = serve.load_model(args)
+        batch = serve.load_batch(cfg, args)
+        ops.reset_launch_counts()
+        eager = serve.run_coexec(cfg, api, params, batch, args, graph=False)
+        runs["eager"] = (eager, ops.launch_counts(), 0)
+        if not np.array_equal(eager["tokens"], result["tokens"]):
+            fail("eager co-executed tokens differ from the graphed (verified) ones")
+    for mode in modes:
         res, counts, extra = runs[mode]
         pk = res["packages"]
         n_pk = sum(len(v) for v in pk.values())
@@ -3197,6 +3570,23 @@ def run_moe_served(cfg, api, params, dev, torch) -> dict:
             "tokens_per_s": result["tokens_per_s"], "wall_s": result["wall_s"]}
 
 
+def summary_row(path: str, rec: dict) -> dict:
+    """A one-shot path's row of the ``[graph]`` table: its profiled prefill
+    and 8 decode steps (busy and wall, eager and graphed), its one-shot
+    tokens/s both ways and its capture seconds."""
+    prof, om = rec["profile"], rec["oneshot_modes"]
+    return {"path": path,
+            **{f"{p}_{k}_{m}": prof[r][k]
+               for p, m, r in (("decode_8", "eager", "decode_8_steps"),
+                               ("decode_8", "graph", "decode_8_steps_graph"),
+                               ("prefill", "eager", "prefill"),
+                               ("prefill", "graph", "prefill_graph"))
+               for k in ("device_busy_ms", "wall_ms")},
+            "tokens_per_s_eager": om["eager"]["tokens_per_s"],
+            "tokens_per_s_graph": om["graph"]["tokens_per_s"],
+            "capture_s": om["graph"]["capture_s"]}
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
@@ -3231,6 +3621,7 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import gemm
+    from repro_torch.kernels import layer_norm as ln
     from repro_torch.kernels import rglru_scan as rg
     from repro_torch.kernels import rms_norm as rn
     from repro_torch.kernels import ssm_scan as ss
@@ -3261,6 +3652,8 @@ def main() -> None:
     for case in attention_cases():
         rec = run_attention_case(case, dev, flush, torch, F, ops, fa)
         recs.setdefault("flash_attention", rec)
+        if case[0] == PALIGEMMA_PREFIX:
+            recs["flash_attention_prefix"] = rec
     for case in decode_cases():
         rec = run_decode_case(case, dev, flush, torch, F, ops, fd, attn)
         recs.setdefault("flash_decode", rec)
@@ -3294,7 +3687,11 @@ def main() -> None:
     for case in rms_norm_cases():
         rec = run_rms_norm_case(case, dev, flush, torch, rn)
         recs.setdefault("rms_norm", rec)
+    for case in layer_norm_cases():
+        rec = run_layer_norm_case(case, dev, flush, torch, ln)
+        recs.setdefault("layer_norm", rec)
     run_row_checks(dev, torch, gemm, rn)
+    run_layer_norm_rows(dev, torch, ln)
     print(host_us(dev, torch, gemm, rn), flush=True)
     del flush
     gc.collect()
@@ -3319,21 +3716,37 @@ def main() -> None:
         if not mp["first_token_is_prefill_argmax"]:
             fail(f"{arch}: generate's first token is not the argmax of its prefill logits")
         print(json.dumps({"main_path": mp}))
-        prof, om = mp["profile"], mp["oneshot_modes"]
-        summary["main_paths"].append({
-            "path": f"{arch} {requests} x {prompt_len} + {gen}",
-            **{f"{p}_{k}_{m}": prof[r][k]
-               for p, m, r in (("decode_8", "eager", "decode_8_steps"),
-                               ("decode_8", "graph", "decode_8_steps_graph"),
-                               ("prefill", "eager", "prefill"),
-                               ("prefill", "graph", "prefill_graph"))
-               for k in ("device_busy_ms", "wall_ms")},
-            "tokens_per_s_eager": om["eager"]["tokens_per_s"],
-            "tokens_per_s_graph": om["graph"]["tokens_per_s"],
-            "capture_s": om["graph"]["capture_s"]})
+        summary["main_paths"].append(summary_row(f"{arch} {requests} x {prompt_len} + {gen}",
+                                                 mp))
         for name, n in counts.items():
             if n:
                 launches.setdefault(name, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+              flush=True)
+
+    a9_counts = {}
+    for arch, requests, prompt_len, gen, want in a9_paths():
+        print(at() + f" [a9 path] repro_torch.launch.serve one-shot generate, {arch} --full, "
+              f"{requests} x {prompt_len} + {gen}", flush=True)
+        argv = ["--arch", arch, "--full", "--requests", str(requests), "--prompt-len",
+                str(prompt_len), "--gen", str(gen), "--seed", "0", "--kernel", "cuda"]
+        ap = run_a9_path(argv, dev, torch)
+        counts = ap.pop("counts")
+        print(f"  launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"{arch} path launch counts {counts} != {want}")
+        print(json.dumps({"a9_path": ap}))
+        summary["main_paths"].append(summary_row(f"{arch} {requests} x {prompt_len} + {gen}",
+                                                 ap))
+        a9_counts[arch] = want
+        if arch == "paligemma-3b":
+            launches["flash_attention_prefix"] = counts["flash_attention"]
+        for name, n in counts.items():
+            if n:
+                launches.setdefault(name, n)
+        del ap
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
@@ -3345,18 +3758,8 @@ def main() -> None:
         print(json.dumps({"moe_path": mo}))
         recs.setdefault("moe_gemm", rec)
         if "profile" in mo:
-            prof, om = mo["profile"], mo["oneshot_modes"]
-            summary["main_paths"].append({
-                "path": f"{arch} (depth {depth}) 8 x 256 + {GEN}",
-                **{f"{p}_{k}_{m}": prof[r][k]
-                   for p, m, r in (("decode_8", "eager", "decode_8_steps"),
-                                   ("decode_8", "graph", "decode_8_steps_graph"),
-                                   ("prefill", "eager", "prefill"),
-                                   ("prefill", "graph", "prefill_graph"))
-                   for k in ("device_busy_ms", "wall_ms")},
-                "tokens_per_s_eager": om["eager"]["tokens_per_s"],
-                "tokens_per_s_graph": om["graph"]["tokens_per_s"],
-                "capture_s": om["graph"]["capture_s"]})
+            summary["main_paths"].append(summary_row(f"{arch} (depth {depth}) 8 x 256 + {GEN}",
+                                                     mo))
             summary["served_paths"].append((f"{arch} served, arrivals 1 ms apart",
                                             mo["served"]["modes"]))
         for name, n in counts.items():
@@ -3434,6 +3837,15 @@ def main() -> None:
                          for m in MODES}
     gc.collect()
     torch.cuda.empty_cache()
+    print(at() + f" [coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
+          f"whisper-tiny --full, {WHISPER_B} x {WHISPER_PROMPT} + {WHISPER_GEN} (the frames a "
+          f"Program input beside the tokens), graphed, groups pod-a and pod-b on cuda:0",
+          flush=True)
+    wx = run_coexec_path(dev, torch, WHISPER_COEXEC_ARGV, a9_counts["whisper-tiny"],
+                         ("graph",))
+    print(json.dumps({"whisper_coexec_path": wx}))
+    gc.collect()
+    torch.cuda.empty_cache()
     print(at() + " [coexec] the paper's Listing 1 (examples/quickstart_torch.py) on "
           "discover(DeviceMask.ALL) under HGuided(adaptive=True)", flush=True)
     print(json.dumps({"listing1": run_listing1(torch)}))
@@ -3463,6 +3875,13 @@ def main() -> None:
                                "src/repro/models/layers.py:195"),
                "rms_norm": ("src/repro_torch/csrc/rms_norm.cu",
                             "src/repro/models/layers.py:15"),
+               "layer_norm": ("src/repro_torch/csrc/layer_norm.cu",
+                              "src/repro/models/layers.py:22"),
+               # flash_attention's prefix-LM mode: the JAX package computes
+               # it in plain jnp (models/attention.py:108), never through
+               # its pallas_call.
+               "flash_attention_prefix": ("src/repro_torch/csrc/flash_attention.cu",
+                                          "src/repro/models/attention.py:108"),
                "moe_gemm": ("src/repro_torch/csrc/moe_gemm.cu", MOE_REPLACES)}
     kernels = [dict(name=n, route="cuda", source=src, replaces=rep, launches=launches[n],
                     **recs[n]) for n, (src, rep) in sources.items()]

@@ -13,7 +13,9 @@ from repro_torch.configs import (  # noqa: F401
     granite_34b,
     internlm2_20b,
     kimi_k2_1t,
+    paligemma_3b,
     qwen15_4b,
     recurrentgemma_2b,
+    whisper_tiny,
 )
 from repro_torch.configs.reduced import reduced  # noqa: F401

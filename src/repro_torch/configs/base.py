@@ -82,13 +82,6 @@ class ShapeCell:
 
 _REGISTRY: dict = {}
 
-# Archs of the JAX package whose family or config the port has not taken
-# over yet, with the ROADMAP.md item that brings each in.
-UNPORTED = {
-    "whisper-tiny": "A9 (audio family)",
-    "paligemma-3b": "A9 (vlm prefix-LM attention)",
-}
-
 
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
@@ -101,8 +94,4 @@ def get_config(name: str) -> ModelConfig:
 
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet: ROADMAP.md "
-            f"item {UNPORTED[name]}")
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")

@@ -167,15 +167,20 @@ struct RowMap {
 
 // Row r sits at absolute position base + r / div.  A key recorded at kp is
 // valid for it iff 0 <= kp, kp <= position (when causal) and
-// kp > position - window (when window > 0).
+// kp > position - window (when window > 0).  A prefix-LM mask (prefix > 0,
+// PaliGemma's prefill) also lets a row inside the prefix see every key of
+// the prefix, whatever the causal and window limits: the causal limit of
+// row p is max(p, prefix - 1).
 struct Mask {
   int base;
   int div;
   int causal;
   int window;
+  int prefix = 0;
   __device__ __forceinline__ bool operator()(int r, int kp) const {
     const int rp = base + r / div;
-    return kp >= 0 && (!causal || kp <= rp) && (window <= 0 || kp > rp - window);
+    const bool pre = rp < prefix && kp < prefix;
+    return kp >= 0 && (!causal || kp <= rp || pre) && (window <= 0 || kp > rp - window || pre);
   }
 };
 

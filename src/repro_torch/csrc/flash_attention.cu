@@ -5,7 +5,12 @@
 // (B,Sk,KV,hd); causal with q_offset (query i sits at position
 // i + q_offset), sliding window, or bidirectional; GQA reads kv head
 // h / n_rep; keys past Sk are masked (the reference's kv-length mask on
-// its padded tail).  Online softmax over KV tiles in float32.
+// its padded tail).  Online softmax over KV tiles in float32.  A prefix
+// length P > 0 makes the causal mask a prefix-LM one (PaliGemma's prefill,
+// which the JAX package computes in plain jnp, models/attention.py:108-125):
+// rows inside the first P positions see all of them, so the causal limit
+// of row p is max(p, P - 1) and the tile range of a block reaching the
+// prefix runs to the prefix's last tile.
 //
 // Bound on the card, at the main path's shapes (qwen1.5-4b, 8 x 256, H 20,
 // hd 128, causal): q, k, v and out are 41.9 MB, 0.0125 ms at 3.35 TB/s,
@@ -34,11 +39,12 @@
 
 namespace repro {
 
-// Tiles [lo, hi) of bk keys that rows at positions first..last can reach.
+// Tiles [lo, hi) of bk keys that rows at positions first..last can reach
+// (rows inside a prefix of P positions reach all of it).
 __device__ __forceinline__ int2 tile_range(int first, int last, int Sk, int bk, int causal,
-                                           int window) {
-  const int kv_end = causal ? min(Sk, last + 1) : Sk;
-  const int kv_begin = window > 0 ? max(0, first - window + 1) : 0;
+                                           int window, int prefix) {
+  const int kv_end = causal ? min(Sk, max(last, prefix - 1) + 1) : Sk;
+  const int kv_begin = window > 0 && first >= prefix ? max(0, first - window + 1) : 0;
   const int lo = kv_begin / bk;
   return make_int2(lo, kv_end > kv_begin ? (kv_end + bk - 1) / bk : lo);
 }
@@ -48,16 +54,16 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
                            int H, int KV, int hd, int bq, int bk, int causal, int window,
-                           int q_offset, float scale) {
+                           int q_offset, int prefix, float scale) {
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / KV);
   const int q0 = blockIdx.x * bq;
   const int rows = min(bq, Sq - q0);
   const int first = q0 + q_offset;  // absolute positions of the tile's rows
-  const int2 tr = tile_range(first, first + rows - 1, Sk, bk, causal, window);
+  const int2 tr = tile_range(first, first + rows - 1, Sk, bk, causal, window, prefix);
   const RowMap rm{(((size_t)b * Sq + q0) * H + h) * hd, 1, (size_t)H * hd};
-  const Mask mask{first, 1, causal, window};
+  const Mask mask{first, 1, causal, window, prefix};
   const ContigTiles tiles{((size_t)b * Sk * KV + g) * hd, (size_t)KV * hd, nullptr, Sk, bk};
   attend_rows<T, T>(q, out, rm, rows, k, v, tiles, tr.x, tr.y, bk, hd, scale, mask);
 }
@@ -69,7 +75,7 @@ __global__ void __launch_bounds__(mma::kThreads)
                                const __nv_bfloat16* __restrict__ v,
                                __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV,
                                int G, int bk, int sb, int causal, int window, int q_offset,
-                               float scale_log2) {
+                               int prefix, float scale_log2) {
   const int n_rep = H / KV, groups = n_rep / G;
   const int bgh = blockIdx.x;  // (batch, kv head, head group)
   const int b = bgh / (KV * groups), rest = bgh - b * KV * groups;
@@ -79,10 +85,10 @@ __global__ void __launch_bounds__(mma::kThreads)
   const int r0 = (gridDim.y - 1 - blockIdx.y) * mma::kRows;
   const int rows = min(mma::kRows, Sq * G - r0);
   const int2 tr = tile_range(q_offset + r0 / G, q_offset + (r0 + rows - 1) / G, Sk, bk,
-                             causal, window);
+                             causal, window, prefix);
   const RowMap rm{((size_t)b * Sq * H + (size_t)g * n_rep + (size_t)hg * G) * HD, G,
                   (size_t)H * HD};
-  const Mask mask{q_offset, G, causal, window};
+  const Mask mask{q_offset, G, causal, window, prefix};
   const ContigTiles tiles{((size_t)b * Sk * KV + g) * HD, (size_t)KV * HD, nullptr, Sk, bk};
   mma::attend_rows_mma<HD, KW>(q, out, mma::Partial{nullptr, nullptr}, rm, r0, rows, k, v,
                                tiles, tr.x, tr.y, bk, sb, scale_log2, mask);
@@ -91,7 +97,7 @@ __global__ void __launch_bounds__(mma::kThreads)
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                    int Sk, int H, int KV, int hd, int bq, int bk, int causal, int window,
-                   int q_offset, float scale, cudaStream_t stream) {
+                   int q_offset, int prefix, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(bq, hd, bk);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -100,14 +106,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((Sq + bq - 1) / bq, B * H);
   flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, KV, hd, bq, bk, causal, window, q_offset, scale);
+      static_cast<T*>(out), Sq, Sk, H, KV, hd, bq, bk, causal, window, q_offset, prefix,
+      scale);
   return cudaGetLastError();
 }
 
 template <int HD, int KW>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                        int Sk, int H, int KV, int G, int bk, const mma::Plan& p, int causal,
-                       int window, int q_offset, float scale, cudaStream_t stream) {
+                       int window, int q_offset, int prefix, float scale,
+                       cudaStream_t stream) {
   const size_t smem = mma::smem_bytes(p, HD);
   auto kernel = flash_attention_mma_kernel<HD, KW>;
   cudaError_t err =
@@ -117,7 +125,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   kernel<<<grid, mma::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
-      G, bk, p.sb, causal, window, q_offset, scale * mma::kLog2e);
+      G, bk, p.sb, causal, window, q_offset, prefix, scale * mma::kLog2e);
   return cudaGetLastError();
 }
 
@@ -133,14 +141,15 @@ inline int heads_per_block(int n_rep) {
 
 // dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 at hd 64/112/128/256 with bk
 // a multiple of 16 runs the tensor-core body (bq is then the fixed 64 rows of
-// a block); everything else runs attend_rows.  Returns a cudaError_t value.
+// a block); everything else runs attend_rows.  prefix: the prefix-LM length
+// (0: none).  Returns a cudaError_t value.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int Sq, int Sk, int H, int KV, int hd, int bq,
-                                      int bk, int causal, int window, int q_offset,
+                                      int bk, int causal, int window, int q_offset, int prefix,
                                       float scale, int dtype, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || bq <= 0 ||
-      bq > kMaxRows || bk <= 0 || bk > kMaxBlockK)
+      bq > kMaxRows || bk <= 0 || bk > kMaxBlockK || prefix < 0)
     return cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   const mma::Plan p = mma::plan(mma::kRows, bk, hd);
@@ -151,7 +160,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 #define REPRO_FA_MMA(HD_, KW_)                                                              \
   if (hd == HD_ && p.kw == KW_)                                                             \
     return launch_mma<HD_, KW_>(q, k, v, out, B, Sq, Sk, H, KV, G, bk, p, causal, window,  \
-                                q_offset, scale, st);
+                                q_offset, prefix, scale, st);
     REPRO_FA_MMA(64, 16) REPRO_FA_MMA(64, 32) REPRO_FA_MMA(64, 64)
     REPRO_FA_MMA(112, 16) REPRO_FA_MMA(112, 32) REPRO_FA_MMA(112, 64)
     REPRO_FA_MMA(128, 16) REPRO_FA_MMA(128, 32) REPRO_FA_MMA(128, 64)
@@ -163,9 +172,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
     return cudaErrorInvalidValue;
   if (dtype == 1)
     return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd, bq, bk, causal, window,
-                                 q_offset, scale, st);
+                                 q_offset, prefix, scale, st);
   if (dtype == 0)
     return launch<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, bq, bk, causal, window,
-                         q_offset, scale, st);
+                         q_offset, prefix, scale, st);
   return cudaErrorInvalidValue;
 }

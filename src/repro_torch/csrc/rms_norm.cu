@@ -9,11 +9,12 @@
 // per row from the number of rows, so the sum of squares of a row is added
 // in another order at M = 1 than at M = 2048.
 //
-// Here one warp owns one row, four rows a block.  The row is cut into
-// chunks of 8 elements (16 bytes in bf16); lane l owns chunks l, l + 32,
-// l + 64, ... and sums their squares in that order, element by element,
-// then a fixed shuffle tree (xor 16, 8, 4, 2, 1) adds the lanes.  The order
-// is set by d alone: not by the number of rows, nor by the load path.
+// Here one warp owns one row, four rows a block (norm_rows.cuh).  The row is
+// cut into chunks of 8 elements (16 bytes in bf16); lane l owns chunks l,
+// l + 32, l + 64, ... and sums their squares in that order, element by
+// element, then a fixed shuffle tree (xor 16, 8, 4, 2, 1) adds the lanes.
+// The order is set by d alone: not by the number of rows, nor by the load
+// path.
 // Bound on the card: bytes (each row read once and written once).  The
 // design keeps to one read and one trip to memory: a lane issues all its
 // loads of x and w before the sum (decode's few rows are bound by that
@@ -21,87 +22,10 @@
 // lane: 10 at d 2560, 16 at d 4096); 16-byte loads and stores where the row
 // start is 16-byte aligned, element loads in the same order otherwise.
 // Rows longer than 16 chunks a lane (d > 4096) read x a second time.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "norm_rows.cuh"
 
 namespace repro {
 namespace norm {
-
-constexpr int kRows = 4;  // rows (warps) of one block
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// One chunk of 8 elements as loaded: one 16-byte word in bf16, two in
-// float32.
-template <typename T>
-struct Chunk {
-  uint4 q[sizeof(T) / 2];
-};
-
-__device__ __forceinline__ uint32_t word(const uint4& u, int i) {
-  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
-}
-
-// Element e of a chunk in float32 (e a constant after unrolling).
-template <typename T>
-__device__ __forceinline__ float elem(const Chunk<T>& c, int e) {
-  if constexpr (sizeof(T) == 2) {
-    const uint32_t u = word(c.q[0], e / 2);
-    return __uint_as_float(e % 2 ? u & 0xffff0000u : u << 16);
-  } else {
-    return __uint_as_float(word(c.q[e / 4], e % 4));
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t bits(T v) {
-  if constexpr (sizeof(T) == 2)
-    return __bfloat16_as_ushort(v);
-  else
-    return __float_as_uint(v);
-}
-
-// Chunk c of a row: 16-byte loads where it lies wholly in the row and the
-// row is aligned (vec), element loads otherwise; zeros past d.
-template <typename T>
-__device__ __forceinline__ Chunk<T> load_chunk(const T* p, int c, int d, bool vec) {
-  Chunk<T> out;
-  if (vec && 8 * c + 8 <= d) {
-#pragma unroll
-    for (int i = 0; i < (int)sizeof(T) / 2; ++i) out.q[i] = reinterpret_cast<const uint4*>(p + 8 * c)[i];
-  } else {
-    uint32_t v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = 8 * c + e < d ? bits(p[8 * c + e]) : 0u;
-#pragma unroll
-    for (int i = 0; i < (int)sizeof(T) / 2; ++i) {
-      if constexpr (sizeof(T) == 2)
-        out.q[i] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
-                              v[6] | v[7] << 16);
-      else
-        out.q[i] = make_uint4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
-    }
-  }
-  return out;
-}
 
 // Normalize, round to T, times w, round; 16-byte stores where allowed.
 template <typename T>
@@ -150,8 +74,7 @@ __global__ void __launch_bounds__(32 * kRows)
       if (lane + 32 * j < chunks)
 #pragma unroll
         for (int e = 0; e < 8; ++e) s = fmaf(elem(xv[j], e), elem(xv[j], e), s);
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+    s = warp_sum(s);
     const float r = rsqrtf(s / (float)d + eps);
 #pragma unroll
     for (int j = 0; j < VPL; ++j) {
@@ -164,8 +87,7 @@ __global__ void __launch_bounds__(32 * kRows)
 #pragma unroll
       for (int e = 0; e < 8; ++e) s = fmaf(elem(v, e), elem(v, e), s);
     }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) s += __shfl_xor_sync(0xffffffffu, s, o);
+    s = warp_sum(s);
     const float r = rsqrtf(s / (float)d + eps);
     for (int c = lane; c < chunks; c += 32)
       store_chunk(yr, load_chunk(xr, c, d, vec), load_chunk(w, c, d, vec_out), r, c, d, vec_out);

@@ -5,7 +5,11 @@ Port of the JAX package's Pallas TPU kernel ``kernels/flash_attention.py``
 ``(B,Sq,H,hd)``, k/v ``(B,Sk,KV,hd)``; causal with ``q_offset``, sliding
 window or bidirectional; GQA reads kv head ``h // n_rep``; online softmax
 over KV tiles in float32 with p cast to v's dtype before PV; tiles outside
-the mask are skipped.
+the mask are skipped.  ``prefix_len`` P > 0 makes the causal mask a
+prefix-LM one, PaliGemma's prefill (the JAX package's
+``models/attention.py:_prefix_lm_attention``, plain ``jnp`` there): rows
+inside the first P positions see all of them, so a row at p sees keys up to
+max(p, P - 1), and the window does not cut the prefix for its rows.
 
 ``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
 on CUDA tensors and runs ``flash_attention_plain``, the same tiles and masks
@@ -33,17 +37,20 @@ NEG_INF = -1e30
 BLOCK_K = 64
 
 
-def _tile_range(first: int, last: int, sk: int, bk: int, causal: bool, window: int):
-    """KV tiles [lo, hi) that rows at positions first..last can reach."""
-    kv_end = min(sk, last + 1) if causal else sk
-    kv_begin = max(0, first - window + 1) if window > 0 else 0
+def _tile_range(first: int, last: int, sk: int, bk: int, causal: bool, window: int,
+                prefix_len: int = 0):
+    """KV tiles [lo, hi) that rows at positions first..last can reach (rows
+    inside a prefix of ``prefix_len`` positions reach all of it)."""
+    kv_end = min(sk, max(last, prefix_len - 1) + 1) if causal else sk
+    kv_begin = max(0, first - window + 1) if window > 0 and first >= prefix_len else 0
     lo = kv_begin // bk
     hi = -(-kv_end // bk) if kv_end > kv_begin else lo
     return lo, hi
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          q_offset: int = 0, block_q: int = 64, block_k: int = BLOCK_K):
+                          q_offset: int = 0, prefix_len: int = 0, block_q: int = 64,
+                          block_k: int = BLOCK_K):
     """The kernel's function in PyTorch: per q tile, a loop over the KV
     tiles its rows can reach, with the kernel's masks, float32 online
     softmax and explicit p = 0 for masked keys.  The CPU path, and the
@@ -61,7 +68,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         m = torch.full((b, h, rows), NEG_INF, device=q.device)
         l = torch.zeros((b, h, rows), device=q.device)
         acc = torch.zeros((b, h, rows, hd), device=q.device)
-        lo, hi = _tile_range(first, first + rows - 1, sk, block_k, causal, window)
+        lo, hi = _tile_range(first, first + rows - 1, sk, block_k, causal, window, prefix_len)
         for t in range(lo, hi):
             kb = k[:, t * block_k:(t + 1) * block_k]
             vb = v[:, t * block_k:(t + 1) * block_k]
@@ -70,10 +77,11 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
             s = s * scale
             kpos = t * block_k + torch.arange(kc, device=q.device)
             valid = torch.ones((rows, kc), dtype=torch.bool, device=q.device)
+            pre = (qpos[:, None] < prefix_len) & (kpos[None, :] < prefix_len)
             if causal:
-                valid &= kpos[None, :] <= qpos[:, None]
+                valid &= (kpos[None, :] <= qpos[:, None]) | pre
             if window > 0:
-                valid &= kpos[None, :] > qpos[:, None] - window
+                valid &= (kpos[None, :] > qpos[:, None] - window) | pre
             s = torch.where(valid, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.where(valid, torch.exp(s - m_new[..., None]), 0.0)
@@ -95,7 +103,7 @@ def heads_per_block(n_rep: int) -> int:
 
 
 def launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype, *,
-                block_q: int = 64, block_k: int = BLOCK_K) -> dict:
+                block_q: int = 64, block_k: int = BLOCK_K, prefix_len: int = 0) -> dict:
     """Shape admission of the CUDA kernel, as ``flash_attention_launch``
     checks it: the body (``"mma"`` or ``"fma"``), tile sizes, grid and
     dynamic shared memory of a launch.  Raises ValueError on a shape the
@@ -104,6 +112,7 @@ def launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype, *,
 
     req = _build.require
     req(min(b, sq, sk, h, kv, hd) > 0, "empty shape")
+    req(prefix_len >= 0, f"prefix_len={prefix_len} < 0")
     req(h % kv == 0, f"H={h} is not a multiple of KV={kv}")
     req(dtype in _build.DTYPE_CODES, f"kernel takes float32 or bfloat16, got {dtype}")
     req(hd * (4 if dtype == torch.float32 else 2) % 16 == 0,
@@ -128,22 +137,24 @@ def launch_plan(b: int, sq: int, sk: int, h: int, kv: int, hd: int, dtype, *,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
-                    block_q: int = 64, block_k: int = BLOCK_K):
+                    prefix_len: int = 0, block_q: int = 64, block_k: int = BLOCK_K):
     """q: (B,Sq,H,hd), k/v: (B,Sk,KV,hd) with H % KV == 0, one dtype
-    (float32 or bfloat16).  Returns (B,Sq,H,hd).
+    (float32 or bfloat16).  Returns (B,Sq,H,hd).  ``prefix_len`` > 0: the
+    prefix-LM mask (see the module's docstring).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`flash_attention_plain`."""
+    kw = dict(causal=causal, window=window, q_offset=q_offset, prefix_len=prefix_len,
+              block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     q_offset=q_offset, block_q=block_q, block_k=block_k)
+        return flash_attention_plain(q, k, v, **kw)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
-    return _flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset, block_q=block_q, block_k=block_k)
+    return _flash_attention_cuda(q, k, v, **kw)
 
 
-def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, block_q, block_k):
+def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, prefix_len, block_q,
+                          block_k):
     import ctypes
 
     from repro_torch.kernels import _build
@@ -155,19 +166,20 @@ def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, block_q, block_k
     req(k.shape == v.shape and k.shape[0] == b and k.shape[3] == hd,
         f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not match q {tuple(q.shape)}")
     req(q.dtype == k.dtype == v.dtype, "q, k and v share one dtype")
-    plan = launch_plan(b, sq, sk, h, kvh, hd, q.dtype, block_q=block_q, block_k=block_k)
+    plan = launch_plan(b, sq, sk, h, kvh, hd, q.dtype, block_q=block_q, block_k=block_k,
+                       prefix_len=prefix_len)
     loaded = (q, k, v) if plan["route"] == "mma" else (k, v)  # by 16-byte copies
     req(all(t.data_ptr() % 16 == 0 for t in loaded),
         "q (tensor-core body) and k/v must be 16-byte aligned (the kernel's loads)")
     req(all(t.is_contiguous() for t in (q, k, v)), "contiguous tensors")
     out = torch.empty_like(q)
     fn = _build.kernel_fn("flash_attention", "flash_attention_launch",
-                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float]
+                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float]
                           + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  b, sq, sk, h, kvh, hd, plan["block_q"], plan["block_k"], int(causal), window,
-                 q_offset, hd ** -0.5, _build.dtype_code(q),
+                 q_offset, prefix_len, hd ** -0.5, _build.dtype_code(q),
                  torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention", err)
     _build.count("flash_attention")

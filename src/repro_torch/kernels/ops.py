@@ -17,6 +17,7 @@ from repro_torch.kernels.flash_decode import (  # noqa: F401
     needed_tiles,
 )
 from repro_torch.kernels.gemm import linear  # noqa: F401
+from repro_torch.kernels.layer_norm import layer_norm  # noqa: F401
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: F401
 from repro_torch.kernels.rglru_scan import rglru_scan  # noqa: F401
 from repro_torch.kernels.rms_norm import rms_norm  # noqa: F401

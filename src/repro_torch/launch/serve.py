@@ -8,6 +8,12 @@ generate, and the continuous-batching server.
     # on the CPU, reduced config, kernels' plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-4b --device cpu
 
+    # the audio (whisper-tiny) and vlm (paligemma-3b) families: their batch
+    # carries frames or image patches beside the tokens; one-shot and
+    # co-executed generate (the server refuses them, as the JAX batcher
+    # cannot prefill them)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --device cpu
+
     # co-executed through the EngineCL runtime: the request batch split in
     # packages over two groups of the run's device, checked bitwise
     # against one-shot generate
@@ -206,10 +212,23 @@ def load_model(args):
 
 
 def load_batch(cfg, args) -> dict:
-    cell = ShapeCell("serve", args.prompt_len, args.requests, "prefill")
+    """The one-shot batch on the run's device: the tokens, and the
+    patches or frames in the compute dtype (as the JAX package's batch).
+    Under a context cap (``max_decode_ctx``, whisper's) the prompt is cut
+    so that it and ``--gen`` fit, where the JAX package's generate would
+    drop the cache writes past the cap."""
+    prompt_len = args.prompt_len
+    if cfg.max_decode_ctx:
+        prompt_len = min(prompt_len, cfg.max_decode_ctx - args.gen)
+        if prompt_len < 1:
+            raise ValueError(f"--gen {args.gen} leaves no prompt within {cfg.name}'s "
+                             f"max_decode_ctx {cfg.max_decode_ctx}")
+    cell = ShapeCell("serve", prompt_len, args.requests, "prefill")
     batch = make_batch(cfg, cell, args.seed + 1)
     device = resolve_device(args.device)
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    dt = getattr(torch, cfg.compute_dtype)
+    return {k: torch.from_numpy(v).to(device, dt if v.dtype.kind == "f" else None)
+            for k, v in batch.items()}
 
 
 def run_oneshot(cfg, api, params, batch, gen: int):
@@ -474,8 +493,12 @@ def run_coexec(cfg, api, params, batch, args, *, graph: bool = True) -> dict:
 
         _build.build()
 
-    def kern(offset, tokens):
-        return generate(params, {"tokens": tokens}, args.gen)
+    # The batch's other leaves (frames, patches) are Program inputs too,
+    # sliced by work item with the tokens, as the JAX launcher passes them.
+    extra = sorted(k for k in batch if k != "tokens")
+
+    def kern(offset, tokens, *extras):
+        return generate(params, {"tokens": tokens, **dict(zip(extra, extras))}, args.gen)
 
     if not graph:
         graphs.passthrough(kern)
@@ -483,6 +506,8 @@ def run_coexec(cfg, api, params, batch, args, *, graph: bool = True) -> dict:
     out = torch.zeros((args.requests, args.gen), dtype=torch.int32)
     prog = (Program().in_(batch["tokens"].cpu()).out(out).kernel(kern, "generate")
             .work_items(args.requests, 1))
+    for name in extra:
+        prog.in_(batch[name].cpu())
     eng = EngineCL().use(*groups).scheduler(SCHEDULERS[args.scheduler]()).program(prog)
     if device.type == "cuda":
         torch.cuda.synchronize()

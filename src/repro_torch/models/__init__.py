@@ -28,14 +28,19 @@ class ModelAPI(NamedTuple):
 def get_model(cfg) -> ModelAPI:
     if cfg.kernel_impl not in KERNEL_IMPLS:
         raise ValueError(f"kernel_impl {cfg.kernel_impl!r} is not one of {KERNEL_IMPLS}")
-    if cfg.family in ("dense", "moe", "ssm"):
+    if cfg.family in ("dense", "moe", "ssm", "vlm"):
         from repro_torch.models import transformer as T
 
-        chunk = T.prefill_chunk if cfg.family != "ssm" else None
+        # Chunked prefill of a prefix-LM prompt is not ported: the server,
+        # its only caller, refuses the vlm family.
+        chunk = T.prefill_chunk if cfg.family in ("dense", "moe") else None
         return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode, chunk)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru as R
 
         return ModelAPI(R.param_spec, R.cache_spec, R.prefill, R.decode)
-    raise NotImplementedError(
-        f"family {cfg.family!r} is not ported to repro_torch yet: ROADMAP.md item A9")
+    if cfg.family == "audio":
+        from repro_torch.models import whisper as W
+
+        return ModelAPI(W.param_spec, W.cache_spec, W.prefill, W.decode)
+    raise ValueError(f"unknown family {cfg.family!r}")

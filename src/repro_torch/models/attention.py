@@ -90,9 +90,31 @@ def _write(cache, slot, k, v, positions, keep=None):
         leaf.index_put_((bidx, slot), new)
 
 
-def prefill_with_cache(p, x, positions, cfg, cache, *, window=0):
+def _prefix_lm_attention(q, k, v, prefix_len: int, window: int):
+    """PaliGemma-style: bidirectional over the first ``prefix_len``
+    positions, causal elsewhere; causal plus a bidirectional prefix patch,
+    as the JAX package computes it (dense, materialized ``repeat_kv``)."""
+    b, s, h, hd = q.shape
+    kk = L.repeat_kv(k, h // k.shape[2])
+    vv = L.repeat_kv(v, h // v.shape[2])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float()) * (hd ** -0.5)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    pre = (qpos < prefix_len) & (kpos < prefix_len)
+    mask = (kpos <= qpos) | pre
+    if window:
+        mask &= (kpos > qpos - window) | pre
+    logits = logits.masked_fill(~mask, L.NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+
+
+def prefill_with_cache(p, x, positions, cfg, cache, *, window=0, prefix_len=0):
     """Prefill that also fills the cache (in place). Assumes S <= cache
-    length for a full cache; a rolling cache keeps the trailing window."""
+    length for a full cache; a rolling cache keeps the trailing window.
+    ``prefix_len`` > 0: the prefix-LM mask (the vlm family's image
+    patches), on ``flash_attention``'s prefix mode under
+    ``kernel_impl="cuda"``."""
     q, k, v = _project_qkv(p, x, positions, cfg)
     s = x.shape[1]
     cs = cache["k"].shape[1]
@@ -103,7 +125,14 @@ def prefill_with_cache(p, x, positions, cfg, cache, *, window=0):
         k_w, v_w, pos_w = k, v, positions
     slot = pos_w % cs if window else pos_w
     _write(cache, slot.long(), k_w, v_w, pos_w)
-    out = L.attention(q, k, v, cfg, causal=True, window=window)
+    if prefix_len and cfg.kernel_impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        out = kops.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
+    elif prefix_len:
+        out = _prefix_lm_attention(q, k, v, prefix_len, window)
+    else:
+        out = L.attention(q, k, v, cfg, causal=True, window=window)
     return _out_proj(out, p["wo"], cfg.kernel_impl), cache
 
 

@@ -7,11 +7,12 @@ before the product: the products of bf16 values are exact in float32, so
 only the order of the sums differs.
 
 Every product of an activation with a weight goes through :func:`linear`,
-and every norm through :func:`rms_norm`.  Under ``kernel_impl="cuda"``
-(``impl`` here) they run the row-invariant kernels of ``kernels/gemm.py``
-and ``kernels/rms_norm.py``, whose rows do not depend on the batch around
+and every norm through :func:`rms_norm` or :func:`layer_norm`.  Under
+``kernel_impl="cuda"`` (``impl`` here) they run the row-invariant kernels
+of ``kernels/gemm.py``, ``kernels/rms_norm.py`` and
+``kernels/layer_norm.py``, whose rows do not depend on the batch around
 them (the served-equals-one-shot contract); otherwise ``torch.matmul`` and
-PyTorch's reduction.
+PyTorch's reductions.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.gemm import linear_plain
+from repro_torch.kernels.layer_norm import layer_norm_plain
 from repro_torch.kernels.rms_norm import rms_norm_plain
 
 NEG_INF = -1e30
@@ -33,6 +35,18 @@ def rms_norm(x, weight, eps: float, impl: str = "reference"):
 
         return kops.rms_norm(x, weight, eps)
     return rms_norm_plain(x, weight, eps)
+
+
+def layer_norm(x, weight, bias, eps: float, impl: str = "reference"):
+    """LayerNorm with bias: mean and centred variance in float32, the
+    normalized row cast back to x's dtype, *then* scaled and shifted.
+    ``impl="cuda"``: the row-invariant kernel (its plain version for CPU
+    tensors)."""
+    if impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.layer_norm(x, weight, bias, eps)
+    return layer_norm_plain(x, weight, bias, eps)
 
 
 def linear(x, w, impl: str = "reference", bias=None):
@@ -194,3 +208,9 @@ def swiglu(x, w_gate, w_up, w_down, impl: str = "reference"):
 def geglu(x, w_gate, w_up, w_down, impl: str = "reference"):
     h = F.gelu(linear(x, w_gate, impl), approximate="tanh") * linear(x, w_up, impl)
     return linear(h, w_down, impl)
+
+
+def gelu_mlp(x, w_in, b_in, w_out, b_out, impl: str = "reference"):
+    """Exact (erf) GELU between two biased products (whisper's MLP)."""
+    h = F.gelu(linear(x, w_in, impl, b_in), approximate="none")
+    return linear(h, w_out, impl, b_out)

@@ -12,9 +12,11 @@ Block interface (as in the JAX package):
 
 The moe family (arctic, kimi-k2) swaps the block for ``moe.py``'s, which
 keeps the dense block's attention and cache; the ssm family (falcon-mamba)
-for ``mamba.py``'s.  The dense and moe families also run chunked prefill
-(``mode="chunk"``, :func:`prefill_chunk`).  Training and the vlm family are
-not ported yet (ROADMAP.md).
+for ``mamba.py``'s.  The vlm family (paligemma) is the dense stack behind a
+prefix of ``n_patches`` image-patch embeddings, which its prefill attends
+with the prefix-LM mask.  The dense and moe families also run chunked
+prefill (``mode="chunk"``, :func:`prefill_chunk`).  Training is not ported
+yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -43,12 +45,12 @@ def dense_block_spec(cfg) -> dict:
     }
 
 
-def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
+def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0):
     impl = cfg.kernel_impl
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps, impl)
     if mode == "prefill":
         a, cache = A.prefill_with_cache(p["attn"], h, positions, cfg, cache,
-                                        window=cfg.window)
+                                        window=cfg.window, prefix_len=prefix_len)
     elif mode == "decode":
         a, cache = A.decode_step(p["attn"], h, pos, cfg, cache, window=cfg.window)
     elif mode == "chunk":  # mixed-phase prefill chunk; pos = (posv, valid)
@@ -74,6 +76,7 @@ def dense_cache_spec(cfg, batch: int, max_seq: int) -> dict:
 FAMILIES = {
     "dense": (dense_block_spec, dense_block_apply, dense_cache_spec),
     "moe": (moe.moe_block_spec, moe.moe_block_apply, dense_cache_spec),
+    "vlm": (dense_block_spec, dense_block_apply, dense_cache_spec),
     "ssm": (mamba.mamba_block_spec, mamba.mamba_block_apply,
             lambda cfg, batch, max_seq: mamba.ssm_cache_spec(cfg, batch)),
 }
@@ -110,11 +113,13 @@ def stack_order(params, cache, cfg):
              tree_map(lambda a: a[i], cache)) for i in range(cfg.n_layers)]
 
 
-def run_stack(params, x, positions, cfg, *, mode, cache, pos=None):
+def run_stack(params, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0):
     """Run the layer stack; the stacked cache is updated in place.
+    ``prefix_len`` (the vlm family's prefill) reaches the dense blocks.
     Returns (x, cache)."""
+    kw = {"prefix_len": prefix_len} if prefix_len else {}
     for apply, lp, lc in stack_order(params, cache, cfg):
-        x, _ = apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos)
+        x, _ = apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos, **kw)
     return x, cache
 
 
@@ -140,12 +145,19 @@ def logits_fn(params, x, cfg):
 
 
 def prefill(params, batch, cfg, cache):
-    """Fill the cache from a full prompt; returns (last_logits, cache)."""
+    """Fill the cache from a full prompt; returns (last_logits, cache).  The
+    vlm family's prompt is ``batch["patches"]`` (B, n_patches, d) followed
+    by the embedded tokens, at positions 0 .. n_patches + S - 1."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
+    prefix_len = 0
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        prefix_len, s = cfg.n_patches, x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    x, cache = run_stack(params, x, positions, cfg, mode="prefill", cache=cache)
+    x, cache = run_stack(params, x, positions, cfg, mode="prefill", cache=cache,
+                         prefix_len=prefix_len)
     return logits_fn(params, x[:, -1:], cfg), cache
 
 

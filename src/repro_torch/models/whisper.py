@@ -1,0 +1,251 @@
+"""Whisper-tiny backbone: transformer encoder-decoder with cross-attention
+(the audio family).
+
+The counterpart of the JAX package's ``models/whisper.py``, with its keys
+and layouts, so that ``params.load_jax_params`` carries a JAX tree across
+unchanged.  The conv frontend is a stub there as here: the batch carries
+precomputed ``frames`` (B, enc_frames, d).  Pre-LN blocks with LayerNorm
+(with bias), biased q/v/out projections (k unbiased), an exact-GELU MLP,
+sinusoidal encoder positions, learned decoder positions and a tied head.
+
+Every product goes through ``layers.linear``, every norm through
+``layers.layer_norm``.  Under ``kernel_impl="cuda"`` every attention runs on
+a kernel: the encoder's bidirectional self-attention, the decoder's causal
+prefill and its cross-attention at prefill on ``flash_attention``; the
+decoder's self-attention decode on ``flash_decode`` over its cache, and its
+cross-attention decode on ``flash_decode`` over ``xk``/``xv`` with every key
+valid (the JAX code's dense row at Sq 1: the same function, whose rows keep
+their bits at any batch).  The cache (self ``k``/``v``/``pos``, capped at
+``max_decode_ctx``, and the encoder's ``xk``/``xv``) is written in place.
+The head runs on the last row of a prefill only.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models.params import Spec, stack_layers, tree_map
+
+
+def _attn_spec(cfg) -> dict:
+    d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    return {
+        "wq": Spec((d, H, hd)),
+        "bq": Spec((H, hd), "zeros"),
+        "wk": Spec((d, H, hd)),
+        "wv": Spec((d, H, hd)),
+        "bv": Spec((H, hd), "zeros"),
+        "wo": Spec((H, hd, d)),
+        "bo": Spec((d,), "zeros"),
+    }
+
+
+def _ln_spec(cfg) -> dict:
+    return {"w": Spec((cfg.d_model,), "ones"), "b": Spec((cfg.d_model,), "zeros")}
+
+
+def _mlp_spec(cfg) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_in": Spec((d, f)),
+        "b_in": Spec((f,), "zeros"),
+        "w_out": Spec((f, d)),
+        "b_out": Spec((d,), "zeros"),
+    }
+
+
+def param_spec(cfg) -> dict:
+    enc_layer = {"ln1": _ln_spec(cfg), "attn": _attn_spec(cfg), "ln2": _ln_spec(cfg),
+                 "mlp": _mlp_spec(cfg)}
+    dec_layer = {"ln1": _ln_spec(cfg), "self_attn": _attn_spec(cfg), "ln2": _ln_spec(cfg),
+                 "cross_attn": _attn_spec(cfg), "ln3": _ln_spec(cfg), "mlp": _mlp_spec(cfg)}
+    return {
+        "enc_layers": stack_layers(cfg.enc_layers, enc_layer),
+        "enc_ln_post": _ln_spec(cfg),
+        "tok_embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02),
+        "pos_embed": Spec((cfg.max_decode_ctx, cfg.d_model), "small_normal", 0.01),
+        "dec_layers": stack_layers(cfg.n_layers, dec_layer),
+        "dec_ln_final": _ln_spec(cfg),
+    }
+
+
+def cache_spec(cfg, batch: int, max_seq: int) -> dict:
+    """Per decoder layer: the self cache ``k``/``v``/``pos`` of
+    ``min(max_seq, max_decode_ctx)`` positions and the cross keys/values
+    ``xk``/``xv`` of the encoder's frames."""
+    H, hd = cfg.n_heads, cfg.hd
+    s = min(max_seq, cfg.max_decode_ctx)
+    per_layer = {
+        "k": Spec((batch, s, H, hd), "zeros"),
+        "v": Spec((batch, s, H, hd), "zeros"),
+        "pos": Spec((batch, s), "neg_ones", None, "int32"),
+        "xk": Spec((batch, cfg.enc_frames, H, hd), "zeros"),
+        "xv": Spec((batch, cfg.enc_frames, H, hd), "zeros"),
+    }
+    return stack_layers(cfg.n_layers, per_layer)
+
+
+def _proj_q(p, x, impl):
+    return A._proj(x, p["wq"], impl, p["bq"])
+
+
+def _proj_kv(p, x, impl):
+    return A._proj(x, p["wk"], impl), A._proj(x, p["wv"], impl, p["bv"])
+
+
+def _attn_out(p, out, impl):
+    return L.linear(out.flatten(2), p["wo"].flatten(0, 1), impl, p["bo"])
+
+
+def _attend(q, k, v, cfg, *, causal: bool):
+    """Prefill attention: on ``flash_attention`` at any Sq under
+    ``"cuda"``, else the reference dispatch."""
+    if cfg.kernel_impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.flash_attention(q, k, v, causal=causal)
+    return L.attention(q, k, v, cfg, causal=causal)
+
+
+def _cross_decode(q, xk, xv, cfg):
+    """The decode step's cross-attention over the encoder's keys: under
+    ``"cuda"`` ``flash_decode`` with every key valid (key i recorded at
+    position i, the query past the last), else the reference's dense row."""
+    if cfg.kernel_impl != "cuda":
+        return L.attention(q, xk, xv, cfg, causal=False)
+    from repro_torch.kernels import ops as kops
+
+    b, f = xk.shape[0], xk.shape[1]
+    kpos = torch.arange(f, dtype=torch.int32, device=q.device).expand(b, f).contiguous()
+    pos = torch.full((b,), f - 1, dtype=torch.int32, device=q.device)
+    return kops.flash_decode(q, xk, xv, kpos, pos, block_k=cfg.decode_block or 128)
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoids(length: int, channels: int, device: str):
+    """The encoder's positions, computed in numpy float64 exactly as the
+    JAX package does, then float32; one copy per device."""
+    log_timescale = np.log(10000) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    t = np.arange(length)[:, None] * inv[None, :]
+    table = np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
+
+
+def sinusoids(length: int, channels: int, device="cpu"):
+    return _sinusoids(length, channels, str(torch.device(device)))
+
+
+def _layer(tree, i):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _enc_layer(lp, x, cfg):
+    """One encoder layer: bidirectional self-attention, then the MLP."""
+    impl, eps = cfg.kernel_impl, cfg.norm_eps
+    h = L.layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"], eps, impl)
+    q = _proj_q(lp["attn"], h, impl)
+    k, v = _proj_kv(lp["attn"], h, impl)
+    x = x + _attn_out(lp["attn"], _attend(q, k, v, cfg, causal=False), impl)
+    m = lp["mlp"]
+    h = L.layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"], eps, impl)
+    return x + L.gelu_mlp(h, m["w_in"], m["b_in"], m["w_out"], m["b_out"], impl)
+
+
+def encoder_input(frames, cfg):
+    """The frames in the compute dtype plus the sinusoidal positions."""
+    x = frames.to(getattr(torch, cfg.compute_dtype))
+    return x + sinusoids(cfg.enc_frames, cfg.d_model, x.device).to(x.dtype)
+
+
+def encode(params, frames, cfg):
+    """frames: (B, F, d) stubbed conv-frontend output -> (B, F, d)."""
+    x = encoder_input(frames, cfg)
+    for i in range(cfg.enc_layers):
+        x = _enc_layer(_layer(params["enc_layers"], i), x, cfg)
+    post = params["enc_ln_post"]
+    return L.layer_norm(x, post["w"], post["b"], cfg.norm_eps, cfg.kernel_impl)
+
+
+def _dec_layer(lp, h, enc_out, cfg, *, mode, cache, posv):
+    """One decoder layer on its cache (written in place): ``mode`` is
+    ``"prefill"`` (rows at 0..S-1, the cross keys/values from ``enc_out``)
+    or ``"decode"`` (one row a slot at ``posv``, the cross keys/values as
+    cached)."""
+    impl, eps = cfg.kernel_impl, cfg.norm_eps
+    sa, ca = lp["self_attn"], lp["cross_attn"]
+    x1 = L.layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], eps, impl)
+    q = _proj_q(sa, x1, impl)
+    k, v = _proj_kv(sa, x1, impl)
+    b, s = h.shape[0], h.shape[1]
+    if mode == "prefill":
+        positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
+        A._write(cache, positions.long(), k, v, positions)
+        a = _attend(q, k, v, cfg, causal=True)
+    else:
+        A._write(cache, posv[:, None].long(), k, v, posv[:, None])
+        self_cache = {n: cache[n] for n in ("k", "v", "pos")}
+        a = A.cached_attention(q, self_cache, posv, cfg)
+    h = h + _attn_out(sa, a, impl)
+
+    x2 = L.layer_norm(h, lp["ln2"]["w"], lp["ln2"]["b"], eps, impl)
+    q = _proj_q(ca, x2, impl)
+    if mode == "prefill":
+        xk, xv = _proj_kv(ca, enc_out, impl)
+        cache["xk"].copy_(xk)
+        cache["xv"].copy_(xv)
+        c = _attend(q, xk, xv, cfg, causal=False)
+    else:
+        c = _cross_decode(q, cache["xk"].to(x2.dtype), cache["xv"].to(x2.dtype), cfg)
+    h = h + _attn_out(ca, c, impl)
+
+    m = lp["mlp"]
+    x3 = L.layer_norm(h, lp["ln3"]["w"], lp["ln3"]["b"], eps, impl)
+    return h + L.gelu_mlp(x3, m["w_in"], m["b_in"], m["w_out"], m["b_out"], impl)
+
+
+def decoder_input(params, tokens, cfg, pos=None):
+    """(the embedded tokens plus their learned positions, the per-slot
+    position vector): a prefill's rows at 0..S-1 (``pos`` None, vector
+    None), or a decode step's row a slot at ``pos``."""
+    b, s = tokens.shape
+    x = params["tok_embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    if pos is not None:
+        # Per-slot positions: each row looks up its own positional embedding.
+        posv = A.pos_vector(pos, b, tokens.device)
+        pe = params["pos_embed"][posv.long()][:, None]
+    else:
+        posv, pe = None, params["pos_embed"][:s]
+    return x + pe.to(x.dtype), posv
+
+
+def _decoder(params, tokens, enc_out, cfg, *, mode, cache, pos=None):
+    """The decoder stack and the tied head of its last row: (logits
+    (B, 1, V) float32, cache)."""
+    x, posv = decoder_input(params, tokens, cfg, pos if mode == "decode" else None)
+    for i in range(cfg.n_layers):
+        x = _dec_layer(_layer(params["dec_layers"], i), x, enc_out, cfg, mode=mode,
+                       cache=_layer(cache, i), posv=posv)
+    fin = params["dec_ln_final"]
+    x = L.layer_norm(x[:, -1:], fin["w"], fin["b"], cfg.norm_eps, cfg.kernel_impl)
+    # The tied head reads the embedding table as stored: (vocab, d)
+    # row-major is the transposed (N, K) layout the GEMM takes.
+    head = params["tok_embed"].T.to(x.dtype)
+    return L.linear(x, head, cfg.kernel_impl).float(), cache
+
+
+def prefill(params, batch, cfg, cache):
+    """Encode ``batch["frames"]`` and prefill the decoder on
+    ``batch["tokens"]``; returns (last-row logits (B, 1, V), cache)."""
+    enc_out = encode(params, batch["frames"], cfg)
+    return _decoder(params, batch["tokens"], enc_out, cfg, mode="prefill", cache=cache)
+
+
+def decode(params, token, pos, cfg, cache):
+    """One decode step. token: (B, 1) int; pos: a scalar or a (B,) vector
+    of per-slot positions."""
+    return _decoder(params, token, None, cfg, mode="decode", cache=cache, pos=pos)

@@ -40,6 +40,7 @@ from repro_torch.serve.server import (  # noqa: F401
     ServeError,
     validate_chunked,
     validate_draft,
+    validate_family,
 )
 from repro_torch.serve.step import (  # noqa: F401
     DraftSpec,

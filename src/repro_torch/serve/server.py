@@ -215,6 +215,20 @@ class _Request:
         return self.gen - len(self.tokens)
 
 
+def validate_family(cfg) -> None:
+    """Refuse the families whose prompts carry more than tokens: the
+    audio family's ``frames`` and the vlm family's ``patches``.  The JAX
+    package's batcher prefills a wave from its tokens alone, so it cannot
+    serve them either; the port serves them one-shot and co-executed
+    (``make_generate``, ``launch/serve.py --coexec``) only."""
+    if cfg.family in ("audio", "vlm"):
+        extra = "frames" if cfg.family == "audio" else "patches"
+        raise ValueError(
+            f"family {cfg.family!r} cannot be served: its prefill needs the batch's "
+            f"{extra!r} beside the tokens, and the batcher prefills from tokens alone (as "
+            "the JAX package's does); use one-shot or co-executed generate")
+
+
 def validate_draft(cfg, draft: DraftSpec) -> None:
     """Fail fast on model pairs speculative serving cannot keep bitwise
     equal to one-shot generate (the server's contract is exact equality, so
@@ -355,6 +369,7 @@ class InferenceServer:
                  group_batches: Optional[bool] = None,
                  migration: Optional[MigrationPolicy] = None,
                  obs: Optional[EngineObs] = None) -> None:
+        validate_family(cfg)
         self.groups = list(groups) if groups else [DeviceGroup("serve:0")]
         self.runtime = Runtime(self.groups)
         self.scheduler = scheduler or Static()

@@ -57,6 +57,21 @@ def cast_params_cached(tree, dtype):
     return out
 
 
+def prefix_len(cfg) -> int:
+    """Positions a prompt's prefill fills ahead of its tokens: the vlm
+    family's ``n_patches`` image-patch embeddings, else none."""
+    return cfg.n_patches if cfg.family == "vlm" else 0
+
+
+def check_context(cfg, prompt_len: int, gen: int) -> None:
+    """Refuse a generate whose prompt and generated tokens outgrow the
+    decoder's context cap (``max_decode_ctx``, whisper's 448): the JAX
+    package's cache writes past it are dropped without a word."""
+    if cfg.max_decode_ctx and prompt_len + gen > cfg.max_decode_ctx:
+        raise ValueError(f"{cfg.name}: prompt {prompt_len} + gen {gen} > max_decode_ctx "
+                         f"{cfg.max_decode_ctx}")
+
+
 def _argmax_token(logits):
     return logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
 
@@ -237,18 +252,24 @@ def make_generate(cfg, api, *, graph: bool = True):
 
     Returned ``generate(params, batch, gen, *, cache=None)`` produces
     ``(b, gen)`` greedy int32 tokens on the tokens' device; ``cache``
-    defaults to a fresh ``zeros_cache`` sized ``prompt_len + gen`` (a
-    caller-provided cache is consumed).
+    defaults to a fresh ``zeros_cache`` sized ``prefix + prompt_len + gen``
+    (a caller-provided cache is consumed).  The chain starts at ``prefix +
+    prompt_len``, where ``prefix`` is the vlm family's ``n_patches``
+    (:func:`prefix_len`): the model functions' positions, which the JAX
+    package's generate leaves out for that family (ROADMAP.md C9).  A
+    prompt and ``gen`` past ``max_decode_ctx`` raise (:func:`check_context`).
 
     ``graph=True`` mirrors the JAX package's ``jit=True`` (its
     ``jax.jit(prefill, donate_argnums=(2,))`` and jitted chain): on the card,
     with ``cache=None`` and ``gen >= 2``, prefill and the chain each replay
     a CUDA graph of their own, captured at the shape's first call
     (``serve/graphs.py``), in a scope per (batch, prompt length, gen).  The
-    prefill graph reads a static token buffer, refills the chain graph's
-    static cache with its declared init and prefills it in place, and
-    writes the chain's static token and start position; the chain then
-    copies nothing in, so a call copies in only the prompt tokens.  A
+    prefill graph reads a static buffer of each batch leaf (the tokens,
+    and the audio family's ``frames`` or the vlm family's ``patches``),
+    refills the chain graph's static cache with its declared init and
+    prefills it in place, and writes the chain's static token and start
+    position; the chain then copies nothing in, so a call copies in only
+    the batch's leaves.  A
     caller-provided cache, ``gen < 2``, CPU tensors and ``graph=False`` run
     prefill eagerly (the chain replays its graph wherever it takes CUDA
     tensors and ``graph=True``).  ``generate.prepare(params, batch, gen)``
@@ -262,45 +283,50 @@ def make_generate(cfg, api, *, graph: bool = True):
     prefill = make_prefill_step(cfg, api)
     chain = make_decode_chain(cfg, api, graph=graph)
     graphs = chain.graphs if graph else None
+    pre = prefix_len(cfg)
 
-    def prefill_loop(params, tokens, st, like, gen: int):
-        """The prefill graph's loop over (tokens, the chain's static cache,
-        token and start position)."""
-        b, s = tokens.shape
-        inputs = {"tokens": tokens, "cache": st["cache"], "token": st["token"],
-                  "pos": st["pos"]}
+    def prefill_loop(params, batch, st, like, gen: int):
+        """The prefill graph's loop over (the batch's leaves, the chain's
+        static cache, token and start position)."""
+        names = sorted(batch)
+        b, s = batch["tokens"].shape
+        inputs = {"batch": [batch[n] for n in names], "cache": st["cache"],
+                  "token": st["token"], "pos": st["pos"]}
 
         def body(bs, n):
             cache = _unflatten(like, bs["cache"])
-            reset_cache(cfg, api, cache, b, s + gen)
-            tok, out = prefill(params, {"tokens": bs["tokens"]}, cache)
+            reset_cache(cfg, api, cache, b, pre + s + gen)
+            tok, out = prefill(params, dict(zip(names, bs["batch"])), cache)
             for leaf, buf in zip(tree_leaves(out), bs["cache"]):
                 if not same_storage(leaf, buf):  # every family writes in place
                     buf.copy_(leaf)
             bs["token"].copy_(tok)
-            bs["pos"].fill_(s)
+            bs["pos"].fill_(pre + s)
             return ()
 
         return ("prefill", 1, (), inputs, body, (params,))
 
-    def statics(params, tokens, gen: int):
+    def statics(params, batch, gen: int):
         """(scope, the static buffers, the cache's structure) of this
         shape's graphs, both captured first if new; None where prefill runs
         eagerly."""
-        b, s = tokens.shape
-        dev = tokens.device
+        b, s = batch["tokens"].shape
+        dev = batch["tokens"].device
         if graphs is None or gen < 2 or not graphs.accepts(dev):
             return None
         scope = ("generate", b, s, gen)
-        like = zeros_cache(cfg, api, b, s + gen, device="meta")
-        meta = {"tokens": torch.empty((b, s), dtype=tokens.dtype, device="meta"),
+        like = zeros_cache(cfg, api, b, pre + s + gen, device="meta")
+        names = sorted(batch)
+        meta = {"batch": [torch.empty(batch[n].shape, dtype=batch[n].dtype, device="meta")
+                          for n in names],
                 "cache": tree_leaves(like),
                 "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
                 "pos": torch.empty((), dtype=torch.int32, device="meta")}
         st = graphs.statics(meta, dev, scope)
         chain.capture(params, _unflatten(like, st["cache"]), st["token"], st["pos"], gen - 1,
                       scope=scope)
-        graphs.capture(*prefill_loop(params, st["tokens"], st, like, gen), scope)
+        graphs.capture(*prefill_loop(params, dict(zip(names, st["batch"])), st, like, gen),
+                       scope)
         return scope, st, like
 
     def run_prefill(params, batch, gen: int, cache=None):
@@ -309,14 +335,15 @@ def make_generate(cfg, api, *, graph: bool = True):
         where generate replays one."""
         tokens = batch["tokens"]
         b, s = tokens.shape
-        graphed = statics(params, tokens, gen) if cache is None else None
+        check_context(cfg, s, gen)
+        graphed = statics(params, batch, gen) if cache is None else None
         if graphed is None:
             if cache is None:
-                cache = zeros_cache(cfg, api, b, s + gen, device=tokens.device)
+                cache = zeros_cache(cfg, api, b, pre + s + gen, device=tokens.device)
             tok, cache = prefill(params, batch, cache)
-            return tok, s, cache, {}
+            return tok, pre + s, cache, {}
         scope, st, like = graphed
-        graphs.bind(*prefill_loop(params, tokens, st, like, gen), scope)()
+        graphs.bind(*prefill_loop(params, batch, st, like, gen), scope)()
         return st["token"], st["pos"], _unflatten(like, st["cache"]), {"scope": scope}
 
     def generate(params, batch, gen: int, *, cache=None):
@@ -329,8 +356,9 @@ def make_generate(cfg, api, *, graph: bool = True):
         return torch.cat([tok, toks], dim=1)
 
     def prepare(params, batch, gen: int) -> float:
+        check_context(cfg, batch["tokens"].shape[1], gen)
         before = graphs.capture_s if graphs is not None else 0.0
-        statics(params, batch["tokens"], gen)
+        statics(params, batch, gen)
         return (graphs.capture_s - before) if graphs is not None else 0.0
 
     generate.prepare = prepare

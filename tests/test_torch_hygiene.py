@@ -21,7 +21,8 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
 SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
                  "kernels/gemm.py", "kernels/rms_norm.py", "serve/multigroup.py",
                  "distributed/elastic.py", "distributed/__init__.py", "serve/http.py",
-                 "models/moe.py", "kernels/moe_gemm.py")
+                 "models/moe.py", "kernels/moe_gemm.py", "kernels/layer_norm.py",
+                 "models/whisper.py", "configs/whisper_tiny.py", "configs/paligemma_3b.py")
 
 
 def _imports(path):

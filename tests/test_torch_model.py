@@ -44,18 +44,25 @@ def weights(request):
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["falcon-mamba-7b", "recurrentgemma-2b", "arctic-480b",
-                                  "kimi-k2-1t-a32b", "codeqwen1.5-7b", "granite-34b"])
+                                  "kimi-k2-1t-a32b", "codeqwen1.5-7b", "granite-34b",
+                                  "whisper-tiny", "paligemma-3b"])
 def test_configs_are_copies(arch):
     j, t = jconfigs.get_config(arch), tconfigs.get_config(arch)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     assert dataclasses.asdict(jconfigs.reduced(j)) == dataclasses.asdict(tconfigs.reduced(t))
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item A9"):
-        tconfigs.get_config("whisper-tiny")
+def test_unknown_arch_raises_key_error():
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")
+
+
+def test_every_jax_arch_is_ported():
+    """The port registers every arch of the JAX package, and its registry
+    gives each a model."""
+    assert sorted(jconfigs.base._REGISTRY) == sorted(tconfigs.base._REGISTRY)
+    for name in tconfigs.base._REGISTRY:
+        get_model(tconfigs.get_config(name))
 
 
 def test_load_jax_params_checks_shapes(weights):
