@@ -4,7 +4,8 @@ GPU.  Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-(``--host-us`` runs only the ``[host]`` line.)
+(``--host-us`` runs only the ``[host]`` line, ``--train`` only the
+``[train]`` phase.)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -286,7 +287,45 @@ Phases, each fatal on failure (non-zero exit, no result line):
              cuda:0, under HGuided(adaptive=True), no simulated speeds:
              held correct with a package on each group; work share, balance
              and packages printed.
-6. results -- the ``[graph]`` table, eager beside graphed for every main
+6. train  -- the training slice (``run_train_phase``; ``--train`` runs
+             only this phase).  flash_attention's autograd Function at the
+             train paths' shapes (bf16: qwen1.5-4b's B 2 x 512, whisper's
+             encoder B 8 x 1500, paligemma's prefix P 256 at hd 256, MQA):
+             its forward equal to the raw kernel's output bitwise, dq/dk/dv
+             within 2e-2 rel L2 of autograd through flash_attention_plain,
+             its forward, recompute backward and both timed beside sdpa's
+             forward + backward and the bounds.  qwen1.5-4b at full width,
+             20 of its 40 layers (the float32 state fits; 40 would not),
+             ``kernel_impl="cuda"``, through the launcher's ``build_state``
+             and ``make_train_step``: B 4 x 512 (SyntheticTokens, seed 0),
+             2 microbatches, remat "dots", 3 steps; step 0's loss within
+             1e-2 of ``kernel_impl="reference"`` on the same weights and
+             batch, each layer's parameter gradients (its VJP on the
+             kernel run's own layer input and output gradient, the kernel
+             side under remat "dots") within 2e-2 rel L2 of the
+             reference's, the whole model's gradient leaves printed but
+             not held (on random weights they are chaotic: ROADMAP.md C11;
+             the reference's own bf16 against float32 printed beside as
+             the witness), finite losses, flash_attention launched exactly
+             20 x 2 x 2 a step (dots recomputes its forward) and no other
+             kernel; step time, tokens/s, peak memory (``--train`` adds
+             the gradients and AdamW timed apart, a step under each remat
+             policy and one profiled: card busy, the products' share,
+             time by kernel).  whisper-tiny --full through
+             ``repro_torch.launch.train``: 4 steps checkpointed every 2,
+             then --restore --steps 6: the step-4 checkpoint equal to the
+             state bitwise, the data cursor 4 -> 6, finite losses,
+             flash_attention 12 a step exactly.  The HeteroTrainer over
+             ``discover()``'s cpu:0 and cuda:0 (whisper-tiny, batch 8,
+             quantum 1, 3 steps, the cuda group's power hint 16): shares
+             covering the batch; the CPU share's parameter gradients layer
+             by layer on cpu:0 within 2e-2 rel L2 of cuda:0's on the same
+             inputs (float32); the combined loss within 1e-2 of the whole batch's on
+             cuda:0 (its gradient printed, not held); as plumbing, step
+             0's combined gradient the shares' weighted sum and the cuda
+             group's its share's alone on cuda:0; shares, rated powers and
+             each group's seconds printed.
+7. results -- the ``[graph]`` table, eager beside graphed for every main
              and served path of this run, and its JSON line; a JSON line of
              every kernel's numbers (launches: each
              kernel's count on the first path that runs it; for
@@ -307,6 +346,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -1446,8 +1486,8 @@ def layer_errors(cfg, params, batch, dev, torch, modes) -> dict:
 
     real_ffn = M.moe_ffn
 
-    def moe_ffn(x, p, cfg):
-        y = real_ffn(x, p, cfg)
+    def moe_ffn(x, p, cfg, impl=None):
+        y = real_ffn(x, p, cfg, impl)
         fed.append(y.float().view(b, -1, y.shape[-1]))
         return y
 
@@ -1494,6 +1534,7 @@ def encdec_layer_errors(cfg, params, batch, dev, torch) -> dict:
     from repro_torch.models import get_model
     from repro_torch.models import layers as L
     from repro_torch.models import whisper as W
+    from repro_torch.models.params import unstack
     from repro_torch.serve import zeros_cache
 
     rcfg = dataclasses.replace(cfg, kernel_impl="reference")
@@ -1528,8 +1569,8 @@ def encdec_layer_errors(cfg, params, batch, dev, torch) -> dict:
         return x
 
     errs = {}
-    enc = [W._layer(params["enc_layers"], i) for i in range(cfg.enc_layers)]
-    dec = [W._layer(params["dec_layers"], i) for i in range(cfg.n_layers)]
+    enc = unstack(params["enc_layers"], cfg.enc_layers)
+    dec = unstack(params["dec_layers"], cfg.n_layers)
     L.linear = linear
     try:
         x = run("encoder", enc, W.encoder_input(batch["frames"], cfg),
@@ -1538,10 +1579,10 @@ def encdec_layer_errors(cfg, params, batch, dev, torch) -> dict:
         enc_out = L.layer_norm(x, post["w"], post["b"], cfg.norm_eps, "reference")
         x, _ = W.decoder_input(params, tokens, cfg)
         run("prefill", dec, x, lambda lp, x, c, cache, i: W._dec_layer(
-            lp, x, enc_out, c, mode="prefill", cache=W._layer(cache, i), posv=None))
+            lp, x, enc_out, c, mode="prefill", cache=unstack(cache, cfg.n_layers)[i], posv=None))
         x, posv = W.decoder_input(params, tokens[:, -1:], cfg, s)
         run("decode", dec, x, lambda lp, x, c, cache, i: W._dec_layer(
-            lp, x, None, c, mode="decode", cache=W._layer(cache, i), posv=posv))
+            lp, x, None, c, mode="decode", cache=unstack(cache, cfg.n_layers)[i], posv=posv))
     finally:
         L.linear = real_linear
     return errs
@@ -3570,6 +3611,618 @@ def run_moe_served(cfg, api, params, dev, torch) -> dict:
             "tokens_per_s": result["tokens_per_s"], "wall_s": result["wall_s"]}
 
 
+# ------------------------------------------------------------------ [train]
+# The training slice (A10): flash_attention's autograd Function at the
+# train paths' shapes, then three train paths.  All bf16 unless stated.
+TRAIN_REL_TOL = 2e-2   # dq/dk/dv, and per-layer parameter gradients, rel L2
+TRAIN_LOSS_REL = 1e-2  # step 0's loss against kernel_impl="reference"
+TRAIN_ATTENTION = (
+    # name, B, S, H, KV, hd, causal, prefix_len
+    ("train qwen1.5-4b (B 2, S 512, causal)", 2, 512, 20, 20, 128, True, 0),
+    ("train whisper-tiny encoder (B 8, 1500, bidirectional)", 8, 1500, 6, 6, 64, False, 0),
+    ("train paligemma-3b prefix-LM (B 8, 256 + 32, MQA, hd 256)", 8, 288, 8, 1, 256, True,
+     256),
+)
+# qwen1.5-4b at its published widths, cut to 20 of its 40 layers: the float32
+# state (weights, gradients, m, v) and the bf16 cast take 18 bytes a
+# parameter, 42.5 GB at 2.36 B parameters (80 GB at 40 layers does not fit).
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_MB, QWEN_TRAIN_STEPS = 20, 4, 512, 2, 3
+WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq", "64",
+                      "--seed", "0", "--kernel", "cuda", "--ckpt-interval", "2"]
+HETERO_STEPS, HETERO_B, HETERO_S = 3, 8, 64
+# The cuda group's power hint over the CPU's 1 (discover()'s default): the
+# first step's shares follow it, so the CPU takes one sequence (it rated at
+# ~0.13 sequences/s against the card's 11-21 on the H100).
+HETERO_CUDA_POWER = 16.0
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.detach().float(), b.detach().float()
+    nb = float(b.norm())
+    return float((a - b).norm()) / nb if nb > 0 else float(a.norm() > 0)
+
+
+def tree_rel_l2(a: list, b: list) -> float:
+    """Relative L2 of two gradient lists taken as one vector."""
+    num = sum(float((x.detach().float() - y.detach().float()).norm()) ** 2 for x, y in zip(a, b))
+    den = sum(float(y.detach().float().norm()) ** 2 for y in b)
+    return (num / den) ** 0.5 if den > 0 else 0.0
+
+
+def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
+    """flash_attention's Function at a train shape: the forward equals the
+    raw kernel's output bitwise, dq/dk/dv are within TRAIN_REL_TOL of
+    autograd through flash_attention_plain, and its times beside sdpa's
+    forward + backward and the bounds."""
+    name, b, s, h, kv, hd, causal, prefix = case
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(len(name))
+    q = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt).requires_grad_()
+    k = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
+    v = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
+    do = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt)
+    kw = dict(causal=causal, prefix_len=prefix)
+    with torch.no_grad():
+        raw = fa._flash_attention_cuda(q, k, v, window=0, q_offset=0, block_q=64,
+                                       block_k=fa.BLOCK_K, **kw)
+    out = fa.flash_attention(q, k, v, **kw)
+    if out.grad_fn is None or "FlashAttention" not in type(out.grad_fn).__name__:
+        fail(f"flash_attention {name}: the output does not come from the autograd Function")
+    if not torch.equal(out, raw):
+        fail(f"flash_attention {name}: the Function's forward differs from the kernel's output")
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
+    # The plain version's forward + backward, timed on one call after the
+    # check's (its seconds would dominate the phase if it were timed as the
+    # kernel is).
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    errs = {n: rel_l2(a, w) for n, a, w in zip(("dq", "dk", "dv"), got, want)}
+    if max(errs.values()) > TRAIN_REL_TOL:
+        fail(f"flash_attention {name}: gradients {errs} beyond {TRAIN_REL_TOL} rel L2 of autograd "
+             f"through flash_attention_plain")
+    del got, want
+    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush, 10)
+    out = fa.flash_attention(q, k, v, **kw)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+                     flush, 10)
+    both_ms = time_ms(lambda: torch.autograd.grad(fa.flash_attention(q, k, v, **kw), (q, k, v),
+                                                  do), flush, 10)
+    qpos = torch.arange(s, device=dev)[:, None]
+    kpos = torch.arange(s, device=dev)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= (kpos <= qpos) | ((qpos < prefix) & (kpos < prefix))
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    plain_causal = causal and not prefix
+
+    def sdpa():
+        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=None if plain_causal or
+                                           not causal else mask, is_causal=plain_causal,
+                                           enable_gqa=h != kv)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    lib_ms = time_ms(sdpa, flush, 10)
+    pairs = int(mask.sum())
+    esz = q.element_size()
+    # Forward: 2 products of 2 hd flops a (query, key) pair; backward: the
+    # recomputed QK^T and 4 more products (dV, dP, dQ, dK).
+    fwd_ops, bwd_ops = 4 * hd * b * h * pairs, 10 * hd * b * h * pairs
+    qn, kn = q.numel(), k.numel()
+    both_bytes = esz * (4 * qn + 4 * kn)  # q, k, v, do in; out, dq, dk, dv out
+    bwd_bytes = esz * (3 * qn + 4 * kn)   # q, k, v, do in; dq, dk, dv out
+
+    def bound(nbytes, ops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["bfloat16"] * 1e3
+        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+    both_bound, both_by = bound(both_bytes, fwd_ops + bwd_ops)
+    bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
+    recompute = ("prefix-LM" if prefix else "naive" if s * s <= fa.RECOMPUTE_NAIVE_MAX
+                 else "chunked 1024")
+    rec = dict(case=name, recompute=recompute, rel_l2=errs, forward_ms=fwd_ms,
+               backward_ms=bwd_ms, forward_backward_ms=both_ms, plain_forward_backward_ms=plain_ms,
+               sdpa_forward_backward_ms=lib_ms, bound_forward_backward_ms=both_bound,
+               bound_forward_backward_by=both_by, bound_backward_ms=bwd_bound,
+               bound_backward_by=bwd_by)
+    print(f"  flash_attention train | {name}: forward == kernel bitwise; dq/dk/dv rel L2 "
+          f"{', '.join(f'{v:.2e}' for v in errs.values())} (held {TRAIN_REL_TOL}); forward "
+          f"{fwd_ms:.4f} ms, backward ({recompute} recompute) {bwd_ms:.4f} ms, forward + "
+          f"backward {both_ms:.4f} ms; sdpa forward + backward {lib_ms:.4f} ms; plain "
+          f"{plain_ms:.4f} ms; bound forward + backward {both_bound:.4f} ms ({both_by}), "
+          f"backward {bwd_bound:.4f} ms ({bwd_by})", flush=True)
+    return rec
+
+
+def layer_vjp(fn, lp, inputs, cot, device, torch):
+    """The VJP at ``cot`` of ``fn(layer params, *inputs)``, taken on
+    copies of the params and inputs on ``device``: (input gradients,
+    parameter gradients in ``tree_leaves`` order)."""
+    from repro_torch.models.params import tree_leaves, tree_unflatten
+
+    leaves = [t.detach().to(device).requires_grad_() for t in tree_leaves(lp)]
+    ins = [t.detach().to(device).requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        out = fn(tree_unflatten(lp, leaves), *ins)
+        gs = torch.autograd.grad(out, ins + leaves, cot.to(device))
+    return gs[:len(ins)], gs[len(ins):]
+
+
+def params_rel_l2(a, b) -> float:
+    """The largest rel L2 over two lists of parameter gradients (b's
+    device)."""
+    return max(rel_l2(x.to(y.device), y) for x, y in zip(a, b))
+
+
+def train_layer_errors(cfg, params, batch, torch) -> list:
+    """Per layer of the dense stack, the largest rel L2 of its parameter
+    gradients under ``cfg`` (the kernels) against ``kernel_impl=
+    "reference"``, each layer's VJP taken on the kernel run's own layer
+    input and output gradient (first microbatch), each through
+    ``remat(apply, cfg)`` as the train step runs it (so under remat "dots"
+    the Function's forward runs again in the backward): the layer-by-layer
+    reference check of the train path.  Whole-model gradients of random
+    weights cannot be compared across implementations: they are chaotic
+    (ROADMAP.md C11)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import cast_float
+    from repro_torch.train.step import microbatches
+
+    ref = dataclasses.replace(cfg, kernel_impl="reference")
+    tokens = microbatches(batch, cfg.microbatches)[0]["tokens"]
+    p = cast_float(params, cfg.compute_dtype)
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    order = T.stack_order(p, None, cfg)
+    with torch.no_grad():
+        x, xs = T.embed_tokens(p, tokens, cfg), []
+        for apply, lp, _ in order:
+            xs.append(x)
+            x, _ = apply(lp, x, pos, cfg, mode="train", cache=None)
+    xf = x.detach().requires_grad_()
+    g = torch.autograd.grad(T.lm_loss(p, xf, *T.next_token_targets(tokens), cfg), xf)[0]
+    errs = []
+    for i in reversed(range(len(order))):
+        apply, lp, _ = order[i]
+        res = [layer_vjp(lambda lp, x, c=c: T.remat(apply, c)(lp, x, pos, c, mode="train",
+                                                              cache=None)[0],
+                         lp, [xs[i]], g, tokens.device, torch) for c in (cfg, ref)]
+        errs.append(params_rel_l2(res[0][1], res[1][1]))
+        g = res[0][0][0]
+        del res
+    return errs[::-1]
+
+
+def whisper_device_layer_errors(cfg, params, batch, dev, torch) -> dict:
+    """Per layer of whisper's encoder and decoder (and ``enc_ln_post``),
+    the largest rel L2 of its parameter gradients on cpu:0 against cuda:0,
+    each layer's VJP taken on the same inputs and output gradient (cuda:0's
+    chain, from cuda:0's forward of ``batch``): the layer-by-layer check of
+    the code a HeteroTrainer's CPU group runs.  In float32: with the
+    saturated attention of the reference's init (ROADMAP.md C11) the
+    gradients of a layer's q and k path amplify its rounding some
+    thousandfold, so two bf16 devices part there by a few 1e-2 (float32
+    against float64 by 1e-4)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import whisper as W
+    from repro_torch.models.params import cast_float, unstack
+
+    cpu = torch.device("cpu")
+    p = cast_float(params, cfg.compute_dtype)
+    tokens, frames = batch["tokens"].to(dev), batch["frames"].to(dev)
+    impl, eps = L.impl_for(cfg, "train"), cfg.norm_eps
+    enc, dec = unstack(p["enc_layers"], cfg.enc_layers), unstack(p["dec_layers"], cfg.n_layers)
+
+    def enc_fn(lp, x):
+        return W._enc_layer(lp, x, cfg, impl)
+
+    def post_fn(lp, x):
+        return L.layer_norm(x, lp["w"], lp["b"], eps, impl)
+
+    def dec_fn(lp, x, e):
+        return W._dec_layer(lp, x, e, cfg, mode="train", cache=None, posv=None)
+
+    with torch.no_grad():
+        xe = [W.encoder_input(frames, cfg)]
+        for lp in enc:
+            xe.append(enc_fn(lp, xe[-1]))
+        enc_out = post_fn(p["enc_ln_post"], xe[-1])
+        xd = [W.decoder_input(p, tokens, cfg)[0]]
+        for lp in dec:
+            xd.append(dec_fn(lp, xd[-1], enc_out))
+    xf = xd[-1].detach().requires_grad_()
+    g = torch.autograd.grad(W.train_loss(p, xf, tokens, cfg), xf)[0]
+
+    def both(fn, lp, ins, cot):
+        (gi, gp), (_, gc) = (layer_vjp(fn, lp, ins, cot, d, torch) for d in (dev, cpu))
+        return gi, params_rel_l2(gc, gp)
+
+    errs = {"decoder": [], "encoder": []}
+    g_enc = torch.zeros_like(enc_out)
+    for i in reversed(range(cfg.n_layers)):
+        (g, ge), e = both(dec_fn, dec[i], [xd[i], enc_out], g)
+        g_enc += ge
+        errs["decoder"].insert(0, e)
+    (g,), errs["enc_ln_post"] = both(post_fn, p["enc_ln_post"], [xe[-1]], g_enc)
+    for i in reversed(range(cfg.enc_layers)):
+        (g,), e = both(enc_fn, enc[i], [xe[i]], g)
+        errs["encoder"].insert(0, e)
+    return errs
+
+
+def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
+    """qwen1.5-4b at full width, 20 of 40 layers, kernel_impl="cuda",
+    through the launcher's ``build_state`` and the port's
+    ``make_train_step``: B 4 x S 512 (SyntheticTokens, seed 0), 2
+    microbatches, remat "dots", 3 steps.  ``detail`` (``--train``) adds
+    where a step's time goes: the gradients and AdamW timed apart, a step
+    under each remat policy and a profiled step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.launch.train import build_state, n_params
+    from repro_torch.models import get_model
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=QWEN_TRAIN_LAYERS,
+                              kernel_impl="cuda", microbatches=QWEN_TRAIN_MB)
+    ref = dataclasses.replace(cfg, kernel_impl="reference")
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    state, _ = build_state(cfg, api, dev, 0)
+    ds = SyntheticTokens(cfg, QWEN_TRAIN_B, QWEN_TRAIN_S, seed=0)
+    batches = [to_device(next(ds), dev) for _ in range(QWEN_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    n = n_params(state["params"])
+    print(f"  qwen1.5-4b (remat {cfg.remat}, {QWEN_TRAIN_MB} microbatches of "
+          f"{QWEN_TRAIN_B // QWEN_TRAIN_MB} x {QWEN_TRAIN_S}): {n:,} parameters, state built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    ops.reset_launch_counts()
+    l_ref, g_ref = loss_and_grads(api, ref, state["params"], batches[0])
+    ref_counts = {k: c for k, c in ops.launch_counts().items() if c}
+    l_cu, g_cu = loss_and_grads(api, cfg, state["params"], batches[0])
+    l_ref, l_cu = float(l_ref), float(l_cu)
+    loss_rel = abs(l_cu - l_ref) / abs(l_ref)
+    leaf = [rel_l2(a, w) for a, w in zip(g_cu, g_ref)]
+    whole = tree_rel_l2(g_cu, g_ref)
+    del g_cu
+    # The witness of C11 within the reference alone: its whole-model
+    # gradient in bf16 against the same in float32 (no kernel in either).
+    ref32 = dataclasses.replace(ref, compute_dtype="float32")
+    l_32, g_32 = loss_and_grads(api, ref32, state["params"], batches[0])
+    l_32 = float(l_32)
+    witness = {"loss_rel": abs(l_ref - l_32) / abs(l_32), "all_leaves": tree_rel_l2(g_ref, g_32),
+               "leaf_max": max(rel_l2(a, w) for a, w in zip(g_ref, g_32))}
+    del g_ref, g_32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if ref_counts:
+        fail(f"qwen1.5-4b train: kernel_impl='reference' launched {ref_counts}")
+    if not loss_rel <= TRAIN_LOSS_REL:
+        fail(f"qwen1.5-4b train: step 0 loss {l_cu} vs reference {l_ref} ({loss_rel:.2e} rel)")
+    layer_errs = train_layer_errors(cfg, state["params"], batches[0], torch)
+    if max(layer_errs) > TRAIN_REL_TOL:
+        fail(f"qwen1.5-4b train: a layer's parameter gradients through the kernels disagree with "
+             f"the reference's beyond {TRAIN_REL_TOL} rel L2: {layer_errs}")
+    print(f"  step 0 against kernel_impl='reference' (same weights and batch): loss {l_cu:.6f} vs "
+          f"{l_ref:.6f} ({loss_rel:.2e} rel, held {TRAIN_LOSS_REL}); per-layer parameter "
+          f"gradients (each layer's VJP on the kernel run's own inputs) max rel L2 "
+          f"{max(layer_errs):.2e} (held {TRAIN_REL_TOL}; the kernel side through remat "
+          f"{cfg.remat!r}); whole-model gradient leaves, not held (chaotic on random weights): "
+          f"max rel L2 {max(leaf):.3g}, all leaves {whole:.3g}; the same within the reference, "
+          f"bf16 against float32 (loss {l_32:.6f}, {witness['loss_rel']:.2e} rel): max rel L2 "
+          f"{witness['leaf_max']:.3g}, all leaves {witness['all_leaves']:.3g}", flush=True)
+
+    step_fn = make_train_step(cfg, api)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for i in range(QWEN_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # remat "dots" keeps the products' outputs: each layer's flash_attention
+    # forward runs again in the backward (its output is no product's).
+    forwards = 2 if cfg.remat in ("dots", "full") else 1
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB * forwards * QWEN_TRAIN_STEPS
+    if counts != want:
+        fail(f"qwen1.5-4b train launch counts {counts} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"qwen1.5-4b train: a loss is not finite: {losses}")
+
+    step = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    toks = QWEN_TRAIN_B * QWEN_TRAIN_S
+    out = {"layers": QWEN_TRAIN_LAYERS, "of_layers": 40, "params": n, "batch": QWEN_TRAIN_B,
+           "seq": QWEN_TRAIN_S, "microbatches": QWEN_TRAIN_MB, "remat": cfg.remat,
+           "losses": losses, "step_s": step_s, "tokens_per_s": toks / step,
+           "peak_memory_bytes": peak, "launches": counts, "loss_rel_vs_reference": loss_rel,
+           "layer_grad_rel_l2_max": max(layer_errs), "layer_grad_rel_l2": layer_errs,
+           "leaf_grad_rel_l2_max_not_held": max(leaf), "grad_rel_l2_all_not_held": whole,
+           "reference_bf16_vs_float32_not_held": witness}
+    print(f"  3 steps: losses {[round(x, 4) for x in losses]}; step {[round(x, 3) for x in step_s]} "
+          f"s; {toks / step:.1f} tokens/s (median of steps 1-2); peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {counts} (want {want}) -- {card}", flush=True)
+    if detail:
+        out.update(train_step_parts(cfg, api, state, batches, step_fn, attn_recs[0], forwards,
+                                    torch, card))
+    del state
+    return out
+
+
+def train_step_parts(cfg, api, state, batches, step_fn, fa_rec, forwards, torch, card) -> dict:
+    """Where a qwen train step's time goes (``--train`` only): the
+    gradients, then AdamW, timed apart (a fourth update of the state); a
+    step under each remat policy (the state updated on); a profiled step
+    of the config's own."""
+    from repro_torch.models.params import tree_unflatten
+    from repro_torch.optim import adamw_update, lr_schedule
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, grads = loss_and_grads(api, cfg, state["params"], batches[0])
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    lr = lr_schedule(state["step"])
+    t = time.perf_counter()
+    adamw_update(state["params"], tree_unflatten(state["params"], grads), state["opt"],
+                 state["step"], lr=lr)
+    torch.cuda.synchronize()
+    adam_s = time.perf_counter() - t
+    del grads
+    remat_s = {}
+    for policy in ("none", "full", "dots"):
+        fn = make_train_step(dataclasses.replace(cfg, remat=policy), api)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = fn(state, batches[1])
+        torch.cuda.synchronize()
+        remat_s[policy] = time.perf_counter() - t
+    prof, state = profile_train_step(step_fn, state, batches[2], torch)
+    per_mb = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB
+    attn_fwd_s = per_mb * forwards * fa_rec["forward_ms"] / 1e3
+    attn_bwd_s = per_mb * fa_rec["backward_ms"] / 1e3
+    print(f"  a step's parts: gradients {grad_s:.3f} s (of which flash_attention forward "
+          f"{attn_fwd_s:.3f} s and its recompute backward {attn_bwd_s:.3f} s, from the [train] "
+          f"kernel line's times x {per_mb * forwards} and x {per_mb}), AdamW {adam_s:.3f} s; a "
+          f"step under remat none / full / dots: "
+          f"{' / '.join(f'{remat_s[p]:.3f}' for p in ('none', 'full', 'dots'))} s -- {card}",
+          flush=True)
+    print(f"  profiled step ({cfg.remat}): wall {prof['wall_ms']:.1f} ms, card busy "
+          f"{prof['device_busy_ms']:.1f} ms ({prof['device_busy_ms'] / prof['wall_ms']:.1%}), "
+          f"{prof['kernels']} kernels, of it the matrix products (cuBLAS) "
+          f"{prof['gemm_ms']:.1f} ms; by kernel: "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in prof["groups"][:8]), flush=True)
+    return {"grads_s": grad_s, "adamw_s": adam_s, "remat_step_s": remat_s, "profile": prof,
+            "flash_forward_s_est": attn_fwd_s, "flash_backward_s_est": attn_bwd_s}
+
+
+# Words in the names of cuBLAS's matrix-product kernels on Hopper.
+GEMM_WORDS = ("nvjet", "gemm", "gemv", "xmma", "cutlass")
+
+
+def profile_train_step(step_fn, state, batch, torch):
+    """One train step under torch.profiler: its wall time, the card's busy
+    time (its kernels' durations summed, from the raw trace), of it the
+    matrix products' (the kernel groups named as cuBLAS's, ``GEMM_WORDS``),
+    and every kernel group's time, largest first.  Returns (record,
+    state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA or "spin_kernel" in e.name():
+            continue
+        g = kernel_group(e.name())
+        groups[g] = groups.get(g, 0.0) + e.duration_ns() / 1e6
+        n += 1
+    every = sorted(groups.items(), key=lambda kv: -kv[1])
+    gemm = sum(ms for g, ms in every if any(w in g.lower() for w in GEMM_WORDS))
+    return {"wall_ms": wall * 1e3, "device_busy_ms": sum(groups.values()), "kernels": n,
+            "gemm_ms": gemm, "groups": every}, state
+
+
+def run_whisper_train(dev, torch, ops) -> dict:
+    """whisper-tiny at full width through ``repro_torch.launch.train``: 4
+    steps checkpointed every 2, then ``--restore --steps 6``."""
+    import shutil
+
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.params import tree_leaves
+
+    ckdir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = WHISPER_TRAIN_ARGV + ["--ckpt", str(ckdir)]
+    ops.reset_launch_counts()
+    r1 = launch_train.main(argv + ["--steps", "4"])
+    c1 = ops.launch_counts()
+    saved, extra = restore_checkpoint(ckdir, 4, r1["state"])
+    same = all(torch.equal(a, w) for a, w in zip(tree_leaves(saved), tree_leaves(r1["state"])))
+    if not same or extra.get("data_cursor") != 4:
+        fail(f"whisper-tiny train: the step-4 checkpoint differs from the state it saved "
+             f"(equal={same}, extra={extra})")
+    del saved
+    ops.reset_launch_counts()
+    r2 = launch_train.main(argv + ["--steps", "6", "--restore"])
+    c2 = ops.launch_counts()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    if (r2["start"], r2["cursor_at_start"], r2["data_cursor"]) != (4, 4, 6):
+        fail(f"whisper-tiny train: the restart did not resume at step 4, cursor 4: "
+             f"{r2['start']}, {r2['cursor_at_start']}, {r2['data_cursor']}")
+    losses = r1["losses"] + r2["losses"]
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"whisper-tiny train: a loss is not finite: {losses}")
+    from repro_torch.configs import get_config
+
+    cfg = get_config("whisper-tiny")
+    per_step = cfg.enc_layers + 2 * cfg.n_layers  # encoder self; decoder self and cross
+    for counts, steps in ((c1, 4), (c2, 2)):
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = per_step * steps
+        if counts != want:
+            fail(f"whisper-tiny train launch counts {counts} != {want}")
+    out = {"losses": losses, "seconds": [r1["seconds"], r2["seconds"]],
+           "launches_per_step": per_step, "restored_state_bitwise": True}
+    print(f"  whisper-tiny: 4 steps, checkpoints at 2 and 4 (the step-4 one equal to the state "
+          f"bitwise), then --restore --steps 6 resumed at step 4, data cursor 4 -> 6; losses "
+          f"{[round(x, 4) for x in losses]}; flash_attention {per_step} a step (encoder "
+          f"{cfg.enc_layers}, decoder self and cross {2 * cfg.n_layers}), exact; "
+          f"{r1['seconds']:.1f} s + {r2['seconds']:.1f} s", flush=True)
+    return out
+
+
+def run_hetero_train(dev, torch, card) -> dict:
+    """The HeteroTrainer over ``discover()``'s cpu:0 and cuda:0 groups:
+    whisper-tiny at full width, batch 8, quantum 1, 3 steps, the cuda
+    group's power hint ``HETERO_CUDA_POWER`` (the first step's shares)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import discover
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.hetero import HeteroTrainer
+
+    cfg = dataclasses.replace(get_config("whisper-tiny"), kernel_impl="cuda")
+    api = get_model(cfg)
+    state, _ = build_state(cfg, api, dev, 0)
+    groups = discover()
+    names = [g.name for g in groups]
+    if names != ["cpu:0", "cuda:0"]:
+        fail(f"discover() gave {names}, want ['cpu:0', 'cuda:0']")
+    groups[1].power = HETERO_CUDA_POWER
+    trainer = HeteroTrainer(cfg, api, groups, quantum=1)
+    ds = SyntheticTokens(cfg, HETERO_B, HETERO_S, seed=0)
+    batches = [next(ds) for _ in range(HETERO_STEPS)]
+    whole_loss, whole = trainer.grads(state["params"], batches[0], dev)
+    steps = []
+    try:
+        for i, batch in enumerate(batches):
+            shares = trainer.partition(HETERO_B)
+            if i == 0:
+                # Before the step updates the state in place: the cuda
+                # group's share alone on cuda:0, and the CPU group's share
+                # layer by layer on cpu:0 against cuda:0.
+                cuda_part = trainer.grads(state["params"], {k: v[shares[0]:] for k, v in
+                                                            batch.items()}, dev)[1]
+                t = time.perf_counter()
+                cpu_layers = whisper_device_layer_errors(
+                    dataclasses.replace(cfg, compute_dtype="float32"), state["params"],
+                    {k: torch.as_tensor(v[:shares[0]]) for k, v in batch.items()}, dev, torch)
+                cpu_layers_s = time.perf_counter() - t
+            t = time.perf_counter()
+            handle = trainer.submit_step(state, batch)
+            state, m = handle.result()
+            wall = time.perf_counter() - t
+            if sum(m["shares"]) != HETERO_B or m["shares"] != shares:
+                fail(f"hetero train: shares {m['shares']} do not cover the batch of {HETERO_B}")
+            rec = {"shares": m["shares"], "powers": [float(p) for p in m["powers"]],
+                   "seconds": m["seconds"],
+                   "loss": m["loss"], "wall_s": wall}
+            if i == 0:
+                got = tree_leaves(m["grads"])
+                parts = [tree_leaves(handle._results[j][1]) for j in range(2)]
+                w = [n / HETERO_B for n in shares]
+                want = [w[0] * a.to(dev) + w[1] * c for a, c in zip(*parts)]
+                # Plumbing: the combine is the shares' weighted sum, and the
+                # cuda group's gradient is its share's.
+                rec["plumbing_combine_rel_l2"] = tree_rel_l2(got, want)
+                rec["plumbing_cuda_share_rel_l2"] = tree_rel_l2(parts[1], tree_leaves(cuda_part))
+                rec["cpu_share_layer_rel_l2"] = cpu_layers
+                rec["cpu_share_layer_check_s"] = cpu_layers_s
+                cpu_max = max(max(cpu_layers["encoder"]), max(cpu_layers["decoder"]),
+                              cpu_layers["enc_ln_post"])
+                rec["vs_whole_rel_l2_not_held"] = tree_rel_l2(got, tree_leaves(whole))
+                rec["whole_loss"] = whole_loss
+                rec["loss_rel_vs_whole"] = abs(m["loss"] - whole_loss) / abs(whole_loss)
+                if max(rec["plumbing_combine_rel_l2"],
+                       rec["plumbing_cuda_share_rel_l2"]) > TRAIN_REL_TOL:
+                    fail(f"hetero train: the combined gradient is not the shares' weighted sum "
+                         f"({rec['plumbing_combine_rel_l2']:.3g} rel L2), or the cuda group's "
+                         f"gradient not its share's ({rec['plumbing_cuda_share_rel_l2']:.3g})")
+                if cpu_max > TRAIN_REL_TOL:
+                    fail(f"hetero train: the CPU share's layer gradients on cpu:0 disagree with "
+                         f"cuda:0's beyond {TRAIN_REL_TOL} rel L2: {cpu_layers}")
+                if rec["loss_rel_vs_whole"] > TRAIN_LOSS_REL:
+                    fail(f"hetero train: the combined loss {m['loss']} vs the whole batch's on "
+                         f"cuda:0 {whole_loss}")
+                del parts, want, got, cuda_part, whole
+            if not math.isfinite(m["loss"]):
+                fail(f"hetero train: loss {m['loss']}")
+            steps.append(rec)
+            print(f"  step {i}: shares {dict(zip(names, m['shares']))}, rated powers "
+                  f"{ {n: round(p, 3) for n, p in zip(names, rec['powers'])} } sequences/s, "
+                  f"group seconds {dict(zip(names, [round(x, 3) for x in m['seconds']]))}, loss "
+                  f"{m['loss']:.4f}, wall {wall:.2f} s"
+                  + (f"; the CPU share's parameter gradients layer by layer on cpu:0 against "
+                     f"cuda:0 (same inputs and output gradients, float32) max rel L2 "
+                     f"{cpu_max:.2e}, held "
+                     f"{TRAIN_REL_TOL} ({cpu_layers_s:.1f} s); plumbing: combine == the shares' "
+                     f"weighted sum ({rec['plumbing_combine_rel_l2']:.2e} rel L2), the cuda "
+                     f"group's gradient == its share's alone on cuda:0 "
+                     f"({rec['plumbing_cuda_share_rel_l2']:.2e}); loss vs the whole batch on "
+                     f"cuda:0 {rec['loss_rel_vs_whole']:.2e} rel (held {TRAIN_LOSS_REL}); "
+                     f"gradient vs the whole batch on cuda:0 "
+                     f"{rec['vs_whole_rel_l2_not_held']:.3g} rel L2 (not held: chaotic on "
+                     f"random weights)" if i == 0 else "")
+                  + f" -- {card}", flush=True)
+    finally:
+        trainer.shutdown()
+    return {"groups": names, "cuda_power_hint": HETERO_CUDA_POWER, "steps": steps}
+
+
+def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
+    """The [train] phase; ``detail`` (``--train``) adds where a qwen
+    step's time goes (:func:`train_step_parts`)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    attn = [run_train_attention_case(c, dev, flush, torch, F, fa) for c in TRAIN_ATTENTION]
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(at() + f" [train] qwen1.5-4b at full width, {QWEN_TRAIN_LAYERS} of 40 layers, "
+          f"kernel_impl='cuda', B {QWEN_TRAIN_B} x S {QWEN_TRAIN_S}, {QWEN_TRAIN_STEPS} steps",
+          flush=True)
+    qwen = run_qwen_train(dev, torch, ops, card, attn, detail)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(at() + " [train] whisper-tiny --full through repro_torch.launch.train, checkpoint and "
+          "restore", flush=True)
+    whisper = run_whisper_train(dev, torch, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(at() + f" [train] HeteroTrainer over discover()'s cpu:0 and cuda:0, whisper-tiny "
+          f"--full, batch {HETERO_B}, quantum 1, {HETERO_STEPS} steps", flush=True)
+    hetero = run_hetero_train(dev, torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"attention": attn, "qwen1.5-4b": qwen, "whisper-tiny": whisper, "hetero": hetero}
+
+
 def summary_row(path: str, rec: dict) -> dict:
     """A one-shot path's row of the ``[graph]`` table: its profiled prefill
     and 8 decode steps (busy and wall, eager and graphed), its one-shot
@@ -3615,6 +4268,14 @@ def main() -> None:
         from repro_torch.kernels import rms_norm as rn
 
         print(host_us(dev, torch, gemm, rn), flush=True)
+        return
+    if "--train" in sys.argv[1:]:
+        # Only the [train] phase, its one kernel built alone.
+        from repro_torch.kernels import _build, ops
+
+        _build.build(("flash_attention",))
+        print(json.dumps({"train_path": run_train_phase(dev, torch, F, ops, card, True)}))
+        print(at() + " [done] the [train] phase passed", flush=True)
         return
 
     from repro_torch.kernels import _build, ops
@@ -3849,6 +4510,13 @@ def main() -> None:
     print(at() + " [coexec] the paper's Listing 1 (examples/quickstart_torch.py) on "
           "discover(DeviceMask.ALL) under HGuided(adaptive=True)", flush=True)
     print(json.dumps({"listing1": run_listing1(torch)}))
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(at() + " [train] flash_attention's autograd Function at the train paths' shapes "
+          "(bf16): forward == the kernel bitwise, dq/dk/dv against autograd through "
+          "flash_attention_plain, times beside sdpa's forward + backward", flush=True)
+    print(json.dumps({"train_path": run_train_phase(dev, torch, F, ops, card)}))
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:145"),

@@ -348,13 +348,19 @@ class GroupExecutor:
             for group, fn, on_done in jobs:
                 self._queues[id(group)].put((fn, on_done))
 
-    def shutdown(self) -> None:
+    def shutdown(self, wait: bool = False) -> None:
+        """Stop the workers once their queued jobs are done; ``wait``: join
+        them (a process that exits while a worker still unwinds from torch
+        work can abort in the interpreter's teardown)."""
         with self._lock:
-            if not self._alive:
-                return
-            self._alive = False
-            for q in self._queues.values():
-                q.put(None)  # after queued jobs: workers drain, then exit
+            if self._alive:
+                self._alive = False
+                for q in self._queues.values():
+                    q.put(None)  # after queued jobs: workers drain, then exit
+        if wait:
+            for t in self._threads:
+                if t is not threading.current_thread():
+                    t.join()
 
     def __del__(self) -> None:  # best-effort: release threads with the owner
         try:

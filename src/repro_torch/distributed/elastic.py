@@ -8,8 +8,8 @@ streams of it.
 
 The training half of the reference, ``plan_remesh`` (the largest valid
 mesh from the surviving devices) and ``ElasticRunner`` (rebuild on the
-survivors from the latest checkpoint), needs the checkpoint (ROADMAP.md
-item A10) and the device mesh (item A11), and comes with them.
+survivors from the latest checkpoint, ``ckpt/checkpoint.py``), needs the
+device mesh (ROADMAP.md item A11), and comes with it.
 """
 from __future__ import annotations
 

@@ -274,3 +274,21 @@ def dtype_code(t: torch.Tensor) -> int:
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through kernel ``name``:
+    grad mode is on and an input off the CPU requires grad.  A kernel
+    writes its output through ctypes into a fresh tensor that carries no
+    ``grad_fn``, so a loss through it would silently lose the gradient of
+    every weight before it.  CPU tensors take the plain versions, which
+    differentiate; ``None`` entries (optional operands) are skipped.
+    Every wrapper calls this before its device dispatch."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad and t.device.type != "cpu":
+            raise RuntimeError(
+                f"{name}: the CUDA kernel has no backward, and an input on {t.device} "
+                "requires grad; run it under torch.no_grad() (the train path takes "
+                "the reference computations, and flash_attention's autograd Function)")

@@ -13,8 +13,17 @@ max(p, P - 1), and the window does not cut the prefix for its rows.
 
 ``flash_attention`` launches the CUDA kernel (``csrc/flash_attention.cu``)
 on CUDA tensors and runs ``flash_attention_plain``, the same tiles and masks
-as a loop in PyTorch, on CPU tensors.  Forward only: the backward waits for
-the training slice (ROADMAP.md).
+as a loop in PyTorch, on CPU tensors.
+
+Where autograd needs it (grad mode on and an input requiring grad) the call
+goes through :class:`FlashAttention`, the counterpart of the reference's
+``custom_vjp`` (``_flash_vjp``): the forward is the kernel's output, bit for
+bit, with (q, k, v) saved; the backward recomputes attention in PyTorch and
+takes the gradient of that recompute, as ``_flash_vjp_bwd`` does
+(:func:`recompute`): ``layers.naive_attention`` where Sq·Sk <= 2^20, else
+``layers.chunked_attention`` in chunks of 1024, and for a prefix-LM call
+``models/attention.py:_prefix_lm_attention``, the reference's own
+computation of that mask.  No kernel runs in the backward.
 
 The kernel has two bodies (:func:`launch_plan` says which a shape takes):
 
@@ -32,6 +41,9 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# The reference backward recomputes densely up to this many (query, key)
+# pairs, and in chunks beyond (``_flash_vjp_bwd``).
+RECOMPUTE_NAIVE_MAX = 1024 * 1024
 # The prefill kernel's KV tile: its tile partition is the one chunked
 # prefill's rows (``flash_decode.flash_decode_chunk``) walk as well.
 BLOCK_K = 64
@@ -143,7 +155,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     prefix-LM mask (see the module's docstring).
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
-    :func:`flash_attention_plain`."""
+    :func:`flash_attention_plain`.  Under autograd (grad mode on and an
+    input requiring grad) the call goes through :class:`FlashAttention`,
+    whose forward is the same dispatch."""
+    args = (causal, window, q_offset, prefix_len, block_q, block_k)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, *args)
+    return _dispatch(q, k, v, *args)
+
+
+def _dispatch(q, k, v, causal, window, q_offset, prefix_len, block_q, block_k):
     kw = dict(causal=causal, window=window, q_offset=q_offset, prefix_len=prefix_len,
               block_q=block_q, block_k=block_k)
     if q.device.type == "cpu":
@@ -153,12 +174,55 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, q_offset: 
     return _flash_attention_cuda(q, k, v, **kw)
 
 
+def recompute(q, k, v, *, causal: bool, window: int, q_offset: int, prefix_len: int):
+    """Attention in PyTorch as the reference's backward recomputes it:
+    ``naive_attention`` where Sq·Sk <= 2^20, else ``chunked_attention``
+    with chunks of min(1024, S); a prefix-LM call (Sq = Sk, no offset)
+    through ``_prefix_lm_attention``."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+
+    sq, sk = q.shape[1], k.shape[1]
+    if prefix_len > 0:
+        if q_offset or sq != sk:
+            raise ValueError("the prefix-LM backward recomputes a whole sequence (Sq = Sk, "
+                             f"q_offset 0); got Sq {sq}, Sk {sk}, q_offset {q_offset}")
+        return A._prefix_lm_attention(q, k, v, prefix_len, window)
+    if sq * sk <= RECOMPUTE_NAIVE_MAX:
+        return L.naive_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    return L.chunked_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                               q_chunk=min(1024, sq), kv_chunk=min(1024, sk))
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with the reference's recompute backward (see
+    the module's docstring).  ``apply(q, k, v, causal, window, q_offset,
+    prefix_len, block_q, block_k)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, prefix_len, block_q, block_k):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset, prefix_len=prefix_len)
+        # The kernel loads contiguous rows; a caller's q, k or v may be a view.
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return _dispatch(q, k, v, causal, window, q_offset, prefix_len, block_q, block_k)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = recompute(q, k, v, **ctx.mask)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return (dq, dk, dv) + (None,) * 6
+
+
 def _flash_attention_cuda(q, k, v, *, causal, window, q_offset, prefix_len, block_q,
                           block_k):
     import ctypes
 
     from repro_torch.kernels import _build
 
+    _build.refuse_grad("flash_attention", q, k, v)
     b, sq, h, hd = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     req = _build.require

@@ -48,8 +48,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import BLOCK_K as PREFILL_BLOCK_K
 from repro_torch.models.attention import ragged_valid_mask
+
 
 NEG_INF = -1e30
 CHUNK_BLOCK_Q = 64  # query positions of one block of the chunk launch's FMA route
@@ -130,8 +132,6 @@ def flash_decode_plain(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 12
 
 
 def _plan(b, n_tiles, bk, sq, h, kv, hd, q_dtype, kv_dtype) -> dict:
-    from repro_torch.kernels import _build
-
     req = _build.require
     req(min(b, sq, h, kv, hd) > 0, "empty shape")
     req(h % kv == 0, f"H={h} is not a multiple of KV={kv}")
@@ -193,6 +193,7 @@ def flash_decode(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 128):
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`flash_decode_plain`."""
+    _build.refuse_grad("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kpos, pos, window=window, block_k=block_k)
     if q.device.type != "cuda":
@@ -202,8 +203,6 @@ def flash_decode(q, k, v, kpos, pos, *, window: int = 0, block_k: int = 128):
 
 def _flash_decode_cuda(q, k, v, kpos, pos, *, window, block_k):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     b, sq, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -302,8 +301,6 @@ def chunk_launch_plan(b: int, s: int, sq: int, h: int, kv: int, hd: int, q_dtype
     FMA body a grid over (64-position tile, slot x head), as
     ``flash_attention``'s.  Any Sq.  Raises ValueError on a shape the
     kernel cannot take.  Pure: the CPU tests call it."""
-    from repro_torch.kernels import _build
-
     req = _build.require
     req(min(b, s, sq, h, kv, hd) > 0, "empty shape")
     req(h % kv == 0, f"H={h} is not a multiple of KV={kv}")
@@ -348,6 +345,7 @@ def flash_decode_chunk(q, k, v, kpos, pos, *, window: int = 0,
     CUDA tensors launch the kernel (``flash_decode_chunk_launch`` in
     ``csrc/flash_decode.cu``) or raise; CPU tensors take
     :func:`flash_decode_chunk_plain`."""
+    _build.refuse_grad("flash_decode", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_chunk_plain(q, k, v, kpos, pos, window=window, block_k=block_k)
     if q.device.type != "cuda":
@@ -357,8 +355,6 @@ def flash_decode_chunk(q, k, v, kpos, pos, *, window: int = 0,
 
 def _flash_decode_chunk_cuda(q, k, v, kpos, pos, *, window, block_k):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     b, sq, h, hd = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -428,6 +424,7 @@ def flash_decode_paged(q, k, v, kpos, tables, pos, *, window: int = 0):
 
     CUDA tensors launch the kernel (``csrc/flash_decode_paged.cu``) or
     raise; CPU tensors take :func:`flash_decode_paged_plain`."""
+    _build.refuse_grad("flash_decode_paged", q, k, v)
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k, v, kpos, tables, pos, window=window)
     if q.device.type != "cuda":
@@ -437,8 +434,6 @@ def flash_decode_paged(q, k, v, kpos, tables, pos, *, window: int = 0):
 
 def _flash_decode_paged_cuda(q, k, v, kpos, tables, pos, *, window):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     b, sq, h, hd = q.shape
     n, bl, kvh = k.shape[0], k.shape[1], k.shape[2]

@@ -27,6 +27,9 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import _build
+
+
 NUM_SMS = 132  # H100 SXM
 HEAD_N = 32768  # decode products at least this wide take the 128-wide tile
 # Route codes of csrc/gemm_rowinv.cu, and each route's (BM, BN, BK) tile
@@ -100,6 +103,7 @@ def linear(x, w, bias=None, *, route=None):
     :func:`linear_plain`.  ``route`` forces one of :data:`ROUTES` in place
     of :func:`plan`'s (the card's check that every route gives the same
     bits); the kernel refuses a route the operands cannot take."""
+    _build.refuse_grad("gemm_rowinv", x, w, bias)
     if x.device.type == "cpu":
         return linear_plain(x, w, bias)
     if x.device.type != "cuda":
@@ -160,15 +164,11 @@ def maps_encoded() -> int:
     """TMA maps the kernel library has encoded so far (its cache's misses:
     each costs host time; a call whose operands' maps are cached encodes
     none).  Builds and loads the library on first use."""
-    from repro_torch.kernels import _build
-
     return _build.kernel_fn("gemm_rowinv", "gemm_rowinv_maps_encoded", [])()
 
 
 def _linear_cuda(x, w, bias, route=None):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     if w.device != x.device or (bias is not None and bias.device != x.device):
         raise ValueError("all tensors on one device")

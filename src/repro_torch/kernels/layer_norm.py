@@ -19,7 +19,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.rms_norm import _vpl
+
 
 
 def layer_norm_plain(x, weight, bias, eps: float):
@@ -38,6 +40,7 @@ def layer_norm(x, weight, bias, eps: float):
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`layer_norm_plain`."""
+    _build.refuse_grad("layer_norm", x, weight, bias)
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     if x.device.type != "cuda":
@@ -47,8 +50,6 @@ def layer_norm(x, weight, bias, eps: float):
 
 def _layer_norm_cuda(x, weight, bias, eps):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     d = x.shape[-1]
     req = _build.require

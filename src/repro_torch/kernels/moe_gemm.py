@@ -71,6 +71,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
+
+
 MAX_E = 512    # experts whose counts a block stages (csrc/moe_gemm.cu kMaxE)
 BM = BK = 64   # rows and k of a tile
 PART = 128     # columns of one weight part: a stage holds two
@@ -147,6 +150,7 @@ def moe_gemm(x, w, count, rows=None, w_up=None):
 
     CUDA tensors launch the kernel (bfloat16 only; or raise); CPU tensors
     take :func:`moe_gemm_plain`."""
+    _build.refuse_grad("moe_gemm", x, w, w_up)
     if x.device.type == "cpu":
         return moe_gemm_plain(x, w, count, rows, w_up)
     if x.device.type != "cuda":
@@ -156,8 +160,6 @@ def moe_gemm(x, w, count, rows=None, w_up=None):
 
 def _moe_gemm_cuda(x, w, count, rows, w_up):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     if x.dtype != torch.bfloat16 or w.dtype != x.dtype or (w_up is not None
                                                            and w_up.dtype != x.dtype):

@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
+
 
 def rglru_scan_plain(a, b, h0):
     """The kernel's function in PyTorch: a loop over time in float32.  The
@@ -34,6 +37,7 @@ def rglru_scan(a, b, h0):
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`rglru_scan_plain`."""
+    _build.refuse_grad("rglru_scan", a, b, h0)
     if a.device.type == "cpu":
         return rglru_scan_plain(a, b, h0)
     if a.device.type != "cuda":
@@ -43,8 +47,6 @@ def rglru_scan(a, b, h0):
 
 def _rglru_scan_cuda(a, b, h0):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     bsz, s, w = a.shape
     ins = (a, b, h0)

@@ -19,6 +19,9 @@ import functools
 
 import torch
 
+from repro_torch.kernels import _build
+
+
 CHUNK = 8  # elements of one chunk: 16 bytes in bf16
 VPL = (2, 4, 8, 10, 12, 16)  # the kernel's register-held chunks a lane
 
@@ -50,6 +53,7 @@ def rms_norm(x, weight, eps: float):
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`rms_norm_plain`."""
+    _build.refuse_grad("rms_norm", x, weight)
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
     if x.device.type != "cuda":
@@ -64,8 +68,6 @@ def _vpl(d: int) -> int:
 
 def _rms_norm_cuda(x, weight, eps):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     d = x.shape[-1]
     if weight.device != x.device:

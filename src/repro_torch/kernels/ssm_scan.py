@@ -21,6 +21,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
+
+
 MAX_STATE = 32                  # N: one thread holds a channel's states in registers
 STATE_PADS = (4, 8, 16, 32)     # the kernel's instances: N rounded up to one of these
 CHANNEL_BLOCKS = (128, 64, 32)  # channels (threads) of one block, largest first
@@ -57,8 +60,6 @@ def scan_plan(b: int, s: int, di: int, n: int, dtype=torch.float32, *, aligned: 
     Only ``channels``, ``grid`` and ``blocks`` depend on B.  Raises
     ValueError on what the kernel does not take.  Pure: the CPU tests call
     it."""
-    from repro_torch.kernels import _build
-
     req = _build.require
     req(dtype == torch.float32, f"the scan takes float32 tensors, got {dtype}")
     req(0 < n <= MAX_STATE, f"N={n} outside 1..{MAX_STATE}")
@@ -79,6 +80,7 @@ def ssm_scan(dt, x, b_mat, c_mat, a, h0):
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`ssm_scan_plain`."""
+    _build.refuse_grad("ssm_scan", dt, x, b_mat, c_mat, a, h0)
     if dt.device.type == "cpu":
         return ssm_scan_plain(dt, x, b_mat, c_mat, a, h0)
     if dt.device.type != "cuda":
@@ -88,8 +90,6 @@ def ssm_scan(dt, x, b_mat, c_mat, a, h0):
 
 def _ssm_scan_cuda(dt, x, b_mat, c_mat, a, h0):
     import ctypes
-
-    from repro_torch.kernels import _build
 
     bsz, s, di = dt.shape
     n = a.shape[-1]

@@ -3,6 +3,7 @@
     api = get_model(cfg)
     api.param_spec(cfg)                   -> Spec tree
     api.cache_spec(cfg, batch, seq)       -> Spec tree (decode caches)
+    api.forward_train(params, batch, cfg) -> scalar loss
     api.prefill(params, batch, cfg, cache)-> (logits, cache)
     api.decode(params, token, pos, cfg, cache) -> (logits, cache)
     api.prefill_chunk(params, tokens, posv, valid, cfg, cache, last_idx)
@@ -23,6 +24,7 @@ class ModelAPI(NamedTuple):
     prefill: Callable
     decode: Callable
     prefill_chunk: Optional[Callable] = None
+    forward_train: Optional[Callable] = None
 
 
 def get_model(cfg) -> ModelAPI:
@@ -34,13 +36,16 @@ def get_model(cfg) -> ModelAPI:
         # Chunked prefill of a prefix-LM prompt is not ported: the server,
         # its only caller, refuses the vlm family.
         chunk = T.prefill_chunk if cfg.family in ("dense", "moe") else None
-        return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode, chunk)
+        return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode, chunk,
+                        forward_train=T.forward_train)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru as R
 
-        return ModelAPI(R.param_spec, R.cache_spec, R.prefill, R.decode)
+        return ModelAPI(R.param_spec, R.cache_spec, R.prefill, R.decode,
+                        forward_train=R.forward_train)
     if cfg.family == "audio":
         from repro_torch.models import whisper as W
 
-        return ModelAPI(W.param_spec, W.cache_spec, W.prefill, W.decode)
+        return ModelAPI(W.param_spec, W.cache_spec, W.prefill, W.decode,
+                        forward_train=W.forward_train)
     raise ValueError(f"unknown family {cfg.family!r}")

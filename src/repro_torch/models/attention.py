@@ -60,8 +60,8 @@ def _proj(x, w, impl, bias=None):
     return y.reshape(x.shape[:-1] + w.shape[1:])
 
 
-def _project_qkv(p, x, positions, cfg):
-    impl = cfg.kernel_impl
+def _project_qkv(p, x, positions, cfg, impl=None):
+    impl = impl or cfg.kernel_impl
     # The bias (qwen's) is added before RoPE.
     q, k, v = (_proj(x, p[w], impl, p.get(b)) for w, b in
                (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
@@ -73,6 +73,24 @@ def _project_qkv(p, x, positions, cfg):
 def _out_proj(out, wo, impl):
     """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
     return L.linear(out.flatten(2), wo.flatten(0, 1), impl)
+
+
+def attend_full(p, x, positions, cfg, *, causal=True, window=0, prefix_len=0):
+    """Training (no cache). x: (B, S, d).  The projections are the
+    reference's products (``torch.matmul``); attention is
+    ``layers.attention``'s dispatch, and a prefix-LM mask (``prefix_len``
+    > 0) takes ``flash_attention``'s prefix mode under ``"cuda"``, else
+    ``_prefix_lm_attention``."""
+    q, k, v = _project_qkv(p, x, positions, cfg, "reference")
+    if prefix_len and cfg.kernel_impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        out = kops.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
+    elif prefix_len:
+        out = _prefix_lm_attention(q, k, v, prefix_len, window)
+    else:
+        out = L.attention(q, k, v, cfg, causal=causal, window=window)
+    return _out_proj(out, p["wo"], "reference")
 
 
 def _write(cache, slot, k, v, positions, keep=None):

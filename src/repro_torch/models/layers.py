@@ -26,6 +26,16 @@ from repro_torch.kernels.rms_norm import rms_norm_plain
 NEG_INF = -1e30
 
 
+def impl_for(cfg, mode: str) -> str:
+    """The ``impl`` of a block's products, norms and scans in ``mode``:
+    ``cfg.kernel_impl``, except ``"train"``, which takes the reference
+    computations.  The JAX package trains on ``jnp`` everywhere outside
+    attention (its Pallas scans have no VJP), and the port's row-invariant
+    kernels have no backward; attention dispatches on ``cfg.kernel_impl``
+    in every mode (``flash_attention``'s autograd Function under grad)."""
+    return "reference" if mode == "train" else cfg.kernel_impl
+
+
 def rms_norm(x, weight, eps: float, impl: str = "reference"):
     """Normalize in float32, cast back to x's dtype, *then* scale.
     ``impl="cuda"``: the row-invariant kernel (its plain version for CPU

@@ -10,7 +10,10 @@ Prefill runs the selective scan over the whole prompt; decode carries
   within each 256-step chunk;
 - ``"reference"``, any other S: ``ssm_scan_plain``, a loop over time.
 
-The cache is written in place (the JAX package returned a new one).
+Training (``mode="train"``) has no cache: the scan starts from zeros and
+takes the reference's scans above (the JAX package's Pallas scan has no
+VJP), as do the products and the norm.  The cache is written in place (the
+JAX package returned a new one).
 """
 from __future__ import annotations
 
@@ -65,14 +68,14 @@ def _causal_conv(x, w, b, ck: int):
     return out + b
 
 
-def ssm_forward(p, x, cfg, h0=None):
+def ssm_forward(p, x, cfg, h0=None, impl=None):
     """x: (B, S, di) post-conv activations. Returns (y, h_last).
 
     The (B, S, di, N) state tensor is never materialized beyond one
     256-step chunk."""
     b, s, di = x.shape
     _, R, N = dims(cfg)
-    impl = cfg.kernel_impl
+    impl = impl or cfg.kernel_impl
     xdb = L.linear(x, p["x_proj"], impl)  # (B,S,R+2N)
     dt, B_ssm, C_ssm = torch.split(xdb, [R, N, N], dim=-1)
     dt = F.softplus(L.linear(dt, p["dt_proj"], impl, p["dt_bias"])).float()  # (B,S,di)
@@ -86,7 +89,7 @@ def ssm_forward(p, x, cfg, h0=None):
         h_last = (torch.exp(dt[:, 0, :, None] * A) * h0
                   + (dt[:, 0] * xf[:, 0])[..., None] * Bf[:, 0, None, :])
         y = torch.einsum("bdn,bn->bd", h_last, Cf[:, 0])[:, None]
-    elif cfg.kernel_impl == "cuda":
+    elif impl == "cuda":
         from repro_torch.kernels import ops as kops
 
         y, h_last = kops.ssm_scan(dt, xf.contiguous(), Bf.contiguous(), Cf.contiguous(), A,
@@ -111,11 +114,16 @@ def ssm_forward(p, x, cfg, h0=None):
 
 
 def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
-    """One Mamba layer; ``cache`` ({conv, ssm}) is updated in place."""
+    """One Mamba layer; ``cache`` ({conv, ssm}) is updated in place.  In
+    ``mode="train"`` (no cache) returns (x, 0.0), no aux loss."""
     del positions, pos
-    impl = cfg.kernel_impl
+    impl = L.impl_for(cfg, mode)
     h = L.rms_norm(x, p["norm"], cfg.norm_eps, impl)
     x_in, z = L.linear(h, p["in_proj"], impl).chunk(2, dim=-1)
+    if mode == "train":
+        xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], cfg.ssm_conv))
+        y, _ = ssm_forward(p, xc, cfg, impl=impl)
+        return x + L.linear(y * F.silu(z), p["out_proj"], impl), 0.0
     h0 = cache["ssm"].float()
     if mode == "decode":
         # Roll the conv state: a one-step conv, then one scan step.
@@ -130,7 +138,7 @@ def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
         # than the window.
         cache["conv"].copy_(F.pad(x_in, (0, 0, cfg.ssm_conv - 1, 0))[:, -(cfg.ssm_conv - 1):])
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        raise ValueError(f"mode {mode!r} is not train, prefill or decode")
     cache["ssm"].copy_(h_last)
     out = L.linear(y * F.silu(z), p["out_proj"], impl)
     return x + out, cache

@@ -24,8 +24,10 @@ Under ``kernel_impl="cuda"`` the router and the dense residual go through
 a layer: gate and up fused, then down), which reads the row map and the
 per-expert counts on the device and skips the experts and rows the call
 does not fill; ``"reference"`` runs the kernels' plain versions, the
-reference's dense einsums.  Training (``aux_load_balance_loss``) and the
-expert-parallel ``moe_ffn_ep`` are not ported (ROADMAP.md A10, A11).
+reference's dense einsums.  In training (``mode="train"``) the products
+are the reference's and the block returns the router's
+:func:`aux_load_balance_loss` in its cache's place.  The expert-parallel
+``moe_ffn_ep`` is not ported (ROADMAP.md A11).
 """
 from __future__ import annotations
 
@@ -120,10 +122,29 @@ def dispatch(fids, fw, tok, E: int, C: int):
     return torch.clamp(pos, max=C - 1), keep, flat[:E * C].view(E, C), count
 
 
-def moe_ffn(x, p, cfg):
+def aux_load_balance_loss(x, router, cfg):
+    """Switch/GShard router losses of tokens x (T, d): load balance
+    (E · sum_e f_e P_e, f_e the share of the T K assignments routed to
+    expert e, P_e its mean router probability) plus 1e-3 x the z-loss
+    (the mean squared logsumexp of the gates), as the reference.  The
+    counts f carry no gradient."""
+    E, K = cfg.n_experts, cfg.top_k
+    gates = (x @ router.to(x.dtype)).float()
+    probs = torch.softmax(gates, dim=-1)  # (T, E)
+    _, ids = top_k(probs, K)
+    T = x.shape[0]
+    ones = torch.ones(ids.numel(), dtype=torch.float32, device=x.device)
+    f = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
+        0, ids.reshape(-1), ones) / (T * K)
+    lb = E * torch.sum(f * probs.mean(dim=0))
+    z = torch.mean(torch.square(torch.logsumexp(gates, dim=-1)))
+    return lb + 1e-3 * z
+
+
+def moe_ffn(x, p, cfg, impl=None):
     """x (T, d) flat tokens -> (T, d): route, dispatch into the capacity
     buffer's row map, the experts' SwiGLU, combine."""
-    E, K, impl = cfg.n_experts, cfg.top_k, cfg.kernel_impl
+    E, K, impl = cfg.n_experts, cfg.top_k, impl or cfg.kernel_impl
     C = capacity(x.shape[0], cfg)
     fids, fw, tok = route(x, p["router"], E, K, impl)
     slot, keep, rows, count = dispatch(fids, fw, tok, E, C)
@@ -142,9 +163,11 @@ def moe_ffn(x, p, cfg):
 
 
 def moe_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
-    impl = cfg.kernel_impl
+    impl = L.impl_for(cfg, mode)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps, impl)
-    if mode == "prefill":
+    if mode == "train":
+        a = A.attend_full(p["attn"], h, positions, cfg)
+    elif mode == "prefill":
         a, cache = A.prefill_with_cache(p["attn"], h, positions, cfg, cache)
     elif mode == "decode":
         a, cache = A.decode_step(p["attn"], h, pos, cfg, cache)
@@ -152,14 +175,16 @@ def moe_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
         posv, valid = pos
         a, cache = A.chunk_step(p["attn"], h, posv, valid, cfg, cache)
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        raise ValueError(f"mode {mode!r} is not train, prefill, decode or chunk")
     x = x + a
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps, impl)
     b, s, d = h.shape
-    ff = moe_ffn(h.reshape(b * s, d), p, cfg).reshape(b, s, d)
+    ff = moe_ffn(h.reshape(b * s, d), p, cfg, impl).reshape(b, s, d)
     if cfg.dense_residual:
         dm = p["dense_mlp"]
         ff = ff + L.swiglu(h, dm["w_gate"], dm["w_up"], dm["w_down"], impl)
+    if mode == "train":
+        return x + ff, aux_load_balance_loss(h.reshape(b * s, d), p["router"], cfg)
     return x + ff, cache
 
 

@@ -41,6 +41,38 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def cast_float(tree, dtype):
+    """Floating leaves cast to ``dtype`` (others as they are): the train
+    step's one cast of the float32 masters to the compute dtype, on the
+    stacked leaves, so that autograd carries each gradient back to its
+    master through the cast."""
+    dt = _dtype(dtype)
+    return tree_map(lambda a: a.to(dt) if a.is_floating_point() else a, tree)
+
+
+def tree_unflatten(like, leaves: list):
+    """``leaves``, in :func:`tree_leaves` order, in ``like``'s structure."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(like)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-layer views of a layer-stacked tree, by one ``unbind``
+    a leaf: under autograd the layers' gradients land in the stacked leaf
+    through one stack, where indexing each layer (``a[i]``) would add a
+    zero-filled stacked-size gradient a layer."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(tree[k], n) for k in sorted(tree)}
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def stack_layers(n_layers: int, tree):
     """Prepend a layer dim (stacked per-layer params and caches)."""
     return tree_map(

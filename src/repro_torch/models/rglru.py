@@ -12,7 +12,10 @@ RG-LRU recurrence (diagonal, gated):
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 Gates are block-diagonal with n_heads blocks (as in the paper).
 
-Training (``forward_train``) waits for the training slice (ROADMAP.md).
+Training (``forward_train``, ``mode="train"``) has no cache: the conv and
+the recurrence start from zeros, the products, norms and scans are the
+reference's (``layers.impl_for``), and ``cfg.remat`` checkpoints each full
+unit, as the reference remats its scanned unit body (the tail runs plain).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.params import Spec, stack_layers, tree_map
+from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
 
 LRU_C = 8.0
 CHUNK = 256
@@ -92,20 +95,23 @@ def _rglru_scan(a, b, h0, impl: str = "reference"):
     return rglru_scan_plain(a, b, h0)
 
 
-def rec_block_apply(p, x, cfg, cache):
-    """Griffin recurrent block; ``cache`` ({conv, h}) is updated in place.
-    Returns (x, cache)."""
+def rec_block_apply(p, x, cfg, cache, impl=None):
+    """Griffin recurrent block; ``cache`` ({conv, h}) is updated in place
+    (None: from zeros, nothing kept).  Returns (x, cache)."""
     bsz, s, _ = x.shape
     nb = max(cfg.n_heads, 1)
     w = cfg.lru_width
-    impl = cfg.kernel_impl
+    impl = impl or cfg.kernel_impl
     h = L.rms_norm(x, p["norm"], cfg.norm_eps, impl)
     y_branch = F.gelu(L.linear(h, p["in_y"], impl), approximate="tanh")  # (B,S,w)
     x_branch = L.linear(h, p["in_x"], impl)
 
     # Causal depthwise conv (width 4) over the carried state and the input.
-    conv_in = torch.cat([cache["conv"].to(x_branch.dtype), x_branch], dim=1)
     ck = p["conv_w"].shape[1]
+    if cache is not None:
+        conv_in = torch.cat([cache["conv"].to(x_branch.dtype), x_branch], dim=1)
+    else:
+        conv_in = F.pad(x_branch, (0, 0, ck - 1, 0))
     xc = sum(conv_in[:, i: i + s] * p["conv_w"][:, i] for i in range(ck)) + p["conv_b"]
 
     # Block-diagonal gates: each one product of the nb blocks, one launch
@@ -120,11 +126,14 @@ def rec_block_apply(p, x, cfg, cache):
     log_a = -LRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * xc.float()
-    hs, h_last = _rglru_scan(a, gated, cache["h"].float(), impl=cfg.kernel_impl)
+    h0 = (cache["h"].float() if cache is not None
+          else torch.zeros((bsz, w), dtype=torch.float32, device=x.device))
+    hs, h_last = _rglru_scan(a, gated, h0, impl=impl)
 
     out = L.linear(hs.to(x.dtype) * y_branch, p["out"], impl)
-    cache["conv"].copy_(conv_in[:, -(ck - 1):])
-    cache["h"].copy_(h_last)
+    if cache is not None:
+        cache["conv"].copy_(conv_in[:, -(ck - 1):])
+        cache["h"].copy_(h_last)
     return x + out, cache
 
 
@@ -157,22 +166,25 @@ def layer_cache_spec(cfg, batch: int, max_seq: int, kind: str) -> dict:
 
 
 def layer_apply(p, x, positions, cfg, *, kind, mode, cache, pos=None):
-    """One layer of either kind; its cache is updated in place."""
-    if mode not in ("prefill", "decode"):
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+    """One layer of either kind; its cache is updated in place (``mode``
+    "train": no cache)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not train, prefill or decode")
+    impl = L.impl_for(cfg, mode)
     if kind == "rec":
-        x, _ = rec_block_apply(p["mix"], x, cfg, cache)
+        x, _ = rec_block_apply(p["mix"], x, cfg, cache, impl)
     else:
         ap = {k: v for k, v in p["mix"].items() if k != "norm"}
-        h = L.rms_norm(x, p["mix"]["norm"], cfg.norm_eps, cfg.kernel_impl)
-        if mode == "prefill":
+        h = L.rms_norm(x, p["mix"]["norm"], cfg.norm_eps, impl)
+        if mode == "train":
+            a = A.attend_full(ap, h, positions, cfg, window=cfg.window)
+        elif mode == "prefill":
             a, _ = A.prefill_with_cache(ap, h, positions, cfg, cache, window=cfg.window)
         else:
             a, _ = A.decode_step(ap, h, pos, cfg, cache, window=cfg.window)
         x = x + a
-    h = L.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps, cfg.kernel_impl)
-    x = x + L.geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"],
-                    cfg.kernel_impl)
+    h = L.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps, impl)
+    x = x + L.geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl)
     return x, cache
 
 
@@ -207,9 +219,7 @@ def stack_order(params, cache, cfg):
     the apply is ``layer_apply`` with the layer's kind bound."""
     n_units, tail = _pattern_layout(cfg)
     layers = []
-    for ui in range(n_units):
-        up = tree_map(lambda t: t[ui], params["units"])
-        uc = tree_map(lambda t: t[ui], cache["units"])
+    for up, uc in zip(unstack(params["units"], n_units), unstack(cache["units"], n_units)):
         layers += [(k, up[f"l{i}_{k}"], uc[f"l{i}_{k}"]) for i, k in enumerate(cfg.block_pattern)]
     layers += [(k, params["tail"][f"t{i}_{k}"], cache["tail"][f"t{i}_{k}"])
                for i, k in enumerate(tail)]
@@ -219,9 +229,47 @@ def stack_order(params, cache, cfg):
 def run_stack(params, x, positions, cfg, *, mode, cache, pos=None):
     """Run the layer stack; the cache is updated in place.  Returns
     (x, cache)."""
+    if mode == "train":
+        return _train_stack(params, x, positions, cfg), None
     for apply, lp, lc in stack_order(params, cache, cfg):
         x, _ = apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos)
     return x, cache
+
+
+def _train_stack(params, x, positions, cfg):
+    """The train mode's stack: each full unit under ``remat``, then the
+    tail."""
+    from repro_torch.models import transformer as T
+
+    def unit(up, h):
+        for i, kind in enumerate(cfg.block_pattern):
+            h, _ = layer_apply(up[f"l{i}_{kind}"], h, positions, cfg, kind=kind,
+                               mode="train", cache=None)
+        return h
+
+    n_units, tail = _pattern_layout(cfg)
+    body = T.remat(unit, cfg)
+    for up in unstack(params["units"], n_units):
+        x = body(up, x)
+    for i, kind in enumerate(tail):
+        x, _ = layer_apply(params["tail"][f"t{i}_{kind}"], x, positions, cfg, kind=kind,
+                           mode="train", cache=None)
+    return x
+
+
+def forward_train(params, batch, cfg):
+    """The scalar next-token loss of ``batch`` ({tokens (B, S)}); the
+    float parameters cast to the compute dtype once (see
+    ``transformer.forward_train``)."""
+    from repro_torch.models import transformer as T
+
+    params = cast_float(params, cfg.compute_dtype)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = T.embed_tokens(params, tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x, _ = run_stack(params, x, positions, cfg, mode="train", cache=None)
+    return T.lm_loss(params, x, *T.next_token_targets(tokens), cfg)
 
 
 def prefill(params, batch, cfg, cache):

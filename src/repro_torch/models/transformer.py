@@ -15,17 +15,26 @@ keeps the dense block's attention and cache; the ssm family (falcon-mamba)
 for ``mamba.py``'s.  The vlm family (paligemma) is the dense stack behind a
 prefix of ``n_patches`` image-patch embeddings, which its prefill attends
 with the prefix-LM mask.  The dense and moe families also run chunked
-prefill (``mode="chunk"``, :func:`prefill_chunk`).  Training is not ported
-yet (ROADMAP.md).
+prefill (``mode="chunk"``, :func:`prefill_chunk`).
+
+Training (``mode="train"``, :func:`forward_train`): no cache; each block
+returns its auxiliary loss (the moe family's router load balance, 0
+elsewhere) in the cache's place, and the stack sums them.  The blocks'
+products, norms and scans take the reference computations in that mode
+(``layers.impl_for``); attention keeps ``cfg.kernel_impl``.  ``cfg.remat``
+checkpoints each layer (:func:`remat`).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba, moe
-from repro_torch.models.params import Spec, stack_layers, tree_map
+from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
 
 
 # ------------------------------------------------------------- dense block
@@ -46,9 +55,13 @@ def dense_block_spec(cfg) -> dict:
 
 
 def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0):
-    impl = cfg.kernel_impl
+    impl = L.impl_for(cfg, mode)
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps, impl)
-    if mode == "prefill":
+    if mode == "train":
+        a = A.attend_full(p["attn"], h, positions, cfg, window=cfg.window,
+                          prefix_len=prefix_len)
+        cache = 0.0  # the train mode's aux-loss slot
+    elif mode == "prefill":
         a, cache = A.prefill_with_cache(p["attn"], h, positions, cfg, cache,
                                         window=cfg.window, prefix_len=prefix_len)
     elif mode == "decode":
@@ -57,7 +70,7 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None, prefix_len
         posv, valid = pos
         a, cache = A.chunk_step(p["attn"], h, posv, valid, cfg, cache, window=cfg.window)
     else:
-        raise NotImplementedError(f"mode {mode!r} is not ported yet")
+        raise ValueError(f"mode {mode!r} is not train, prefill, decode or chunk")
     x = x + a
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps, impl)
     x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl)
@@ -107,17 +120,53 @@ def cache_spec(cfg, batch: int, max_seq: int) -> dict:
 
 def stack_order(params, cache, cfg):
     """(block apply, layer params, layer cache) of every layer in the
-    order the stack runs them, as views into the stacked trees."""
+    order the stack runs them, as views into the stacked trees (cache
+    None: no cache, the train mode)."""
     _, bapply, _ = FAMILIES[cfg.family]
-    return [(bapply, tree_map(lambda a: a[i], params["layers"]),
-             tree_map(lambda a: a[i], cache)) for i in range(cfg.n_layers)]
+    n = cfg.n_layers
+    caches = [None] * n if cache is None else unstack(cache, n)
+    return [(bapply, lp, lc) for lp, lc in zip(unstack(params["layers"], n), caches)]
+
+
+# The matrix products at the dispatcher: the outputs ``cfg.remat="dots"``
+# keeps, as ``jax.checkpoint_policies.checkpoint_dots`` keeps dot_general's.
+DOT_OPS = tuple(getattr(torch.ops.aten, n).default
+                for n in ("mm", "bmm", "addmm", "baddbmm", "mv", "dot"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, cfg):
+    """``fn`` under ``cfg.remat`` (the reference's ``_maybe_remat``):
+    ``"full"`` keeps only its inputs and recomputes it in the backward,
+    ``"dots"`` keeps the outputs of its matrix products and recomputes the
+    rest (so a ``flash_attention`` forward runs again in the backward: its
+    output is no product's), ``"none"`` keeps everything."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r} is none of none, dots, full")
+    kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
+        ckpt.create_selective_checkpoint_contexts, _save_dots)}
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
 
 
 def run_stack(params, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0):
     """Run the layer stack; the stacked cache is updated in place.
-    ``prefix_len`` (the vlm family's prefill) reaches the dense blocks.
-    Returns (x, cache)."""
+    ``prefix_len`` (the vlm family's prefill and training) reaches the
+    dense blocks.  Returns (x, cache); in ``mode="train"`` (cache None)
+    (x, the sum of the layers' aux losses), each layer under
+    :func:`remat`."""
     kw = {"prefix_len": prefix_len} if prefix_len else {}
+    if mode == "train":
+        aux = 0.0
+        for apply, lp, _ in stack_order(params, None, cfg):
+            x, a = remat(apply, cfg)(lp, x, positions, cfg, mode=mode, cache=None, **kw)
+            aux = aux + a
+        return x, aux
     for apply, lp, lc in stack_order(params, cache, cfg):
         x, _ = apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos, **kw)
     return x, cache
@@ -133,15 +182,77 @@ def embed_tokens(params, tokens, cfg):
     return x
 
 
-def logits_fn(params, x, cfg):
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, cfg.kernel_impl)
+def logits_fn(params, x, cfg, impl=None):
+    impl = impl or cfg.kernel_impl
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl)
     # A tied head reads the embedding table as it is stored: (vocab, d)
     # row-major is the transposed (N, K) layout the GEMM takes.
     head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
-    return L.linear(x, head.to(x.dtype), cfg.kernel_impl).float()
+    return L.linear(x, head.to(x.dtype), impl).float()
+
+
+def next_token_targets(tokens):
+    """(labels, mask): predict token t+1 at position t, the last position
+    masked, as the reference (``jnp.roll`` wraps the first token there)."""
+    labels = torch.roll(tokens, -1, dims=1).long()
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    return labels, mask
+
+
+def token_nll(logits, labels, mask):
+    """The summed negative log-likelihood of ``labels`` under float32
+    ``logits`` (B, S, V), masked."""
+    lp = torch.log_softmax(logits, dim=-1)
+    tok = lp.gather(-1, labels[..., None])[..., 0]
+    return -torch.sum(tok * mask)
+
+
+def lm_loss(params, x, labels, mask, cfg):
+    """Next-token cross-entropy of the final hidden ``x`` (B, S, d) on the
+    reference's head; labels/mask (B, S).  ``cfg.logits_chunk`` splits the
+    sequence into chunks of that many positions (when it divides S and is
+    shorter), one (B, chunk, V) logits block at a time, summed in order as
+    the reference's scan."""
+    c, s = cfg.logits_chunk, x.shape[1]
+    if c and s % c == 0 and s > c:
+        tot = cnt = 0.0
+        for i in range(0, s, c):
+            lg = logits_fn(params, x[:, i:i + c], cfg, "reference")
+            tot = tot + token_nll(lg, labels[:, i:i + c], mask[:, i:i + c])
+            cnt = cnt + mask[:, i:i + c].sum()
+        return tot / torch.clamp(cnt, min=1.0)
+    logits = logits_fn(params, x, cfg, "reference")
+    return token_nll(logits, labels, mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ------------------------------------------------------------- public API
+
+
+def forward_train(params, batch, cfg):
+    """The scalar train loss of ``batch`` ({tokens (B, S)}, plus the vlm
+    family's patches): next-token cross-entropy, plus the moe family's
+    router penalty 0.01 x (sum of the layers' aux losses) / n_layers.  The
+    float parameters are cast to the compute dtype once, on the stacked
+    leaves, before the per-layer views, so the gradients land on the
+    float32 masters."""
+    params = cast_float(params, cfg.compute_dtype)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    prefix_len = 0
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        prefix_len, s = cfg.n_patches, x.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x, aux = run_stack(params, x, positions, cfg, mode="train", cache=None,
+                       prefix_len=prefix_len)
+    if cfg.family == "vlm":
+        x = x[:, cfg.n_patches:]
+    loss = lm_loss(params, x, *next_token_targets(tokens), cfg)
+    if cfg.n_experts:  # MoE router load-balance penalty (Switch/GShard)
+        loss = loss + 0.01 * aux / max(cfg.n_layers, 1)
+    return loss
 
 
 def prefill(params, batch, cfg, cache):

@@ -18,6 +18,12 @@ valid (the JAX code's dense row at Sq 1: the same function, whose rows keep
 their bits at any batch).  The cache (self ``k``/``v``/``pos``, capped at
 ``max_decode_ctx``, and the encoder's ``xk``/``xv``) is written in place.
 The head runs on the last row of a prefill only.
+
+Training (:func:`forward_train`, the decoder's ``mode="train"``) has no
+cache: the encoder, the decoder's causal self-attention over the whole
+sequence and its cross-attention over the encoder's output; attention on
+``flash_attention`` under ``"cuda"`` (its autograd Function), the products
+and norms the reference's; the head over every position.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ import torch
 
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.params import Spec, stack_layers, tree_map
+from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
 
 
 def _attn_spec(cfg) -> dict:
@@ -140,13 +146,9 @@ def sinusoids(length: int, channels: int, device="cpu"):
     return _sinusoids(length, channels, str(torch.device(device)))
 
 
-def _layer(tree, i):
-    return tree_map(lambda a: a[i], tree)
-
-
-def _enc_layer(lp, x, cfg):
+def _enc_layer(lp, x, cfg, impl=None):
     """One encoder layer: bidirectional self-attention, then the MLP."""
-    impl, eps = cfg.kernel_impl, cfg.norm_eps
+    impl, eps = impl or cfg.kernel_impl, cfg.norm_eps
     h = L.layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"], eps, impl)
     q = _proj_q(lp["attn"], h, impl)
     k, v = _proj_kv(lp["attn"], h, impl)
@@ -162,27 +164,32 @@ def encoder_input(frames, cfg):
     return x + sinusoids(cfg.enc_frames, cfg.d_model, x.device).to(x.dtype)
 
 
-def encode(params, frames, cfg):
+def encode(params, frames, cfg, mode="prefill"):
     """frames: (B, F, d) stubbed conv-frontend output -> (B, F, d)."""
+    impl = L.impl_for(cfg, mode)
     x = encoder_input(frames, cfg)
-    for i in range(cfg.enc_layers):
-        x = _enc_layer(_layer(params["enc_layers"], i), x, cfg)
+    for lp in unstack(params["enc_layers"], cfg.enc_layers):
+        x = _enc_layer(lp, x, cfg, impl)
     post = params["enc_ln_post"]
-    return L.layer_norm(x, post["w"], post["b"], cfg.norm_eps, cfg.kernel_impl)
+    return L.layer_norm(x, post["w"], post["b"], cfg.norm_eps, impl)
 
 
 def _dec_layer(lp, h, enc_out, cfg, *, mode, cache, posv):
     """One decoder layer on its cache (written in place): ``mode`` is
-    ``"prefill"`` (rows at 0..S-1, the cross keys/values from ``enc_out``)
-    or ``"decode"`` (one row a slot at ``posv``, the cross keys/values as
-    cached)."""
-    impl, eps = cfg.kernel_impl, cfg.norm_eps
+    ``"prefill"`` (rows at 0..S-1, the cross keys/values from ``enc_out``),
+    ``"decode"`` (one row a slot at ``posv``, the cross keys/values as
+    cached) or ``"train"`` (as prefill, with no cache)."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not train, prefill or decode")
+    impl, eps = L.impl_for(cfg, mode), cfg.norm_eps
     sa, ca = lp["self_attn"], lp["cross_attn"]
     x1 = L.layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], eps, impl)
     q = _proj_q(sa, x1, impl)
     k, v = _proj_kv(sa, x1, impl)
     b, s = h.shape[0], h.shape[1]
-    if mode == "prefill":
+    if mode == "train":
+        a = _attend(q, k, v, cfg, causal=True)
+    elif mode == "prefill":
         positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
         A._write(cache, positions.long(), k, v, positions)
         a = _attend(q, k, v, cfg, causal=True)
@@ -194,10 +201,11 @@ def _dec_layer(lp, h, enc_out, cfg, *, mode, cache, posv):
 
     x2 = L.layer_norm(h, lp["ln2"]["w"], lp["ln2"]["b"], eps, impl)
     q = _proj_q(ca, x2, impl)
-    if mode == "prefill":
+    if mode != "decode":
         xk, xv = _proj_kv(ca, enc_out, impl)
-        cache["xk"].copy_(xk)
-        cache["xv"].copy_(xv)
+        if mode == "prefill":
+            cache["xk"].copy_(xk)
+            cache["xv"].copy_(xv)
         c = _attend(q, xk, xv, cfg, causal=False)
     else:
         c = _cross_decode(q, cache["xk"].to(x2.dtype), cache["xv"].to(x2.dtype), cfg)
@@ -227,15 +235,40 @@ def _decoder(params, tokens, enc_out, cfg, *, mode, cache, pos=None):
     """The decoder stack and the tied head of its last row: (logits
     (B, 1, V) float32, cache)."""
     x, posv = decoder_input(params, tokens, cfg, pos if mode == "decode" else None)
-    for i in range(cfg.n_layers):
-        x = _dec_layer(_layer(params["dec_layers"], i), x, enc_out, cfg, mode=mode,
-                       cache=_layer(cache, i), posv=posv)
+    for lp, lc in zip(unstack(params["dec_layers"], cfg.n_layers), unstack(cache, cfg.n_layers)):
+        x = _dec_layer(lp, x, enc_out, cfg, mode=mode, cache=lc, posv=posv)
     fin = params["dec_ln_final"]
     x = L.layer_norm(x[:, -1:], fin["w"], fin["b"], cfg.norm_eps, cfg.kernel_impl)
     # The tied head reads the embedding table as stored: (vocab, d)
     # row-major is the transposed (N, K) layout the GEMM takes.
     head = params["tok_embed"].T.to(x.dtype)
     return L.linear(x, head, cfg.kernel_impl).float(), cache
+
+
+def forward_train(params, batch, cfg):
+    """The scalar next-token loss of ``batch`` ({tokens (B, S), frames
+    (B, enc_frames, d)}) over the tied head at every position; the float
+    parameters cast to the compute dtype once (see
+    ``transformer.forward_train``)."""
+    params = cast_float(params, cfg.compute_dtype)
+    tokens = batch["tokens"]
+    enc_out = encode(params, batch["frames"], cfg, mode="train")
+    x, _ = decoder_input(params, tokens, cfg)
+    for lp in unstack(params["dec_layers"], cfg.n_layers):
+        x = _dec_layer(lp, x, enc_out, cfg, mode="train", cache=None, posv=None)
+    return train_loss(params, x, tokens, cfg)
+
+
+def train_loss(params, x, tokens, cfg):
+    """The next-token loss of the decoder's final hidden ``x`` (B, S, d)
+    over the tied head at every position."""
+    from repro_torch.models import transformer as T
+
+    fin = params["dec_ln_final"]
+    x = L.layer_norm(x, fin["w"], fin["b"], cfg.norm_eps, "reference")
+    logits = L.linear(x, params["tok_embed"].T.to(x.dtype), "reference").float()
+    labels, mask = T.next_token_targets(tokens)
+    return T.token_nll(logits, labels, mask) / torch.clamp(mask.sum(), min=1.0)
 
 
 def prefill(params, batch, cfg, cache):

@@ -157,3 +157,174 @@ def test_launch_plan_route_and_stages(hd, block_k, route):
         ks, sb, kw = _build.mma_plan(64, block_k, hd)
         assert (ks, plan["stage_keys"]) == (1, sb) and block_k % sb == 0
         assert kw <= (32 if hd > 128 else 64)
+
+
+# --------------------------------------------- the backward (autograd Function)
+# The port's dq, dk, dv through ``flash_attention``'s Function (CPU tensors:
+# its forward is the plain version, its backward the reference's recompute)
+# against ``jax.grad`` through the JAX kernel in interpret mode, whose
+# custom VJP recomputes the same way (the counterpart of
+# tests/test_kernels.py::test_flash_attention_grad_path).  float32 at 2e-5,
+# the reference suite's float32 tolerance (measured up to 9.3e-7 against
+# 1 + |grad|).
+GRAD_CASES = {"causal": CASES[0], "mqa": CASES[1], "qoffset256": CASES[3],
+              "window64": CASES[4], "bidirectional": CASES[5]}
+GRAD_TOL = 2e-5
+
+
+def _port_grads(q, k, v, dout, **kw):
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, **kw)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    return out, torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+
+
+@pytest.mark.parametrize("name", list(GRAD_CASES))
+def test_function_grads_match_jax_interpret(name):
+    import jax
+
+    case = GRAD_CASES[name]
+    causal, window, qoff = case[6:]
+    q, k, v = inputs(case, seed=11)
+    dout = np.random.default_rng(12).standard_normal(q.shape).astype(np.float32)
+    kw = dict(causal=causal, window=window, q_offset=qoff)
+    _, got = _port_grads(q, k, v, dout, **kw)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, block_q=64, block_k=64,
+                                                         interpret=True, **kw),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(f32(g), f32(w), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("prefix,window,kv", [(48, 0, 1), (96, 0, 2), (40, 32, 2)],
+                         ids=["mqa-p48", "gqa-p96", "window32-p40"])
+def test_function_prefix_grads_match_jax(prefix, window, kv):
+    """The prefix-LM mode's gradients against ``jax.grad`` of the JAX
+    package's ``_prefix_lm_attention``, which its backward recomputes."""
+    import jax
+
+    from repro.models.attention import _prefix_lm_attention
+
+    q, k, v = inputs((2, 128, 128, 4, kv, 32), seed=13)
+    dout = np.random.default_rng(14).standard_normal(q.shape).astype(np.float32)
+    out, got = _port_grads(q, k, v, dout, causal=True, window=window, prefix_len=prefix)
+    want, vjp = jax.vjp(lambda a, b, c: _prefix_lm_attention(a, b, c, None, prefix, window),
+                        *(jnp.asarray(x) for x in (q, k, v)))
+    np.testing.assert_allclose(f32(out.detach()), f32(want), atol=GRAD_TOL, rtol=GRAD_TOL)
+    for g, w in zip(got, vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(f32(g), f32(w), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_function_chunked_recompute_branch(monkeypatch):
+    """Above 2^20 (query, key) pairs the backward recomputes through
+    ``chunked_attention`` in chunks of 1024, as ``_flash_vjp_bwd`` does, and
+    still matches jax.grad through the JAX kernel (whose VJP chunks too)."""
+    import jax
+
+    from repro_torch.models import layers as L
+
+    chunked = []
+    real = L.chunked_attention
+    monkeypatch.setattr(L, "chunked_attention",
+                        lambda *a, **kw: chunked.append(kw) or real(*a, **kw))
+    case = (1, 1040, 1040, 2, 1, 16, True, 0, 0)
+    q, k, v = inputs(case, seed=15)
+    dout = np.random.default_rng(16).standard_normal(q.shape).astype(np.float32)
+    _, got = _port_grads(q, k, v, dout, causal=True)
+    assert [(c["q_chunk"], c["kv_chunk"]) for c in chunked] == [(1024, 1024)]
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, block_q=128, block_k=128,
+                                                         interpret=True),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(dout))):
+        np.testing.assert_allclose(f32(g), f32(w), atol=GRAD_TOL, rtol=GRAD_TOL)
+
+
+def test_function_forward_is_the_plain_call_bitwise():
+    """The Function's forward output is the dispatch's own, bit for bit,
+    and without autograd the call does not go through the Function."""
+    q, k, v = (torch.from_numpy(x) for x in inputs(CASES[1], seed=17))
+    plain = flash_attention(q, k, v)
+    assert plain.grad_fn is None
+    out = flash_attention(q.clone().requires_grad_(), k, v)
+    assert torch.equal(out.detach(), plain)
+    with torch.no_grad():
+        assert flash_attention(q.clone().requires_grad_(), k, v).grad_fn is None
+
+
+# ------------------------------------ C10: no CUDA wrapper passes autograd by
+# Each public wrapper of kernels/ops.py refuses (RuntimeError) when grad mode
+# is on and an input off the CPU requires grad -- its kernel writes a fresh
+# tensor that carries no grad_fn -- before its device dispatch, so `meta`
+# tensors reach the refusal here; under torch.no_grad() they pass it and the
+# dispatch refuses the device instead.  flash_attention goes through its
+# autograd Function, whose raw launch refuses in turn.  CPU tensors take the
+# plain versions, which differentiate.
+NOT_WRAPPERS = {"launch_counts", "multi_row_counts", "reset_launch_counts", "needed_tiles"}
+
+
+def _t(device, shape, dtype=torch.float32):
+    t = torch.zeros(shape, dtype=dtype, device=device)
+    return t.requires_grad_() if dtype.is_floating_point else t
+
+
+WRAPPER_ARGS = {  # name: device -> the wrapper's positional arguments
+    "flash_attention": lambda d: (_t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8))),
+    "flash_decode": lambda d: (_t(d, (1, 1, 2, 8)), _t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8)),
+                               _t(d, (1, 4), torch.int32), _t(d, (1,), torch.int32)),
+    "flash_decode_chunk": lambda d: (_t(d, (1, 2, 2, 8)), _t(d, (1, 4, 2, 8)),
+                                     _t(d, (1, 4, 2, 8)), _t(d, (1, 4), torch.int32),
+                                     _t(d, (1,), torch.int32)),
+    "flash_decode_paged": lambda d: (_t(d, (1, 1, 2, 8)), _t(d, (2, 4, 2, 8)),
+                                     _t(d, (2, 4, 2, 8)), _t(d, (2, 4), torch.int32),
+                                     _t(d, (1, 2), torch.int32), _t(d, (1,), torch.int32)),
+    "linear": lambda d: (_t(d, (2, 8)), _t(d, (8, 4))),
+    "rms_norm": lambda d: (_t(d, (2, 8)), _t(d, (8,)), 1e-6),
+    "layer_norm": lambda d: (_t(d, (2, 8)), _t(d, (8,)), _t(d, (8,)), 1e-5),
+    "moe_gemm": lambda d: (_t(d, (2, 8, 8)), _t(d, (2, 8, 8)), _t(d, (2,), torch.int32)),
+    "rglru_scan": lambda d: (_t(d, (1, 4, 8)), _t(d, (1, 4, 8)), _t(d, (1, 8))),
+    "ssm_scan": lambda d: (_t(d, (1, 4, 8)), _t(d, (1, 4, 8)), _t(d, (1, 4, 2)),
+                           _t(d, (1, 4, 2)), _t(d, (8, 2)), _t(d, (1, 8, 2))),
+}
+
+
+def test_every_public_wrapper_is_walked():
+    """A wrapper added to kernels/ops.py later must join WRAPPER_ARGS."""
+    from repro_torch.kernels import ops
+
+    public = {n for n, f in vars(ops).items() if callable(f) and not n.startswith("_")
+              and getattr(f, "__module__", "").startswith("repro_torch.kernels")}
+    assert public - NOT_WRAPPERS == set(WRAPPER_ARGS)
+
+
+@pytest.mark.parametrize("name", list(WRAPPER_ARGS))
+def test_wrapper_refuses_autograd_off_the_cpu(name):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    fn = getattr(ops, name)
+    args = WRAPPER_ARGS[name]("meta")
+    if name == "flash_attention":
+        with pytest.raises(ValueError, match="cuda or cpu"):  # through the Function
+            fn(*args)
+        with pytest.raises(RuntimeError, match="no backward"):
+            fa._flash_attention_cuda(*args, causal=True, window=0, q_offset=0, prefix_len=0,
+                                     block_q=64, block_k=fa.BLOCK_K)
+    else:
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            fn(*args)
+    # CPU tensors that require grad take the plain version: no refusal.
+    out = fn(*WRAPPER_ARGS[name]("cpu"))
+    assert (out[0] if isinstance(out, tuple) else out).requires_grad
+
+
+def test_function_prefix_backward_needs_a_whole_sequence():
+    """The prefix-LM recompute covers Sq = Sk at offset 0 (the train
+    path's): another call's backward raises rather than mask wrongly."""
+    q = torch.zeros((1, 8, 2, 8), requires_grad=True)
+    k = torch.zeros((1, 16, 2, 8), requires_grad=True)
+    out = flash_attention(q, k, k, causal=True, q_offset=8, prefix_len=4)
+    with pytest.raises(ValueError, match="whole sequence"):
+        out.sum().backward()

@@ -11,18 +11,24 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "examples" / "quickstart_torch.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "examples" / name for name in ("quickstart_torch.py", "train_lm_torch.py",
+                                          "hetero_train_torch.py")]
 # Modules of the co-execution slice (the engine facade, the adaptive
 # schedulers and the two row-invariant kernels' wrappers), of the
 # multi-group slice (placement and migration, elastic groups, the
-# observability endpoints) and of the MoE slice (the block, the grouped
-# expert GEMM's wrapper).
+# observability endpoints), of the MoE slice (the block, the grouped
+# expert GEMM's wrapper) and of the training slice (optimizer, train step,
+# compression, heterogeneous trainer, data, checkpoints, launcher).
 SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
                  "kernels/gemm.py", "kernels/rms_norm.py", "serve/multigroup.py",
                  "distributed/elastic.py", "distributed/__init__.py", "serve/http.py",
                  "models/moe.py", "kernels/moe_gemm.py", "kernels/layer_norm.py",
-                 "models/whisper.py", "configs/whisper_tiny.py", "configs/paligemma_3b.py")
+                 "models/whisper.py", "configs/whisper_tiny.py", "configs/paligemma_3b.py",
+                 "optim/__init__.py", "optim/adamw.py", "train/__init__.py", "train/step.py",
+                 "train/compression.py", "train/hetero.py", "data/__init__.py",
+                 "data/pipeline.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
+                 "launch/train.py")
 
 
 def _imports(path):
@@ -66,6 +72,15 @@ def test_chip_smoke_refuses_without_cuda():
                        capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_train_phase_refuses_without_cuda():
+    """``--train`` (the [train] phase alone) refuses likewise."""
+    env = dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--train"], env=env,
+                       capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr and '"train_path"' not in r.stdout
 
 
 @pytest.mark.parametrize("rel", SLICE_MODULES)
