@@ -5,7 +5,7 @@ GPU.  Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``--host-us`` runs only the ``[host]`` line, ``--train`` only the
-``[train]`` phase.)
+``[train]`` phase, ``--mesh`` only the ``[mesh]`` phase.)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -317,7 +317,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              state bitwise, the data cursor 4 -> 6, finite losses,
              flash_attention 12 a step exactly.  The HeteroTrainer over
              ``discover()``'s cpu:0 and cuda:0 (whisper-tiny, batch 8,
-             quantum 1, 3 steps, the cuda group's power hint 16): shares
+             quantum 1, 2 steps, the cuda group's power hint 16): shares
              covering the batch; the CPU share's parameter gradients layer
              by layer on cpu:0 within 2e-2 rel L2 of cuda:0's on the same
              inputs (float32); the combined loss within 1e-2 of the whole batch's on
@@ -325,6 +325,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
              0's combined gradient the shares' weighted sum and the cuda
              group's its share's alone on cuda:0; shares, rated powers and
              each group's seconds printed.
+   mesh   -- the device mesh (A11): worlds of spawned ranks that compute
+             on cuda:0 and exchange over gloo (NCCL refuses two ranks of
+             one communicator on one GPU), each held against a one-rank
+             yardstick run first.  (a) internlm2-20b at full width, depth
+             2, the seq-sharded cache on (data 2, model 2): B 8, prompt
+             2048, cache 4096, 16 teacher-forced decode steps; every
+             call's logits within 2e-2 rel L2 of the one-rank
+             ``flash_decode`` path in bf16 and 1e-4 in float32; a rank
+             holds 2048 slots.  (b) arctic-480b at full width, depth 1,
+             expert parallel on (model 2): the ranks draw the model in
+             turn and keep their 64 experts; 8 x 256 prefill and 8 decode
+             steps at capacity factor 100; logits within 2e-2 of one
+             rank's, ``moe_gemm`` launched exactly 2 a forward by each
+             rank, drops printed.  (c) qwen1.5-4b at full width, depth 2,
+             float32 compute, on (data 2): global batch 4 x 512, 2 steps;
+             the losses within 1e-4 relative and the all-reduced
+             gradients within 1e-3 rel L2 over all leaves of the
+             yardstick's (rank 0 alone, first), the parameters after each
+             step with ZeRO-1 bitwise those without.  (d) whisper-tiny
+             through ``repro_torch.launch.train --mesh-shape 2x1``,
+             checkpointed after 2 steps; rank 1 is lost and
+             ``ElasticRunner`` rebuilds on rank 0 alone: restored bitwise,
+             data cursor 2, one more step finite.  Each world prints its
+             ranks' peak memory, seconds and collectives (count, bytes) a
+             step.  ``--mesh`` runs only this phase.
 7. results -- the ``[graph]`` table, eager beside graphed for every main
              and served path of this run, and its JSON line; a JSON line of
              every kernel's numbers (launches: each
@@ -3629,7 +3654,9 @@ TRAIN_ATTENTION = (
 QWEN_TRAIN_LAYERS, QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_MB, QWEN_TRAIN_STEPS = 20, 4, 512, 2, 3
 WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq", "64",
                       "--seed", "0", "--kernel", "cuda", "--ckpt-interval", "2"]
-HETERO_STEPS, HETERO_B, HETERO_S = 3, 8, 64
+# Two steps: after the first, each step waits the same 8-10 s on the CPU's
+# quantum (cut from 3 to make room for the [mesh] phase).
+HETERO_STEPS, HETERO_B, HETERO_S = 2, 8, 64
 # The cuda group's power hint over the CPU's 1 (discover()'s default): the
 # first step's shares follow it, so the CPU takes one sequence (it rated at
 # ~0.13 sequences/s against the card's 11-21 on the H100).
@@ -4096,7 +4123,7 @@ def run_whisper_train(dev, torch, ops) -> dict:
 
 def run_hetero_train(dev, torch, card) -> dict:
     """The HeteroTrainer over ``discover()``'s cpu:0 and cuda:0 groups:
-    whisper-tiny at full width, batch 8, quantum 1, 3 steps, the cuda
+    whisper-tiny at full width, batch 8, quantum 1, 2 steps, the cuda
     group's power hint ``HETERO_CUDA_POWER`` (the first step's shares)."""
     from repro_torch.configs import get_config
     from repro_torch.core import discover
@@ -4223,6 +4250,595 @@ def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
     return {"attention": attn, "qwen1.5-4b": qwen, "whisper-tiny": whisper, "hetero": hetero}
 
 
+# ------------------------------------------------------------------ [mesh]
+# The device mesh (A11) on cuda:0: worlds of spawned ranks that compute on
+# the one card and exchange over gloo (NCCL refuses two ranks of one
+# communicator on one GPU), each held against a one-rank yardstick run
+# first.  The rank functions are module-level: a spawned rank imports this
+# script (not its main()) and calls them.
+MESH_SEQ = {"arch": "internlm2-20b", "depth": 2, "batch": 8, "prompt": 2048, "cache": 4096,
+            "steps": 16}
+MESH_EP = {"arch": "arctic-480b", "depth": 1, "batch": 8, "prompt": 256, "steps": 8,
+           "capacity_factor": 100.0}
+MESH_DP = {"arch": "qwen1.5-4b", "depth": 2, "batch": 4, "seq": 512, "steps": 2}
+MESH_ELASTIC_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq", "64",
+                     "--seed", "0", "--kernel", "cuda", "--ckpt-interval", "2", "--steps", "2",
+                     "--mesh-shape", "2x1"]
+MESH_LOGITS_REL = {"bfloat16": BF16_TOL, "float32": F32_TOL}  # rel L2 a step's logits
+MESH_LOSS_REL, MESH_GRAD_REL = 1e-4, 1e-3  # data parallelism, float32 compute
+MESH_KERNELS = ("flash_attention", "flash_decode", "gemm_rowinv", "rms_norm", "moe_gemm")
+
+
+def mesh_store(name: str) -> Path:
+    """A fresh ``file://`` store (and the ranks' result files) under build/."""
+    import shutil
+
+    d = ROOT / "build" / "mesh" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d / "store"
+
+
+def mesh_model(arch, depth, dtype, dev, torch, **over):
+    """(cfg, api, params drawn from seed 0 in ``dtype`` on ``dev``): the
+    published widths at ``depth`` layers, kernel_impl="cuda"."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.params import materialize
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth, kernel_impl="cuda",
+                              compute_dtype=dtype, **over)
+    api = get_model(cfg)
+    params = materialize(api.param_spec(cfg), torch.Generator(device=dev).manual_seed(0),
+                         getattr(torch, dtype), dev)
+    return cfg, api, params
+
+
+def mesh_tokens(batch, prompt, steps, vocab, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, vocab, (batch, prompt)).astype(np.int32),
+            [rng.integers(0, vocab, (batch, 1)).astype(np.int32) for _ in range(steps)])
+
+
+def mesh_generate(cfg, api, params, tokens, steps, cache, rows, record=None):
+    """Prefill ``tokens`` then decode the teacher-forced ``steps``; returns
+    every call's logits (float32, on the card).  ``rows`` cuts each host
+    batch to the caller's rows; ``record(i)`` runs after call i."""
+    logits, cache = api.prefill(params, {"tokens": rows(tokens)}, cfg, cache)
+    out = [logits.float()]
+    if record:
+        record(0)
+    for i, tok in enumerate(steps):
+        logits, cache = api.decode(params, rows(tok), tokens.shape[1] + i, cfg, cache)
+        out.append(logits.float())
+        if record:
+            record(i + 1)
+    return out
+
+
+def mesh_decode_layers(cfg, api, params, tokens, steps, cache, rows, forced=None):
+    """Prefill ``tokens``, then decode the teacher-forced ``steps`` one
+    layer at a time, recording each layer's input and its decode
+    attention output (``cached_attention``'s) and each call's logits, all
+    float32 on the host.  ``forced`` (a yardstick's record): every layer
+    takes the yardstick's input instead of its own, so the caches receive
+    the yardstick's keys and values and a layer's attention output differs
+    from the yardstick's only by how the attention is computed.  ``rows``
+    cuts a host batch (or a record) to the caller's rows."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+
+    logits, _ = api.prefill(params, {"tokens": rows(tokens)}, cfg, cache)
+    rec = {"logits": [logits.float().cpu()], "x": [], "attn": []}
+    real, seen = A.cached_attention, []
+
+    def cached_attention(q, cache, pos, cfg, **kw):
+        out = real(q, cache, pos, cfg, **kw)
+        seen.append(out.float().cpu())
+        return out
+
+    A.cached_attention = cached_attention
+    try:
+        for i, tok in enumerate(steps):
+            pos = tokens.shape[1] + i
+            x = T.embed_tokens(params, rows(tok), cfg)
+            xs = []
+            for li, (apply, lp, lc) in enumerate(T.stack_order(params, cache, cfg)):
+                if forced is not None:
+                    x = rows(forced["x"][i][li]).to(x.device, x.dtype)
+                xs.append(x.float().cpu())
+                x, _ = apply(lp, x, None, cfg, mode="decode", cache=lc, pos=pos)
+            rec["x"].append(xs)
+            rec["attn"].append(seen[-cfg.n_layers:])
+            rec["logits"].append(T.logits_fn(params, x, cfg).float().cpu())
+    finally:
+        A.cached_attention = real
+    return rec
+
+
+def mesh_seq_rank(rank, world, dev, yard_file, tokens, steps):
+    """(a) on a rank of the (data 2, model 2) world: internlm2-20b with the
+    seq-sharded cache, in bf16 then float32, teacher-forced by the
+    yardstick's layer inputs: each decode step's attention outputs layer
+    by layer, and each call's logits, against the yardstick's rows."""
+    import torch
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.step import zeros_cache
+
+    yard = torch.load(yard_file)
+    mesh = make_mesh((2, 2), ("data", "model"), dev)
+    S.set_current_mesh(mesh)
+    sh = S.named_sharding(mesh, ("batch", None), tokens.shape)
+
+    def cut(t):  # the rank's rows of a host batch or record
+        t = torch.from_numpy(t) if not isinstance(t, torch.Tensor) else t
+        return S.rank_slice(t, sh, mesh)
+
+    def rows(t):
+        return cut(t).to(dev)
+
+    out = {"coord": mesh.coord}
+    for dtype in ("bfloat16", "float32"):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cfg, api, params = mesh_model(MESH_SEQ["arch"], MESH_SEQ["depth"], dtype, dev, torch,
+                                      seq_shard_cache=True)
+        cache = zeros_cache(cfg, api, tokens.shape[0], MESH_SEQ["cache"], device=dev, mesh=mesh)
+        mesh.reset_stats()
+        y = yard[dtype]
+        rec = mesh_decode_layers(cfg, api, params, tokens, steps, cache, rows, y)
+        torch.cuda.synchronize()
+        stats = mesh.reset_stats()
+        attn = [max(rel_l2(a, cut(b)) for a, b in zip(got, want))
+                for got, want in zip(rec["attn"], y["attn"])]
+        out[dtype] = {"logits_rel_l2": [rel_l2(a, cut(b)) for a, b in
+                                        zip(rec["logits"], y["logits"])],
+                      "attention_rel_l2": attn,
+                      "finite": all(bool(torch.isfinite(x).all()) for x in rec["logits"]),
+                      "cache_slots": int(cache["k"].shape[2]),
+                      "collectives": stats, "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "seconds": time.perf_counter() - t0}
+        del params, cache, rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_seq(dev, torch) -> dict:
+    """(a) The seq-sharded decode: the yardstick (one rank, flash_decode)
+    in bf16 and float32, beside the one-rank reference impl's free-running
+    logits (the witness of how far two exact attentions part on these
+    random weights), then the world of 4."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.serve.step import zeros_cache
+
+    c = MESH_SEQ
+    t0 = time.perf_counter()
+    yard, witness = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        cfg, api, params = mesh_model(c["arch"], c["depth"], dtype, dev, torch)
+        tokens, steps = mesh_tokens(c["batch"], c["prompt"], c["steps"], cfg.vocab, 7)
+        recs = []
+        for impl in ("cuda", "reference"):
+            cf = dataclasses.replace(cfg, kernel_impl=impl)
+            cache = zeros_cache(cf, api, c["batch"], c["cache"], device=dev)
+            recs.append(mesh_decode_layers(cf, api, params, tokens, steps, cache,
+                                           lambda t: (t if isinstance(t, torch.Tensor)
+                                                      else torch.from_numpy(t)).to(dev)))
+            del cache
+        yard[dtype] = recs[0]
+        witness[dtype] = [rel_l2(a, b) for a, b in zip(recs[1]["logits"], recs[0]["logits"])]
+        del params, recs
+        gc.collect()
+        torch.cuda.empty_cache()
+    yard_s = time.perf_counter() - t0
+    store = mesh_store("seq")
+    yard_file = store.parent / "yard.pt"
+    torch.save(yard, yard_file)
+    t0 = time.perf_counter()
+    res = spawn_world(mesh_seq_rank, 4, "cuda", store, (str(yard_file), tokens, steps))
+    world_s = time.perf_counter() - t0
+    bad = []
+    for r in res:
+        for dtype, tol in MESH_LOGITS_REL.items():
+            e = r[dtype]
+            worst = max(e["logits_rel_l2"] + e["attention_rel_l2"])
+            if not e["finite"] or worst > tol:
+                bad.append(f"seq-sharded decode {dtype} on rank {r['coord']}: attention or "
+                           f"logits rel L2 {worst:.3g} (tol {tol}), finite {e['finite']}")
+            if e["cache_slots"] != c["cache"] // 2:
+                bad.append(f"seq-sharded decode: a rank holds {e['cache_slots']} slots")
+    return {"world": 4, "mesh": {"data": 2, "model": 2}, "yardstick_s": yard_s,
+            "witness_free_running_logits_rel_l2": witness, "world_s": world_s,
+            "ranks": res}, bad
+
+
+def mesh_ep_rank(rank, world, dev, yard_file, tokens, steps):
+    """(b) on a rank of the (model 2) world: arctic-480b with its experts
+    split over "model" (drawn whole one rank at a time, the rank's half
+    kept), prefill and teacher-forced decode at the no-drop capacity,
+    ``moe_gemm`` counted."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.serve.step import zeros_cache
+    from repro_torch.train.step import state_placements
+
+    yard = torch.load(yard_file)
+    mesh = make_mesh((2,), ("model",), dev)
+    S.set_current_mesh(mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for r in range(world):
+        if r == rank:
+            cfg, api, full = mesh_model(MESH_EP["arch"], MESH_EP["depth"], "bfloat16", dev, torch,
+                                        ep_shard_map=True)
+            places = state_placements(cfg, api, mesh)[1]["params"]
+            params = S.shard_tree(full, places, mesh)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    draw_s = time.perf_counter() - t0
+    moe.CAPACITY_FACTOR = MESH_EP["capacity_factor"]
+    cache = zeros_cache(cfg, api, tokens.shape[0], tokens.shape[1] + len(steps), device=dev,
+                        mesh=mesh)
+    stats = []
+    rows = lambda t: torch.from_numpy(t).to(dev)  # noqa: E731
+    ops.reset_launch_counts()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    with moe.dropped_assignments() as drops:
+        logits = mesh_generate(cfg, api, params, tokens, steps, cache, rows,
+                               lambda i: stats.append(mesh.reset_stats()))
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    errs = [rel_l2(lg, yard[i].to(dev)) for i, lg in enumerate(logits)]
+    return {"coord": mesh.coord, "rel_l2": errs, "counts": counts,
+            "finite": all(bool(torch.isfinite(x).all()) for x in logits),
+            "drops": int(sum(int(d) for d in drops)),
+            "experts_held": int(params["layers"]["experts"]["w_up"].shape[1]),
+            "prefill_collectives": stats[0], "decode_step_collectives": stats[1],
+            "draw_s": draw_s, "generate_s": gen_s,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def run_mesh_ep(dev, torch) -> dict:
+    """(b) Expert parallelism: the yardstick (one rank, all 128 experts)
+    then the world of 2."""
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.models import moe
+    from repro_torch.serve.step import zeros_cache
+
+    c = MESH_EP
+    t0 = time.perf_counter()
+    cfg, api, params = mesh_model(c["arch"], c["depth"], "bfloat16", dev, torch)
+    tokens, steps = mesh_tokens(c["batch"], c["prompt"], c["steps"], cfg.vocab, 8)
+    cache = zeros_cache(cfg, api, c["batch"], c["prompt"] + c["steps"], device=dev)
+    factor, moe.CAPACITY_FACTOR = moe.CAPACITY_FACTOR, c["capacity_factor"]
+    try:
+        with moe.dropped_assignments() as drops:
+            yard = [x.cpu() for x in mesh_generate(
+                cfg, api, params, tokens, steps, cache, lambda t: torch.from_numpy(t).to(dev))]
+        yard_drops = int(sum(int(d) for d in drops))
+    finally:
+        moe.CAPACITY_FACTOR = factor
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    yard_s = time.perf_counter() - t0
+    store = mesh_store("ep")
+    torch.save(yard, store.parent / "yard.pt")
+    t0 = time.perf_counter()
+    res = spawn_world(mesh_ep_rank, 2, "cuda", store, (str(store.parent / "yard.pt"), tokens,
+                                                       steps))
+    world_s = time.perf_counter() - t0
+    want = 2 * c["depth"] * (1 + c["steps"])  # gate/up and down a layer a forward
+    bad = []
+    for r in res:
+        if not r["finite"] or max(r["rel_l2"]) > BF16_TOL:
+            bad.append(f"expert parallelism on rank {r['coord']}: logits rel L2 "
+                       f"{max(r['rel_l2']):.3g} (tol {BF16_TOL}), finite {r['finite']}")
+        if r["counts"].get("moe_gemm", 0) != want or r["experts_held"] != cfg.n_experts // 2:
+            bad.append(f"expert parallelism on rank {r['coord']}: moe_gemm launched "
+                       f"{r['counts'].get('moe_gemm', 0)} times (want {want}), "
+                       f"{r['experts_held']} experts held")
+    return {"world": 2, "mesh": {"model": 2}, "yardstick_s": yard_s, "yardstick_drops": yard_drops,
+            "world_s": world_s, "moe_gemm_launches_per_rank": want, "ranks": res}, bad
+
+
+def mesh_dp_rank(rank, world, dev, batches):
+    """(c) on a rank of the (data 2) world: qwen1.5-4b in float32 compute.
+    Rank 0 first runs the yardstick alone: the global batch on one rank
+    split as the world splits it, into 2 microbatches of the data ranks'
+    rows (the same products on the same rows, summed the same way), two
+    steps; beside it, printed, the first step's gradients of the batch as
+    1 microbatch (the random stack parts the two by summation order alone:
+    ROADMAP.md C11).  Then the world steps twice with ZeRO-1 off and again
+    on from the same state.  A step's gradients are read where
+    ``make_train_step`` averages them (``reduce_over_batch``), and every
+    comparison runs on the card."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import rank_batch, to_device
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = dataclasses.replace(get_config(MESH_DP["arch"]), n_layers=MESH_DP["depth"],
+                              kernel_impl="cuda", compute_dtype="float32")
+    api = get_model(cfg)
+    real, first = train_step.reduce_over_batch, []
+
+    def reduce_over_batch(loss, grads, mesh):  # keeps a step's averaged gradients
+        loss, grads = real(loss, grads, mesh)
+        if not first:
+            first.append([g.clone() for g in grads])
+        return loss, grads
+
+    train_step.reduce_over_batch = reduce_over_batch
+
+    def steps(c, state, bs, mesh=None):
+        fn = make_train_step(c, api, mesh=mesh)
+        losses, stats, secs = [], [], []
+        for b in bs:
+            if mesh is not None:
+                mesh.reset_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = fn(state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(float(m["loss"]))
+            if mesh is not None:
+                stats.append(mesh.reset_stats())
+        return state, losses, stats, secs
+
+    out = {}
+    if rank == 0:
+        S.set_current_mesh(None)
+        split = dataclasses.replace(cfg, microbatches=world)
+        state, _ = build_state(split, api, dev, 0)
+        whole = [to_device(b, dev) for b in batches]
+        _, one_mb = loss_and_grads(api, cfg, state["params"], whole[0])
+        state, yard_losses, _, _ = steps(split, state, whole)
+        yard_grads = first.pop()
+        out["witness_one_vs_two_microbatches"] = tree_rel_l2(one_mb, yard_grads)
+        del state, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh = make_mesh((2, 1), ("data", "model"), dev)
+    S.set_current_mesh(mesh)
+    entries = {"tokens": ("batch", None)}
+    after = None
+    for zero1 in (False, True):
+        c = dataclasses.replace(cfg, zero1=zero1)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, _ = build_state(c, api, dev, 0, mesh)
+        loc = [rank_batch(b, mesh, entries, dev) for b in batches]
+        first.clear()
+        state, losses, stats, secs = steps(c, state, loc, mesh)
+        rec = {"losses": losses, "step_s": secs, "step_collectives": stats[-1],
+               "m_shape": tuple(tree_leaves(state["opt"]["m"])[0].shape)}
+        if rank == 0 and not zero1:
+            grads = first.pop()
+            rec["grads_rel_l2"] = tree_rel_l2(grads, yard_grads)
+            rec["grads_bitwise"] = all(torch.equal(a, b) for a, b in zip(grads, yard_grads))
+            rec["grads_rel_l2_one_microbatch"] = tree_rel_l2(grads, one_mb)
+            rec["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(losses, yard_losses)]
+            del grads
+        params = tree_leaves(state["params"])
+        if after is None:
+            after = [p.clone() for p in params]
+        else:
+            rec["params_bitwise_zero1_off"] = all(torch.equal(a, b) for a, b in zip(after, params))
+        rec.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                   seconds=time.perf_counter() - t0)
+        out[f"zero1_{zero1}"] = rec
+        del state, loc, params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"coord": mesh.coord, **out}
+
+
+def run_mesh_dp(dev, torch) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import spawn_world
+
+    c = MESH_DP
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"])
+    ds = SyntheticTokens(cfg, c["batch"], c["seq"], seed=0)
+    batches = [next(ds) for _ in range(c["steps"])]
+    t0 = time.perf_counter()
+    res = spawn_world(mesh_dp_rank, 2, "cuda", mesh_store("dp"), (batches,))
+    world_s = time.perf_counter() - t0
+    r0 = res[0]
+    off = r0["zero1_False"]
+    bad = []
+    if max(off["loss_rel"]) > MESH_LOSS_REL:
+        bad.append(f"data parallelism: losses off the yardstick's by {off['loss_rel']} (tol "
+                   f"{MESH_LOSS_REL})")
+    if off["grads_rel_l2"] > MESH_GRAD_REL:
+        bad.append(f"data parallelism: all-reduced gradients rel L2 "
+                   f"{off['grads_rel_l2']:.3g} (tol {MESH_GRAD_REL})")
+    for r in res:
+        if not r["zero1_True"]["params_bitwise_zero1_off"]:
+            bad.append(f"ZeRO-1's parameters on rank {r['coord']} differ from the replicated "
+                       f"update's")
+    return {"world": 2, "mesh": {"data": 2}, "world_s": world_s, "ranks": res}, bad
+
+
+def mesh_elastic_rank(rank, world, dev, ckpt, store):
+    """(d) on a rank of the (data 2) world: whisper-tiny through the
+    launcher, checkpointed after 2 steps; rank 1 is then lost and rank 0
+    rebuilds alone with ``ElasticRunner``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.distributed.elastic import ElasticRunner
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train import make_train_step, state_spec
+
+    torch.cuda.reset_peak_memory_stats()
+    r = launch_train.main(MESH_ELASTIC_ARGV + ["--ckpt", ckpt])
+    out = {"rank": rank, "losses": r["losses"], "train_s": r["seconds"],
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    if rank != 0:
+        torch.distributed.destroy_process_group()  # the lost rank leaves
+        return out
+    args = launch_train.parse_args(MESH_ELASTIC_ARGV)
+    cfg = dataclasses.replace(get_config(args.arch), kernel_impl=args.kernel)
+    api = get_model(cfg)
+    runner = ElasticRunner(cfg, api, step_factory=make_train_step, ckpt_dir=ckpt, model_par=1,
+                           device=dev.type,
+                           state_spec_fn=lambda c, plan: state_spec(c, api.param_spec(c, 1)))
+    t0 = time.perf_counter()
+    mesh, restored, extra = runner.on_failure([0], f"file://{store}")
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored_bitwise"] = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(r["state"]["params"]), tree_leaves(restored["params"])))
+    ds = SyntheticTokens(cfg, args.batch, args.seq, seed=args.seed)
+    ds.seek(extra["data_cursor"])
+    _, m = runner.step_fn(restored, to_device(next(ds), mesh.device))
+    out.update(cursor=extra["data_cursor"], world_after=dict(mesh.shape),
+               next_loss=float(m["loss"]), backend_after=torch.distributed.get_backend())
+    return out
+
+
+def run_mesh_elastic(dev, torch) -> dict:
+    from repro_torch.launch.mesh import spawn_world
+
+    store = mesh_store("elastic")
+    t0 = time.perf_counter()
+    res = spawn_world(mesh_elastic_rank, 2, "cuda", store,
+                      (str(store.parent / "ckpt"), str(store.parent / "store_survivors")))
+    world_s = time.perf_counter() - t0
+    r0 = res[0]
+    bad = []
+    if not r0["restored_bitwise"] or r0["cursor"] != 2 or not math.isfinite(r0["next_loss"]) \
+            or r0["world_after"] != {"data": 1, "model": 1}:
+        bad.append(f"elastic restart: restored bitwise {r0['restored_bitwise']}, cursor "
+                   f"{r0['cursor']}, next loss {r0['next_loss']}, world {r0['world_after']}")
+    if not all(math.isfinite(x) for r in res for x in r["losses"]):
+        bad.append(f"elastic restart: a loss is not finite: {[r['losses'] for r in res]}")
+    return {"world": 2, "mesh": {"data": 2}, "world_s": world_s, "ranks": res}, bad
+
+
+def mesh_fail(bad: list) -> None:
+    """Fail on a world's problems, after its lines are printed."""
+    if bad:
+        fail("[mesh] " + "; ".join(bad))
+
+
+def gib(n) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def run_mesh_phase(dev, torch, card) -> dict:
+    """The [mesh] phase: (a) the seq-sharded decode, (b) expert
+    parallelism on moe_gemm, (c) data parallelism with ZeRO-1, (d) the
+    elastic restart; each world's ranks compute on cuda:0 over gloo."""
+    from repro_torch.launch.mesh import backend_for
+
+    print(at() + f" [mesh] worlds of ranks on cuda:0, backend {backend_for('cuda', 2)} "
+          f"({torch.cuda.device_count()} card(s): NCCL needs a card a rank); {card}", flush=True)
+    out = {}
+    c = MESH_SEQ
+    print(at() + f" [mesh] (a) seq-sharded decode, {c['arch']} at full width, depth "
+          f"{c['depth']}; world 4 (data 2, model 2); B {c['batch']}, prompt {c['prompt']}, "
+          f"cache {c['cache']}, {c['steps']} decode steps; bf16 then float32", flush=True)
+    a, bad = run_mesh_seq(dev, torch)
+    out["seq_decode"] = a
+    def r3(xs):
+        return [float(f"{x:.3g}") for x in xs]
+
+    for r in a["ranks"]:
+        print(f"  rank {r['coord']}: " + "; ".join(
+            f"{dt} teacher-forced logits rel L2 a call {r3(r[dt]['logits_rel_l2'])}, attention "
+            f"a step (worst layer) {r3(r[dt]['attention_rel_l2'])} (tol {MESH_LOGITS_REL[dt]}), "
+            f"peak {gib(r[dt]['peak_bytes'])}, {r[dt]['seconds']:.1f} s, collectives a decode "
+            f"step {[n / c['steps'] for n in r[dt]['collectives']['all_reduce']]} (all_reduce "
+            f"count, bytes)" for dt in MESH_LOGITS_REL), flush=True)
+    print(f"  witness, printed: one rank's free-running logits, kernel_impl 'reference' against "
+          f"'cuda', rel L2 a call " + "; ".join(
+              f"{dt} {r3(w)}" for dt, w in a["witness_free_running_logits_rel_l2"].items()),
+          flush=True)
+    print(f"  yardstick {a['yardstick_s']:.1f} s, world {a['world_s']:.1f} s", flush=True)
+    mesh_fail(bad)
+    c = MESH_EP
+    print(at() + f" [mesh] (b) expert parallelism, {c['arch']} at full width, depth "
+          f"{c['depth']}; world 2 (model 2), 64 experts a rank on moe_gemm; {c['batch']} x "
+          f"{c['prompt']} prefill + {c['steps']} decode steps, capacity factor "
+          f"{c['capacity_factor']}", flush=True)
+    b, bad = run_mesh_ep(dev, torch)
+    out["expert_parallel"] = b
+    for r in b["ranks"]:
+        print(f"  rank {r['coord']}: max rel L2 {max(r['rel_l2']):.3g} (tol {BF16_TOL}), "
+              f"launches {r['counts']}, dropped {r['drops']} (yardstick {b['yardstick_drops']}), "
+              f"peak {gib(r['peak_bytes'])}, draw {r['draw_s']:.1f} s, generate "
+              f"{r['generate_s']:.2f} s, prefill collectives {r['prefill_collectives']}, a "
+              f"decode step's {r['decode_step_collectives']}", flush=True)
+    print(f"  yardstick {b['yardstick_s']:.1f} s, world {b['world_s']:.1f} s", flush=True)
+    mesh_fail(bad)
+    c = MESH_DP
+    print(at() + f" [mesh] (c) data parallelism, {c['arch']} at full width, depth {c['depth']}, "
+          f"float32 compute; world 2 (data 2); global batch {c['batch']} x {c['seq']}, "
+          f"{c['steps']} steps, ZeRO-1 off then on; held against one rank's step of the global "
+          f"batch in 2 microbatches (the data ranks' rows)", flush=True)
+    d, bad = run_mesh_dp(dev, torch)
+    out["data_parallel"] = d
+    for r in d["ranks"]:
+        for z in ("zero1_False", "zero1_True"):
+            x = r[z]
+            print(f"  rank {r['coord']} {z}: losses {x['losses']}, step "
+                  f"{[round(s, 3) for s in x['step_s']]} s, m slice {x['m_shape']}, peak "
+                  f"{gib(x['peak_bytes'])}, a step's collectives {x['step_collectives']}"
+                  + (f", gradients rel L2 {x['grads_rel_l2']:.3g} (tol {MESH_GRAD_REL}), "
+                     f"losses rel {[float(f'{v:.3g}') for v in x['loss_rel']]} (tol "
+                     f"{MESH_LOSS_REL})" if "grads_rel_l2" in x else "")
+                  + (", parameters bitwise the replicated update's"
+                     if x.get("params_bitwise_zero1_off") else ""), flush=True)
+    w = d["ranks"][0]
+    off = w["zero1_False"]
+    print(f"  against one rank's gradients of the same batch in 1 microbatch, printed: rel L2 "
+          f"{off['grads_rel_l2_one_microbatch']:.3g}; the witness, one rank's 1 against 2 "
+          f"microbatches: {w['witness_one_vs_two_microbatches']:.3g}; the world's gradients "
+          f"bitwise the 2-microbatch step's: {off['grads_bitwise']}", flush=True)
+    print(f"  world {d['world_s']:.1f} s", flush=True)
+    mesh_fail(bad)
+    print(at() + " [mesh] (d) elastic restart, whisper-tiny --full through "
+          "repro_torch.launch.train on a world of 2 (data 2), checkpoint after 2 steps, then "
+          "ElasticRunner.on_failure onto a world of 1 and one more step", flush=True)
+    e, bad = run_mesh_elastic(dev, torch)
+    out["elastic"] = e
+    mesh_fail(bad)
+    r0 = e["ranks"][0]
+    print(f"  losses {[r['losses'] for r in e['ranks']]}; restored bitwise, cursor "
+          f"{r0['cursor']}, world {r0['world_after']} ({r0['backend_after']}), next loss "
+          f"{r0['next_loss']:.4f}; peaks {[gib(r['peak_bytes']) for r in e['ranks']]}; restore "
+          f"{r0['restore_s']:.1f} s, world {e['world_s']:.1f} s", flush=True)
+    return out
+
+
 def summary_row(path: str, rec: dict) -> dict:
     """A one-shot path's row of the ``[graph]`` table: its profiled prefill
     and 8 decode steps (busy and wall, eager and graphed), its one-shot
@@ -4268,6 +4884,15 @@ def main() -> None:
         from repro_torch.kernels import rms_norm as rn
 
         print(host_us(dev, torch, gemm, rn), flush=True)
+        return
+    if "--mesh" in sys.argv[1:]:
+        # Only the [mesh] phase, its kernels built in this process before
+        # any rank starts (the ranks load them).
+        from repro_torch.kernels import _build
+
+        _build.build(MESH_KERNELS)
+        print(json.dumps({"mesh": run_mesh_phase(dev, torch, card)}))
+        print(at() + " [done] the [mesh] phase passed", flush=True)
         return
     if "--train" in sys.argv[1:]:
         # Only the [train] phase, its one kernel built alone.
@@ -4517,6 +5142,9 @@ def main() -> None:
           "(bf16): forward == the kernel bitwise, dq/dk/dv against autograd through "
           "flash_attention_plain, times beside sdpa's forward + backward", flush=True)
     print(json.dumps({"train_path": run_train_phase(dev, torch, F, ops, card)}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"mesh": run_mesh_phase(dev, torch, card)}))
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:145"),

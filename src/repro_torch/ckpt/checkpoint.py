@@ -19,7 +19,15 @@ back through a 16-bit integer view into ``torch.bfloat16``.
   last, so a crash mid-write never leaves a checkpoint that
   :func:`latest_step` sees.
 - **Restore** places each leaf on the device and dtype of the matching
-  leaf of ``like_state``.
+  leaf of ``like_state``; with ``shardings`` (a tree of resolved shardings
+  on a mesh, ``distributed.sharding.placements``) each rank takes its
+  slice of the leaf, so a checkpoint of one mesh restores onto another
+  (the elastic path).
+- **On a mesh** ``save_checkpoint`` goes leaf by leaf: each sharded leaf
+  (m and v under ZeRO-1, the experts under expert parallelism) is
+  gathered with ``all_gather``, the first rank writes its file in the same
+  layout, and the whole copy is freed before the next leaf; every rank
+  waits on a barrier until the checkpoint is there.
 """
 from __future__ import annotations
 
@@ -72,40 +80,95 @@ def _from_disk(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _writer(mesh) -> bool:
+    import torch.distributed as dist
+
+    return mesh is None or dist.get_rank() == 0
+
+
+def _begin(tmp: Path) -> None:
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+
+
+def _write_leaf(tmp: Path, key: str, arr: np.ndarray) -> None:
+    np.save(tmp / (key.replace(SEP, "__") + ".npy"), arr)
+
+
+def _commit(tmp: Path, final: Path, step: int, meta: dict, treedef: str,
+            extra: Optional[dict]) -> None:
+    """The manifest (``meta``: key -> (shape, dtype)), then the rename."""
+    manifest = {
+        "step": step,
+        "keys": sorted(meta),
+        "shapes": {k: list(shape) for k, (shape, _) in meta.items()},
+        "dtypes": {k: dt for k, (_, dt) in meta.items()},
+        "treedef": treedef,
+        "extra": extra or {},
+    }
+    (tmp / "MANIFEST.json").write_text(json.dumps(manifest, indent=1))
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)
+
+
 def save_checkpoint(ckpt_dir, step: int, state, extra: Optional[dict] = None,
-                    *, blocking: bool = True) -> threading.Thread:
+                    *, blocking: bool = True, shardings=None,
+                    mesh=None) -> Optional[threading.Thread]:
     """Write ``state`` under <ckpt_dir>/step_<step>. Returns the writer
-    thread (joined already when ``blocking``)."""
+    thread (joined already when ``blocking``).  On a ``mesh`` the save is
+    blocking and goes one leaf at a time: every rank gathers the leaf
+    (``all_gather``, where ``shardings`` slices it), the first rank writes
+    it, and the gathered copy is freed before the next leaf, so no rank
+    ever holds more than one whole leaf beside its own slices (ZeRO-1's m
+    and v stay sliced); every rank returns after a barrier, the others
+    with None."""
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step}"
     tmp = ckpt_dir / f".tmp_step_{step}"
+    if mesh is not None:
+        _save_gathered(tmp, final, step, state, extra, shardings, mesh)
+        return None
     host = {k: _to_host(v) for k, v in _flatten(state).items()}
     treedef = _treedef(state)
 
     def write() -> None:
-        if tmp.exists():
-            shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
+        _begin(tmp)
         for k, (v, _) in host.items():
-            np.save(tmp / (k.replace(SEP, "__") + ".npy"), v)
-        manifest = {
-            "step": step,
-            "keys": sorted(host.keys()),
-            "shapes": {k: list(v.shape) for k, (v, _) in host.items()},
-            "dtypes": {k: dt for k, (_, dt) in host.items()},
-            "treedef": treedef,
-            "extra": extra or {},
-        }
-        (tmp / "MANIFEST.json").write_text(json.dumps(manifest, indent=1))
-        if final.exists():
-            shutil.rmtree(final)
-        tmp.rename(final)
+            _write_leaf(tmp, k, v)
+        _commit(tmp, final, step, {k: (v.shape, dt) for k, (v, dt) in host.items()},
+                treedef, extra)
 
     t = threading.Thread(target=write, daemon=True)
     t.start()
     if blocking:
         t.join()
     return t
+
+
+def _save_gathered(tmp: Path, final: Path, step: int, state, extra, shardings, mesh) -> None:
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import gather_leaf
+
+    writer = _writer(mesh)
+    flat_sh = _flatten(shardings) if shardings is not None else {}
+    meta = {}
+    if writer:
+        _begin(tmp)
+    for k, v in _flatten(state).items():  # sorted keys: the same collectives on every rank
+        sh = flat_sh.get(k)
+        whole = gather_leaf(v, sh, mesh) if sh is not None else v
+        if writer:
+            arr, dt = _to_host(whole)
+            _write_leaf(tmp, k, arr)
+            meta[k] = (arr.shape, dt)
+            del arr
+        del whole
+    if writer:
+        _commit(tmp, final, step, meta, _treedef(state), extra)
+    dist.barrier()
 
 
 def latest_step(ckpt_dir) -> Optional[int]:
@@ -117,21 +180,38 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir, step: int, like_state) -> tuple[Any, dict]:
+def restore_checkpoint(ckpt_dir, step: int, like_state, shardings=None,
+                       mesh=None) -> tuple[Any, dict]:
     """Restore into the structure of ``like_state`` (a tree of tensors,
-    e.g. a freshly built state): each leaf gets its like leaf's dtype and
-    device.  Returns (state, the manifest's ``extra``).  A shape that does
-    not match raises ValueError."""
+    e.g. a freshly built state, or of ``meta`` tensors): each leaf gets its
+    like leaf's dtype and device (a ``meta`` leaf's: the mesh's device, or
+    the CPU without a mesh).  ``shardings`` (a matching tree of
+    resolved shardings on ``mesh``, the current mesh by default): each leaf
+    is the rank's slice of the stored one, and ``like_state`` holds the
+    slices' shapes.  Returns (state, the manifest's ``extra``).  A shape
+    that does not match raises ValueError."""
+    from repro_torch.distributed.sharding import current_mesh, local_shape, rank_slice
+
     src = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((src / "MANIFEST.json").read_text())
     dtypes = manifest.get("dtypes", {})
+    flat_sh = _flatten(shardings) if shardings is not None else {}
+    mesh = mesh if mesh is not None else current_mesh()
 
     def load(key: str, want):
         arr = np.load(src / (key.replace(SEP, "__") + ".npy"))
-        if tuple(arr.shape) != tuple(want.shape):
-            raise ValueError(f"checkpoint leaf {key}: shape {arr.shape} != expected "
-                             f"{tuple(want.shape)}")
-        return _from_disk(arr, dtypes.get(key, str(arr.dtype))).to(want.device, want.dtype)
+        sh = flat_sh.get(key)
+        shape = local_shape(arr.shape, sh, mesh) if sh is not None else tuple(arr.shape)
+        if shape != tuple(want.shape):
+            raise ValueError(f"checkpoint leaf {key}: shape {arr.shape} (here {shape}) != "
+                             f"expected {tuple(want.shape)}")
+        t = _from_disk(arr, dtypes.get(key, str(arr.dtype)))
+        if sh is not None:
+            t = rank_slice(t, sh, mesh)
+        dev = want.device
+        if dev.type == "meta":
+            dev = mesh.device if mesh is not None else torch.device("cpu")
+        return t.to(dev, want.dtype)
 
     def rebuild(t, prefix: str):
         if isinstance(t, dict):
@@ -143,12 +223,17 @@ def restore_checkpoint(ckpt_dir, step: int, like_state) -> tuple[Any, dict]:
 
 class CheckpointManager:
     """Keeps the last ``keep`` checkpoints; saves asynchronously every
-    ``interval`` steps, one write in flight at a time."""
+    ``interval`` steps, one write in flight at a time.  On a ``mesh``
+    (with the state's ``shardings``) each save gathers leaf by leaf, the
+    first rank writes, and the save blocks every rank."""
 
-    def __init__(self, ckpt_dir, *, interval: int = 100, keep: int = 3) -> None:
+    def __init__(self, ckpt_dir, *, interval: int = 100, keep: int = 3,
+                 shardings=None, mesh=None) -> None:
         self.dir = Path(ckpt_dir)
         self.interval = interval
         self.keep = keep
+        self.shardings = shardings
+        self.mesh = mesh
         self._pending: Optional[threading.Thread] = None
 
     def maybe_save(self, step: int, state, extra: Optional[dict] = None) -> bool:
@@ -156,6 +241,12 @@ class CheckpointManager:
             return False
         if self._pending is not None:
             self._pending.join()  # backpressure: one in flight
+        if self.mesh is not None:
+            save_checkpoint(self.dir, step, state, extra, shardings=self.shardings,
+                            mesh=self.mesh)
+            if _writer(self.mesh):
+                self._gc()
+            return True
         self._pending = save_checkpoint(self.dir, step, state, extra, blocking=False)
         self._gc(in_flight=step)
         return True

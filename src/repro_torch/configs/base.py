@@ -55,8 +55,8 @@ class ModelConfig:
     cache_dtype: str = ""  # KV cache storage dtype ("" = compute_dtype)
     analysis_unroll: bool = False  # JAX roofline-analysis lowering; unused here
     decode_block: int = 0  # decode-attention KV tile size (0 = kernel default of 128)
-    seq_shard_cache: bool = False  # JAX mesh decode; unused on one device
-    ep_shard_map: bool = False  # JAX MoE expert-parallel dispatch; unused here
+    seq_shard_cache: bool = False  # decode: KV cache timeline sharded over "model"
+    ep_shard_map: bool = False  # MoE: expert-parallel dispatch over "model"
 
     @property
     def hd(self) -> int:

@@ -1,1 +1,7 @@
-from repro_torch.data.pipeline import DeviceLoader, SyntheticTokens, to_device  # noqa: F401
+from repro_torch.data.pipeline import (  # noqa: F401
+    DeviceLoader,
+    ShardedLoader,
+    SyntheticTokens,
+    rank_batch,
+    to_device,
+)

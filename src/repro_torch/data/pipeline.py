@@ -1,5 +1,5 @@
-"""Data pipeline: a deterministic synthetic token stream and a prefetching
-loader onto one device.
+"""Data pipeline: a deterministic synthetic token stream and prefetching
+loaders onto a device or a mesh.
 
 - ``SyntheticTokens`` -- seeded, reproducible LM batches (zipf-ish
   marginals so losses are non-degenerate), resumable via ``state()`` /
@@ -9,8 +9,10 @@ loader onto one device.
   for bit, ``patches`` and ``frames`` included.
 - ``DeviceLoader`` -- the reference ``ShardedLoader``'s prefetch thread
   (``depth`` batches ahead, the host-side analogue of the engine's
-  transfer/compute overlap) placing each host batch on one device.  Its
-  mesh placement comes with the device mesh (ROADMAP.md A11).
+  transfer/compute overlap) placing each host batch on one device.
+- ``ShardedLoader`` -- the same, placing on each rank of a mesh its slice
+  of every host batch, by the inputs' logical entries
+  (``launch.specs.input_specs``: the batch dim over the batch axes).
 """
 from __future__ import annotations
 
@@ -84,10 +86,13 @@ class DeviceLoader:
                 continue
         return False
 
+    def _place(self, batch: dict) -> dict:
+        return to_device(batch, self.device)
+
     def _worker(self) -> None:
         try:
             for batch in self.source:
-                if self._stop.is_set() or not self._put(to_device(batch, self.device)):
+                if self._stop.is_set() or not self._put(self._place(batch)):
                     return
         finally:
             self._put(None)
@@ -104,3 +109,35 @@ class DeviceLoader:
     def close(self) -> None:
         self._stop.set()
         self._thread.join(timeout=10)
+
+
+class ShardedLoader(DeviceLoader):
+    """Places on this rank of ``mesh`` its slice of every host batch, by
+    ``entries`` (key -> logical entries, ``launch.specs.input_specs``),
+    on the mesh's device; prefetches ``depth`` batches ahead.  Without a
+    mesh, the whole batch on ``device``."""
+
+    def __init__(self, source: Iterator[dict], mesh, entries: dict, device=None,
+                 depth: int = 2) -> None:
+        self.mesh = mesh
+        self.entries = entries
+        super().__init__(source, mesh.device if mesh is not None else device, depth)
+
+    def _place(self, batch: dict) -> dict:
+        return rank_batch(batch, self.mesh, self.entries, self.device)
+
+
+def rank_batch(batch: dict, mesh, entries: dict, device) -> dict:
+    """This rank's slice of a host batch (numpy) on ``device``, each key's
+    dims split by its logical ``entries`` on ``mesh`` (the whole batch
+    without one)."""
+    from repro_torch.distributed.sharding import named_sharding, rank_slice
+
+    if mesh is None:
+        return to_device(batch, device)
+    out = {}
+    for k, v in batch.items():
+        v = torch.from_numpy(np.asarray(v))
+        sh = named_sharding(mesh, tuple(entries[k]), tuple(v.shape))
+        out[k] = rank_slice(v, sh, mesh).to(device)
+    return out

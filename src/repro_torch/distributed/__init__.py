@@ -1,4 +1,18 @@
-"""Distribution: elastic serving groups (``ElasticServeGroups``).  The
-reference's mesh sharding and training elasticity come with ROADMAP.md
-item A11."""
-from repro_torch.distributed.elastic import ElasticServeGroups  # noqa: F401
+"""Distribution: logical-axis sharding over a device mesh
+(``sharding.py``, the mesh itself in ``launch/mesh.py``), elastic
+re-meshing of training after a failure (``ElasticRunner``) and elastic
+serving groups (``ElasticServeGroups``)."""
+from repro_torch.distributed.elastic import (  # noqa: F401
+    ElasticRunner,
+    ElasticServeGroups,
+    MeshPlan,
+    plan_remesh,
+)
+from repro_torch.distributed.sharding import (  # noqa: F401
+    batch_axes,
+    current_mesh,
+    maybe_axis,
+    set_current_mesh,
+    shard,
+    shard_map,
+)

@@ -1,8 +1,8 @@
 """Model zoo registry: a uniform API over the ported families.
 
     api = get_model(cfg)
-    api.param_spec(cfg)                   -> Spec tree
-    api.cache_spec(cfg, batch, seq)       -> Spec tree (decode caches)
+    api.param_spec(cfg, par)              -> Spec tree
+    api.cache_spec(cfg, batch, seq, par)  -> Spec tree (decode caches)
     api.forward_train(params, batch, cfg) -> scalar loss
     api.prefill(params, batch, cfg, cache)-> (logits, cache)
     api.decode(params, token, pos, cfg, cache) -> (logits, cache)
@@ -10,6 +10,10 @@
         -> (logits, cache)   # chunked prefill; None when the family has
                              # no chunked path (validate_chunked gates
                              # serving accordingly)
+    api.model_sliced(cfg, mesh)           -> {"params": paths, "cache": paths}
+                             # the whole key paths of the leaves a model
+                             # rank holds a slice of over "model"
+                             # (distributed.sharding.rank_placements)
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ class ModelAPI(NamedTuple):
     decode: Callable
     prefill_chunk: Optional[Callable] = None
     forward_train: Optional[Callable] = None
+    model_sliced: Optional[Callable] = None
 
 
 def get_model(cfg) -> ModelAPI:
@@ -37,15 +42,15 @@ def get_model(cfg) -> ModelAPI:
         # its only caller, refuses the vlm family.
         chunk = T.prefill_chunk if cfg.family in ("dense", "moe") else None
         return ModelAPI(T.param_spec, T.cache_spec, T.prefill, T.decode, chunk,
-                        forward_train=T.forward_train)
+                        forward_train=T.forward_train, model_sliced=T.model_sliced)
     if cfg.family == "hybrid":
         from repro_torch.models import rglru as R
 
         return ModelAPI(R.param_spec, R.cache_spec, R.prefill, R.decode,
-                        forward_train=R.forward_train)
+                        forward_train=R.forward_train, model_sliced=R.model_sliced)
     if cfg.family == "audio":
         from repro_torch.models import whisper as W
 
         return ModelAPI(W.param_spec, W.cache_spec, W.prefill, W.decode,
-                        forward_train=W.forward_train)
+                        forward_train=W.forward_train, model_sliced=W.model_sliced)
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -15,41 +15,87 @@ Chunked prefill (``chunk_step``, ``chunk_attention``) advances a slot's
 prompt by Sq rows at consecutive positions, row-masked by ``valid``: valid
 rows are written first and every row attends the cache as stored, so each
 attends exactly the keys the whole-prompt prefill row at its position
-would.  The mesh paths of the JAX module are not ported yet (ROADMAP.md).
+would.
+
+Under a mesh with a "model" axis of more than one rank and
+``cfg.seq_shard_cache``, a contiguous cache's timeline is sharded over
+"model" (:func:`seq_mesh`): each model rank holds S/par of its slots, a
+cache write lands in the rank that owns its slot (slot = pos, or pos mod S
+in a rolling cache; owner = slot // (S/par)), and single-row decode
+attention is :func:`flash_decode_attention`, the reference's partial
+softmax over the local slice merged across the ranks.  Both mesh paths
+are single-row and contiguous, as the reference asserts; the servers
+refuse ``seq_shard_cache``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
 
 
-def attn_spec(cfg) -> dict:
+def scheme(cfg, par: int) -> str:
+    """The reference's tensor-parallel scheme of the attention leaves over a
+    model axis of ``par``: ``heads`` (q and kv heads both divide), ``qheads``
+    (only q heads), ``hd`` (the head dim) or ``none``.  It sets the leaves'
+    pspec entries; a model rank of the port holds the leaves whole."""
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if par <= 1:
+        return "none"
+    if H % par == 0 and KV % par == 0:
+        return "heads"
+    if H % par == 0:
+        return "qheads"
+    if hd % par == 0:
+        return "hd"
+    return "none"
+
+
+def attn_spec(cfg, par: int = 1) -> dict:
     H, KV, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    sc = scheme(cfg, par)
+    qa = "model" if sc in ("heads", "qheads") else None
+    kva = "model" if sc == "heads" else None
+    hda = "model" if sc == "hd" else None
     spec = {
-        "wq": Spec((d, H, hd)),
-        "wk": Spec((d, KV, hd)),
-        "wv": Spec((d, KV, hd)),
-        "wo": Spec((H, hd, d)),
+        "wq": Spec((d, H, hd), pspec=(None, qa, hda)),
+        "wk": Spec((d, KV, hd), pspec=(None, kva, hda)),
+        "wv": Spec((d, KV, hd), pspec=(None, kva, hda)),
+        "wo": Spec((H, hd, d), pspec=(qa, hda, None)),
     }
     if cfg.qkv_bias:
-        spec["bq"] = Spec((H, hd), "zeros")
-        spec["bk"] = Spec((KV, hd), "zeros")
-        spec["bv"] = Spec((KV, hd), "zeros")
+        spec["bq"] = Spec((H, hd), "zeros", pspec=(qa, hda))
+        spec["bk"] = Spec((KV, hd), "zeros", pspec=(kva, hda))
+        spec["bv"] = Spec((KV, hd), "zeros", pspec=(kva, hda))
     return spec
 
 
-def cache_spec(cfg, batch: int, max_seq: int, window: int = 0) -> dict:
+# The leaves of a contiguous cache whose timeline the seq-sharded decode
+# slices over "model" (:func:`cache_spec`'s seq_shard_cache branch).
+SEQ_LEAVES = ("k", "v", "pos")
+
+
+def cache_spec(cfg, batch: int, max_seq: int, par: int = 1, window: int = 0) -> dict:
     """Per-layer KV cache. ``pos`` records absolute positions per slot (−1 =
-    empty)."""
+    empty).  With ``cfg.seq_shard_cache`` and a model axis of ``par`` > 1
+    that divides the cache length, the cache's timeline is sharded over
+    "model" (:func:`flash_decode_attention`)."""
     KV, hd = cfg.n_kv_heads, cfg.hd
+    sc = scheme(cfg, par)
+    kva = "model" if sc == "heads" else None
+    hda = "model" if sc == "hd" else None
     s = min(max_seq, window) if window else max_seq
     cdt = cfg.cache_dtype or None
+    if cfg.seq_shard_cache and par > 1 and s % par == 0:
+        kv, pe = ("batch", "model", None, None), ("batch", "model")
+    else:
+        kv, pe = ("batch", None, kva, hda), ("batch", None)
     return {
-        "k": Spec((batch, s, KV, hd), "zeros", None, cdt),
-        "v": Spec((batch, s, KV, hd), "zeros", None, cdt),
-        "pos": Spec((batch, s), "neg_ones", None, "int32"),
+        "k": Spec((batch, s, KV, hd), "zeros", None, cdt, kv),
+        "v": Spec((batch, s, KV, hd), "zeros", None, cdt, kv),
+        "pos": Spec((batch, s), "neg_ones", None, "int32", pe),
     }
 
 
@@ -127,22 +173,49 @@ def _prefix_lm_attention(q, k, v, prefix_len: int, window: int):
     return torch.einsum("bhqk,bkhd->bqhd", probs, vv)
 
 
+def seq_mesh(cfg, mesh=None):
+    """``mesh`` (the current one by default) when it shards the contiguous
+    caches' timeline over "model" (``cfg.seq_shard_cache`` and a model axis
+    of more than one rank), else None."""
+    mesh = mesh or current_mesh()
+    if cfg.seq_shard_cache and mesh is not None and mesh.shape.get("model", 1) > 1:
+        return mesh
+    return None
+
+
+def _write_owned(cache, slot, k, v, positions, mesh):
+    """:func:`_write` on a seq-sharded cache: the rows whose slot (in the
+    whole timeline) this model rank owns, at their local slot.  The others
+    belong to another rank and are not written here."""
+    s_loc = cache["k"].shape[1]
+    r = mesh.coord["model"]
+    bi, ji = (torch.div(slot, s_loc, rounding_mode="floor") == r).nonzero(as_tuple=True)
+    local = slot[bi, ji] - r * s_loc
+    for name, new in (("k", k), ("v", v), ("pos", positions)):
+        cache[name].index_put_((bi, local), new[bi, ji].to(cache[name].dtype))
+
+
 def prefill_with_cache(p, x, positions, cfg, cache, *, window=0, prefix_len=0):
     """Prefill that also fills the cache (in place). Assumes S <= cache
     length for a full cache; a rolling cache keeps the trailing window.
     ``prefix_len`` > 0: the prefix-LM mask (the vlm family's image
     patches), on ``flash_attention``'s prefix mode under
-    ``kernel_impl="cuda"``."""
+    ``kernel_impl="cuda"``.  On a seq-sharded cache (:func:`seq_mesh`) each
+    model rank writes the slots it owns."""
     q, k, v = _project_qkv(p, x, positions, cfg)
     s = x.shape[1]
-    cs = cache["k"].shape[1]
+    mesh = seq_mesh(cfg)
+    cs = cache["k"].shape[1] * (mesh.shape["model"] if mesh else 1)
     if window and s > cs:
         # Only the trailing window survives in a rolling cache.
         k_w, v_w, pos_w = k[:, -cs:], v[:, -cs:], positions[:, -cs:]
     else:
         k_w, v_w, pos_w = k, v, positions
-    slot = pos_w % cs if window else pos_w
-    _write(cache, slot.long(), k_w, v_w, pos_w)
+    slot = (pos_w % cs if window else pos_w).long()
+    if mesh is not None:
+        _write_owned(cache, slot, k_w, v_w, pos_w, mesh)
+    else:
+        _write(cache, slot, k_w, v_w, pos_w)
     if prefix_len and cfg.kernel_impl == "cuda":
         from repro_torch.kernels import ops as kops
 
@@ -183,7 +256,14 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
     posv = pos_vector(pos, b, x.device)
     positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, positions, cfg)
-    if "table" in cache:
+    mesh = seq_mesh(cfg)
+    if mesh is not None:
+        if sq != 1 or "table" in cache:
+            raise ValueError("the seq-sharded mesh decode is single-row and contiguous")
+        cs = cache["k"].shape[1] * mesh.shape["model"]
+        slot = (positions % cs if window else positions).long()
+        _write_owned(cache, slot, k, v, positions, mesh)
+    elif "table" in cache:
         _paged_write(cache, k, v, positions, window)
     else:
         cs = cache["k"].shape[1]
@@ -367,6 +447,44 @@ def _ragged_dense(q, k, v, kpos, posv, *, window=0):
     return out.reshape(b, sq, h, hd)
 
 
+def flash_decode_attention(q, cache, pos, cfg, *, window=0, mesh=None):
+    """Sequence-sharded decode attention (the reference's shard_map over
+    "model"): q (B, 1, H, hd) on every model rank, the rank's slice of the
+    cache timeline (B, S/par, KV, hd).  Each rank computes the masked
+    partial softmax over its slice, as the reference's ``local_fn`` in
+    plain torch (float32 scores, grouped GQA heads, p rounded to q's dtype
+    for the value product, which accumulates in float32 as the port's
+    ``flash_decode`` kernel does; the reference's einsum rounds it to q's
+    dtype as well), and the partials merge by the online-softmax identity:
+
+        m_g = max(m);  l_g = sum(l e^{m - m_g});  acc_g = sum(acc e^{m - m_g})
+
+    three ``all_reduce``s over "model" (MAX, SUM, SUM) a layer.  A slot
+    with no valid key returns zeros."""
+    mesh = mesh or current_mesh()
+    b, sq, h, hd = q.shape
+    if sq != 1:
+        raise ValueError("the seq-sharded mesh decode is single-row")
+    kvh = cache["k"].shape[2]
+    posv = pos_vector(pos, b, q.device)
+    qg = q[:, 0].reshape(b, kvh, h // kvh, hd)
+    s = torch.einsum("bgrd,bkgd->bgrk", qg.float(),
+                     cache["k"].to(q.dtype).float()) * (cfg.hd ** -0.5)
+    vm = ragged_valid_mask(cache["pos"], posv[:, None], window)[:, None, None, :]
+    s = torch.where(vm, s, L.NEG_INF)
+    m = s.amax(dim=-1)  # (B, KV, n_rep)
+    p = torch.where(vm, torch.exp(s - m[..., None]), 0.0)
+    l_loc = p.sum(dim=-1)
+    acc = torch.einsum("bgrk,bkgd->bgrd", p.to(q.dtype).float(),
+                       cache["v"].to(q.dtype).float())
+    m_g = mesh.all_reduce(m.clone(), ("model",), "max")
+    corr = torch.exp(m - m_g)
+    l_g = mesh.all_reduce(l_loc * corr, ("model",))
+    acc_g = mesh.all_reduce(acc * corr[..., None], ("model",))
+    out = acc_g / torch.clamp(l_g[..., None], min=1e-30)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
 def _paged_dense(q, cache, posv, *, window=0):
     """Dense paged-decode attention: gather the slot's physical blocks into
     the logical (B, nmax·bl, KV, hd) layout through the block table, then
@@ -387,9 +505,12 @@ def cached_attention(q, cache, pos, cfg, *, window=0):
     ``flash_decode_paged`` kernel under ``cfg.kernel_impl == "cuda"`` (its
     tile is the pool's block length) or to the gather-then-dense reference;
     a contiguous cache to the ``flash_decode`` kernel or the dense
-    grouped-GQA reference.  The kernels run their plain versions on CPU
-    tensors."""
+    grouped-GQA reference, or, seq-sharded over a mesh (:func:`seq_mesh`),
+    to :func:`flash_decode_attention`.  The kernels run their plain
+    versions on CPU tensors."""
     posv = pos_vector(pos, q.shape[0], q.device)
+    if "table" not in cache and seq_mesh(cfg) is not None:
+        return flash_decode_attention(q, cache, posv, cfg, window=window)
     if "table" in cache:
         if cfg.kernel_impl == "cuda":
             from repro_torch.kernels import ops as kops

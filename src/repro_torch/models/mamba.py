@@ -33,28 +33,30 @@ def dims(cfg):
     return di, dt_rank, cfg.ssm_state
 
 
-def mamba_block_spec(cfg) -> dict:
+def mamba_block_spec(cfg, par: int = 1) -> dict:
     d = cfg.d_model
     di, R, N = dims(cfg)
+    m = "model" if par > 1 and di % par == 0 else None
     return {
-        "norm": Spec((d,), "ones"),
-        "in_proj": Spec((d, 2 * di)),
-        "conv_w": Spec((di, cfg.ssm_conv), "small_normal", 0.1),
-        "conv_b": Spec((di,), "zeros"),
-        "x_proj": Spec((di, R + 2 * N)),
-        "dt_proj": Spec((R, di)),
-        "dt_bias": Spec((di,), "ones"),
-        "A_log": Spec((di, N), "small_normal", 0.5),
-        "D": Spec((di,), "ones"),
-        "out_proj": Spec((di, d)),
+        "norm": Spec((d,), "ones", pspec=(None,)),
+        "in_proj": Spec((d, 2 * di), pspec=(None, m)),
+        "conv_w": Spec((di, cfg.ssm_conv), "small_normal", 0.1, pspec=(m, None)),
+        "conv_b": Spec((di,), "zeros", pspec=(m,)),
+        "x_proj": Spec((di, R + 2 * N), pspec=(m, None)),
+        "dt_proj": Spec((R, di), pspec=(None, m)),
+        "dt_bias": Spec((di,), "ones", pspec=(m,)),
+        "A_log": Spec((di, N), "small_normal", 0.5, pspec=(m, None)),
+        "D": Spec((di,), "ones", pspec=(m,)),
+        "out_proj": Spec((di, d), pspec=(m, None)),
     }
 
 
-def ssm_cache_spec(cfg, batch: int) -> dict:
+def ssm_cache_spec(cfg, batch: int, par: int = 1) -> dict:
     di, _, N = dims(cfg)
+    m = "model" if par > 1 and di % par == 0 else None
     return {
-        "conv": Spec((batch, cfg.ssm_conv - 1, di), "zeros"),
-        "ssm": Spec((batch, di, N), "zeros"),
+        "conv": Spec((batch, cfg.ssm_conv - 1, di), "zeros", pspec=("batch", None, m)),
+        "ssm": Spec((batch, di, N), "zeros", pspec=("batch", m, None)),
     }
 
 

@@ -26,8 +26,15 @@ per-expert counts on the device and skips the experts and rows the call
 does not fill; ``"reference"`` runs the kernels' plain versions, the
 reference's dense einsums.  In training (``mode="train"``) the products
 are the reference's and the block returns the router's
-:func:`aux_load_balance_loss` in its cache's place.  The expert-parallel
-``moe_ffn_ep`` is not ported (ROADMAP.md A11).
+:func:`aux_load_balance_loss` in its cache's place.
+
+Under a mesh with a "model" axis and ``cfg.ep_shard_map``, the block runs
+:func:`moe_ffn_ep`, the reference's expert-parallel dispatch: each model
+rank holds E/par experts and routes all of its tokens; it keeps its own
+assignments and sends every other one to its local expert 0 with weight
+0, where it takes a capacity slot and computes a zero row, as the
+reference does; its experts run on ``moe_gemm`` through the same row map,
+and one ``all_reduce`` over "model" sums the ranks' partial outputs.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ import threading
 
 import torch
 
+from repro_torch.distributed.sharding import (batch_axes, copy_to, current_mesh,
+                                               reduce_from)
 from repro_torch.kernels.moe_gemm import moe_gemm_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -46,24 +55,30 @@ CAPACITY_FACTOR = 1.25
 _drops = threading.local()
 
 
-def moe_block_spec(cfg) -> dict:
+# The leaves a model rank holds E/par of under expert parallelism.
+EXPERT_LEAVES = ("experts/w_gate", "experts/w_up", "experts/w_down")
+
+
+def moe_block_spec(cfg, par: int = 1) -> dict:
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    # Expert parallelism routes on every rank: the router is replicated.
+    router_pspec = (None, None) if cfg.ep_shard_map else (None, "model")
     spec = {
-        "attn": A.attn_spec(cfg),
-        "router": Spec((d, E), "small_normal", 0.02),
+        "attn": A.attn_spec(cfg, par),
+        "router": Spec((d, E), "small_normal", 0.02, pspec=router_pspec),
         "experts": {
-            "w_gate": Spec((E, d, f)),
-            "w_up": Spec((E, d, f)),
-            "w_down": Spec((E, f, d)),
+            "w_gate": Spec((E, d, f), pspec=("model", None, None)),
+            "w_up": Spec((E, d, f), pspec=("model", None, None)),
+            "w_down": Spec((E, f, d), pspec=("model", None, None)),
         },
-        "norm1": Spec((d,), "ones"),
-        "norm2": Spec((d,), "ones"),
+        "norm1": Spec((d,), "ones", pspec=(None,)),
+        "norm2": Spec((d,), "ones", pspec=(None,)),
     }
     if cfg.dense_residual:
         spec["dense_mlp"] = {
-            "w_gate": Spec((d, f)),
-            "w_up": Spec((d, f)),
-            "w_down": Spec((f, d)),
+            "w_gate": Spec((d, f), pspec=(None, "model")),
+            "w_up": Spec((d, f), pspec=(None, "model")),
+            "w_down": Spec((f, d), pspec=("model", None)),
         }
     return spec
 
@@ -122,21 +137,33 @@ def dispatch(fids, fw, tok, E: int, C: int):
     return torch.clamp(pos, max=C - 1), keep, flat[:E * C].view(E, C), count
 
 
-def aux_load_balance_loss(x, router, cfg):
+def aux_load_balance_loss(x, router, cfg, mesh=None):
     """Switch/GShard router losses of tokens x (T, d): load balance
     (E · sum_e f_e P_e, f_e the share of the T K assignments routed to
     expert e, P_e its mean router probability) plus 1e-3 x the z-loss
     (the mean squared logsumexp of the gates), as the reference.  The
-    counts f carry no gradient."""
+    counts f carry no gradient.  Under a ``mesh`` whose batch axes split
+    the batch, f and P are the global batch's, as the reference's GSPMD
+    step computes them: their sums are all-reduced over the batch axes
+    (P's gradient too, since each data rank's loss holds the one global
+    term); the z-loss is a mean of equal shards' means."""
     E, K = cfg.n_experts, cfg.top_k
     gates = (x @ router.to(x.dtype)).float()
     probs = torch.softmax(gates, dim=-1)  # (T, E)
     _, ids = top_k(probs, K)
     T = x.shape[0]
     ones = torch.ones(ids.numel(), dtype=torch.float32, device=x.device)
-    f = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
-        0, ids.reshape(-1), ones) / (T * K)
-    lb = E * torch.sum(f * probs.mean(dim=0))
+    counts = torch.zeros(E, dtype=torch.float32, device=x.device).scatter_add_(
+        0, ids.reshape(-1), ones)
+    bax = batch_axes(mesh) if mesh is not None else None
+    if bax and mesh.size(bax) > 1:
+        n = mesh.size(bax)
+        counts = mesh.all_reduce(counts, bax)
+        P = reduce_from(copy_to(probs.sum(dim=0), mesh, bax), mesh, bax) / (T * n)
+        f = counts / (T * n * K)
+    else:
+        f, P = counts / (T * K), probs.mean(dim=0)
+    lb = E * torch.sum(f * P)
     z = torch.mean(torch.square(torch.logsumexp(gates, dim=-1)))
     return lb + 1e-3 * z
 
@@ -145,10 +172,53 @@ def moe_ffn(x, p, cfg, impl=None):
     """x (T, d) flat tokens -> (T, d): route, dispatch into the capacity
     buffer's row map, the experts' SwiGLU, combine."""
     E, K, impl = cfg.n_experts, cfg.top_k, impl or cfg.kernel_impl
-    C = capacity(x.shape[0], cfg)
     fids, fw, tok = route(x, p["router"], E, K, impl)
+    return dispatch_compute_combine(x, fids, fw, tok, p["experts"], E,
+                                    capacity(x.shape[0], cfg), K, impl)
+
+
+def moe_ffn_ep(h, p, cfg, impl=None, mesh=None):
+    """The expert-parallel MoE of tokens h (B, S, d) on a model rank that
+    holds ``p["experts"]``'s E/par experts (the reference's shard_map
+    ``local_fn``): route every token, keep the rank's own assignments, send
+    the rest to local expert 0 at weight 0 (they take capacity slots there,
+    drops included, as the reference's), run the local experts, and sum the
+    ranks' partial outputs over "model".  The capacity is the reference's,
+    of the rank's T tokens and all E experts.  Under autograd the tokens
+    and the router, which every model rank uses for its part of one sum,
+    take the sum of the ranks' cotangents, and the summed output passes
+    its cotangent through (:func:`distributed.sharding.copy_to`,
+    :func:`reduce_from`)."""
+    mesh = mesh or current_mesh()
+    E, K, impl = cfg.n_experts, cfg.top_k, impl or cfg.kernel_impl
+    b, s, d = h.shape
+    e_loc = E // mesh.shape["model"]
+    rank = mesh.coord["model"]
+    x = copy_to(h.reshape(b * s, d), mesh, ("model",))
+    fids, fw, tok = route(x, copy_to(p["router"], mesh, ("model",)), E, K, impl)
+    mine = torch.div(fids, e_loc, rounding_mode="floor") == rank
+    fw = torch.where(mine, fw, torch.zeros_like(fw))
+    fids = torch.where(mine, fids - rank * e_loc, torch.zeros_like(fids))
+    out = dispatch_compute_combine(x, fids, fw, tok, p["experts"], e_loc,
+                                   capacity(x.shape[0], cfg), K, impl)
+    return reduce_from(out, mesh, ("model",)).reshape(b, s, d)
+
+
+def use_ep(cfg, mesh=None) -> bool:
+    """Expert parallelism is on: ``cfg.ep_shard_map`` under a mesh whose
+    "model" axis divides the experts."""
+    mesh = mesh or current_mesh()
+    return bool(cfg.ep_shard_map and mesh is not None and "model" in mesh.axis_names
+                and cfg.n_experts % mesh.shape["model"] == 0)
+
+
+def dispatch_compute_combine(x, fids, fw, tok, ex, E: int, C: int, K: int, impl: str):
+    """The reference's ``_dispatch_compute_combine`` of tokens x (T, d)
+    over experts ``ex`` (E of them): place the assignments into the
+    capacity buffer's row map, run the experts' SwiGLU on ``moe_gemm``
+    (its plain version unless ``impl`` is ``"cuda"``), and combine each
+    token's K rows by their weights."""
     slot, keep, rows, count = dispatch(fids, fw, tok, E, C)
-    ex = p["experts"]
     if impl == "cuda":
         from repro_torch.kernels.ops import moe_gemm
     else:
@@ -179,12 +249,16 @@ def moe_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     x = x + a
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps, impl)
     b, s, d = h.shape
-    ff = moe_ffn(h.reshape(b * s, d), p, cfg, impl).reshape(b, s, d)
+    mesh = current_mesh()
+    if use_ep(cfg, mesh):
+        ff = moe_ffn_ep(h, p, cfg, impl, mesh)
+    else:
+        ff = moe_ffn(h.reshape(b * s, d), p, cfg, impl).reshape(b, s, d)
     if cfg.dense_residual:
         dm = p["dense_mlp"]
         ff = ff + L.swiglu(h, dm["w_gate"], dm["w_up"], dm["w_down"], impl)
     if mode == "train":
-        return x + ff, aux_load_balance_loss(h.reshape(b * s, d), p["router"], cfg)
+        return x + ff, aux_load_balance_loss(h.reshape(b * s, d), p["router"], cfg, mesh)
     return x + ff, cache
 
 

@@ -5,7 +5,10 @@ the JAX package; from that description come the materialized tensors and
 the empty caches.  Layer-stacked leaves keep the JAX layout (a leading
 ``n_layers`` dim), so a JAX parameter tree loads leaf for leaf.
 
-The JAX package's ``pspec`` entries are gone: one device needs no sharding.
+Each leaf carries the JAX package's ``pspec``: one logical entry a dim (None,
+``"model"``, ``"batch"`` ...), which ``distributed/sharding.py`` resolves
+against a device mesh.  The field comes last, as a keyword, so a Spec
+written as ``Spec(shape, init, scale, dtype)`` keeps its meaning.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ class Spec:
     init: str = "normal"  # normal | small_normal | zeros | ones | neg_ones | lambda_init
     scale: float | None = None  # stddev override for normal init
     dtype: str | None = None  # per-leaf dtype override (e.g. int32 cache pos)
+    # One entry per dim: None (replicated) or a logical axis ("model", "batch").
+    pspec: tuple = ()
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -33,6 +38,15 @@ def tree_map(fn: Callable, tree, *rest):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
     return fn(tree, *rest)
+
+
+def tree_map_path(fn: Callable, tree, *rest, prefix: str = ""):
+    """:func:`tree_map` with ``fn(path, leaf, ...)``: ``path`` the leaf's
+    keys joined by ``/`` (``layers/attn/wq``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_path(fn, tree[k], *(r[k] for r in rest), prefix=f"{prefix}{k}/")
+                for k in sorted(tree)}
+    return fn(prefix[:-1], tree, *rest)
 
 
 def tree_leaves(tree) -> list:
@@ -76,7 +90,18 @@ def unstack(tree, n: int) -> list:
 def stack_layers(n_layers: int, tree):
     """Prepend a layer dim (stacked per-layer params and caches)."""
     return tree_map(
-        lambda s: Spec((n_layers,) + s.shape, s.init, s.scale, s.dtype), tree)
+        lambda s: Spec((n_layers,) + s.shape, s.init, s.scale, s.dtype,
+                       (None,) + tuple(s.pspec)), tree)
+
+
+def pspecs(tree):
+    """The tree of each leaf's pspec entries (``()`` where it has none)."""
+    return tree_map(lambda s: tuple(s.pspec), tree)
+
+
+def n_params(tree) -> int:
+    """The element count of a tree of Specs (or of tensors)."""
+    return sum(math.prod(s.shape) for s in tree_leaves(tree))
 
 
 # Leaves of more elements are drawn this many at a time (4 GiB of float32 at

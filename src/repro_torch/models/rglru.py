@@ -44,29 +44,32 @@ def _pattern_layout(cfg):
 # ------------------------------------------------------------ rec block
 
 
-def rec_block_spec(cfg) -> dict:
+def rec_block_spec(cfg, par: int = 1) -> dict:
     d, w, nb = cfg.d_model, cfg.lru_width, max(cfg.n_heads, 1)
     bw = w // nb
+    m = "model" if par > 1 and w % par == 0 else None
     return {
-        "norm": Spec((d,), "ones"),
-        "in_x": Spec((d, w)),
-        "in_y": Spec((d, w)),
-        "conv_w": Spec((w, 4), "small_normal", 0.1),
-        "conv_b": Spec((w,), "zeros"),
-        "gate_a": Spec((nb, bw, bw)),
-        "gate_x": Spec((nb, bw, bw)),
-        "gate_a_b": Spec((nb, bw), "zeros"),
-        "gate_x_b": Spec((nb, bw), "zeros"),
-        "lam": Spec((w,), "lambda_init"),
-        "out": Spec((w, d)),
+        "norm": Spec((d,), "ones", pspec=(None,)),
+        "in_x": Spec((d, w), pspec=(None, m)),
+        "in_y": Spec((d, w), pspec=(None, m)),
+        "conv_w": Spec((w, 4), "small_normal", 0.1, pspec=(m, None)),
+        "conv_b": Spec((w,), "zeros", pspec=(m,)),
+        "gate_a": Spec((nb, bw, bw),
+                       pspec=(None, None, m if bw % max(par, 1) == 0 else None)),
+        "gate_x": Spec((nb, bw, bw), pspec=(None, None, None)),
+        "gate_a_b": Spec((nb, bw), "zeros", pspec=(None, None)),
+        "gate_x_b": Spec((nb, bw), "zeros", pspec=(None, None)),
+        "lam": Spec((w,), "lambda_init", pspec=(m,)),
+        "out": Spec((w, d), pspec=(m, None)),
     }
 
 
-def rec_cache_spec(cfg, batch: int) -> dict:
+def rec_cache_spec(cfg, batch: int, par: int = 1) -> dict:
     w = cfg.lru_width
+    m = "model" if par > 1 and w % par == 0 else None
     return {
-        "conv": Spec((batch, 3, w), "zeros"),
-        "h": Spec((batch, w), "zeros"),
+        "conv": Spec((batch, 3, w), "zeros", pspec=("batch", None, m)),
+        "h": Spec((batch, w), "zeros", pspec=("batch", m)),
     }
 
 
@@ -140,29 +143,29 @@ def rec_block_apply(p, x, cfg, cache, impl=None):
 # ----------------------------------------------------------- mlp + attn
 
 
-def mlp_spec(cfg) -> dict:
+def mlp_spec(cfg, par: int = 1) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "norm": Spec((d,), "ones"),
-        "w_gate": Spec((d, f)),
-        "w_up": Spec((d, f)),
-        "w_down": Spec((f, d)),
+        "norm": Spec((d,), "ones", pspec=(None,)),
+        "w_gate": Spec((d, f), pspec=(None, "model")),
+        "w_up": Spec((d, f), pspec=(None, "model")),
+        "w_down": Spec((f, d), pspec=("model", None)),
     }
 
 
-def layer_spec(cfg, kind: str) -> dict:
+def layer_spec(cfg, kind: str, par: int = 1) -> dict:
     if kind == "rec":
-        return {"mix": rec_block_spec(cfg), "mlp": mlp_spec(cfg)}
+        return {"mix": rec_block_spec(cfg, par), "mlp": mlp_spec(cfg, par)}
     return {
-        "mix": {"norm": Spec((cfg.d_model,), "ones"), **A.attn_spec(cfg)},
-        "mlp": mlp_spec(cfg),
+        "mix": {"norm": Spec((cfg.d_model,), "ones", pspec=(None,)), **A.attn_spec(cfg, par)},
+        "mlp": mlp_spec(cfg, par),
     }
 
 
-def layer_cache_spec(cfg, batch: int, max_seq: int, kind: str) -> dict:
+def layer_cache_spec(cfg, batch: int, max_seq: int, kind: str, par: int = 1) -> dict:
     if kind == "rec":
-        return rec_cache_spec(cfg, batch)
-    return A.cache_spec(cfg, batch, max_seq, window=cfg.window)
+        return rec_cache_spec(cfg, batch, par)
+    return A.cache_spec(cfg, batch, max_seq, par, window=cfg.window)
 
 
 def layer_apply(p, x, positions, cfg, *, kind, mode, cache, pos=None):
@@ -191,26 +194,39 @@ def layer_apply(p, x, positions, cfg, *, kind, mode, cache, pos=None):
 # -------------------------------------------------------------- stack
 
 
-def param_spec(cfg) -> dict:
+def param_spec(cfg, par: int = 1) -> dict:
     from repro_torch.models import transformer as T
 
     n_units, tail = _pattern_layout(cfg)
-    spec = T.embed_spec(cfg)
-    unit = {f"l{i}_{k}": layer_spec(cfg, k) for i, k in enumerate(cfg.block_pattern)}
+    spec = T.embed_spec(cfg, par)
+    unit = {f"l{i}_{k}": layer_spec(cfg, k, par) for i, k in enumerate(cfg.block_pattern)}
     spec["units"] = stack_layers(n_units, unit)
-    spec["tail"] = {f"t{i}_{k}": layer_spec(cfg, k) for i, k in enumerate(tail)}
+    spec["tail"] = {f"t{i}_{k}": layer_spec(cfg, k, par) for i, k in enumerate(tail)}
     return spec
 
 
-def cache_spec(cfg, batch: int, max_seq: int) -> dict:
+def cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
     n_units, tail = _pattern_layout(cfg)
-    unit = {f"l{i}_{k}": layer_cache_spec(cfg, batch, max_seq, k)
+    unit = {f"l{i}_{k}": layer_cache_spec(cfg, batch, max_seq, k, par)
             for i, k in enumerate(cfg.block_pattern)}
     return {
         "units": stack_layers(n_units, unit),
-        "tail": {f"t{i}_{k}": layer_cache_spec(cfg, batch, max_seq, k)
+        "tail": {f"t{i}_{k}": layer_cache_spec(cfg, batch, max_seq, k, par)
                  for i, k in enumerate(tail)},
     }
+
+
+def model_sliced(cfg, mesh) -> dict:
+    """The whole key paths of the leaves a model rank of ``mesh`` holds a
+    slice of: each attention layer's cache timeline under the seq-sharded
+    decode (``attention.seq_mesh``); the parameters are held whole."""
+    cache = ()
+    if A.seq_mesh(cfg, mesh) is not None:
+        n_units, tail = _pattern_layout(cfg)
+        layers = [f"units/l{i}_{k}" for i, k in enumerate(cfg.block_pattern) if k != "rec"]
+        layers += [f"tail/t{i}_{k}" for i, k in enumerate(tail) if k != "rec"]
+        cache = tuple(f"{n}/{leaf}" for n in layers for leaf in A.SEQ_LEAVES)
+    return {"params": (), "cache": cache}
 
 
 def stack_order(params, cache, cfg):

@@ -40,17 +40,17 @@ from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
 # ------------------------------------------------------------- dense block
 
 
-def dense_block_spec(cfg) -> dict:
+def dense_block_spec(cfg, par: int = 1) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "attn": A.attn_spec(cfg),
+        "attn": A.attn_spec(cfg, par),
         "mlp": {
-            "w_gate": Spec((d, f)),
-            "w_up": Spec((d, f)),
-            "w_down": Spec((f, d)),
+            "w_gate": Spec((d, f), pspec=(None, "model")),
+            "w_up": Spec((d, f), pspec=(None, "model")),
+            "w_down": Spec((f, d), pspec=("model", None)),
         },
-        "norm1": Spec((d,), "ones"),
-        "norm2": Spec((d,), "ones"),
+        "norm1": Spec((d,), "ones", pspec=(None,)),
+        "norm2": Spec((d,), "ones", pspec=(None,)),
     }
 
 
@@ -77,8 +77,8 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None, prefix_len
     return x, cache
 
 
-def dense_cache_spec(cfg, batch: int, max_seq: int) -> dict:
-    return A.cache_spec(cfg, batch, max_seq, window=cfg.window)
+def dense_cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
+    return A.cache_spec(cfg, batch, max_seq, par, window=cfg.window)
 
 
 # ---------------------------------------------------------------- stack
@@ -91,31 +91,45 @@ FAMILIES = {
     "moe": (moe.moe_block_spec, moe.moe_block_apply, dense_cache_spec),
     "vlm": (dense_block_spec, dense_block_apply, dense_cache_spec),
     "ssm": (mamba.mamba_block_spec, mamba.mamba_block_apply,
-            lambda cfg, batch, max_seq: mamba.ssm_cache_spec(cfg, batch)),
+            lambda cfg, batch, max_seq, par: mamba.ssm_cache_spec(cfg, batch, par)),
 }
 
 
-def embed_spec(cfg) -> dict:
+def embed_spec(cfg, par: int = 1) -> dict:
     spec = {
-        "embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02),
-        "final_norm": Spec((cfg.d_model,), "ones"),
+        "embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02, pspec=("model", None)),
+        "final_norm": Spec((cfg.d_model,), "ones", pspec=(None,)),
     }
     if not cfg.tie_embeddings:
-        spec["lm_head"] = Spec((cfg.d_model, cfg.vocab))
+        spec["lm_head"] = Spec((cfg.d_model, cfg.vocab), pspec=(None, "model"))
     return spec
 
 
-def param_spec(cfg) -> dict:
-    spec = embed_spec(cfg)
+def param_spec(cfg, par: int = 1) -> dict:
+    """The parameters' Spec tree, with the reference's pspec entries for a
+    model axis of ``par``."""
+    spec = embed_spec(cfg, par)
     bspec, _, _ = FAMILIES[cfg.family]
-    spec["layers"] = stack_layers(cfg.n_layers, bspec(cfg))
+    spec["layers"] = stack_layers(cfg.n_layers, bspec(cfg, par))
     return spec
 
 
-def cache_spec(cfg, batch: int, max_seq: int) -> dict:
+def cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
     """Stacked (n_layers-leading) cache tree."""
     _, _, layer_cache_spec = FAMILIES[cfg.family]
-    return stack_layers(cfg.n_layers, layer_cache_spec(cfg, batch, max_seq))
+    return stack_layers(cfg.n_layers, layer_cache_spec(cfg, batch, max_seq, par))
+
+
+def model_sliced(cfg, mesh) -> dict:
+    """The whole key paths of the leaves a model rank of ``mesh`` holds a
+    slice of: the stacked experts under expert parallelism
+    (``moe.use_ep``), the stacked attention cache's timeline under the
+    seq-sharded decode (``attention.seq_mesh``).  Every other "model"
+    entry is the reference's tensor parallelism, held whole."""
+    params = tuple(f"layers/{p}" for p in moe.EXPERT_LEAVES) \
+        if cfg.family == "moe" and moe.use_ep(cfg, mesh) else ()
+    cache = A.SEQ_LEAVES if cfg.family != "ssm" and A.seq_mesh(cfg, mesh) is not None else ()
+    return {"params": params, "cache": cache}
 
 
 def stack_order(params, cache, cfg):

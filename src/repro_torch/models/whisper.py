@@ -37,62 +37,78 @@ from repro_torch.models import layers as L
 from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
 
 
-def _attn_spec(cfg) -> dict:
+def _attn_spec(cfg, par: int = 1) -> dict:
     d, H, hd = cfg.d_model, cfg.n_heads, cfg.hd
+    hda = "model" if par > 1 and hd % par == 0 else None
     return {
-        "wq": Spec((d, H, hd)),
-        "bq": Spec((H, hd), "zeros"),
-        "wk": Spec((d, H, hd)),
-        "wv": Spec((d, H, hd)),
-        "bv": Spec((H, hd), "zeros"),
-        "wo": Spec((H, hd, d)),
-        "bo": Spec((d,), "zeros"),
+        "wq": Spec((d, H, hd), pspec=(None, None, hda)),
+        "bq": Spec((H, hd), "zeros", pspec=(None, hda)),
+        "wk": Spec((d, H, hd), pspec=(None, None, hda)),
+        "wv": Spec((d, H, hd), pspec=(None, None, hda)),
+        "bv": Spec((H, hd), "zeros", pspec=(None, hda)),
+        "wo": Spec((H, hd, d), pspec=(None, hda, None)),
+        "bo": Spec((d,), "zeros", pspec=(None,)),
     }
 
 
 def _ln_spec(cfg) -> dict:
-    return {"w": Spec((cfg.d_model,), "ones"), "b": Spec((cfg.d_model,), "zeros")}
+    return {"w": Spec((cfg.d_model,), "ones", pspec=(None,)),
+            "b": Spec((cfg.d_model,), "zeros", pspec=(None,))}
 
 
-def _mlp_spec(cfg) -> dict:
+def _mlp_spec(cfg, par: int = 1) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w_in": Spec((d, f)),
-        "b_in": Spec((f,), "zeros"),
-        "w_out": Spec((f, d)),
-        "b_out": Spec((d,), "zeros"),
+        "w_in": Spec((d, f), pspec=(None, "model")),
+        "b_in": Spec((f,), "zeros", pspec=("model",)),
+        "w_out": Spec((f, d), pspec=("model", None)),
+        "b_out": Spec((d,), "zeros", pspec=(None,)),
     }
 
 
-def param_spec(cfg) -> dict:
-    enc_layer = {"ln1": _ln_spec(cfg), "attn": _attn_spec(cfg), "ln2": _ln_spec(cfg),
-                 "mlp": _mlp_spec(cfg)}
-    dec_layer = {"ln1": _ln_spec(cfg), "self_attn": _attn_spec(cfg), "ln2": _ln_spec(cfg),
-                 "cross_attn": _attn_spec(cfg), "ln3": _ln_spec(cfg), "mlp": _mlp_spec(cfg)}
+def param_spec(cfg, par: int = 1) -> dict:
+    enc_layer = {"ln1": _ln_spec(cfg), "attn": _attn_spec(cfg, par), "ln2": _ln_spec(cfg),
+                 "mlp": _mlp_spec(cfg, par)}
+    dec_layer = {"ln1": _ln_spec(cfg), "self_attn": _attn_spec(cfg, par), "ln2": _ln_spec(cfg),
+                 "cross_attn": _attn_spec(cfg, par), "ln3": _ln_spec(cfg),
+                 "mlp": _mlp_spec(cfg, par)}
     return {
         "enc_layers": stack_layers(cfg.enc_layers, enc_layer),
         "enc_ln_post": _ln_spec(cfg),
-        "tok_embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02),
-        "pos_embed": Spec((cfg.max_decode_ctx, cfg.d_model), "small_normal", 0.01),
+        "tok_embed": Spec((cfg.vocab, cfg.d_model), "small_normal", 0.02,
+                          pspec=("model", None)),
+        "pos_embed": Spec((cfg.max_decode_ctx, cfg.d_model), "small_normal", 0.01,
+                          pspec=(None, None)),
         "dec_layers": stack_layers(cfg.n_layers, dec_layer),
         "dec_ln_final": _ln_spec(cfg),
     }
 
 
-def cache_spec(cfg, batch: int, max_seq: int) -> dict:
+def cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
     """Per decoder layer: the self cache ``k``/``v``/``pos`` of
     ``min(max_seq, max_decode_ctx)`` positions and the cross keys/values
     ``xk``/``xv`` of the encoder's frames."""
     H, hd = cfg.n_heads, cfg.hd
     s = min(max_seq, cfg.max_decode_ctx)
+    hda = "model" if par > 1 and hd % par == 0 else None
     per_layer = {
-        "k": Spec((batch, s, H, hd), "zeros"),
-        "v": Spec((batch, s, H, hd), "zeros"),
-        "pos": Spec((batch, s), "neg_ones", None, "int32"),
-        "xk": Spec((batch, cfg.enc_frames, H, hd), "zeros"),
-        "xv": Spec((batch, cfg.enc_frames, H, hd), "zeros"),
+        "k": Spec((batch, s, H, hd), "zeros", pspec=("batch", None, None, hda)),
+        "v": Spec((batch, s, H, hd), "zeros", pspec=("batch", None, None, hda)),
+        "pos": Spec((batch, s), "neg_ones", None, "int32", ("batch", None)),
+        "xk": Spec((batch, cfg.enc_frames, H, hd), "zeros", pspec=("batch", None, None, hda)),
+        "xv": Spec((batch, cfg.enc_frames, H, hd), "zeros", pspec=("batch", None, None, hda)),
     }
     return stack_layers(cfg.n_layers, per_layer)
+
+
+def model_sliced(cfg, mesh) -> dict:
+    """Whisper's leaves are held whole on every model rank: its caches
+    have no seq-sharded layout (:func:`cache_spec`), so the seq-sharded
+    decode is refused."""
+    if A.seq_mesh(cfg, mesh) is not None:
+        raise ValueError("whisper's self-attention cache has no seq-sharded layout: "
+                         "seq_shard_cache needs the dense, moe, vlm or hybrid family")
+    return {"params": (), "cache": ()}
 
 
 def _proj_q(p, x, impl):

@@ -138,19 +138,36 @@ def make_chunk_step(cfg, api, bucket: int, chunk_len: int):
     return chunk
 
 
-def zeros_cache(cfg, api, batch: int, max_seq: int, *, device, dtype=None):
+def zeros_cache(cfg, api, batch: int, max_seq: int, *, device, dtype=None, mesh=None):
     """Fresh empty KV cache honoring each leaf's declared init.
 
     The cache spec marks ``pos`` leaves ``neg_ones`` (−1 = empty slot):
     attention masks on recorded positions, so an all-zeros init would leave
-    unwritten slots *valid* at position 0 and silently attend zero keys."""
+    unwritten slots *valid* at position 0 and silently attend zero keys.
+
+    Under a ``mesh``, the rank's slice of the cache of the global ``batch``
+    (``distributed.sharding.rank_placements``): its batch rows and, under the
+    seq-sharded decode, its part of the timeline, which the model axis
+    must then divide."""
     dt = getattr(torch, dtype or cfg.compute_dtype)
 
     def mk(s):
         ldt = getattr(torch, s.dtype) if s.dtype else dt
         return torch.full(s.shape, _INIT_FILL.get(s.init, 0), dtype=ldt, device=device)
 
-    return tree_map(mk, api.cache_spec(cfg, batch, max_seq))
+    if mesh is None:
+        return tree_map(mk, api.cache_spec(cfg, batch, max_seq))
+    from repro_torch.distributed.sharding import rank_placements
+    from repro_torch.launch.mesh import model_par
+    from repro_torch.models.attention import seq_mesh
+
+    par = model_par(mesh)
+    length = min(max_seq, cfg.window) if cfg.window else max_seq
+    if seq_mesh(cfg, mesh) is not None and length % par:
+        raise ValueError(f"a cache of {length} positions does not shard over a model "
+                         f"axis of {par}")
+    spec = api.cache_spec(cfg, batch, max_seq, par)
+    return tree_map(mk, rank_placements(cfg, spec, mesh, "cache")[1])
 
 
 _INIT_FILL = {"neg_ones": -1, "ones": 1}

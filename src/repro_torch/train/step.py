@@ -1,12 +1,18 @@
 """The train step: loss -> gradients (microbatched) -> AdamW.
 
 The JAX package's step is one jitted SPMD program; here it is the eager
-sequence of the same computations on one device.  ``cfg.microbatches`` > 1
+sequence of the same computations on each rank.  ``cfg.microbatches`` > 1
 splits the batch as ``x.reshape(nmb, B // nmb, ...)`` and sums the losses
 and gradients over the microbatches, then divides both by ``nmb``, as the
 reference's ``lax.scan``.  The state is ``{"params", "opt": {"m", "v"},
 "step"}``, the JAX tree's keys; the step updates it in place (the JAX
 launcher donates it) and returns it with ``step + 1``.
+
+Under a mesh the step takes the rank's slice of the global batch (split
+over the batch axes, ``data.ShardedLoader``), and after the microbatches
+the loss and every gradient are all-reduced and averaged over the batch
+axes: the reduction GSPMD generates for the reference.  Every rank then
+holds the global batch's gradients whole.
 """
 from __future__ import annotations
 
@@ -14,19 +20,63 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed.sharding import axes_of, batch_axes, current_mesh, rank_placements
 from repro_torch.models.params import Spec, tree_leaves, tree_unflatten
 from repro_torch.optim import adamw_init_spec, adamw_update, lr_schedule
 
 TrainState = Dict[str, Any]  # {"params", "opt": {"m","v"}, "step"}
 
 
-def state_spec(cfg, param_spec_tree) -> dict:
-    """Spec tree of the whole train state, for ``materialize``."""
+def state_spec(cfg, param_spec_tree, data_par: int = 1) -> dict:
+    """Spec tree of the whole train state, for ``materialize``; under
+    ``cfg.zero1`` m and v carry "batch" on the dim ZeRO-1 shards over
+    ``data_par`` ranks."""
     return {
         "params": param_spec_tree,
-        "opt": adamw_init_spec(param_spec_tree, zero1=cfg.zero1),
-        "step": Spec((), "zeros", None, "int32"),
+        "opt": adamw_init_spec(param_spec_tree, zero1=cfg.zero1, data_par=data_par),
+        "step": Spec((), "zeros", None, "int32", ()),
     }
+
+
+def state_placements(cfg, api, mesh):
+    """(Spec tree of the train state on ``mesh``, the port's placement of
+    each leaf): the experts sliced over "model" under expert parallelism,
+    m and v over the batch axes under ZeRO-1, everything else whole."""
+    from repro_torch.launch.mesh import data_par, model_par
+
+    sspec = state_spec(cfg, api.param_spec(cfg, model_par(mesh)), data_par(mesh))
+    return sspec, rank_placements(cfg, sspec, mesh, "state")[0]
+
+
+def zero1_dims(opt_placements, mesh) -> list | None:
+    """Each leaf's dim that ZeRO-1 slices over the batch axes (None where m
+    and v are whole), in ``tree_leaves`` order; None without one."""
+    bax = batch_axes(mesh) if mesh is not None else None
+    if not bax:
+        return None
+    dims = [next((i for i, r in enumerate(sh) if set(bax) <= set(axes_of(r))), None)
+            for sh in tree_leaves(opt_placements["m"])]
+    return dims if any(d is not None for d in dims) else None
+
+
+def grad_axes(param_placements) -> list | None:
+    """The mesh axes each parameter leaf (and its gradient) is sliced over,
+    in ``tree_leaves`` order (``()`` for a whole leaf); None when every
+    leaf is whole."""
+    axes = [tuple(a for r in sh for a in axes_of(r)) for sh in tree_leaves(param_placements)]
+    return axes if any(axes) else None
+
+
+def reduce_over_batch(loss, grads: list, mesh):
+    """The loss and gradients averaged over the mesh's batch axes (each
+    all-reduced, then divided by the ranks), in place."""
+    bax = batch_axes(mesh) if mesh is not None else None
+    if not bax or mesh.size(bax) == 1:
+        return loss, grads
+    n = mesh.size(bax)
+    for t in [loss] + list(grads):
+        mesh.all_reduce(t, bax).div_(n)
+    return loss, grads
 
 
 def microbatches(batch: dict, nmb: int) -> list:
@@ -70,19 +120,30 @@ def loss_and_grads(api, cfg, params, batch):
     return loss, grads
 
 
-def make_train_step(cfg, api, *, lr_kwargs: dict | None = None):
+def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None):
     """``train_step(state, batch) -> (state, {"loss", "lr"})``: the
     gradients of ``api.forward_train`` (which casts the float32 masters to
     the compute dtype), then one AdamW step at ``lr_schedule(step)``.
-    ``batch`` holds tensors on the state's device."""
+    ``batch`` holds tensors on the state's device.  ``mesh`` (the current
+    mesh by default, read when the step is made): ``batch`` is the rank's
+    slice, the loss and gradients are averaged over the batch axes, the
+    clip's norm covers the leaves sliced over "model" (the experts under
+    expert parallelism), and under ``cfg.zero1`` the update is ZeRO-1's."""
     lr_kwargs = lr_kwargs or {}
+    mesh = mesh if mesh is not None else current_mesh()
+    dims = axes = None
+    if mesh is not None:
+        places = state_placements(cfg, api, mesh)[1]
+        dims = zero1_dims(places["opt"], mesh) if cfg.zero1 else None
+        axes = grad_axes(places["params"])
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state["params"]
-        loss, grads = loss_and_grads(api, cfg, params, batch)
+        loss, grads = reduce_over_batch(*loss_and_grads(api, cfg, params, batch), mesh)
         lr = lr_schedule(state["step"], **lr_kwargs)
         grads = tree_unflatten(params, grads)
-        new_params, new_opt = adamw_update(params, grads, state["opt"], state["step"], lr=lr)
+        new_params, new_opt = adamw_update(params, grads, state["opt"], state["step"], lr=lr,
+                                           mesh=mesh, zero1_dims=dims, grad_axes=axes)
         del grads
         new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         return new_state, {"loss": loss, "lr": lr}

@@ -19,7 +19,8 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
 # multi-group slice (placement and migration, elastic groups, the
 # observability endpoints), of the MoE slice (the block, the grouped
 # expert GEMM's wrapper) and of the training slice (optimizer, train step,
-# compression, heterogeneous trainer, data, checkpoints, launcher).
+# compression, heterogeneous trainer, data, checkpoints, launcher) and of
+# the mesh slice (logical sharding, the mesh and its worlds, input specs).
 SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
                  "kernels/gemm.py", "kernels/rms_norm.py", "serve/multigroup.py",
                  "distributed/elastic.py", "distributed/__init__.py", "serve/http.py",
@@ -28,7 +29,8 @@ SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/
                  "optim/__init__.py", "optim/adamw.py", "train/__init__.py", "train/step.py",
                  "train/compression.py", "train/hetero.py", "data/__init__.py",
                  "data/pipeline.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
-                 "launch/train.py")
+                 "launch/train.py", "distributed/sharding.py", "launch/mesh.py",
+                 "launch/specs.py")
 
 
 def _imports(path):

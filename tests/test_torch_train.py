@@ -1,7 +1,8 @@
 """The port's training substrate: the train step against the JAX step,
 AdamW and its schedule against the JAX package's, microbatching, the remat
 policies, and the counterparts of tests/test_train.py's six tests (the
-zero1 one becomes "zero1 raises": its sharding needs the device mesh).
+zero1 one becomes "zero1 raises": the ZeRO-1 spec, and its update refused
+without the device mesh it slices over).
 
 Reduced configs in float32 on the CPU; a JAX state is loaded leaf for
 leaf.  Tolerances, each with what was measured (qwen1.5-4b and
@@ -205,14 +206,22 @@ def test_grad_clip_bounds_update():
 
 
 def test_zero1_raises():
-    """ZeRO-1 shards m and v over a mesh's data axis: refused until the
-    port has a mesh (A11), for an explicit request and a config's."""
+    """ZeRO-1 shards m and v over a mesh's batch axes: the spec gives
+    "batch" to the largest divisible replicated dim (the reference's
+    ``_zero1_spec``), a config's state spec builds, and the sliced update
+    is refused without the mesh it slices over."""
     from repro_torch.models.params import Spec
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        toptim.adamw_init_spec({"w": Spec((64, 128))}, zero1=True, data_par=16)
+    spec = toptim.adamw_init_spec({"w": Spec((64, 128), pspec=(None, "model"))},
+                                  zero1=True, data_par=16)
+    assert spec["m"]["w"].pspec == ("batch", "model")
     cfg = tconfigs.get_config("arctic-480b")
     assert cfg.zero1
-    with pytest.raises(NotImplementedError, match="zero1"):
-        state_spec(cfg, get_model(cfg).param_spec(cfg))
+    sspec = state_spec(cfg, get_model(cfg).param_spec(cfg, 16), 16)
+    assert "batch" in sspec["opt"]["m"]["layers"]["experts"]["w_up"].pspec
+    params = {"w": torch.zeros(4)}
+    opt = {"m": {"w": torch.zeros(2)}, "v": {"w": torch.zeros(2)}}
+    with pytest.raises(ValueError, match="zero1"):
+        toptim.adamw_update(params, {"w": torch.ones(4)}, opt, torch.tensor(0), lr=0.1,
+                            zero1_dims=[0])
 
