@@ -368,6 +368,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2229,6 +2230,34 @@ WHISPER_COEXEC_ARGV = ["--arch", "whisper-tiny", "--full", "--coexec", "--schedu
                        "--kernel", "cuda"]
 
 
+# qwen1.5-4b's served and co-executed paths run at this depth, full width:
+# the launcher's config cut here (as ``moe_model`` cuts its configs), every
+# bitwise and launch-count check kept, the counts following the depth.
+SERVED_DEPTH = 8
+
+
+@contextlib.contextmanager
+def served_depth(depth: int = SERVED_DEPTH):
+    """The launcher's models at ``depth`` layers, full width, while the
+    block runs: ``launch.serve``'s ``get_config`` wrapped."""
+    from repro_torch.launch import serve
+
+    real = serve.get_config
+    serve.get_config = lambda name: dataclasses.replace(real(name), n_layers=depth)
+    try:
+        yield
+    finally:
+        serve.get_config = real
+
+
+def served_oneshot_counts(depth: int = SERVED_DEPTH) -> dict:
+    """The launches of qwen1.5-4b's one-shot generate of 8 x 256 + GEN at
+    ``depth`` layers (the main path's at its full depth)."""
+    return {"flash_attention": depth, "flash_decode": depth * (GEN - 1),
+            "flash_decode_paged": 0, "ssm_scan": 0, "rglru_scan": 0,
+            **row_kernel_launches("qwen1.5-4b", GEN, depth)}
+
+
 SERVER_ARGV = ["--arch", "qwen1.5-4b", "--full", "--server", "--paged", "--block-len", "16",
                "--seg-len", "8", "--max-batch", "8", "--requests", "8", "--prompt-len", "256",
                "--gen", str(GEN), "--rate", "1000", "--max-wait-ms", "200", "--seed", "0",
@@ -2548,16 +2577,20 @@ def _argv_with(argv, **flags):
     return out
 
 
-def graphed_unprofiled(run, torch, counts, results, label) -> dict:
+def graphed_unprofiled(run, torch, want_of, results, label) -> dict:
     """``run`` graphed once more without the profiler (CUPTI's tracing of a
-    graph launch costs the host time per node), held to ``counts`` and
-    ``results`` bitwise; its record (:func:`mode_record`), printed."""
+    graph launch costs the host time per node), its launch counts held to
+    ``want_of(its result)`` (the counts its own segments and chunk stages
+    make: with spread arrivals they follow the host's timing) and its
+    streams to ``results`` bitwise; its record (:func:`mode_record`),
+    printed."""
     import numpy as np
 
     res, c, _, rec = served_modes(run, torch, modes=("graph",))["graph"]
-    if c != counts or not all(np.array_equal(a, b) for a, b in zip(res["results"], results)):
-        fail(f"{label} (graphed, profiler off): launch counts {c} or streams differ from the "
-             f"profiled graphed run's")
+    want = want_of(res)
+    if c != want or not all(np.array_equal(a, b) for a, b in zip(res["results"], results)):
+        fail(f"{label} (graphed, profiler off): launch counts {c} (want {want}) or streams "
+             f"differ from the profiled graphed run's")
     print_modes(f"{label}, profiler off", {"graph": rec})
     return rec
 
@@ -2591,18 +2624,21 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     cfg, api, params = serve.load_model(args_c)
     n = cfg.n_layers
     out = {}
+    def want_of(result, label, seg_len):
+        steps = seg_len * result["stats"]["segments"]
+        if label == "chunked":
+            stages = result["chunk_stages"]
+            return _launches(n, fd=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
+        stages = result["stats"]["prefill_waves"]
+        return _launches(n, fa=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
+
     for label, args in (("whole_prompt", args_w), ("chunked", args_c)):
         runs = served_modes(lambda graph: serve.run_server(cfg, api, params, args, graph=graph),
                             torch, profiled=True)
         for mode, (result, counts, busy, _) in runs.items():
             s = result["stats"]
-            steps = args.seg_len * s["segments"]
-            if label == "chunked":
-                stages = result["chunk_stages"]
-                want = _launches(n, fd=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
-            else:
-                stages = s["prefill_waves"]
-                want = _launches(n, fa=n * stages, fdp=n * steps, forwards=[(stages + steps, n)])
+            stages = result["chunk_stages"] if label == "chunked" else s["prefill_waves"]
+            want = want_of(result, label, args.seg_len)
             print(f"  {label} ({mode}): launches {counts} (want {want})", flush=True)
             if counts != want:
                 fail(f"{label} served path ({mode}) launch counts {counts} != {want}")
@@ -2643,7 +2679,8 @@ def run_chunked_paths(dev, torch, whole) -> dict:
                               graph_profiler_off=graphed_unprofiled(
                                   lambda graph: serve.run_server(cfg, api, params, args,
                                                                  graph=graph),
-                                  torch, counts, result["results"], "chunked (64)"))
+                                  torch, lambda r: want_of(r, "chunked", args.seg_len),
+                                  result["results"], "chunked (64)"))
     # 2. Contiguous chunked serving, chunks of 40, against its own one-shot
     # reference (decode tiles of 128: no --paged).
     argv = [a for a in argv if a not in ("--paged",)]
@@ -2656,10 +2693,14 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     generate = make_generate(ccfg, capi)
     refs = [generate(params, {"tokens": torch.from_numpy(p[None]).to(dev)}, args.gen)[0]
             .cpu().numpy() for p in runs["graph"][0]["prompts"]]
+    def want40(result):
+        stages, steps = result["chunk_stages"], args.seg_len * result["stats"]["segments"]
+        return _launches(n, fd=n * (stages + steps), forwards=[(stages + steps, n)])
+
     for mode, (result, counts, busy, _) in runs.items():
         s = result["stats"]
-        stages, steps = result["chunk_stages"], args.seg_len * s["segments"]
-        want = _launches(n, fd=n * (stages + steps), forwards=[(stages + steps, n)])
+        stages = result["chunk_stages"]
+        want = want40(result)
         print(f"  contiguous, chunks of 40 ({mode}): launches {counts} (want {want})", flush=True)
         if counts != want:
             fail(f"contiguous chunked served path ({mode}) launch counts {counts} != {want}")
@@ -2684,7 +2725,7 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     print_modes("contiguous, chunks of 40", out["contiguous_chunk40"]["modes"])
     out["contiguous_chunk40"]["graph_profiler_off"] = graphed_unprofiled(
         lambda graph: serve.run_server(ccfg, capi, params, args, graph=graph), torch,
-        runs["graph"][1], result["results"], "contiguous chunked (40)")
+        want40, result["results"], "contiguous chunked (40)")
     return out, chunked_counts
 
 
@@ -3178,7 +3219,7 @@ def run_coexec_path(dev, torch, argv=COEXEC_ARGV, one=None, modes=MODES) -> dict
     from repro_torch.launch import serve
 
     if one is None:
-        one = main_paths()[0][4]  # the one-shot qwen1.5-4b path's counts, 8 x 256 + GEN
+        one = served_oneshot_counts()  # qwen1.5-4b's one-shot 8 x 256 + GEN at its cut depth
     args = serve.parse_args(argv)
     out = {"arch": args.arch, "requests": args.requests, "prompt_len": args.prompt_len,
            "gen": args.gen, "scheduler": args.scheduler}
@@ -4266,7 +4307,8 @@ MESH_ELASTIC_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq"
                      "--mesh-shape", "2x1"]
 MESH_LOGITS_REL = {"bfloat16": BF16_TOL, "float32": F32_TOL}  # rel L2 a step's logits
 MESH_LOSS_REL, MESH_GRAD_REL = 1e-4, 1e-3  # data parallelism, float32 compute
-MESH_KERNELS = ("flash_attention", "flash_decode", "gemm_rowinv", "rms_norm", "moe_gemm")
+MESH_KERNELS = ("flash_attention", "flash_decode", "gemm_rowinv", "rms_norm", "moe_gemm",
+                "rglru_scan")
 
 
 def mesh_store(name: str) -> Path:
@@ -4302,20 +4344,39 @@ def mesh_tokens(batch, prompt, steps, vocab, seed):
             [rng.integers(0, vocab, (batch, 1)).astype(np.int32) for _ in range(steps)])
 
 
-def mesh_generate(cfg, api, params, tokens, steps, cache, rows, record=None):
-    """Prefill ``tokens`` then decode the teacher-forced ``steps``; returns
-    every call's logits (float32, on the card).  ``rows`` cuts each host
-    batch to the caller's rows; ``record(i)`` runs after call i."""
+def whole_logits(logits, cfg):
+    """Logits whole over the vocabulary: gathered over "model" where the
+    rank holds a slice of it (tensor parallelism), float32."""
+    from repro_torch.distributed.sharding import current_mesh
+
+    if logits.shape[-1] != cfg.vocab:
+        logits = current_mesh().all_gather(logits, ("model",), logits.dim() - 1)
+    return logits.float()
+
+
+def mesh_generate_local(cfg, api, params, tokens, steps, cache, rows, record=None):
+    """:func:`mesh_generate`, each call's logits kept as the rank holds
+    them (over its slice of the vocabulary under tensor parallelism)."""
     logits, cache = api.prefill(params, {"tokens": rows(tokens)}, cfg, cache)
-    out = [logits.float()]
+    out = [logits]
     if record:
         record(0)
     for i, tok in enumerate(steps):
         logits, cache = api.decode(params, rows(tok), tokens.shape[1] + i, cfg, cache)
-        out.append(logits.float())
+        out.append(logits)
         if record:
             record(i + 1)
     return out
+
+
+def mesh_generate(cfg, api, params, tokens, steps, cache, rows, record=None):
+    """Prefill ``tokens`` then decode the teacher-forced ``steps``; returns
+    every call's logits (float32, on the card, whole over the vocabulary:
+    gathered after the calls, so ``record`` sees none of the gathers).
+    ``rows`` cuts each host batch to the caller's rows; ``record(i)`` runs
+    after call i."""
+    return [whole_logits(x, cfg)
+            for x in mesh_generate_local(cfg, api, params, tokens, steps, cache, rows, record)]
 
 
 def mesh_decode_layers(cfg, api, params, tokens, steps, cache, rows, forced=None):
@@ -4330,8 +4391,12 @@ def mesh_decode_layers(cfg, api, params, tokens, steps, cache, rows, forced=None
     from repro_torch.models import attention as A
     from repro_torch.models import transformer as T
 
+    from repro_torch.distributed.sharding import current_mesh
+
     logits, _ = api.prefill(params, {"tokens": rows(tokens)}, cfg, cache)
-    rec = {"logits": [logits.float().cpu()], "x": [], "attn": []}
+    mesh = current_mesh()
+    rec = {"logits": [whole_logits(logits, cfg).cpu()], "x": [], "attn": [],
+           "prefill_collectives": mesh.reset_stats() if mesh is not None else None}
     real, seen = A.cached_attention, []
 
     def cached_attention(q, cache, pos, cfg, **kw):
@@ -4352,10 +4417,25 @@ def mesh_decode_layers(cfg, api, params, tokens, steps, cache, rows, forced=None
                 x, _ = apply(lp, x, None, cfg, mode="decode", cache=lc, pos=pos)
             rec["x"].append(xs)
             rec["attn"].append(seen[-cfg.n_layers:])
-            rec["logits"].append(T.logits_fn(params, x, cfg).float().cpu())
+            rec["logits"].append(whole_logits(T.logits_fn(params, x, cfg), cfg).cpu())
     finally:
         A.cached_attention = real
     return rec
+
+
+def sliced_bytes(params, places, mesh) -> tuple:
+    """(the bytes a rank holds of the leaves sliced over "model", those
+    leaves' whole bytes)."""
+    from repro_torch.distributed.sharding import axes_of
+    from repro_torch.models.params import tree_leaves
+
+    held = whole = 0
+    for t, sh in zip(tree_leaves(params), tree_leaves(places)):
+        if any("model" in axes_of(r) for r in sh):
+            b = t.numel() * t.element_size()
+            held += b
+            whole += b * mesh.shape["model"]
+    return held, whole
 
 
 def mesh_seq_rank(rank, world, dev, yard_file, tokens, steps):
@@ -4368,6 +4448,7 @@ def mesh_seq_rank(rank, world, dev, yard_file, tokens, steps):
     from repro_torch.distributed import sharding as S
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve.step import zeros_cache
+    from repro_torch.train.step import state_placements
 
     yard = torch.load(yard_file)
     mesh = make_mesh((2, 2), ("data", "model"), dev)
@@ -4387,20 +4468,29 @@ def mesh_seq_rank(rank, world, dev, yard_file, tokens, steps):
         t0 = time.perf_counter()
         cfg, api, params = mesh_model(MESH_SEQ["arch"], MESH_SEQ["depth"], dtype, dev, torch,
                                       seq_shard_cache=True)
+        places = state_placements(cfg, api, mesh)[1]["params"]
+        params = S.shard_tree(params, places, mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
         cache = zeros_cache(cfg, api, tokens.shape[0], MESH_SEQ["cache"], device=dev, mesh=mesh)
         mesh.reset_stats()
         y = yard[dtype]
         rec = mesh_decode_layers(cfg, api, params, tokens, steps, cache, rows, y)
         torch.cuda.synchronize()
-        stats = mesh.reset_stats()
+        stats = mesh.reset_stats()  # the decode steps' (the prefill's are the record's)
         attn = [max(rel_l2(a, cut(b)) for a, b in zip(got, want))
                 for got, want in zip(rec["attn"], y["attn"])]
         out[dtype] = {"logits_rel_l2": [rel_l2(a, cut(b)) for a, b in
                                         zip(rec["logits"], y["logits"])],
+                      "plain_logits_rel_l2": [rel_l2(a, cut(b)) for a, b in
+                                              zip(rec["logits"], y["plain_logits"])],
                       "attention_rel_l2": attn,
                       "finite": all(bool(torch.isfinite(x).all()) for x in rec["logits"]),
                       "cache_slots": int(cache["k"].shape[2]),
-                      "collectives": stats, "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "collectives": stats,
+                      "prefill_collectives": rec["prefill_collectives"],
+                      "peak_bytes": torch.cuda.max_memory_allocated(),
+                      "sliced_bytes": sliced_bytes(params, places, mesh),
                       "seconds": time.perf_counter() - t0}
         del params, cache, rec
         torch.cuda.empty_cache()
@@ -4408,10 +4498,14 @@ def mesh_seq_rank(rank, world, dev, yard_file, tokens, steps):
 
 
 def run_mesh_seq(dev, torch) -> dict:
-    """(a) The seq-sharded decode: the yardstick (one rank, flash_decode)
-    in bf16 and float32, beside the one-rank reference impl's free-running
-    logits (the witness of how far two exact attentions part on these
-    random weights), then the world of 4."""
+    """(a) The seq-sharded decode: the yardstick (one rank, flash_decode,
+    its row-parallel products split at the model ranks' boundary as the
+    world sums them: :func:`row_split`) in bf16 and float32, beside the
+    one rank's unsplit run (held in float32, printed in bf16, where the
+    init's q and k path amplifies a rounding of the split sums: ROADMAP.md
+    C11) and the one-rank reference impl's free-running logits (the
+    witness of how far two exact attentions part on these random
+    weights), then the world of 4."""
     from repro_torch.launch.mesh import spawn_world
     from repro_torch.serve.step import zeros_cache
 
@@ -4422,15 +4516,16 @@ def run_mesh_seq(dev, torch) -> dict:
         cfg, api, params = mesh_model(c["arch"], c["depth"], dtype, dev, torch)
         tokens, steps = mesh_tokens(c["batch"], c["prompt"], c["steps"], cfg.vocab, 7)
         recs = []
-        for impl in ("cuda", "reference"):
+        for impl, split in (("cuda", True), ("cuda", False), ("reference", False)):
             cf = dataclasses.replace(cfg, kernel_impl=impl)
             cache = zeros_cache(cf, api, c["batch"], c["cache"], device=dev)
-            recs.append(mesh_decode_layers(cf, api, params, tokens, steps, cache,
-                                           lambda t: (t if isinstance(t, torch.Tensor)
-                                                      else torch.from_numpy(t)).to(dev)))
+            with row_split() if split else contextlib.nullcontext():
+                recs.append(mesh_decode_layers(cf, api, params, tokens, steps, cache,
+                                               lambda t: (t if isinstance(t, torch.Tensor)
+                                                          else torch.from_numpy(t)).to(dev)))
             del cache
-        yard[dtype] = recs[0]
-        witness[dtype] = [rel_l2(a, b) for a, b in zip(recs[1]["logits"], recs[0]["logits"])]
+        yard[dtype] = dict(recs[0], plain_logits=recs[1]["logits"])
+        witness[dtype] = [rel_l2(a, b) for a, b in zip(recs[2]["logits"], recs[1]["logits"])]
         del params, recs
         gc.collect()
         torch.cuda.empty_cache()
@@ -4449,6 +4544,10 @@ def run_mesh_seq(dev, torch) -> dict:
             if not e["finite"] or worst > tol:
                 bad.append(f"seq-sharded decode {dtype} on rank {r['coord']}: attention or "
                            f"logits rel L2 {worst:.3g} (tol {tol}), finite {e['finite']}")
+            if dtype == "float32" and max(e["plain_logits_rel_l2"]) > tol:
+                bad.append(f"seq-sharded decode float32 on rank {r['coord']}: logits rel L2 "
+                           f"{max(e['plain_logits_rel_l2']):.3g} to the one rank's unsplit "
+                           f"run (tol {tol})")
             if e["cache_slots"] != c["cache"] // 2:
                 bad.append(f"seq-sharded decode: a rank holds {e['cache_slots']} slots")
     return {"world": 4, "mesh": {"data": 2, "model": 2}, "yardstick_s": yard_s,
@@ -4506,6 +4605,7 @@ def mesh_ep_rank(rank, world, dev, yard_file, tokens, steps):
             "finite": all(bool(torch.isfinite(x).all()) for x in logits),
             "drops": int(sum(int(d) for d in drops)),
             "experts_held": int(params["layers"]["experts"]["w_up"].shape[1]),
+            "sliced_bytes": sliced_bytes(params, places, mesh),
             "prefill_collectives": stats[0], "decode_step_collectives": stats[1],
             "draw_s": draw_s, "generate_s": gen_s,
             "peak_bytes": torch.cuda.max_memory_allocated()}
@@ -4743,6 +4843,401 @@ def run_mesh_elastic(dev, torch) -> dict:
     return {"world": 2, "mesh": {"data": 2}, "world_s": world_s, "ranks": res}, bad
 
 
+# (e) and (f): tensor parallelism over "model" at full width, one world of
+# 2 ranks running both in turn.
+MESH_TP = ({"name": "e", "arch": "qwen1.5-4b", "depth": 4, "scheme": "heads", "seed": 11},
+           {"name": "f", "arch": "recurrentgemma-2b", "depth": 3, "scheme": "qheads",
+            "seed": 12})
+MESH_TP_GEN = {"batch": 8, "prompt": 256, "steps": 16}
+MESH_TP_TRAIN = {"arch": "qwen1.5-4b", "depth": 2, "batch": 4, "seq": 512}
+
+
+@contextlib.contextmanager
+def row_split():
+    """One rank's row-parallel products split at the two ranks' boundary,
+    each half its own launch and the halves added: the sums a world of 2
+    computes, in the same order (``layers.row_parallel`` wrapped)."""
+    from repro_torch.models import layers as L
+
+    real = L.row_parallel
+
+    def split(x, w, impl, mesh, bias=None):
+        if mesh is not None:
+            return real(x, w, impl, mesh, bias)
+        k = w.shape[0] // 2
+        y = (L.linear(x[..., :k].contiguous(), w[:k], impl)
+             + L.linear(x[..., k:].contiguous(), w[k:], impl))
+        return y if bias is None else y + bias
+
+    L.row_parallel = split
+    try:
+        yield
+    finally:
+        L.row_parallel = real
+
+
+def digest(tensors) -> str:
+    """A hash of the tensors' bits (their float32 values, in order)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_layer_inputs(cfg, api, params, tokens, torch) -> tuple:
+    """(each layer's input, each layer's output cotangent, the final
+    hidden state, the cotangent of layer 0's input) of the train loss on
+    one rank, float32, as ``train_layer_errors`` takes them."""
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    order = T.stack_order(params, None, cfg)
+    with torch.no_grad():
+        x, xs = T.embed_tokens(params, tokens, cfg), []
+        for apply, lp, _ in order:
+            xs.append(x)
+            x, _ = apply(lp, x, pos, cfg, mode="train", cache=None)
+    xf = x.detach().requires_grad_()
+    g = torch.autograd.grad(T.lm_loss(params, xf, *T.next_token_targets(tokens), cfg), xf)[0]
+    gs = [g]
+    for i in reversed(range(len(order))):
+        apply, lp, _ = order[i]
+        (gx,), _ = layer_vjp(lambda lp, x: T.remat(apply, cfg)(lp, x, pos, cfg, mode="train",
+                                                               cache=None)[0],
+                             lp, [xs[i]], gs[0], tokens.device, torch)
+        gs.insert(0, gx)
+    return xs, gs[1:], xf.detach(), gs[0]
+
+
+def tp_outer_grads(cfg, params, xf, g0, tokens, torch) -> dict:
+    """The gradients of the leaves outside the layer stack, by key: the
+    VJP of the loss at the final hidden state ``xf`` (``final_norm`` and
+    the head) and of the embedding at ``g0``, the cotangent of layer 0's
+    input; on a model rank, of the slices it holds, through the
+    vocab-parallel embedding, head and loss."""
+    from repro_torch.models import transformer as T
+
+    keys = [k for k in params if k != "layers"]
+    leaves = {k: params[k].detach().requires_grad_() for k in keys}
+    p = dict(params, **leaves)
+    with torch.enable_grad():
+        loss = T.lm_loss(p, xf, *T.next_token_targets(tokens), cfg)
+        x0 = T.embed_tokens(p, tokens, cfg)
+        gs = torch.autograd.grad([loss, x0], [leaves[k] for k in keys], [None, g0])
+    return dict(zip(keys, gs))
+
+
+def leaf_gaps(a: list, b: list, paths: list, top: int = 4) -> dict:
+    """The ``top`` largest rel L2 gaps of gradient list ``a`` to ``b``, by
+    key path, a stacked leaf layer by layer (``path[i]``)."""
+    gaps = {}
+    for x, y, path in zip(a, b, paths):
+        if path.startswith("layers/"):
+            gaps.update({f"{path}[{i}]": rel_l2(x[i], y[i]) for i in range(x.shape[0])})
+        else:
+            gaps[path] = rel_l2(x, y)
+    return dict(sorted(gaps.items(), key=lambda kv: -kv[1])[:top])
+
+
+def tp_layer_grads(cfg, params, xs, gs, tokens, torch) -> list:
+    """Each layer's parameter gradients (``tree_leaves`` order) at its
+    input ``xs[i]`` and output cotangent ``gs[i]``: on a model rank, of
+    the leaves it holds, through the tensor-parallel block."""
+    from repro_torch.models import transformer as T
+
+    b, s = tokens.shape
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    out = []
+    for (apply, lp, _), x, g in zip(T.stack_order(params, None, cfg), xs, gs):
+        out.append(layer_vjp(lambda lp, x: T.remat(apply, cfg)(lp, x, pos, cfg, mode="train",
+                                                               cache=None)[0],
+                             lp, [x], g, tokens.device, torch)[1])
+    return out
+
+
+def mesh_tp_train(rank, world, dev, mesh, batch, layer_file, torch) -> dict:
+    """(e)'s train step on a rank: qwen1.5-4b at depth 2, float32 compute.
+    First each layer's VJP through the tensor-parallel block, at the one
+    rank's layer inputs and output cotangents (``layer_file``), its
+    parameter gradients held against the one rank's slices of them; and
+    the leaves outside the stack (:func:`tp_outer_grads`: the
+    vocab-parallel embedding, ``final_norm`` and the head through the
+    vocab-parallel loss) at the one rank's final hidden state and layer 0's
+    input cotangent, held against the one rank's VJP there, drawn and
+    taken on this rank with no mesh, and sliced.  Then rank 0 takes one
+    rank's step of the same batch (the yardstick, kept on the card) and
+    the world its step: the loss, the batch-averaged gradients gathered
+    whole against the yardstick's (printed with the leaves that part most:
+    summation order alone parts them, ROADMAP.md C11), and a digest of the
+    leaves every rank holds whole after AdamW."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import rank_batch, to_device
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.sharding import axes_of
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+    from repro_torch.models.params import tree_leaves, tree_map_path
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as train_step
+
+    c = MESH_TP_TRAIN
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"], kernel_impl="cuda",
+                              compute_dtype="float32")
+    api = get_model(cfg)
+    real, seen = train_step.reduce_over_batch, []
+
+    def reduce_over_batch(loss, grads, m):  # keeps the step's averaged gradients
+        loss, grads = real(loss, grads, m)
+        seen.append([g.clone() for g in grads])
+        return loss, grads
+
+    train_step.reduce_over_batch = reduce_over_batch
+    out, yard = {}, None
+    try:
+        places = train_step.state_placements(cfg, api, mesh)[1]["params"]
+        ref = torch.load(layer_file)
+        tokens = to_device(batch, dev)["tokens"]
+        xf, g0 = ref["xf"].to(dev), ref["g0"].to(dev)
+        S.set_current_mesh(None)
+        state, _ = build_state(cfg, api, dev, 0)
+        outer = {k: S.rank_slice(g, places[k], mesh).clone() for k, g in
+                 tp_outer_grads(cfg, state["params"], xf, g0, tokens, torch).items()}
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        S.set_current_mesh(mesh)
+        state, _ = build_state(cfg, api, dev, 0, mesh)
+        got = tp_layer_grads(cfg, state["params"], [x.to(dev) for x in ref["xs"]],
+                             [g.to(dev) for g in ref["gs"]], tokens, torch)
+        lpl = tree_leaves(places["layers"])
+        out["layer_rel_l2"] = [max(rel_l2(a, S.rank_slice(b.to(dev), sh[1:], mesh))
+                                   for a, b, sh in zip(mine, want, lpl))
+                               for mine, want in zip(got, ref["grads"])]
+        out["outer_rel_l2"] = {k: rel_l2(g, outer[k]) for k, g in
+                               tp_outer_grads(cfg, state["params"], xf, g0, tokens, torch).items()}
+        del state, got, ref, outer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            S.set_current_mesh(None)
+            state, _ = build_state(cfg, api, dev, 0)
+            _, m = make_train_step(cfg, api, mesh=None)(state, to_device(batch, dev))
+            yard, yard_loss = seen.pop(), float(m["loss"])
+            del state
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        S.set_current_mesh(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        state, _ = build_state(cfg, api, dev, 0, mesh)
+        places = train_step.state_placements(cfg, api, mesh)[1]["params"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = make_train_step(cfg, api, mesh=mesh)(
+            state, rank_batch(batch, mesh, {"tokens": ("batch", None)}, dev))
+        torch.cuda.synchronize()
+        out.update(step_s=time.perf_counter() - t0, collectives=mesh.reset_stats(),
+                   loss=float(m["loss"]), peak_bytes=torch.cuda.max_memory_allocated(),
+                   sliced_bytes=sliced_bytes(state["params"], places, mesh))
+        pl = tree_leaves(places)
+        grads = [S.gather_leaf(g, sh, mesh) for g, sh in zip(seen.pop(), pl)]
+        if yard is not None:
+            out["grads_rel_l2"] = tree_rel_l2(grads, yard)
+            out["grads_rel_l2_top_leaves"] = leaf_gaps(
+                grads, yard, tree_leaves(tree_map_path(lambda p, _: p, state["params"])))
+            out["loss_rel"] = abs(out["loss"] - yard_loss) / abs(yard_loss)
+        whole = [p for p, sh in zip(tree_leaves(state["params"]), pl)
+                 if not any("model" in axes_of(r) for r in sh)]
+        out["replicated_digest"] = digest(whole)
+        out["replicated_leaves"] = len(whole)
+    finally:
+        train_step.reduce_over_batch = real
+    return out
+
+
+def mesh_tp_rank(rank, world, dev, yard_file, inputs, train_batch, layer_file):
+    """(e) and (f) on a rank of the (model 2) world: each model drawn whole
+    one rank at a time and its slices kept (``state_placements``), then
+    prefill and the teacher-forced decode steps with the launch counts and
+    the collectives read, the logits gathered whole over the vocabulary
+    and held against the yardstick's and, bitwise, the row-split one
+    rank's; then (e)'s train step (:func:`mesh_tp_train`)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.step import zeros_cache
+    from repro_torch.train.step import state_placements
+
+    yard = torch.load(yard_file)
+    mesh = make_mesh((2,), ("model",), dev)
+    S.set_current_mesh(mesh)
+    out = {"coord": mesh.coord}
+    g = MESH_TP_GEN
+    rows = lambda t: torch.from_numpy(t).to(dev)  # noqa: E731
+    for case in MESH_TP:
+        tokens, steps = inputs[case["name"]]
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for r in range(world):
+            if r == rank:
+                cfg, api, full = mesh_model(case["arch"], case["depth"], "bfloat16", dev, torch)
+                places = state_placements(cfg, api, mesh)[1]["params"]
+                params = S.shard_tree(full, places, mesh)
+                del full
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        draw_s = time.perf_counter() - t0
+        cache = zeros_cache(cfg, api, g["batch"], g["prompt"] + g["steps"], device=dev,
+                            mesh=mesh)
+        stats = []
+        ops.reset_launch_counts()
+        mesh.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = mesh_generate_local(cfg, api, params, tokens, steps, cache, rows,
+                                 lambda i: stats.append(mesh.reset_stats()))
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        logits = [whole_logits(x, cfg) for x in local]
+        want, split = yard[case["name"]]["yard"], yard[case["name"]]["split"]
+        gaps = [float((a - b.to(dev)).abs().max()) for a, b in zip(logits, split)]
+        out[case["name"]] = {
+            "rel_l2": [rel_l2(a, b.to(dev)) for a, b in zip(logits, split)],
+            "plain_rel_l2": [rel_l2(a, b.to(dev)) for a, b in zip(logits, want)],
+            "split_bitwise": all(torch.equal(a, b.to(dev)) for a, b in zip(logits, split)),
+            "split_max_gap": max(gaps), "digest": digest(logits),
+            "finite": all(bool(torch.isfinite(x).all()) for x in logits),
+            "counts": counts, "prefill_collectives": stats[0],
+            "decode_step_collectives": stats[1], "draw_s": draw_s, "generate_s": gen_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "sliced_bytes": sliced_bytes(params, places, mesh), "q_heads_held": q_heads(params)}
+        del params, cache, local, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["train"] = mesh_tp_train(rank, world, dev, mesh, train_batch, layer_file, torch)
+    return out
+
+
+def q_heads(params) -> int:
+    """The q heads a rank holds of the first attention layer's ``wq``."""
+    from repro_torch.models.params import tree_map_path
+
+    found = []
+    tree_map_path(lambda p, t: found.append(t) if p.endswith("wq") else None, params)
+    return int(found[0].shape[-2])
+
+
+def mesh_tp_want(case) -> dict:
+    """A rank's launches in (e) or (f): one prefill and the decode steps
+    at the rank's width (the kernels' count, not their size)."""
+    g = MESH_TP_GEN
+    forwards = 1 + g["steps"]
+    if case["arch"] == "qwen1.5-4b":
+        n = case["depth"]
+        att = {"flash_attention": n, "flash_decode": n * g["steps"]}
+    else:  # one (rec, rec, attn) unit
+        att = {"flash_attention": 1, "flash_decode": g["steps"], "rglru_scan": 2}
+    return {**att, **{k: v for k, v in row_kernel_launches(case["arch"], forwards,
+                                                           case["depth"]).items() if v}}
+
+
+def run_mesh_tp(dev, torch) -> tuple:
+    """(e) and (f): the yardsticks first (one rank, teacher-forced, bf16:
+    the row-split run, :func:`row_split`, which the world is held to, and
+    the unsplit one, printed), then the world of 2."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.mesh import spawn_world
+    from repro_torch.serve.step import zeros_cache
+
+    g = MESH_TP_GEN
+    t0 = time.perf_counter()
+    yard, inputs = {}, {}
+    for case in MESH_TP:
+        cfg, api, params = mesh_model(case["arch"], case["depth"], "bfloat16", dev, torch)
+        tokens, steps = mesh_tokens(g["batch"], g["prompt"], g["steps"], cfg.vocab, case["seed"])
+        inputs[case["name"]] = (tokens, steps)
+        rows = lambda t: torch.from_numpy(t).to(dev)  # noqa: E731
+        runs = {}
+        for label in ("yard", "split"):
+            cache = zeros_cache(cfg, api, g["batch"], g["prompt"] + g["steps"], device=dev)
+            with row_split() if label == "split" else contextlib.nullcontext():
+                runs[label] = [x.cpu() for x in mesh_generate(cfg, api, params, tokens, steps,
+                                                              cache, rows)]
+            del cache
+        yard[case["name"]] = runs
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    c = MESH_TP_TRAIN
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"], kernel_impl="cuda",
+                              compute_dtype="float32")
+    train_batch = next(SyntheticTokens(cfg, c["batch"], c["seq"], seed=0))
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+
+    api = get_model(cfg)
+    state, _ = build_state(cfg, api, dev, 0)
+    tokens = torch.from_numpy(train_batch["tokens"]).to(dev)
+    xs, gs, xf, g0 = tp_layer_inputs(cfg, api, state["params"], tokens, torch)
+    grads = tp_layer_grads(cfg, state["params"], xs, gs, tokens, torch)
+    store = mesh_store("tp")
+    torch.save({"xs": [x.cpu() for x in xs], "gs": [g.cpu() for g in gs], "xf": xf.cpu(),
+                "g0": g0.cpu(), "grads": [[t.cpu() for t in layer] for layer in grads]},
+               store.parent / "layers.pt")
+    del state, xs, gs, xf, g0, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    yard_s = time.perf_counter() - t0
+    torch.save(yard, store.parent / "yard.pt")
+    t0 = time.perf_counter()
+    res = spawn_world(mesh_tp_rank, 2, "cuda", store, (str(store.parent / "yard.pt"), inputs,
+                                                        train_batch,
+                                                        str(store.parent / "layers.pt")))
+    world_s = time.perf_counter() - t0
+    bad = []
+    for case in MESH_TP:
+        n = case["name"]
+        want = mesh_tp_want(case)
+        if res[0][n]["digest"] != res[1][n]["digest"]:
+            bad.append(f"({n}) the two model ranks' logits differ")
+        for r in res:
+            x = r[n]
+            if not x["finite"] or max(x["rel_l2"]) > BF16_TOL:
+                bad.append(f"({n}) rank {r['coord']}: logits rel L2 {max(x['rel_l2']):.3g} "
+                           f"(tol {BF16_TOL}), finite {x['finite']}")
+            if x["counts"] != want:
+                bad.append(f"({n}) rank {r['coord']}: launches {x['counts']} != {want}")
+    tr = [r["train"] for r in res]
+    if tr[0]["replicated_digest"] != tr[1]["replicated_digest"]:
+        bad.append("(e) train: the leaves held whole differ across the ranks after AdamW")
+    if tr[0]["loss_rel"] > MESH_LOSS_REL:
+        bad.append(f"(e) train: loss rel {tr[0]['loss_rel']:.3g} (tol {MESH_LOSS_REL})")
+    for r in res:
+        if max(r["train"]["layer_rel_l2"]) > MESH_GRAD_REL:
+            bad.append(f"(e) train rank {r['coord']}: a layer's parameter gradients rel L2 "
+                       f"{r['train']['layer_rel_l2']} (tol {MESH_GRAD_REL})")
+        if not r["train"]["outer_rel_l2"] or max(r["train"]["outer_rel_l2"].values()) \
+                > MESH_GRAD_REL:
+            bad.append(f"(e) train rank {r['coord']}: the embedding's, final norm's or head's "
+                       f"gradients rel L2 {r['train']['outer_rel_l2']} (tol {MESH_GRAD_REL})")
+    return {"world": 2, "mesh": {"model": 2}, "yardstick_s": yard_s, "world_s": world_s,
+            "ranks": res}, bad
+
+
 def mesh_fail(bad: list) -> None:
     """Fail on a world's problems, after its lines are printed."""
     if bad:
@@ -4755,8 +5250,10 @@ def gib(n) -> str:
 
 def run_mesh_phase(dev, torch, card) -> dict:
     """The [mesh] phase: (a) the seq-sharded decode, (b) expert
-    parallelism on moe_gemm, (c) data parallelism with ZeRO-1, (d) the
-    elastic restart; each world's ranks compute on cuda:0 over gloo."""
+    parallelism on moe_gemm, both with their dense leaves tensor-parallel,
+    (c) data parallelism with ZeRO-1, (d) the elastic restart, (e) and (f)
+    tensor parallelism of qwen1.5-4b and recurrentgemma-2b; each world's
+    ranks compute on cuda:0 over gloo."""
     from repro_torch.launch.mesh import backend_for
 
     print(at() + f" [mesh] worlds of ranks on cuda:0, backend {backend_for('cuda', 2)} "
@@ -4764,7 +5261,8 @@ def run_mesh_phase(dev, torch, card) -> dict:
     out = {}
     c = MESH_SEQ
     print(at() + f" [mesh] (a) seq-sharded decode, {c['arch']} at full width, depth "
-          f"{c['depth']}; world 4 (data 2, model 2); B {c['batch']}, prompt {c['prompt']}, "
+          f"{c['depth']}, its dense leaves tensor-parallel (the heads scheme); world 4 (data 2, "
+          f"model 2); B {c['batch']}, prompt {c['prompt']}, "
           f"cache {c['cache']}, {c['steps']} decode steps; bf16 then float32", flush=True)
     a, bad = run_mesh_seq(dev, torch)
     out["seq_decode"] = a
@@ -4773,11 +5271,15 @@ def run_mesh_phase(dev, torch, card) -> dict:
 
     for r in a["ranks"]:
         print(f"  rank {r['coord']}: " + "; ".join(
-            f"{dt} teacher-forced logits rel L2 a call {r3(r[dt]['logits_rel_l2'])}, attention "
+            f"{dt} teacher-forced logits rel L2 a call {r3(r[dt]['logits_rel_l2'])} (to the "
+            f"unsplit run {r3(r[dt]['plain_logits_rel_l2'])}), attention "
             f"a step (worst layer) {r3(r[dt]['attention_rel_l2'])} (tol {MESH_LOGITS_REL[dt]}), "
-            f"peak {gib(r[dt]['peak_bytes'])}, {r[dt]['seconds']:.1f} s, collectives a decode "
+            f"peak {gib(r[dt]['peak_bytes'])}, sliced leaves {gib(r[dt]['sliced_bytes'][0])} "
+            f"of {gib(r[dt]['sliced_bytes'][1])}, {r[dt]['seconds']:.1f} s, collectives a decode "
             f"step {[n / c['steps'] for n in r[dt]['collectives']['all_reduce']]} (all_reduce "
-            f"count, bytes)" for dt in MESH_LOGITS_REL), flush=True)
+            f"count, bytes; all_gather {[n / c['steps'] for n in r[dt]['collectives']['all_gather']]}"
+            f"), the prefill's {r[dt]['prefill_collectives']}" for dt in MESH_LOGITS_REL),
+              flush=True)
     print(f"  witness, printed: one rank's free-running logits, kernel_impl 'reference' against "
           f"'cuda', rel L2 a call " + "; ".join(
               f"{dt} {r3(w)}" for dt, w in a["witness_free_running_logits_rel_l2"].items()),
@@ -4786,7 +5288,9 @@ def run_mesh_phase(dev, torch, card) -> dict:
     mesh_fail(bad)
     c = MESH_EP
     print(at() + f" [mesh] (b) expert parallelism, {c['arch']} at full width, depth "
-          f"{c['depth']}; world 2 (model 2), 64 experts a rank on moe_gemm; {c['batch']} x "
+          f"{c['depth']}; world 2 (model 2), 64 experts a rank on moe_gemm, the dense leaves "
+          f"tensor-parallel (wo and the dense MLP's w_down row-parallel, so the logits are held "
+          f"to a tolerance); {c['batch']} x "
           f"{c['prompt']} prefill + {c['steps']} decode steps, capacity factor "
           f"{c['capacity_factor']}", flush=True)
     b, bad = run_mesh_ep(dev, torch)
@@ -4794,7 +5298,8 @@ def run_mesh_phase(dev, torch, card) -> dict:
     for r in b["ranks"]:
         print(f"  rank {r['coord']}: max rel L2 {max(r['rel_l2']):.3g} (tol {BF16_TOL}), "
               f"launches {r['counts']}, dropped {r['drops']} (yardstick {b['yardstick_drops']}), "
-              f"peak {gib(r['peak_bytes'])}, draw {r['draw_s']:.1f} s, generate "
+              f"peak {gib(r['peak_bytes'])}, sliced leaves {gib(r['sliced_bytes'][0])} of "
+              f"{gib(r['sliced_bytes'][1])}, draw {r['draw_s']:.1f} s, generate "
               f"{r['generate_s']:.2f} s, prefill collectives {r['prefill_collectives']}, a "
               f"decode step's {r['decode_step_collectives']}", flush=True)
     print(f"  yardstick {b['yardstick_s']:.1f} s, world {b['world_s']:.1f} s", flush=True)
@@ -4836,6 +5341,57 @@ def run_mesh_phase(dev, torch, card) -> dict:
           f"{r0['cursor']}, world {r0['world_after']} ({r0['backend_after']}), next loss "
           f"{r0['next_loss']:.4f}; peaks {[gib(r['peak_bytes']) for r in e['ranks']]}; restore "
           f"{r0['restore_s']:.1f} s, world {e['world_s']:.1f} s", flush=True)
+    wit = d["ranks"][0]["witness_one_vs_two_microbatches"]
+    g, c = MESH_TP_GEN, MESH_TP_TRAIN
+    print(at() + f" [mesh] (e) tensor parallelism, qwen1.5-4b at full width, depth 4 of 40, the "
+          f"heads scheme, and (f) recurrentgemma-2b at full width, depth 3 (rec, rec, attn), the "
+          f"qheads scheme at hd 256, window 2048, rglru_scan on 1280 of 2560 channels, the tied "
+          f"head over 128000 of 256000 tokens; one world of 2 (model 2) running both, bf16, "
+          f"{g['batch']} x {g['prompt']} prefill + {g['steps']} teacher-forced decode steps "
+          f"each, held against one rank's run with its row-parallel products split at the "
+          f"ranks' boundary and the halves added (bitwise where gloo's bf16 sum is torch's; "
+          f"rel L2, tol {BF16_TOL}), the unsplit one rank's printed; then (e)'s float32 train "
+          f"step at depth {c['depth']}, each layer's VJP and the embedding's, final norm's "
+          f"and head's held against one rank's, {c['batch']} x {c['seq']}", flush=True)
+    t, bad = run_mesh_tp(dev, torch)
+    out["tensor_parallel"] = t
+    for case in MESH_TP:
+        n = case["name"]
+        for r in t["ranks"]:
+            x = r[n]
+            print(f"  ({n}) {case['arch']} rank {r['coord']}: {x['q_heads_held']} q heads held; "
+                  f"against the row-split one rank: bitwise {x['split_bitwise']}, max gap "
+                  f"{x['split_max_gap']:.3g}, logits rel L2 a call max {max(x['rel_l2']):.3g} "
+                  f"(tol {BF16_TOL}); against the unsplit one rank, printed: rel L2 a call "
+                  f"{[float(f'{v:.3g}') for v in x['plain_rel_l2']]}; launches {x['counts']} (want "
+                  f"{mesh_tp_want(case)}); peak {gib(x['peak_bytes'])}, sliced leaves "
+                  f"{gib(x['sliced_bytes'][0])} of {gib(x['sliced_bytes'][1])}; draw "
+                  f"{x['draw_s']:.1f} s, generate {x['generate_s']:.2f} s; prefill collectives "
+                  f"{x['prefill_collectives']}, a decode step's {x['decode_step_collectives']} "
+                  f"(count, bytes)", flush=True)
+        same = t["ranks"][0][n]["digest"] == t["ranks"][1][n]["digest"]
+        print(f"  ({n}) the two ranks' logits bitwise equal: {same}", flush=True)
+    for r in t["ranks"]:
+        x = r["train"]
+        print(f"  (e) train rank {r['coord']}: each layer's parameter gradients through the "
+              f"tensor-parallel block, at one rank's layer inputs and output cotangents, rel L2 "
+              f"{[float(f'{v:.3g}') for v in x['layer_rel_l2']]}, the leaves outside the "
+              f"stack at one rank's final hidden state and layer 0's input cotangent "
+              f"{ {k: float(f'{v:.3g}') for k, v in x['outer_rel_l2'].items()} } (tol "
+              f"{MESH_GRAD_REL}); the step's loss {x['loss']:.6f}"
+              + (f" (rel {x['loss_rel']:.3g} to one rank's, tol {MESH_LOSS_REL}), its whole "
+                 f"gradients rel L2 {x['grads_rel_l2']:.3g} to one rank's, printed (summation "
+                 f"order alone: one rank's 1 against 2 microbatches in (c), {wit:.3g}; C11), "
+                 f"the leaves that part most "
+                 f"{ {k: float(f'{v:.3g}') for k, v in x['grads_rel_l2_top_leaves'].items()} }"
+                 if "grads_rel_l2" in x else "")
+              + f", step {x['step_s']:.2f} s, peak {gib(x['peak_bytes'])}, sliced leaves "
+                f"{gib(x['sliced_bytes'][0])} of {gib(x['sliced_bytes'][1])}, collectives "
+                f"{x['collectives']}, {x['replicated_leaves']} leaves held whole", flush=True)
+    print(f"  (e) train: the leaves held whole bitwise equal on both ranks after AdamW: "
+          f"{t['ranks'][0]['train']['replicated_digest'] == t['ranks'][1]['train']['replicated_digest']}; "
+          f"yardsticks {t['yardstick_s']:.1f} s, world {t['world_s']:.1f} s", flush=True)
+    mesh_fail(bad)
     return out
 
 
@@ -5057,67 +5613,69 @@ def main() -> None:
         print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
               flush=True)
 
-    print(at() + f" [served path] repro_torch.launch.serve --server --paged, qwen1.5-4b --full, "
-          f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
-    sp, counts, whole = run_served_path(dev, torch)
-    print(json.dumps({"served_path": sp}))
-    summary["served_paths"].append(("whole prompt, arrivals 1 ms apart", sp["modes"]))
-    for name, n in counts.items():
-        if n:
-            launches.setdefault(name, n)
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
-          flush=True)
+    with served_depth():
+        depth = f"qwen1.5-4b --full at depth {SERVED_DEPTH} of 40"
+        print(at() + f" [served path] repro_torch.launch.serve --server --paged, {depth}, "
+              f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch 8", flush=True)
+        sp, counts, whole = run_served_path(dev, torch)
+        print(json.dumps({"served_path": sp}))
+        summary["served_paths"].append(("whole prompt, arrivals 1 ms apart", sp["modes"]))
+        for name, n in counts.items():
+            if n:
+                launches.setdefault(name, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+              flush=True)
 
-    print(at() + f" [chunked served path] repro_torch.launch.serve --server --paged --chunk-len "
-          f"{CHUNK_LEN}, qwen1.5-4b --full, 8 x 256 + {GEN}, block_len 16, seg_len 8, "
-          f"arrivals at 4/s, beside whole-prompt serving of the same arrivals; then "
-          f"contiguous --chunk-len 40, 4 requests", flush=True)
-    cp, counts = run_chunked_paths(dev, torch, whole)
-    print(json.dumps({"chunked_served_path": cp}))
-    summary["served_paths"] += [("whole prompt, arrivals at 4/s", cp["whole_prompt"]["modes"]),
-                                ("chunked (64), the same arrivals", cp["chunked"]["modes"]),
-                                ("contiguous chunked (40), 4 requests",
-                                 cp["contiguous_chunk40"]["modes"])]
-    launches["flash_decode_chunk"] = counts["flash_decode"]
-    gc.collect()
-    torch.cuda.empty_cache()
+        print(at() + f" [chunked served path] repro_torch.launch.serve --server --paged --chunk-len "
+              f"{CHUNK_LEN}, {depth}, 8 x 256 + {GEN}, block_len 16, seg_len 8, "
+              f"arrivals at 4/s, beside whole-prompt serving of the same arrivals; then "
+              f"contiguous --chunk-len 40, 4 requests", flush=True)
+        cp, counts = run_chunked_paths(dev, torch, whole)
+        print(json.dumps({"chunked_served_path": cp}))
+        summary["served_paths"] += [("whole prompt, arrivals at 4/s", cp["whole_prompt"]["modes"]),
+                                    ("chunked (64), the same arrivals", cp["chunked"]["modes"]),
+                                    ("contiguous chunked (40), 4 requests",
+                                     cp["contiguous_chunk40"]["modes"])]
+        launches["flash_decode_chunk"] = counts["flash_decode"]
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print(at() + f" [spec served path] repro_torch.launch.serve --server --paged --draft self "
-          f"--draft-k {SPEC_K}, qwen1.5-4b --full, 8 x 256 + {GEN}, block_len 16, seg_len 8, "
-          f"arrivals 1 ms apart; a weak 4-layer draft through the server API (contiguous); "
-          f"--draft self --chunk-len {CHUNK_LEN}; --draft self --spec-gate", flush=True)
-    spp, counts = run_spec_paths(dev, torch, whole, sp)
-    print(json.dumps({"spec_served_path": spp}))
-    summary["served_paths"] += [
-        ("self-draft k 2, paged", spp["self_draft_paged"]["modes"]),
-        ("weak 4-layer draft, contiguous, 4 requests", spp["weak_draft_contiguous"]["modes"]),
-        ("self-draft k 2, chunks of 64", spp["self_draft_chunked_paged"]["modes"]),
-        ("self-draft k 2, --spec-gate", spp["self_draft_gated_paged"]["modes"])]
-    launches["flash_decode_verify"] = counts["multi_row"]["flash_decode"]
-    launches["flash_decode_paged_verify"] = counts["multi_row"]["flash_decode_paged"]
-    gc.collect()
-    torch.cuda.empty_cache()
+        print(at() + f" [spec served path] repro_torch.launch.serve --server --paged --draft self "
+              f"--draft-k {SPEC_K}, {depth}, 8 x 256 + {GEN}, block_len 16, seg_len 8, "
+              f"arrivals 1 ms apart; a weak 4-layer draft through the server API (contiguous); "
+              f"--draft self --chunk-len {CHUNK_LEN}; --draft self --spec-gate", flush=True)
+        spp, counts = run_spec_paths(dev, torch, whole, sp)
+        print(json.dumps({"spec_served_path": spp}))
+        summary["served_paths"] += [
+            ("self-draft k 2, paged", spp["self_draft_paged"]["modes"]),
+            ("weak 4-layer draft, contiguous, 4 requests", spp["weak_draft_contiguous"]["modes"]),
+            ("self-draft k 2, chunks of 64", spp["self_draft_chunked_paged"]["modes"]),
+            ("self-draft k 2, --spec-gate", spp["self_draft_gated_paged"]["modes"])]
+        launches["flash_decode_verify"] = counts["multi_row"]["flash_decode"]
+        launches["flash_decode_paged_verify"] = counts["multi_row"]["flash_decode_paged"]
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    print(at() + f" [multigroup] run A: repro_torch.launch.serve --server --paged --groups 2 "
-          f"--scheduler hguided --drain-after 4 --verify --http-port 0, qwen1.5-4b --full, "
-          f"8 x 256 + {GEN}, block_len 16, seg_len 8, arrivals 1 ms apart, a lone request "
-          f"boarding after 1 ms; run B: "
-          f"InferenceServer, contiguous, ForceMigrate, {MULTIGROUP_B_SLOTS} slots; groups "
-          f"pod-a (power 2) and pod-b (power 1), two streams of cuda:0, graphed", flush=True)
-    mg = run_multigroup_paths(dev, torch, whole, card)
-    print(json.dumps({"multigroup": mg}))
-    del whole
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
-          flush=True)
+        print(at() + f" [multigroup] run A: repro_torch.launch.serve --server --paged --groups 2 "
+              f"--scheduler hguided --drain-after 4 --verify --http-port 0, {depth}, "
+              f"8 x 256 + {GEN}, block_len 16, seg_len 8, arrivals 1 ms apart, a lone request "
+              f"boarding after 1 ms; run B: "
+              f"InferenceServer, contiguous, ForceMigrate, {MULTIGROUP_B_SLOTS} slots; groups "
+              f"pod-a (power 2) and pod-b (power 1), two streams of cuda:0, graphed", flush=True)
+        mg = run_multigroup_paths(dev, torch, whole, card)
+        print(json.dumps({"multigroup": mg}))
+        del whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+              flush=True)
 
-    print(at() + f" [coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
-          f"qwen1.5-4b --full, 8 x 256 + {GEN}, groups pod-a (power 2) and pod-b (power 1) "
-          f"on cuda:0", flush=True)
-    cx = run_coexec_path(dev, torch)
+        print(at() + f" [coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
+              f"{depth}, 8 x 256 + {GEN}, groups pod-a (power 2) and pod-b (power 1) "
+              f"on cuda:0", flush=True)
+        cx = run_coexec_path(dev, torch)
     print(json.dumps({"coexec_path": cx}))
     summary["coexec"] = {m: {k: cx[m][k] for k in ("tokens_per_s", "wall_s", "balance")}
                          for m in MODES}

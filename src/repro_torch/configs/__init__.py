@@ -1,7 +1,10 @@
 """Architecture configs. Importing this package registers the ported archs."""
 from repro_torch.configs.base import (  # noqa: F401
+    SHAPES,
     ModelConfig,
     ShapeCell,
+    all_archs,
+    cell_applicable,
     get_config,
 )
 

@@ -80,12 +80,33 @@ class ShapeCell:
     kind: str  # train | prefill | decode
 
 
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
+    """Whether an (arch, shape) cell runs, and why not if it doesn't."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, "full-attention arch: O(L^2) attention / 500k KV cache not servable (DESIGN.md §4)"
+    return True, ""
+
+
 _REGISTRY: dict = {}
 
 
 def register(cfg: ModelConfig) -> ModelConfig:
     _REGISTRY[cfg.name] = cfg
     return cfg
+
+
+def all_archs() -> list[str]:
+    from repro_torch import configs as _c  # noqa: F401
+
+    return sorted(_REGISTRY)
 
 
 def get_config(name: str) -> ModelConfig:

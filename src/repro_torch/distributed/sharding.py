@@ -11,16 +11,22 @@ axis name, or a tuple of axis names.
 The port computes rank-locally, so a rank holds a sharded leaf as a plain
 tensor, its slice (:func:`rank_slice`), and gathers it back with
 :func:`gather_leaf`.  :func:`rank_placements` says which leaves the port
-actually holds sharded: every batch-axis entry, but a "model" entry only
-on the leaves whose computation this package shards over "model", by the
-whole key paths the family's ``model_sliced`` names (the experts under
-expert parallelism, the cache timeline under the seq-sharded decode); the reference's tensor-parallel entries of the dense
-leaves resolve as the reference resolves them, and a model rank holds
-those leaves whole (ROADMAP.md A11b).  Without a mesh every function is
-the identity, so model code is the same on one rank and on many.
+holds sharded: every batch-axis entry, and a "model" entry on the leaves
+the family's ``model_sliced`` names by whole key path.  Those are every
+leaf with a "model" entry -- the reference's tensor parallelism of the
+dense leaves, the experts, the seq-sharded cache timeline -- less the few
+a family holds whole, each named there with its reason (mamba's
+``in_proj``, RG-LRU's ``gate_a``).  A rank computes on its slices with the
+collectives GSPMD inserts for the reference, written out: :func:`copy_to`
+where a replicated value enters a computation on the rank's slices,
+:func:`reduce_from` where the ranks' partial sums become one value,
+:func:`gather_from` where their slices become one whole value.  Without a
+mesh every function is the identity, so model code is the same on one
+rank and on many.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import threading
 from typing import Any, Optional, Sequence
@@ -35,7 +41,25 @@ def set_current_mesh(mesh) -> None:
 
 
 def current_mesh():
+    """This thread's mesh (None where it installed none)."""
     return getattr(_state, "mesh", None)
+
+
+def under_mesh(fn, mesh):
+    """``fn`` run with ``mesh`` as its thread's current mesh, the thread's
+    own restored after: a function that the autograd engine calls again
+    on a thread of its own (a remat'd layer's recompute) sees the mesh of
+    the forward that captured it."""
+
+    def run(*args, **kwargs):
+        prev = current_mesh()
+        set_current_mesh(mesh)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            set_current_mesh(prev)
+
+    return run
 
 
 def batch_axes(mesh=None):
@@ -45,6 +69,25 @@ def batch_axes(mesh=None):
         return None
     axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     return axes if axes else None
+
+
+MODEL = ("model",)
+
+
+def model_mesh(mesh=None):
+    """``mesh`` (the current one by default) when it has a "model" axis of
+    more than one rank, else None: the mesh a model rank computes its
+    tensor-parallel slices on."""
+    mesh = mesh or current_mesh()
+    if mesh is not None and mesh.shape.get("model", 1) > 1:
+        return mesh
+    return None
+
+
+def model_offset(n_local: int, mesh) -> int:
+    """The first index of this model rank's slice of ``n_local`` along a
+    dim sliced over "model"."""
+    return mesh.coord["model"] * n_local
 
 
 def shard_map(f, *, mesh, in_specs, out_specs, check_vma: bool = False):
@@ -95,10 +138,23 @@ def shard(x, *entries):
     return x
 
 
+@dataclasses.dataclass(frozen=True)
+class Parts:
+    """A placement entry of the port's own: a dim of ``parts`` equal
+    blocks, each sliced over ``axes``, the rank holding its slice of every
+    block in block order (mamba's ``in_proj``, whose columns are x then
+    z).  Its local shape is the contiguous slice's; gathered, the blocks
+    come back in the reference's order."""
+    axes: tuple
+    parts: int
+
+
 def axes_of(resolved) -> tuple:
     """A resolved entry as a tuple of axis names (``()`` for None)."""
     if resolved is None:
         return ()
+    if isinstance(resolved, Parts):
+        return resolved.axes
     return resolved if isinstance(resolved, tuple) else (resolved,)
 
 
@@ -147,15 +203,16 @@ def maybe_axis(logical: str, dim_size: int, par: int) -> Optional[str]:
 # ------------------------------------------------------------ the rank's slices
 
 
-def placements(spec_tree, mesh, held: Sequence[str] = ()):
+def placements(spec_tree, mesh, held: Sequence[str] = (), parts=None):
     """The port's placement of each leaf of ``spec_tree`` on ``mesh``: the
     reference's resolved sharding, less the "model" axis except on the
     leaves whose whole key path is in ``held`` (``layers/experts/w_up``
     ...); a path of ``held`` that is not a leaf of the tree raises.
-    Without a mesh, every leaf whole."""
+    ``parts`` (path -> blocks): those leaves' "model" dim takes the
+    :class:`Parts` layout.  Without a mesh, every leaf whole."""
     from repro_torch.models.params import tree_map_path
 
-    held = frozenset(held)
+    held, parts = frozenset(held), dict(parts or {})
     seen = set()
 
     def place(path, s):
@@ -165,6 +222,9 @@ def placements(spec_tree, mesh, held: Sequence[str] = ()):
         res = res + (None,) * (len(s.shape) - len(res))
         if path in held:
             seen.add(path)
+            if path in parts:
+                res = tuple(Parts(axes_of(r), parts[path]) if "model" in axes_of(r) else r
+                            for r in res)
             return res
         return tuple(_normalize(tuple(a for a in axes_of(r) if a != "model")) or None
                      for r in res)
@@ -175,23 +235,42 @@ def placements(spec_tree, mesh, held: Sequence[str] = ()):
     return out
 
 
+def model_paths(spec_tree) -> tuple:
+    """The whole key paths of the leaves of ``spec_tree`` with a "model"
+    entry (alone or in a tuple of axes), in sorted order."""
+    from repro_torch.models.params import tree_leaves, tree_map_path
+
+    def has(path, s):
+        return path if any(e == "model" or (isinstance(e, tuple) and "model" in e)
+                           for e in s.pspec) else None
+
+    return tuple(p for p in tree_leaves(tree_map_path(has, spec_tree)) if p is not None)
+
+
 def rank_placements(cfg, spec_tree, mesh, tree: str):
     """(placements, the rank's Spec tree) of ``spec_tree``, a ``tree`` of
-    kind "cache" (the family's ``cache_spec``) or "state"
-    (``train.step.state_spec``'s), on ``mesh``: the leaves the family's
-    ``model_sliced`` names sliced over "model" (in a state, the parameter
-    and its m and v), every other "model" entry held whole, and the batch
-    entries sliced."""
-    if tree not in ("cache", "state"):
-        raise ValueError(f"tree {tree!r} is not cache or state")
-    held = ()
+    kind "params" (the family's ``param_spec``), "cache" (its
+    ``cache_spec``) or "state" (``train.step.state_spec``'s), on ``mesh``:
+    the leaves the family's ``model_sliced`` names sliced over "model" (in
+    a state, the parameter and its m and v; ``parts`` in their layout),
+    the "model" entries of the leaves it holds whole dropped, and the
+    batch entries sliced."""
+    if tree not in ("params", "cache", "state"):
+        raise ValueError(f"tree {tree!r} is not params, cache or state")
+    held, parts = (), {}
     if mesh is not None:
         from repro_torch.models import get_model
 
         sliced = get_model(cfg).model_sliced(cfg, mesh)
-        held = sliced["cache"] if tree == "cache" else tuple(
-            f"{pre}/{p}" for pre in ("params", "opt/m", "opt/v") for p in sliced["params"])
-    pl = placements(spec_tree, mesh, held)
+        if tree == "cache":
+            held = sliced["cache"]
+        elif tree == "params":
+            held, parts = sliced["params"], sliced.get("parts", {})
+        else:
+            pre = ("params", "opt/m", "opt/v")
+            held = tuple(f"{a}/{p}" for a in pre for p in sliced["params"])
+            parts = {f"{a}/{p}": k for a in pre for p, k in sliced.get("parts", {}).items()}
+    pl = placements(spec_tree, mesh, held, parts)
     return pl, local_specs(spec_tree, pl, mesh)
 
 
@@ -218,14 +297,19 @@ def local_specs(spec_tree, shardings, mesh):
 
 
 def rank_slice(x: torch.Tensor, sharding: tuple, mesh) -> torch.Tensor:
-    """The rank's slice of a whole leaf ``x`` (a view)."""
+    """The rank's slice of a whole leaf ``x`` (a view, or a copy where a
+    :class:`Parts` dim joins its blocks' slices)."""
     if mesh is None:
         return x
     for i, r in enumerate(sharding):
-        if r is not None:
-            axes = axes_of(r)
-            n = x.shape[i] // mesh.size(axes)
-            x = x.narrow(i, mesh.index(axes) * n, n)
+        if r is None:
+            continue
+        axes = axes_of(r)
+        k = r.parts if isinstance(r, Parts) else 1
+        n = x.shape[i] // k
+        m = n // mesh.size(axes)
+        blocks = [x.narrow(i, b * n + mesh.index(axes) * m, m) for b in range(k)]
+        x = blocks[0] if k == 1 else torch.cat(blocks, dim=i)
     return x
 
 
@@ -235,8 +319,14 @@ def gather_leaf(x: torch.Tensor, sharding: tuple, mesh) -> torch.Tensor:
     if mesh is None:
         return x
     for i, r in enumerate(sharding):
-        if r is not None:
-            x = mesh.all_gather(x, axes_of(r), dim=i)
+        if r is None:
+            continue
+        n = x.shape[i]
+        x = mesh.all_gather(x, axes_of(r), dim=i)
+        if isinstance(r, Parts):  # (ranks, blocks, m) -> (blocks, ranks, m)
+            ranks, m = mesh.size(r.axes), n // r.parts
+            shape = x.shape[:i] + (ranks, r.parts, m) + x.shape[i + 1:]
+            x = x.reshape(shape).transpose(i, i + 1).reshape(x.shape)
     return x
 
 
@@ -289,6 +379,33 @@ class _CopyTo(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g.clone(), ctx.axes, "sum"), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    """``all_gather`` along ``dim`` forward; backward, the rank's own slice
+    of the cotangent: the gathered value is replicated, every rank computes
+    on it identically and holds its whole cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.n = mesh, axes, dim, x.shape[dim]
+        return mesh.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.mesh.index(ctx.axes) * ctx.n
+        return g.narrow(ctx.dim, lo, ctx.n), None, None, None
+
+
+def gather_from(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The group's slices of ``x`` concatenated along ``dim``, on every
+    rank (a replicated value); its gradient is the rank's slice of the
+    cotangent."""
+    if mesh is None or mesh.size(axes) == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return mesh.all_gather(x, tuple(axes), dim)
+    return _GatherFrom.apply(x, mesh, tuple(axes), dim)
 
 
 def reduce_from(x: torch.Tensor, mesh, axes) -> torch.Tensor:

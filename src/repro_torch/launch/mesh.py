@@ -201,6 +201,37 @@ def make_mesh(shape, axes, device="cuda") -> Mesh:
     return Mesh(shape, axes, device)
 
 
+class AbstractMesh:
+    """A mesh's shape and axis names with no world behind it, seen from
+    one rank (``coord``, rank 0 by default): what placements, local
+    shapes and rank slices read.  It issues no collective."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], coord=None) -> None:
+        self.axis_names = tuple(axes)
+        self.shape = dict(zip(self.axis_names, (int(n) for n in shape)))
+        self.coord = dict(zip(self.axis_names, coord or (0,) * len(self.axis_names)))
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
+
+    @property
+    def n_ranks(self) -> int:
+        return math.prod(self.shape.values())
+
+    def size(self, axes: Sequence[str]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    index = Mesh.index
+
+
+def abstract_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The production mesh's shape and axis names, (16, 16) ("data",
+    "model") or (2, 16, 16) ("pod", "data", "model"), with no world: the
+    dry-run resolves placements on it."""
+    shape, axes = PRODUCTION_SHAPES[multi_pod]
+    return AbstractMesh(shape, axes)
+
+
 def make_production_mesh(*, multi_pod: bool = False, device="cuda") -> Mesh:
     """16x16 ("data", "model") = 256 ranks; 2x16x16 ("pod", "data",
     "model") = 512.  Raises, naming the ranks it needs, on another world."""

@@ -9,9 +9,11 @@
     # on the CPU, reduced config
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b --device cpu
 
-    # a data-parallel world of 2 ranks on the CPU
+    # a data-parallel world of 2 ranks on the CPU, and a tensor-parallel one
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch qwen1.5-4b --device cpu --mesh-shape 2x1
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch qwen1.5-4b --device cpu --mesh-shape 1x2
 
 The JAX launcher's flags, plus ``--kernel`` (``cfg.kernel_impl``: ``cuda``
 runs every Sq > 1 attention on the ``flash_attention`` kernel through its
@@ -24,7 +26,9 @@ this process is in: one started by ``torchrun`` (``env://``), one that the
 caller initialised (``launch.mesh.spawn_world``), or else a world of one.
 The state (float32 parameters, AdamW's m and v, the step) is drawn from
 ``--seed`` on the device, and each rank keeps its slices of it (m and v
-under ZeRO-1, the experts under expert parallelism); batches are
+under ZeRO-1; over a model axis of M > 1, every leaf the reference slices
+over "model", which the rank then computes on: tensor parallelism);
+batches are
 ``SyntheticTokens(seed=--seed)`` of the global batch, each rank's rows
 prefetched onto its device (``ShardedLoader``).  ``--restore`` resumes
 from the latest checkpoint under ``--ckpt``, the data cursor from its

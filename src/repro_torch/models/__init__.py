@@ -10,9 +10,11 @@
         -> (logits, cache)   # chunked prefill; None when the family has
                              # no chunked path (validate_chunked gates
                              # serving accordingly)
-    api.model_sliced(cfg, mesh)           -> {"params": paths, "cache": paths}
+    api.model_sliced(cfg, mesh)           -> {"params": paths, "cache": paths,
+                                              "parts": {path: blocks}}
                              # the whole key paths of the leaves a model
-                             # rank holds a slice of over "model"
+                             # rank holds a slice of over "model", and
+                             # those sliced in blocks (sharding.Parts)
                              # (distributed.sharding.rank_placements)
 """
 from __future__ import annotations

@@ -31,7 +31,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.distributed.sharding import current_mesh
+from repro_torch.distributed.sharding import (MODEL, copy_to, current_mesh, gather_from,
+                                               model_mesh, model_offset, reduce_from)
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
 
@@ -40,7 +41,7 @@ def scheme(cfg, par: int) -> str:
     """The reference's tensor-parallel scheme of the attention leaves over a
     model axis of ``par``: ``heads`` (q and kv heads both divide), ``qheads``
     (only q heads), ``hd`` (the head dim) or ``none``.  It sets the leaves'
-    pspec entries; a model rank of the port holds the leaves whole."""
+    pspec entries, and a model rank holds and computes on their slices."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     if par <= 1:
         return "none"
@@ -72,11 +73,6 @@ def attn_spec(cfg, par: int = 1) -> dict:
     return spec
 
 
-# The leaves of a contiguous cache whose timeline the seq-sharded decode
-# slices over "model" (:func:`cache_spec`'s seq_shard_cache branch).
-SEQ_LEAVES = ("k", "v", "pos")
-
-
 def cache_spec(cfg, batch: int, max_seq: int, par: int = 1, window: int = 0) -> dict:
     """Per-layer KV cache. ``pos`` records absolute positions per slot (−1 =
     empty).  With ``cfg.seq_shard_cache`` and a model axis of ``par`` > 1
@@ -106,37 +102,157 @@ def _proj(x, w, impl, bias=None):
     return y.reshape(x.shape[:-1] + w.shape[1:])
 
 
+def _sliced(p, cfg):
+    """The model mesh when this rank holds a slice of the attention leaves
+    ``p`` (q heads or the head dim), else None."""
+    h, hd = p["wq"].shape[1:]
+    if (h, hd) == (cfg.n_heads, cfg.hd):
+        return None
+    return L.sliced(h * hd, cfg.n_heads * cfg.hd)
+
+
+def _rope(t, positions, cfg, mesh):
+    """RoPE on q or k; on a slice of the head dim, the whole head gathered
+    for the rotation's pairs and the rank's slice cut back."""
+    n = t.shape[-1]
+    if n == cfg.hd:
+        return L.apply_rope(t, positions, cfg.rope_theta)
+    whole = L.apply_rope(gather_from(t, mesh, MODEL, -1), positions, cfg.rope_theta)
+    return copy_to(whole, mesh, MODEL).narrow(-1, model_offset(n, mesh), n)
+
+
 def _project_qkv(p, x, positions, cfg, impl=None):
     impl = impl or cfg.kernel_impl
+    mesh = _sliced(p, cfg)
+    xs = copy_to(x, mesh, MODEL)
+    # The qheads scheme computes k and v whole, on every rank.
+    xkv = x if tuple(p["wk"].shape[1:]) == (cfg.n_kv_heads, cfg.hd) else xs
     # The bias (qwen's) is added before RoPE.
-    q, k, v = (_proj(x, p[w], impl, p.get(b)) for w, b in
-               (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    q, k, v = (_proj(a, p[w], impl, p.get(b)) for a, w, b in
+               ((xs, "wq", "bq"), (xkv, "wk", "bk"), (xkv, "wv", "bv")))
+    return _rope(q, positions, cfg, mesh), _rope(k, positions, cfg, mesh), v
 
 
-def _out_proj(out, wo, impl):
-    """einsum("bshk,hkd->bsd", out, wo) as one matrix product."""
-    return L.linear(out.flatten(2), wo.flatten(0, 1), impl)
+def _out_proj(out, wo, impl, cfg, bias=None):
+    """einsum("bshk,hkd->bsd", out, wo) (+ bias) as one matrix product;
+    row-parallel where the rank holds a slice of ``wo``."""
+    mesh = None if tuple(wo.shape[:2]) == (cfg.n_heads, cfg.hd) else model_mesh()
+    return L.row_parallel(out.flatten(2), wo.flatten(0, 1), impl, mesh, bias)
+
+
+def kv_heads(hq: int, cfg, mesh):
+    """The kv heads the ``hq`` q heads of this model rank read, under the
+    qheads scheme: ``(first, count)`` where they are whole GQA groups or
+    part of one (each kv head read by hq / count consecutive q heads), or
+    a list of one kv head a q head where they straddle groups unevenly."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q0 = model_offset(hq, mesh)
+    if hq % n_rep == 0 or n_rep % hq == 0:
+        return q0 // n_rep, max(hq // n_rep, 1)
+    return [(q0 + i) // n_rep for i in range(hq)]
+
+
+def _kv_for(q, k, v, cfg):
+    """k and v as the rank's q heads read them: under the qheads scheme
+    (q on a slice of the heads, k and v whole) narrowed to, or repeated
+    as, the kv heads of its global q heads (:func:`kv_heads`); else as
+    they are."""
+    if q.shape[2] == cfg.n_heads or k.shape[2] != cfg.n_kv_heads:
+        return k, v
+    mesh = model_mesh()
+    sel = kv_heads(q.shape[2], cfg, mesh)
+    k, v = copy_to(k, mesh, MODEL), copy_to(v, mesh, MODEL)
+    if isinstance(sel, tuple):
+        return k.narrow(2, *sel), v.narrow(2, *sel)
+    idx = torch.tensor(sel, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def hd_attention(q, k, v, mask, cfg):
+    """Attention on this model rank's slice of the head dim (the "hd"
+    scheme), plain torch as the reference's: the partial scores QKᵀ over
+    the slice, summed over "model" in float32 and scaled by the whole
+    head's ``hd ** -0.5``; the softmax over ``mask`` (broadcast to
+    (B, H, Sq, Sk); a row with no valid key gives zeros); then the value
+    product on the slice, in q's dtype."""
+    mesh = model_mesh()
+    n_rep = q.shape[2] // k.shape[2]
+    kk = L.repeat_kv(k.to(q.dtype), n_rep)
+    vv = L.repeat_kv(v.to(q.dtype), n_rep)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk.float())
+    s = reduce_from(s, mesh, MODEL) * (cfg.hd ** -0.5)
+    s = s.masked_fill(~mask, L.NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.where(mask, torch.exp(s - m), 0.0)
+    probs = (e / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)).to(q.dtype)
+    # The same probabilities weigh each rank's slice of the values.
+    return torch.einsum("bhqk,bkhd->bqhd", copy_to(probs, mesh, MODEL), vv)
+
+
+def prefill_mask(sq: int, sk: int, *, causal: bool, window: int, prefix_len: int, device):
+    """The (Sq, Sk) mask of a prefill from position 0: causal or
+    bidirectional, a window, and a bidirectional prefix of ``prefix_len``
+    (the prefix-LM mask)."""
+    mask = L._position_mask(sq, sk, 0, causal, window, device)
+    if prefix_len:
+        qpos = torch.arange(sq, device=device)[:, None]
+        kpos = torch.arange(sk, device=device)[None, :]
+        mask |= (qpos < prefix_len) & (kpos < prefix_len)
+    return mask
+
+
+def attend(q, k, v, cfg, *, causal=True, window=0, prefix_len=0):
+    """Prefill and training attention of q (B, Sq, H, hd) over k, v from
+    position 0: on a slice of the head dim :func:`hd_attention`; a
+    prefix-LM mask (``prefix_len`` > 0) on ``flash_attention``'s prefix
+    mode under ``"cuda"``, else ``_prefix_lm_attention``; otherwise
+    ``layers.attention``'s dispatch.  Under the qheads scheme k and v are
+    first cut to the rank's kv heads (:func:`_kv_for`)."""
+    k, v = _kv_for(q, k, v, cfg)
+    if q.shape[-1] != cfg.hd:
+        mask = prefill_mask(q.shape[1], k.shape[1], causal=causal, window=window,
+                            prefix_len=prefix_len, device=q.device)
+        return hd_attention(q, k, v, mask, cfg)
+    if prefix_len and cfg.kernel_impl == "cuda":
+        from repro_torch.kernels import ops as kops
+
+        return kops.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
+    if prefix_len:
+        return _prefix_lm_attention(q, k, v, prefix_len, window)
+    return L.attention(q, k, v, cfg, causal=causal, window=window)
 
 
 def attend_full(p, x, positions, cfg, *, causal=True, window=0, prefix_len=0):
     """Training (no cache). x: (B, S, d).  The projections are the
-    reference's products (``torch.matmul``); attention is
-    ``layers.attention``'s dispatch, and a prefix-LM mask (``prefix_len``
-    > 0) takes ``flash_attention``'s prefix mode under ``"cuda"``, else
-    ``_prefix_lm_attention``."""
+    reference's products (``torch.matmul``); attention is :func:`attend`."""
     q, k, v = _project_qkv(p, x, positions, cfg, "reference")
-    if prefix_len and cfg.kernel_impl == "cuda":
-        from repro_torch.kernels import ops as kops
+    out = attend(q, k, v, cfg, causal=causal, window=window, prefix_len=prefix_len)
+    return _out_proj(out, p["wo"], "reference", cfg)
 
-        out = kops.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
-    elif prefix_len:
-        out = _prefix_lm_attention(q, k, v, prefix_len, window)
-    else:
-        out = L.attention(q, k, v, cfg, causal=causal, window=window)
-    return _out_proj(out, p["wo"], "reference")
+
+def _whole(t, n_heads: int, cfg, mesh):
+    """q, k or v (B, S, heads, hd) whole over "model": the heads and the
+    head dim gathered where the rank holds a slice of them."""
+    if t.shape[2] != n_heads:
+        t = gather_from(t, mesh, MODEL, 2)
+    if t.shape[3] != cfg.hd:
+        t = gather_from(t, mesh, MODEL, 3)
+    return t
+
+
+def _to_slice(out, like, mesh):
+    """``out`` (B, S, H, hd) cut to the heads and head dim of ``like``, the
+    rank's slice of q."""
+    for dim in (2, 3):
+        n = like.shape[dim]
+        if out.shape[dim] != n:
+            out = out.narrow(dim, model_offset(n, mesh), n)
+    return out
+
+
+def _refuse_sliced(p, cfg, what: str) -> None:
+    if _sliced(p, cfg) is not None:
+        raise ValueError(f"{what} is single-rank: the servers take no tensor-parallel mesh")
 
 
 def _write(cache, slot, k, v, positions, keep=None):
@@ -201,30 +317,25 @@ def prefill_with_cache(p, x, positions, cfg, cache, *, window=0, prefix_len=0):
     ``prefix_len`` > 0: the prefix-LM mask (the vlm family's image
     patches), on ``flash_attention``'s prefix mode under
     ``kernel_impl="cuda"``.  On a seq-sharded cache (:func:`seq_mesh`) each
-    model rank writes the slots it owns."""
+    model rank writes the slots it owns, of k and v whole over "model"."""
     q, k, v = _project_qkv(p, x, positions, cfg)
     s = x.shape[1]
     mesh = seq_mesh(cfg)
     cs = cache["k"].shape[1] * (mesh.shape["model"] if mesh else 1)
+    k_w, v_w = k, v
+    if mesh is not None:
+        k_w, v_w = (_whole(t, cfg.n_kv_heads, cfg, mesh) for t in (k, v))
+    pos_w = positions
     if window and s > cs:
         # Only the trailing window survives in a rolling cache.
-        k_w, v_w, pos_w = k[:, -cs:], v[:, -cs:], positions[:, -cs:]
-    else:
-        k_w, v_w, pos_w = k, v, positions
+        k_w, v_w, pos_w = k_w[:, -cs:], v_w[:, -cs:], positions[:, -cs:]
     slot = (pos_w % cs if window else pos_w).long()
     if mesh is not None:
         _write_owned(cache, slot, k_w, v_w, pos_w, mesh)
     else:
         _write(cache, slot, k_w, v_w, pos_w)
-    if prefix_len and cfg.kernel_impl == "cuda":
-        from repro_torch.kernels import ops as kops
-
-        out = kops.flash_attention(q, k, v, causal=True, window=window, prefix_len=prefix_len)
-    elif prefix_len:
-        out = _prefix_lm_attention(q, k, v, prefix_len, window)
-    else:
-        out = L.attention(q, k, v, cfg, causal=True, window=window)
-    return _out_proj(out, p["wo"], cfg.kernel_impl), cache
+    out = attend(q, k, v, cfg, causal=True, window=window, prefix_len=prefix_len)
+    return _out_proj(out, p["wo"], cfg.kernel_impl, cfg), cache
 
 
 def pos_vector(pos, b: int, device=None):
@@ -256,21 +367,27 @@ def decode_step(p, x, pos, cfg, cache, *, window=0):
     posv = pos_vector(pos, b, x.device)
     positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(p, x, positions, cfg)
+    q_rank = q
     mesh = seq_mesh(cfg)
     if mesh is not None:
         if sq != 1 or "table" in cache:
             raise ValueError("the seq-sharded mesh decode is single-row and contiguous")
+        q = _whole(q, cfg.n_heads, cfg, mesh)
+        k, v = (_whole(t, cfg.n_kv_heads, cfg, mesh) for t in (k, v))
         cs = cache["k"].shape[1] * mesh.shape["model"]
         slot = (positions % cs if window else positions).long()
         _write_owned(cache, slot, k, v, positions, mesh)
     elif "table" in cache:
+        _refuse_sliced(p, cfg, "the paged cache")
         _paged_write(cache, k, v, positions, window)
     else:
         cs = cache["k"].shape[1]
         slot = positions % cs if window else positions  # (B, Sq)
         _write(cache, slot.long(), k, v, positions, cache.get("keep"))
     out = cached_attention(q, cache, posv, cfg, window=window)
-    return _out_proj(out, p["wo"], cfg.kernel_impl), cache
+    if mesh is not None:
+        out = _to_slice(out, q_rank, mesh)
+    return _out_proj(out, p["wo"], cfg.kernel_impl, cfg), cache
 
 
 def chunk_step(p, x, posv, valid, cfg, cache, *, window=0):
@@ -284,6 +401,7 @@ def chunk_step(p, x, posv, valid, cfg, cache, *, window=0):
     whole-prompt prefill row at the same position would: that carries the
     bit-identity contract across the chunk/whole seam.  The cache is
     written in place."""
+    _refuse_sliced(p, cfg, "chunked prefill")
     b, sq = x.shape[0], x.shape[1]
     posv = pos_vector(posv, b, x.device)
     positions = posv[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)
@@ -293,7 +411,7 @@ def chunk_step(p, x, posv, valid, cfg, cache, *, window=0):
     else:
         _chunk_write(cache, k, v, positions, valid)
     out = chunk_attention(q, cache, posv, cfg, window=window)
-    return _out_proj(out, p["wo"], cfg.kernel_impl), cache
+    return _out_proj(out, p["wo"], cfg.kernel_impl, cfg), cache
 
 
 def _chunk_write(cache, kt, vt, positions, valid):
@@ -507,10 +625,20 @@ def cached_attention(q, cache, pos, cfg, *, window=0):
     a contiguous cache to the ``flash_decode`` kernel or the dense
     grouped-GQA reference, or, seq-sharded over a mesh (:func:`seq_mesh`),
     to :func:`flash_decode_attention`.  The kernels run their plain
-    versions on CPU tensors."""
+    versions on CPU tensors.  A rank's slice of the heads reads the kv
+    heads of its q heads (:func:`_kv_for`); a slice of the head dim takes
+    :func:`hd_attention` over the recorded positions."""
     posv = pos_vector(pos, q.shape[0], q.device)
     if "table" not in cache and seq_mesh(cfg) is not None:
         return flash_decode_attention(q, cache, posv, cfg, window=window)
+    if "table" not in cache and (q.shape[2] != cfg.n_heads or q.shape[3] != cfg.hd):
+        k, v = _kv_for(q, cache["k"], cache["v"], cfg)
+        if q.shape[3] != cfg.hd:
+            rowpos = posv[:, None] + torch.arange(q.shape[1], dtype=torch.int32,
+                                                  device=q.device)
+            mask = ragged_valid_mask(cache["pos"][:, None, :], rowpos[:, :, None], window)
+            return hd_attention(q, k, v, mask[:, None], cfg)
+        cache = {"k": k.contiguous(), "v": v.contiguous(), "pos": cache["pos"]}
     if "table" in cache:
         if cfg.kernel_impl == "cuda":
             from repro_torch.kernels import ops as kops

@@ -13,12 +13,27 @@ of ``kernels/gemm.py``, ``kernels/rms_norm.py`` and
 ``kernels/layer_norm.py``, whose rows do not depend on the batch around
 them (the served-equals-one-shot contract); otherwise ``torch.matmul`` and
 PyTorch's reductions.
+
+Tensor parallelism over a mesh's "model" axis (``distributed/sharding.py``):
+a model rank holds a slice of each sliced leaf and the blocks see it in
+the leaves' shapes.  A column-parallel product takes the replicated input
+through ``copy_to`` and the rank's column slice of the weight: its outputs
+are the one-rank product's columns, since every ``gemm_rowinv`` route sums
+an output in one K chain.  A row-parallel product takes the rank's K
+slice and sums the ranks' partial products with ``reduce_from``, adding a
+bias once, after the sum.  A vocab-parallel embedding (:func:`embed_rows`)
+zeroes the rows the rank does not hold and sums over "model" (exact: one
+rank adds a non-zero row); the head's logits stay sliced over the
+vocabulary, with :func:`vocab_nll` and :func:`vocab_argmax` computing
+across the slices.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (MODEL, copy_to, model_mesh, model_offset,
+                                               reduce_from)
 from repro_torch.kernels.gemm import linear_plain
 from repro_torch.kernels.layer_norm import layer_norm_plain
 from repro_torch.kernels.rms_norm import rms_norm_plain
@@ -68,6 +83,80 @@ def linear(x, w, impl: str = "reference", bias=None):
 
         return kops.linear(x, w, bias)
     return linear_plain(x, w, bias)
+
+
+def sliced(local: int, whole: int):
+    """The model mesh when a dim of ``whole`` is held as ``local`` on this
+    rank (sliced over "model"), None where the rank holds it whole."""
+    if local == whole:
+        return None
+    mesh = model_mesh()
+    if mesh is None or local * mesh.shape["model"] != whole:
+        raise ValueError(f"a dim of {whole} held as {local} needs a model axis of "
+                         f"{whole // max(local, 1)} ranks")
+    return mesh
+
+
+def row_parallel(x, w, impl: str, mesh, bias=None):
+    """``x @ w (+ bias)`` where ``x`` and ``w`` hold this model rank's K
+    slice (``mesh`` None: whole): the ranks' partial products summed over
+    "model", then the bias, once."""
+    if mesh is None:
+        return linear(x, w, impl, bias)
+    y = reduce_from(linear(x, w, impl), mesh, MODEL)
+    return y if bias is None else y + bias
+
+
+def embed_rows(table, tokens, vocab: int, dtype):
+    """``table[tokens]`` in ``dtype`` from a table (vocab, d) that this
+    model rank may hold a row slice of: the rows it does not hold are
+    zero, and the ranks' rows are summed over "model" (exactly: one rank
+    adds each non-zero row)."""
+    mesh = sliced(table.shape[0], vocab)
+    if mesh is None:
+        return table[tokens.long()].to(dtype)
+    n = table.shape[0]
+    loc = tokens.long() - model_offset(n, mesh)
+    inside = (loc >= 0) & (loc < n)
+    rows = table[torch.clamp(loc, 0, n - 1)].to(dtype)
+    rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device))
+    return reduce_from(rows, mesh, MODEL)
+
+
+def vocab_nll(logits, labels, mask, vocab: int):
+    """The summed negative log-likelihood of ``labels`` under float32
+    ``logits`` (B, S, V), masked; ``logits`` may be this model rank's slice
+    of the vocabulary, and then the log-softmax runs across the slices
+    (the max and the sum of exponentials over "model", the label's logit
+    from the rank that holds it) and no rank holds a whole row."""
+    mesh = sliced(logits.shape[-1], vocab)
+    if mesh is None:
+        lp = torch.log_softmax(logits, dim=-1)
+        return -torch.sum(lp.gather(-1, labels[..., None])[..., 0] * mask)
+    n = logits.shape[-1]
+    m = mesh.all_reduce(logits.detach().amax(dim=-1, keepdim=True), MODEL, "max")
+    sumexp = reduce_from(torch.exp(logits - m).sum(dim=-1), mesh, MODEL)
+    loc = labels.long() - model_offset(n, mesh)
+    inside = (loc >= 0) & (loc < n)
+    tgt = logits.gather(-1, torch.clamp(loc, 0, n - 1)[..., None])[..., 0]
+    tgt = reduce_from(torch.where(inside, tgt, 0.0), mesh, MODEL)
+    return -torch.sum((tgt - m[..., 0] - torch.log(sumexp)) * mask)
+
+
+def vocab_argmax(logits, vocab: int):
+    """``argmax`` over the last dim of ``logits``, which may be this model
+    rank's slice of the vocabulary: each rank's greatest logit and its
+    first index, then the greatest value over "model" with the lowest
+    global index among equal ones -- ``torch.argmax`` of the whole row."""
+    idx = logits.argmax(dim=-1)
+    mesh = sliced(logits.shape[-1], vocab)
+    if mesh is None:
+        return idx
+    best = logits.gather(-1, idx[..., None])[..., 0]
+    top = mesh.all_reduce(best.clone(), MODEL, "max")
+    gidx = idx + model_offset(logits.shape[-1], mesh)
+    far = torch.full_like(gidx, -(1 << 62))
+    return -mesh.all_reduce(torch.where(best == top, -gidx, far), MODEL, "max")
 
 
 # ---------------------------------------------------------------- RoPE ----
@@ -210,17 +299,28 @@ def assoc_scan(a, b):
 # ----------------------------------------------------------------- MLP ----
 
 
-def swiglu(x, w_gate, w_up, w_down, impl: str = "reference"):
+# Each MLP takes ``d_ff``, the hidden width of its whole weights: a rank
+# that holds a column slice of the first products and the row slice of the
+# last computes its part, and the parts sum over "model".
+
+
+def swiglu(x, w_gate, w_up, w_down, impl: str = "reference", d_ff: int = 0):
+    mesh = sliced(w_gate.shape[-1], d_ff or w_gate.shape[-1])
+    x = copy_to(x, mesh, MODEL)
     h = F.silu(linear(x, w_gate, impl)) * linear(x, w_up, impl)
-    return linear(h, w_down, impl)
+    return row_parallel(h, w_down, impl, mesh)
 
 
-def geglu(x, w_gate, w_up, w_down, impl: str = "reference"):
+def geglu(x, w_gate, w_up, w_down, impl: str = "reference", d_ff: int = 0):
+    mesh = sliced(w_gate.shape[-1], d_ff or w_gate.shape[-1])
+    x = copy_to(x, mesh, MODEL)
     h = F.gelu(linear(x, w_gate, impl), approximate="tanh") * linear(x, w_up, impl)
-    return linear(h, w_down, impl)
+    return row_parallel(h, w_down, impl, mesh)
 
 
-def gelu_mlp(x, w_in, b_in, w_out, b_out, impl: str = "reference"):
+def gelu_mlp(x, w_in, b_in, w_out, b_out, impl: str = "reference", d_ff: int = 0):
     """Exact (erf) GELU between two biased products (whisper's MLP)."""
+    mesh = sliced(w_in.shape[-1], d_ff or w_in.shape[-1])
+    x = copy_to(x, mesh, MODEL)
     h = F.gelu(linear(x, w_in, impl, b_in), approximate="none")
-    return linear(h, w_out, impl, b_out)
+    return row_parallel(h, w_out, impl, mesh, b_out)

@@ -14,17 +14,36 @@ Training (``mode="train"``) has no cache: the scan starts from zeros and
 takes the reference's scans above (the JAX package's Pallas scan has no
 VJP), as do the products and the norm.  The cache is written in place (the
 JAX package returned a new one).
+
+Tensor parallelism over "model": a rank holds ``di/par`` of the channels
+of ``conv_w``, ``conv_b``, ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and
+both caches, ``x_proj`` and ``out_proj`` are row-parallel, and the scan
+runs on the rank's channels, each channel's bits its own.  ``in_proj`` is
+column-parallel in a layout of the port's own (:data:`PARTS`): the rank's
+x channels then its z channels, one product.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import MODEL, copy_to
 from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec
 
 CHUNK = 256
+
+# The leaves a model rank holds in a layout of its own (the blocks of
+# ``distributed.sharding.Parts``), not as the reference's contiguous
+# slice, with the reason.
+PARTS = {
+    "in_proj": (2, "the reference slices the concatenated x|z columns (d, 2 di) contiguously, "
+                   "so at par 2 one rank would hold all of x and the other all of z, while "
+                   "conv_w, x_proj and the rest slice di: each rank holds its di/par columns "
+                   "of x then its di/par columns of z, and the gather puts the blocks back "
+                   "in the reference's order"),
+}
 
 
 def dims(cfg):
@@ -78,7 +97,9 @@ def ssm_forward(p, x, cfg, h0=None, impl=None):
     b, s, di = x.shape
     _, R, N = dims(cfg)
     impl = impl or cfg.kernel_impl
-    xdb = L.linear(x, p["x_proj"], impl)  # (B,S,R+2N)
+    # Row-parallel on the rank's channels; dt, B and C whole on every rank.
+    mesh = L.sliced(di, dims(cfg)[0])
+    xdb = copy_to(L.row_parallel(x, p["x_proj"], impl, mesh), mesh, MODEL)  # (B,S,R+2N)
     dt, B_ssm, C_ssm = torch.split(xdb, [R, N, N], dim=-1)
     dt = F.softplus(L.linear(dt, p["dt_proj"], impl, p["dt_bias"])).float()  # (B,S,di)
     A = -torch.exp(p["A_log"].float())  # (di, N)
@@ -121,11 +142,13 @@ def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     del positions, pos
     impl = L.impl_for(cfg, mode)
     h = L.rms_norm(x, p["norm"], cfg.norm_eps, impl)
-    x_in, z = L.linear(h, p["in_proj"], impl).chunk(2, dim=-1)
+    mesh = L.sliced(p["conv_b"].shape[0], dims(cfg)[0])
+    # in_proj: the rank's x channels then its z channels (PARTS).
+    x_in, z = L.linear(copy_to(h, mesh, MODEL), p["in_proj"], impl).chunk(2, dim=-1)
     if mode == "train":
         xc = F.silu(_causal_conv(x_in, p["conv_w"], p["conv_b"], cfg.ssm_conv))
         y, _ = ssm_forward(p, xc, cfg, impl=impl)
-        return x + L.linear(y * F.silu(z), p["out_proj"], impl), 0.0
+        return x + L.row_parallel(y * F.silu(z), p["out_proj"], impl, mesh), 0.0
     h0 = cache["ssm"].float()
     if mode == "decode":
         # Roll the conv state: a one-step conv, then one scan step.
@@ -142,5 +165,5 @@ def mamba_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     else:
         raise ValueError(f"mode {mode!r} is not train, prefill or decode")
     cache["ssm"].copy_(h_last)
-    out = L.linear(y * F.silu(z), p["out_proj"], impl)
+    out = L.row_parallel(y * F.silu(z), p["out_proj"], impl, mesh)
     return x + out, cache

@@ -35,6 +35,15 @@ assignments and sends every other one to its local expert 0 with weight
 0, where it takes a capacity slot and computes a zero row, as the
 reference does; its experts run on ``moe_gemm`` through the same row map,
 and one ``all_reduce`` over "model" sums the ranks' partial outputs.
+
+Under a "model" axis without ``cfg.ep_shard_map`` (the reference's
+tensor parallelism, :func:`moe_ffn_tp`), the router is column-sliced and
+its logits are gathered before top-k; the experts are sliced by expert.
+Every rank routes and dispatches the whole capacity buffer as one rank
+does (the reference's capacity and drops), computes its experts' rows of
+that buffer and combines the assignments they hold, and the partial
+outputs are summed over "model".  Attention and arctic's dense residual
+MLP are tensor-parallel as in the dense block.
 """
 from __future__ import annotations
 
@@ -43,8 +52,8 @@ import threading
 
 import torch
 
-from repro_torch.distributed.sharding import (batch_axes, copy_to, current_mesh,
-                                               reduce_from)
+from repro_torch.distributed.sharding import (MODEL, batch_axes, copy_to, current_mesh,
+                                               gather_from, model_offset, reduce_from)
 from repro_torch.kernels.moe_gemm import moe_gemm_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -53,10 +62,6 @@ from repro_torch.models.params import Spec
 CAPACITY_FACTOR = 1.25
 
 _drops = threading.local()
-
-
-# The leaves a model rank holds E/par of under expert parallelism.
-EXPERT_LEAVES = ("experts/w_gate", "experts/w_up", "experts/w_down")
 
 
 def moe_block_spec(cfg, par: int = 1) -> dict:
@@ -97,11 +102,21 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(x, router, E: int, K: int, impl: str = "reference"):
-    """Top-k routing of tokens x (T, d).  Returns the flat expert ids
-    (T K,), their weights in x's dtype (renormalised over each token's K)
-    and each assignment's token."""
-    gates = L.linear(x, router.to(x.dtype), impl).float()
+def router_gates(x, router, E: int, impl: str = "reference"):
+    """The router's float32 logits (T, E) of tokens x (T, d); a router
+    column-sliced over "model" gives its columns, gathered whole."""
+    mesh = L.sliced(router.shape[1], E)
+    gates = L.linear(copy_to(x, mesh, MODEL), router.to(x.dtype), impl).float()
+    return gather_from(gates, mesh, MODEL, -1)
+
+
+def route(x, router, E: int, K: int, impl: str = "reference", gates=None):
+    """Top-k routing of tokens x (T, d) (``gates``: the router's logits,
+    already computed).  Returns the flat expert ids (T K,), their weights
+    in x's dtype (renormalised over each token's K) and each assignment's
+    token."""
+    if gates is None:
+        gates = router_gates(x, router, E, impl)
     w, ids = top_k(torch.softmax(gates, dim=-1), K)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     tok = torch.arange(ids.numel(), device=x.device) // K
@@ -137,7 +152,7 @@ def dispatch(fids, fw, tok, E: int, C: int):
     return torch.clamp(pos, max=C - 1), keep, flat[:E * C].view(E, C), count
 
 
-def aux_load_balance_loss(x, router, cfg, mesh=None):
+def aux_load_balance_loss(x, router, cfg, mesh=None, gates=None):
     """Switch/GShard router losses of tokens x (T, d): load balance
     (E · sum_e f_e P_e, f_e the share of the T K assignments routed to
     expert e, P_e its mean router probability) plus 1e-3 x the z-loss
@@ -146,9 +161,11 @@ def aux_load_balance_loss(x, router, cfg, mesh=None):
     the batch, f and P are the global batch's, as the reference's GSPMD
     step computes them: their sums are all-reduced over the batch axes
     (P's gradient too, since each data rank's loss holds the one global
-    term); the z-loss is a mean of equal shards' means."""
+    term); the z-loss is a mean of equal shards' means.  ``gates``: the
+    router's logits, already computed (:func:`router_gates`)."""
     E, K = cfg.n_experts, cfg.top_k
-    gates = (x @ router.to(x.dtype)).float()
+    if gates is None:
+        gates = (x @ router.to(x.dtype)).float()
     probs = torch.softmax(gates, dim=-1)  # (T, E)
     _, ids = top_k(probs, K)
     T = x.shape[0]
@@ -204,6 +221,40 @@ def moe_ffn_ep(h, p, cfg, impl=None, mesh=None):
     return reduce_from(out, mesh, ("model",)).reshape(b, s, d)
 
 
+def moe_ffn_tp(x, p, cfg, impl, mesh, gates):
+    """The tensor-parallel MoE of tokens x (T, d) on a model rank that
+    holds E/par of the experts and whose router logits ``gates`` (T, E)
+    are whole (:func:`router_gates`): the reference's routing and
+    whole-buffer dispatch, its capacity and drops, on every rank; then the
+    rank's experts' rows of the buffer on ``moe_gemm``, the combine of the
+    assignments they hold, and the sum over "model"."""
+    E, K = cfg.n_experts, cfg.top_k
+    e_loc = p["experts"]["w_up"].shape[0]
+    lo = model_offset(e_loc, mesh)
+    fids, fw, tok = route(x, None, E, K, gates=gates)
+    slot, keep, rows, count = dispatch(fids, fw, tok, E, capacity(x.shape[0], cfg))
+    moe_gemm = _moe_gemm(impl)
+    ex = p["experts"]
+    x = copy_to(x, mesh, MODEL)
+    h = moe_gemm(x, ex["w_gate"], count[lo:lo + e_loc], rows[lo:lo + e_loc], ex["w_up"])
+    y = moe_gemm(h, ex["w_down"], count[lo:lo + e_loc])
+    mine = keep & (fids >= lo) & (fids < lo + e_loc)
+    w = copy_to(fw, mesh, MODEL) * mine.to(fw.dtype)
+    y_tok = (y[torch.clamp(fids - lo, 0, e_loc - 1), slot] * w[:, None]).view(-1, K, x.shape[1])
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + y_tok[:, k]
+    return reduce_from(out, mesh, MODEL)
+
+
+def _moe_gemm(impl: str):
+    if impl == "cuda":
+        from repro_torch.kernels.ops import moe_gemm
+
+        return moe_gemm
+    return moe_gemm_plain
+
+
 def use_ep(cfg, mesh=None) -> bool:
     """Expert parallelism is on: ``cfg.ep_shard_map`` under a mesh whose
     "model" axis divides the experts."""
@@ -219,10 +270,7 @@ def dispatch_compute_combine(x, fids, fw, tok, ex, E: int, C: int, K: int, impl:
     (its plain version unless ``impl`` is ``"cuda"``), and combine each
     token's K rows by their weights."""
     slot, keep, rows, count = dispatch(fids, fw, tok, E, C)
-    if impl == "cuda":
-        from repro_torch.kernels.ops import moe_gemm
-    else:
-        moe_gemm = moe_gemm_plain
+    moe_gemm = _moe_gemm(impl)
     h = moe_gemm(x, ex["w_gate"], count, rows, ex["w_up"])
     y = moe_gemm(h, ex["w_down"], count)
     y_tok = (y[fids, slot] * (fw * keep.to(fw.dtype))[:, None]).view(-1, K, x.shape[1])
@@ -250,15 +298,19 @@ def moe_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps, impl)
     b, s, d = h.shape
     mesh = current_mesh()
+    flat, gates = h.reshape(b * s, d), None
     if use_ep(cfg, mesh):
         ff = moe_ffn_ep(h, p, cfg, impl, mesh)
+    elif (tp := L.sliced(p["experts"]["w_up"].shape[0], cfg.n_experts)) is not None:
+        gates = router_gates(flat, p["router"], cfg.n_experts, impl)
+        ff = moe_ffn_tp(flat, p, cfg, impl, tp, gates).reshape(b, s, d)
     else:
-        ff = moe_ffn(h.reshape(b * s, d), p, cfg, impl).reshape(b, s, d)
+        ff = moe_ffn(flat, p, cfg, impl).reshape(b, s, d)
     if cfg.dense_residual:
         dm = p["dense_mlp"]
-        ff = ff + L.swiglu(h, dm["w_gate"], dm["w_up"], dm["w_down"], impl)
+        ff = ff + L.swiglu(h, dm["w_gate"], dm["w_up"], dm["w_down"], impl, cfg.d_ff)
     if mode == "train":
-        return x + ff, aux_load_balance_loss(h.reshape(b * s, d), p["router"], cfg, mesh)
+        return x + ff, aux_load_balance_loss(flat, p["router"], cfg, mesh, gates)
     return x + ff, cache
 
 

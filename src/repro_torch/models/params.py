@@ -104,6 +104,25 @@ def n_params(tree) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(tree))
 
 
+def abstract(tree, dtype):
+    """``meta`` tensors of a Spec tree's shapes (no allocation), each
+    leaf in its own dtype or ``dtype``."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=_dtype(s.dtype or dtype),
+                                          device="meta"), tree)
+
+
+def n_bytes(tree) -> int:
+    """The bytes of a tree of tensors (``meta`` ones included)."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def rank_counts(local_tree, dtype) -> tuple[int, int]:
+    """(elements, bytes) a rank holds of a tree of its local Specs
+    (``distributed.sharding.local_specs``), each leaf in its own dtype or
+    ``dtype``, counted on ``meta`` tensors."""
+    return n_params(local_tree), n_bytes(abstract(local_tree, dtype))
+
+
 # Leaves of more elements are drawn this many at a time (4 GiB of float32 at
 # most in flight): arctic-480b's stacked expert leaves hold 8.9e9 elements
 # at depth 2, a 35.7 GB float32 draw beside the leaves already drawn.

@@ -16,6 +16,17 @@ Training (``forward_train``, ``mode="train"``) has no cache: the conv and
 the recurrence start from zeros, the products, norms and scans are the
 reference's (``layers.impl_for``), and ``cfg.remat`` checkpoints each full
 unit, as the reference remats its scanned unit body (the tail runs plain).
+
+Tensor parallelism over "model": a rank holds ``w/par`` of the recurrent
+width of ``in_x``, ``in_y``, the conv, ``lam``, ``out`` (row-parallel) and
+both caches, and ``rglru_scan`` runs on those channels.  The gates are
+block-diagonal over ``n_heads`` blocks: where the rank's channels are
+whole blocks, one ``gemm_rowinv`` launch over its blocks of ``gate_a``,
+``gate_x`` and their biases, taken from the whole leaves; where a block
+straddles two ranks (``n_heads`` not a multiple of the degree), the
+conv's output is gathered whole and every block computed, then cut to the
+rank's channels.  ``gate_a`` is held whole (:data:`HELD_WHOLE`).  The
+attention layers are MQA (10 heads over 1 kv head): the qheads scheme.
 """
 from __future__ import annotations
 
@@ -24,6 +35,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import MODEL, copy_to, gather_from, model_offset
 from repro_torch.kernels.rglru_scan import rglru_scan_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -31,6 +43,15 @@ from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
 
 LRU_C = 8.0
 CHUNK = 256
+
+# The leaves a model rank holds whole although the reference slices them
+# over "model", with the reason.
+HELD_WHOLE = {
+    "gate_a": "the reference slices each block's output columns (nb, bw, bw/par), while "
+              "in_x, in_y and the conv slice the width across blocks and gate_x stays "
+              "whole: each rank takes its blocks (or, misaligned, every block) of the whole "
+              "leaf instead",
+}
 
 
 def _pattern_layout(cfg):
@@ -98,14 +119,40 @@ def _rglru_scan(a, b, h0, impl: str = "reference"):
     return rglru_scan_plain(a, b, h0)
 
 
+def _gates(p, xc, cfg, impl, mesh):
+    """The recurrence's gates r and i (float32, as xc (B, S, w)) on the
+    rank's ``w`` channels: sigmoid of the block-diagonal products of
+    ``xc`` with ``gate_a`` and ``gate_x`` (whole leaves, as their biases).
+    On a model rank whose channels are whole blocks, its blocks; where
+    blocks straddle ranks, every block of the gathered ``xc``, cut to the
+    rank's channels."""
+    bsz, s, w = xc.shape
+    bw = p["gate_x"].shape[1]
+    leaves = [p[k] for k in ("gate_a", "gate_a_b", "gate_x", "gate_x_b")]
+    lo = 0
+    if mesh is not None:
+        lo = model_offset(w, mesh)
+        if w % bw == 0:  # whole blocks
+            leaves = [copy_to(t, mesh, MODEL).narrow(0, lo // bw, w // bw) for t in leaves]
+        else:
+            xc = gather_from(xc, mesh, MODEL, -1)
+    ga, gab, gx, gxb = leaves
+    xg = xc.reshape(bsz, s, -1, bw)
+    r = torch.sigmoid(L.linear(xg, ga, impl, gab)).reshape(bsz, s, -1).float()
+    i = torch.sigmoid(L.linear(xg, gx, impl, gxb)).reshape(bsz, s, -1).float()
+    if r.shape[-1] != w:
+        r, i = (copy_to(t, mesh, MODEL).narrow(-1, lo, w) for t in (r, i))
+    return r, i
+
+
 def rec_block_apply(p, x, cfg, cache, impl=None):
     """Griffin recurrent block; ``cache`` ({conv, h}) is updated in place
     (None: from zeros, nothing kept).  Returns (x, cache)."""
     bsz, s, _ = x.shape
-    nb = max(cfg.n_heads, 1)
-    w = cfg.lru_width
+    w = p["lam"].shape[0]  # the rank's channels of the width
+    mesh = L.sliced(w, cfg.lru_width)
     impl = impl or cfg.kernel_impl
-    h = L.rms_norm(x, p["norm"], cfg.norm_eps, impl)
+    h = copy_to(L.rms_norm(x, p["norm"], cfg.norm_eps, impl), mesh, MODEL)
     y_branch = F.gelu(L.linear(h, p["in_y"], impl), approximate="tanh")  # (B,S,w)
     x_branch = L.linear(h, p["in_x"], impl)
 
@@ -121,11 +168,7 @@ def rec_block_apply(p, x, cfg, cache, impl=None):
     # under the kernels (the JAX package unrolls them per block to keep its
     # CPU lowering batch-invariant; the row-invariant GEMM is so by
     # construction).
-    xg = xc.reshape(bsz, s, nb, w // nb)
-    r = torch.sigmoid(L.linear(xg, p["gate_a"], impl, p["gate_a_b"]))
-    i = torch.sigmoid(L.linear(xg, p["gate_x"], impl, p["gate_x_b"]))
-    r = r.reshape(bsz, s, w).float()
-    i = i.reshape(bsz, s, w).float()
+    r, i = _gates(p, xc, cfg, impl, mesh)
     log_a = -LRU_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * i * xc.float()
@@ -133,7 +176,7 @@ def rec_block_apply(p, x, cfg, cache, impl=None):
           else torch.zeros((bsz, w), dtype=torch.float32, device=x.device))
     hs, h_last = _rglru_scan(a, gated, h0, impl=impl)
 
-    out = L.linear(hs.to(x.dtype) * y_branch, p["out"], impl)
+    out = L.row_parallel(hs.to(x.dtype) * y_branch, p["out"], impl, mesh)
     if cache is not None:
         cache["conv"].copy_(conv_in[:, -(ck - 1):])
         cache["h"].copy_(h_last)
@@ -187,7 +230,8 @@ def layer_apply(p, x, positions, cfg, *, kind, mode, cache, pos=None):
             a, _ = A.decode_step(ap, h, pos, cfg, cache, window=cfg.window)
         x = x + a
     h = L.rms_norm(x, p["mlp"]["norm"], cfg.norm_eps, impl)
-    x = x + L.geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl)
+    x = x + L.geglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl,
+                    cfg.d_ff)
     return x, cache
 
 
@@ -218,15 +262,21 @@ def cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
 
 def model_sliced(cfg, mesh) -> dict:
     """The whole key paths of the leaves a model rank of ``mesh`` holds a
-    slice of: each attention layer's cache timeline under the seq-sharded
-    decode (``attention.seq_mesh``); the parameters are held whole."""
-    cache = ()
-    if A.seq_mesh(cfg, mesh) is not None:
-        n_units, tail = _pattern_layout(cfg)
-        layers = [f"units/l{i}_{k}" for i, k in enumerate(cfg.block_pattern) if k != "rec"]
-        layers += [f"tail/t{i}_{k}" for i, k in enumerate(tail) if k != "rec"]
-        cache = tuple(f"{n}/{leaf}" for n in layers for leaf in A.SEQ_LEAVES)
-    return {"params": (), "cache": cache}
+    slice of: every leaf with a "model" entry in the reference's specs --
+    the vocabulary of the tied ``embed``, the rec blocks' width, the MLPs'
+    hidden width, the attention leaves by ``attention.scheme``, the rec
+    caches' width and the attention caches (their timeline under the
+    seq-sharded decode) -- less each rec block's ``gate_a``
+    (:data:`HELD_WHOLE`)."""
+    from repro_torch.distributed.sharding import model_paths
+    from repro_torch.launch.mesh import model_par
+
+    par = model_par(mesh)
+    whole = tuple(f"/mix/{k}" for k in HELD_WHOLE)
+    params = tuple(p for p in model_paths(param_spec(cfg, par)) if not p.endswith(whole))
+    # At a cache length the degree divides, where the seq-sharded layout
+    # has its "model" entries.
+    return {"params": params, "cache": model_paths(cache_spec(cfg, 1, par, par))}
 
 
 def stack_order(params, cache, cfg):

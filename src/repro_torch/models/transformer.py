@@ -31,6 +31,7 @@ import functools
 import torch
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.distributed.sharding import MODEL, copy_to, current_mesh, under_mesh
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mamba, moe
@@ -73,7 +74,8 @@ def dense_block_apply(p, x, positions, cfg, *, mode, cache, pos=None, prefix_len
         raise ValueError(f"mode {mode!r} is not train, prefill, decode or chunk")
     x = x + a
     h = L.rms_norm(x, p["norm2"], cfg.norm_eps, impl)
-    x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl)
+    x = x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"], impl,
+                     cfg.d_ff)
     return x, cache
 
 
@@ -122,14 +124,23 @@ def cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
 
 def model_sliced(cfg, mesh) -> dict:
     """The whole key paths of the leaves a model rank of ``mesh`` holds a
-    slice of: the stacked experts under expert parallelism
-    (``moe.use_ep``), the stacked attention cache's timeline under the
-    seq-sharded decode (``attention.seq_mesh``).  Every other "model"
-    entry is the reference's tensor parallelism, held whole."""
-    params = tuple(f"layers/{p}" for p in moe.EXPERT_LEAVES) \
-        if cfg.family == "moe" and moe.use_ep(cfg, mesh) else ()
-    cache = A.SEQ_LEAVES if cfg.family != "ssm" and A.seq_mesh(cfg, mesh) is not None else ()
-    return {"params": params, "cache": cache}
+    slice of: every leaf with a "model" entry in the reference's specs --
+    the vocabulary of ``embed`` and ``lm_head``, the attention leaves by
+    ``attention.scheme``, the MLPs' hidden width, the moe family's router
+    and experts (the experts alone under expert parallelism, whose router
+    is whole), mamba's ``di`` channels, and the caches (their kv heads or
+    head dim, or their timeline under the seq-sharded decode).  ``parts``
+    names the leaves held in a layout of the port's own, each with its
+    blocks: mamba's ``in_proj`` (``mamba.PARTS``)."""
+    from repro_torch.distributed.sharding import model_paths
+    from repro_torch.launch.mesh import model_par
+
+    par = model_par(mesh)
+    parts = {f"layers/{k}": v[0] for k, v in mamba.PARTS.items()} if cfg.family == "ssm" else {}
+    # The cache at a length the degree divides, where the seq-sharded
+    # layout has its "model" entries.
+    return {"params": model_paths(param_spec(cfg, par)),
+            "cache": model_paths(cache_spec(cfg, 1, par, par)), "parts": parts}
 
 
 def stack_order(params, cache, cfg):
@@ -158,14 +169,22 @@ def remat(fn, cfg):
     ``"full"`` keeps only its inputs and recomputes it in the backward,
     ``"dots"`` keeps the outputs of its matrix products and recomputes the
     rest (so a ``flash_attention`` forward runs again in the backward: its
-    output is no product's), ``"none"`` keeps everything."""
+    output is no product's), ``"none"`` keeps everything.  The recompute
+    runs under the forward's mesh (:func:`sharding.under_mesh`): in a
+    CUDA step's backward it runs on the autograd engine's device thread,
+    which installed none."""
     if cfg.remat == "none":
         return fn
     if cfg.remat not in ("full", "dots"):
         raise ValueError(f"remat {cfg.remat!r} is none of none, dots, full")
     kw = {} if cfg.remat == "full" else {"context_fn": functools.partial(
         ckpt.create_selective_checkpoint_contexts, _save_dots)}
-    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+    def run(*args, **kwargs):
+        return ckpt.checkpoint(under_mesh(fn, current_mesh()), *args, use_reentrant=False,
+                               **kw, **kwargs)
+
+    return run
 
 
 def run_stack(params, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0):
@@ -190,18 +209,22 @@ def run_stack(params, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0)
 
 
 def embed_tokens(params, tokens, cfg):
-    x = params["embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    x = L.embed_rows(params["embed"], tokens, cfg.vocab, getattr(torch, cfg.compute_dtype))
     if cfg.tie_embeddings:
         x = x * (cfg.d_model ** 0.5)  # gemma-style scaling
     return x
 
 
 def logits_fn(params, x, cfg, impl=None):
+    """The head's float32 logits of ``x``; over this model rank's slice of
+    the vocabulary where it holds one (the reference's logits stay sliced
+    over "model" too)."""
     impl = impl or cfg.kernel_impl
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl)
     # A tied head reads the embedding table as it is stored: (vocab, d)
     # row-major is the transposed (N, K) layout the GEMM takes.
     head = params["lm_head"] if not cfg.tie_embeddings else params["embed"].T
+    x = copy_to(x, L.sliced(head.shape[1], cfg.vocab), MODEL)
     return L.linear(x, head.to(x.dtype), impl).float()
 
 
@@ -212,14 +235,6 @@ def next_token_targets(tokens):
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
     return labels, mask
-
-
-def token_nll(logits, labels, mask):
-    """The summed negative log-likelihood of ``labels`` under float32
-    ``logits`` (B, S, V), masked."""
-    lp = torch.log_softmax(logits, dim=-1)
-    tok = lp.gather(-1, labels[..., None])[..., 0]
-    return -torch.sum(tok * mask)
 
 
 def lm_loss(params, x, labels, mask, cfg):
@@ -233,11 +248,11 @@ def lm_loss(params, x, labels, mask, cfg):
         tot = cnt = 0.0
         for i in range(0, s, c):
             lg = logits_fn(params, x[:, i:i + c], cfg, "reference")
-            tot = tot + token_nll(lg, labels[:, i:i + c], mask[:, i:i + c])
+            tot = tot + L.vocab_nll(lg, labels[:, i:i + c], mask[:, i:i + c], cfg.vocab)
             cnt = cnt + mask[:, i:i + c].sum()
         return tot / torch.clamp(cnt, min=1.0)
     logits = logits_fn(params, x, cfg, "reference")
-    return token_nll(logits, labels, mask) / torch.clamp(mask.sum(), min=1.0)
+    return L.vocab_nll(logits, labels, mask, cfg.vocab) / torch.clamp(mask.sum(), min=1.0)
 
 
 # ------------------------------------------------------------- public API

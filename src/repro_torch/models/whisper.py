@@ -32,6 +32,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import MODEL, copy_to
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models.params import Spec, cast_float, stack_layers, unstack
@@ -102,30 +103,44 @@ def cache_spec(cfg, batch: int, max_seq: int, par: int = 1) -> dict:
 
 
 def model_sliced(cfg, mesh) -> dict:
-    """Whisper's leaves are held whole on every model rank: its caches
-    have no seq-sharded layout (:func:`cache_spec`), so the seq-sharded
-    decode is refused."""
+    """The whole key paths of the leaves a model rank of ``mesh`` holds a
+    slice of: every leaf with a "model" entry -- the head dim of each
+    attention's leaves and of the caches (the reference's "hd" scheme),
+    the MLP's hidden width, the vocabulary of ``tok_embed`` (whole where
+    the model axis does not divide it: 51865).  Its caches have no
+    seq-sharded layout (:func:`cache_spec`), so the seq-sharded decode is
+    refused."""
+    from repro_torch.distributed.sharding import model_paths
+    from repro_torch.launch.mesh import model_par
+
     if A.seq_mesh(cfg, mesh) is not None:
         raise ValueError("whisper's self-attention cache has no seq-sharded layout: "
                          "seq_shard_cache needs the dense, moe, vlm or hybrid family")
-    return {"params": (), "cache": ()}
+    par = model_par(mesh)
+    return {"params": model_paths(param_spec(cfg, par)),
+            "cache": model_paths(cache_spec(cfg, 1, 1, par))}
 
 
-def _proj_q(p, x, impl):
+def _proj_q(p, x, impl, cfg):
+    x = copy_to(x, A._sliced(p, cfg), MODEL)
     return A._proj(x, p["wq"], impl, p["bq"])
 
 
-def _proj_kv(p, x, impl):
+def _proj_kv(p, x, impl, cfg):
+    x = copy_to(x, A._sliced(p, cfg), MODEL)
     return A._proj(x, p["wk"], impl), A._proj(x, p["wv"], impl, p["bv"])
 
 
-def _attn_out(p, out, impl):
-    return L.linear(out.flatten(2), p["wo"].flatten(0, 1), impl, p["bo"])
+def _attn_out(p, out, impl, cfg):
+    return A._out_proj(out, p["wo"], impl, cfg, p["bo"])
 
 
 def _attend(q, k, v, cfg, *, causal: bool):
-    """Prefill attention: on ``flash_attention`` at any Sq under
-    ``"cuda"``, else the reference dispatch."""
+    """Prefill attention: on a slice of the head dim (the "hd" scheme)
+    ``attention.hd_attention``; on ``flash_attention`` at any Sq under
+    ``"cuda"``; else the reference dispatch."""
+    if q.shape[-1] != cfg.hd:
+        return A.attend(q, k, v, cfg, causal=causal)
     if cfg.kernel_impl == "cuda":
         from repro_torch.kernels import ops as kops
 
@@ -136,7 +151,10 @@ def _attend(q, k, v, cfg, *, causal: bool):
 def _cross_decode(q, xk, xv, cfg):
     """The decode step's cross-attention over the encoder's keys: under
     ``"cuda"`` ``flash_decode`` with every key valid (key i recorded at
-    position i, the query past the last), else the reference's dense row."""
+    position i, the query past the last), else the reference's dense row;
+    on a slice of the head dim ``attention.hd_attention``."""
+    if q.shape[-1] != cfg.hd:
+        return A.attend(q, xk, xv, cfg, causal=False)
     if cfg.kernel_impl != "cuda":
         return L.attention(q, xk, xv, cfg, causal=False)
     from repro_torch.kernels import ops as kops
@@ -166,12 +184,12 @@ def _enc_layer(lp, x, cfg, impl=None):
     """One encoder layer: bidirectional self-attention, then the MLP."""
     impl, eps = impl or cfg.kernel_impl, cfg.norm_eps
     h = L.layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"], eps, impl)
-    q = _proj_q(lp["attn"], h, impl)
-    k, v = _proj_kv(lp["attn"], h, impl)
-    x = x + _attn_out(lp["attn"], _attend(q, k, v, cfg, causal=False), impl)
+    q = _proj_q(lp["attn"], h, impl, cfg)
+    k, v = _proj_kv(lp["attn"], h, impl, cfg)
+    x = x + _attn_out(lp["attn"], _attend(q, k, v, cfg, causal=False), impl, cfg)
     m = lp["mlp"]
     h = L.layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"], eps, impl)
-    return x + L.gelu_mlp(h, m["w_in"], m["b_in"], m["w_out"], m["b_out"], impl)
+    return x + L.gelu_mlp(h, m["w_in"], m["b_in"], m["w_out"], m["b_out"], impl, cfg.d_ff)
 
 
 def encoder_input(frames, cfg):
@@ -200,8 +218,8 @@ def _dec_layer(lp, h, enc_out, cfg, *, mode, cache, posv):
     impl, eps = L.impl_for(cfg, mode), cfg.norm_eps
     sa, ca = lp["self_attn"], lp["cross_attn"]
     x1 = L.layer_norm(h, lp["ln1"]["w"], lp["ln1"]["b"], eps, impl)
-    q = _proj_q(sa, x1, impl)
-    k, v = _proj_kv(sa, x1, impl)
+    q = _proj_q(sa, x1, impl, cfg)
+    k, v = _proj_kv(sa, x1, impl, cfg)
     b, s = h.shape[0], h.shape[1]
     if mode == "train":
         a = _attend(q, k, v, cfg, causal=True)
@@ -213,23 +231,23 @@ def _dec_layer(lp, h, enc_out, cfg, *, mode, cache, posv):
         A._write(cache, posv[:, None].long(), k, v, posv[:, None])
         self_cache = {n: cache[n] for n in ("k", "v", "pos")}
         a = A.cached_attention(q, self_cache, posv, cfg)
-    h = h + _attn_out(sa, a, impl)
+    h = h + _attn_out(sa, a, impl, cfg)
 
     x2 = L.layer_norm(h, lp["ln2"]["w"], lp["ln2"]["b"], eps, impl)
-    q = _proj_q(ca, x2, impl)
+    q = _proj_q(ca, x2, impl, cfg)
     if mode != "decode":
-        xk, xv = _proj_kv(ca, enc_out, impl)
+        xk, xv = _proj_kv(ca, enc_out, impl, cfg)
         if mode == "prefill":
             cache["xk"].copy_(xk)
             cache["xv"].copy_(xv)
         c = _attend(q, xk, xv, cfg, causal=False)
     else:
         c = _cross_decode(q, cache["xk"].to(x2.dtype), cache["xv"].to(x2.dtype), cfg)
-    h = h + _attn_out(ca, c, impl)
+    h = h + _attn_out(ca, c, impl, cfg)
 
     m = lp["mlp"]
     x3 = L.layer_norm(h, lp["ln3"]["w"], lp["ln3"]["b"], eps, impl)
-    return h + L.gelu_mlp(x3, m["w_in"], m["b_in"], m["w_out"], m["b_out"], impl)
+    return h + L.gelu_mlp(x3, m["w_in"], m["b_in"], m["w_out"], m["b_out"], impl, cfg.d_ff)
 
 
 def decoder_input(params, tokens, cfg, pos=None):
@@ -237,7 +255,7 @@ def decoder_input(params, tokens, cfg, pos=None):
     position vector): a prefill's rows at 0..S-1 (``pos`` None, vector
     None), or a decode step's row a slot at ``pos``."""
     b, s = tokens.shape
-    x = params["tok_embed"][tokens.long()].to(getattr(torch, cfg.compute_dtype))
+    x = L.embed_rows(params["tok_embed"], tokens, cfg.vocab, getattr(torch, cfg.compute_dtype))
     if pos is not None:
         # Per-slot positions: each row looks up its own positional embedding.
         posv = A.pos_vector(pos, b, tokens.device)
@@ -255,10 +273,17 @@ def _decoder(params, tokens, enc_out, cfg, *, mode, cache, pos=None):
         x = _dec_layer(lp, x, enc_out, cfg, mode=mode, cache=lc, posv=posv)
     fin = params["dec_ln_final"]
     x = L.layer_norm(x[:, -1:], fin["w"], fin["b"], cfg.norm_eps, cfg.kernel_impl)
-    # The tied head reads the embedding table as stored: (vocab, d)
-    # row-major is the transposed (N, K) layout the GEMM takes.
-    head = params["tok_embed"].T.to(x.dtype)
-    return L.linear(x, head, cfg.kernel_impl).float(), cache
+    return tied_head(params, x, cfg, cfg.kernel_impl), cache
+
+
+def tied_head(params, x, cfg, impl):
+    """The tied head's float32 logits of ``x``, over this model rank's
+    slice of the vocabulary where it holds one of ``tok_embed``.  It reads
+    the table as stored: (vocab, d) row-major is the transposed (N, K)
+    layout the GEMM takes."""
+    table = params["tok_embed"]
+    x = copy_to(x, L.sliced(table.shape[0], cfg.vocab), MODEL)
+    return L.linear(x, table.T.to(x.dtype), impl).float()
 
 
 def forward_train(params, batch, cfg):
@@ -282,9 +307,9 @@ def train_loss(params, x, tokens, cfg):
 
     fin = params["dec_ln_final"]
     x = L.layer_norm(x, fin["w"], fin["b"], cfg.norm_eps, "reference")
-    logits = L.linear(x, params["tok_embed"].T.to(x.dtype), "reference").float()
+    logits = tied_head(params, x, cfg, "reference")
     labels, mask = T.next_token_targets(tokens)
-    return T.token_nll(logits, labels, mask) / torch.clamp(mask.sum(), min=1.0)
+    return L.vocab_nll(logits, labels, mask, cfg.vocab) / torch.clamp(mask.sum(), min=1.0)
 
 
 def prefill(params, batch, cfg, cache):

@@ -25,6 +25,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.trace import tracer
+from repro_torch.distributed.sharding import current_mesh, model_mesh
+from repro_torch.models import layers as L
 from repro_torch.models.attention import pos_vector
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.serve.graphs import GraphCache, same_storage
@@ -72,8 +74,11 @@ def check_context(cfg, prompt_len: int, gen: int) -> None:
                          f"{cfg.max_decode_ctx}")
 
 
-def _argmax_token(logits):
-    return logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+def _argmax_token(logits, cfg):
+    """The greedy token of each row's last logits; over a mesh whose model
+    ranks hold slices of the vocabulary, the whole row's argmax
+    (``layers.vocab_argmax``)."""
+    return L.vocab_argmax(logits[:, -1], cfg.vocab).to(torch.int32)[:, None]
 
 
 def write_start(pos, cap: Optional[int], rows: int = 1):
@@ -91,7 +96,7 @@ def make_prefill_step(cfg, api):
     def prefill_step(params, batch, cache):
         params = cast_params_cached(params, cfg.compute_dtype)
         logits, cache = api.prefill(params, batch, cfg, cache)
-        return _argmax_token(logits), cache
+        return _argmax_token(logits, cfg), cache
 
     return prefill_step
 
@@ -102,7 +107,7 @@ def make_decode_step(cfg, api):
     def decode_step(params, cache, token, pos):
         params = cast_params_cached(params, cfg.compute_dtype)
         logits, cache = api.decode(params, token, pos, cfg, cache)
-        return _argmax_token(logits), cache
+        return _argmax_token(logits, cfg), cache
 
     return decode_step
 
@@ -133,7 +138,7 @@ def make_chunk_step(cfg, api, bucket: int, chunk_len: int):
         toks = torch.gather(ptoks, 1, idx)  # (B, chunk_len)
         last_idx = torch.clamp(bucket - 1 - base, 0, chunk_len - 1)
         logits, cache = api.prefill_chunk(params, toks, base, valid, cfg, cache, last_idx)
-        return _argmax_token(logits), torch.clamp(pcur + chunk_len, max=bucket), cache
+        return _argmax_token(logits, cfg), torch.clamp(pcur + chunk_len, max=bucket), cache
 
     return chunk
 
@@ -250,7 +255,7 @@ def make_decode_chain(cfg, api, *, graph: bool = False):
         return ("decode_chain", n_steps, (), inputs, body, (params,))
 
     def graphed_chain(params, cache, token, pos, n_steps: int, *, scope=None):
-        if n_steps == 0 or not graphs.accepts(token.device):
+        if n_steps == 0 or not graphs.accepts(token.device) or model_mesh() is not None:
             return decode_chain(params, cache, token, pos, n_steps)
         bound = graphs.bind(*loop(params, cache, token, pos, n_steps), scope)
         toks, tok = bound()
@@ -289,7 +294,10 @@ def make_generate(cfg, api, *, graph: bool = True):
     the batch's leaves.  A
     caller-provided cache, ``gen < 2``, CPU tensors and ``graph=False`` run
     prefill eagerly (the chain replays its graph wherever it takes CUDA
-    tensors and ``graph=True``).  ``generate.prepare(params, batch, gen)``
+    tensors and ``graph=True``).  Under a mesh (the current one) the batch
+    is the rank's rows and the cache its slice; with a "model" axis both
+    stages run eagerly, greedy tokens taken across the vocabulary's slices
+    (the ranks' collectives go over gloo, which a graph cannot capture).  ``generate.prepare(params, batch, gen)``
     captures both graphs of that shape ahead of a timed call and returns the
     seconds it took (0 when nothing was captured); ``generate.graphs`` is
     their GraphCache (None when ``graph=False``); ``generate.prefill(params,
@@ -329,7 +337,7 @@ def make_generate(cfg, api, *, graph: bool = True):
         eagerly."""
         b, s = batch["tokens"].shape
         dev = batch["tokens"].device
-        if graphs is None or gen < 2 or not graphs.accepts(dev):
+        if graphs is None or gen < 2 or not graphs.accepts(dev) or model_mesh() is not None:
             return None
         scope = ("generate", b, s, gen)
         like = zeros_cache(cfg, api, b, pre + s + gen, device="meta")
@@ -356,7 +364,12 @@ def make_generate(cfg, api, *, graph: bool = True):
         graphed = statics(params, batch, gen) if cache is None else None
         if graphed is None:
             if cache is None:
-                cache = zeros_cache(cfg, api, b, pre + s + gen, device=tokens.device)
+                from repro_torch.launch.mesh import data_par
+
+                # The rank's slice of the global batch's cache.
+                mesh = current_mesh()
+                cache = zeros_cache(cfg, api, b * data_par(mesh), pre + s + gen,
+                                    device=tokens.device, mesh=mesh)
             tok, cache = prefill(params, batch, cache)
             return tok, pre + s, cache, {}
         scope, st, like = graphed
@@ -462,10 +475,10 @@ def make_draft_verify_step(cfg, api, dcfg, dapi, k: int, *, prompt_len: int,
         keep = torch.stack([pw - 1 < prompt_len, torch.zeros_like(pw, dtype=torch.bool)], dim=1)
         dc = dict(dcache, keep=keep[None].expand((dcfg.n_layers,) + tuple(keep.shape)))
         dlog, _ = dapi.decode(dparams, x0, pw - 1, dcfg, dc)
-        ds = [_argmax_token(dlog)]
+        ds = [_argmax_token(dlog, dcfg)]
         for j in range(1, k):
             dlog, dcache = dapi.decode(dparams, ds[-1], pw + j, dcfg, dcache)
-            ds.append(_argmax_token(dlog))
+            ds.append(_argmax_token(dlog, dcfg))
         drafts = torch.cat(ds, dim=1)  # (B, k)
 
         # One multi-row verify over [tok, d1..dk] at pos..pos+k.

@@ -91,11 +91,11 @@ def ep_world(rank, world, dev, cfg, np_params, h, batch):
 
 def ep_train(rank, world, dev, cfg, np_params, batches, lr_kwargs):
     """Expert-parallel training of reduced kimi on a (data 2, model 2) mesh
-    at no-drop capacity (factor 100): the clip's norm of the first
-    batch's gradients (and of the experts' alone, the leaves sliced over
-    "model", with their indices), then one train step a batch; returns the
-    norms and the parameters after the steps, whole (the experts gathered over
-    "model")."""
+    at no-drop capacity (factor 100), its dense leaves tensor-parallel:
+    the clip's norm of the first batch's gradients (and of the leaves
+    sliced over "model" alone, with their indices), then one train step a
+    batch; returns the norms, each step's batch-averaged gradients and the
+    parameters after each step, whole (gathered over "model")."""
     from repro_torch.data import rank_batch
     from repro_torch.models import moe
     from repro_torch.models.params import materialize
@@ -119,18 +119,37 @@ def ep_train(rank, world, dev, cfg, np_params, batches, lr_kwargs):
     norm = float(global_norm(grads, mesh, axes))
     sliced = [i for i, a in enumerate(axes) if a]
     expert_norm = float(global_norm([grads[i] for i in sliced], mesh, [axes[i] for i in sliced]))
-    step = make_train_step(cfg, api, mesh=mesh, lr_kwargs=lr_kwargs)
-    for loc in locs:
-        state, _ = step(state, loc)
+    from repro_torch.train import step as train_step
+
+    real, seen = train_step.reduce_over_batch, []
+
+    def reduce_over_batch(loss, grads, m):  # keeps each step's averaged gradients
+        loss, grads = real(loss, grads, m)
+        seen.append([g.clone() for g in grads])
+        return loss, grads
+
+    train_step.reduce_over_batch = reduce_over_batch
+    step_params = []
+    try:
+        step = make_train_step(cfg, api, mesh=mesh, lr_kwargs=lr_kwargs)
+        for loc in locs:
+            state, _ = step(state, loc)
+            step_params.append(_cpu(S.gather_tree(state["params"], places["params"], mesh)))
+    finally:
+        train_step.reduce_over_batch = real
+    pl = tree_leaves(places["params"])
+    step_grads = [[S.gather_leaf(g, sh, mesh).cpu() for g, sh in zip(gs, pl)] for gs in seen]
     return {"coord": mesh.coord, "norm": norm, "sliced": sliced, "expert_norm": expert_norm,
-            "params": _cpu(S.gather_tree(state["params"], places["params"], mesh))}
+            "step_grads": step_grads, "step_params": step_params, "params": step_params[-1]}
 
 
 def dp_world(rank, world, dev, shape, axes, cfg, np_params, batch):
-    """Data parallelism of reduced qwen on a mesh of ``shape``: the loss and
+    """Data parallelism of reduced qwen on a mesh of ``shape`` (tensor
+    parallelism too, where it has a model axis): the loss and
     batch-averaged gradients of ``batch``, then one train step with ZeRO-1
-    off and on from the same state; returns the gradients, the losses, the
-    parameters after each step, and whether the two equal bitwise."""
+    off and on from the same state; returns the gradients and the
+    parameters after each step whole (gathered over "model"), the losses,
+    and whether the two steps' parameters equal bitwise."""
     from repro_torch.data import rank_batch
     from repro_torch.models.params import materialize
     from repro_torch.train import make_train_step
@@ -150,11 +169,13 @@ def dp_world(rank, world, dev, shape, axes, cfg, np_params, batch):
         state = S.shard_tree(state, places, mesh)
         if not zero1:
             loss, grads = reduce_over_batch(*loss_and_grads(api, c, state["params"], loc), mesh)
-            out["loss"], out["grads"] = float(loss), [g.cpu() for g in grads]
+            out["loss"] = float(loss)
+            out["grads"] = [S.gather_leaf(g, sh, mesh).cpu()
+                            for g, sh in zip(grads, tree_leaves(places["params"]))]
         out[f"m_shape_zero1_{zero1}"] = tuple(tree_leaves(state["opt"]["m"])[0].shape)
         state, metrics = make_train_step(c, api, mesh=mesh)(state, loc)
         out[f"step_loss_zero1_{zero1}"] = float(metrics["loss"])
-        after[zero1] = _cpu(state["params"])
+        after[zero1] = _cpu(S.gather_tree(state["params"], places["params"], mesh))
     out["bitwise"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(after[False]),
                                                            tree_leaves(after[True])))
     out["params"] = after[True]
@@ -246,3 +267,146 @@ def world_errors(rank, world, dev):
     except ValueError as e:
         return str(e)
     return ""
+
+
+def _vocab_whole(logits, cfg, mesh):
+    """Logits whole over the vocabulary (gathered where the rank holds a
+    slice of it)."""
+    if logits.shape[-1] == cfg.vocab:
+        return logits
+    return mesh.all_gather(logits, ("model",), logits.dim() - 1)
+
+
+def tp_case(mesh, dev, case):
+    """One tensor-parallel case on this rank of ``mesh``: the model of
+    ``case["cfg"]`` from the JAX weights ``case["params"]`` (numpy), each
+    leaf sliced as ``state_placements`` places it; prefill of
+    ``case["batch"]``'s rows and the teacher-forced decode ``case["steps"]``
+    (logits gathered whole over the vocabulary, the greedy tokens across
+    its slices, the head's replicated input), one-shot generate of
+    ``case["generate"]`` tokens where the case asks for it, then one train
+    step of ``case["train"]`` (its loss, the batch-averaged gradients and
+    the parameters after it, whole).  ``case["capacity_factor"]`` sets the moe
+    family's capacity for the whole case."""
+    from repro_torch.data import rank_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models import whisper as W
+    from repro_torch.models.params import materialize, tree_map_path
+    from repro_torch.serve.step import prefix_len, zeros_cache
+    from repro_torch.train import make_train_step
+    from repro_torch.train import step as train_step
+    from repro_torch.train.step import state_placements
+
+    cfg = case["cfg"]
+    api = get_model(cfg)
+    factor, moe.CAPACITY_FACTOR = moe.CAPACITY_FACTOR, case.get("capacity_factor", 1.25)
+    sspec, places = state_placements(cfg, api, mesh)
+    params = S.shard_tree(load_jax_params(case["params"], cfg, dev), places["params"], mesh)
+    shapes = {}
+    tree_map_path(lambda p, t: shapes.__setitem__(p, tuple(t.shape)), params)
+    entries = {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in case["batch"].items()}
+    loc = rank_batch(case["batch"], mesh, entries, dev)
+    b, s = case["batch"]["tokens"].shape
+    cache = zeros_cache(cfg, api, b, case["max_seq"], device=dev, mesh=mesh)
+    hidden = []
+    real_t, real_w = T.logits_fn, W.tied_head
+
+    def logits_fn(params, x, cfg, impl=None):
+        hidden.append(x.detach().cpu().clone())
+        return real_t(params, x, cfg, impl)
+
+    def tied_head(params, x, cfg, impl):
+        hidden.append(x.detach().cpu().clone())
+        return real_w(params, x, cfg, impl)
+
+    T.logits_fn, W.tied_head = logits_fn, tied_head
+    try:
+        logits, cache = api.prefill(params, loc, cfg, cache)
+        out, greedy = [logits], [L.vocab_argmax(logits[:, -1], cfg.vocab)]
+        tok_sh = S.named_sharding(mesh, ("batch", None), (b, 1))
+        for i, tok in enumerate(case["steps"]):
+            t = S.rank_slice(torch.from_numpy(tok), tok_sh, mesh).to(dev)
+            logits, cache = api.decode(params, t, prefix_len(cfg) + s + i, cfg, cache)
+            out.append(logits)
+            greedy.append(L.vocab_argmax(logits[:, -1], cfg.vocab))
+    finally:
+        T.logits_fn, W.tied_head = real_t, real_w
+    if case.get("generate"):  # one-shot greedy generate of the rank's rows, under the mesh
+        from repro_torch.serve import make_generate
+
+        res_gen = make_generate(cfg, api)(params, loc, case["generate"]).cpu()
+    res = {"shapes": shapes, "hidden": hidden,
+           "logits": [_vocab_whole(x, cfg, mesh).cpu() for x in out],
+           "greedy": [g.cpu() for g in greedy],
+           "cache_shapes": [tuple(v.shape) for v in tree_leaves(cache)]}
+    if case.get("generate"):
+        res["generate"] = res_gen
+
+    state = materialize(sspec, torch.Generator().manual_seed(0), torch.float32, dev)
+    state["params"] = load_jax_params(case["params"], cfg, dev)
+    state = S.shard_tree(state, places, mesh)
+    tentries = {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in case["train"].items()}
+    real, seen = train_step.reduce_over_batch, []
+
+    def reduce_over_batch(loss, grads, m):
+        loss, grads = real(loss, grads, m)
+        seen.append([g.clone() for g in grads])
+        return loss, grads
+
+    train_step.reduce_over_batch = reduce_over_batch
+    try:
+        state, metrics = make_train_step(cfg, api, mesh=mesh)(
+            state, rank_batch(case["train"], mesh, tentries, dev))
+    finally:
+        train_step.reduce_over_batch = real
+        moe.CAPACITY_FACTOR = factor
+    pl = tree_leaves(places["params"])
+    res.update(loss=float(metrics["loss"]),
+               grads=[S.gather_leaf(g, sh, mesh).cpu() for g, sh in zip(seen[0], pl)],
+               after=[S.gather_leaf(p, sh, mesh).cpu()
+                      for p, sh in zip(tree_leaves(state["params"]), pl)])
+    return res
+
+
+def tp_world(rank, world, dev, shape, axes, cases, ties=None):
+    """The tensor-parallel cases (:func:`tp_case`) on a mesh of ``shape``,
+    and the greedy argmax of ``ties`` (rows over the whole vocabulary)
+    from each rank's slice of them."""
+    from repro_torch.models import layers as L
+
+    mesh = make_mesh(shape, axes, dev)
+    S.set_current_mesh(mesh)
+    out = {"coord": mesh.coord,
+           "cases": {c["name"]: tp_case(mesh, dev, c) for c in cases}}
+    if ties is not None:
+        t = torch.from_numpy(ties)
+        n = t.shape[-1] // mesh.shape["model"]
+        out["ties"] = L.vocab_argmax(t.narrow(-1, mesh.coord["model"] * n, n),
+                                     t.shape[-1]).cpu()
+    return out
+
+
+def tp_checkpoint(rank, world, dev, cfg, np_params, batch, ckpt_dir):
+    """One train step of ``cfg`` on a (data 1, model 2) mesh from the JAX
+    weights, then a checkpoint of the state, each leaf gathered over
+    "model" as it is written; returns the state after the step, whole."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.data import rank_batch
+    from repro_torch.models.params import materialize
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import state_placements
+
+    mesh = make_mesh((1, 2), ("data", "model"), dev)
+    S.set_current_mesh(mesh)
+    api = get_model(cfg)
+    sspec, places = state_placements(cfg, api, mesh)
+    state = materialize(sspec, torch.Generator().manual_seed(0), torch.float32, dev)
+    state["params"] = load_jax_params(np_params, cfg, dev)
+    state = S.shard_tree(state, places, mesh)
+    state, _ = make_train_step(cfg, api, mesh=mesh)(
+        state, rank_batch(batch, mesh, {"tokens": ("batch", None)}, dev))
+    save_checkpoint(ckpt_dir, 1, state, {"data_cursor": 1}, shardings=places, mesh=mesh)
+    return {"whole": _cpu(S.gather_tree(state, places, mesh)),
+            "sliced": tuple(state["params"]["layers"]["attn"]["wq"].shape)}

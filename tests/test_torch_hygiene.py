@@ -20,7 +20,10 @@ FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
 # observability endpoints), of the MoE slice (the block, the grouped
 # expert GEMM's wrapper) and of the training slice (optimizer, train step,
 # compression, heterogeneous trainer, data, checkpoints, launcher) and of
-# the mesh slice (logical sharding, the mesh and its worlds, input specs).
+# the mesh slice (logical sharding, the mesh and its worlds, input specs),
+# and of the tensor-parallel slice (the dry-run, the shape cells, the
+# blocks computing on their slices, the greedy token across vocabulary
+# slices).
 SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/hguided.py",
                  "kernels/gemm.py", "kernels/rms_norm.py", "serve/multigroup.py",
                  "distributed/elastic.py", "distributed/__init__.py", "serve/http.py",
@@ -30,7 +33,9 @@ SLICE_MODULES = ("core/engine.py", "core/scheduler/dynamic.py", "core/scheduler/
                  "train/compression.py", "train/hetero.py", "data/__init__.py",
                  "data/pipeline.py", "ckpt/__init__.py", "ckpt/checkpoint.py",
                  "launch/train.py", "distributed/sharding.py", "launch/mesh.py",
-                 "launch/specs.py")
+                 "launch/specs.py", "launch/dryrun.py", "configs/base.py", "models/layers.py",
+                 "models/attention.py", "models/transformer.py", "models/mamba.py",
+                 "models/rglru.py", "models/params.py", "serve/step.py")
 
 
 def _imports(path):

@@ -9,10 +9,14 @@ JAX) and the port's one-rank run, in float32.  Tolerances:
 - the loss at no-drop capacity (factor 100): 1e-5 against the JAX
   unsharded ``forward_train``; the gradients 1e-4 relative L2 a leaf
   against the port's one-rank gradients;
-- two expert-parallel train steps at no-drop capacity: the clip's global
-  norm, and the experts' norm alone, 1e-5 relative and the parameters 1e-4 against the port's one-rank
-  steps, and every leaf equal bitwise on every rank (the leaves a model
-  rank holds whole must not drift apart)."""
+- two expert-parallel train steps at no-drop capacity, the dense leaves
+  tensor-parallel: the clip's global norm, and the norm of the leaves
+  sliced over "model" alone, 1e-5 relative, each step's gradients 1e-4
+  relative L2 a leaf against the port's one-rank gradients at the
+  parameters that step started from, the parameters 1e-4 against one
+  rank's AdamW over the world's gradients, and every leaf equal bitwise
+  on every rank (the leaves a model rank holds whole must not drift
+  apart)."""
 import dataclasses
 
 import numpy as np
@@ -30,8 +34,8 @@ from repro_torch.launch.mesh import spawn_world
 from repro_torch.models import get_model
 from repro_torch.models import moe as tmoe
 from repro_torch.models import params as tparams
-from repro_torch.optim.adamw import global_norm
-from repro_torch.train import make_train_step, state_spec
+from repro_torch.optim.adamw import adamw_update, global_norm, lr_schedule
+from repro_torch.train import state_spec
 from repro_torch.train.step import loss_and_grads
 
 
@@ -97,8 +101,15 @@ def test_expert_parallel_moe(tmp_path, monkeypatch):
 
 def test_expert_parallel_train_steps(tmp_path, monkeypatch):
     """Two train steps of reduced kimi-k2-1t-a32b on (data 2, model 2) at
-    capacity factor 100, each model rank holding 2 of 4 experts: the clip
-    covers every expert's gradient, not only the rank's."""
+    capacity factor 100, each model rank holding 2 of 4 experts and a
+    slice of every dense leaf: the clip covers every sliced gradient, not
+    only the rank's.  Each step's gradients are held against one rank's
+    at GRAD_REL, at the parameters the step started from (the world's own
+    after the first step, whole and bitwise equal on every rank); the
+    parameters after the two steps against one rank's AdamW over the
+    world's own gradients, since AdamW's first steps move a weight by
+    about lr x sign(g) and a gradient near zero, summed in another order
+    by the tensor-parallel ranks, may change sign."""
     tcfg, jcfg = configs("kimi-k2-1t-a32b")
     _, np_params = jax_params(jcfg)
     ds = SyntheticTokens(tcfg, 4, 16, seed=2)
@@ -111,11 +122,24 @@ def test_expert_parallel_train_steps(tmp_path, monkeypatch):
     state = tparams.materialize(state_spec(tcfg, api.param_spec(tcfg)),
                                 torch.Generator().manual_seed(0), torch.float32, "cpu")
     state["params"] = tparams.load_jax_params(np_params, tcfg, "cpu")
-    _, grads = loss_and_grads(api, tcfg, state["params"], to_device(batches[0], "cpu"))
+    after_first = res[0]["step_params"][0]
+    for r in res:
+        for a, b in zip(tparams.tree_leaves(r["step_params"][0]),
+                        tparams.tree_leaves(after_first)):
+            assert torch.equal(a, b), r["coord"]
+    wants = [loss_and_grads(api, tcfg, start, to_device(b, "cpu"))[1]
+             for start, b in zip([state["params"], after_first], batches)]
+    grads = wants[0]
     norm = float(global_norm(grads))
-    step = make_train_step(tcfg, api, lr_kwargs=LR_KWARGS)
-    for b in batches:
-        state, _ = step(state, to_device(b, "cpu"))
+    for r in res:
+        assert len(r["step_grads"]) == len(batches)
+        for i, want_i in enumerate(wants):
+            for a, w in zip(r["step_grads"][i], want_i):
+                assert rel_l2(a, w) < GRAD_REL, (i, r["coord"], rel_l2(a, w))
+    for i, g in enumerate(res[0]["step_grads"]):
+        grads_i = tparams.tree_unflatten(state["params"], g)
+        adamw_update(state["params"], grads_i, state["opt"], torch.tensor(i),
+                     lr=lr_schedule(torch.tensor(i), **LR_KWARGS))
     want = tparams.tree_leaves(state["params"])
     assert res[0]["sliced"] and all(r["sliced"] == res[0]["sliced"] for r in res)
     expert_norm = float(global_norm([grads[i] for i in res[0]["sliced"]]))

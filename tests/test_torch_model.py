@@ -52,6 +52,21 @@ def test_configs_are_copies(arch):
     assert dataclasses.asdict(jconfigs.reduced(j)) == dataclasses.asdict(tconfigs.reduced(t))
 
 
+def test_shape_cells_are_copies():
+    """The dry-run's cells and their applicability: ``ShapeCell``,
+    ``SHAPES``, ``cell_applicable`` and ``all_archs`` equal the JAX
+    package's."""
+    assert [f.name for f in dataclasses.fields(tconfigs.ShapeCell)] == \
+        [f.name for f in dataclasses.fields(jconfigs.base.ShapeCell)]
+    assert {k: dataclasses.asdict(v) for k, v in tconfigs.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()}
+    assert tconfigs.all_archs() == jconfigs.all_archs()
+    for arch in tconfigs.all_archs():
+        for name in tconfigs.SHAPES:
+            assert tconfigs.cell_applicable(tconfigs.get_config(arch), tconfigs.SHAPES[name]) == \
+                jconfigs.cell_applicable(jconfigs.get_config(arch), jconfigs.SHAPES[name])
+
+
 def test_unknown_arch_raises_key_error():
     with pytest.raises(KeyError):
         tconfigs.get_config("no-such-arch")

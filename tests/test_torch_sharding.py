@@ -196,10 +196,14 @@ class _Mesh:
 
 
 def test_placements_hold_only_what_the_port_shards():
-    """A model rank holds the experts (expert parallelism) and the cache
-    timeline (seq-sharded decode) sliced, by the whole key paths its
-    family names; every other "model" entry, the reference's tensor
-    parallelism, whole; batch entries stay."""
+    """A model rank holds every leaf with a "model" entry sliced, by the
+    whole key paths its family names: the reference's tensor parallelism
+    of the dense leaves (attention by scheme, the MLPs, the vocabulary),
+    the experts, the cache (its kv heads, or its timeline under the
+    seq-sharded decode); the router whole under expert parallelism, where
+    its pspec has no "model" entry; batch entries stay.  RG-LRU's
+    ``gate_a``, held whole, keeps no "model" axis; mamba's ``in_proj``
+    (and its m) takes the Parts layout of its x|z columns."""
     mesh = _Mesh((2, 2), ("data", "model"), (1, 0))
     cfg = dataclasses.replace(tconfigs.get_config("arctic-480b"), ep_shard_map=True,
                               seq_shard_cache=True, zero1=True)
@@ -209,7 +213,12 @@ def test_placements_hold_only_what_the_port_shards():
     pl = sp["params"]
     assert pl["layers"]["experts"]["w_up"] == (None, "model", None, None)
     assert local["params"]["layers"]["experts"]["w_up"].shape[1] == cfg.n_experts // 2
-    assert pl["embed"] == (None, None) and pl["layers"]["attn"]["wq"] == (None,) * 4
+    assert pl["embed"] == ("model", None) and pl["lm_head"] == (None, "model")
+    assert pl["layers"]["attn"]["wq"] == (None, None, "model", None)  # heads: 56 and 8 over 2
+    assert pl["layers"]["attn"]["wo"] == (None, "model", None, None)
+    assert pl["layers"]["dense_mlp"]["w_down"] == (None, "model", None)
+    assert pl["layers"]["router"] == (None, None, None) and pl["layers"]["norm1"] == (None, None)
+    assert local["params"]["layers"]["attn"]["wk"].shape[2] == cfg.n_kv_heads // 2
     cp, clocal = tsharding.rank_placements(cfg, api.cache_spec(cfg, 8, 64, 2), mesh, "cache")
     assert cp["k"] == (None, "data", "model", None, None) and cp["pos"] == (None, "data", "model")
     assert clocal["k"].shape[1:3] == (4, 32)
@@ -217,32 +226,134 @@ def test_placements_hold_only_what_the_port_shards():
     assert "model" in sp["opt"]["m"]["layers"]["experts"]["w_up"]
     assert local["opt"]["m"]["layers"]["experts"]["w_up"].shape[1] == cfg.n_experts // 2
     plain = dataclasses.replace(cfg, ep_shard_map=False, seq_shard_cache=False)
-    assert api.model_sliced(plain, mesh) == {"params": (), "cache": ()}
+    sliced = api.model_sliced(plain, mesh)
+    assert "layers/router" in sliced["params"] and "layers/attn/wq" in sliced["params"]
     assert tsharding.rank_placements(plain, api.cache_spec(plain, 8, 64, 2), mesh,
-                                     "cache")[0]["k"] == (None, "data", None, None, None)
+                                     "cache")[0]["k"] == (None, "data", None, "model", None)
+    c = tconfigs.get_config("recurrentgemma-2b")
+    a = get_model(c)
+    path = "units/l0_rec/mix/gate_a"
+    assert path not in a.model_sliced(c, mesh)["params"]
+    assert path in tsharding.model_paths(a.param_spec(c, 2))
+    places = tsharding.rank_placements(c, state_spec(c, a.param_spec(c, 2)), mesh, "state")[0]
+    assert places["params"]["units"]["l0_rec"]["mix"]["gate_a"] == (None,) * 4
+    c = tconfigs.get_config("falcon-mamba-7b")
+    a = get_model(c)
+    assert a.model_sliced(c, mesh)["parts"] == {"layers/in_proj": 2}
+    places = tsharding.rank_placements(c, state_spec(c, a.param_spec(c, 2)), mesh, "state")[0]
+    for tree in (places["params"], places["opt"]["m"]):
+        assert tree["layers"]["in_proj"] == (None, None, tsharding.Parts(("model",), 2))
+
+
+def test_parts_layout_gathers_to_the_reference_leaf():
+    """A leaf in the Parts layout (mamba's x|z columns): each rank holds
+    its slice of every block, of the contiguous slice's shape, and the
+    ranks' slices put back in order give the whole leaf."""
+    x = torch.arange(3 * 16).reshape(3, 16)
+    entry = tsharding.Parts(("model",), 2)
+    for par in (2, 4):
+        got = []
+        for r in range(par):
+            m = _Mesh((par,), ("model",), (r,))
+            sl = tsharding.rank_slice(x, (None, entry), m)
+            n = 8 // par
+            want = torch.cat([x[:, r * n:(r + 1) * n], x[:, 8 + r * n:8 + (r + 1) * n]], dim=1)
+            assert torch.equal(sl, want)
+            assert tuple(sl.shape) == tsharding.local_shape(x.shape, (None, entry), m)
+            got.append(sl)
+
+        class _Gather(_Mesh):
+            def all_gather(self, t, axes, dim):
+                return torch.cat(got, dim=dim)
+
+        whole = tsharding.gather_leaf(got[0], (None, entry), _Gather((par,), ("model",), (0,)))
+        assert torch.equal(whole, x), par
+
+
+def test_the_current_mesh_is_the_threads_own():
+    """A thread that installed no mesh sees none, whatever mesh another
+    thread installed, and a thread's ``set_current_mesh(None)`` leaves
+    another thread's mesh as it was."""
+    import threading
+
+    mesh = _Mesh((1, 2), ("data", "model"), (0, 1))
+    seen = {}
+    try:
+        tsharding.set_current_mesh(mesh)
+        t = threading.Thread(target=lambda: seen.__setitem__("new", tsharding.current_mesh()))
+        t.start()
+        t.join()
+        t = threading.Thread(target=lambda: tsharding.set_current_mesh(None))
+        t.start()
+        t.join()
+        seen["own"] = tsharding.current_mesh()
+    finally:
+        tsharding.set_current_mesh(None)
+    assert seen == {"new": None, "own": mesh}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_recompute_sees_the_forward_mesh(policy):
+    """A remat'd layer recomputed in a backward run on another thread (as
+    the autograd engine's device thread runs a CUDA step's) sees the mesh
+    its forward ran under, and leaves that thread's own mesh as it was."""
+    import threading
+    import types
+
+    from repro_torch.models import transformer as T
+
+    mesh = _Mesh((1, 2), ("data", "model"), (0, 1))
+    seen = []
+
+    def layer(w, x):
+        seen.append(tsharding.current_mesh())
+        return (x @ w).sin()
+
+    w = torch.randn(4, 4, requires_grad=True)
+    x = torch.randn(3, 4)
+    try:
+        tsharding.set_current_mesh(mesh)
+        y = T.remat(layer, types.SimpleNamespace(remat=policy))(w, x)
+    finally:
+        tsharding.set_current_mesh(None)
+    after = {}
+
+    def backward():
+        y.sum().backward()
+        after["mesh"] = tsharding.current_mesh()
+
+    t = threading.Thread(target=backward)
+    t.start()
+    t.join()
+    assert seen == [mesh, mesh] and after == {"mesh": None}
+    w2 = w.detach().requires_grad_()
+    (x @ w2).sin().sum().backward()
+    assert torch.equal(w.grad, w2.grad)
 
 
 def test_placements_match_whole_paths():
-    """Only a leaf at a path the family names is sliced over "model": a
-    leaf of another family that is also called ``k`` stays whole (whisper's
-    caches, with "model" on their head dim), whisper refuses the
-    seq-sharded decode it has no layout for, the hybrid family names its
-    attention layers' caches, and a named path the tree lacks raises."""
+    """A leaf is sliced over "model" by the whole key path its family
+    names: whisper's caches on their head dim (its "hd" scheme), the
+    cross keys too; whisper refuses the seq-sharded decode it has no
+    layout for; the hybrid family names its attention layers' cache
+    timelines and its rec caches' width; and a named path the tree lacks
+    raises."""
     mesh = _Mesh((1, 2), ("data", "model"), (0, 1))
     wcfg = tconfigs.get_config("whisper-tiny")
     wapi = get_model(wcfg)
     wcache = wapi.cache_spec(wcfg, 8, 64, 2)
     assert "model" in wcache["k"].pspec
     wp, _ = tsharding.rank_placements(wcfg, wcache, mesh, "cache")
-    assert all(r in (None, "data") for r in wp["k"]) and wp["xk"][-1] is None
+    assert wp["k"][-1] == "model" and wp["xk"][-1] == "model" and wp["pos"] == (None, "data", None)
     with pytest.raises(ValueError, match="seq-sharded"):
         wapi.model_sliced(dataclasses.replace(wcfg, seq_shard_cache=True), mesh)
     rcfg = dataclasses.replace(tconfigs.get_config("recurrentgemma-2b"), seq_shard_cache=True)
     rapi = get_model(rcfg)
     rp, _ = tsharding.rank_placements(rcfg, rapi.cache_spec(rcfg, 8, 4096, 2), mesh, "cache")
     attn = [k for k in rp["units"] if not k.endswith("_rec")]
-    assert attn and all("model" in rp["units"][k]["k"] for k in attn)
-    assert all("model" not in str(rp["units"][k]) for k in rp["units"] if k.endswith("_rec"))
+    assert attn and all(rp["units"][k]["k"][2] == "model" for k in attn)
+    assert all(rp["units"][k]["h"] == (None, "data", "model")
+               for k in rp["units"] if k.endswith("_rec"))
     with pytest.raises(ValueError, match="no leaf"):
         tsharding.placements({"k": tparams.Spec((4, 8), pspec=(None, "model"))}, mesh,
                              ("layers/k",))

@@ -244,8 +244,11 @@ def test_server_self_draft_full_acceptance(model, impl):
     accounting)."""
     cfg, api, params = port(model, impl)
     prompts = prompts_for(cfg.vocab, 41, 3)
+    # The three requests board one wave whatever the host's load: the
+    # group forms when the third arrives (max_batch), not when a window
+    # of a few ms expires.
     results, s, _, _ = serve(cfg, api, params, prompts, [GEN] * 3, max_batch=3,
-                             draft=DraftSpec(cfg, params, k=2))
+                             max_wait_ms=60_000.0, draft=DraftSpec(cfg, params, k=2))
     for p, got in zip(prompts, results):
         np.testing.assert_array_equal(got, oneshot(cfg, api, params, p, GEN))
     assert s["acceptance"] == 1.0
