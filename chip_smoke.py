@@ -5,7 +5,8 @@ GPU.  Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 (``--host-us`` runs only the ``[host]`` line, ``--train`` only the
-``[train]`` phase, ``--mesh`` only the ``[mesh]`` phase.)
+``[train]`` phase, ``--mesh`` only the ``[mesh]`` phase, ``--examples``
+only the ``[examples]`` phase and its two granite-34b kernel cases.)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -287,6 +288,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
              cuda:0, under HGuided(adaptive=True), no simulated speeds:
              held correct with a package on each group; work share, balance
              and packages printed.
+   examples -- the port's examples (``examples/*_torch.py``), each loaded
+             in-process and its seconds printed: pipeline_dataflow (the
+             inferred dependencies [0, 1, 1], one transfer for the chain,
+             the iterative halving right), async_coexec (two Programs in
+             flight under Dynamic(8), the iterative run's cache hits on
+             both groups), nbody_coexec (Listing 2: cpu on the host, phi
+             and gpu on cuda:0, Static 8 % / 30 %, the first run and three
+             iterations within 1e-3 of the kernel stepped alone on the
+             CPU), continuous_batching at qwen1.5-4b full width, depth
+             ``SERVED_DEPTH`` (every stream bitwise one-shot generate of its
+             prompt alone; the server's launches, counted around its run
+             alone, exactly what its prefill waves and segments make, and
+             the 12 one-shot runs' 12 x one generate's), serve_hetero
+             at granite-34b full width, depth ``GRANITE_DEPTH`` of 88 (both
+             phases bitwise one-shot generate of the 64 requests, launches
+             exactly packages times one generate's, one capture a package
+             shape and one replay a package on each pod; balance and
+             shares printed, not held).  The two granite-34b kernel cases
+             (n_rep 48: 48 query rows over one kv head) are among
+             phase 3's.
 6. train  -- the training slice (``run_train_phase``; ``--train`` runs
              only this phase).  flash_attention's autograd Function at the
              train paths' shapes (bf16: qwen1.5-4b's B 2 x 512, whisper's
@@ -396,6 +417,11 @@ WHISPER_CROSS_DECODE = "decode whisper-tiny cross-attention (S 1500, every key v
 PALIGEMMA_PREFIX = "prefill paligemma-3b prefix-LM (hd 256, MQA, P 256)"
 WHISPER_HEAD = "whisper-tiny decode tied head (N 51865, plain route)"
 SPIN_CYCLES = 2_000_000  # ~1.1 ms at the H100's 1.755 GHz boost clock
+# examples/serve_hetero_torch.py's model on the card: granite-34b at full
+# width, 4 of its 88 layers (2.7 B float32 parameters, 10.9 GB).
+GRANITE_DEPTH = 4
+GRANITE_PREFILL = "prefill granite-34b (MQA, n_rep 48)"
+GRANITE_DECODE = "decode granite-34b (n_rep 48)"
 
 
 T0 = time.perf_counter()
@@ -445,7 +471,8 @@ BATCH_INVARIANT = {"prefill qwen1.5-4b (main path)", "decode qwen1.5-4b (main pa
                    "falcon-mamba-7b prefill (main path)",
                    "prefill arctic-480b (n_rep 7)", "decode arctic-480b (n_rep 7)",
                    "prefill kimi-k2-1t-a32b (hd 112)", "decode kimi-k2-1t-a32b (hd 112)",
-                   WHISPER_ENCODER, WHISPER_CROSS, PALIGEMMA_PREFIX, WHISPER_CROSS_DECODE}
+                   WHISPER_ENCODER, WHISPER_CROSS, PALIGEMMA_PREFIX, WHISPER_CROSS_DECODE,
+                   GRANITE_PREFILL, GRANITE_DECODE}
 
 
 def attention_cases():
@@ -465,6 +492,8 @@ def attention_cases():
         # The MoE paths' attention: arctic's GQA groups of 7 heads, kimi's hd 112.
         ("prefill arctic-480b (n_rep 7)", 8, 256, 256, 56, 8, 128, True, 0, 0, "bfloat16"),
         ("prefill kimi-k2-1t-a32b (hd 112)", 8, 256, 256, 64, 8, 112, True, 0, 0, "bfloat16"),
+        # serve_hetero's granite-34b: MQA, 48 query heads over one kv head.
+        (GRANITE_PREFILL, 8, 256, 256, 48, 1, 128, True, 0, 0, "bfloat16"),
         # The A9 paths: whisper-tiny's encoder and cross-attention at prefill
         # (hd 64, bidirectional, Sk 1500 not a multiple of the tile), its
         # decoder's causal prefill, and paligemma-3b's prefix-LM prefill.
@@ -505,6 +534,9 @@ def decode_cases():
         ("decode arctic-480b (n_rep 7)", 8, 256 + GEN, 56, 8, 128, 1, [last] * 8, 0, 128,
          "bfloat16", "bfloat16"),
         ("decode kimi-k2-1t-a32b (hd 112)", 8, 256 + GEN, 64, 8, 112, 1, [last] * 8, 0, 128,
+         "bfloat16", "bfloat16"),
+        # granite-34b's 48 rows a slot: three 16-row groups of the block.
+        (GRANITE_DECODE, 8, 256 + GEN, 48, 1, 128, 1, [last] * 8, 0, 128,
          "bfloat16", "bfloat16"),
         # whisper-tiny's decode: cross-attention over the 1500 encoder keys,
         # every one valid, and self-attention at the path's last step.
@@ -3677,6 +3709,220 @@ def run_moe_served(cfg, api, params, dev, torch) -> dict:
             "tokens_per_s": result["tokens_per_s"], "wall_s": result["wall_s"]}
 
 
+# --------------------------------------------------------------- [examples]
+def load_example(name: str):
+    """``examples/<name>.py`` of this checkout as a module (its ``main``
+    not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_runtime_examples(dev) -> dict:
+    """pipeline_dataflow, async_coexec and nbody_coexec at their own sizes,
+    every check of theirs a failure here."""
+    out = {}
+    t = time.perf_counter()
+    pl = load_example("pipeline_dataflow_torch").pipeline(dev)
+    if not (pl["deps"] == [0, 1, 1] and pl["correct"] and pl["iter_correct"]
+            and pl["transfer_stats"]["transfers"] == 1):
+        fail(f"pipeline_dataflow_torch: deps {pl['deps']}, correct {pl['correct']}, iterative "
+             f"{pl['iter_correct']}, transfers {pl['transfer_stats']} (want [0, 1, 1], one)")
+    out["pipeline_dataflow"] = {"deps": pl["deps"], "transfer_stats": pl["transfer_stats"],
+                                "iter_stats": pl["iter_stats"],
+                                "seconds": time.perf_counter() - t}
+    print(f"  pipeline_dataflow: deps {pl['deps']}, chain {pl['transfer_stats']}, iterative "
+          f"{pl['iter_stats']}; correct (held); {out['pipeline_dataflow']['seconds']:.2f} s",
+          flush=True)
+    t = time.perf_counter()
+    ac = load_example("async_coexec_torch").async_coexec(dev)
+    hits = {k: v["cache_hits"] for k, v in ac["transfer_stats"].items()}
+    if not (ac["p1_correct"] and ac["p2_correct"] and ac["iter_correct"]
+            and all(hits.values())):
+        fail(f"async_coexec_torch: p1 {ac['p1_correct']}, p2 {ac['p2_correct']}, iterative "
+             f"{ac['iter_correct']}, cache hits {hits}")
+    out["async_coexec"] = {"packages": [ac["p1_packages"], ac["p2_packages"]],
+                           "transfer_stats": ac["transfer_stats"],
+                           "seconds": time.perf_counter() - t}
+    print(f"  async_coexec: packages {out['async_coexec']['packages']}, "
+          f"{ac['transfer_stats']}; correct (held); {out['async_coexec']['seconds']:.2f} s",
+          flush=True)
+    t = time.perf_counter()
+    nb = load_example("nbody_coexec_torch").nbody(dev)
+    s = nb["summary"]
+    if not (nb["pos_correct"] and nb["vel_correct"] and nb["iter_correct"]):
+        fail(f"nbody_coexec_torch: pos {nb['pos_correct']}, vel {nb['vel_correct']}, iterative "
+             f"{nb['iter_correct']} (atol 1e-3 against the kernel on the CPU)")
+    if sorted(k for k, v in s["work_share"].items() if v > 0) != ["cpu", "gpu", "phi"]:
+        fail(f"nbody_coexec_torch: a group ran no package: {s['work_share']}")
+    out["nbody_coexec"] = {"balance": s["balance"], "work_share": s["work_share"],
+                           "transfer_stats": nb["transfer_stats"],
+                           "seconds": time.perf_counter() - t}
+    print(f"  nbody_coexec: balance {s['balance']:.3f}, share "
+          f"{ {k: round(v, 3) for k, v in s['work_share'].items()} }, {nb['transfer_stats']}; "
+          f"correct (held); {out['nbody_coexec']['seconds']:.2f} s", flush=True)
+    return out
+
+
+def run_continuous_batching_example(dev, torch) -> dict:
+    """continuous_batching at qwen1.5-4b full width, ``SERVED_DEPTH``
+    layers: the example holds every stream bitwise one-shot generate of its
+    prompt alone.  Launch counts are zeroed just before and read just after
+    the server's run, and held to what its prefill waves and segments make
+    (one stack forward each wave and each segment step: flash_attention a
+    layer a wave, flash_decode a layer a step), and likewise around the 12
+    one-shot runs, held to 12 x one generate's."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    t = time.perf_counter()
+    cb = load_example("continuous_batching_torch")
+    cfg, api, params, layers = cb.model(True, SERVED_DEPTH, dev)
+    runs = {}
+
+    @contextlib.contextmanager
+    def around(name):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        yield
+        torch.cuda.synchronize()
+        runs[name] = ops.launch_counts()
+
+    try:
+        res = cb.continuous_batching(cfg, api, params, dev, around=around)
+    except AssertionError as e:
+        fail(f"continuous_batching_torch: a stream differs from one-shot generate: {e}")
+    if not all(np.array_equal(a, b) for a, b in zip(res["results"], res["oneshot"])):
+        fail("continuous_batching_torch: a stream differs from one-shot generate")
+    st, lat, n = res["stats"], res["latency"], cfg.n_layers
+    steps = cb.SEG_LEN * st["segments"]
+    want = {"server": _launches(n, fa=n * st["prefill_waves"], fd=n * steps,
+                                forwards=[(st["prefill_waves"] + steps, n)]),
+            "one-shot": {k: v * len(res["prompts"]) for k, v in _launches(
+                n, fa=n, fd=n * (cb.GEN - 1), forwards=[(cb.GEN, n)]).items()}}
+    for name, w in want.items():
+        if runs[name] != w:
+            fail(f"continuous_batching_torch ({name}): launches {runs[name]} != {w} "
+                 f"({st['prefill_waves']} prefill waves, {st['segments']} segments of "
+                 f"{cb.SEG_LEN} steps; {len(res['prompts'])} one-shot generates of "
+                 f"{cb.GEN} tokens)")
+    out = {"depth": n, "completed": st["completed"],
+           "mean_occupancy": st["mean_occupancy"], "midstream_joins": st["midstream_joins"],
+           "prefill_waves": st["prefill_waves"], "segments": st["segments"],
+           "p50_latency_s": lat[len(lat) // 2], "launches": runs["server"],
+           "one_shot_launches": runs["one-shot"], "seconds": time.perf_counter() - t}
+    print(f"  continuous_batching (qwen1.5-4b full, {n} of {layers} layers): served "
+          f"{st['completed']}/{len(res['results'])}, occupancy {st['mean_occupancy']:.2f}, "
+          f"{st['midstream_joins']} joined mid-stream, p50 latency {out['p50_latency_s'] * 1e3:.1f}"
+          f" ms; the server's launches {runs['server']} ({st['prefill_waves']} prefill waves, "
+          f"{st['segments']} segments; held), the one-shot runs' {runs['one-shot']} "
+          f"({len(res['prompts'])} x one generate; held); every stream bitwise one-shot "
+          f"generate (held); {out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def run_serve_hetero_example(dev, torch, depth: int = GRANITE_DEPTH) -> dict:
+    """serve_hetero at granite-34b full width, ``depth`` layers: both
+    phases' tokens bitwise one-shot generate of the 64 requests; each
+    phase's launches exactly its packages times one generate's (the
+    one-shot run's, itself held to the model's count); each pod one capture
+    a package shape, one replay a package, no warm-up clone; balance and
+    shares printed."""
+    from repro_torch.kernels import ops
+    from repro_torch.core import DeviceGroup
+
+    t = time.perf_counter()
+    sh = load_example("serve_hetero_torch")
+    torch.cuda.reset_peak_memory_stats()
+    cfg, api, params, layers = sh.model(True, depth, dev)
+    runs = {}
+
+    @contextlib.contextmanager
+    def around(name):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        runs[name] = (ops.launch_counts(), time.perf_counter() - t0)
+
+    res = sh.serve_hetero(cfg, api, params, dev, around=around)
+    one = runs["one-shot"][0]
+    want = {"flash_attention": depth, "flash_decode": depth * (sh.GEN - 1),
+            "flash_decode_paged": 0, "ssm_scan": 0, "rglru_scan": 0,
+            **row_kernel_launches("granite-34b", sh.GEN, depth)}
+    if one != want:
+        fail(f"serve_hetero_torch: one-shot generate launched {one}, want {want}")
+    out = {"depth": depth, "one_shot_launches": one, "phases": {}}
+    shapes = {}
+    for name, ph in res["phases"].items():
+        counts, secs = runs[name]
+        n_pk = sum(len(v) for v in ph["packages"].values())
+        if not ph["bitwise"]:
+            fail(f"serve_hetero_torch {name}: tokens differ from one-shot generate")
+        if counts != {k: v * n_pk for k, v in one.items()}:
+            fail(f"serve_hetero_torch {name}: launches {counts} != {n_pk} packages x {one}")
+        if not all(ph["packages"].values()):
+            fail(f"serve_hetero_torch {name}: a pod ran no package: {ph['packages']}")
+        for g, sizes in ph["packages"].items():
+            shapes.setdefault(g, []).extend(sizes)
+        out["phases"][name] = {"packages": ph["packages"], "balance": ph["balance"],
+                               "work_share": ph["work_share"], "launches": counts,
+                               "seconds": secs}
+        print(f"  serve_hetero {name}: packages {ph['packages']}; balance {ph['balance']:.3f}; "
+              f"share { {k: round(v, 3) for k, v in ph['work_share'].items()} }; launches "
+              f"{n_pk} x one generate (held); bitwise one-shot generate of the "
+              f"{len(res['tokens'])} requests (held); {secs:.2f} s", flush=True)
+    for g, sizes in shapes.items():
+        st = res["graphs"].get(g)
+        n_shapes = len({DeviceGroup._bucket(n, 2) for n in sizes})
+        if st is None or (st["replays"], st["captures"],
+                          st["warmup_clone_bytes"]) != (len(sizes), n_shapes, 0):
+            fail(f"serve_hetero_torch: pod {g} ran packages {sizes} with graph counters {st}: "
+                 f"want one replay a package, one capture a package shape, no clone")
+            continue
+        out.setdefault("graphs", {})[g] = {k: st[k] for k in ("captures", "capture_s",
+                                                               "wait_s", "replays")}
+        print(f"  serve_hetero {g}: {st['captures']} captures ({st['capture_s']:.2f} s, waiting "
+              f"{st['wait_s']:.2f} s), {st['replays']} replays (held)", flush=True)
+    out["one_shot_s"] = runs["one-shot"][1]
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t
+    print(f"  serve_hetero (granite-34b full, {depth} of {layers} layers): one-shot generate "
+          f"{out['one_shot_s']:.2f} s, launches {one} (held); peak {out['peak_gib']:.2f} GiB; "
+          f"{out['seconds']:.2f} s", flush=True)
+    return out
+
+
+def run_examples_phase(dev, torch, card) -> dict:
+    """The [examples] phase: the port's five examples of A12 in-process,
+    the runtime ones at their own sizes, the model ones at full width."""
+    print(at() + " [examples] pipeline_dataflow, async_coexec and nbody_coexec (Listing 2: cpu "
+          "on the host, phi and gpu on cuda:0) at the reference's sizes", flush=True)
+    t = time.perf_counter()
+    out = run_runtime_examples(dev)
+    gc.collect()
+    print(at() + f" [examples] continuous_batching, qwen1.5-4b --full --depth {SERVED_DEPTH}: 12 "
+          f"requests of 8 + 6, buckets (8,), max_batch 4, seg_len 2, arrivals 5 ms apart",
+          flush=True)
+    out["continuous_batching"] = run_continuous_batching_example(dev, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(at() + f" [examples] serve_hetero, granite-34b --full --depth {GRANITE_DEPTH}: 64 "
+          f"requests of 32 + 8 over pod-a and pod-b of cuda:0, HGuided(k=2, adaptive=True), "
+          f"pod-b 4x slower in phase 2 ({card})", flush=True)
+    out["serve_hetero"] = run_serve_hetero_example(dev, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t
+    print(f"  [examples] {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ [train]
 # The training slice (A10): flash_attention's autograd Function at the
 # train paths' shapes, then three train paths.  All bf16 unless stated.
@@ -5450,6 +5696,27 @@ def main() -> None:
         print(json.dumps({"mesh": run_mesh_phase(dev, torch, card)}))
         print(at() + " [done] the [mesh] phase passed", flush=True)
         return
+    if "--examples" in sys.argv[1:]:
+        # Only the [examples] phase and the granite-34b kernel cases.
+        from repro_torch.kernels import _build, ops
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import flash_decode as fd
+        from repro_torch.models import attention as attn
+
+        t0 = time.perf_counter()
+        _build.build()
+        print(at() + f" [build] {time.perf_counter() - t0:.1f} s", flush=True)
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+        for case in attention_cases():
+            if case[0] == GRANITE_PREFILL:
+                run_attention_case(case, dev, flush, torch, F, ops, fa)
+        for case in decode_cases():
+            if case[0] == GRANITE_DECODE:
+                run_decode_case(case, dev, flush, torch, F, ops, fd, attn)
+        del flush
+        print(json.dumps({"examples": run_examples_phase(dev, torch, card)}))
+        print(at() + " [done] the [examples] phase passed", flush=True)
+        return
     if "--train" in sys.argv[1:]:
         # Only the [train] phase, its one kernel built alone.
         from repro_torch.kernels import _build, ops
@@ -5695,6 +5962,7 @@ def main() -> None:
     print(json.dumps({"listing1": run_listing1(torch)}))
     gc.collect()
     torch.cuda.empty_cache()
+    print(json.dumps({"examples": run_examples_phase(dev, torch, card)}))
 
     print(at() + " [train] flash_attention's autograd Function at the train paths' shapes "
           "(bf16): forward == the kernel bitwise, dq/dk/dv against autograd through "

@@ -56,7 +56,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     groups = discover(DeviceMask.CPU if args.device == "cpu" else DeviceMask.ALL)
     if args.device == "all" and not any(g.device.type == "cuda" for g in groups):
-        raise RuntimeError("no CUDA device found; pass --device cpu to run on the CPU")
+        raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
     out = listing1(groups, args.n)
     s = out["summary"]
     print("groups:", [g.name for g in groups])

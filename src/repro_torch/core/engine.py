@@ -163,7 +163,12 @@ class EngineCL:
         return self
 
     def __exit__(self, *exc) -> None:
+        runtime = self._runtime
         self.shutdown()
+        if runtime is not None:
+            # Joined: a process that exits while a worker still unwinds
+            # from torch work can abort in the interpreter's teardown.
+            runtime.executor.shutdown(wait=True)
 
     # ------------------------------------------------------------ async API
     def submit(self, program: Optional[Program] = None, *,

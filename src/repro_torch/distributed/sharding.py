@@ -22,10 +22,13 @@ where a replicated value enters a computation on the rank's slices,
 :func:`reduce_from` where the ranks' partial sums become one value,
 :func:`gather_from` where their slices become one whole value.  Without a
 mesh every function is the identity, so model code is the same on one
-rank and on many.
+rank and on many.  Model code takes a rank's batch as its slice of the
+global batch, unless :func:`global_batch` names a global batch that the
+batch axes do not divide, which every rank then holds whole.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -46,20 +49,38 @@ def current_mesh():
 
 
 def under_mesh(fn, mesh):
-    """``fn`` run with ``mesh`` as its thread's current mesh, the thread's
-    own restored after: a function that the autograd engine calls again
-    on a thread of its own (a remat'd layer's recompute) sees the mesh of
-    the forward that captured it."""
+    """``fn`` run with ``mesh`` as its thread's current mesh (and this
+    thread's :func:`global_batch`), the thread's own restored after: a
+    function that the autograd engine calls again on a thread of its own
+    (a remat'd layer's recompute) sees the mesh and batch of the forward
+    that captured it."""
+    rows = getattr(_state, "rows", None)
 
     def run(*args, **kwargs):
-        prev = current_mesh()
+        prev = current_mesh(), getattr(_state, "rows", None)
         set_current_mesh(mesh)
+        _state.rows = rows
         try:
             return fn(*args, **kwargs)
         finally:
-            set_current_mesh(prev)
+            set_current_mesh(prev[0])
+            _state.rows = prev[1]
 
     return run
+
+
+@contextlib.contextmanager
+def global_batch(rows: int):
+    """Within it, this thread's model calls take part in a global batch of
+    ``rows`` rows: the batch axes split it where they divide it, and every
+    rank holds it whole where they do not, as :func:`named_sharding`
+    resolves it (and ``data.rank_batch`` places it).  Outside one, a
+    rank's batch is its slice of the global batch."""
+    prev, _state.rows = getattr(_state, "rows", None), rows
+    try:
+        yield
+    finally:
+        _state.rows = prev
 
 
 def batch_axes(mesh=None):
@@ -69,6 +90,19 @@ def batch_axes(mesh=None):
         return None
     axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     return axes if axes else None
+
+
+def batch_split(mesh):
+    """The batch axes of ``mesh`` where they split this thread's batch over
+    more than one rank (:func:`global_batch`), else None (no mesh, one
+    batch rank, or a batch held whole on every rank)."""
+    bax = batch_axes(mesh) if mesh is not None else None
+    if not bax or mesh.size(bax) == 1:
+        return None
+    rows = getattr(_state, "rows", None)
+    if rows is not None and named_sharding(mesh, ("batch",), (rows,))[0] is None:
+        return None
+    return bax
 
 
 MODEL = ("model",)

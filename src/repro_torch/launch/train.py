@@ -48,7 +48,7 @@ from repro_torch import resolve_device
 from repro_torch.ckpt import CheckpointManager, latest_step, restore_checkpoint
 from repro_torch.configs import ShapeCell, get_config, reduced
 from repro_torch.data import ShardedLoader, SyntheticTokens
-from repro_torch.distributed.sharding import set_current_mesh, shard_tree
+from repro_torch.distributed.sharding import global_batch, set_current_mesh, shard_tree
 from repro_torch.launch.mesh import (fresh_store, init_world, make_mesh,
                                      make_production_mesh, rank_device)
 from repro_torch.launch.specs import input_specs
@@ -169,7 +169,8 @@ def main(argv=None) -> dict:
         losses = []
         try:
             for i, batch in zip(range(start, args.steps), loader):
-                state, metrics = step_fn(state, batch)
+                with global_batch(args.batch):
+                    state, metrics = step_fn(state, batch)
                 losses.append(float(metrics["loss"]))
                 if lead and i % args.log_every == 0:
                     print(f"step {i:5d} loss={losses[-1]:.4f} lr={float(metrics['lr']):.2e} "

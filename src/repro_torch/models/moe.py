@@ -44,6 +44,21 @@ does (the reference's capacity and drops), computes its experts' rows of
 that buffer and combines the assignments they hold, and the partial
 outputs are summed over "model".  Attention and arctic's dense residual
 MLP are tensor-parallel as in the dense block.
+
+Under a mesh whose batch axes split the batch, without expert parallelism
+(:func:`moe_ffn` and :func:`moe_ffn_tp`), the dispatch is the reference's
+GSPMD one over the global batch: its tokens are the batch rows in data-rank
+order, so a rank's tokens are one contiguous range of the global flat
+order.  The ranks gather each expert's count of assignments over the
+batch axes; C is that of the global token count, an assignment's global
+position in its expert is its position among the rank's own plus the
+expert's assignments on lower batch ranks (:func:`lower_ranks`), and the
+rank keeps its own assignments whose global position is below C.  A
+global batch the batch axes do not divide is held whole on every rank,
+as the reference's resolved sharding leaves it, and dispatches as on one
+rank (``sharding.global_batch``).  A kept assignment's slot
+in the rank's row map is its position among the rank's own, so each
+expert's filled slots stay 0..count-1, as ``moe_gemm`` takes them.
 """
 from __future__ import annotations
 
@@ -52,8 +67,9 @@ import threading
 
 import torch
 
-from repro_torch.distributed.sharding import (MODEL, batch_axes, copy_to, current_mesh,
-                                               gather_from, model_offset, reduce_from)
+from repro_torch.distributed.sharding import (MODEL, batch_axes, batch_split, copy_to,
+                                               current_mesh, gather_from, model_offset,
+                                               reduce_from)
 from repro_torch.kernels.moe_gemm import moe_gemm_plain
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -123,13 +139,16 @@ def route(x, router, E: int, K: int, impl: str = "reference", gates=None):
     return ids.reshape(-1), w.reshape(-1).to(x.dtype), tok
 
 
-def dispatch(fids, fw, tok, E: int, C: int):
+def dispatch(fids, fw, tok, E: int, C: int, base=None):
     """The reference's placement: each assignment's position in its expert
     in flat order; ``keep`` where it is below C and its weight nonzero;
-    dropped assignments clamp to slot C - 1.  Returns (slot, keep, rows,
-    count): ``rows`` (E, C) int32 the token of each slot (-1: a zero row,
-    as the reference's buffer holds there), ``count`` (E,) int32 the
-    filled slots of each expert."""
+    dropped assignments clamp to slot C - 1.  ``base`` (E,): each expert's
+    assignments ahead of these in the global flat order (on lower batch
+    ranks, :func:`lower_ranks`), which an assignment's position counts and
+    its slot does not.  Returns (slot, keep, rows, count): ``rows`` (E, C)
+    int32 the token of each slot (-1: a zero row, as the reference's
+    buffer holds there), ``count`` (E,) int32 the filled slots of each
+    expert."""
     n = fids.shape[0]
     order = torch.sort(fids, stable=True).indices
     sids = fids[order]
@@ -138,14 +157,18 @@ def dispatch(fids, fw, tok, E: int, C: int):
     ends = torch.searchsorted(sids, experts, right=True)
     pos_sorted = torch.arange(n, device=fids.device) - starts[sids]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)
-    placed = pos < C
+    if base is None:
+        placed, count = pos < C, torch.clamp(ends - starts, max=C)
+    else:
+        room = C - base
+        placed, count = pos < room[fids], torch.clamp(torch.minimum(ends - starts, room), min=0)
     keep = placed & (fw != 0)
     # One write per placed assignment (unique (expert, slot)); the dropped
     # ones all go to the sentinel entry E C, cut off below.
     flat = torch.full((E * C + 1,), -1, dtype=torch.int32, device=fids.device)
     flat.scatter_(0, torch.where(placed, fids * C + pos, E * C),
                   torch.where(keep, tok, -1).to(torch.int32))
-    count = torch.clamp(ends - starts, max=C).to(torch.int32)
+    count = count.to(torch.int32)
     drops = getattr(_drops, "out", None)
     if drops is not None:
         drops.append(n - placed.sum())
@@ -185,13 +208,32 @@ def aux_load_balance_loss(x, router, cfg, mesh=None, gates=None):
     return lb + 1e-3 * z
 
 
+def lower_ranks(fids, E: int, mesh=None):
+    """``(base, ranks)`` of a rank's flat expert ids ``fids``: under a mesh
+    whose batch axes split this thread's batch over ``ranks`` > 1 ranks
+    (``sharding.batch_split``), ``base`` (E,) counts each expert's
+    assignments on the lower batch ranks (every rank's counts gathered over
+    the batch axes, in the order of the batch rows); else ``(None, 1)``.
+    No host sync."""
+    bax = batch_split(mesh)
+    if bax is None:
+        return None, 1
+    mine = torch.zeros(E, dtype=fids.dtype, device=fids.device).scatter_add_(
+        0, fids, torch.ones_like(fids))
+    counts = mesh.all_gather(mine, bax, 0).view(-1, E)
+    return counts[:mesh.index(bax)].sum(0), mesh.size(bax)
+
+
 def moe_ffn(x, p, cfg, impl=None):
     """x (T, d) flat tokens -> (T, d): route, dispatch into the capacity
-    buffer's row map, the experts' SwiGLU, combine."""
+    buffer's row map, the experts' SwiGLU, combine.  Under the current
+    mesh's batch axes the capacity and positions are the global batch's
+    (:func:`lower_ranks`)."""
     E, K, impl = cfg.n_experts, cfg.top_k, impl or cfg.kernel_impl
     fids, fw, tok = route(x, p["router"], E, K, impl)
+    base, ranks = lower_ranks(fids, E, current_mesh())
     return dispatch_compute_combine(x, fids, fw, tok, p["experts"], E,
-                                    capacity(x.shape[0], cfg), K, impl)
+                                    capacity(x.shape[0] * ranks, cfg), K, impl, base)
 
 
 def moe_ffn_ep(h, p, cfg, impl=None, mesh=None):
@@ -225,14 +267,17 @@ def moe_ffn_tp(x, p, cfg, impl, mesh, gates):
     """The tensor-parallel MoE of tokens x (T, d) on a model rank that
     holds E/par of the experts and whose router logits ``gates`` (T, E)
     are whole (:func:`router_gates`): the reference's routing and
-    whole-buffer dispatch, its capacity and drops, on every rank; then the
+    whole-buffer dispatch, its capacity and drops (the global batch's
+    under batch axes, :func:`lower_ranks`), on every rank; then the
     rank's experts' rows of the buffer on ``moe_gemm``, the combine of the
     assignments they hold, and the sum over "model"."""
     E, K = cfg.n_experts, cfg.top_k
     e_loc = p["experts"]["w_up"].shape[0]
     lo = model_offset(e_loc, mesh)
     fids, fw, tok = route(x, None, E, K, gates=gates)
-    slot, keep, rows, count = dispatch(fids, fw, tok, E, capacity(x.shape[0], cfg))
+    base, ranks = lower_ranks(fids, E, mesh)
+    slot, keep, rows, count = dispatch(fids, fw, tok, E, capacity(x.shape[0] * ranks, cfg),
+                                       base)
     moe_gemm = _moe_gemm(impl)
     ex = p["experts"]
     x = copy_to(x, mesh, MODEL)
@@ -263,13 +308,14 @@ def use_ep(cfg, mesh=None) -> bool:
                 and cfg.n_experts % mesh.shape["model"] == 0)
 
 
-def dispatch_compute_combine(x, fids, fw, tok, ex, E: int, C: int, K: int, impl: str):
+def dispatch_compute_combine(x, fids, fw, tok, ex, E: int, C: int, K: int, impl: str,
+                             base=None):
     """The reference's ``_dispatch_compute_combine`` of tokens x (T, d)
     over experts ``ex`` (E of them): place the assignments into the
-    capacity buffer's row map, run the experts' SwiGLU on ``moe_gemm``
-    (its plain version unless ``impl`` is ``"cuda"``), and combine each
-    token's K rows by their weights."""
-    slot, keep, rows, count = dispatch(fids, fw, tok, E, C)
+    capacity buffer's row map (``base``: as :func:`dispatch`), run the
+    experts' SwiGLU on ``moe_gemm`` (its plain version unless ``impl`` is
+    ``"cuda"``), and combine each token's K rows by their weights."""
+    slot, keep, rows, count = dispatch(fids, fw, tok, E, C, base)
     moe_gemm = _moe_gemm(impl)
     h = moe_gemm(x, ex["w_gate"], count, rows, ex["w_up"])
     y = moe_gemm(h, ex["w_down"], count)
@@ -318,7 +364,9 @@ def moe_block_apply(p, x, positions, cfg, *, mode, cache, pos=None):
 def dropped_assignments():
     """Collect, on this thread, the number of assignments each MoE layer
     call drops (capacity overflow) as 0-d device tensors, in call order:
-    no host sync inside.  For eager runs: a graph's replay adds nothing."""
+    no host sync inside.  Under batch axes each rank counts its own
+    assignments' drops; the batch ranks' counts sum to the reference's.
+    For eager runs: a graph's replay adds nothing."""
     prev, _drops.out = getattr(_drops, "out", None), []
     try:
         yield _drops.out

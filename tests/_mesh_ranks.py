@@ -287,7 +287,8 @@ def tp_case(mesh, dev, case):
     ``case["generate"]`` tokens where the case asks for it, then one train
     step of ``case["train"]`` (its loss, the batch-averaged gradients and
     the parameters after it, whole).  ``case["capacity_factor"]`` sets the moe
-    family's capacity for the whole case."""
+    family's capacity for the whole case; ``drops`` are the assignments each
+    MoE layer of the prefill dropped on this rank."""
     from repro_torch.data import rank_batch
     from repro_torch.models import layers as L
     from repro_torch.models import moe
@@ -323,7 +324,8 @@ def tp_case(mesh, dev, case):
 
     T.logits_fn, W.tied_head = logits_fn, tied_head
     try:
-        logits, cache = api.prefill(params, loc, cfg, cache)
+        with moe.dropped_assignments() as drops:
+            logits, cache = api.prefill(params, loc, cfg, cache)
         out, greedy = [logits], [L.vocab_argmax(logits[:, -1], cfg.vocab)]
         tok_sh = S.named_sharding(mesh, ("batch", None), (b, 1))
         for i, tok in enumerate(case["steps"]):
@@ -340,7 +342,8 @@ def tp_case(mesh, dev, case):
     res = {"shapes": shapes, "hidden": hidden,
            "logits": [_vocab_whole(x, cfg, mesh).cpu() for x in out],
            "greedy": [g.cpu() for g in greedy],
-           "cache_shapes": [tuple(v.shape) for v in tree_leaves(cache)]}
+           "cache_shapes": [tuple(v.shape) for v in tree_leaves(cache)],
+           "drops": [int(d) for d in drops]}
     if case.get("generate"):
         res["generate"] = res_gen
 
@@ -371,15 +374,18 @@ def tp_case(mesh, dev, case):
 
 
 def tp_world(rank, world, dev, shape, axes, cases, ties=None):
-    """The tensor-parallel cases (:func:`tp_case`) on a mesh of ``shape``,
-    and the greedy argmax of ``ties`` (rows over the whole vocabulary)
-    from each rank's slice of them."""
+    """The tensor-parallel cases (:func:`tp_case`, each in a global batch
+    of its ``B`` rows) on a mesh of ``shape``, and the greedy argmax of
+    ``ties`` (rows over the whole vocabulary) from each rank's slice of
+    them."""
     from repro_torch.models import layers as L
 
     mesh = make_mesh(shape, axes, dev)
     S.set_current_mesh(mesh)
-    out = {"coord": mesh.coord,
-           "cases": {c["name"]: tp_case(mesh, dev, c) for c in cases}}
+    out = {"coord": mesh.coord, "cases": {}}
+    for c in cases:
+        with S.global_batch(c["B"]):
+            out["cases"][c["name"]] = tp_case(mesh, dev, c)
     if ties is not None:
         t = torch.from_numpy(ties)
         n = t.shape[-1] // mesh.shape["model"]

@@ -43,22 +43,80 @@ B, S, STEPS = 4, 8, 3
 
 
 def make_case(name, arch, capacity_factor=1.25, max_seq=0, grad_rel=GRAD_REL, generate=0,
-              **over):
+              same_token=False, rows=B, **over):
     """A case of ``tp_world``: the reduced ``arch`` with ``over``, both
-    packages' configs, from seeds; a cache of ``max_seq`` positions (0:
-    the prompt and its decode steps); its gradients held at ``grad_rel``;
-    ``generate`` > 0: one-shot generate of that many tokens too."""
+    packages' configs, from seeds; a batch of ``rows`` rows (a number the
+    batch axes do not divide is held whole on every rank); a cache of
+    ``max_seq`` positions (0: the prompt and its decode steps); its
+    gradients held at ``grad_rel``; ``generate`` > 0: one-shot generate of
+    that many tokens too; ``same_token``: every prompt and train token one
+    id but each row's token at S - 2 (which keeps attention's q and k
+    gradients alive), so that a MoE's first layer routes most tokens to the
+    same two experts and its capacity binds (the case then holds the
+    prefill's drops to the reference's)."""
     tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get_config(arch)), **over)
     jcfg = dataclasses.replace(jconfigs.reduced(jconfigs.get_config(arch)), **over)
     jp, np_params = jax_params(jcfg)
-    cell = ShapeCell("tp", S, B, "prefill")
+    cell = ShapeCell("tp", S, rows, "prefill")
     rng = np.random.default_rng(5)
-    steps = [rng.integers(0, tcfg.vocab, (B, 1)).astype(np.int32) for _ in range(STEPS)]
-    case = {"name": name, "cfg": tcfg, "params": np_params, "batch": make_batch(tcfg, cell, 3),
-            "train": make_batch(tcfg, cell, 4), "steps": steps,
+    steps = [rng.integers(0, tcfg.vocab, (rows, 1)).astype(np.int32) for _ in range(STEPS)]
+    batch, train = make_batch(tcfg, cell, 3), make_batch(tcfg, cell, 4)
+    if same_token:
+        for b in (batch, train):
+            t = np.full_like(b["tokens"], b["tokens"][0, 0])
+            t[:, S - 2] = b["tokens"][:, S - 2]
+            b["tokens"] = t
+    case = {"name": name, "cfg": tcfg, "params": np_params, "batch": batch,
+            "train": train, "steps": steps,
             "max_seq": max_seq or prefix_len(tcfg) + S + STEPS,
-            "capacity_factor": capacity_factor, "grad_rel": grad_rel, "generate": generate}
+            "capacity_factor": capacity_factor, "grad_rel": grad_rel, "generate": generate,
+            "drops": same_token, "B": rows}
     return case, jcfg, jp
+
+
+def jax_drops(case, jcfg, jp):
+    """The assignments each MoE layer of the JAX package's single-device
+    prefill of ``case``'s batch drops, by the reference's own lines
+    (``_dispatch_compute_combine``'s positions against the capacity of the
+    whole batch's tokens), read out of the jitted prefill in layer order."""
+    japi = jax_get_model(jcfg)
+    seen, real = [], jmoe.moe_ffn
+
+    def moe_ffn(x, p, cfg):
+        fids, _, _ = jmoe._route(x, p["router"], cfg.n_experts, cfg.top_k)
+        order = jnp.argsort(fids, stable=True)
+        counts = jnp.bincount(fids, length=cfg.n_experts)
+        starts = jnp.cumsum(counts) - counts
+        pos_sorted = jnp.arange(fids.shape[0], dtype=jnp.int32) - starts[fids[order]]
+        pos = jnp.zeros(fids.shape[0], jnp.int32).at[order].set(pos_sorted)
+        jax.debug.callback(lambda n: seen.append(int(n)),
+                           jnp.sum(pos >= jmoe.capacity(x.shape[0], cfg)), ordered=True)
+        return real(x, p, cfg)
+
+    factor, jmoe.CAPACITY_FACTOR = jmoe.CAPACITY_FACTOR, case["capacity_factor"]
+    jmoe.moe_ffn = moe_ffn
+    try:
+        cache = jparams.materialize(japi.cache_spec(jcfg, case["B"], case["max_seq"], 1),
+                                    jax.random.PRNGKey(2), jnp.float32)
+        batch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
+        jax.block_until_ready(jax.jit(lambda p, b, c: japi.prefill(p, b, jcfg, c))(
+            jp, batch, cache))
+        jax.effects_barrier()
+    finally:
+        jmoe.CAPACITY_FACTOR, jmoe.moe_ffn = factor, real
+    return seen
+
+
+def check_drops(res, case, want, coords):
+    """Each MoE layer's drops summed over the batch ranks (one model rank
+    of each group: the model ranks dispatch the same buffer) equal the
+    reference's ``want``, and the reference drops at least one."""
+    assert sum(want) > 0, (case["name"], "capacity did not bind", want)
+    got = np.sum([res[g[0]]["cases"][case["name"]]["drops"] for g in coords], axis=0)
+    for g in coords:  # the model ranks of a group agree
+        assert all(res[c]["cases"][case["name"]]["drops"] == res[g[0]]["cases"][case["name"]]
+                   ["drops"] for c in g)
+    assert got.tolist() == want, (case["name"], got.tolist(), want)
 
 
 def jax_reference(case, jcfg, jp):
@@ -67,7 +125,7 @@ def jax_reference(case, jcfg, jp):
     japi = jax_get_model(jcfg)
     factor, jmoe.CAPACITY_FACTOR = jmoe.CAPACITY_FACTOR, case["capacity_factor"]
     try:
-        cache = jparams.materialize(japi.cache_spec(jcfg, B, case["max_seq"], 1),
+        cache = jparams.materialize(japi.cache_spec(jcfg, case["B"], case["max_seq"], 1),
                                     jax.random.PRNGKey(2), jnp.float32)
         batch = {k: jnp.asarray(v) for k, v in case["batch"].items()}
         lg, cache = jax.jit(lambda p, b, c: japi.prefill(p, b, jcfg, c))(jp, batch, cache)
@@ -91,7 +149,7 @@ def one_rank(case):
     factor, tmoe.CAPACITY_FACTOR = tmoe.CAPACITY_FACTOR, case["capacity_factor"]
     try:
         params = tparams.load_jax_params(case["params"], cfg, "cpu")
-        cache = zeros_cache(cfg, api, B, case["max_seq"], device="cpu")
+        cache = zeros_cache(cfg, api, case["B"], case["max_seq"], device="cpu")
         lg, cache = api.prefill(params, to_device(case["batch"], "cpu"), cfg, cache)
         out = [lg]
         for i, tok in enumerate(case["steps"]):
@@ -154,7 +212,7 @@ def check_case(res, case, want, jloss, one, grads, coords):
         assert err < ONE_RANK_TOL, (case["name"], i, err)
         tok = torch.cat([res[g[0]]["cases"][case["name"]]["greedy"][i] for g in coords]).numpy()
         assert np.array_equal(tok, want[i][:, -1].argmax(-1)), (case["name"], i)
-    assert len(got) == B
+    assert len(got) == case["B"]
     for r in res.values():
         x = r["cases"][case["name"]]
         assert abs(x["loss"] - jloss) < LOSS_TOL, (case["name"], x["loss"], jloss)
@@ -213,6 +271,7 @@ class Suite:
         self.case = functools.lru_cache(maxsize=None)(self._case)
         self.reference = functools.lru_cache(maxsize=None)(self._reference)
         self.world = functools.lru_cache(maxsize=None)(self._world)
+        self.drops = functools.lru_cache(maxsize=None)(lambda n: jax_drops(*self.case(n)))
         self.pairs = [(m, n) for m, (_, _, names) in meshes.items() for n in names]
         self.ids = [f"{m}-{n}" for m, n in self.pairs]
 
@@ -235,7 +294,22 @@ class Suite:
 
     def check(self, mesh, name):
         res = self.world(mesh)
-        check_case(res, self.case(name)[0], *self.reference(name), groups(res))
+        c, jcfg, jp = self.case(name)
+        coords = groups(res)
+        shape, axes, _ = self.meshes[mesh]
+        if c["B"] % int(np.prod([n for n, a in zip(shape, axes) if a in ("pod", "data")])):
+            # A batch the batch axes do not divide: every rank holds it
+            # whole and computes the same values; the first group stands
+            # for them all.
+            first = res[coords[0][0]]["cases"][name]
+            for g in coords[1:]:
+                other = res[g[0]]["cases"][name]
+                assert all(torch.equal(a, b) for a, b in zip(first["logits"], other["logits"]))
+                assert first["drops"] == other["drops"], (name, g)
+            coords = coords[:1]
+        check_case(res, c, *self.reference(name), coords)
+        if c["drops"]:
+            check_drops(res, c, self.drops(name), coords)
 
     def check_shapes(self, mesh, name):
         shape, axes, _ = self.meshes[mesh]
@@ -244,10 +318,11 @@ class Suite:
 
 
 def groups(res):
-    """The ranks grouped by their batch coordinates (model ranks last)."""
+    """The ranks grouped by their batch coordinates (model ranks last; a
+    rank alone where the mesh has no "model" axis)."""
     out = {}
     for c in sorted(res):
-        out.setdefault(c[:-1], []).append(c)
+        out.setdefault(c[:-1] if "model" in res[c]["coord"] else c, []).append(c)
     return list(out.values())
 
 

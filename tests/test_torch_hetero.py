@@ -199,13 +199,22 @@ def test_example_runs_on_cpu(script, args, expect, tmp_path):
     assert expect in r.stdout
 
 
-def test_examples_need_cuda_unless_cpu_is_asked(tmp_path):
+PORT_EXAMPLES = sorted(p.name for p in (ROOT / "examples").glob("*_torch.py"))
+
+
+@pytest.mark.parametrize("script", PORT_EXAMPLES)
+def test_examples_need_cuda_unless_cpu_is_asked(script, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
-    r = subprocess.run([sys.executable, str(ROOT / "examples" / "hetero_train_torch.py"),
-                        "--steps", "1"], env={"PYTHONPATH": str(ROOT / "src"),
-                                              "PATH": "/usr/bin:/bin"},
+    extra = ["--steps", "1"] if "train" in script else []
+    r = subprocess.run([sys.executable, str(ROOT / "examples" / script), *extra],
+                       env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
                        capture_output=True, text=True, timeout=300, cwd=tmp_path)
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_every_reference_example_has_its_port():
+    assert {p.replace("_torch", "") for p in PORT_EXAMPLES} == {
+        p.name for p in (ROOT / "examples").glob("*.py") if not p.stem.endswith("_torch")}
 
 

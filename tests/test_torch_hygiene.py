@@ -1,6 +1,6 @@
 """The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
-example import neither jax nor the JAX package, and the whole package
-imports with jax blocked."""
+examples import neither jax, the JAX package nor its ``benchmarks/``, and
+the whole package imports with jax blocked."""
 import ast
 import os
 import subprocess
@@ -13,7 +13,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "examples" / name for name in ("quickstart_torch.py", "train_lm_torch.py",
-                                          "hetero_train_torch.py")]
+                                          "hetero_train_torch.py", "pipeline_dataflow_torch.py",
+                                          "async_coexec_torch.py", "nbody_coexec_torch.py",
+                                          "continuous_batching_torch.py",
+                                          "serve_hetero_torch.py")]
 # Modules of the co-execution slice (the engine facade, the adaptive
 # schedulers and the two row-invariant kernels' wrappers), of the
 # multi-group slice (placement and migration, elastic groups, the
@@ -50,7 +53,7 @@ def _imports(path):
 def test_no_jax_or_reference_import(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {mod}"
+        assert top not in ("jax", "jaxlib", "repro", "benchmarks"), f"{path.name} imports {mod}"
 
 
 def test_package_imports_with_jax_blocked():
@@ -79,6 +82,15 @@ def test_chip_smoke_refuses_without_cuda():
                        capture_output=True, text=True, timeout=120, cwd=ROOT)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_examples_phase_refuses_without_cuda():
+    """``--examples`` (the [examples] phase alone) refuses likewise."""
+    env = dict(os.environ, PYTHONPATH="", CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--examples"], env=env,
+                       capture_output=True, text=True, timeout=120, cwd=ROOT)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr and '"examples"' not in r.stdout
 
 
 def test_chip_smoke_train_phase_refuses_without_cuda():
