@@ -315,11 +315,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
              its forward equal to the raw kernel's output bitwise, dq/dk/dv
              within 2e-2 rel L2 of autograd through flash_attention_plain,
              its forward, recompute backward and both timed beside sdpa's
-             forward + backward and the bounds.  qwen1.5-4b at full width,
+             forward + backward and the bounds.  The train step's CUDA
+             graph (``make_train_step(graph=True)``: an eager first step,
+             the capture, replays) held against the eager step at
+             qwen1.5-4b's full width, 4 layers deep: 3 steps each from
+             seed-0 states, losses and every params, m, v and step leaf
+             bitwise (or within the gap of two eager runs, printed beside;
+             they were bitwise on the H100).  qwen1.5-4b at full width,
              20 of its 40 layers (the float32 state fits; 40 would not),
              ``kernel_impl="cuda"``, through the launcher's ``build_state``
              and ``make_train_step``: B 4 x 512 (SyntheticTokens, seed 0),
-             2 microbatches, remat "dots", 3 steps; step 0's loss within
+             2 microbatches, remat "dots", 3 steps eagerly, then 3
+             through the graph on the same state; step 0's loss within
              1e-2 of ``kernel_impl="reference"`` on the same weights and
              batch, each layer's parameter gradients (its VJP on the
              kernel run's own layer input and output gradient, the kernel
@@ -328,15 +335,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              not held (on random weights they are chaotic: ROADMAP.md C11;
              the reference's own bf16 against float32 printed beside as
              the witness), finite losses, flash_attention launched exactly
-             20 x 2 x 2 a step (dots recomputes its forward) and no other
-             kernel; step time, tokens/s, peak memory (``--train`` adds
-             the gradients and AdamW timed apart, a step under each remat
-             policy and one profiled: card busy, the products' share,
-             time by kernel).  whisper-tiny --full through
-             ``repro_torch.launch.train``: 4 steps checkpointed every 2,
-             then --restore --steps 6: the step-4 checkpoint equal to the
-             state bitwise, the data cursor 4 -> 6, finite losses,
-             flash_attention 12 a step exactly.  The HeteroTrainer over
+             20 x 2 x 2 a step (dots recomputes its forward), eager and
+             graphed alike (a replay's tally), and no other kernel; one
+             capture and 2 replays; step time, tokens/s, peak memory
+             allocated and reserved, capture seconds (``--train`` adds an
+             eager and a replayed step profiled: card busy, the products'
+             share, time by kernel; the gradients and AdamW timed apart;
+             each remat policy eager and graphed).  whisper-tiny --full
+             through ``repro_torch.launch.train``: 4 steps eagerly, twice,
+             then 4 graphed (the launcher's step) checkpointed every 2,
+             held against the eager run as qwen's depth-4 steps are, then
+             --restore --steps 6: the step-4 checkpoint equal to the state
+             bitwise, the data cursor 4 -> 6, finite losses,
+             flash_attention 12 a step exactly, one capture a run.  The HeteroTrainer over
              ``discover()``'s cpu:0 and cuda:0 (whisper-tiny, batch 8,
              quantum 1, 2 steps, the cuda group's power hint 16): shares
              covering the batch; the CPU share's parameter gradients layer
@@ -345,7 +356,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              cuda:0 (its gradient printed, not held); as plumbing, step
              0's combined gradient the shares' weighted sum and the cuda
              group's its share's alone on cuda:0; shares, rated powers and
-             each group's seconds printed.
+             each group's seconds printed; cuda:0's gradient graphs
+             captured once a batch shape and scope and replayed once a
+             call.
    mesh   -- the device mesh (A11): worlds of spawned ranks that compute
              on cuda:0 and exchange over gloo (NCCL refuses two ranks of
              one communicator on one GPU), each held against a one-rank
@@ -3939,6 +3952,9 @@ TRAIN_ATTENTION = (
 # state (weights, gradients, m, v) and the bf16 cast take 18 bytes a
 # parameter, 42.5 GB at 2.36 B parameters (80 GB at 40 layers does not fit).
 QWEN_TRAIN_LAYERS, QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_MB, QWEN_TRAIN_STEPS = 20, 4, 512, 2, 3
+# The same config 4 layers deep for graphed == eager, leaf by leaf: three
+# float32 states of its 1.1 B parameters (13 GB each) fit side by side.
+QWEN_GRAPH_LAYERS = 4
 WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq", "64",
                       "--seed", "0", "--kernel", "cuda", "--ckpt-interval", "2"]
 # Two steps: after the first, each step waits the same 8-10 s on the CPU's
@@ -4234,53 +4250,171 @@ def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
           f"bf16 against float32 (loss {l_32:.6f}, {witness['loss_rel']:.2e} rel): max rel L2 "
           f"{witness['leaf_max']:.3g}, all leaves {witness['all_leaves']:.3g}", flush=True)
 
-    step_fn = make_train_step(cfg, api)
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
-    for i in range(QWEN_TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, m = step_fn(state, batches[i])
-        losses.append(float(m["loss"]))
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t)
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    # remat "dots" keeps the products' outputs: each layer's flash_attention
-    # forward runs again in the backward (its output is no product's).
+    # The same 3 batches twice over the one state: eagerly, then through the
+    # graph (an eager step, the capture, 2 replays), launches counted alike.
     forwards = 2 if cfg.remat in ("dots", "full") else 1
-    want = {k: 0 for k in counts}
-    want["flash_attention"] = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB * forwards * QWEN_TRAIN_STEPS
-    if counts != want:
-        fail(f"qwen1.5-4b train launch counts {counts} != {want}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"qwen1.5-4b train: a loss is not finite: {losses}")
+    runs = {}
+    for mode, graph in (("eager", False), ("graphed", True)):
+        step_fn = make_train_step(cfg, api, graph=graph)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for i in range(QWEN_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batches[i])
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        counts = ops.launch_counts()
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB * forwards * QWEN_TRAIN_STEPS
+        if counts != want:
+            fail(f"qwen1.5-4b train ({mode}) launch counts {counts} != {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"qwen1.5-4b train ({mode}): a loss is not finite: {losses}")
+        # steps 1-2: eager steps, or the graph's replays (step 0 is eager
+        # and, graphed, the capture too)
+        rest = sorted(step_s[1:])
+        run = {"losses": losses, "step_s": step_s, "launches": counts,
+               "tokens_per_s": QWEN_TRAIN_B * QWEN_TRAIN_S / rest[len(rest) // 2],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "reserved_bytes": torch.cuda.memory_reserved()}
+        if graph:
+            g = step_fn.graphs.stats()
+            if (g["captures"], g["replays"]) != (1, QWEN_TRAIN_STEPS - 1):
+                fail(f"qwen1.5-4b train: {g['captures']} captures and {g['replays']} replays, "
+                     f"want 1 and {QWEN_TRAIN_STEPS - 1}")
+            run["graph"] = {k: g[k] for k in ("captures", "capture_s", "replays", "copy_ins",
+                                              *g["loops"]["train_step"])}
+            graph_fn = step_fn
+        runs[mode] = run
+        del step_fn
+        print(f"  {mode}: 3 steps, losses {[round(x, 4) for x in losses]}; step "
+              f"{[round(x, 3) for x in step_s]} s; {run['tokens_per_s']:.1f} tokens/s (median of "
+              f"steps 1-2{', replays' if graph else ''}); peak memory "
+              f"{run['peak_memory_bytes'] / 2**30:.2f} GiB, reserved "
+              f"{run['reserved_bytes'] / 2**30:.2f} GiB"
+              + (f"; capture {run['graph']['capture_s']:.3f} s (begin "
+                 f"{run['graph']['begin_s']:.3f}, recording {run['graph']['record_s']:.3f}, "
+                 f"instantiation {run['graph']['instantiate_s']:.3f})" if graph else "")
+              + f"; launches {counts} (want {want}) -- {card}", flush=True)
 
-    step = sorted(step_s[1:])[len(step_s[1:]) // 2]
-    toks = QWEN_TRAIN_B * QWEN_TRAIN_S
     out = {"layers": QWEN_TRAIN_LAYERS, "of_layers": 40, "params": n, "batch": QWEN_TRAIN_B,
            "seq": QWEN_TRAIN_S, "microbatches": QWEN_TRAIN_MB, "remat": cfg.remat,
-           "losses": losses, "step_s": step_s, "tokens_per_s": toks / step,
-           "peak_memory_bytes": peak, "launches": counts, "loss_rel_vs_reference": loss_rel,
+           **runs["eager"], "graphed": runs["graphed"], "loss_rel_vs_reference": loss_rel,
            "layer_grad_rel_l2_max": max(layer_errs), "layer_grad_rel_l2": layer_errs,
            "leaf_grad_rel_l2_max_not_held": max(leaf), "grad_rel_l2_all_not_held": whole,
            "reference_bf16_vs_float32_not_held": witness}
-    print(f"  3 steps: losses {[round(x, 4) for x in losses]}; step {[round(x, 3) for x in step_s]} "
-          f"s; {toks / step:.1f} tokens/s (median of steps 1-2); peak memory {peak / 2**30:.2f} GiB; "
-          f"launches {counts} (want {want}) -- {card}", flush=True)
     if detail:
-        out.update(train_step_parts(cfg, api, state, batches, step_fn, attn_recs[0], forwards,
-                                    torch, card))
+        out["profile"], state = profile_train_step(make_train_step(cfg, api, graph=False), state,
+                                                   batches[2], torch)
+        out["graphed"]["profile"], state = profile_train_step(graph_fn, state, batches[2], torch)
+        for mode, prof in (("eager", out["profile"]), ("graphed", out["graphed"]["profile"])):
+            print(f"  profiled {mode} step ({cfg.remat}): wall {prof['wall_ms']:.1f} ms, card busy "
+                  f"{prof['device_busy_ms']:.1f} ms ({prof['device_busy_ms'] / prof['wall_ms']:.1%}), "
+                  f"{prof['kernels']} kernels, of it the matrix products (cuBLAS) "
+                  f"{prof['gemm_ms']:.1f} ms; by kernel: "
+                  + ", ".join(f"{g} {ms:.1f} ms" for g, ms in prof["groups"][:8]) + f" -- {card}",
+                  flush=True)
+    del graph_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    if detail:
+        out.update(train_step_parts(cfg, api, state, batches, attn_recs[0], forwards, torch,
+                                    card))
     del state
     return out
 
 
-def train_step_parts(cfg, api, state, batches, step_fn, fa_rec, forwards, torch, card) -> dict:
+def state_leaves(state) -> list:
+    """A train state's params, m, v and step, in ``tree_leaves`` order."""
+    from repro_torch.models.params import tree_leaves
+
+    return (tree_leaves(state["params"]) + tree_leaves(state["opt"]["m"])
+            + tree_leaves(state["opt"]["v"]) + [state["step"]])
+
+
+def runs_gap(a, b, torch) -> dict:
+    """Two runs' (losses, state leaves) apart: bitwise equal, the largest
+    absolute difference of a loss and of a state element."""
+    (la, sa), (lb, sb) = a, b
+    return {"bitwise": torch.equal(la, lb) and all(torch.equal(x, y) for x, y in zip(sa, sb)),
+            "loss_max_abs": float((la - lb).abs().max()),
+            "leaf_max_abs": max(float((x.float() - y.float()).abs().max())
+                                for x, y in zip(sa, sb))}
+
+
+def hold_graphed(name, eager, again, graphed, torch) -> dict:
+    """The graphed run against the eager one, within the eager run's gap
+    to itself: bitwise where two eager runs are; each a (losses, state
+    leaves)."""
+    ee, ge = runs_gap(again, eager, torch), runs_gap(graphed, eager, torch)
+    if ee["bitwise"] and not ge["bitwise"]:
+        fail(f"{name}: the graphed steps differ from the eager ones ({ge}), which equal each other "
+             f"bitwise")
+    if not ee["bitwise"] and (ge["loss_max_abs"] > ee["loss_max_abs"]
+                              or ge["leaf_max_abs"] > ee["leaf_max_abs"]):
+        fail(f"{name}: graphed against eager {ge} beyond eager against eager {ee}")
+    return {"graphed_vs_eager": ge, "eager_vs_eager": ee}
+
+
+def run_qwen_graph_check(dev, torch, card) -> dict:
+    """qwen1.5-4b at full width, ``QWEN_GRAPH_LAYERS`` deep, as
+    :func:`run_qwen_train`'s config: 3 eager steps from the seed-0 state,
+    3 more from a second seed-0 state (the eager run's gap to itself), and
+    3 graphed ones (an eager step, the capture, 2 replays) from a third, on
+    the same batches: the losses and every state leaf held by
+    :func:`hold_graphed`."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+    from repro_torch.train import make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=QWEN_GRAPH_LAYERS,
+                              kernel_impl="cuda", microbatches=QWEN_TRAIN_MB)
+    api = get_model(cfg)
+    ds = SyntheticTokens(cfg, QWEN_TRAIN_B, QWEN_TRAIN_S, seed=0)
+    batches = [to_device(next(ds), dev) for _ in range(QWEN_TRAIN_STEPS)]
+    runs, stats = {}, None
+    for mode, graph in (("eager", False), ("eager again", False), ("graphed", True)):
+        state, _ = build_state(cfg, api, dev, 0)
+        fn = make_train_step(cfg, api, graph=graph)
+        losses = []
+        for b in batches:
+            state, m = fn(state, b)
+            losses.append(m["loss"].clone())  # a replay's loss is the graph's own tensor
+        torch.cuda.synchronize()
+        if graph:
+            stats = fn.graphs.stats()
+        del fn
+        runs[mode] = (torch.stack(losses), state_leaves(state))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    if (stats["captures"], stats["replays"]) != (1, QWEN_TRAIN_STEPS - 1):
+        fail(f"qwen1.5-4b graph check: {stats['captures']} captures and {stats['replays']} "
+             f"replays, want 1 and {QWEN_TRAIN_STEPS - 1}")
+    held = hold_graphed("qwen1.5-4b graph check", runs["eager"], runs["eager again"],
+                        runs["graphed"], torch)
+    print(f"  depth {QWEN_GRAPH_LAYERS}, 3 steps each: graphed against eager "
+          f"{held['graphed_vs_eager']}; eager against eager {held['eager_vs_eager']} (losses and "
+          f"every params, m, v and step leaf; the graph captured once, replayed twice) -- {card}",
+          flush=True)
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": QWEN_GRAPH_LAYERS, **held}
+
+
+def train_step_parts(cfg, api, state, batches, fa_rec, forwards, torch, card) -> dict:
     """Where a qwen train step's time goes (``--train`` only): the
-    gradients, then AdamW, timed apart (a fourth update of the state); a
-    step under each remat policy (the state updated on); a profiled step
-    of the config's own."""
+    gradients, then AdamW, timed apart (a fourth update of the state);
+    then, for each remat policy, an eager step and a graphed run of three
+    (an eager step with the capture, then 2 replays), each graph released
+    before the next policy's (the state updated on), with capture seconds
+    and peak memory."""
     from repro_torch.models.params import tree_unflatten
     from repro_torch.optim import adamw_update, lr_schedule
     from repro_torch.train import make_train_step
@@ -4298,30 +4432,45 @@ def train_step_parts(cfg, api, state, batches, step_fn, fa_rec, forwards, torch,
     torch.cuda.synchronize()
     adam_s = time.perf_counter() - t
     del grads
-    remat_s = {}
+    remat = {}
     for policy in ("none", "full", "dots"):
-        fn = make_train_step(dataclasses.replace(cfg, remat=policy), api)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, _ = fn(state, batches[1])
-        torch.cuda.synchronize()
-        remat_s[policy] = time.perf_counter() - t
-    prof, state = profile_train_step(step_fn, state, batches[2], torch)
+        pcfg = dataclasses.replace(cfg, remat=policy)
+        rec = {}
+        for mode in ("eager", "graphed"):
+            fn = make_train_step(pcfg, api, graph=mode == "graphed")
+            torch.cuda.reset_peak_memory_stats()
+            secs = []
+            for b in batches[:1] if mode == "eager" else batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = fn(state, b)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            rec[mode] = {"step_s": secs, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                         "reserved_bytes": torch.cuda.memory_reserved()}
+            if mode == "graphed":
+                rec[mode]["capture_s"] = fn.graphs.stats()["capture_s"]
+            del fn
+            gc.collect()
+            torch.cuda.empty_cache()
+        remat[policy] = rec
     per_mb = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB
     attn_fwd_s = per_mb * forwards * fa_rec["forward_ms"] / 1e3
     attn_bwd_s = per_mb * fa_rec["backward_ms"] / 1e3
     print(f"  a step's parts: gradients {grad_s:.3f} s (of which flash_attention forward "
           f"{attn_fwd_s:.3f} s and its recompute backward {attn_bwd_s:.3f} s, from the [train] "
-          f"kernel line's times x {per_mb * forwards} and x {per_mb}), AdamW {adam_s:.3f} s; a "
-          f"step under remat none / full / dots: "
-          f"{' / '.join(f'{remat_s[p]:.3f}' for p in ('none', 'full', 'dots'))} s -- {card}",
-          flush=True)
-    print(f"  profiled step ({cfg.remat}): wall {prof['wall_ms']:.1f} ms, card busy "
-          f"{prof['device_busy_ms']:.1f} ms ({prof['device_busy_ms'] / prof['wall_ms']:.1%}), "
-          f"{prof['kernels']} kernels, of it the matrix products (cuBLAS) "
-          f"{prof['gemm_ms']:.1f} ms; by kernel: "
-          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in prof["groups"][:8]), flush=True)
-    return {"grads_s": grad_s, "adamw_s": adam_s, "remat_step_s": remat_s, "profile": prof,
+          f"kernel line's times x {per_mb * forwards} and x {per_mb}), AdamW {adam_s:.3f} s -- "
+          f"{card}", flush=True)
+    for policy, rec in remat.items():
+        e, g = rec["eager"], rec["graphed"]
+        print(f"  remat {policy}: eager step {e['step_s'][0]:.3f} s (peak "
+              f"{e['peak_memory_bytes'] / 2**30:.2f} GiB); graphed: first step (eager + capture "
+              f"{g['capture_s']:.3f} s) {g['step_s'][0]:.3f} s, replays "
+              f"{' / '.join(f'{x:.3f}' for x in g['step_s'][1:])} s (peak "
+              f"{g['peak_memory_bytes'] / 2**30:.2f} GiB, reserved "
+              f"{g['reserved_bytes'] / 2**30:.2f} GiB) -- {card}", flush=True)
+    return {"grads_s": grad_s, "adamw_s": adam_s, "remat": remat,
             "flash_forward_s_est": attn_fwd_s, "flash_backward_s_est": attn_bwd_s}
 
 
@@ -4358,21 +4507,38 @@ def profile_train_step(step_fn, state, batch, torch):
             "gemm_ms": gemm, "groups": every}, state
 
 
-def run_whisper_train(dev, torch, ops) -> dict:
+def run_whisper_train(dev, torch, ops, card) -> dict:
     """whisper-tiny at full width through ``repro_torch.launch.train``: 4
-    steps checkpointed every 2, then ``--restore --steps 6``."""
+    steps eagerly, twice (the eager run's gap to itself), then 4 graphed
+    steps (the launcher's own: an eager step, the capture, 3 replays)
+    checkpointed every 2, held against the eager run by
+    :func:`hold_graphed`, then ``--restore --steps 6`` (graphed: a capture
+    of its own)."""
+    import functools
     import shutil
 
     from repro_torch.ckpt import restore_checkpoint
     from repro_torch.launch import train as launch_train
     from repro_torch.models.params import tree_leaves
 
+    make = launch_train.make_train_step
+    eager = []
+    launch_train.make_train_step = functools.partial(make, graph=False)
+    try:
+        for _ in range(2):
+            r = launch_train.main(WHISPER_TRAIN_ARGV + ["--steps", "4"])
+            eager.append((torch.tensor(r["losses"]), state_leaves(r["state"]), r["step_s"]))
+            del r
+    finally:
+        launch_train.make_train_step = make
     ckdir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckdir, ignore_errors=True)
     argv = WHISPER_TRAIN_ARGV + ["--ckpt", str(ckdir)]
     ops.reset_launch_counts()
     r1 = launch_train.main(argv + ["--steps", "4"])
     c1 = ops.launch_counts()
+    held = hold_graphed("whisper-tiny launcher", eager[0][:2], eager[1][:2],
+                        (torch.tensor(r1["losses"]), state_leaves(r1["state"])), torch)
     saved, extra = restore_checkpoint(ckdir, 4, r1["state"])
     same = all(torch.equal(a, w) for a, w in zip(tree_leaves(saved), tree_leaves(r1["state"])))
     if not same or extra.get("data_cursor") != 4:
@@ -4386,6 +4552,11 @@ def run_whisper_train(dev, torch, ops) -> dict:
     if (r2["start"], r2["cursor_at_start"], r2["data_cursor"]) != (4, 4, 6):
         fail(f"whisper-tiny train: the restart did not resume at step 4, cursor 4: "
              f"{r2['start']}, {r2['cursor_at_start']}, {r2['data_cursor']}")
+    for r, steps in ((r1, 4), (r2, 2)):
+        g = r["graph_stats"]
+        if (g["captures"], g["replays"]) != (1, steps - 1):
+            fail(f"whisper-tiny train: {g['captures']} captures and {g['replays']} replays over "
+                 f"{steps} steps, want 1 and {steps - 1}")
     losses = r1["losses"] + r2["losses"]
     if not all(math.isfinite(x) for x in losses):
         fail(f"whisper-tiny train: a loss is not finite: {losses}")
@@ -4398,13 +4569,21 @@ def run_whisper_train(dev, torch, ops) -> dict:
         want["flash_attention"] = per_step * steps
         if counts != want:
             fail(f"whisper-tiny train launch counts {counts} != {want}")
-    out = {"losses": losses, "seconds": [r1["seconds"], r2["seconds"]],
-           "launches_per_step": per_step, "restored_state_bitwise": True}
-    print(f"  whisper-tiny: 4 steps, checkpoints at 2 and 4 (the step-4 one equal to the state "
-          f"bitwise), then --restore --steps 6 resumed at step 4, data cursor 4 -> 6; losses "
-          f"{[round(x, 4) for x in losses]}; flash_attention {per_step} a step (encoder "
+    step_s = {"eager": eager[0][2], "graphed": r1["step_s"], "restored_graphed": r2["step_s"]}
+    out = {"losses": losses, "seconds": [r1["seconds"], r2["seconds"]], "step_s": step_s,
+           "capture_s": [r1["graph_stats"]["capture_s"], r2["graph_stats"]["capture_s"]],
+           "launches_per_step": per_step, "restored_state_bitwise": True, **held}
+    print(f"  whisper-tiny: 4 graphed steps (an eager step, the capture, 3 replays), checkpoints "
+          f"at 2 and 4 (the step-4 one equal to the state bitwise), then --restore --steps 6 "
+          f"resumed at step 4, data cursor 4 -> 6; losses {[round(x, 4) for x in losses]}; "
+          f"graphed against eager (4 steps through the launcher) {held['graphed_vs_eager']}, "
+          f"eager against eager {held['eager_vs_eager']}; step s eager "
+          f"{[round(x, 4) for x in step_s['eager']]}, graphed "
+          f"{[round(x, 4) for x in step_s['graphed']]} (capture {out['capture_s'][0]:.3f} s), "
+          f"restored {[round(x, 4) for x in step_s['restored_graphed']]} (capture "
+          f"{out['capture_s'][1]:.3f} s); flash_attention {per_step} a step (encoder "
           f"{cfg.enc_layers}, decoder self and cross {2 * cfg.n_layers}), exact; "
-          f"{r1['seconds']:.1f} s + {r2['seconds']:.1f} s", flush=True)
+          f"{r1['seconds']:.1f} s + {r2['seconds']:.1f} s -- {card}", flush=True)
     return out
 
 
@@ -4505,7 +4684,19 @@ def run_hetero_train(dev, torch, card) -> dict:
                   + f" -- {card}", flush=True)
     finally:
         trainer.shutdown()
-    return {"groups": names, "cuda_power_hint": HETERO_CUDA_POWER, "steps": steps}
+    # cuda:0's gradients: one graph a batch shape and scope (the two calls
+    # above, then the cuda group's own scope, each share it took), a replay
+    # a call: the two calls above and one a step.
+    g = trainer._graphs[groups[1].device].stats()
+    want = 2 + len({rec["shares"][1] for rec in steps})
+    if (g["captures"], g["replays"]) != (want, 2 + HETERO_STEPS):
+        fail(f"hetero train: cuda:0's gradient graphs {g['captures']} captures and "
+             f"{g['replays']} replays, want {want} and {2 + HETERO_STEPS}")
+    graph = {k: g[k] for k in ("captures", "capture_s", "replays", "copy_ins", "copy_in_bytes",
+                               "output_copy_bytes")}
+    print(f"  cuda:0's gradient graphs: {graph} -- {card}", flush=True)
+    return {"groups": names, "cuda_power_hint": HETERO_CUDA_POWER, "steps": steps,
+            "cuda_graphs": graph}
 
 
 def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
@@ -4518,15 +4709,20 @@ def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
     del flush
     gc.collect()
     torch.cuda.empty_cache()
+    print(at() + f" [train] qwen1.5-4b at full width, {QWEN_GRAPH_LAYERS} of 40 layers, "
+          f"kernel_impl='cuda', B {QWEN_TRAIN_B} x S {QWEN_TRAIN_S}: the train step's CUDA graph "
+          f"against the eager step", flush=True)
+    graph_check = run_qwen_graph_check(dev, torch, card)
     print(at() + f" [train] qwen1.5-4b at full width, {QWEN_TRAIN_LAYERS} of 40 layers, "
-          f"kernel_impl='cuda', B {QWEN_TRAIN_B} x S {QWEN_TRAIN_S}, {QWEN_TRAIN_STEPS} steps",
-          flush=True)
+          f"kernel_impl='cuda', B {QWEN_TRAIN_B} x S {QWEN_TRAIN_S}, {QWEN_TRAIN_STEPS} steps "
+          f"eager, then {QWEN_TRAIN_STEPS} graphed", flush=True)
     qwen = run_qwen_train(dev, torch, ops, card, attn, detail)
+    qwen["graph_check"] = graph_check
     gc.collect()
     torch.cuda.empty_cache()
-    print(at() + " [train] whisper-tiny --full through repro_torch.launch.train, checkpoint and "
-          "restore", flush=True)
-    whisper = run_whisper_train(dev, torch, ops)
+    print(at() + " [train] whisper-tiny --full through repro_torch.launch.train, eager and "
+          "graphed, checkpoint and restore", flush=True)
+    whisper = run_whisper_train(dev, torch, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
     print(at() + f" [train] HeteroTrainer over discover()'s cpu:0 and cuda:0, whisper-tiny "

@@ -21,7 +21,10 @@ from their own worker threads) only where it launches its kernel.  While a
 :func:`recording` is open on a thread (a CUDA graph's capture, which
 launches nothing), that thread's counts go to the recording's
 :class:`Tally` instead, and each replay of the graph adds the tally
-(``serve/graphs.py``).
+(``serve/graphs.py``).  A recording opened on a capturing ``stream`` also
+takes the launches that any other thread makes on that stream: a train
+step's backward runs on the autograd engine's device thread, on the stream
+its forward ran on.
 """
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ _count_lock = threading.Lock()
 _libs: dict = {}
 _fns: dict = {}
 _recording = threading.local()
+# Raw stream handle -> the Tally of the recording open on that stream.
+_stream_tallies: dict = {}
 
 
 class Tally:
@@ -89,16 +94,26 @@ class Tally:
 
 
 @contextlib.contextmanager
-def recording():
+def recording(stream=None):
     """Count this thread's launches into a fresh :class:`Tally` (yielded)
-    instead of :data:`LAUNCHES` until the block ends.  Other threads keep
-    counting as before."""
+    instead of :data:`LAUNCHES` until the block ends; with a CUDA
+    ``stream`` (the one a graph captures), also every other thread's
+    launches onto it.  Other threads' launches onto other streams count as
+    before."""
     tally, prev = Tally(), getattr(_recording, "tally", None)
     _recording.tally = tally
+    handle = stream.cuda_stream if stream is not None else None
+    prev_stream = _stream_tallies.get(handle)
+    if handle is not None:
+        _stream_tallies[handle] = tally
     try:
         yield tally
     finally:
         _recording.tally = prev
+        if prev_stream is not None:
+            _stream_tallies[handle] = prev_stream
+        elif handle is not None:
+            del _stream_tallies[handle]
 
 
 def reset_launches() -> None:
@@ -113,6 +128,8 @@ def count(name: str, multi_row: bool = False) -> None:
     (also in ``MULTI_ROW`` when it ran more than one query row a slot), or
     in the open recording's tally."""
     tally = getattr(_recording, "tally", None)
+    if tally is None and _stream_tallies:
+        tally = _stream_tallies.get(torch.cuda.current_stream().cuda_stream)
     if tally is not None:
         tally.note(name, multi_row)
         return

@@ -33,6 +33,13 @@ batches are
 prefetched onto its device (``ShardedLoader``).  ``--restore`` resumes
 from the latest checkpoint under ``--ckpt``, the data cursor from its
 manifest; under a mesh the first rank writes the checkpoints and prints.
+
+The step is ``make_train_step``'s, the JAX launcher's ``jax.jit(...,
+donate_argnums=(0,))``: on the card without a mesh a CUDA graph of the
+whole step, run eagerly at its first step, captured after it and replayed
+for every later one, the state updated in place; on the CPU, and under a
+mesh (gloo's collectives cannot be captured; graphs of mesh steps are
+still to come), eager.  The first line printed says which.
 """
 from __future__ import annotations
 
@@ -121,10 +128,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> dict:
     """Train; returns {"losses", "state", "start", "cursor_at_start",
-    "data_cursor", "seconds", "mesh", "placements"}: the first step run
-    (the restored step, or 0), the data cursor there and at the end, and
-    under a mesh the mesh and the state's placements (the rank's state
-    holds its slices)."""
+    "data_cursor", "seconds", "step_s", "graph_stats", "mesh",
+    "placements"}: the first step run (the restored step, or 0), the data
+    cursor there and at the end, each step's host seconds up to its loss
+    read, the step graph's ``GraphCache.stats()`` (None for an eager
+    step), and under a mesh the mesh and the state's placements (the
+    rank's state holds its slices)."""
     args = parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -142,8 +151,12 @@ def main(argv=None) -> dict:
         state, _ = build_state(cfg, api, device, args.seed, mesh)
         places = state_placements(cfg, api, mesh)[1] if mesh is not None else None
         if lead:
+            how = ("CUDA graph" if mesh is None and device.type == "cuda" else
+                   "eager (a mesh: its collectives are not captured)" if mesh is not None
+                   else "eager (CPU)")
             print(f"arch={cfg.name} params={n_params(api.param_spec(cfg)):,} on {device} "
-                  f"(kernel_impl={cfg.kernel_impl}, mesh={mesh and mesh.shape})", flush=True)
+                  f"(kernel_impl={cfg.kernel_impl}, mesh={mesh and mesh.shape}, step: {how})",
+                  flush=True)
 
         ds = SyntheticTokens(cfg, args.batch, args.seq, seed=args.seed)
         mgr = CheckpointManager(args.ckpt, interval=args.ckpt_interval, shardings=places,
@@ -166,12 +179,14 @@ def main(argv=None) -> dict:
         loader = ShardedLoader(ds, mesh, entries, device)
         step_fn = make_train_step(cfg, api, mesh=mesh)
         t0 = time.time()
-        losses = []
+        losses, step_s = [], []
         try:
             for i, batch in zip(range(start, args.steps), loader):
+                t = time.perf_counter()
                 with global_batch(args.batch):
                     state, metrics = step_fn(state, batch)
                 losses.append(float(metrics["loss"]))
+                step_s.append(time.perf_counter() - t)
                 if lead and i % args.log_every == 0:
                     print(f"step {i:5d} loss={losses[-1]:.4f} lr={float(metrics['lr']):.2e} "
                           f"({time.time() - t0:.1f}s)", flush=True)
@@ -184,10 +199,12 @@ def main(argv=None) -> dict:
     finally:
         set_current_mesh(None)
     seconds = time.time() - t0
+    graphs = getattr(step_fn, "graphs", None)
     if lead:
         print(f"done: {args.steps - start} steps in {seconds:.1f}s", flush=True)
     return {"losses": losses, "state": state, "start": start, "cursor_at_start": cursor0,
-            "data_cursor": cursor0 + len(losses), "seconds": seconds, "mesh": mesh,
+            "data_cursor": cursor0 + len(losses), "seconds": seconds, "step_s": step_s,
+            "graph_stats": graphs.stats() if graphs is not None else None, "mesh": mesh,
             "placements": places}
 
 

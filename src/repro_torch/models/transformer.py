@@ -233,7 +233,7 @@ def next_token_targets(tokens):
     masked, as the reference (``jnp.roll`` wraps the first token there)."""
     labels = torch.roll(tokens, -1, dims=1).long()
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
-    mask[:, -1] = 0.0
+    mask[:, -1].zero_()
     return labels, mask
 
 

@@ -59,7 +59,12 @@ def adamw_init_spec(param_spec_tree, *, zero1: bool = False, data_par: int = 1,
 
 
 def _f32(x, device=None) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """``x`` as a float32 0-d tensor on ``device``: a tensor converted
+    there, a Python number filled in by a kernel (never copied from the
+    host, which a CUDA graph's capture refuses)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def lr_schedule(step, *, peak: float = 3e-4, warmup: int = 100,

@@ -40,8 +40,12 @@ TMA encoder's entry point, the weights' cast to the compute dtype: every
 step launches the same kernels, so one step takes them all), with its
 launches counted nowhere, and then for its real count under
 ``torch.cuda.graph(..., capture_error_mode="thread_local")`` on the inputs'
-device, the wrappers' counts going to a recording (``kernels/_build.py``);
-each replay adds that tally to the launch counts.  The warm-up writes the
+device, the wrappers' counts going to a recording (``kernels/_build.py``)
+that follows the capturing stream, so that a backward's launches from the
+autograd engine's thread are counted too; each replay adds that tally to
+the launch counts.  ``warmup=False`` skips the warm-up: for a body whose
+caller has just run it eagerly on the real state (the train step, whose
+warm-up would be an extra, uncounted optimizer step).  The warm-up writes the
 static buffers, so an owner captures a scope's loops before the scope's
 first bind (a gated server captures the speculative scan and its bypass
 together, a chunked one its loop with and without the chunk stage;
@@ -225,7 +229,7 @@ class GraphCache:
         return _rebuild(likes, get)
 
     def capture(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
-                consts: tuple = (), scope=None):
+                consts: tuple = (), scope=None, warmup: bool = True):
         """The entry of loop ``name`` on inputs shaped like ``inputs``,
         captured now if this cache has none, and its static buffers."""
         key = self.key(name, steps, ints, inputs, consts, scope)
@@ -236,14 +240,14 @@ class GraphCache:
             # Outside the cache's lock: another group's thread binds its
             # own scope's loops meanwhile, and waits only for the capture
             # lock when it captures too.
-            entry = self._capture(name, key, statics, body, steps, consts)
+            entry = self._capture(name, key, statics, body, steps, consts, warmup)
         return entry, statics
 
     def bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
-             consts: tuple = (), scope=None) -> Loop:
+             consts: tuple = (), scope=None, warmup: bool = True) -> Loop:
         """Loop ``name`` bound to ``inputs``: captured if new, each input
         copied into its static buffer unless it is that buffer."""
-        entry, statics = self.capture(name, steps, ints, inputs, body, consts, scope)
+        entry, statics = self.capture(name, steps, ints, inputs, body, consts, scope, warmup)
         n = nbytes = 0
         for (_, _, x), (_, _, s) in zip(_items(inputs), _items(statics)):
             self._live.add(id(s))
@@ -286,7 +290,7 @@ class GraphCache:
         return copies
 
     def _capture(self, name: str, key: tuple, statics: dict, body: Callable, steps: int,
-                 consts: tuple) -> _Entry:
+                 consts: tuple, warmup: bool = True) -> _Entry:
         phases = dict.fromkeys(self.PHASES, 0.0)
         t0 = time.perf_counter()
         with _CAPTURE_LOCK:
@@ -302,12 +306,16 @@ class GraphCache:
                 self.warmup_clone_bytes += s.numel() * s.element_size()
                 return s.clone()
 
-            warm = _rebuild(statics, scratch)
-            with _build.recording():  # the warm-up's launches count nowhere
-                body(warm, 1)
-            del warm
+            dev = next(_items(statics))[2].device
+            if warmup:
+                warm = _rebuild(statics, scratch)
+                # The warm-up's launches count nowhere.
+                with _build.recording(torch.cuda.current_stream(dev)
+                                      if dev.type == "cuda" else None):
+                    body(warm, 1)
+                del warm
             phases["warmup_s"] = time.perf_counter() - t1
-            with _build.recording() as tally:
+            with _build.recording(self._stream(dev)) as tally:
                 graph, outputs, timed = self._record(statics, lambda st: body(st, steps))
             phases.update(timed)
             phases["wait_s"] = t1 - t0  # another thread's capture ahead of this one
@@ -331,14 +339,22 @@ class GraphCache:
             group.loop_wait_s += phases["wait_s"]
         return entry
 
+    def _stream(self, dev: torch.device):
+        """The side stream this cache captures on for ``dev`` (None off
+        the card)."""
+        if dev.type != "cuda":
+            return None
+        stream = self._streams.get(dev)
+        if stream is None:
+            stream = self._streams[dev] = torch.cuda.Stream(dev)
+        return stream
+
     def _record(self, statics: dict, run: Callable):
         """Capture ``run(statics)`` in a CUDA graph on the buffers' device:
         (the graph, its outputs, the seconds of each recording phase)."""
         dev = next(_items(statics))[2].device
         with torch.cuda.device(dev):
-            stream = self._streams.get(dev)
-            if stream is None:
-                stream = self._streams[dev] = torch.cuda.Stream(dev)
+            stream = self._stream(dev)
             graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
             with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):

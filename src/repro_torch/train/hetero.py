@@ -8,18 +8,23 @@ or groups slowed by ``sim_time_per_wi``) train one model.  Each step:
    of ``quantum`` sequences, the rounding drift onto the strongest group;
 2. every group computes its share's gradients concurrently on its
    persistent worker (``core.runtime.GroupExecutor``), on its own device
-   (``group.device``) with a copy of the parameters made there for this
-   step, through ``torch.autograd.grad`` (no ``.grad`` is shared between
-   the groups' threads);
+   (``group.device``) and stream, with a copy of the parameters made there
+   for this step, through ``torch.autograd.grad`` (no ``.grad`` is shared
+   between the groups' threads);
 3. the gradients are combined on the host device, weighted by the
    sequences each group took, optionally through int8 with error feedback
    (the cross-pod link), and one AdamW step is applied;
 4. the measured seconds re-rate the groups: a straggler gets a smaller
    share next step.
 
-The port of the JAX package's ``train/hetero.py``; its ``jax.jit`` of the
-gradient and ``jax.device_put`` of the parameters are here an eager
-``forward_train`` and a copy per group per step.
+The port of the JAX package's ``train/hetero.py``.  Its ``jax.jit`` of
+the gradient is here a CUDA graph per device (``serve/graphs.py``),
+captured on the first step of each share size (shares change with the
+rater, as the jit recompiles per shape) on the group's worker thread and
+stream, and replayed; its ``jax.device_put`` of the parameters is the copy
+into the graph's static parameter leaves, each step.  The loss is read
+(``.item()``) after the replay, and the gradients are copied out of the
+graph's memory.  The CPU group runs eagerly on a copy of the parameters.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from repro_torch.core.rating import ThroughputRater
 from repro_torch.core.runtime import GroupExecutor
 from repro_torch.models.params import tree_leaves, tree_map, tree_unflatten
 from repro_torch.optim import adamw_update, lr_schedule
+from repro_torch.serve.graphs import GraphCache
 from repro_torch.train.compression import ErrorFeedback, decompress_tree
 
 
@@ -51,23 +57,57 @@ class HeteroTrainer:
         self.rater.reset({id(g): g.power for g in groups})
         self._ef = {id(g): ErrorFeedback() for g in groups}
         self._executor = GroupExecutor(groups, name="hetero")
+        self._graphs: dict = {}  # device -> the GraphCache of its gradient graphs
 
     def shutdown(self) -> None:
         """Stop the resident per-group workers and join them (daemon
         threads; optional)."""
         self._executor.shutdown(wait=True)
 
-    def grads(self, params, batch, device) -> tuple[float, dict]:
+    def grads(self, params, batch, device, scope=None) -> tuple[float, dict]:
         """(loss, gradient tree) of ``forward_train`` on ``batch`` at a copy
-        of ``params`` on ``device``; the gradients stay on ``device``."""
-        leaves = [p.detach().to(device, copy=True).requires_grad_() for p in
-                  tree_leaves(params)]
+        of ``params`` on ``device``; the gradients stay on ``device``.  On
+        a CUDA device a replay of the device's gradient graph for this
+        batch shape and ``scope`` (captured at its first call), on the
+        current stream, the parameters copied into its static leaves;
+        elsewhere eager.  Calls that may run at once take scopes of their
+        own (the step passes each group's name: two groups on streams of
+        one card never share a static buffer)."""
+        device = torch.device(device)
         mb = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-        with torch.enable_grad():
-            loss = self.api.forward_train(tree_unflatten(params, leaves), mb, self.cfg)
-            g = torch.autograd.grad(loss, leaves, allow_unused=True)
-        g = [torch.zeros_like(p) if gi is None else gi for p, gi in zip(leaves, g)]
-        return loss.detach().item(), tree_unflatten(params, g)
+        if not GraphCache.accepts(device):
+            leaves = [p.detach().to(device, copy=True) for p in tree_leaves(params)]
+            loss, *g = self._grad_body(params, leaves, mb)
+            return loss.item(), tree_unflatten(params, g)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        graphs = self._graphs.setdefault(device, GraphCache())
+        keys = sorted(mb)
+        inputs = {"params": [p.detach().to(device) for p in tree_leaves(params)],
+                  "batch": [mb[k] for k in keys]}
+
+        def body(st, n):
+            return self._grad_body(params, st["params"], dict(zip(keys, st["batch"])))
+
+        loss, *g = graphs.copy_out(graphs.bind("grads", 1, (), inputs, body, scope=scope)())
+        return loss.item(), tree_unflatten(params, g)
+
+    def _grad_body(self, params, leaves: list, mb: dict) -> tuple:
+        """(loss, *gradients in ``tree_leaves`` order) of ``forward_train``
+        on ``mb`` at the parameter ``leaves`` (shaped as ``params``),
+        through ``torch.autograd.grad``; the leaves are left without
+        ``requires_grad``."""
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            with torch.enable_grad():
+                loss = self.api.forward_train(tree_unflatten(params, leaves), mb, self.cfg)
+                g = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        return (loss.detach(), *[torch.zeros_like(p) if gi is None else gi
+                                 for p, gi in zip(leaves, g)])
 
     # ---------------------------------------------------------------- shares
     def partition(self, batch_size: int) -> List[int]:
@@ -99,8 +139,14 @@ class HeteroTrainer:
             try:
                 lo, hi = offsets[i], offsets[i + 1]
                 t0 = time.perf_counter()
-                loss, grads = self.grads(state["params"], {k: v[lo:hi] for k, v in
-                                                           batch.items()}, group.device)
+                with group.stream_context():
+                    if group.stream is not None:
+                        # The last step's update, on the default stream,
+                        # precedes this share's copy of the parameters.
+                        group.stream.wait_stream(torch.cuda.default_stream(group.device))
+                    loss, grads = self.grads(state["params"], {k: v[lo:hi] for k, v in
+                                                               batch.items()}, group.device,
+                                             scope=group.name)
                 if group.device.type == "cuda":
                     torch.cuda.synchronize(group.device)
                 dt = time.perf_counter() - t0
@@ -148,7 +194,8 @@ class HeteroTrainer:
         lr = lr_schedule(state["step"], **self.lr_kwargs)
         new_params, new_opt = adamw_update(state["params"], combined, state["opt"],
                                            state["step"], lr=lr)
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
+        state["step"].add_(1)
+        new_state = {"params": new_params, "opt": new_opt, "step": state["step"]}
         metrics = {
             "loss": loss,
             "shares": shares,

@@ -1,12 +1,15 @@
 """The train step: loss -> gradients (microbatched) -> AdamW.
 
-The JAX package's step is one jitted SPMD program; here it is the eager
-sequence of the same computations on each rank.  ``cfg.microbatches`` > 1
-splits the batch as ``x.reshape(nmb, B // nmb, ...)`` and sums the losses
-and gradients over the microbatches, then divides both by ``nmb``, as the
-reference's ``lax.scan``.  The state is ``{"params", "opt": {"m", "v"},
-"step"}``, the JAX tree's keys; the step updates it in place (the JAX
-launcher donates it) and returns it with ``step + 1``.
+The JAX launcher runs its step as one jitted program with the state
+donated (``jax.jit(make_train_step(...), donate_argnums=(0,))``).  Here
+the step is the sequence of the same computations, and on the card the
+whole of it is one CUDA graph (:func:`make_train_step`).
+``cfg.microbatches`` > 1 splits the batch as ``x.reshape(nmb, B // nmb,
+...)`` and sums the losses and gradients over the microbatches, then
+divides both by ``nmb``, as the reference's ``lax.scan``.  The state is
+``{"params", "opt": {"m", "v"}, "step"}``, the JAX tree's keys; the step
+updates every leaf in place, the step counter too (``add_``: a graph
+owns its address), and returns the same leaves.
 
 Under a mesh the step takes the rank's slice of the global batch (split
 over the batch axes, ``data.ShardedLoader``), and after the microbatches
@@ -23,6 +26,7 @@ import torch
 from repro_torch.distributed.sharding import axes_of, batch_axes, current_mesh, rank_placements
 from repro_torch.models.params import Spec, tree_leaves, tree_unflatten
 from repro_torch.optim import adamw_init_spec, adamw_update, lr_schedule
+from repro_torch.serve.graphs import GraphCache
 
 TrainState = Dict[str, Any]  # {"params", "opt": {"m","v"}, "step"}
 
@@ -120,15 +124,36 @@ def loss_and_grads(api, cfg, params, batch):
     return loss, grads
 
 
-def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None):
+def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None,
+                    graph: bool = True):
     """``train_step(state, batch) -> (state, {"loss", "lr"})``: the
     gradients of ``api.forward_train`` (which casts the float32 masters to
-    the compute dtype), then one AdamW step at ``lr_schedule(step)``.
-    ``batch`` holds tensors on the state's device.  ``mesh`` (the current
-    mesh by default, read when the step is made): ``batch`` is the rank's
-    slice, the loss and gradients are averaged over the batch axes, the
-    clip's norm covers the leaves sliced over "model" (the experts under
-    expert parallelism), and under ``cfg.zero1`` the update is ZeRO-1's."""
+    the compute dtype), then one AdamW step at ``lr_schedule(step)``, the
+    state updated in place.  ``batch`` holds tensors on the state's
+    device.  ``mesh`` (the current mesh by default, read when the step is
+    made): ``batch`` is the rank's slice, the loss and gradients are
+    averaged over the batch axes, the clip's norm covers the leaves sliced
+    over "model" (the experts under expert parallelism), and under
+    ``cfg.zero1`` the update is ZeRO-1's.
+
+    ``graph=True``, the counterpart of the JAX launcher's ``jax.jit``: on
+    CUDA tensors without a mesh the whole step -- every microbatch's
+    forward and backward, the mean, the schedule, the clip and AdamW -- is
+    one CUDA graph, captured once per key (:func:`graph_key`: the batch
+    leaves' shapes and dtypes, the cfg fields that shape the step, and the
+    identity of the state's leaves) and replayed for every later step.
+    The first step of a key runs eagerly on the state, counted as a step
+    (the graph's warm-up: a warm-up inside the capture would be an extra,
+    uncounted AdamW step); the capture follows it, executing nothing, and
+    every later step replays.  The graph reads the batch from static
+    buffers, each leaf copied in unless it is that buffer, and updates the
+    caller's params, m, v and step in place, as the JAX launcher donates
+    them; the returned ``loss`` and ``lr`` are the graph's own tensors,
+    which the next replay overwrites.  On CUDA a failed capture or replay
+    raises; there is no eager fallback.  CPU tensors run the step
+    eagerly.  Under a mesh the step stays eager: gloo's collectives cannot
+    be captured, and graphs of mesh steps (NCCL, several cards) are still
+    to come.  ``graph=False`` runs every step eagerly."""
     lr_kwargs = lr_kwargs or {}
     mesh = mesh if mesh is not None else current_mesh()
     dims = axes = None
@@ -137,15 +162,64 @@ def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None):
         dims = zero1_dims(places["opt"], mesh) if cfg.zero1 else None
         axes = grad_axes(places["params"])
 
-    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+    def eager_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state["params"]
         loss, grads = reduce_over_batch(*loss_and_grads(api, cfg, params, batch), mesh)
         lr = lr_schedule(state["step"], **lr_kwargs)
         grads = tree_unflatten(params, grads)
-        new_params, new_opt = adamw_update(params, grads, state["opt"], state["step"], lr=lr,
-                                           mesh=mesh, zero1_dims=dims, grad_axes=axes)
+        adamw_update(params, grads, state["opt"], state["step"], lr=lr, mesh=mesh,
+                     zero1_dims=dims, grad_axes=axes)
         del grads
-        new_state = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
-        return new_state, {"loss": loss, "lr": lr}
+        state["step"].add_(1)
+        return {"params": params, "opt": state["opt"], "step": state["step"]}, \
+            {"loss": loss, "lr": lr}
 
+    if mesh is not None or not graph:
+        return eager_step
+    graphs = GraphCache()
+    warmed: set = set()
+
+    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if not graphs.accepts(next(iter(batch.values())).device):
+            return eager_step(state, batch)
+        inputs, consts = graph_inputs(state, batch)
+
+        def body(statics, n):
+            _, m = eager_step(state, {k: statics[k] for k in batch})
+            return m["loss"], m["lr"]
+
+        key = graph_key(cfg, inputs, consts)
+        if key not in warmed:
+            out = eager_step(state, batch)
+            # The eager step's cached blocks go back to the card before the
+            # graph's private pool is drawn.
+            torch.cuda.empty_cache()
+            graphs.capture("train_step", 1, graph_ints(cfg), inputs, body, consts, warmup=False)
+            warmed.add(key)
+            return out
+        loss, lr = graphs.bind("train_step", 1, graph_ints(cfg), inputs, body, consts,
+                               warmup=False)()
+        return {"params": state["params"], "opt": state["opt"], "step": state["step"]}, \
+            {"loss": loss, "lr": lr}
+
+    train_step.graphs = graphs
     return train_step
+
+
+def graph_ints(cfg) -> tuple:
+    """The cfg fields that shape a train step's graph."""
+    return (cfg.remat, max(cfg.microbatches, 1), cfg.kernel_impl, cfg.compute_dtype)
+
+
+def graph_inputs(state: TrainState, batch: dict) -> tuple[dict, tuple]:
+    """(the graph's inputs: the batch leaves by key, its consts: the
+    state's params, m, v and step, whose leaves it addresses)."""
+    return ({k: batch[k] for k in sorted(batch)},
+            (state["params"], state["opt"]["m"], state["opt"]["v"], state["step"]))
+
+
+def graph_key(cfg, inputs: dict, consts: tuple) -> tuple:
+    """The train step graph's cache key (``GraphCache.key``): the batch
+    leaves' shapes and dtypes, :func:`graph_ints`, the device and the
+    identity of every state leaf; never a batch leaf's address."""
+    return GraphCache.key("train_step", 1, graph_ints(cfg), inputs, consts)
