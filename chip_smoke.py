@@ -359,6 +359,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
              each group's seconds printed; cuda:0's gradient graphs
              captured once a batch shape and scope and replayed once a
              call.
+   C13    -- the HeteroTrainer's gradient graphs on cuda:0 over six
+             share sizes of qwen1.5-4b (depth 2, float32, 256 tokens, the
+             largest first): the card's reserved bytes after each new size
+             grow by at most a quarter of the first size's (one pool and
+             one set of gradient buffers a scope).  ``--c13`` runs only
+             this reading (a copy of the script run from another
+             checkout's root reads that tree; every size's line and the
+             growth print before the bound is held).
    mesh   -- the device mesh (A11): worlds of spawned ranks that compute
              on cuda:0 and exchange over gloo (NCCL refuses two ranks of
              one communicator on one GPU), each held against a one-rank
@@ -381,7 +389,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
              through ``repro_torch.launch.train --mesh-shape 2x1``,
              checkpointed after 2 steps; rank 1 is lost and
              ``ElasticRunner`` rebuilds on rank 0 alone: restored bitwise,
-             data cursor 2, one more step finite.  Each world prints its
+             data cursor 2, three more steps finite, and a re-mesh frees
+             the old step's graphs (the reserved bytes).  (e) qwen1.5-4b
+             depth 4 and (f) recurrentgemma-2b depth 3 tensor-parallel on
+             (model 2), 8 x 256 prefill + 16 decode steps, and (e)'s
+             float32 train step at depth 2.  In every world each mesh step
+             that the port records as CUDA graphs between the mesh's
+             collectives (``serve/graphs.Segments``) runs graphed beside
+             its eager run and is held to it bitwise: one-shot generate in
+             (a), (b), (e), (f) (tokens and every cache leaf), the train
+             step in (c) (ZeRO-1 off and on; 2 steps: eager, the capture,
+             a replay) and (e) (3 steps: eager, the capture, two replays;
+             losses and every params, m, v leaf),
+             the launcher's run in (d) (losses and state); each with one
+             replay's stretches and collectives equal to the eager call's
+             ``Mesh.stats`` in count and bytes, the launches equal, the
+             capture's phases, eager and replay seconds, and each rank's
+             peak allocated and reserved bytes.  Each world prints its
              ranks' peak memory, seconds and collectives (count, bytes) a
              step.  ``--mesh`` runs only this phase.
 7. results -- the ``[graph]`` table, eager beside graphed for every main
@@ -4285,8 +4309,9 @@ def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
             if (g["captures"], g["replays"]) != (1, QWEN_TRAIN_STEPS - 1):
                 fail(f"qwen1.5-4b train: {g['captures']} captures and {g['replays']} replays, "
                      f"want 1 and {QWEN_TRAIN_STEPS - 1}")
-            run["graph"] = {k: g[k] for k in ("captures", "capture_s", "replays", "copy_ins",
-                                              *g["loops"]["train_step"])}
+            loop = g["loops"]["train_step"]
+            run["graph"] = {k: g.get(k, loop.get(k)) for k in ("captures", "capture_s",
+                                                               "replays", "copy_ins", *loop)}
             graph_fn = step_fn
         runs[mode] = run
         del step_fn
@@ -4699,6 +4724,77 @@ def run_hetero_train(dev, torch, card) -> dict:
             "cuda_graphs": graph}
 
 
+# C13: the HeteroTrainer's gradient graphs on cuda:0 over share sizes, the
+# largest first, then the first again (a replay: nothing new).
+C13 = {"arch": "qwen1.5-4b", "depth": 2, "seq": 256, "sizes": (6, 1, 2, 3, 4, 5)}
+C13_GROWTH = 0.25  # reserved growth after the first size, of the first size's
+
+
+def run_c13(dev, torch, card) -> dict:
+    """C13: ``HeteroTrainer.grads`` on cuda:0 (its graph path, scope
+    "cuda:0") over the share sizes of ``C13``, qwen1.5-4b at full width,
+    float32, the reference attention (no kernel to build: the graphs'
+    memory is the question); after each new size the card's reserved bytes
+    beyond the state's and ``GraphCache.stats()``.  Run from another
+    checkout's root it reads that tree.  Fails where the reserved bytes
+    grow after the first size by more than ``C13_GROWTH`` of what the
+    first size took, after every line is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import discover
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+    from repro_torch.train.hetero import HeteroTrainer
+
+    c = C13
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"],
+                              kernel_impl="reference", compute_dtype="float32")
+    api = get_model(cfg)
+    state, _ = build_state(cfg, api, dev, 0)
+    trainer = HeteroTrainer(cfg, api, [g for g in discover() if g.device.type == "cuda"][:1])
+    batch = next(SyntheticTokens(cfg, max(c["sizes"]), c["seq"], seed=0))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    rows = []
+    try:
+        for n in c["sizes"] + c["sizes"][:1]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            # The gradients dropped at once: only the graphs' memory stays.
+            loss = trainer.grads(state["params"], {k: v[:n] for k, v in batch.items()}, dev,
+                                 scope="cuda:0")[0]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            gc.collect()
+            st = next(iter(trainer._graphs.values())).stats()
+            rows.append({"size": n, "seconds": secs, "loss": loss,
+                         "reserved_beyond_state": torch.cuda.memory_reserved() - base,
+                         "allocated": torch.cuda.memory_allocated(),
+                         "captures": st["captures"], "replays": st["replays"],
+                         "static_bytes": st["static_bytes"]})
+            r = rows[-1]
+            print(f"  share {n} x {c['seq']}: reserved beyond the state "
+                  f"{gib(r['reserved_beyond_state'])}, allocated {gib(r['allocated'])}, "
+                  f"captures {r['captures']}, replays {r['replays']}, static buffers "
+                  f"{gib(r['static_bytes'])}, {secs:.2f} s, loss {loss:.4f}", flush=True)
+    finally:
+        trainer.shutdown()
+    first = rows[0]["reserved_beyond_state"]
+    growth = max(r["reserved_beyond_state"] for r in rows) - first
+    out = {"rows": rows, "first_size_bytes": first, "growth_after_first_bytes": growth,
+           "card": card}
+    print(f"  C13: the first size took {gib(first)}; {len(c['sizes']) - 1} more sizes added "
+          f"{gib(growth)} ({growth / max(first, 1):.3f} of it; bound {C13_GROWTH})", flush=True)
+    if growth > C13_GROWTH * first:
+        fail(f"C13: the HeteroTrainer's graphs grew the reserved bytes by {gib(growth)} after "
+             f"the first share size's {gib(first)}")
+    del state, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
     """The [train] phase; ``detail`` (``--train``) adds where a qwen
     step's time goes (:func:`train_step_parts`)."""
@@ -4743,6 +4839,8 @@ MESH_SEQ = {"arch": "internlm2-20b", "depth": 2, "batch": 8, "prompt": 2048, "ca
             "steps": 16}
 MESH_EP = {"arch": "arctic-480b", "depth": 1, "batch": 8, "prompt": 256, "steps": 8,
            "capacity_factor": 100.0}
+# Two steps (one eager, the capture, one replay): a third of each of (c)'s
+# three runs costs 5-10 s of gloo; (e)'s train step holds two replays.
 MESH_DP = {"arch": "qwen1.5-4b", "depth": 2, "batch": 4, "seq": 512, "steps": 2}
 MESH_ELASTIC_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq", "64",
                      "--seed", "0", "--kernel", "cuda", "--ckpt-interval", "2", "--steps", "2",
@@ -4751,6 +4849,240 @@ MESH_LOGITS_REL = {"bfloat16": BF16_TOL, "float32": F32_TOL}  # rel L2 a step's 
 MESH_LOSS_REL, MESH_GRAD_REL = 1e-4, 1e-3  # data parallelism, float32 compute
 MESH_KERNELS = ("flash_attention", "flash_decode", "gemm_rowinv", "rms_norm", "moe_gemm",
                 "rglru_scan")
+
+
+def _mem(torch) -> dict:
+    return {"peak_allocated": torch.cuda.max_memory_allocated(),
+            "reserved": torch.cuda.memory_reserved()}
+
+
+def _counts(ops) -> dict:
+    return {k: n for k, n in ops.launch_counts().items() if n}
+
+
+def graph_loops(stats: dict) -> dict:
+    """A GraphCache's loops as one replay sees them: stretches and
+    collectives, and the capture's seconds by phase."""
+    return {name: {k: loop[k] for k in ("stretches", "collectives", "warmup_s", "begin_s",
+                                        "record_s", "instantiate_s")}
+            for name, loop in stats["loops"].items()}
+
+
+def mesh_generate_graphed(cfg, api, params, batch, gen, mesh, torch) -> dict:
+    """One-shot generate of ``gen`` tokens on this rank of ``mesh``, eager
+    (``graph=False``), then graphed (``graph=True``: ``prepare`` captures
+    the prefill and chain graphs, then one call replays them), each run's
+    two stages (``generate.prefill``, ``generate.chain``) timed on the host
+    to the card's end: the tokens and every cache leaf of the two runs,
+    bitwise; each run's ``Mesh.stats`` and launch counts; the graphs'
+    stretches and collectives a replay and the capture's phases; each
+    run's peak allocated and reserved bytes."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve.step import make_generate
+
+    runs = {}
+    for graph in (False, True):
+        g = make_generate(cfg, api, graph=graph)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        capture = g.prepare(params, batch, gen) if graph else 0.0
+        torch.cuda.synchronize()
+        mesh.reset_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tok, pos, cache, kw = g.prefill(params, batch, gen)
+        toks, _, cache = g.chain(params, cache, tok, pos, gen - 1, **kw)
+        torch.cuda.synchronize()
+        rec = {"seconds": time.perf_counter() - t0, "stats": mesh.reset_stats(),
+               "launches": _counts(ops), "capture_s": capture,
+               "tokens": torch.cat([tok, toks], dim=1).cpu(),
+               "cache": [t.cpu() for t in tree_leaves(cache)], **_mem(torch)}
+        if graph:
+            rec["loops"] = graph_loops(g.graphs.stats())
+        runs[graph] = rec
+        del g, tok, toks, cache
+    e, g = runs[False], runs[True]
+    out = {"bitwise": torch.equal(e["tokens"], g["tokens"])
+           and all(torch.equal(a, b) for a, b in zip(e["cache"], g["cache"])),
+           "tokens_shape": tuple(g["tokens"].shape), "cache_leaves": len(g["cache"])}
+    for k in ("seconds", "stats", "launches", "peak_allocated", "reserved"):
+        out[k] = (e[k], g[k])
+    out.update(capture_s=g["capture_s"], loops=g["loops"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class CollectiveClock:
+    """Host seconds inside the mesh's collectives, eager or a replay's
+    nodes (both go through ``launch.mesh.Collective.__call__``, which this
+    context wraps): the card is synchronized before each collective, so
+    its time holds none of the work queued ahead of it, and after it, so
+    its time holds gloo's copy back to the card.  ``take()`` gives the
+    seconds since the last take."""
+
+    def __init__(self, torch) -> None:
+        from repro_torch.launch.mesh import Collective
+
+        self.torch, self.cls, self.real, self.seconds = torch, Collective, Collective.__call__, 0.0
+
+    def __enter__(self):
+        real, sync = self.real, self.torch.cuda.synchronize
+
+        def timed(coll):
+            sync()
+            t = time.perf_counter()
+            real(coll)
+            sync()
+            self.seconds += time.perf_counter() - t
+
+        self.cls.__call__ = timed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cls.__call__ = self.real
+
+    def take(self) -> float:
+        s, self.seconds = self.seconds, 0.0
+        return s
+
+
+def timed_step(step, state, b, mesh, clock, torch) -> tuple:
+    """One train step on the host clock to the card's end: (state, loss,
+    seconds, seconds inside collectives, ``Mesh.stats``)."""
+    mesh.reset_stats()
+    clock.take()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, b)
+    torch.cuda.synchronize()
+    return (state, float(m["loss"]), time.perf_counter() - t0, clock.take(),
+            mesh.reset_stats())
+
+
+def mesh_train_graphed(cfg, api, mesh, dev, batches, torch, keep_leaves=False,
+                       eager=None) -> dict:
+    """Train steps on this rank of ``mesh`` from the seed-0 state, eager
+    (``graph=False``), then graphed (the first step eager, the capture,
+    then replays) from the seed-0 state again, the eager run's losses and
+    leaves held in host memory meanwhile (a second state on the card
+    would not fit beside the graphed run's): losses and every params, m,
+    v and step leaf bitwise; each step's seconds, ``Mesh.stats`` and
+    launch counts; the graph's stretches and collectives a replay and the
+    capture's phases; each run's peak allocated and reserved bytes; with
+    ``keep_leaves``, the eager run's leaves (host) as ``eager_leaves``.
+    ``eager``: an earlier eager run of the same batches from the same
+    state in this run's layout, held to bitwise instead of an eager run
+    of its own: a dict of its ``losses`` and ``leaves`` (host), and, where
+    that run has them, each step's ``step_s``, ``collective_s``,
+    ``stats`` and ``launches`` and its ``peak_allocated`` and
+    ``reserved``; what it lacks is the graphed run's own first, eager
+    step's (the collectives and launches held against it).  Leaves it
+    keeps on the card are compared where they lie, their bytes taken out
+    of the graphed run's peak allocated and reserved.  Every step's
+    seconds inside the collectives (:class:`CollectiveClock`) beside its
+    seconds: the graphed run's first step is eager and its second a
+    replay, one after the other on one state."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import build_state
+    from repro_torch.train import make_train_step
+
+    runs, held = {}, 0
+    if eager is not None:
+        runs[False] = eager
+        held = sum(t.numel() * t.element_size() for t in eager["leaves"] if t.is_cuda)
+    with CollectiveClock(torch) as clock:
+        for graph in (False, True) if eager is None else (True,):
+            state, _ = build_state(cfg, api, dev, 0, mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = make_train_step(cfg, api, mesh=mesh, graph=graph)
+            rec = {"losses": [], "step_s": [], "collective_s": [], "stats": [], "launches": []}
+            for b in batches:
+                ops.reset_launch_counts()
+                state, loss, secs, coll, stats = timed_step(step, state, b, mesh, clock, torch)
+                rec["losses"].append(loss)
+                rec["step_s"].append(secs)
+                rec["collective_s"].append(coll)
+                rec["stats"].append(stats)
+                rec["launches"].append(_counts(ops))
+            rec.update({k: v - held for k, v in _mem(torch).items()} if graph else _mem(torch))
+            if graph:
+                rec["loops"] = graph_loops(step.graphs.stats())
+                rec["m_shape"] = tuple(state_leaves(state)[(len(state_leaves(state)) - 1) // 3]
+                                       .shape)
+                rec["bitwise"] = rec["losses"] == runs[False]["losses"] and all(
+                    torch.equal(a, b.to(a.device)) for a, b in zip(state_leaves(state),
+                                                                   runs[False]["leaves"]))
+            else:
+                rec["leaves"] = [t.cpu() for t in state_leaves(state)]
+            runs[graph] = rec
+            del state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    g = runs[True]
+    e = runs[False] if eager is None else {
+        "step_s": g["step_s"][:1], "collective_s": g["collective_s"][:1],
+        "stats": g["stats"][:1] * len(batches), "launches": g["launches"][:1] * len(batches),
+        "peak_allocated": None, "reserved": None, **eager}
+    out = {"bitwise": g["bitwise"]}
+    for k in ("losses", "step_s", "collective_s", "stats", "launches", "peak_allocated",
+              "reserved"):
+        out[k] = (e[k], g[k])
+    out["loops"], out["m_shape"] = g["loops"], g["m_shape"]
+    if keep_leaves:
+        out["eager_leaves"] = e["leaves"]
+    return out
+
+
+def graphed_bad(label: str, rec: dict) -> list:
+    """A graphed path's failures against its eager run: bits, the
+    collectives (count and bytes) and launches of the compared calls, and
+    one replay's stretches against its collectives."""
+    bad = []
+    if not rec["bitwise"]:
+        bad.append(f"{label}: graphed differs from eager")
+    e, g = rec["stats"]
+    if e != g:
+        bad.append(f"{label}: collectives graphed {g} != eager {e}")
+    e, g = rec["launches"]
+    if e != g:
+        bad.append(f"{label}: launches graphed {g} != eager {e}")
+    e = rec["stats"][0]
+    counts = [sum(n for n, _ in x.values()) for x in (e if isinstance(e, list) else [e])]
+    nodes = rec.get("calls", 1) * sum(x["collectives"] for x in rec["loops"].values())
+    if any(c != nodes for c in counts):
+        bad.append(f"{label}: {nodes} collectives a replay, the eager call's {counts}")
+    for name, loop in rec["loops"].items():
+        if loop["stretches"] != loop["collectives"] + 1:
+            bad.append(f"{label}: {name} has {loop['stretches']} stretches for "
+                       f"{loop['collectives']} collectives")
+    return bad
+
+
+def graphed_line(label: str, rec: dict) -> str:
+    """One printed line of a graphed path against its eager run."""
+    loops = "; ".join(f"{n} {x['stretches']} stretches, {x['collectives']} collectives, "
+                      f"capture warm-up {x['warmup_s']:.3f} s, begin {x['begin_s']:.3f}, "
+                      f"recording {x['record_s']:.3f}, instantiation {x['instantiate_s']:.3f}"
+                      for n, x in rec["loops"].items())
+    secs = rec.get("step_s", rec.get("seconds"))
+    fmt = (lambda v: [round(x, 4) for x in v]) if isinstance(secs[0], list) else (
+        lambda v: round(v, 4))
+    coll = ""
+    if "collective_s" in rec:
+        coll = (f" (inside collectives eager {fmt(rec['collective_s'][0])}, graphed "
+                f"{fmt(rec['collective_s'][1])})")
+    return (f"  {label}: graphed == eager bitwise {rec['bitwise']}; one replay: {loops}; "
+            f"collectives eager {rec['stats'][0]}, graphed {rec['stats'][1]} (count, bytes); "
+            f"launches eager {rec['launches'][0]}, graphed {rec['launches'][1]}; seconds eager "
+            f"{fmt(secs[0])}, graphed {fmt(secs[1])}{coll}; peak allocated "
+            f"{' / '.join(gib(x) if x is not None else '-' for x in rec['peak_allocated'])}, "
+            f"reserved {' / '.join(gib(x) if x is not None else '-' for x in rec['reserved'])} "
+            f"(eager / graphed)")
 
 
 def mesh_store(name: str) -> Path:
@@ -4934,7 +5266,12 @@ def mesh_seq_rank(rank, world, dev, yard_file, tokens, steps):
                       "peak_bytes": torch.cuda.max_memory_allocated(),
                       "sliced_bytes": sliced_bytes(params, places, mesh),
                       "seconds": time.perf_counter() - t0}
-        del params, cache, rec
+        del cache, rec
+        if dtype == "bfloat16":
+            # One-shot generate graphed against eager: tokens, every cache leaf.
+            out["generate"] = mesh_generate_graphed(cfg, api, params, {"tokens": rows(tokens)},
+                                                    MESH_SEQ["steps"], mesh, torch)
+        del params
         torch.cuda.empty_cache()
     return out
 
@@ -4992,6 +5329,7 @@ def run_mesh_seq(dev, torch) -> dict:
                            f"run (tol {tol})")
             if e["cache_slots"] != c["cache"] // 2:
                 bad.append(f"seq-sharded decode: a rank holds {e['cache_slots']} slots")
+        bad += graphed_bad(f"(a) generate on rank {r['coord']}", r["generate"])
     return {"world": 4, "mesh": {"data": 2, "model": 2}, "yardstick_s": yard_s,
             "witness_free_running_logits_rel_l2": witness, "world_s": world_s,
             "ranks": res}, bad
@@ -5043,14 +5381,17 @@ def mesh_ep_rank(rank, world, dev, yard_file, tokens, steps):
     gen_s = time.perf_counter() - t0
     counts = {k: n for k, n in ops.launch_counts().items() if n}
     errs = [rel_l2(lg, yard[i].to(dev)) for i, lg in enumerate(logits)]
-    return {"coord": mesh.coord, "rel_l2": errs, "counts": counts,
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    gen = mesh_generate_graphed(cfg, api, params, {"tokens": rows(tokens)}, len(steps), mesh,
+                                torch)
+    return {"coord": mesh.coord, "rel_l2": errs, "counts": counts, "generate": gen,
             "finite": all(bool(torch.isfinite(x).all()) for x in logits),
             "drops": int(sum(int(d) for d in drops)),
             "experts_held": int(params["layers"]["experts"]["w_up"].shape[1]),
             "sliced_bytes": sliced_bytes(params, places, mesh),
             "prefill_collectives": stats[0], "decode_step_collectives": stats[1],
-            "draw_s": draw_s, "generate_s": gen_s,
-            "peak_bytes": torch.cuda.max_memory_allocated()}
+            "draw_s": draw_s, "generate_s": gen_s, "peak_bytes": peak}
 
 
 def run_mesh_ep(dev, torch) -> dict:
@@ -5093,6 +5434,7 @@ def run_mesh_ep(dev, torch) -> dict:
             bad.append(f"expert parallelism on rank {r['coord']}: moe_gemm launched "
                        f"{r['counts'].get('moe_gemm', 0)} times (want {want}), "
                        f"{r['experts_held']} experts held")
+        bad += graphed_bad(f"(b) generate on rank {r['coord']}", r["generate"])
     return {"world": 2, "mesh": {"model": 2}, "yardstick_s": yard_s, "yardstick_drops": yard_drops,
             "world_s": world_s, "moe_gemm_launches_per_rank": want, "ranks": res}, bad
 
@@ -5104,8 +5446,13 @@ def mesh_dp_rank(rank, world, dev, batches):
     rows (the same products on the same rows, summed the same way), two
     steps; beside it, printed, the first step's gradients of the batch as
     1 microbatch (the random stack parts the two by summation order alone:
-    ROADMAP.md C11).  Then the world steps twice with ZeRO-1 off and again
-    on from the same state.  A step's gradients are read where
+    ROADMAP.md C11).  Then the world steps twice with ZeRO-1 off,
+    eagerly, then graphed from the same state (held bitwise to the eager
+    run; every step's seconds inside the collectives beside its
+    seconds), then
+    graphed with ZeRO-1 on from the same state (held bitwise to the eager
+    replicated run: parameters, losses, and its slices of m and v).  A
+    step's gradients are read where
     ``make_train_step`` averages them (``reduce_over_batch``), and every
     comparison runs on the card."""
     import torch
@@ -5116,10 +5463,9 @@ def mesh_dp_rank(rank, world, dev, batches):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import build_state
     from repro_torch.models import get_model
-    from repro_torch.models.params import tree_leaves
     from repro_torch.train import make_train_step
     from repro_torch.train import step as train_step
-    from repro_torch.train.step import loss_and_grads
+    from repro_torch.train.step import loss_and_grads, state_placements
 
     cfg = dataclasses.replace(get_config(MESH_DP["arch"]), n_layers=MESH_DP["depth"],
                               kernel_impl="cuda", compute_dtype="float32")
@@ -5169,30 +5515,38 @@ def mesh_dp_rank(rank, world, dev, batches):
     after = None
     for zero1 in (False, True):
         c = dataclasses.replace(cfg, zero1=zero1)
-        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, _ = build_state(c, api, dev, 0, mesh)
         loc = [rank_batch(b, mesh, entries, dev) for b in batches]
         first.clear()
-        state, losses, stats, secs = steps(c, state, loc, mesh)
-        rec = {"losses": losses, "step_s": secs, "step_collectives": stats[-1],
-               "m_shape": tuple(tree_leaves(state["opt"]["m"])[0].shape)}
+        if zero1:
+            # Held to the replicated eager run: its parameters and losses,
+            # and this rank's slices of its m and v (ZeRO-1's update is the
+            # replicated one, bitwise); no ZeRO-1 eager run of its own.
+            places = state_leaves(state_placements(c, api, mesh)[1])
+            g = mesh_train_graphed(c, api, mesh, dev, loc, torch, eager={
+                "losses": out["zero1_False"]["losses"],
+                "leaves": [S.rank_slice(t, sh, mesh) for t, sh in zip(after, places)]})
+        else:
+            # Eager steps, then graphed ones from the same state: the
+            # eager run's first step keeps its gradients (``first``).
+            g = mesh_train_graphed(c, api, mesh, dev, loc, torch, keep_leaves=True)
+            after = g.pop("eager_leaves")
+        rec = {"losses": g["losses"][1] if zero1 else g["losses"][0],
+               "step_s": g["step_s"][1] if zero1 else g["step_s"][0],
+               "step_collectives": g["stats"][1][-1], "m_shape": g["m_shape"], "graphed": g}
         if rank == 0 and not zero1:
             grads = first.pop()
             rec["grads_rel_l2"] = tree_rel_l2(grads, yard_grads)
             rec["grads_bitwise"] = all(torch.equal(a, b) for a, b in zip(grads, yard_grads))
             rec["grads_rel_l2_one_microbatch"] = tree_rel_l2(grads, one_mb)
-            rec["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(losses, yard_losses)]
+            rec["loss_rel"] = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], yard_losses)]
             del grads
-        params = tree_leaves(state["params"])
-        if after is None:
-            after = [p.clone() for p in params]
-        else:
-            rec["params_bitwise_zero1_off"] = all(torch.equal(a, b) for a, b in zip(after, params))
-        rec.update(peak_bytes=torch.cuda.max_memory_allocated(),
-                   seconds=time.perf_counter() - t0)
+        if zero1:
+            rec["params_bitwise_zero1_off"] = g["bitwise"]
+        rec.update(peak_bytes=g["peak_allocated"][1], seconds=time.perf_counter() - t0)
         out[f"zero1_{zero1}"] = rec
-        del state, loc, params
+        del loc
+        first.clear()
         gc.collect()
         torch.cuda.empty_cache()
     return {"coord": mesh.coord, **out}
@@ -5223,27 +5577,60 @@ def run_mesh_dp(dev, torch) -> dict:
         if not r["zero1_True"]["params_bitwise_zero1_off"]:
             bad.append(f"ZeRO-1's parameters on rank {r['coord']} differ from the replicated "
                        f"update's")
+        for z in ("zero1_False", "zero1_True"):
+            bad += graphed_bad(f"(c) train step {z} on rank {r['coord']}", r[z]["graphed"])
     return {"world": 2, "mesh": {"data": 2}, "world_s": world_s, "ranks": res}, bad
 
 
 def mesh_elastic_rank(rank, world, dev, ckpt, store):
     """(d) on a rank of the (data 2) world: whisper-tiny through the
-    launcher, checkpointed after 2 steps; rank 1 is then lost and rank 0
-    rebuilds alone with ``ElasticRunner``."""
+    launcher, checkpointed after 2 steps, its step graphed (the first
+    eager, the second a replay); then the same run eager, held bitwise
+    (losses, every state leaf, the mesh's collectives and the launches);
+    rank 1 is then lost and rank 0 rebuilds alone with ``ElasticRunner``
+    (a world of one: NCCL), takes three graphed steps there and rebuilds
+    again, the card's reserved bytes read around it."""
+    import functools
+
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens, to_device
     from repro_torch.distributed.elastic import ElasticRunner
+    from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
     from repro_torch.models import get_model
     from repro_torch.models.params import tree_leaves
     from repro_torch.train import make_train_step, state_spec
 
-    torch.cuda.reset_peak_memory_stats()
-    r = launch_train.main(MESH_ELASTIC_ARGV + ["--ckpt", ckpt])
+    runs = {}
+    make = launch_train.make_train_step
+    for graph in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        launch_train.make_train_step = functools.partial(make, graph=graph)
+        try:
+            r = launch_train.main(MESH_ELASTIC_ARGV + ["--ckpt", ckpt + ("" if graph else "_eager")])
+        finally:
+            launch_train.make_train_step = make
+        runs[graph] = {"r": r, "launches": _counts(ops), "stats": r["mesh"].reset_stats(),
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "reserved": torch.cuda.memory_reserved()}
+    r, e = runs[True]["r"], runs[False]["r"]
+    loops = graph_loops(r["graph_stats"])
     out = {"rank": rank, "losses": r["losses"], "train_s": r["seconds"],
-           "peak_bytes": torch.cuda.max_memory_allocated()}
+           "peak_bytes": runs[True]["peak_bytes"],
+           "launcher": {"bitwise": r["losses"] == e["losses"] and all(
+                            torch.equal(a, b) for a, b in zip(state_leaves(r["state"]),
+                                                              state_leaves(e["state"]))),
+                        "stats": (runs[False]["stats"], runs[True]["stats"]),
+                        "launches": (runs[False]["launches"], runs[True]["launches"]),
+                        "step_s": (e["step_s"], r["step_s"]),
+                        "peak_allocated": (runs[False]["peak_bytes"], runs[True]["peak_bytes"]),
+                        "reserved": (runs[False]["reserved"], runs[True]["reserved"]),
+                        # the stats are of every step: one replay's nodes a step
+                        "loops": loops, "calls": len(r["losses"])}}
+    del e, runs
     if rank != 0:
         torch.distributed.destroy_process_group()  # the lost rank leaves
         return out
@@ -5260,9 +5647,29 @@ def mesh_elastic_rank(rank, world, dev, ckpt, store):
         tree_leaves(r["state"]["params"]), tree_leaves(restored["params"])))
     ds = SyntheticTokens(cfg, args.batch, args.seq, seed=args.seed)
     ds.seek(extra["data_cursor"])
-    _, m = runner.step_fn(restored, to_device(next(ds), mesh.device))
-    out.update(cursor=extra["data_cursor"], world_after=dict(mesh.shape),
-               next_loss=float(m["loss"]), backend_after=torch.distributed.get_backend())
+    torch.cuda.synchronize()
+    reserved = [torch.cuda.memory_reserved()]
+    losses, step_s = [], []
+    for _ in range(3):
+        b = to_device(next(ds), mesh.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, m = runner.step_fn(restored, b)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    reserved.append(torch.cuda.memory_reserved())
+    g = runner.step_fn.graphs.stats()
+    out.update(cursor=extra["data_cursor"], world_after=dict(mesh.shape), next_loss=losses[0],
+               elastic_losses=losses, elastic_step_s=step_s,
+               elastic_loops=graph_loops(g), elastic_replays=g["replays"],
+               backend_after=torch.distributed.get_backend())
+    del restored, m, b
+    # A re-mesh frees the old step function's graphs and pool with it.
+    runner.on_failure([0], f"file://{store}.again")
+    torch.cuda.synchronize()
+    reserved.append(torch.cuda.memory_reserved())
+    out["elastic_reserved"] = reserved
     return out
 
 
@@ -5280,8 +5687,19 @@ def run_mesh_elastic(dev, torch) -> dict:
             or r0["world_after"] != {"data": 1, "model": 1}:
         bad.append(f"elastic restart: restored bitwise {r0['restored_bitwise']}, cursor "
                    f"{r0['cursor']}, next loss {r0['next_loss']}, world {r0['world_after']}")
-    if not all(math.isfinite(x) for r in res for x in r["losses"]):
+    if not all(math.isfinite(x) for r in res for x in r["losses"] + r.get("elastic_losses", [])):
         bad.append(f"elastic restart: a loss is not finite: {[r['losses'] for r in res]}")
+    for r in res:
+        bad += graphed_bad(f"(d) launcher on rank {r['rank']}", r["launcher"])
+    loop = r0["elastic_loops"]["train_step"]
+    if (loop["stretches"], loop["collectives"], r0["elastic_replays"]) != (1, 0, 2):
+        bad.append(f"(d) the elastic step on a world of one: {loop['stretches']} stretches, "
+                   f"{loop['collectives']} collectives, {r0['elastic_replays']} replays "
+                   f"(want 1, 0, 2)")
+    before, graphed, after = r0["elastic_reserved"]
+    if after > before + max(graphed - before, 0) // 4 + 2**26:
+        bad.append(f"(d) a re-mesh left the old step's graphs reserved: {gib(before)} before "
+                   f"the steps, {gib(graphed)} after, {gib(after)} after the re-mesh")
     return {"world": 2, "mesh": {"data": 2}, "world_s": world_s, "ranks": res}, bad
 
 
@@ -5291,7 +5709,7 @@ MESH_TP = ({"name": "e", "arch": "qwen1.5-4b", "depth": 4, "scheme": "heads", "s
            {"name": "f", "arch": "recurrentgemma-2b", "depth": 3, "scheme": "qheads",
             "seed": 12})
 MESH_TP_GEN = {"batch": 8, "prompt": 256, "steps": 16}
-MESH_TP_TRAIN = {"arch": "qwen1.5-4b", "depth": 2, "batch": 4, "seq": 512}
+MESH_TP_TRAIN = {"arch": "qwen1.5-4b", "depth": 2, "batch": 4, "seq": 512, "steps": 3}
 
 
 @contextlib.contextmanager
@@ -5400,7 +5818,7 @@ def tp_layer_grads(cfg, params, xs, gs, tokens, torch) -> list:
     return out
 
 
-def mesh_tp_train(rank, world, dev, mesh, batch, layer_file, torch) -> dict:
+def mesh_tp_train(rank, world, dev, mesh, batches, layer_file, torch) -> dict:
     """(e)'s train step on a rank: qwen1.5-4b at depth 2, float32 compute.
     First each layer's VJP through the tensor-parallel block, at the one
     rank's layer inputs and output cotangents (``layer_file``), its
@@ -5414,19 +5832,25 @@ def mesh_tp_train(rank, world, dev, mesh, batch, layer_file, torch) -> dict:
     the world its step: the loss, the batch-averaged gradients gathered
     whole against the yardstick's (printed with the leaves that part most:
     summation order alone parts them, ROADMAP.md C11), and a digest of the
-    leaves every rank holds whole after AdamW."""
+    leaves every rank holds whole after AdamW.  The world's eager steps go
+    on over the other ``batches``: its run (``eager``: losses, seconds,
+    collectives, launches, memory and the state's leaves, kept on the
+    card, where a second state of this size fits) is the one the graphed
+    train step is held to (:func:`mesh_train_graphed`)."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.data import rank_batch, to_device
     from repro_torch.distributed import sharding as S
     from repro_torch.distributed.sharding import axes_of
+    from repro_torch.kernels import ops
     from repro_torch.launch.train import build_state
     from repro_torch.models import get_model
     from repro_torch.models.params import tree_leaves, tree_map_path
     from repro_torch.train import make_train_step
     from repro_torch.train import step as train_step
 
+    batch = batches[0]
     c = MESH_TP_TRAIN
     cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"], kernel_impl="cuda",
                               compute_dtype="float32")
@@ -5480,15 +5904,18 @@ def mesh_tp_train(rank, world, dev, mesh, batch, layer_file, torch) -> dict:
         places = train_step.state_placements(cfg, api, mesh)[1]["params"]
         gc.collect()
         torch.cuda.empty_cache()
-        mesh.reset_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = make_train_step(cfg, api, mesh=mesh)(
-            state, rank_batch(batch, mesh, {"tokens": ("batch", None)}, dev))
-        torch.cuda.synchronize()
-        out.update(step_s=time.perf_counter() - t0, collectives=mesh.reset_stats(),
-                   loss=float(m["loss"]), peak_bytes=torch.cuda.max_memory_allocated(),
+        step = make_train_step(cfg, api, mesh=mesh, graph=False)
+        loc = [rank_batch(b, mesh, {"tokens": ("batch", None)}, dev) for b in batches]
+        eager = {"losses": [], "step_s": [], "collective_s": [], "stats": [], "launches": []}
+        with CollectiveClock(torch) as clock:
+            ops.reset_launch_counts()
+            state, loss, secs, coll, stats = timed_step(step, state, loc[0], mesh, clock, torch)
+        out.update(step_s=secs, collectives=stats, loss=loss,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
                    sliced_bytes=sliced_bytes(state["params"], places, mesh))
+        for k, v in zip(("losses", "step_s", "collective_s", "stats", "launches"),
+                        (loss, secs, coll, stats, _counts(ops))):
+            eager[k].append(v)
         pl = tree_leaves(places)
         grads = [S.gather_leaf(g, sh, mesh) for g, sh in zip(seen.pop(), pl)]
         if yard is not None:
@@ -5500,12 +5927,29 @@ def mesh_tp_train(rank, world, dev, mesh, batch, layer_file, torch) -> dict:
                  if not any("model" in axes_of(r) for r in sh)]
         out["replicated_digest"] = digest(whole)
         out["replicated_leaves"] = len(whole)
+        del grads, whole
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with CollectiveClock(torch) as clock:
+            for b in loc[1:]:
+                ops.reset_launch_counts()
+                state, loss, secs, coll, stats = timed_step(step, state, b, mesh, clock, torch)
+                seen.clear()
+                for k, v in zip(("losses", "step_s", "collective_s", "stats", "launches"),
+                                (loss, secs, coll, stats, _counts(ops))):
+                    eager[k].append(v)
+        eager.update(_mem(torch), leaves=state_leaves(state))
+        out["eager"] = eager
+        del state, loc
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         train_step.reduce_over_batch = real
     return out
 
 
-def mesh_tp_rank(rank, world, dev, yard_file, inputs, train_batch, layer_file):
+def mesh_tp_rank(rank, world, dev, yard_file, inputs, train_batches, layer_file):
     """(e) and (f) on a rank of the (model 2) world: each model drawn whole
     one rank at a time and its slices kept (``state_placements``), then
     prefill and the teacher-forced decode steps with the launch counts and
@@ -5566,10 +6010,23 @@ def mesh_tp_rank(rank, world, dev, yard_file, inputs, train_batch, layer_file):
             "decode_step_collectives": stats[1], "draw_s": draw_s, "generate_s": gen_s,
             "peak_bytes": torch.cuda.max_memory_allocated(),
             "sliced_bytes": sliced_bytes(params, places, mesh), "q_heads_held": q_heads(params)}
-        del params, cache, local, logits
+        del cache, local, logits
+        out[case["name"]]["generate"] = mesh_generate_graphed(
+            cfg, api, params, {"tokens": rows(tokens)}, g["steps"], mesh, torch)
+        del params
         gc.collect()
         torch.cuda.empty_cache()
-    out["train"] = mesh_tp_train(rank, world, dev, mesh, train_batch, layer_file, torch)
+    out["train"] = mesh_tp_train(rank, world, dev, mesh, train_batches, layer_file, torch)
+    from repro_torch.configs import get_config
+    from repro_torch.data import rank_batch
+    from repro_torch.models import get_model
+
+    c = MESH_TP_TRAIN
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"], kernel_impl="cuda",
+                              compute_dtype="float32")
+    loc = [rank_batch(b, mesh, {"tokens": ("batch", None)}, dev) for b in train_batches]
+    out["train_graphed"] = mesh_train_graphed(cfg, get_model(cfg), mesh, dev, loc, torch,
+                                              eager=out["train"].pop("eager"))
     return out
 
 
@@ -5627,7 +6084,9 @@ def run_mesh_tp(dev, torch) -> tuple:
     c = MESH_TP_TRAIN
     cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"], kernel_impl="cuda",
                               compute_dtype="float32")
-    train_batch = next(SyntheticTokens(cfg, c["batch"], c["seq"], seed=0))
+    ds = SyntheticTokens(cfg, c["batch"], c["seq"], seed=0)
+    train_batches = [next(ds) for _ in range(c["steps"])]
+    train_batch = train_batches[0]
     from repro_torch.launch.train import build_state
     from repro_torch.models import get_model
 
@@ -5647,7 +6106,7 @@ def run_mesh_tp(dev, torch) -> tuple:
     torch.save(yard, store.parent / "yard.pt")
     t0 = time.perf_counter()
     res = spawn_world(mesh_tp_rank, 2, "cuda", store, (str(store.parent / "yard.pt"), inputs,
-                                                        train_batch,
+                                                        train_batches,
                                                         str(store.parent / "layers.pt")))
     world_s = time.perf_counter() - t0
     bad = []
@@ -5663,6 +6122,9 @@ def run_mesh_tp(dev, torch) -> tuple:
                            f"(tol {BF16_TOL}), finite {x['finite']}")
             if x["counts"] != want:
                 bad.append(f"({n}) rank {r['coord']}: launches {x['counts']} != {want}")
+            bad += graphed_bad(f"({n}) generate on rank {r['coord']}", x["generate"])
+    for r in res:
+        bad += graphed_bad(f"(e) train step on rank {r['coord']}", r["train_graphed"])
     tr = [r["train"] for r in res]
     if tr[0]["replicated_digest"] != tr[1]["replicated_digest"]:
         bad.append("(e) train: the leaves held whole differ across the ranks after AdamW")
@@ -5695,7 +6157,10 @@ def run_mesh_phase(dev, torch, card) -> dict:
     parallelism on moe_gemm, both with their dense leaves tensor-parallel,
     (c) data parallelism with ZeRO-1, (d) the elastic restart, (e) and (f)
     tensor parallelism of qwen1.5-4b and recurrentgemma-2b; each world's
-    ranks compute on cuda:0 over gloo."""
+    ranks compute on cuda:0 over gloo.  In every world each mesh step that
+    the port records as CUDA graphs (one-shot generate, the train step,
+    the launcher's and the elastic runner's) also runs graphed beside its
+    eager run, held to it bitwise, its collectives and launches equal."""
     from repro_torch.launch.mesh import backend_for
 
     print(at() + f" [mesh] worlds of ranks on cuda:0, backend {backend_for('cuda', 2)} "
@@ -5705,7 +6170,8 @@ def run_mesh_phase(dev, torch, card) -> dict:
     print(at() + f" [mesh] (a) seq-sharded decode, {c['arch']} at full width, depth "
           f"{c['depth']}, its dense leaves tensor-parallel (the heads scheme); world 4 (data 2, "
           f"model 2); B {c['batch']}, prompt {c['prompt']}, "
-          f"cache {c['cache']}, {c['steps']} decode steps; bf16 then float32", flush=True)
+          f"cache {c['cache']}, {c['steps']} decode steps; bf16 then float32; then bf16 "
+          f"one-shot generate graphed, held bitwise to eager", flush=True)
     a, bad = run_mesh_seq(dev, torch)
     out["seq_decode"] = a
     def r3(xs):
@@ -5726,6 +6192,9 @@ def run_mesh_phase(dev, torch, card) -> dict:
           f"'cuda', rel L2 a call " + "; ".join(
               f"{dt} {r3(w)}" for dt, w in a["witness_free_running_logits_rel_l2"].items()),
           flush=True)
+    for r in a["ranks"]:
+        print(graphed_line(f"(a) generate {c['batch']} x {c['prompt']} + {c['steps']}, rank "
+                           f"{r['coord']}", r["generate"]), flush=True)
     print(f"  yardstick {a['yardstick_s']:.1f} s, world {a['world_s']:.1f} s", flush=True)
     mesh_fail(bad)
     c = MESH_EP
@@ -5744,13 +6213,20 @@ def run_mesh_phase(dev, torch, card) -> dict:
               f"{gib(r['sliced_bytes'][1])}, draw {r['draw_s']:.1f} s, generate "
               f"{r['generate_s']:.2f} s, prefill collectives {r['prefill_collectives']}, a "
               f"decode step's {r['decode_step_collectives']}", flush=True)
+    for r in b["ranks"]:
+        print(graphed_line(f"(b) generate {c['batch']} x {c['prompt']} + {c['steps']}, rank "
+                           f"{r['coord']}", r["generate"]), flush=True)
     print(f"  yardstick {b['yardstick_s']:.1f} s, world {b['world_s']:.1f} s", flush=True)
     mesh_fail(bad)
     c = MESH_DP
     print(at() + f" [mesh] (c) data parallelism, {c['arch']} at full width, depth {c['depth']}, "
           f"float32 compute; world 2 (data 2); global batch {c['batch']} x {c['seq']}, "
           f"{c['steps']} steps, ZeRO-1 off then on; held against one rank's step of the global "
-          f"batch in 2 microbatches (the data ranks' rows)", flush=True)
+          f"batch in 2 microbatches (the data ranks' rows); ZeRO-1 off eager, then graphed "
+          f"from the same state (an eager step, the capture, replays), ZeRO-1 on graphed, each "
+          f"held bitwise to the eager run (ZeRO-1's m and v to its slices); every step's seconds "
+          f"inside the collectives (the card synchronized around each) beside its seconds",
+          flush=True)
     d, bad = run_mesh_dp(dev, torch)
     out["data_parallel"] = d
     for r in d["ranks"]:
@@ -5770,15 +6246,30 @@ def run_mesh_phase(dev, torch, card) -> dict:
           f"{off['grads_rel_l2_one_microbatch']:.3g}; the witness, one rank's 1 against 2 "
           f"microbatches: {w['witness_one_vs_two_microbatches']:.3g}; the world's gradients "
           f"bitwise the 2-microbatch step's: {off['grads_bitwise']}", flush=True)
+    for r in d["ranks"]:
+        for z in ("zero1_False", "zero1_True"):
+            print(graphed_line(f"(c) train step {z}, {c['steps']} steps, rank {r['coord']}",
+                               r[z]["graphed"]), flush=True)
     print(f"  world {d['world_s']:.1f} s", flush=True)
     mesh_fail(bad)
     print(at() + " [mesh] (d) elastic restart, whisper-tiny --full through "
-          "repro_torch.launch.train on a world of 2 (data 2), checkpoint after 2 steps, then "
-          "ElasticRunner.on_failure onto a world of 1 and one more step", flush=True)
+          "repro_torch.launch.train on a world of 2 (data 2), graphed, checkpoint after 2 "
+          "steps, then eager and held bitwise; then ElasticRunner.on_failure onto a world of 1, "
+          "three graphed steps there and a re-mesh", flush=True)
     e, bad = run_mesh_elastic(dev, torch)
     out["elastic"] = e
-    mesh_fail(bad)
     r0 = e["ranks"][0]
+    for r in e["ranks"]:
+        print(graphed_line(f"(d) launcher --mesh-shape 2x1, rank {r['rank']}", r["launcher"]),
+              flush=True)
+    loop = r0["elastic_loops"]["train_step"]
+    res = r0["elastic_reserved"]
+    print(f"  (d) ElasticRunner on the world of one ({r0['backend_after']}): losses "
+          f"{r0['elastic_losses']}, steps {[round(x, 4) for x in r0['elastic_step_s']]} s (eager, "
+          f"capture; replays), {loop['stretches']} stretch, {loop['collectives']} collectives, "
+          f"capture recording {loop['record_s']:.3f} s; reserved {gib(res[0])} before the "
+          f"steps, {gib(res[1])} after them, {gib(res[2])} after a re-mesh", flush=True)
+    mesh_fail(bad)
     print(f"  losses {[r['losses'] for r in e['ranks']]}; restored bitwise, cursor "
           f"{r0['cursor']}, world {r0['world_after']} ({r0['backend_after']}), next loss "
           f"{r0['next_loss']:.4f}; peaks {[gib(r['peak_bytes']) for r in e['ranks']]}; restore "
@@ -5794,7 +6285,8 @@ def run_mesh_phase(dev, torch, card) -> dict:
           f"ranks' boundary and the halves added (bitwise where gloo's bf16 sum is torch's; "
           f"rel L2, tol {BF16_TOL}), the unsplit one rank's printed; then (e)'s float32 train "
           f"step at depth {c['depth']}, each layer's VJP and the embedding's, final norm's "
-          f"and head's held against one rank's, {c['batch']} x {c['seq']}", flush=True)
+          f"and head's held against one rank's, {c['batch']} x {c['seq']}; every generate and "
+          f"the train step also graphed, held bitwise to its eager run", flush=True)
     t, bad = run_mesh_tp(dev, torch)
     out["tensor_parallel"] = t
     for case in MESH_TP:
@@ -5813,6 +6305,14 @@ def run_mesh_phase(dev, torch, card) -> dict:
                   f"(count, bytes)", flush=True)
         same = t["ranks"][0][n]["digest"] == t["ranks"][1][n]["digest"]
         print(f"  ({n}) the two ranks' logits bitwise equal: {same}", flush=True)
+    for case in MESH_TP:
+        for r in t["ranks"]:
+            print(graphed_line(f"({case['name']}) generate {g['batch']} x {g['prompt']} + "
+                               f"{g['steps']}, rank {r['coord']}", r[case["name"]]["generate"]),
+                  flush=True)
+    for r in t["ranks"]:
+        print(graphed_line(f"(e) float32 train step, depth {c['depth']}, {c['steps']} steps, "
+                           f"rank {r['coord']}", r["train_graphed"]), flush=True)
     for r in t["ranks"]:
         x = r["train"]
         print(f"  (e) train rank {r['coord']}: each layer's parameter gradients through the "
@@ -5912,6 +6412,14 @@ def main() -> None:
         del flush
         print(json.dumps({"examples": run_examples_phase(dev, torch, card)}))
         print(at() + " [done] the [examples] phase passed", flush=True)
+        return
+    if "--c13" in sys.argv[1:]:
+        # Only C13's reading, no kernel built (run a copy of this script
+        # from another checkout's root to read that tree).
+        print(at() + " [C13] HeteroTrainer gradient graphs on cuda:0 over share sizes "
+              f"{C13['sizes']}", flush=True)
+        print(json.dumps({"c13": run_c13(dev, torch, card)}))
+        print(at() + " [done] C13 passed", flush=True)
         return
     if "--train" in sys.argv[1:]:
         # Only the [train] phase, its one kernel built alone.
@@ -6166,6 +6674,9 @@ def main() -> None:
     print(json.dumps({"train_path": run_train_phase(dev, torch, F, ops, card)}))
     gc.collect()
     torch.cuda.empty_cache()
+    print(at() + " [C13] HeteroTrainer gradient graphs on cuda:0 over share sizes "
+          f"{C13['sizes']}", flush=True)
+    print(json.dumps({"c13": run_c13(dev, torch, card)}))
     print(json.dumps({"mesh": run_mesh_phase(dev, torch, card)}))
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

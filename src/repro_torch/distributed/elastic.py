@@ -15,6 +15,7 @@ request.  On one card the groups are CUDA streams of it.
 from __future__ import annotations
 
 import dataclasses
+import gc
 from typing import Callable, Sequence
 
 import torch
@@ -49,9 +50,12 @@ class ElasticRunner:
     """Builds (mesh, state, step_fn) on the current world and rebuilds them
     on the survivors after a failure.  ``state_spec_fn(cfg, plan)`` gives
     the state's Spec tree for a :class:`MeshPlan`, ``step_factory(cfg,
-    api)`` the train step (made under the new mesh); the ranks compute on
+    api)`` the train step (made under the new mesh: on the card it replays
+    CUDA graphs, as the reference jits it); the ranks compute on
     ``device``: ``cuda`` unless the CPU is asked for, raising without a
-    card, as every entry point does."""
+    card, as every entry point does.  A rebuild first drops the old step
+    function, with its graphs and their memory pool, and the old state,
+    and returns the card's cached blocks."""
 
     def __init__(self, cfg, api, *, state_spec_fn: Callable, step_factory: Callable,
                  ckpt_dir: str, model_par: int, device="cuda") -> None:
@@ -81,6 +85,7 @@ class ElasticRunner:
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.models.params import tree_map
 
+        self.release()
         world = dist.get_world_size()
         plan = plan_remesh(world, model_par=min(self.model_par, world))
         if plan.n_devices != world:
@@ -100,6 +105,15 @@ class ElasticRunner:
         self.step_fn = self.step_factory(self.cfg, self.api)
         return self.mesh, self.state, extra
 
+    def release(self) -> None:
+        """Drop the step function (its ``GraphCache``: the graphs, their
+        private pool, the collectives' nodes on the old world's groups) and
+        the state, and on the card return the allocator's cached blocks."""
+        self.step_fn = self.state = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
     def on_failure(self, survivors: Sequence[int], init_method: str):
         """Ranks were lost: this process's world is rebuilt over the
         ``survivors`` (global ranks of the old world, this one among them)
@@ -113,6 +127,7 @@ class ElasticRunner:
         from repro_torch.launch.mesh import init_world
 
         me = dist.get_rank() if dist.is_initialized() else 0
+        self.release()
         if dist.is_initialized():
             dist.destroy_process_group()
         set_current_mesh(None)

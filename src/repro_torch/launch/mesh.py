@@ -16,6 +16,14 @@ carries CUDA tensors itself (it copies them through host memory inside
 each collective), so on one H100 the ranks compute on cuda:0 and exchange
 over gloo.
 
+While a CUDA graph of a mesh step is being recorded (``serve/graphs.py``),
+the stream it captures on has a segmented recording open
+(:func:`recording_on`): a collective issued on that stream is not run but
+closes the recording's current graph, is kept as a node that issues it
+on the tensors the capture saw, and the next graph begins.  A replay runs
+the graphs and the nodes in turn, each node counted in ``Mesh.stats`` as
+the eager step counts its collective.
+
 ``make_production_mesh`` is a function, not a module constant, so that
 importing this module touches no process group.
 """
@@ -33,6 +41,58 @@ import torch.distributed as dist
 PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
                      True: ((2, 16, 16), ("pod", "data", "model"))}
 COLLECTIVES = ("all_reduce", "all_gather")
+# The segmented recordings open now (``serve/graphs.Segments``), by the
+# raw handle of the stream each one captures on (None for an emulated
+# recording of CPU tensors).
+RECORDINGS: dict = {}
+
+
+def stream_key(device):
+    """The key of ``device``'s current stream in :data:`RECORDINGS`."""
+    return torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None
+
+
+def recording_on(device):
+    """The segmented recording open on ``device``'s current stream, or
+    None: on the thread that began it, and on the autograd engine's thread
+    while it runs a backward captured there, whose current stream is the
+    forward's."""
+    if not RECORDINGS:
+        return None
+    return RECORDINGS.get(stream_key(device))
+
+
+class Collective:
+    """One collective of a mesh on fixed tensors: an ``all_reduce`` of
+    ``tensor`` in place, or an ``all_gather`` of ``tensor`` into
+    ``parts``, over ``group`` with ``op``.  Calling it issues it and
+    counts it in the mesh's ``stats``; a segmented recording keeps it as
+    a node, called at every replay."""
+
+    __slots__ = ("mesh", "kind", "group", "op", "tensor", "parts")
+
+    def __init__(self, mesh, kind: str, group, tensor: torch.Tensor, op=None,
+                 parts=None) -> None:
+        self.mesh, self.kind, self.group, self.op = mesh, kind, group, op
+        self.tensor, self.parts = tensor, parts
+
+    def __call__(self) -> None:
+        self.mesh._count(self.kind, self.tensor)
+        if self.kind == "all_reduce":
+            dist.all_reduce(self.tensor, op=self.op, group=self.group)
+        else:
+            dist.all_gather(self.parts, self.tensor, group=self.group)
+
+
+def _issue(collective: Collective) -> None:
+    """Issue ``collective`` now, or, under a recording open on its
+    tensor's device's current stream, make it a node of the recording
+    between two graphs."""
+    rec = recording_on(collective.tensor.device)
+    if rec is None:
+        collective()
+    else:
+        rec.boundary(collective)
 
 
 def _local_world(world: int) -> int:
@@ -159,23 +219,24 @@ class Mesh:
 
     def all_reduce(self, t: torch.Tensor, axes: Sequence[str], op: str = "sum") -> torch.Tensor:
         """In place over the group of ``axes``; ``op`` is ``sum`` or
-        ``max``.  A group of one rank issues nothing."""
+        ``max``.  A group of one rank issues nothing.  Under a segmented
+        recording, a node between two graphs (:func:`recording_on`)."""
         if self.size(axes) > 1:
-            self._count("all_reduce", t)
             red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-            dist.all_reduce(t, op=red, group=self.group(axes))
+            _issue(Collective(self, "all_reduce", self.group(axes), t, op=red))
         return t
 
     def all_gather(self, t: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
         """The group's slices of ``t`` concatenated along ``dim``, in the
-        group's index order."""
+        group's index order.  Under a segmented recording the gather is a
+        node into ``parts`` made once, and the concatenation opens the
+        next graph."""
         n = self.size(axes)
         if n == 1:
             return t
         t = t.contiguous()
-        self._count("all_gather", t)
         parts = [torch.empty_like(t) for _ in range(n)]
-        dist.all_gather(parts, t, group=self.group(axes))
+        _issue(Collective(self, "all_gather", self.group(axes), t, parts=parts))
         return torch.cat(parts, dim=dim)
 
     def reset_stats(self) -> dict:

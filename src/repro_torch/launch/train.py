@@ -35,11 +35,12 @@ from the latest checkpoint under ``--ckpt``, the data cursor from its
 manifest; under a mesh the first rank writes the checkpoints and prints.
 
 The step is ``make_train_step``'s, the JAX launcher's ``jax.jit(...,
-donate_argnums=(0,))``: on the card without a mesh a CUDA graph of the
-whole step, run eagerly at its first step, captured after it and replayed
-for every later one, the state updated in place; on the CPU, and under a
-mesh (gloo's collectives cannot be captured; graphs of mesh steps are
-still to come), eager.  The first line printed says which.
+donate_argnums=(0,))``: on the card, run eagerly at its first step,
+recorded after it and replayed for every later one, the state updated in
+place: one CUDA graph without a mesh, and under a mesh one graph per
+stretch between two of its collectives, the collectives issued between
+the replays (``serve/graphs.Segments``); on the CPU, eager.  The first
+line printed says which.
 """
 from __future__ import annotations
 
@@ -151,9 +152,8 @@ def main(argv=None) -> dict:
         state, _ = build_state(cfg, api, device, args.seed, mesh)
         places = state_placements(cfg, api, mesh)[1] if mesh is not None else None
         if lead:
-            how = ("CUDA graph" if mesh is None and device.type == "cuda" else
-                   "eager (a mesh: its collectives are not captured)" if mesh is not None
-                   else "eager (CPU)")
+            how = ("eager (CPU)" if device.type != "cuda" else "CUDA graph" if mesh is None
+                   else "CUDA graphs between the mesh's collectives")
             print(f"arch={cfg.name} params={n_params(api.param_spec(cfg)):,} on {device} "
                   f"(kernel_impl={cfg.kernel_impl}, mesh={mesh and mesh.shape}, step: {how})",
                   flush=True)

@@ -152,6 +152,21 @@ def kv_heads(hq: int, cfg, mesh):
     return [(q0 + i) // n_rep for i in range(hq)]
 
 
+# (kv heads, device) -> their index on the device: made once, on the
+# first (eager) call, so that no capture copies it from the host.
+_KV_INDEX: dict = {}
+
+
+def kv_index(sel, device) -> torch.Tensor:
+    """The int64 device tensor of kv head list ``sel``
+    (:func:`kv_heads`), made once per (heads, device) and kept."""
+    key = (tuple(sel), str(device))
+    idx = _KV_INDEX.get(key)
+    if idx is None:
+        idx = _KV_INDEX[key] = torch.tensor(sel, dtype=torch.int64, device=device)
+    return idx
+
+
 def _kv_for(q, k, v, cfg):
     """k and v as the rank's q heads read them: under the qheads scheme
     (q on a slice of the heads, k and v whole) narrowed to, or repeated
@@ -164,7 +179,7 @@ def _kv_for(q, k, v, cfg):
     k, v = copy_to(k, mesh, MODEL), copy_to(v, mesh, MODEL)
     if isinstance(sel, tuple):
         return k.narrow(2, *sel), v.narrow(2, *sel)
-    idx = torch.tensor(sel, device=k.device)
+    idx = kv_index(sel, k.device)
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
@@ -302,13 +317,30 @@ def seq_mesh(cfg, mesh=None):
 def _write_owned(cache, slot, k, v, positions, mesh):
     """:func:`_write` on a seq-sharded cache: the rows whose slot (in the
     whole timeline) this model rank owns, at their local slot.  The others
-    belong to another rank and are not written here."""
+    belong to another rank and leave this rank's cache as it was.
+
+    One ``index_put_`` over every row, with no host read and no shape set
+    by the data (a CUDA graph records it): an owned row writes its value
+    at its local slot; a row another rank owns is sent where its values
+    change nothing, as ``index_put_`` with repeated indices keeps one of
+    their values: to its batch row's first owned row's slot, carrying
+    that row's value, or, where the batch row owns none, to its first
+    row's slot (clamped into range), carrying the value stored there."""
     s_loc = cache["k"].shape[1]
     r = mesh.coord["model"]
-    bi, ji = (torch.div(slot, s_loc, rounding_mode="floor") == r).nonzero(as_tuple=True)
-    local = slot[bi, ji] - r * s_loc
+    owned = torch.div(slot, s_loc, rounding_mode="floor") == r  # (B, Sq)
+    local = torch.clamp(slot - r * s_loc, 0, s_loc - 1)
+    first = owned.to(torch.int32).argmax(dim=1, keepdim=True)  # (B, 1): 0 where none
+    rows = torch.arange(slot.shape[1], device=slot.device).expand_as(slot)
+    src = torch.where(owned, rows, first)
+    dst = torch.where(owned, local, local.gather(1, first))
+    bidx = torch.arange(slot.shape[0], device=slot.device)[:, None]
+    some = owned.any(dim=1)[:, None]  # (B, 1)
     for name, new in (("k", k), ("v", v), ("pos", positions)):
-        cache[name].index_put_((bi, local), new[bi, ji].to(cache[name].dtype))
+        leaf = cache[name]
+        val = new[bidx, src].to(leaf.dtype)
+        keep = some.view(some.shape + (1,) * (val.ndim - 2))
+        leaf.index_put_((bidx, dst), torch.where(keep, val, leaf[bidx, dst]))
 
 
 def prefill_with_cache(p, x, positions, cfg, cache, *, window=0, prefix_len=0):

@@ -38,12 +38,32 @@ A loop body takes its step count: ``body(statics, n)``.  Capture runs it
 first for one step, as a warm-up (library loads, shared-memory opt-ins, the
 TMA encoder's entry point, the weights' cast to the compute dtype: every
 step launches the same kernels, so one step takes them all), with its
-launches counted nowhere, and then for its real count under
-``torch.cuda.graph(..., capture_error_mode="thread_local")`` on the inputs'
-device, the wrappers' counts going to a recording (``kernels/_build.py``)
-that follows the capturing stream, so that a backward's launches from the
-autograd engine's thread are counted too; each replay adds that tally to
-the launch counts.  ``warmup=False`` skips the warm-up: for a body whose
+launches counted nowhere, and then records it for its real count on the
+inputs' device, on a side stream, as :class:`Segments`: after a device
+synchronize and the allocator's ``empty_cache`` (as ``torch.cuda.graph``
+enters), one CUDA graph per stretch between two of a mesh's collectives,
+all drawing on one private memory pool.  A collective that the body
+issues while the recording is open is not run: it ends the current graph,
+becomes a node that issues it eagerly on the tensors the capture saw (the
+in-place tensor of an ``all_reduce``, the ``parts`` of an ``all_gather``,
+made once), and the next graph begins (``launch/mesh.py``).  A replay runs
+graph 0, node 0, graph 1, ... in the order of the capture, each node
+counted in ``Mesh.stats`` as the eager body counts its collective; a body
+with no collective records one graph.  The nodes are issued under gloo;
+under NCCL only a recording with no collective (a world of one) has run
+on a card.  A body run under a mesh records in CUDA's
+``relaxed`` capture mode, since a backward's collective reaches its
+boundary on the autograd engine's thread, which must then end the graph
+that the capturing thread began; every other body records in
+``thread_local`` mode.  The wrappers' counts go to a recording
+(``kernels/_build.py``) that follows the capturing stream, so that a
+backward's launches from the autograd engine's thread are counted too,
+one tally for every stretch; each replay adds that tally to the launch
+counts.  A cache made with ``pool_per_scope=True`` gives every capture of
+one scope one pool, which bounds its memory over many shapes (the
+HeteroTrainer's share sizes) and is safe only where each replay's outputs
+are copied out before the scope's next replay.  ``warmup=False`` skips
+the warm-up: for a body whose
 caller has just run it eagerly on the real state (the train step, whose
 warm-up would be an extra, uncounted optimizer step).  The warm-up writes the
 static buffers, so an owner captures a scope's loops before the scope's
@@ -57,9 +77,8 @@ clones of them instead, which costs their size in memory
 current stream: the DeviceGroup's under the runtime.  While the span
 tracer is on, each replay is logged with its copy-ins and timed by CUDA
 events (:meth:`GraphCache.stats`).  One capture (warm-up and recording)
-runs at a time in the process (``torch.cuda.graph`` synchronizes the
-device on entry); other threads keep launching on their own streams
-meanwhile, and a capture's wait for another's is counted apart
+runs at a time in the process; other threads keep launching on their own
+streams meanwhile, and a capture's wait for another's is counted apart
 (``wait_s``), so that a DeviceGroup's scheduler does not take it for the
 group's work.
 
@@ -88,11 +107,13 @@ import torch
 
 from repro_torch.core.device import running_group
 from repro_torch.core.trace import tracer
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.kernels import _build
+from repro_torch.launch import mesh as _mesh
 from repro_torch.models.params import tree_leaves
 
 
-# One capture at a time in the process: torch.cuda.graph synchronizes the
+# One capture at a time in the process: a recording synchronizes the
 # whole device and empties the allocator's cache on entry, which must not
 # happen under another thread's capture (two DeviceGroups of one card).
 # The warm-up is inside too: two threads' eager warm-ups only contend for
@@ -150,6 +171,92 @@ def bind(graphs, name: str, steps: int, ints: tuple, inputs: dict, body: Callabl
     return graphs.bind(name, steps, ints, inputs, body, consts, scope)
 
 
+class Segments:
+    """A loop recorded as CUDA graphs split at a mesh's collectives: a
+    graph per stretch between two collectives, every one drawing on the
+    private memory ``pool``, and between graphs i and i + 1 node i, the
+    collective that the capture reached there, kept to be issued eagerly
+    on the tensors the capture saw (``launch/mesh.py``).  A body that
+    issues no collective records one graph.  :meth:`replay` runs graph 0,
+    node 0, graph 1, ... in the order of the capture, on the current
+    stream, so the launches, their order and shapes, and the collectives
+    in number and bytes are the eager body's.
+
+    While the recording is open (``with``), the collectives issued on the
+    capturing ``stream`` (:func:`launch.mesh.recording_on`) come here; a
+    boundary may be reached on the autograd engine's thread (a backward's
+    collective), which ends the graph that another thread began: CUDA
+    allows that in the ``relaxed`` capture mode only, which mesh
+    recordings take (``GraphCache._record``)."""
+
+    def __init__(self, stream, pool, mode: str) -> None:
+        self.stream, self.pool, self.mode = stream, pool, mode
+        self.graphs: list = []
+        self.nodes: list = []
+        self.key = stream.cuda_stream if stream is not None else None
+
+    @property
+    def stretches(self) -> int:
+        return len(self.graphs)
+
+    @property
+    def collectives(self) -> int:
+        return len(self.nodes)
+
+    @staticmethod
+    def _new_graph():
+        return torch.cuda.CUDAGraph()
+
+    def _begin(self) -> None:
+        graph = self._new_graph()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool, capture_error_mode=self.mode)
+        self.graphs.append(graph)
+
+    def _end(self) -> None:
+        with torch.cuda.stream(self.stream):
+            self.graphs[-1].capture_end()
+
+    def boundary(self, collective: Callable[[], None]) -> None:
+        """End the current graph, keep ``collective`` as the next node and
+        begin the next graph."""
+        self._end()
+        self.nodes.append(collective)
+        self._begin()
+
+    def __enter__(self) -> "Segments":
+        if self.key in _mesh.RECORDINGS:
+            raise RuntimeError("a segmented recording is already open on this stream")
+        # The capturing stream stays current on this thread for the whole
+        # recording (the autograd engine's thread takes it from the forward).
+        self._stream_ctx = torch.cuda.stream(self.stream)
+        self._stream_ctx.__enter__()
+        try:
+            self._begin()
+        except BaseException:
+            self._stream_ctx.__exit__(None, None, None)
+            raise
+        _mesh.RECORDINGS[self.key] = self
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _mesh.RECORDINGS.pop(self.key, None)
+        try:
+            self._end()
+        except Exception:
+            if exc_type is None:
+                raise
+        finally:
+            self._stream_ctx.__exit__(None, None, None)
+        return False
+
+    def replay(self) -> None:
+        for i, graph in enumerate(self.graphs):
+            graph.replay()
+            if i < len(self.nodes):
+                self.nodes[i]()
+
+
 class _Entry:
     __slots__ = ("graph", "outputs", "tally", "consts")
 
@@ -158,11 +265,13 @@ class GraphCache:
     """The captured loops of one owner and their static buffers.  Counters:
     ``captures``, ``capture_s`` (all of capturing) and its phases:
     ``wait_s`` (waiting for another thread's capture to end),
-    ``warmup_s`` (the uncounted warm-up step), ``begin_s`` (entering
-    ``torch.cuda.graph``: a device synchronize, the allocator's
-    ``empty_cache``, the capture's start), ``record_s`` (running the loop
-    under capture) and ``instantiate_s`` (ending the capture, which
-    instantiates the graph), in total and per loop name (``loops``);
+    ``warmup_s`` (the uncounted warm-up step), ``begin_s`` (a device
+    synchronize, the allocator's ``empty_cache``, the first capture's
+    start), ``record_s`` (running the loop under capture, with every
+    boundary's end, instantiation and begin between its stretches) and
+    ``instantiate_s`` (ending the last capture, which instantiates its
+    graph), in total and per loop name (``loops``, which also gives one
+    replay's ``stretches`` and ``collectives``, of its latest capture);
     ``warmup_clone_bytes`` (buffers cloned because a capture found them
     holding a caller's state), ``replays``, ``copy_ins`` and
     ``copy_in_bytes`` (inputs copied into static buffers),
@@ -176,7 +285,13 @@ class GraphCache:
 
     PHASES = ("wait_s", "warmup_s", "begin_s", "record_s", "instantiate_s")
 
-    def __init__(self) -> None:
+    def __init__(self, *, pool_per_scope: bool = False) -> None:
+        # pool_per_scope: every capture of one scope draws on one private
+        # pool (else each recording has its own).  Only for an owner that
+        # copies each replay's outputs out before the scope's next replay.
+        self.pool_per_scope = pool_per_scope
+        self._pools: dict = {}
+        self._capture_pool = None
         self._entries: dict = {}
         self._buffers: dict = {}
         self._live: set = set()  # buffers whose content a caller relies on
@@ -240,7 +355,7 @@ class GraphCache:
             # Outside the cache's lock: another group's thread binds its
             # own scope's loops meanwhile, and waits only for the capture
             # lock when it captures too.
-            entry = self._capture(name, key, statics, body, steps, consts, warmup)
+            entry = self._capture(name, key, statics, body, steps, consts, warmup, scope)
         return entry, statics
 
     def bind(self, name: str, steps: int, ints: tuple, inputs: dict, body: Callable,
@@ -290,7 +405,7 @@ class GraphCache:
         return copies
 
     def _capture(self, name: str, key: tuple, statics: dict, body: Callable, steps: int,
-                 consts: tuple, warmup: bool = True) -> _Entry:
+                 consts: tuple, warmup: bool = True, scope=None) -> _Entry:
         phases = dict.fromkeys(self.PHASES, 0.0)
         t0 = time.perf_counter()
         with _CAPTURE_LOCK:
@@ -315,8 +430,16 @@ class GraphCache:
                     body(warm, 1)
                 del warm
             phases["warmup_s"] = time.perf_counter() - t1
-            with _build.recording(self._stream(dev)) as tally:
-                graph, outputs, timed = self._record(statics, lambda st: body(st, steps))
+            if self.pool_per_scope:
+                if scope not in self._pools:
+                    self._pools[scope] = torch.cuda.graph_pool_handle()
+                self._capture_pool = self._pools[scope]
+            try:
+                # One tally for every stretch: they all capture on one stream.
+                with _build.recording(self._stream(dev)) as tally:
+                    graph, outputs, timed = self._record(statics, lambda st: body(st, steps))
+            finally:
+                self._capture_pool = None
             phases.update(timed)
             phases["wait_s"] = t1 - t0  # another thread's capture ahead of this one
             entry = _Entry()
@@ -329,6 +452,9 @@ class GraphCache:
                 loop = self.loops.setdefault(name, dict(captures=0,
                                                         **dict.fromkeys(self.PHASES, 0.0)))
                 loop["captures"] += 1
+                # One replay's graphs and collectives, of the latest capture.
+                loop["stretches"] = getattr(graph, "stretches", 1)
+                loop["collectives"] = getattr(graph, "collectives", 0)
                 for k, v in phases.items():
                     loop[k] += v
         group = running_group()
@@ -350,20 +476,30 @@ class GraphCache:
         return stream
 
     def _record(self, statics: dict, run: Callable):
-        """Capture ``run(statics)`` in a CUDA graph on the buffers' device:
-        (the graph, its outputs, the seconds of each recording phase)."""
+        """Record ``run(statics)`` on the buffers' device as
+        :class:`Segments` (one CUDA graph where the body issues no
+        collective): (the recording, its outputs, the seconds of each
+        recording phase)."""
         dev = next(_items(statics))[2].device
         with torch.cuda.device(dev):
-            stream = self._stream(dev)
-            graph = torch.cuda.CUDAGraph()
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"):
+            # As torch.cuda.graph enters: the card idle and the allocator's
+            # cached blocks returned before the private pool is drawn.
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            # A backward's collective ends a graph on the autograd engine's
+            # thread, which only the relaxed mode allows.  A step has such
+            # collectives only under tensor or expert parallelism, whose
+            # model code reads the thread's current mesh.
+            rec = Segments(self._stream(dev), self._capture_pool or torch.cuda.graph_pool_handle(),
+                           "relaxed" if current_mesh() is not None else "thread_local")
+            with rec:
                 t1 = time.perf_counter()
                 outputs = run(statics)
                 t2 = time.perf_counter()
-            t3 = time.perf_counter()  # capture_end instantiates
-        return graph, outputs, {"begin_s": t1 - t0, "record_s": t2 - t1,
-                                "instantiate_s": t3 - t2}
+            t3 = time.perf_counter()  # the last capture_end instantiates
+        return rec, outputs, {"begin_s": t1 - t0, "record_s": t2 - t1,
+                              "instantiate_s": t3 - t2}
 
     def stats(self) -> dict:
         totals = {k: sum(loop[k] for loop in self.loops.values()) for k in self.PHASES}

@@ -13,8 +13,9 @@ returned, not copied (the JAX package donated it to the jitted step).
 The decode chain and one-shot prefill run as CUDA graphs on the card
 (``make_decode_chain(..., graph=True)``, ``make_generate``'s default):
 captured once per shape and replayed, as the JAX package jits them
-(``serve/graphs.py``).  ``graph=False`` is the eager loop, which CPU tensors
-always run.
+(``serve/graphs.py``), under a mesh too, as graphs between the mesh's
+collectives.  ``graph=False`` is the eager loop, which CPU tensors always
+run.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.trace import tracer
-from repro_torch.distributed.sharding import current_mesh, model_mesh
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.attention import pos_vector
 from repro_torch.models.params import tree_leaves, tree_map
@@ -255,7 +256,7 @@ def make_decode_chain(cfg, api, *, graph: bool = False):
         return ("decode_chain", n_steps, (), inputs, body, (params,))
 
     def graphed_chain(params, cache, token, pos, n_steps: int, *, scope=None):
-        if n_steps == 0 or not graphs.accepts(token.device) or model_mesh() is not None:
+        if n_steps == 0 or not graphs.accepts(token.device):
             return decode_chain(params, cache, token, pos, n_steps)
         bound = graphs.bind(*loop(params, cache, token, pos, n_steps), scope)
         toks, tok = bound()
@@ -295,9 +296,13 @@ def make_generate(cfg, api, *, graph: bool = True):
     caller-provided cache, ``gen < 2``, CPU tensors and ``graph=False`` run
     prefill eagerly (the chain replays its graph wherever it takes CUDA
     tensors and ``graph=True``).  Under a mesh (the current one) the batch
-    is the rank's rows and the cache its slice; with a "model" axis both
-    stages run eagerly, greedy tokens taken across the vocabulary's slices
-    (the ranks' collectives go over gloo, which a graph cannot capture).  ``generate.prepare(params, batch, gen)``
+    is the rank's rows and the cache (the prefill graph's static cache
+    too) its slice, and greedy tokens are taken across the vocabulary's
+    slices; both stages replay graphs all the same, recorded between the
+    mesh's collectives (the argmax's over "model", the seq-sharded decode's
+    combine, the tensor-parallel products' sums), each collective issued
+    eagerly between two replays (``serve/graphs.Segments``).
+    ``generate.prepare(params, batch, gen)``
     captures both graphs of that shape ahead of a timed call and returns the
     seconds it took (0 when nothing was captured); ``generate.graphs`` is
     their GraphCache (None when ``graph=False``); ``generate.prefill(params,
@@ -309,6 +314,15 @@ def make_generate(cfg, api, *, graph: bool = True):
     chain = make_decode_chain(cfg, api, graph=graph)
     graphs = chain.graphs if graph else None
     pre = prefix_len(cfg)
+
+    def rank_cache(b: int, length: int, device):
+        """A fresh cache of ``length`` positions for this rank's ``b``
+        rows: under the current mesh the rank's slice of the global
+        batch's cache."""
+        from repro_torch.launch.mesh import data_par
+
+        mesh = current_mesh()
+        return zeros_cache(cfg, api, b * data_par(mesh), length, device=device, mesh=mesh)
 
     def prefill_loop(params, batch, st, like, gen: int):
         """The prefill graph's loop over (the batch's leaves, the chain's
@@ -337,10 +351,10 @@ def make_generate(cfg, api, *, graph: bool = True):
         eagerly."""
         b, s = batch["tokens"].shape
         dev = batch["tokens"].device
-        if graphs is None or gen < 2 or not graphs.accepts(dev) or model_mesh() is not None:
+        if graphs is None or gen < 2 or not graphs.accepts(dev):
             return None
         scope = ("generate", b, s, gen)
-        like = zeros_cache(cfg, api, b, pre + s + gen, device="meta")
+        like = rank_cache(b, pre + s + gen, "meta")
         names = sorted(batch)
         meta = {"batch": [torch.empty(batch[n].shape, dtype=batch[n].dtype, device="meta")
                           for n in names],
@@ -364,12 +378,7 @@ def make_generate(cfg, api, *, graph: bool = True):
         graphed = statics(params, batch, gen) if cache is None else None
         if graphed is None:
             if cache is None:
-                from repro_torch.launch.mesh import data_par
-
-                # The rank's slice of the global batch's cache.
-                mesh = current_mesh()
-                cache = zeros_cache(cfg, api, b * data_par(mesh), pre + s + gen,
-                                    device=tokens.device, mesh=mesh)
+                cache = rank_cache(b, pre + s + gen, tokens.device)
             tok, cache = prefill(params, batch, cache)
             return tok, pre + s, cache, {}
         scope, st, like = graphed

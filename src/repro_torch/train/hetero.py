@@ -22,9 +22,14 @@ the gradient is here a CUDA graph per device (``serve/graphs.py``),
 captured on the first step of each share size (shares change with the
 rater, as the jit recompiles per shape) on the group's worker thread and
 stream, and replayed; its ``jax.device_put`` of the parameters is the copy
-into the graph's static parameter leaves, each step.  The loss is read
-(``.item()``) after the replay, and the gradients are copied out of the
-graph's memory.  The CPU group runs eagerly on a copy of the parameters.
+into the graph's static parameter leaves, each step.  The graphs of one
+scope (a group's) draw on one private memory pool and write their
+gradients into one set of static buffers, whatever the share size, so the
+card's memory stays that of the largest share however many sizes the
+rater visits (``GraphCache(pool_per_scope=True)``); that is safe because
+the loss is read (``.item()``) and the gradients are copied out of the
+graph's memory after each replay, before the scope's next.  The CPU group
+runs eagerly on a copy of the parameters.
 """
 from __future__ import annotations
 
@@ -68,8 +73,9 @@ class HeteroTrainer:
         """(loss, gradient tree) of ``forward_train`` on ``batch`` at a copy
         of ``params`` on ``device``; the gradients stay on ``device``.  On
         a CUDA device a replay of the device's gradient graph for this
-        batch shape and ``scope`` (captured at its first call), on the
-        current stream, the parameters copied into its static leaves;
+        batch shape and ``scope`` (captured at its first call, in the
+        scope's pool), on the current stream, the parameters copied into
+        its static leaves and the gradients written into the scope's;
         elsewhere eager.  Calls that may run at once take scopes of their
         own (the step passes each group's name: two groups on streams of
         one card never share a static buffer)."""
@@ -81,13 +87,19 @@ class HeteroTrainer:
             return loss.item(), tree_unflatten(params, g)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        graphs = self._graphs.setdefault(device, GraphCache())
+        graphs = self._graphs.setdefault(device, GraphCache(pool_per_scope=True))
         keys = sorted(mb)
-        inputs = {"params": [p.detach().to(device) for p in tree_leaves(params)],
-                  "batch": [mb[k] for k in keys]}
+        leaves = [p.detach().to(device) for p in tree_leaves(params)]
+        # The scope's gradient buffers, one set for every share size.
+        out = graphs.statics({"grads": [torch.empty(p.shape, dtype=p.dtype, device="meta")
+                                        for p in leaves]}, device, scope)["grads"]
+        inputs = {"params": leaves, "batch": [mb[k] for k in keys], "grads": out}
 
         def body(st, n):
-            return self._grad_body(params, st["params"], dict(zip(keys, st["batch"])))
+            loss, *g = self._grad_body(params, st["params"], dict(zip(keys, st["batch"])))
+            for buf, gi in zip(st["grads"], g):
+                buf.copy_(gi)
+            return (loss, *st["grads"])
 
         loss, *g = graphs.copy_out(graphs.bind("grads", 1, (), inputs, body, scope=scope)())
         return loss.item(), tree_unflatten(params, g)

@@ -1,9 +1,13 @@
 """The train step: loss -> gradients (microbatched) -> AdamW.
 
 The JAX launcher runs its step as one jitted program with the state
-donated (``jax.jit(make_train_step(...), donate_argnums=(0,))``).  Here
-the step is the sequence of the same computations, and on the card the
-whole of it is one CUDA graph (:func:`make_train_step`).
+donated (``jax.jit(make_train_step(...), donate_argnums=(0,))``), with or
+without a mesh, and so does the elastic runner.  Here the step is the
+sequence of the same computations, and on the card the whole of it is
+replayed from CUDA graphs (:func:`make_train_step`): one graph without a
+mesh, and under a mesh one graph per stretch between two of the mesh's
+collectives, the collectives issued between the replays
+(``serve/graphs.Segments``).
 ``cfg.microbatches`` > 1 splits the batch as ``x.reshape(nmb, B // nmb,
 ...)`` and sums the losses and gradients over the microbatches, then
 divides both by ``nmb``, as the reference's ``lax.scan``.  The state is
@@ -137,11 +141,18 @@ def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None,
     ``cfg.zero1`` the update is ZeRO-1's.
 
     ``graph=True``, the counterpart of the JAX launcher's ``jax.jit``: on
-    CUDA tensors without a mesh the whole step -- every microbatch's
-    forward and backward, the mean, the schedule, the clip and AdamW -- is
-    one CUDA graph, captured once per key (:func:`graph_key`: the batch
-    leaves' shapes and dtypes, the cfg fields that shape the step, and the
-    identity of the state's leaves) and replayed for every later step.
+    CUDA tensors the whole step -- every microbatch's forward and
+    backward, the mean, the schedule, the clip and AdamW, and under a mesh
+    the batch axes' reduction, ZeRO-1's gather and the tensor-parallel
+    collectives of the forward and the backward -- is recorded once per
+    key (:func:`graph_key`: the batch leaves' shapes and dtypes, the cfg
+    fields that shape the step, the mesh's shape, axes and this rank's
+    coordinate, and the identity of the state's leaves) and replayed for
+    every later step: one CUDA graph without a mesh, and under one a
+    graph per stretch between two collectives, each collective issued
+    eagerly between two replays on the tensors the capture saw
+    (``serve/graphs.Segments``; the mesh's ``stats`` count them as the
+    eager step's).
     The first step of a key runs eagerly on the state, counted as a step
     (the graph's warm-up: a warm-up inside the capture would be an extra,
     uncounted AdamW step); the capture follows it, executing nothing, and
@@ -151,9 +162,7 @@ def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None,
     them; the returned ``loss`` and ``lr`` are the graph's own tensors,
     which the next replay overwrites.  On CUDA a failed capture or replay
     raises; there is no eager fallback.  CPU tensors run the step
-    eagerly.  Under a mesh the step stays eager: gloo's collectives cannot
-    be captured, and graphs of mesh steps (NCCL, several cards) are still
-    to come.  ``graph=False`` runs every step eagerly."""
+    eagerly.  ``graph=False`` runs every step eagerly."""
     lr_kwargs = lr_kwargs or {}
     mesh = mesh if mesh is not None else current_mesh()
     dims = axes = None
@@ -174,7 +183,7 @@ def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None,
         return {"params": params, "opt": state["opt"], "step": state["step"]}, \
             {"loss": loss, "lr": lr}
 
-    if mesh is not None or not graph:
+    if not graph:
         return eager_step
     graphs = GraphCache()
     warmed: set = set()
@@ -188,17 +197,17 @@ def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None,
             _, m = eager_step(state, {k: statics[k] for k in batch})
             return m["loss"], m["lr"]
 
-        key = graph_key(cfg, inputs, consts)
+        ints = graph_ints(cfg, mesh)
+        key = graph_key(cfg, inputs, consts, mesh)
         if key not in warmed:
             out = eager_step(state, batch)
             # The eager step's cached blocks go back to the card before the
             # graph's private pool is drawn.
             torch.cuda.empty_cache()
-            graphs.capture("train_step", 1, graph_ints(cfg), inputs, body, consts, warmup=False)
+            graphs.capture("train_step", 1, ints, inputs, body, consts, warmup=False)
             warmed.add(key)
             return out
-        loss, lr = graphs.bind("train_step", 1, graph_ints(cfg), inputs, body, consts,
-                               warmup=False)()
+        loss, lr = graphs.bind("train_step", 1, ints, inputs, body, consts, warmup=False)()
         return {"params": state["params"], "opt": state["opt"], "step": state["step"]}, \
             {"loss": loss, "lr": lr}
 
@@ -206,9 +215,19 @@ def make_train_step(cfg, api, *, lr_kwargs: dict | None = None, mesh=None,
     return train_step
 
 
-def graph_ints(cfg) -> tuple:
-    """The cfg fields that shape a train step's graph."""
-    return (cfg.remat, max(cfg.microbatches, 1), cfg.kernel_impl, cfg.compute_dtype)
+def mesh_key(mesh) -> tuple:
+    """A mesh as a graph's key sees it: its axes and shape and this rank's
+    coordinate (``()`` without one), never an object's address."""
+    if mesh is None:
+        return ()
+    return tuple((a, mesh.shape[a], mesh.coord[a]) for a in mesh.axis_names)
+
+
+def graph_ints(cfg, mesh=None) -> tuple:
+    """The cfg fields and the mesh (:func:`mesh_key`) that shape a train
+    step's graph."""
+    return (cfg.remat, max(cfg.microbatches, 1), cfg.kernel_impl, cfg.compute_dtype,
+            cfg.zero1, mesh_key(mesh))
 
 
 def graph_inputs(state: TrainState, batch: dict) -> tuple[dict, tuple]:
@@ -218,8 +237,9 @@ def graph_inputs(state: TrainState, batch: dict) -> tuple[dict, tuple]:
             (state["params"], state["opt"]["m"], state["opt"]["v"], state["step"]))
 
 
-def graph_key(cfg, inputs: dict, consts: tuple) -> tuple:
+def graph_key(cfg, inputs: dict, consts: tuple, mesh=None) -> tuple:
     """The train step graph's cache key (``GraphCache.key``): the batch
-    leaves' shapes and dtypes, :func:`graph_ints`, the device and the
-    identity of every state leaf; never a batch leaf's address."""
-    return GraphCache.key("train_step", 1, graph_ints(cfg), inputs, consts)
+    leaves' shapes and dtypes, :func:`graph_ints` (with the mesh's shape,
+    axes and this rank's coordinate), the device and the identity of every
+    state leaf; never a batch leaf's or the mesh's address."""
+    return GraphCache.key("train_step", 1, graph_ints(cfg, mesh), inputs, consts)

@@ -17,12 +17,10 @@ on the CPU.
 - The graph's key.
 """
 import dataclasses
-import inspect
 
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
@@ -36,38 +34,11 @@ from repro_torch.models import params as tparams
 from repro_torch.serve import graphs
 from repro_torch.train import make_train_step, state_spec
 from repro_torch.train import step as tstep
+from _host_reads import HostReadAudit
 from test_torch_train import LOSS_TOL, MV_REL, PARAM_ATOL, jax_state, port_state, rel_l2
 
 FAMILIES = ["qwen1.5-4b", "arctic-480b", "falcon-mamba-7b", "recurrentgemma-2b",
             "whisper-tiny", "paligemma-3b"]
-aten = torch.ops.aten
-# Ops whose result the host must read, or whose output shape the data sets:
-# a capture refuses both.  lift_fresh is a tensor made from host data
-# (torch.tensor, torch.as_tensor of a Python number), on the card a
-# synchronous host-to-device copy.
-HOST_READS = {aten._local_scalar_dense, aten.nonzero, aten.masked_select, aten._unique2,
-              aten.unique_dim, aten.unique_consecutive, aten.repeat_interleave, aten.bincount,
-              aten.equal, aten.is_nonzero, aten.lift_fresh}
-# Plain versions that read the host where their CUDA route does not: none
-# on the train path (every family's step runs clean), so the set is empty.
-EXEMPT: set = set()
-
-
-class HostReadAudit(TorchDispatchMode):
-    """Raise on every op of ``HOST_READS``, and on an index by a boolean
-    mask (a hidden ``nonzero``), unless a frame of the Python stack is a
-    function named in ``EXEMPT``."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        bad = func.overloadpacket in HOST_READS or (
-            func.overloadpacket in (aten.index, aten.index_put, aten.index_put_) and any(
-                isinstance(i, torch.Tensor) and i.dtype == torch.bool
-                for i in (args[1] if len(args) > 1 and isinstance(args[1], (list, tuple))
-                          else ())))
-        if bad and not any(f.function in EXEMPT for f in inspect.stack()):
-            raise AssertionError(f"{func} reads the host inside the train step")
-        return func(*args, **kwargs)
 
 
 def build(arch="qwen1.5-4b", **over):
