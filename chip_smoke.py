@@ -6,7 +6,8 @@ GPU.  Run from the repository root, with no arguments:
 
 (``--host-us`` runs only the ``[host]`` line, ``--train`` only the
 ``[train]`` phase, ``--mesh`` only the ``[mesh]`` phase, ``--examples``
-only the ``[examples]`` phase and its two granite-34b kernel cases.)
+only the ``[examples]`` phase and its two granite-34b kernel cases,
+``--recurrent-served`` only the ``[recurrent served]`` phase.)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -121,16 +122,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
              - qwen1.5-4b, 40 layers, 8 requests x 256 prompt x 32
                generated: launches exactly flash_attention 40 and
                flash_decode 40 x 31;
-             - falcon-mamba-7b, 64 layers, 8 x 256 x 32: ssm_scan 64 (one
-               per layer of the prefill; decode is the elementwise step);
+             - falcon-mamba-7b at 32 of its 64 layers (``MAIN_DEPTH``:
+               every layer launches the same kernels at the same shapes;
+               ``[recurrent served]`` runs all 64), 8 x 256 x 32: ssm_scan
+               32 (one per layer of the prefill; decode is the elementwise
+               step);
              - recurrentgemma-2b, 26 layers (18 rec, 8 local attention),
                8 x 256 x 32: rglru_scan 18, flash_attention 8, flash_decode
-               8 x 31; and 2 x 2048 x 16, whose 2048-slot window ring
-               wraps: 18, 8 and 8 x 15;
+               8 x 31; and at 6 layers 2 x 2048 x 16, whose 2048-slot
+               window ring wraps: 4, 2 and 2 x 15;
              - falcon-mamba-7b and recurrentgemma-2b at an odd prompt
-               length, 2 x 300 x 8, which the TPU kernels could not take:
-               ssm_scan 64; rglru_scan 18, flash_attention 8, flash_decode
-               8 x 7.
+               length, 2 x 300 x 8, which the TPU kernels could not take,
+               at 16 and 6 layers: ssm_scan 16; rglru_scan 4,
+               flash_attention 2, flash_decode 2 x 7.
              - the MoE family at full width, bf16 weights from seed 0
                (``run_moe_path``): arctic-480b cut to 2 layers (about 55.4
                GB) and kimi-k2-1t-a32b cut to 1 (about 38.8 GB), one at a
@@ -267,7 +271,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
                (whisper's encoder layers too) within 2e-2 of the reference
                impl, teacher-forced; the whole stack's logits printed.
 5. coexec -- ``repro_torch.launch.serve --coexec --scheduler hguided
-             --verify`` on qwen1.5-4b --full, 8 x 256 + 32: HGuided
+             --verify`` on qwen1.5-4b --full at ``COEXEC_DEPTH`` (4 of 40
+             layers), 8 x 256 + 32: HGuided
              packages over two groups of cuda:0 (pod-a at power 2, pod-b
              at power 1, a CUDA stream each), each package the eager
              generate which the group captures per package shape and
@@ -308,6 +313,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
              shares printed, not held).  The two granite-34b kernel cases
              (n_rep 48: 48 query rows over one kv head) are among
              phase 3's.
+   recurrent served -- ``[recurrent served]`` (``run_recurrent_served``;
+             ``--recurrent-served`` runs only this phase):
+             falcon-mamba-7b (64 Mamba layers) and recurrentgemma-2b (26
+             layers: 18 RG-LRU, 8 local attention) at full width and
+             depth through the launcher's server on a contiguous cache
+             (recurrent state cannot be paged), one at a time: 8 x 256 +
+             32, seg_len 8, 8 slots, arrivals 1 ms apart (one prefill
+             wave, 4 segments), then the same prompts Poisson at 4/s
+             (waves joining beside decoding slots), each eager and
+             graphed; recurrentgemma-2b also 2 x 2048 + 16 on 2 slots
+             (the 2048-position ring of its local attention wraps while
+             served); then both on pod-a and pod-b, two streams of the
+             card, graphed: the launcher with ``--groups 2 --scheduler
+             hguided --drain-after 4`` (members of 5 and 3 slots, pod-b
+             drained, its rows migrating) and ``InferenceServer`` under
+             ``ForceMigrate`` (a migration at every common boundary, the
+             rows through ``patch_cached``).  Held in every run: no
+             failure; launches exactly ssm_scan 64 (mamba), or
+             flash_attention 8 and rglru_scan 18, a prefill wave,
+             flash_decode 8 a segment step, the row kernels one a
+             product and a norm of every forward; every stream bitwise
+             one-shot generate of its prompt alone (batch 1) and of the
+             run's prompts as one batch; graphed == eager; on two groups
+             pod-b drained (run A: whether pod-b boarded a wave before
+             its drain and how many rows left it follow the host's
+             timing, printed) and at least one migration with rows
+             patched (run B).
+             Printed: wall, tokens/s, the graphed run's captures (its
+             first segment's), and one graphed segment replayed under
+             the profiler: the card's busy share and each kernel's
+             launches and ms a step.
 6. train  -- the training slice (``run_train_phase``; ``--train`` runs
              only this phase).  flash_attention's autograd Function at the
              train paths' shapes (bf16: qwen1.5-4b's B 2 x 512, whisper's
@@ -371,7 +407,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              on cuda:0 and exchange over gloo (NCCL refuses two ranks of
              one communicator on one GPU), each held against a one-rank
              yardstick run first.  (a) internlm2-20b at full width, depth
-             2, the seq-sharded cache on (data 2, model 2): B 8, prompt
+             1, the seq-sharded cache on (data 2, model 2): B 8, prompt
              2048, cache 4096, 16 teacher-forced decode steps; every
              call's logits within 2e-2 rel L2 of the one-rank
              ``flash_decode`` path in bf16 and 1e-4 in float32; a rank
@@ -391,7 +427,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
              ``ElasticRunner`` rebuilds on rank 0 alone: restored bitwise,
              data cursor 2, three more steps finite, and a re-mesh frees
              the old step's graphs (the reserved bytes).  (e) qwen1.5-4b
-             depth 4 and (f) recurrentgemma-2b depth 3 tensor-parallel on
+             depth 2 and (f) recurrentgemma-2b depth 3 tensor-parallel on
              (model 2), 8 x 256 prefill + 16 decode steps, and (e)'s
              float32 train step at depth 2.  In every world each mesh step
              that the port records as CUDA graphs between the mesh's
@@ -1744,17 +1780,23 @@ def gemm_ops(params, run, torch) -> list:
 def by_kernel(events, ops_seq, per: int) -> dict:
     """Device time (ms) and launches of a region's kernels, grouped by
     kernel and, for ``gemm_rowinv``, by the product each launch computes
-    (``ops_seq``, the eager launch order, which a graph keeps), each
-    divided by ``per`` (the region's steps).  Where the trace lost a
+    (``ops_seq``, the eager launch order, which a graph keeps; None: by
+    kernel only), each divided by ``per`` (the region's steps).  Where the trace lost a
     launch, the products are labelled step by step instead: a decode step
     ends at its argmax (PyTorch's one ``reduce_kernel`` a step), and only
     the steps whose trace holds every launch are labelled
     (``gemm_steps_labelled``; ``gemm_by_op`` None when none is)."""
+    def table(d, n):
+        return {k: {"launches": c / n, "ms": t / n}
+                for k, (c, t) in sorted(d.items(), key=lambda kv: -kv[1][1])}
+
     kernels = {}
     for name, ms in events:
         d = kernels.setdefault(kernel_group(name), [0, 0.0])
         d[0] += 1
         d[1] += ms
+    if ops_seq is None:  # no product order to label the GEMMs with
+        return {"kernels": table(kernels, per), "gemm_by_op": None, "gemm_steps_labelled": 0}
     steps, step = [], []
     for name, ms in events:
         if kernel_group(name) == "gemm_rowinv":
@@ -1775,10 +1817,6 @@ def by_kernel(events, ops_seq, per: int) -> dict:
             d = gemm.setdefault(op, [0, 0.0])
             d[0] += 1
             d[1] += ms
-
-    def table(d, n):
-        return {k: {"launches": c / n, "ms": t / n}
-                for k, (c, t) in sorted(d.items(), key=lambda kv: -kv[1][1])}
     return {"kernels": table(kernels, per),
             "gemm_by_op": table(gemm, n_labelled) if full else None,
             "gemm_steps_labelled": n_labelled if full else 0}
@@ -2029,6 +2067,17 @@ def oneshot_modes(cfg, api, params, batch, gen, want, torch) -> dict:
     return out
 
 
+def layer_kinds(cfg, n: int = 0) -> list:
+    """Each of the first ``n`` (all) layers' kind: "mamba" for the ssm
+    family, the hybrid family's block pattern repeated ("rec", "attn"),
+    "attn" for a stack of attention layers."""
+    n = n or cfg.n_layers
+    if cfg.family == "ssm":
+        return ["mamba"] * n
+    pat = cfg.block_pattern or ("attn",)
+    return list(pat) * (n // len(pat)) + list(pat[: n % len(pat)])
+
+
 def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
     """Launches of the row kernels in ``forwards`` passes of the
     full-width stack (a prefill or one decode step each; ``n_layers``
@@ -2062,31 +2111,42 @@ def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
         return {"gemm_rowinv": 6 * e + 10 * n + 1 + (8 * n + 1) * steps, "rms_norm": 0,
                 "moe_gemm": 0, "layer_norm": 2 * e + 3 * n + 2 + (3 * n + 1) * steps}
     else:
-        pat = cfg.block_pattern
-        kinds = list(pat) * (n // len(pat)) + list(pat[: n % len(pat)])
+        kinds = layer_kinds(cfg, n)
         rec = kinds.count("rec")
         gemm, norms = 8 * rec + 7 * (n - rec) + 1, 2 * n + 1
     return {"gemm_rowinv": gemm * forwards, "rms_norm": norms * forwards,
             "moe_gemm": moe * forwards, "layer_norm": 0}
 
 
+# The recurrent main paths run cut to these depths, full width (every layer
+# launches the same kernels at the same shapes, so a cut changes only the
+# counts); ``[recurrent served]`` runs both archs at full depth, their
+# one-shot generate included.  0: the config's depth.
+MAIN_DEPTH = {("falcon-mamba-7b", 256): 32, ("recurrentgemma-2b", 2048): 6,
+              ("falcon-mamba-7b", 300): 16, ("recurrentgemma-2b", 300): 6}
+
+
 def main_paths():
     """(arch, requests, prompt length, generated, launches wanted, modes of
-    the per-layer check) of each main path, run in this order.  Generate
-    runs ``gen`` passes: the prefill and gen - 1 decode steps."""
-    def want(arch, gen, fa=0, fd=0, ss=0, rg=0):
-        return {"flash_attention": fa, "flash_decode": fd, "flash_decode_paged": 0,
-                "ssm_scan": ss, "rglru_scan": rg, **row_kernel_launches(arch, gen)}
+    the per-layer check, depth: 0 for the config's) of each main path, run
+    in this order.  Generate runs ``gen`` passes: the prefill and gen - 1
+    decode steps."""
+    from repro_torch.configs import get_config
+
+    def path(arch, requests, prompt, gen, modes):
+        depth = MAIN_DEPTH.get((arch, prompt), 0)
+        kinds = layer_kinds(get_config(arch), depth)
+        attn = kinds.count("attn")
+        want = {"flash_attention": attn, "flash_decode": attn * (gen - 1),
+                "flash_decode_paged": 0, "ssm_scan": kinds.count("mamba"),
+                "rglru_scan": kinds.count("rec"), **row_kernel_launches(arch, gen, depth)}
+        return arch, requests, prompt, gen, want, modes, depth
 
     q, m, r = "qwen1.5-4b", "falcon-mamba-7b", "recurrentgemma-2b"
-    return [
-        (q, 8, 256, GEN, want(q, GEN, fa=40, fd=40 * (GEN - 1)), ("prefill", "decode")),
-        (m, 8, 256, GEN, want(m, GEN, ss=64), ("prefill",)),
-        (r, 8, 256, GEN, want(r, GEN, fa=8, fd=8 * (GEN - 1), rg=18), ("prefill", "decode")),
-        (r, 2, 2048, 16, want(r, 16, fa=8, fd=8 * 15, rg=18), ("prefill", "decode")),
-        (m, 2, 300, 8, want(m, 8, ss=64), ("prefill",)),
-        (r, 2, 300, 8, want(r, 8, fa=8, fd=8 * 7, rg=18), ("prefill", "decode")),
-    ]
+    both = ("prefill", "decode")
+    return [path(q, 8, 256, GEN, both), path(m, 8, 256, GEN, ("prefill",)),
+            path(r, 8, 256, GEN, both), path(r, 2, 2048, 16, both),
+            path(m, 2, 300, 8, ("prefill",)), path(r, 2, 300, 8, both)]
 
 
 def run_main_path(argv, dev, torch, modes) -> dict:
@@ -2299,10 +2359,12 @@ WHISPER_COEXEC_ARGV = ["--arch", "whisper-tiny", "--full", "--coexec", "--schedu
                        "--kernel", "cuda"]
 
 
-# qwen1.5-4b's served and co-executed paths run at this depth, full width:
-# the launcher's config cut here (as ``moe_model`` cuts its configs), every
-# bitwise and launch-count check kept, the counts following the depth.
+# qwen1.5-4b's served paths run at this depth, full width, and its
+# co-executed path at COEXEC_DEPTH: the launcher's config cut here (as
+# ``moe_model`` cuts its configs), every bitwise and launch-count check
+# kept, the counts following the depth.
 SERVED_DEPTH = 8
+COEXEC_DEPTH = 4
 
 
 @contextlib.contextmanager
@@ -2531,7 +2593,6 @@ def run_served_path(dev, torch) -> dict:
     import numpy as np
 
     from repro_torch.launch import serve
-    from repro_torch.serve import make_generate
 
     args = serve.parse_args(SERVER_ARGV)
     cfg, api, params = serve.load_model(args)
@@ -2543,7 +2604,8 @@ def run_served_path(dev, torch) -> dict:
     segs = -(-(args.gen - 1) // args.seg_len)
     want = _launches(cfg.n_layers, fa=cfg.n_layers, fdp=cfg.n_layers * args.seg_len * segs,
                      forwards=[(1 + args.seg_len * segs, cfg.n_layers)])
-    one8 = ones = None
+    one8, ones = oneshot_refs(cfg, api, params, runs["eager"][0]["prompts"], args.gen, dev,
+                              torch).values()
     for mode, (result, counts, _, rec) in runs.items():
         s = result["stats"]
         print(f"  {mode}: launches {counts} (want {want})", flush=True)
@@ -2553,12 +2615,6 @@ def run_served_path(dev, torch) -> dict:
             fail(f"served path ({mode}) ran {s['prefill_waves']} prefill waves and "
                  f"{s['segments']} segments, want 1 and {segs}")
         served = np.stack(result["results"])
-        if one8 is None:
-            tokens = torch.from_numpy(np.stack(result["prompts"])).to(dev)
-            generate = make_generate(cfg, api)
-            one8 = generate(params, {"tokens": tokens}, args.gen).cpu().numpy()
-            ones = np.stack([generate(params, {"tokens": tokens[i:i + 1]}, args.gen)[0]
-                             .cpu().numpy() for i in range(args.requests)])
         rows8 = int(sum(np.array_equal(a, b) for a, b in zip(served, one8)))
         rows1 = int(sum(np.array_equal(a, b) for a, b in zip(served, ones)))
         if rows8 != args.requests or rows1 != args.requests:
@@ -2798,11 +2854,12 @@ def run_chunked_paths(dev, torch, whole) -> dict:
     return out, chunked_counts
 
 
-def _launches(n, fa=0, fd=0, fdp=0, forwards=(), arch="qwen1.5-4b") -> dict:
-    """A served path's wanted launch counts: the attention kernels' counts
-    and the row kernels' of each (forwards, layers) pair."""
+def _launches(n, fa=0, fd=0, fdp=0, forwards=(), arch="qwen1.5-4b", ss=0, rg=0) -> dict:
+    """A served path's wanted launch counts: the attention kernels' and
+    the scans' counts and the row kernels' of each (forwards, layers)
+    pair."""
     want = {"flash_attention": fa, "flash_decode": fd,
-            "flash_decode_paged": fdp, "ssm_scan": 0, "rglru_scan": 0,
+            "flash_decode_paged": fdp, "ssm_scan": ss, "rglru_scan": rg,
             "gemm_rowinv": 0, "rms_norm": 0, "moe_gemm": 0, "layer_norm": 0}
     for f, layers in forwards:
         for name, c in row_kernel_launches(arch, f, layers).items():
@@ -3016,12 +3073,15 @@ def run_spec_paths(dev, torch, whole, plain_sp) -> tuple:
 # waits up to 200 ms for a full batch): so the first requests board on both
 # groups before the drain, where with the whole batch queued first pod-b,
 # drained by then, would receive none.
-MULTIGROUP_ARGV = _argv_with(SERVER_ARGV, max_wait_ms="1") + [
+# Both runs' slots: pod-a 8, pod-b 4 (the 2:1 split of 12), so that pod-a
+# has room for every request: run B's forced migrations, and run A's
+# drained rows (with 5 and 3 slots pod-a could be full while pod-b's rows
+# wait, and the migration then hung on the host's timing).
+MULTIGROUP_B_SLOTS = 12
+MULTIGROUP_ARGV = _argv_with(SERVER_ARGV, max_wait_ms="1",
+                             max_batch=str(MULTIGROUP_B_SLOTS)) + [
     "--groups", "2", "--scheduler", "hguided", "--drain-after", "4", "--verify",
     "--http-port", "0"]
-# Run B's slots: pod-a 8, pod-b 4 (Static's 2:1 split of 12, one each at
-# least), so the 8 requests leave free slots for the forced migrations.
-MULTIGROUP_B_SLOTS = 12
 
 
 def _http_probe(http, torch) -> dict:
@@ -3077,10 +3137,99 @@ def _per_group(result, stats, entries, label, card) -> dict:
     return out
 
 
+def hold_multigroup(label, result, stats, counts, entries, want, decoders, refs,
+                    bucket, min_migrations: int = 1, placed=("pod-a", "pod-b")) -> None:
+    """The checks of a multi-group run, graphed: no failure, every stream
+    bitwise each of ``refs`` (``{what: streams}``), the launch counts
+    ``want``, at least ``min_migrations`` slots migrated, prefill waves on
+    each group of ``placed`` and segments on each of ``decoders``, every
+    segment one replay and no warm-up clone, the segment loops' scopes
+    ``(bucket, group)``, and each group's prefill graph replayed once a
+    wave."""
+    import numpy as np
+
+    res = result["results"]
+    if (stats["completed"] != len(res) or stats["failed"] or stats["rejected"]
+            or any(r is None for r in res)):
+        fail(f"{label}: {stats['completed']} completed, {stats['failed']} failed, "
+             f"{stats['rejected']} rejected of {len(res)}")
+    for what, want_streams in refs.items():
+        rows = int(sum(np.array_equal(a, b) for a, b in zip(res, want_streams)))
+        if rows != len(res):
+            fail(f"{label}: {rows}/{len(res)} streams equal {what}")
+    print(f"  {label}: launches {counts} (want {want})", flush=True)
+    if counts != want:
+        fail(f"{label} launch counts {counts} != {want}")
+    if stats["slot_migrations"] < min_migrations:
+        fail(f"{label}: {stats['slot_migrations']} slots migrated, want {min_migrations} or more")
+    per = stats["placement"]["per_group"]
+    if not set(placed) <= set(per) <= {"pod-a", "pod-b"} \
+            or any(per[name]["prefill_waves"] < 1 for name in placed) \
+            or any(per[name]["segments"] < 1 for name in decoders):
+        fail(f"{label}: {placed} must run prefill waves, and {decoders} segments: {per}")
+    g = stats["graphs"]
+    if g["replays"] != stats["segments"] or g["warmup_clone_bytes"]:
+        fail(f"{label}: {stats['segments']} segments, {g['replays']} replays, warm-up clones "
+             f"{g['warmup_clone_bytes']} B: every segment one replay, no clone")
+    scopes = {k[5] for k in entries}
+    if not ({(bucket, g) for g in decoders} <= scopes
+            <= {(bucket, "pod-a"), (bucket, "pod-b")}):
+        fail(f"{label}: segment loops' scopes {sorted(scopes)}")
+    for name, gg in stats["group_graphs"].items():
+        waves = per.get(name, {}).get("prefill_waves", 0)
+        if gg["replays"] != waves or gg["warmup_clone_bytes"]:
+            fail(f"{label}: group {name} replayed {gg['replays']} prefill graphs for "
+                 f"{waves} waves (warm-up clones {gg['warmup_clone_bytes']} B)")
+    print(f"  {label}: {len(res)}/{len(res)} streams bitwise {' and '.join(refs)}; "
+          f"{stats['slot_migrations']} migrations; {stats['prefill_waves']} prefill waves, "
+          f"{stats['segments']} segments, all replays, warm-up clones 0 B", flush=True)
+
+
+def force_migrate_run(cfg, api, params, dev, prompts, gaps, gen: int, seg_len: int,
+                      bucket: int, torch) -> tuple:
+    """``InferenceServer`` directly on pod-a and pod-b of
+    ``serve.coexec_groups``, graphed: contiguous KV, Static,
+    ``ForceMigrate`` (a migration at every common boundary, the rows
+    through ``DeviceGroup.patch_cached``), :data:`MULTIGROUP_B_SLOTS`
+    slots, ``prompts`` submitted ``gaps`` apart; the launch counts zeroed
+    just before.  Returns (result, stats, counts, graph entries, policy,
+    groups)."""
+    from repro_torch.core import Static
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serve import ForceMigrate, InferenceServer
+
+    groups = serve.coexec_groups(dev)
+    policy = ForceMigrate()
+    gc.collect()
+    ops.reset_launch_counts()
+    server = InferenceServer(cfg, api, params, groups=groups, scheduler=Static(),
+                             group_batches=True, migration=policy, buckets=(bucket,),
+                             max_batch=MULTIGROUP_B_SLOTS, seg_len=seg_len, max_new_cap=gen,
+                             max_wait_ms=200.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with server:
+        handles = []
+        for p, gap in zip(prompts, gaps):
+            time.sleep(gap)
+            handles.append(server.submit(p, gen))
+        results = [hd.result(timeout=600) for hd in handles]
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stats = server.stats()
+        entries = list(server.kernels.graphs._entries)
+    result = {"results": results, "wall_s": wall,
+              "request_metrics": [hd.metrics for hd in handles],
+              "groups": {g.name: {"capture_wait_s": g.capture_wait_s} for g in groups}}
+    return result, stats, counts, entries, policy, groups
+
+
 def run_multigroup_paths(dev, torch, whole, card) -> dict:
     """Multi-group serving on two CUDA-stream groups of the card, graphed.
 
     Run A, the launcher (``run_server``, :data:`MULTIGROUP_ARGV`): paged,
+    pod-a with 8 slots and pod-b with 4 (room in pod-a for every request),
     one sub-batch and one block pool per group, join waves placed by
     ``plan_wave`` on HGuided's weights, pod-b drained after the fourth
     submission (its slots migrate to pod-a at segment boundaries), the
@@ -3104,56 +3253,15 @@ def run_multigroup_paths(dev, torch, whole, card) -> dict:
     ``DeviceGroup.patch_cached``.  Held as run A, with flash_decode in
     place of flash_decode_paged, and both groups must run segments; patches
     and refusals counted."""
-    import numpy as np
-
-    from repro_torch.core import Static
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.serve import ForceMigrate, InferenceServer
 
     served_whole, ones = whole
+    refs = {"the single-group served path's": served_whole, "batch-1 one-shot's": ones}
     args = serve.parse_args(MULTIGROUP_ARGV)
     cfg, api, params = serve.load_model(args)
     n, seg = cfg.n_layers, args.seg_len
     out = {"card": card}
-
-    def held(label, result, stats, counts, entries, want, decoders):
-        res = result["results"]
-        if (stats["completed"] != len(res) or stats["failed"] or stats["rejected"]
-                or any(r is None for r in res)):
-            fail(f"{label}: {stats['completed']} completed, {stats['failed']} failed, "
-                 f"{stats['rejected']} rejected of {len(res)}")
-        rows_w = int(sum(np.array_equal(a, b) for a, b in zip(res, served_whole)))
-        rows_1 = int(sum(np.array_equal(a, b) for a, b in zip(res, ones)))
-        if rows_w != len(res) or rows_1 != len(res):
-            fail(f"{label}: {rows_w}/{len(res)} streams equal the single-group served path's, "
-                 f"{rows_1}/{len(res)} one-shot generate's of each prompt alone")
-        print(f"  {label}: launches {counts} (want {want})", flush=True)
-        if counts != want:
-            fail(f"{label} launch counts {counts} != {want}")
-        if stats["slot_migrations"] < 1:
-            fail(f"{label}: no slot migrated")
-        per = stats["placement"]["per_group"]
-        if set(per) != {"pod-a", "pod-b"} or any(d["prefill_waves"] < 1 for d in per.values()) \
-                or any(per[name]["segments"] < 1 for name in decoders):
-            fail(f"{label}: each group must run prefill waves, and {decoders} segments: {per}")
-        g = stats["graphs"]
-        if g["replays"] != stats["segments"] or g["warmup_clone_bytes"]:
-            fail(f"{label}: {stats['segments']} segments, {g['replays']} replays, warm-up clones "
-                 f"{g['warmup_clone_bytes']} B: every segment one replay, no clone")
-        scopes = {k[5] for k in entries}
-        if not ({(args.prompt_len, g) for g in decoders} <= scopes
-                <= {(args.prompt_len, "pod-a"), (args.prompt_len, "pod-b")}):
-            fail(f"{label}: segment loops' scopes {sorted(scopes)}")
-        for name, gg in stats["group_graphs"].items():
-            if gg["replays"] != per[name]["prefill_waves"] or gg["warmup_clone_bytes"]:
-                fail(f"{label}: group {name} replayed {gg['replays']} prefill graphs for "
-                     f"{per[name]['prefill_waves']} waves (warm-up clones "
-                     f"{gg['warmup_clone_bytes']} B)")
-        print(f"  {label}: {len(res)}/{len(res)} streams bitwise the single-group served "
-              f"path's and batch-1 one-shot's; {stats['slot_migrations']} migrations; "
-              f"{stats['prefill_waves']} prefill waves, {stats['segments']} segments, all "
-              f"replays, warm-up clones 0 B", flush=True)
 
     # -- run A: the launcher, paged, HGuided, pod-b drained -------------------
     live = {}
@@ -3173,8 +3281,8 @@ def run_multigroup_paths(dev, torch, whole, card) -> dict:
     # pod-b is drained at the fourth submission, while its first prefill
     # wave (and its capture) is still in flight: its slots leave through the
     # drain's migrations before it decodes, so only pod-a must run segments.
-    held("run A (launcher, paged, HGuided, drain)", ra, sa, live["counts"], live["entries"],
-         want, ("pod-a",))
+    hold_multigroup("run A (launcher, paged, HGuided, drain)", ra, sa, live["counts"],
+                    live["entries"], want, ("pod-a",), refs, args.prompt_len)
     if ra["drained"] != "pod-b" or sa["placement"]["draining"] != ["pod-b"]:
         fail(f"run A: drained {ra['drained']}, draining {sa['placement']['draining']}")
     per_b = sa["placement"]["per_group"]["pod-b"]
@@ -3212,32 +3320,13 @@ def run_multigroup_paths(dev, torch, whole, card) -> dict:
 
     # -- run B: the server API, contiguous, ForceMigrate ----------------------
     prompts, gaps = serve.server_prompts(cfg, serve.parse_args(SERVER_ARGV))
-    groups = serve.coexec_groups(dev)
-    policy = ForceMigrate()
-    ops.reset_launch_counts()
-    server = InferenceServer(cfg, api, params, groups=groups, scheduler=Static(),
-                             group_batches=True, migration=policy, buckets=(args.prompt_len,),
-                             max_batch=MULTIGROUP_B_SLOTS, seg_len=seg, max_new_cap=args.gen,
-                             max_wait_ms=200.0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with server:
-        handles = []
-        for p, gap in zip(prompts, gaps):
-            time.sleep(gap)
-            handles.append(server.submit(p, args.gen))
-        results = [hd.result(timeout=600) for hd in handles]
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        sb = server.stats()
-        entries = list(server.kernels.graphs._entries)
-    rb = {"results": results, "wall_s": wall,
-          "request_metrics": [hd.metrics for hd in handles],
-          "groups": {g.name: {"capture_wait_s": g.capture_wait_s} for g in groups}}
+    rb, sb, counts, entries, policy, _ = force_migrate_run(
+        cfg, api, params, dev, prompts, gaps, args.gen, seg, args.prompt_len, torch)
+    wall = rb["wall_s"]
     want = _launches(n, fa=n * sb["prefill_waves"], fd=n * seg * sb["segments"],
                      forwards=[(sb["prefill_waves"] + seg * sb["segments"], n)])
-    held("run B (server API, contiguous, ForceMigrate)", rb, sb, counts, entries, want,
-         ("pod-a", "pod-b"))
+    hold_multigroup("run B (server API, contiguous, ForceMigrate)", rb, sb, counts, entries,
+                    want, ("pod-a", "pod-b"), refs, args.prompt_len)
     patches = sb["placement"]["patches"]
     if sum(p["patched"] for p in patches.values()) < 1:
         fail(f"run B: no migrated row went through patch_cached: {patches}")
@@ -3251,6 +3340,307 @@ def run_multigroup_paths(dev, torch, whole, card) -> dict:
                     "graphs": {k: sb["graphs"][k] for k in ("captures", "capture_s", "wait_s",
                                                             "replays", "output_copies")},
                     "per_group": _per_group(rb, sb, entries, "run B", card)}
+    return out
+
+
+# ------------------------------------------------------- [recurrent served]
+# The recurrent families served at full width and depth through the
+# launcher's continuous-batching server on a contiguous cache (their state
+# cannot be paged), eager and graphed, on one group and on two.
+RECURRENT_ARCHS = ("falcon-mamba-7b", "recurrentgemma-2b")
+RECURRENT_ARGV = ["--full", "--server", "--seg-len", "8", "--max-batch", "8", "--requests", "8",
+                  "--prompt-len", "256", "--gen", str(GEN), "--rate", "1000",
+                  "--max-wait-ms", "200", "--seed", "0", "--kernel", "cuda"]
+# recurrentgemma-2b's local attention keeps a ring of its window (2048
+# positions): two prompts of 2048 wrap it from their first decode step.
+RING_ARGV = _argv_with(RECURRENT_ARGV, requests="2", prompt_len="2048", gen="16",
+                       max_batch="2")
+# pod-a (power 2, 5 slots) and pod-b (power 1, 3 slots); pod-b drained at
+# the fourth submission, its rows migrating to pod-a at segment boundaries.
+RECURRENT_GROUPS_ARGV = _argv_with(RECURRENT_ARGV, max_wait_ms="1") + [
+    "--groups", "2", "--scheduler", "hguided", "--drain-after", "4"]
+
+
+def recurrent_launches(cfg, waves: int, segments: int, seg_len: int) -> dict:
+    """A served recurrent run's launches: each prefill wave ssm_scan once a
+    Mamba layer, rglru_scan once a recurrent layer and flash_attention once
+    an attention layer; each segment flash_decode once an attention layer
+    a step (a decode step's recurrences are elementwise: no scan); the row
+    kernels once a product and a norm of every forward (each wave's
+    prefill, each segment step)."""
+    kinds = layer_kinds(cfg)
+    attn = kinds.count("attn")
+    return _launches(cfg.n_layers, fa=attn * waves, fd=attn * seg_len * segments,
+                     forwards=[(waves + seg_len * segments, cfg.n_layers)], arch=cfg.name,
+                     ss=kinds.count("mamba") * waves, rg=kinds.count("rec") * waves)
+
+
+def oneshot_refs(cfg, api, params, prompts, gen: int, dev, torch) -> dict:
+    """One-shot generate (graphed, the launcher's) of ``prompts`` as one
+    batch and of each prompt alone (batch 1): ``{what: (n, gen) tokens}``."""
+    import numpy as np
+
+    from repro_torch.serve import make_generate
+
+    tokens = torch.from_numpy(np.stack(prompts)).to(dev)
+    generate = make_generate(cfg, api)
+    whole = generate(params, {"tokens": tokens}, gen).cpu().numpy()
+    ones = np.stack([generate(params, {"tokens": tokens[i:i + 1]}, gen)[0].cpu().numpy()
+                     for i in range(len(prompts))])
+    n = len(prompts)
+    return {f"one-shot generate of the {n} prompts as one batch": whole,
+            "one-shot generate of each prompt alone (batch 1)": ones}
+
+
+def profile_segment(server, torch) -> dict:
+    """torch.profiler over one replay of a live server's segment loop (the
+    graph of its decode loop, on its static buffers: the last segment's
+    state, read once every request is answered, so no stream is touched),
+    spin kernels ahead of it: the card's busy time against the host's wall
+    and CUDA events, and each kernel's device time and launches a step
+    (:func:`by_kernel`).  The replay adds nothing to the launch counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    found = [(k, e) for k, e in server.kernels.graphs._entries.items() if k[0] == "decode"]
+    if not found:
+        fail("no decode loop was captured in the graphed server")
+    key, entry = found[0]
+    steps = key[1]
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(100_000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        entry.graph.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(e.name(), e.duration_ns() / 1e6)
+              for e in sorted(prof.profiler.kineto_results.events(), key=lambda e: e.start_ns())
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name()]
+    busy = sum(ms for _, ms in events)
+    return {"steps": steps, "scope": key[5], "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_span_ms": ev[0].elapsed_time(ev[1]),
+            "device_busy_share": busy / (wall * 1e3) if wall else None,
+            **by_kernel(events, None, steps)}
+
+
+def print_segment_profile(label, p) -> None:
+    busy = p["device_busy_ms"]
+    share = "not measured" if busy == 0 else f"{p['device_busy_share']:.1%}"
+    print(f"  [B7] {label}, one graphed segment ({p['steps']} steps, scope {p['scope']}): wall "
+          f"{p['wall_ms']:.2f} ms, card busy {busy:.2f} ms ({share}), CUDA events "
+          f"{p['device_span_ms']:.2f} ms; per step by kernel (launches, ms) "
+          + "; ".join(f"{k} {d['launches']:g}, {d['ms']:.3f}" for k, d in p["kernels"].items()),
+          flush=True)
+
+
+def hold_recurrent_runs(label, cfg, runs, refs, seg_len, waves=None, segments=None) -> dict:
+    """The checks of a served recurrent run, eager and graphed
+    (:func:`served_modes`'s ``runs``): the launches each run's own prefill
+    waves and segments make (:func:`recurrent_launches`; ``waves`` and
+    ``segments`` where the arrivals fix them), every stream bitwise each of
+    ``refs`` and the graphed streams bitwise the eager ones.  Prints each
+    mode's line (:func:`print_modes`) and returns the records and
+    counts."""
+    import numpy as np
+
+    out = {"modes": {}, "launches": {}}
+    for mode, (result, counts, _, rec) in runs.items():
+        s = result["stats"]
+        want = recurrent_launches(cfg, s["prefill_waves"], s["segments"], seg_len)
+        print(f"  {label}, {mode}: {s['prefill_waves']} prefill waves, {s['segments']} "
+              f"segments; launches {counts} (want {want})", flush=True)
+        if counts != want:
+            fail(f"{label} ({mode}) launch counts {counts} != {want}")
+        if (waves, segments) != (None, None) and (s["prefill_waves"], s["segments"]) != (
+                waves, segments):
+            fail(f"{label} ({mode}) ran {s['prefill_waves']} prefill waves and {s['segments']} "
+                 f"segments, want {waves} and {segments}")
+        for what, want_streams in refs.items():
+            rows = _streams_equal(result, want_streams)
+            if rows != len(result["results"]):
+                fail(f"{label} ({mode}): {rows}/{len(result['results'])} streams equal {what}")
+        out["modes"][mode] = rec
+        out["launches"][mode] = counts
+    eager, graph = runs["eager"][0]["results"], runs["graph"][0]["results"]
+    if not all(np.array_equal(a, b) for a, b in zip(eager, graph)):
+        fail(f"{label}: the graphed streams differ from the eager ones")
+    n = len(eager)
+    print(f"  {label}: {n}/{n} streams bitwise " + " and ".join(refs)
+          + ", eager and graphed; graphed == eager bitwise", flush=True)
+    print_modes(label, out["modes"])
+    return out
+
+
+def run_recurrent_groups(cfg, api, params, args, refs, dev, torch, card) -> dict:
+    """The two-group runs of one recurrent arch, graphed, on pod-a and
+    pod-b, two CUDA streams of the card.  Run A, the launcher
+    (:data:`RECURRENT_GROUPS_ARGV`): contiguous members of 5 and 3 slots,
+    waves placed on HGuided's weights, pod-b drained at the fourth
+    submission (its rows leave through migrations at segment boundaries
+    where pod-a has room: how many follows the host's timing).  Run B,
+    ``InferenceServer`` under ``ForceMigrate`` (:func:`force_migrate_run`):
+    a migration at every common boundary, the ssm, conv, RG-LRU and ring
+    rows through ``DeviceGroup.patch_cached``.  Each held as
+    :func:`hold_multigroup` holds qwen1.5-4b's, to ``refs`` (run A with no
+    minimum of migrations, run B with one)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    seg, bucket = args.seg_len, args.prompt_len
+    gargs = serve.parse_args(["--arch", cfg.name] + RECURRENT_GROUPS_ARGV)
+    live = {}
+
+    def probe(server, http):
+        live["counts"] = ops.launch_counts()
+        live["stats"] = server.stats()
+        live["entries"] = list(server.kernels.graphs._entries)
+
+    gc.collect()
+    ops.reset_launch_counts()
+    ra = serve.run_server(cfg, api, params, gargs, live=probe)
+    sa = live["stats"]
+    want = recurrent_launches(cfg, sa["prefill_waves"], sa["segments"], seg)
+    # Whether pod-b boards a wave before its drain at the fourth submission,
+    # and whether its rows can leave before they finish (pod-a may be full
+    # on 5 and 3 slots), follows the host's timing: run A holds the drain,
+    # run B forces the migrations.
+    hold_multigroup(f"{cfg.name} run A (launcher, HGuided, drain)", ra, sa, live["counts"],
+                    live["entries"], want, ("pod-a",), refs, bucket, min_migrations=0,
+                    placed=("pod-a",))
+    if ra["drained"] != "pod-b" or sa["placement"]["draining"] != ["pod-b"]:
+        fail(f"{cfg.name} run A: drained {ra['drained']}, draining "
+             f"{sa['placement']['draining']}")
+    pod_b = sa["placement"]["per_group"].get("pod-b", {})
+    print(f"  {cfg.name} run A: pod-b drained after {pod_b.get('prefill_waves', 0)} prefill "
+          f"waves, {pod_b.get('migrations_out', 0)} rows migrated out of it", flush=True)
+    out = {"run_a": {"argv": RECURRENT_GROUPS_ARGV,
+                     "wall_s": ra["wall_s"], "tokens_per_s": ra["tokens_per_s"],
+                     "slot_migrations": sa["slot_migrations"], "drained": ra["drained"],
+                     "prefill_waves": sa["prefill_waves"], "segments": sa["segments"],
+                     "member_slots": sa["placement"]["member_slots"],
+                     "launches": live["counts"], "patches": sa["placement"]["patches"],
+                     "graphs": {k: sa["graphs"][k] for k in ("captures", "capture_s", "wait_s",
+                                                             "replays")},
+                     "per_group": _per_group(ra, sa, live["entries"],
+                                             f"{cfg.name} run A", card)}}
+    del ra, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts, gaps = serve.server_prompts(cfg, args)
+    rb, sb, counts, entries, policy, _ = force_migrate_run(
+        cfg, api, params, dev, prompts, gaps, args.gen, seg, bucket, torch)
+    want = recurrent_launches(cfg, sb["prefill_waves"], sb["segments"], seg)
+    hold_multigroup(f"{cfg.name} run B (server API, ForceMigrate)", rb, sb, counts, entries,
+                    want, ("pod-a", "pod-b"), refs, bucket)
+    patches = sb["placement"]["patches"]
+    if sum(p["patched"] for p in patches.values()) < 1:
+        fail(f"{cfg.name} run B: no migrated row went through patch_cached: {patches}")
+    out["run_b"] = {"member_slots": sb["placement"]["member_slots"], "wall_s": rb["wall_s"],
+                    "tokens_per_s": sb["tokens_out"] / rb["wall_s"],
+                    "slot_migrations": sb["slot_migrations"],
+                    "moves_planned": policy.moves_planned,
+                    "prefill_waves": sb["prefill_waves"], "segments": sb["segments"],
+                    "launches": counts, "patches": patches,
+                    "graphs": {k: sb["graphs"][k] for k in ("captures", "capture_s", "wait_s",
+                                                            "replays")},
+                    "per_group": _per_group(rb, sb, entries, f"{cfg.name} run B", card)}
+    return out
+
+
+def run_recurrent_served(dev, torch, card, summary=None) -> dict:
+    """``[recurrent served]``: falcon-mamba-7b (64 Mamba layers) and
+    recurrentgemma-2b (26 layers: 18 RG-LRU, 8 local attention) at full
+    width and depth, bf16, random weights from seed 0, through the
+    launcher's server (``run_server``) on a contiguous cache, one at a
+    time.  Each: 8 requests of 256 + 32, seg_len 8, 8 slots, arrivals 1 ms
+    apart (one prefill wave, 4 segments), then the same prompts arriving
+    Poisson at 4/s (seed 2; waves joining beside decoding slots), each
+    eager and graphed (:func:`served_modes`); recurrentgemma-2b also 2
+    requests of 2048 + 16 on 2 slots (its window's ring wraps while it is
+    served); then the two-group runs (:func:`run_recurrent_groups`).  Held:
+    no failure, launches exact (:func:`recurrent_launches`), every stream
+    bitwise one-shot generate of the run's prompts as one batch and of
+    each alone (batch 1), graphed == eager.  Printed: each run's wall,
+    tokens/s, the graphed run's captures (the first segment's), and the
+    card's busy share of one graphed segment by kernel
+    (:func:`profile_segment`)."""
+    from repro_torch.launch import serve
+
+    out = {"card": card}
+    for arch in RECURRENT_ARCHS:
+        t_arch = time.perf_counter()
+        args = serve.parse_args(["--arch", arch] + RECURRENT_ARGV)
+        cfg, api, params = serve.load_model(args)
+        seg = args.seg_len
+        depth = f"full width, {cfg.n_layers} of {cfg.n_layers} layers"
+        print(at() + f" [recurrent served] {arch} ({depth}), run_server, contiguous cache, "
+              f"{args.requests} x {args.prompt_len} + {args.gen}, seg_len {seg}, "
+              f"max_batch {args.max_batch}, arrivals 1 ms apart then Poisson at 4/s; eager and "
+              f"graphed", flush=True)
+        prompts, _ = serve.server_prompts(cfg, args)
+        refs = oneshot_refs(cfg, api, params, prompts, args.gen, dev, torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = {"layers": cfg.n_layers, "argv": RECURRENT_ARGV}
+        prof = {}
+
+        def probe(server, http):
+            prof.update(profile_segment(server, torch))
+
+        def runner(a, live=None):
+            return lambda graph: serve.run_server(cfg, api, params, a, graph=graph,
+                                                  live=live if graph else None)
+
+        segs = -(-(args.gen - 1) // seg)
+        label = f"{arch} served, arrivals 1 ms apart"
+        rec["burst"] = hold_recurrent_runs(label, cfg, served_modes(runner(args, probe), torch),
+                                           refs, seg, waves=1, segments=segs)
+        print_segment_profile(label, prof)
+        rec["segment_profile"] = dict(prof)
+        spread = serve.parse_args(_argv_with(["--arch", arch] + RECURRENT_ARGV, rate="4",
+                                             max_wait_ms="1"))
+        if not all((a == b).all() for a, b in zip(serve.server_prompts(cfg, spread)[0],
+                                                  prompts)):
+            fail(f"{arch}: the spread arrivals' prompts differ from the burst's")
+        rec["spread"] = hold_recurrent_runs(f"{arch} served, arrivals at 4/s", cfg,
+                                            served_modes(runner(spread), torch), refs, seg)
+        if summary is not None:
+            summary["served_paths"] += [(f"{arch} served, arrivals 1 ms apart",
+                                         rec["burst"]["modes"]),
+                                        (f"{arch} served, arrivals at 4/s",
+                                         rec["spread"]["modes"])]
+        if "attn" in layer_kinds(cfg):
+            ring = serve.parse_args(["--arch", arch] + RING_ARGV)
+            ring_prompts, _ = serve.server_prompts(cfg, ring)
+            ring_refs = oneshot_refs(cfg, api, params, ring_prompts, ring.gen, dev, torch)
+            label = (f"{arch} served, {ring.requests} x {ring.prompt_len} + {ring.gen} on "
+                     f"{ring.max_batch} slots (the {cfg.window}-position ring wraps)")
+            print(at() + f" [recurrent served] {label}", flush=True)
+            rec["ring"] = hold_recurrent_runs(label, cfg, served_modes(runner(ring), torch),
+                                              ring_refs, ring.seg_len, waves=1,
+                                              segments=-(-(ring.gen - 1) // ring.seg_len))
+            if summary is not None:
+                summary["served_paths"].append((label, rec["ring"]["modes"]))
+        print(at() + f" [recurrent served] {arch} on two groups, pod-a (power 2) and pod-b "
+              f"(power 1), two streams of cuda:0, graphed: the launcher with --groups 2 "
+              f"--scheduler hguided --drain-after 4, then InferenceServer under ForceMigrate "
+              f"({MULTIGROUP_B_SLOTS} slots)", flush=True)
+        rec["groups"] = run_recurrent_groups(cfg, api, params, args, refs, dev, torch, card)
+        rec["seconds"] = time.perf_counter() - t_arch
+        print(at() + f" [recurrent served] {arch}: every run held, {rec['seconds']:.1f} s",
+              flush=True)
+        out[arch] = rec
+        del params, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
+              flush=True)
     return out
 
 
@@ -3697,7 +4087,6 @@ def run_moe_served(cfg, api, params, dev, torch) -> dict:
     import numpy as np
 
     from repro_torch.launch import serve
-    from repro_torch.serve import make_generate
 
     args = serve.parse_args(_argv_with(SERVER_ARGV, arch=cfg.name))
     scfg = dataclasses.replace(cfg, decode_block=args.block_len)
@@ -3711,10 +4100,7 @@ def run_moe_served(cfg, api, params, dev, torch) -> dict:
                      forwards=[(1 + args.seg_len * segs, n)], arch=cfg.name)
     prompts = runs["eager"][0]["prompts"]
     tokens = torch.from_numpy(np.stack(prompts)).to(dev)
-    generate = make_generate(scfg, api)
-    one8 = generate(params, {"tokens": tokens}, args.gen).cpu().numpy()
-    ones = [generate(params, {"tokens": tokens[i:i + 1]}, args.gen)[0].cpu().numpy()
-            for i in range(args.requests)]
+    one8, ones = oneshot_refs(scfg, api, params, prompts, args.gen, dev, torch).values()
     drops8 = moe_drops(scfg, api, params, tokens, dev, torch)
     drops1 = [moe_drops(scfg, api, params, tokens[i:i + 1], dev, torch)
               for i in range(args.requests)]
@@ -4835,7 +5221,7 @@ def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
 # communicator on one GPU), each held against a one-rank yardstick run
 # first.  The rank functions are module-level: a spawned rank imports this
 # script (not its main()) and calls them.
-MESH_SEQ = {"arch": "internlm2-20b", "depth": 2, "batch": 8, "prompt": 2048, "cache": 4096,
+MESH_SEQ = {"arch": "internlm2-20b", "depth": 1, "batch": 8, "prompt": 2048, "cache": 4096,
             "steps": 16}
 MESH_EP = {"arch": "arctic-480b", "depth": 1, "batch": 8, "prompt": 256, "steps": 8,
            "capacity_factor": 100.0}
@@ -5705,7 +6091,7 @@ def run_mesh_elastic(dev, torch) -> dict:
 
 # (e) and (f): tensor parallelism over "model" at full width, one world of
 # 2 ranks running both in turn.
-MESH_TP = ({"name": "e", "arch": "qwen1.5-4b", "depth": 4, "scheme": "heads", "seed": 11},
+MESH_TP = ({"name": "e", "arch": "qwen1.5-4b", "depth": 2, "scheme": "heads", "seed": 11},
            {"name": "f", "arch": "recurrentgemma-2b", "depth": 3, "scheme": "qheads",
             "seed": 12})
 MESH_TP_GEN = {"batch": 8, "prompt": 256, "steps": 16}
@@ -6276,7 +6662,8 @@ def run_mesh_phase(dev, torch, card) -> dict:
           f"{r0['restore_s']:.1f} s, world {e['world_s']:.1f} s", flush=True)
     wit = d["ranks"][0]["witness_one_vs_two_microbatches"]
     g, c = MESH_TP_GEN, MESH_TP_TRAIN
-    print(at() + f" [mesh] (e) tensor parallelism, qwen1.5-4b at full width, depth 4 of 40, the "
+    print(at() + f" [mesh] (e) tensor parallelism, qwen1.5-4b at full width, depth "
+          f"{MESH_TP[0]['depth']} of 40, the "
           f"heads scheme, and (f) recurrentgemma-2b at full width, depth 3 (rec, rec, attn), the "
           f"qheads scheme at hd 256, window 2048, rglru_scan on 1280 of 2560 channels, the tied "
           f"head over 128000 of 256000 tokens; one world of 2 (model 2) running both, bf16, "
@@ -6421,6 +6808,17 @@ def main() -> None:
         print(json.dumps({"c13": run_c13(dev, torch, card)}))
         print(at() + " [done] C13 passed", flush=True)
         return
+    if "--recurrent-served" in sys.argv[1:]:
+        # Only the [recurrent served] phase, the kernels built first (the
+        # launcher's server builds them all).
+        from repro_torch.kernels import _build
+
+        t0 = time.perf_counter()
+        _build.build()
+        print(at() + f" [build] {time.perf_counter() - t0:.1f} s", flush=True)
+        print(json.dumps({"recurrent_served": run_recurrent_served(dev, torch, card)}))
+        print(at() + " [done] the [recurrent served] phase passed", flush=True)
+        return
     if "--train" in sys.argv[1:]:
         # Only the [train] phase, its one kernel built alone.
         from repro_torch.kernels import _build, ops
@@ -6512,12 +6910,14 @@ def main() -> None:
 
     launches = {}  # each kernel's count on the first main path that runs it
     summary = {"main_paths": [], "served_paths": []}  # the [graph] phase's table
-    for arch, requests, prompt_len, gen, want, modes in main_paths():
-        print(at() + f" [main path] repro_torch.launch.serve one-shot generate, {arch} --full, "
-              f"{requests} x {prompt_len} + {gen}", flush=True)
+    for arch, requests, prompt_len, gen, want, modes, depth in main_paths():
+        cut = f" at depth {depth}" if depth else ""
+        print(at() + f" [main path] repro_torch.launch.serve one-shot generate, {arch} --full"
+              f"{cut}, {requests} x {prompt_len} + {gen}", flush=True)
         argv = ["--arch", arch, "--full", "--requests", str(requests), "--prompt-len",
                 str(prompt_len), "--gen", str(gen), "--seed", "0", "--kernel", "cuda"]
-        mp = run_main_path(argv, dev, torch, modes)
+        with served_depth(depth) if depth else contextlib.nullcontext():
+            mp = run_main_path(argv, dev, torch, modes)
         counts = mp.pop("counts")
         print(f"  launches {counts} (want {want})", flush=True)
         if counts != want:
@@ -6529,8 +6929,8 @@ def main() -> None:
         if not mp["first_token_is_prefill_argmax"]:
             fail(f"{arch}: generate's first token is not the argmax of its prefill logits")
         print(json.dumps({"main_path": mp}))
-        summary["main_paths"].append(summary_row(f"{arch} {requests} x {prompt_len} + {gen}",
-                                                 mp))
+        summary["main_paths"].append(summary_row(f"{arch}{cut} {requests} x {prompt_len} + "
+                                                 f"{gen}", mp))
         for name, n in counts.items():
             if n:
                 launches.setdefault(name, n)
@@ -6631,7 +7031,8 @@ def main() -> None:
 
         print(at() + f" [multigroup] run A: repro_torch.launch.serve --server --paged --groups 2 "
               f"--scheduler hguided --drain-after 4 --verify --http-port 0, {depth}, "
-              f"8 x 256 + {GEN}, block_len 16, seg_len 8, arrivals 1 ms apart, a lone request "
+              f"8 x 256 + {GEN}, block_len 16, seg_len 8, max_batch {MULTIGROUP_B_SLOTS} (pod-a 8 "
+              f"slots, pod-b 4), arrivals 1 ms apart, a lone request "
               f"boarding after 1 ms; run B: "
               f"InferenceServer, contiguous, ForceMigrate, {MULTIGROUP_B_SLOTS} slots; groups "
               f"pod-a (power 2) and pod-b (power 1), two streams of cuda:0, graphed", flush=True)
@@ -6643,10 +7044,11 @@ def main() -> None:
         print(f"  freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated",
               flush=True)
 
+    with served_depth(COEXEC_DEPTH):
         print(at() + f" [coexec] repro_torch.launch.serve --coexec --scheduler hguided --verify, "
-              f"{depth}, 8 x 256 + {GEN}, groups pod-a (power 2) and pod-b (power 1) "
-              f"on cuda:0", flush=True)
-        cx = run_coexec_path(dev, torch)
+              f"qwen1.5-4b --full at depth {COEXEC_DEPTH} of 40, 8 x 256 + {GEN}, groups pod-a "
+              f"(power 2) and pod-b (power 1) on cuda:0", flush=True)
+        cx = run_coexec_path(dev, torch, one=served_oneshot_counts(COEXEC_DEPTH))
     print(json.dumps({"coexec_path": cx}))
     summary["coexec"] = {m: {k: cx[m][k] for k in ("tokens_per_s", "wall_s", "balance")}
                          for m in MODES}
@@ -6667,6 +7069,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     print(json.dumps({"examples": run_examples_phase(dev, torch, card)}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(json.dumps({"recurrent_served": run_recurrent_served(dev, torch, card, summary)}))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     print(at() + " [train] flash_attention's autograd Function at the train paths' shapes "
           "(bf16): forward == the kernel bitwise, dq/dk/dv against autograd through "
