@@ -347,21 +347,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
 6. train  -- the training slice (``run_train_phase``; ``--train`` runs
              only this phase).  flash_attention's autograd Function at the
              train paths' shapes (bf16: qwen1.5-4b's B 2 x 512, whisper's
-             encoder B 8 x 1500, paligemma's prefix P 256 at hd 256, MQA):
+             encoder B 8 x 1500, paligemma's prefix P 256 at hd 256, MQA,
+             recurrentgemma's local attention B 2 x 4096, 10 q heads over
+             1 kv, hd 256, window 2048; sdpa under the boolean mask):
              its forward equal to the raw kernel's output bitwise, dq/dk/dv
              within 2e-2 rel L2 of autograd through flash_attention_plain,
              its forward, recompute backward and both timed beside sdpa's
              forward + backward and the bounds.  The train step's CUDA
              graph (``make_train_step(graph=True)``: an eager first step,
              the capture, replays) held against the eager step at
-             qwen1.5-4b's full width, 4 layers deep: 3 steps each from
+             qwen1.5-4b's full width, 4 layers deep: 2 steps each from
              seed-0 states, losses and every params, m, v and step leaf
-             bitwise (or within the gap of two eager runs, printed beside;
-             they were bitwise on the H100).  qwen1.5-4b at full width,
-             20 of its 40 layers (the float32 state fits; 40 would not),
+             bitwise (or else within the gap of a second eager run, made
+             then).  qwen1.5-4b at full width,
+             10 of its 40 layers (the float32 state fits; 40 would not),
              ``kernel_impl="cuda"``, through the launcher's ``build_state``
              and ``make_train_step``: B 4 x 512 (SyntheticTokens, seed 0),
-             2 microbatches, remat "dots", 3 steps eagerly, then 3
+             2 microbatches, remat "dots", 2 steps eagerly, then 2
              through the graph on the same state; step 0's loss within
              1e-2 of ``kernel_impl="reference"`` on the same weights and
              batch, each layer's parameter gradients (its VJP on the
@@ -371,21 +373,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
              not held (on random weights they are chaotic: ROADMAP.md C11;
              the reference's own bf16 against float32 printed beside as
              the witness), finite losses, flash_attention launched exactly
-             20 x 2 x 2 a step (dots recomputes its forward), eager and
+             10 x 2 x 2 a step (dots recomputes its forward), eager and
              graphed alike (a replay's tally), and no other kernel; one
-             capture and 2 replays; step time, tokens/s, peak memory
+             capture and a replay; step time, tokens/s, peak memory
              allocated and reserved, capture seconds (``--train`` adds an
              eager and a replayed step profiled: card busy, the products'
              share, time by kernel; the gradients and AdamW timed apart;
              each remat policy eager and graphed).  whisper-tiny --full
-             through ``repro_torch.launch.train``: 4 steps eagerly, twice,
+             through ``repro_torch.launch.train``: 4 steps eagerly,
              then 4 graphed (the launcher's step) checkpointed every 2,
              held against the eager run as qwen's depth-4 steps are, then
              --restore --steps 6: the step-4 checkpoint equal to the state
              bitwise, the data cursor 4 -> 6, finite losses,
              flash_attention 12 a step exactly, one capture a run.  The HeteroTrainer over
              ``discover()``'s cpu:0 and cuda:0 (whisper-tiny, batch 8,
-             quantum 1, 2 steps, the cuda group's power hint 16): shares
+             quantum 1, 1 step, the cuda group's power hint 16): shares
              covering the batch; the CPU share's parameter gradients layer
              by layer on cpu:0 within 2e-2 rel L2 of cuda:0's on the same
              inputs (float32); the combined loss within 1e-2 of the whole batch's on
@@ -394,7 +396,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
              group's its share's alone on cuda:0; shares, rated powers and
              each group's seconds printed; cuda:0's gradient graphs
              captured once a batch shape and scope and replayed once a
-             call.
+             call.  Then the ssm, hybrid and vlm families at full width
+             (``FAMILY_TRAIN``, ``run_family_train``): recurrentgemma-2b
+             at all 26 layers, B 1 x 4096 (the window cuts keys, 16
+             256-step chunks a rec layer), and paligemma-3b at all 18,
+             B 8 x (256 patches + 32), through ``repro_torch.launch.train``;
+             falcon-mamba-7b at 16 of 64 layers, B 4 x 512 in 2
+             microbatches, remat "full", through ``build_state`` and
+             ``make_train_step``.  Each: step 0 on the seed-0 params held
+             against ``kernel_impl="reference"`` (the loss within 1e-2,
+             each layer's, or RG-LRU unit's, parameter gradients within
+             2e-2 by the family's own train walk, ``train_walk`` and
+             ``train_layer_errors``; falcon-mamba-7b, which has no
+             attention: losses and gradients bitwise, no kernel launched,
+             its last block's VJP on cpu:0 within 2e-2 of the card's in
+             float32, ``device_layer_errors``); a step eagerly and 3
+             graphed (one capture, 2 replays; falcon-mamba-7b 2, its
+             steps take 4 s) from seed-0 states,
+             flash_attention exactly its attention layers x 2 (remat
+             recomputes the Function's forward) a step, nothing else;
+             step seconds, tokens/s, peak allocated and reserved, capture
+             seconds by phase; a replayed step profiled (card busy, time
+             by group: elementwise, cuBLAS, flash_attention, copies,
+             reductions), falcon-mamba-7b's chunked scan timed alone at a
+             layer's shapes beside it; graphed == eager bitwise at 3, 2
+             and 2 layers, seed-0 states side by side, 2 steps each.
    C13    -- the HeteroTrainer's gradient graphs on cuda:0 over six
              share sizes of qwen1.5-4b (depth 2, float32, 256 tokens, the
              largest first): the card's reserved bytes after each new size
@@ -2118,12 +2144,15 @@ def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
             "moe_gemm": moe * forwards, "layer_norm": 0}
 
 
-# The recurrent main paths run cut to these depths, full width (every layer
-# launches the same kernels at the same shapes, so a cut changes only the
-# counts); ``[recurrent served]`` runs both archs at full depth, their
-# one-shot generate included.  0: the config's depth.
-MAIN_DEPTH = {("falcon-mamba-7b", 256): 32, ("recurrentgemma-2b", 2048): 6,
-              ("falcon-mamba-7b", 300): 16, ("recurrentgemma-2b", 300): 6}
+# The main paths run cut to these depths, full width (every layer launches
+# the same kernels at the same shapes, so a cut changes only the counts),
+# to leave the full script room for its later phases: ``[recurrent
+# served]`` runs both recurrent archs at full depth, their one-shot
+# generate included, and qwen1.5-4b's served paths run at SERVED_DEPTH.
+# 0: the config's depth.
+MAIN_DEPTH = {("qwen1.5-4b", 256): 4, ("falcon-mamba-7b", 256): 32,
+              ("recurrentgemma-2b", 2048): 6, ("falcon-mamba-7b", 300): 16,
+              ("recurrentgemma-2b", 300): 6}
 
 
 def main_paths():
@@ -4352,23 +4381,30 @@ def run_examples_phase(dev, torch, card) -> dict:
 TRAIN_REL_TOL = 2e-2   # dq/dk/dv, and per-layer parameter gradients, rel L2
 TRAIN_LOSS_REL = 1e-2  # step 0's loss against kernel_impl="reference"
 TRAIN_ATTENTION = (
-    # name, B, S, H, KV, hd, causal, prefix_len
-    ("train qwen1.5-4b (B 2, S 512, causal)", 2, 512, 20, 20, 128, True, 0),
-    ("train whisper-tiny encoder (B 8, 1500, bidirectional)", 8, 1500, 6, 6, 64, False, 0),
+    # name, B, S, H, KV, hd, causal, prefix_len, window
+    ("train qwen1.5-4b (B 2, S 512, causal)", 2, 512, 20, 20, 128, True, 0, 0),
+    ("train whisper-tiny encoder (B 8, 1500, bidirectional)", 8, 1500, 6, 6, 64, False, 0, 0),
     ("train paligemma-3b prefix-LM (B 8, 256 + 32, MQA, hd 256)", 8, 288, 8, 1, 256, True,
-     256),
+     256, 0),
+    ("train recurrentgemma-2b local (B 2, S 4096, MQA, hd 256, window 2048)", 2, 4096, 10, 1,
+     256, True, 0, 2048),
 )
-# qwen1.5-4b at its published widths, cut to 20 of its 40 layers: the float32
+# qwen1.5-4b at its published widths, cut to 10 of its 40 layers: the float32
 # state (weights, gradients, m, v) and the bf16 cast take 18 bytes a
-# parameter, 42.5 GB at 2.36 B parameters (80 GB at 40 layers does not fit).
-QWEN_TRAIN_LAYERS, QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_MB, QWEN_TRAIN_STEPS = 20, 4, 512, 2, 3
+# parameter (80 GB at 40 layers does not fit; 20 fit, and 10 leave the full
+# script room for the families' train paths).
+# Two steps eager, then two graphed (an eager step with the capture, a
+# replay): enough for the checks, and room for the [train] phase's
+# families.
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_MB, QWEN_TRAIN_STEPS = 10, 4, 512, 2, 2
 # The same config 4 layers deep for graphed == eager, leaf by leaf: three
 # float32 states of its 1.1 B parameters (13 GB each) fit side by side.
-QWEN_GRAPH_LAYERS = 4
+# Three steps each, so that a second replay is held against eager too.
+QWEN_GRAPH_LAYERS, QWEN_GRAPH_STEPS = 4, 3
 WHISPER_TRAIN_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq", "64",
                       "--seed", "0", "--kernel", "cuda", "--ckpt-interval", "2"]
-# Two steps: after the first, each step waits the same 8-10 s on the CPU's
-# quantum (cut from 3 to make room for the [mesh] phase).
+# Two steps: every check runs in the first, and the second's shares follow
+# the first step's rated powers (a new share size is a new capture on cuda:0).
 HETERO_STEPS, HETERO_B, HETERO_S = 2, 8, 64
 # The cuda group's power hint over the CPU's 1 (discover()'s default): the
 # first step's shares follow it, so the CPU takes one sequence (it rated at
@@ -4394,17 +4430,16 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
     raw kernel's output bitwise, dq/dk/dv are within TRAIN_REL_TOL of
     autograd through flash_attention_plain, and its times beside sdpa's
     forward + backward and the bounds."""
-    name, b, s, h, kv, hd, causal, prefix = case
+    name, b, s, h, kv, hd, causal, prefix, window = case
     dt = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(len(name))
     q = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt).requires_grad_()
     k = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
     v = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
     do = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt)
-    kw = dict(causal=causal, prefix_len=prefix)
+    kw = dict(causal=causal, prefix_len=prefix, window=window)
     with torch.no_grad():
-        raw = fa._flash_attention_cuda(q, k, v, window=0, q_offset=0, block_q=64,
-                                       block_k=fa.BLOCK_K, **kw)
+        raw = fa._flash_attention_cuda(q, k, v, q_offset=0, block_q=64, block_k=fa.BLOCK_K, **kw)
     out = fa.flash_attention(q, k, v, **kw)
     if out.grad_fn is None or "FlashAttention" not in type(out.grad_fn).__name__:
         fail(f"flash_attention {name}: the output does not come from the autograd Function")
@@ -4412,13 +4447,12 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
         fail(f"flash_attention {name}: the Function's forward differs from the kernel's output")
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
-    # The plain version's forward + backward, timed on one call after the
-    # check's (its seconds would dominate the phase if it were timed as the
-    # kernel is).
+    # The plain version's forward + backward, timed on the check's one call
+    # (its seconds would dominate the phase if it were timed as the kernel
+    # is).
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
+    want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
@@ -4438,9 +4472,11 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
     mask = torch.ones((s, s), dtype=torch.bool, device=dev)
     if causal:
         mask &= (kpos <= qpos) | ((qpos < prefix) & (kpos < prefix))
+    if window:
+        mask &= (kpos > qpos - window) | (qpos < prefix)
     qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    plain_causal = causal and not prefix
+    plain_causal = causal and not prefix and not window
 
     def sdpa():
         o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=None if plain_causal or
@@ -4466,7 +4502,7 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
     recompute = ("prefix-LM" if prefix else "naive" if s * s <= fa.RECOMPUTE_NAIVE_MAX
                  else "chunked 1024")
-    rec = dict(case=name, recompute=recompute, rel_l2=errs, forward_ms=fwd_ms,
+    rec = dict(case=name, recompute=recompute, pairs=pairs, rel_l2=errs, forward_ms=fwd_ms,
                backward_ms=bwd_ms, forward_backward_ms=both_ms, plain_forward_backward_ms=plain_ms,
                sdpa_forward_backward_ms=lib_ms, bound_forward_backward_ms=both_bound,
                bound_forward_backward_by=both_by, bound_backward_ms=bwd_bound,
@@ -4500,43 +4536,104 @@ def params_rel_l2(a, b) -> float:
     return max(rel_l2(x.to(y.device), y) for x, y in zip(a, b))
 
 
-def train_layer_errors(cfg, params, batch, torch) -> list:
-    """Per layer of the dense stack, the largest rel L2 of its parameter
-    gradients under ``cfg`` (the kernels) against ``kernel_impl=
-    "reference"``, each layer's VJP taken on the kernel run's own layer
-    input and output gradient (first microbatch), each through
-    ``remat(apply, cfg)`` as the train step runs it (so under remat "dots"
-    the Function's forward runs again in the backward): the layer-by-layer
-    reference check of the train path.  Whole-model gradients of random
-    weights cannot be compared across implementations: they are chaotic
-    (ROADMAP.md C11)."""
+def train_walk(cfg, p, batch, positions=None) -> tuple:
+    """The train step's forward of ``batch`` under ``cfg`` as a walk of its
+    layers, each family's own train stack (``train_layers``: the dense,
+    moe, vlm and ssm stacks a layer at a time, RG-LRU's (rec, rec, attn)
+    units under remat, then its tail's layers; the vlm stack behind its
+    patch prefix): (the stack's input, [(fn(lp, x) -> (x, aux), lp)],
+    loss(x, aux)) on ``p``, the params cast as ``forward_train`` casts
+    them.  Composed in order the walk is ``forward_train``.
+    ``positions`` (default: the batch's, on its device) is what the
+    layers' fns close over."""
+    from repro_torch.models import rglru
     from repro_torch.models import transformer as T
+
+    x, pos, prefix = T.train_input(p, batch, cfg)
+    stack = rglru if cfg.family == "hybrid" else T
+    layers = stack.train_layers(p, pos if positions is None else positions, cfg, prefix)
+    return x, layers, lambda x, aux: T.train_loss(p, x, aux, batch["tokens"], cfg)
+
+
+def walk_forward(x, layers, torch) -> tuple:
+    """(each layer's input, the stack's output, its summed aux loss) of a
+    :func:`train_walk`, without grad."""
+    xs, aux = [], 0.0
+    with torch.no_grad():
+        for fn, lp in layers:
+            xs.append(x)
+            x, a = fn(lp, x)
+            aux = aux + a
+    return xs, x, aux
+
+
+def train_layer_errors(cfg, params, batch, torch) -> list:
+    """Per layer of the family's train stack (:func:`train_walk`; a unit
+    of RG-LRU's), the largest rel L2 of its parameter gradients under
+    ``cfg`` (the kernels) against ``kernel_impl="reference"``, each
+    layer's VJP taken on the kernel run's own layer input and output
+    gradient (first microbatch), each under ``remat`` as the train step
+    runs it (so under remat "dots" the Function's forward runs again in
+    the backward): the layer-by-layer reference check of the train path.
+    A layer's aux loss (the moe family's) is left out of its VJP.
+    Whole-model gradients of random weights cannot be compared across
+    implementations: they are chaotic (ROADMAP.md C11)."""
     from repro_torch.models.params import cast_float
     from repro_torch.train.step import microbatches
 
-    ref = dataclasses.replace(cfg, kernel_impl="reference")
-    tokens = microbatches(batch, cfg.microbatches)[0]["tokens"]
+    mb = microbatches(batch, cfg.microbatches)[0]
     p = cast_float(params, cfg.compute_dtype)
-    b, s = tokens.shape
-    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    order = T.stack_order(p, None, cfg)
-    with torch.no_grad():
-        x, xs = T.embed_tokens(p, tokens, cfg), []
-        for apply, lp, _ in order:
-            xs.append(x)
-            x, _ = apply(lp, x, pos, cfg, mode="train", cache=None)
+    x, layers, loss = train_walk(cfg, p, mb)
+    ref_layers = train_walk(dataclasses.replace(cfg, kernel_impl="reference"), p, mb)[1]
+    xs, x, aux = walk_forward(x, layers, torch)
     xf = x.detach().requires_grad_()
-    g = torch.autograd.grad(T.lm_loss(p, xf, *T.next_token_targets(tokens), cfg), xf)[0]
+    g = torch.autograd.grad(loss(xf, aux), xf)[0]
+    del x, xf
     errs = []
-    for i in reversed(range(len(order))):
-        apply, lp, _ = order[i]
-        res = [layer_vjp(lambda lp, x, c=c: T.remat(apply, c)(lp, x, pos, c, mode="train",
-                                                              cache=None)[0],
-                         lp, [xs[i]], g, tokens.device, torch) for c in (cfg, ref)]
+    for i in reversed(range(len(layers))):
+        res = [layer_vjp(lambda lp, x, fn=fn: fn(lp, x)[0], layers[i][1], [xs[i]], g,
+                         g.device, torch) for fn in (layers[i][0], ref_layers[i][0])]
         errs.append(params_rel_l2(res[0][1], res[1][1]))
         g = res[0][0][0]
         del res
     return errs[::-1]
+
+
+def device_layer_errors(cfg, params, batch, dev, torch, check=None) -> dict:
+    """Per layer of the family's train stack (:func:`train_walk`) whose
+    index is in ``check`` (None: every layer), the largest rel L2 of its
+    parameter gradients on cpu:0 against ``dev``, each layer's VJP taken
+    on the same inputs and output gradient (``dev``'s chain through every
+    layer, from ``dev``'s forward of ``batch``), without remat (the same
+    function, computed once): the card's evidence that a layer computes
+    there what the CPU tests hold against the JAX package.  Run it in
+    float32, as :func:`whisper_device_layer_errors`."""
+    from repro_torch.models.params import cast_float
+
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(cfg, remat="none")
+    batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    p = cast_float(params, cfg.compute_dtype)
+    x, layers, loss = train_walk(cfg, p, batch)
+    pos = torch.arange(x.shape[1], dtype=torch.int32).expand(x.shape[0], x.shape[1])
+    cpu_layers = train_walk(cfg, p, batch, positions=pos)[1]
+    xs, x, aux = walk_forward(x, layers, torch)
+    xf = x.detach().requires_grad_()
+    g = torch.autograd.grad(loss(xf, aux), xf)[0]
+    del x, xf
+    check = range(len(layers)) if check is None else {i % len(layers) for i in check}
+    errs = {}
+    for i in reversed(range(len(layers))):
+        gi, gp = layer_vjp(lambda lp, x, fn=layers[i][0]: fn(lp, x)[0], layers[i][1], [xs[i]], g,
+                           dev, torch)
+        if i in check:
+            gc = layer_vjp(lambda lp, x, fn=cpu_layers[i][0]: fn(lp, x)[0], layers[i][1],
+                           [xs[i]], g, cpu, torch)[1]
+            errs[i] = params_rel_l2(gc, gp)
+            del gc
+        g = gi[0]
+        del gp
+    return dict(sorted(errs.items()))
 
 
 def whisper_device_layer_errors(cfg, params, batch, dev, torch) -> dict:
@@ -4597,10 +4694,10 @@ def whisper_device_layer_errors(cfg, params, batch, dev, torch) -> dict:
 
 
 def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
-    """qwen1.5-4b at full width, 20 of 40 layers, kernel_impl="cuda",
-    through the launcher's ``build_state`` and the port's
-    ``make_train_step``: B 4 x S 512 (SyntheticTokens, seed 0), 2
-    microbatches, remat "dots", 3 steps.  ``detail`` (``--train``) adds
+    """qwen1.5-4b at full width, QWEN_TRAIN_LAYERS of 40 layers,
+    kernel_impl="cuda", through the launcher's ``build_state`` and the
+    port's ``make_train_step``: B 4 x S 512 (SyntheticTokens, seed 0), 2
+    microbatches, remat "dots", QWEN_TRAIN_STEPS steps.  ``detail`` (``--train``) adds
     where a step's time goes: the gradients and AdamW timed apart, a step
     under each remat policy and a profiled step."""
     from repro_torch.configs import get_config
@@ -4660,8 +4757,8 @@ def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
           f"bf16 against float32 (loss {l_32:.6f}, {witness['loss_rel']:.2e} rel): max rel L2 "
           f"{witness['leaf_max']:.3g}, all leaves {witness['all_leaves']:.3g}", flush=True)
 
-    # The same 3 batches twice over the one state: eagerly, then through the
-    # graph (an eager step, the capture, 2 replays), launches counted alike.
+    # The same batches twice over the one state: eagerly, then through the
+    # graph (an eager step with the capture, then replays), launches counted alike.
     forwards = 2 if cfg.remat in ("dots", "full") else 1
     runs = {}
     for mode, graph in (("eager", False), ("graphed", True)):
@@ -4701,9 +4798,11 @@ def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
             graph_fn = step_fn
         runs[mode] = run
         del step_fn
-        print(f"  {mode}: 3 steps, losses {[round(x, 4) for x in losses]}; step "
-              f"{[round(x, 3) for x in step_s]} s; {run['tokens_per_s']:.1f} tokens/s (median of "
-              f"steps 1-2{', replays' if graph else ''}); peak memory "
+        print(f"  {mode}: {QWEN_TRAIN_STEPS} steps, losses {[round(x, 4) for x in losses]}; "
+              f"step "
+              f"{[round(x, 3) for x in step_s]} s; {run['tokens_per_s']:.1f} tokens/s (step"
+              f"{f's 1-{QWEN_TRAIN_STEPS - 1}' if QWEN_TRAIN_STEPS > 2 else ' 1'}"
+              f"{', replays' if graph else ''}); peak memory "
               f"{run['peak_memory_bytes'] / 2**30:.2f} GiB, reserved "
               f"{run['reserved_bytes'] / 2**30:.2f} GiB"
               + (f"; capture {run['graph']['capture_s']:.3f} s (begin "
@@ -4757,11 +4856,15 @@ def runs_gap(a, b, torch) -> dict:
 
 
 def hold_graphed(name, eager, again, graphed, torch) -> dict:
-    """The graphed run against the eager one, within the eager run's gap
-    to itself: bitwise where two eager runs are; each a (losses, state
+    """The graphed run against the eager one: bitwise, or else within the
+    eager run's gap to itself, ``again()`` making a second eager run only
+    then (bitwise where two eager runs are); each run a (losses, state
     leaves)."""
-    ee, ge = runs_gap(again, eager, torch), runs_gap(graphed, eager, torch)
-    if ee["bitwise"] and not ge["bitwise"]:
+    ge = runs_gap(graphed, eager, torch)
+    if ge["bitwise"]:
+        return {"graphed_vs_eager": ge, "eager_vs_eager": "not run: graphed == eager bitwise"}
+    ee = runs_gap(again(), eager, torch)
+    if ee["bitwise"]:
         fail(f"{name}: the graphed steps differ from the eager ones ({ge}), which equal each other "
              f"bitwise")
     if not ee["bitwise"] and (ge["loss_max_abs"] > ee["loss_max_abs"]
@@ -4770,26 +4873,19 @@ def hold_graphed(name, eager, again, graphed, torch) -> dict:
     return {"graphed_vs_eager": ge, "eager_vs_eager": ee}
 
 
-def run_qwen_graph_check(dev, torch, card) -> dict:
-    """qwen1.5-4b at full width, ``QWEN_GRAPH_LAYERS`` deep, as
-    :func:`run_qwen_train`'s config: 3 eager steps from the seed-0 state,
-    3 more from a second seed-0 state (the eager run's gap to itself), and
-    3 graphed ones (an eager step, the capture, 2 replays) from a third, on
-    the same batches: the losses and every state leaf held by
-    :func:`hold_graphed`."""
-    from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticTokens, to_device
+def run_graph_check(name, cfg, batches, dev, torch) -> dict:
+    """``cfg``'s train step from seed-0 states on ``batches``: eagerly and
+    graphed (an eager step, the capture, replays), the losses and every
+    state leaf held by :func:`hold_graphed` (a second eager run only where
+    the two differ); one capture and a replay a later step."""
     from repro_torch.launch.train import build_state
     from repro_torch.models import get_model
     from repro_torch.train import make_train_step
 
-    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=QWEN_GRAPH_LAYERS,
-                              kernel_impl="cuda", microbatches=QWEN_TRAIN_MB)
     api = get_model(cfg)
-    ds = SyntheticTokens(cfg, QWEN_TRAIN_B, QWEN_TRAIN_S, seed=0)
-    batches = [to_device(next(ds), dev) for _ in range(QWEN_TRAIN_STEPS)]
-    runs, stats = {}, None
-    for mode, graph in (("eager", False), ("eager again", False), ("graphed", True)):
+    stats = {}
+
+    def run(graph):
         state, _ = build_state(cfg, api, dev, 0)
         fn = make_train_step(cfg, api, graph=graph)
         losses = []
@@ -4798,32 +4894,48 @@ def run_qwen_graph_check(dev, torch, card) -> dict:
             losses.append(m["loss"].clone())  # a replay's loss is the graph's own tensor
         torch.cuda.synchronize()
         if graph:
-            stats = fn.graphs.stats()
-        del fn
-        runs[mode] = (torch.stack(losses), state_leaves(state))
-        del state
+            stats.update(fn.graphs.stats())
+        out = (torch.stack(losses), state_leaves(state))
+        del fn, state
         gc.collect()
         torch.cuda.empty_cache()
-    if (stats["captures"], stats["replays"]) != (1, QWEN_TRAIN_STEPS - 1):
-        fail(f"qwen1.5-4b graph check: {stats['captures']} captures and {stats['replays']} "
-             f"replays, want 1 and {QWEN_TRAIN_STEPS - 1}")
-    held = hold_graphed("qwen1.5-4b graph check", runs["eager"], runs["eager again"],
-                        runs["graphed"], torch)
-    print(f"  depth {QWEN_GRAPH_LAYERS}, 3 steps each: graphed against eager "
-          f"{held['graphed_vs_eager']}; eager against eager {held['eager_vs_eager']} (losses and "
-          f"every params, m, v and step leaf; the graph captured once, replayed twice) -- {card}",
-          flush=True)
-    del runs
+        return out
+
+    eager, graphed = run(False), run(True)
+    if (stats["captures"], stats["replays"]) != (1, len(batches) - 1):
+        fail(f"{name}: {stats['captures']} captures and {stats['replays']} replays, want 1 and "
+             f"{len(batches) - 1}")
+    held = hold_graphed(name, eager, lambda: run(False), graphed, torch)
+    del eager, graphed
     gc.collect()
     torch.cuda.empty_cache()
-    return {"layers": QWEN_GRAPH_LAYERS, **held}
+    return {"layers": cfg.n_layers, "steps": len(batches), **held}
+
+
+def run_qwen_graph_check(dev, torch, card) -> dict:
+    """qwen1.5-4b at full width, ``QWEN_GRAPH_LAYERS`` deep, as
+    :func:`run_qwen_train`'s config, through :func:`run_graph_check`."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens, to_device
+
+    cfg = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=QWEN_GRAPH_LAYERS,
+                              kernel_impl="cuda", microbatches=QWEN_TRAIN_MB)
+    ds = SyntheticTokens(cfg, QWEN_TRAIN_B, QWEN_TRAIN_S, seed=0)
+    batches = [to_device(next(ds), dev) for _ in range(QWEN_GRAPH_STEPS)]
+    held = run_graph_check("qwen1.5-4b graph check", cfg, batches, dev, torch)
+    print(f"  depth {QWEN_GRAPH_LAYERS}, {QWEN_GRAPH_STEPS} steps each: graphed against eager "
+          f"{held['graphed_vs_eager']}; eager against eager {held['eager_vs_eager']} (losses and "
+          f"every params, m, v and step leaf; the graph captured once, replayed "
+          f"{QWEN_GRAPH_STEPS - 1} time(s)) -- {card}",
+          flush=True)
+    return held
 
 
 def train_step_parts(cfg, api, state, batches, fa_rec, forwards, torch, card) -> dict:
     """Where a qwen train step's time goes (``--train`` only): the
     gradients, then AdamW, timed apart (a fourth update of the state);
-    then, for each remat policy, an eager step and a graphed run of three
-    (an eager step with the capture, then 2 replays), each graph released
+    then, for each remat policy, an eager step and a graphed run over the
+    batches (an eager step with the capture, then replays), each graph released
     before the next policy's (the state updated on), with capture seconds
     and peak memory."""
     from repro_torch.models.params import tree_unflatten
@@ -4920,11 +5032,11 @@ def profile_train_step(step_fn, state, batch, torch):
 
 def run_whisper_train(dev, torch, ops, card) -> dict:
     """whisper-tiny at full width through ``repro_torch.launch.train``: 4
-    steps eagerly, twice (the eager run's gap to itself), then 4 graphed
-    steps (the launcher's own: an eager step, the capture, 3 replays)
-    checkpointed every 2, held against the eager run by
-    :func:`hold_graphed`, then ``--restore --steps 6`` (graphed: a capture
-    of its own)."""
+    steps eagerly, then 4 graphed steps (the launcher's own: an eager
+    step, the capture, 3 replays) checkpointed every 2, held against the
+    eager run by :func:`hold_graphed` (a second eager run where they
+    differ), then ``--restore --steps 6`` (graphed: a capture of its
+    own)."""
     import functools
     import shutil
 
@@ -4933,22 +5045,23 @@ def run_whisper_train(dev, torch, ops, card) -> dict:
     from repro_torch.models.params import tree_leaves
 
     make = launch_train.make_train_step
-    eager = []
-    launch_train.make_train_step = functools.partial(make, graph=False)
-    try:
-        for _ in range(2):
+
+    def eager_run():
+        launch_train.make_train_step = functools.partial(make, graph=False)
+        try:
             r = launch_train.main(WHISPER_TRAIN_ARGV + ["--steps", "4"])
-            eager.append((torch.tensor(r["losses"]), state_leaves(r["state"]), r["step_s"]))
-            del r
-    finally:
-        launch_train.make_train_step = make
+        finally:
+            launch_train.make_train_step = make
+        return torch.tensor(r["losses"]), state_leaves(r["state"]), r["step_s"]
+
+    eager = eager_run()
     ckdir = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckdir, ignore_errors=True)
     argv = WHISPER_TRAIN_ARGV + ["--ckpt", str(ckdir)]
     ops.reset_launch_counts()
     r1 = launch_train.main(argv + ["--steps", "4"])
     c1 = ops.launch_counts()
-    held = hold_graphed("whisper-tiny launcher", eager[0][:2], eager[1][:2],
+    held = hold_graphed("whisper-tiny launcher", eager[:2], lambda: eager_run()[:2],
                         (torch.tensor(r1["losses"]), state_leaves(r1["state"])), torch)
     saved, extra = restore_checkpoint(ckdir, 4, r1["state"])
     same = all(torch.equal(a, w) for a, w in zip(tree_leaves(saved), tree_leaves(r1["state"])))
@@ -4980,7 +5093,7 @@ def run_whisper_train(dev, torch, ops, card) -> dict:
         want["flash_attention"] = per_step * steps
         if counts != want:
             fail(f"whisper-tiny train launch counts {counts} != {want}")
-    step_s = {"eager": eager[0][2], "graphed": r1["step_s"], "restored_graphed": r2["step_s"]}
+    step_s = {"eager": eager[2], "graphed": r1["step_s"], "restored_graphed": r2["step_s"]}
     out = {"losses": losses, "seconds": [r1["seconds"], r2["seconds"]], "step_s": step_s,
            "capture_s": [r1["graph_stats"]["capture_s"], r2["graph_stats"]["capture_s"]],
            "launches_per_step": per_step, "restored_state_bitwise": True, **held}
@@ -5110,6 +5223,367 @@ def run_hetero_train(dev, torch, card) -> dict:
             "cuda_graphs": graph}
 
 
+# The ssm, hybrid and vlm families' train paths (widening item f), each at
+# its published widths, bf16 compute over the float32 state, kernel_impl
+# "cuda": the arch, its depth (None: the config's), batch, seq and steps,
+# whether it runs through repro_torch.launch.train (else build_state and
+# make_train_step, as qwen's: the launcher has no depth flag, nor has the
+# JAX package's, so a launcher spec runs at full depth), and the depth of
+# its graphed == eager check (three states side by side).  ``steps``
+# graphed (an eager step, the capture, replays; falcon-mamba-7b's take 4 s
+# each), one eagerly.  recurrentgemma-2b at B 2 x 4096 runs out of memory
+# in its eager step on an 80 GB card: B 1.  falcon-mamba-7b's 64 layers
+# take 18 B x 7.27 B parameters, 131 GB: cut to 16; at 16 its graphed step
+# runs out of memory in one microbatch of 4 (the capture's pool), so 2
+# microbatches of 2 x 512.  Its ``cpu_blocks``, held on cpu:0 against the
+# card, are its first (on the embedding's output) and its last (its input
+# from the card's chain through the other 15); a block's VJP at full width
+# takes the CPU 12-15 s, and every block runs the same code at the same
+# shapes.
+FAMILY_TRAIN = (
+    {"arch": "recurrentgemma-2b", "depth": None, "batch": 1, "seq": 4096, "steps": 3,
+     "launcher": True, "graph_depth": 3},
+    {"arch": "paligemma-3b", "depth": None, "batch": 8, "seq": 32, "steps": 3,
+     "launcher": True, "graph_depth": 2},
+    {"arch": "falcon-mamba-7b", "depth": 16, "batch": 4, "seq": 512, "steps": 2,
+     "launcher": False, "graph_depth": 2, "cpu_blocks": (0, -1), "microbatches": 2},
+)
+# The graphed == eager check of each family: an eager step with the
+# capture, then a replay, from each of three seed-0 states.
+GRAPH_CHECK_STEPS = 2
+# The coarse kernel groups of a profiled train step, by words in the
+# kernels' names (the first group that matches; "elementwise" takes the
+# rest of PyTorch's kernels).
+STEP_GROUPS = (("flash_attention", ("flash_attention",)), ("cuBLAS", GEMM_WORDS),
+               ("copies", ("memcpy", "memset", "copy")),
+               ("reductions", ("reduce", "softmax", "norm", "scan")))
+
+
+def family_cfg(spec, depth=None):
+    """The spec's config at full width, ``depth`` (or the spec's) layers,
+    kernel_impl "cuda", the spec's microbatches (or the config's)."""
+    from repro_torch.configs import get_config
+
+    depth = depth or spec["depth"]
+    cfg = get_config(spec["arch"])
+    return dataclasses.replace(cfg, kernel_impl="cuda",
+                               microbatches=spec.get("microbatches", cfg.microbatches),
+                               **({"n_layers": depth} if depth else {}))
+
+
+def train_attention_launches(cfg) -> int:
+    """flash_attention's launches in one train step of ``cfg``: each
+    attention layer's forward a microbatch, twice in a layer under remat
+    "dots" or "full" (the Function's forward runs again in the backward);
+    RG-LRU's tail runs outside remat."""
+    from repro_torch.models import rglru
+
+    forwards = 2 if cfg.remat in ("dots", "full") else 1
+    if cfg.family == "ssm":
+        n = 0
+    elif cfg.family == "hybrid":
+        n_units, tail = rglru._pattern_layout(cfg)
+        n = n_units * cfg.block_pattern.count("attn") * forwards + tail.count("attn")
+    else:
+        n = cfg.n_layers * forwards
+    return n * max(cfg.microbatches, 1)
+
+
+def step_groups(prof) -> dict:
+    """A profiled step's device ms by :data:`STEP_GROUPS`."""
+    out = {g: 0.0 for g, _ in STEP_GROUPS}
+    out["elementwise"] = 0.0
+    for name, ms in prof["groups"]:
+        low = name.lower()
+        group = next((g for g, words in STEP_GROUPS if any(w in low for w in words)),
+                     "elementwise")
+        out[group] += ms
+    return out
+
+
+def family_train_check(spec, cfg, api, batch, dev, torch, ops) -> dict:
+    """Step 0's loss and gradients of ``cfg`` on the seed-0 params and the
+    first batch against kernel_impl="reference": the loss within
+    TRAIN_LOSS_REL and each layer's parameter gradients within
+    TRAIN_REL_TOL (:func:`train_layer_errors`), flash_attention launched
+    exactly :func:`train_attention_launches` times and nothing else.  The
+    ssm family, which has no attention, computes the same function under
+    either impl: its losses and gradients held equal bitwise, no kernel
+    launched, and each block's VJP on the card held against cpu:0's on the
+    batch's first row in float32 (:func:`device_layer_errors`), for the
+    blocks ``spec["cpu_blocks"]`` names (a block's VJP at full width takes
+    the CPU 12-15 s)."""
+    from repro_torch.launch.train import build_state
+    from repro_torch.train.step import loss_and_grads
+
+    arch = spec["arch"]
+    params = build_state(cfg, api, dev, 0)[0]["params"]
+    ref = dataclasses.replace(cfg, kernel_impl="reference")
+    ops.reset_launch_counts()
+    l_ref, g_ref = loss_and_grads(api, ref, params, batch)
+    ref_counts = {k: c for k, c in ops.launch_counts().items() if c}
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    l_cu, g_cu = loss_and_grads(api, cfg, params, batch)
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention"] = train_attention_launches(cfg)
+    out = {"loss": float(l_cu), "loss_reference": float(l_ref), "grads_s": grads_s,
+           "launches": counts}
+    if ref_counts:
+        fail(f"{arch} train: kernel_impl='reference' launched {ref_counts}")
+    if counts != want:
+        fail(f"{arch} train: step 0's launch counts {counts} != {want}")
+    out["loss_rel"] = abs(out["loss"] - out["loss_reference"]) / abs(out["loss_reference"])
+    if cfg.family == "ssm":
+        same = torch.equal(l_cu, l_ref) and all(torch.equal(a, b) for a, b in zip(g_cu, g_ref))
+        del g_cu, g_ref
+        if not same:
+            fail(f"{arch} train: the cuda impl's loss or gradients differ from the reference's "
+                 f"(one computation in train mode)")
+        out["bitwise_vs_reference"] = True
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        errs = device_layer_errors(dataclasses.replace(cfg, compute_dtype="float32"), params,
+                                   {k: v[:1] for k, v in batch.items()}, dev, torch,
+                                   spec["cpu_blocks"])
+        out["device_check_s"] = time.perf_counter() - t
+        out["cpu_vs_card_layer_rel_l2"] = errs
+        if max(errs.values()) > TRAIN_REL_TOL:
+            fail(f"{arch} train: a block's parameter gradients on cpu:0 disagree with the "
+                 f"card's beyond {TRAIN_REL_TOL} rel L2: {errs}")
+        print(f"  step 0: cuda impl == kernel_impl='reference' bitwise (loss {out['loss']:.6f} "
+              f"and every gradient leaf), no kernel launched ({grads_s:.3f} s for the "
+              f"gradients); blocks {list(errs)} of {cfg.n_layers}, their parameter gradients "
+              f"on cpu:0 against the card (the card's chain through every block), float32, "
+              f"the batch's first row (1 x {batch['tokens'].shape[1]}): rel L2 "
+              f"{', '.join(f'{e:.2e}' for e in errs.values())} (held {TRAIN_REL_TOL}; "
+              f"{out['device_check_s']:.1f} s)", flush=True)
+    else:
+        leaf = [rel_l2(a, w) for a, w in zip(g_cu, g_ref)]
+        out["leaf_grad_rel_l2_max_not_held"] = max(leaf)
+        out["grad_rel_l2_all_not_held"] = tree_rel_l2(g_cu, g_ref)
+        del g_cu, g_ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not out["loss_rel"] <= TRAIN_LOSS_REL:
+            fail(f"{arch} train: step 0 loss {out['loss']} vs reference {out['loss_reference']}")
+        t = time.perf_counter()
+        errs = train_layer_errors(cfg, params, batch, torch)
+        out["layer_check_s"] = time.perf_counter() - t
+        out["layer_grad_rel_l2"] = errs
+        if max(errs) > TRAIN_REL_TOL:
+            fail(f"{arch} train: a layer's parameter gradients through the kernels disagree "
+                 f"with the reference's beyond {TRAIN_REL_TOL} rel L2: {errs}")
+        print(f"  step 0 against kernel_impl='reference' (same weights and batch): loss "
+              f"{out['loss']:.6f} vs {out['loss_reference']:.6f} ({out['loss_rel']:.2e} rel, "
+              f"held {TRAIN_LOSS_REL}); per-layer parameter gradients ({len(errs)} "
+              f"{'units and tail layers' if cfg.family == 'hybrid' else 'layers'}, remat "
+              f"{cfg.remat!r}) max rel L2 {max(errs):.2e} (held {TRAIN_REL_TOL}; "
+              f"{out['layer_check_s']:.1f} s); whole-model gradient leaves, not held (chaotic on "
+              f"random weights): max rel L2 {out['leaf_grad_rel_l2_max_not_held']:.3g}, all "
+              f"leaves {out['grad_rel_l2_all_not_held']:.3g}; flash_attention "
+              f"{want['flash_attention']} a step ({grads_s:.3f} s for the gradients)",
+              flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_runs(spec, cfg, api, batches, dev, torch, ops, card) -> tuple:
+    """A step eagerly, then ``spec["steps"]`` graphed (an eager step, the
+    capture, replays), each from a seed-0 state on the
+    SyntheticTokens batches of seed 0: through ``repro_torch.launch.train``
+    where the spec says so, else through ``build_state`` and
+    ``make_train_step`` on ``batches``.  Returns ({mode: record}, the
+    graphed step, the state it updates)."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.train import build_state
+
+    arch = spec["arch"]
+    if spec["launcher"] and spec["depth"]:
+        raise ValueError(f"{arch}: the train launcher runs at full depth, not {spec['depth']}")
+    # tokens a step: the vlm family's patch positions counted with the text's
+    tokens = spec["batch"] * (spec["seq"] + cfg.n_patches)
+    runs, made = {}, []
+    for mode, graph in (("eager", False), ("graphed", True)):
+        steps = spec["steps"] if graph else 1
+        argv = ["--arch", arch, "--full", "--batch", str(spec["batch"]), "--seq",
+                str(spec["seq"]), "--seed", "0", "--kernel", "cuda", "--steps", str(steps)]
+        make = launch_train.make_train_step
+
+        def recorded(*a, **k):
+            made.append(make(*a, **dict(k, graph=graph)))
+            return made[-1]
+
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        if spec["launcher"]:
+            launch_train.make_train_step = recorded
+            try:
+                r = launch_train.main(argv)
+            finally:
+                launch_train.make_train_step = make
+            losses, step_s, stats = r["losses"], r["step_s"], r["graph_stats"]
+            state = r["state"]
+            del r
+        else:
+            state = build_state(cfg, api, dev, 0)[0]
+            fn = recorded(cfg, api)
+            losses, step_s = [], []
+            for b in batches[:steps]:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state, m = fn(state, b)
+                losses.append(float(m["loss"]))
+                step_s.append(time.perf_counter() - t)
+            stats = fn.graphs.stats() if graph else None
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: 0 for k in counts}
+        want["flash_attention"] = train_attention_launches(cfg) * steps
+        if counts != want:
+            fail(f"{arch} train ({mode}) launch counts {counts} != {want}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{arch} train ({mode}): a loss is not finite: {losses}")
+        rest = sorted(step_s[1:] or step_s)
+        run = {"losses": losses, "step_s": step_s, "launches": counts,
+               "tokens_per_s": tokens / rest[len(rest) // 2],
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "peak_reserved_bytes": torch.cuda.max_memory_reserved()}
+        if graph:
+            if (stats["captures"], stats["replays"]) != (1, steps - 1):
+                fail(f"{arch} train: {stats['captures']} captures and {stats['replays']} "
+                     f"replays, want 1 and {steps - 1}")
+            loop = stats["loops"]["train_step"]
+            run["graph"] = {k: stats.get(k, loop.get(k)) for k in ("captures", "capture_s",
+                                                                   "replays", *loop)}
+        runs[mode] = run
+        timed = (f"step {steps - 1}" if steps <= 2
+                 else f"the median of steps 1-{steps - 1}")
+        print(f"  {mode}: {steps} step{'s' if steps > 1 else ''}, losses "
+              f"{[round(x, 4) for x in losses]}; step "
+              f"{[round(x, 3) for x in step_s]} s; {run['tokens_per_s']:.1f} tokens/s ({timed}"
+              f"{', replays' if graph else ''}); peak allocated "
+              f"{gib(run['peak_allocated_bytes'])}, peak reserved {gib(run['peak_reserved_bytes'])}"
+              + (f"; capture {run['graph']['capture_s']:.3f} s (begin "
+                 f"{run['graph']['begin_s']:.3f}, recording {run['graph']['record_s']:.3f}, "
+                 f"instantiation {run['graph']['instantiate_s']:.3f})" if graph else "")
+              + f"; flash_attention {counts['flash_attention']}, every other kernel 0 -- {card}",
+              flush=True)
+        if not graph:
+            state = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    gap = [abs(a - b) for a, b in zip(runs["eager"]["losses"], runs["graphed"]["losses"])]
+    runs["graphed_vs_eager_loss_max_abs_not_held"] = max(gap)
+    return runs, made[-1], state
+
+
+def time_chunked_scan(cfg, b, s, dev, torch) -> dict:
+    """The ssm family's chunked reference scan (``mamba.chunked_scan``)
+    alone at one layer's train shapes, float32 inputs drawn from a seed:
+    its forward, and its forward + backward (the gradients of dt, x, B
+    and C at a random cotangent of y), device ms (``time_ms``, L2
+    flushed).  A step under remat "full" runs a layer's scan forward, then
+    forward + backward again in the backward."""
+    from repro_torch.models import mamba
+
+    di, _, n = mamba.dims(cfg)
+    g = torch.Generator(device=dev).manual_seed(5)
+    dt = (0.05 * torch.rand((b, s, di), generator=g, device=dev)).requires_grad_()
+    x = torch.randn((b, s, di), generator=g, device=dev).requires_grad_()
+    bs = torch.randn((b, s, n), generator=g, device=dev).requires_grad_()
+    cs = torch.randn((b, s, n), generator=g, device=dev).requires_grad_()
+    a = -torch.rand((di, n), generator=g, device=dev)
+    h0 = torch.zeros((b, di, n), device=dev)
+    cot = torch.randn((b, s, di), generator=g, device=dev)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def fwd():
+        with torch.no_grad():
+            return mamba.chunked_scan(dt, x, bs, cs, a, h0)
+
+    def both():
+        return torch.autograd.grad(mamba.chunked_scan(dt, x, bs, cs, a, h0)[0], (dt, x, bs, cs),
+                                   cot)
+
+    out = {"forward_ms": time_ms(fwd, flush, 3), "forward_backward_ms": time_ms(both, flush, 3)}
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_family_train(spec, dev, torch, ops, card) -> dict:
+    """One family's train path: :func:`family_train_check` on the seed-0
+    params and first batch, :func:`family_runs`, one replayed step under
+    the profiler (the card's busy share, :func:`step_groups`), for the ssm
+    family its chunked scan timed alone (:func:`time_chunked_scan`) beside
+    it, then the graphed == eager check at ``spec["graph_depth"]``
+    (:func:`run_graph_check`)."""
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.launch.train import n_params
+    from repro_torch.models import get_model
+
+    arch = spec["arch"]
+    cfg = family_cfg(spec)
+    api = get_model(cfg)
+    ds = SyntheticTokens(cfg, spec["batch"], spec["seq"], seed=0)
+    batches = [to_device(next(ds), dev) for _ in range(spec["steps"])]
+    n = n_params(api.param_spec(cfg))
+    print(f"  {arch}: {cfg.n_layers} layers, {n:,} parameters ({gib(18 * n)} of train state at 18 "
+          f"B a parameter), remat {cfg.remat!r}, {max(cfg.microbatches, 1)} microbatch(es), B "
+          f"{spec['batch']} x {spec['seq']}" + (f" + {cfg.n_patches} patches" if cfg.n_patches
+                                                 else ""), flush=True)
+    out = {"layers": cfg.n_layers, "params": n, "batch": spec["batch"], "seq": spec["seq"],
+           "remat": cfg.remat, "launcher": spec["launcher"]}
+    out["check"] = family_train_check(spec, cfg, api, batches[0], dev, torch, ops)
+    runs, fn, state = family_runs(spec, cfg, api, batches, dev, torch, ops, card)
+    out.update(runs)
+    before = fn.graphs.stats()["replays"]
+    prof, state = profile_train_step(fn, state, batches[0], torch)
+    if (fn.graphs.stats()["captures"], fn.graphs.stats()["replays"]) != (1, before + 1):
+        fail(f"{arch} train: the profiled step was not a replay of the one graph")
+    groups = step_groups(prof)
+    out["graphed"]["profile"] = {**prof, "coarse": groups}
+    del fn, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    busy = prof["device_busy_ms"]
+    print(f"  profiled replayed step: wall {prof['wall_ms']:.1f} ms, card busy {busy:.1f} ms "
+          f"({busy / prof['wall_ms']:.1%}), {prof['kernels']} kernels; by group: "
+          + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})" for g, ms in groups.items())
+          + "; by kernel: " + ", ".join(f"{g} {ms:.1f} ms" for g, ms in prof["groups"][:6])
+          + f" -- {card}", flush=True)
+    if cfg.family == "ssm":
+        scan = time_chunked_scan(cfg, spec["batch"], spec["seq"], dev, torch)
+        scan["step_ms_est"] = cfg.n_layers * (scan["forward_ms"] + scan["forward_backward_ms"])
+        scan["share_of_busy_est"] = scan["step_ms_est"] / busy
+        out["chunked_scan"] = scan
+        print(f"  the chunked scan alone at a layer's shapes (B {spec['batch']} x {spec['seq']}, "
+              f"di {cfg.ssm_expand * cfg.d_model}, N {cfg.ssm_state}): forward "
+              f"{scan['forward_ms']:.3f} ms, forward + backward {scan['forward_backward_ms']:.3f} "
+              f"ms; x {cfg.n_layers} layers (a forward, then forward + backward under remat "
+              f"'full') {scan['step_ms_est']:.1f} ms, {scan['share_of_busy_est']:.1%} of the "
+              f"replayed step's busy time -- {card}", flush=True)
+    small = family_cfg(spec, spec["graph_depth"])
+    held = run_graph_check(f"{arch} graph check", small, batches[:GRAPH_CHECK_STEPS], dev, torch)
+    out["graph_check"] = held
+    print(f"  depth {spec['graph_depth']}, {GRAPH_CHECK_STEPS} steps each from seed-0 states: "
+          f"graphed against eager {held['graphed_vs_eager']}; eager against eager "
+          f"{held['eager_vs_eager']} (losses and every params, m, v and step leaf; the graph "
+          f"captured once, replayed {GRAPH_CHECK_STEPS - 1} time(s)) -- {card}", flush=True)
+    del batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # C13: the HeteroTrainer's gradient graphs on cuda:0 over share sizes, the
 # largest first, then the first again (a replay: nothing new).
 C13 = {"arch": "qwen1.5-4b", "depth": 2, "seq": 256, "sizes": (6, 1, 2, 3, 4, 5)}
@@ -5212,7 +5686,16 @@ def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
     hetero = run_hetero_train(dev, torch, card)
     gc.collect()
     torch.cuda.empty_cache()
-    return {"attention": attn, "qwen1.5-4b": qwen, "whisper-tiny": whisper, "hetero": hetero}
+    out = {"attention": attn, "qwen1.5-4b": qwen, "whisper-tiny": whisper, "hetero": hetero}
+    for spec in FAMILY_TRAIN:
+        how = ("repro_torch.launch.train" if spec["launcher"]
+               else "build_state and make_train_step")
+        depth = f"{spec['depth']} layers" if spec["depth"] else "full depth"
+        print(at() + f" [train] {spec['arch']} at full width, {depth}, kernel_impl='cuda', B "
+              f"{spec['batch']} x S {spec['seq']}, through {how}: a step eager, then "
+              f"{spec['steps']} graphed", flush=True)
+        out[spec["arch"]] = run_family_train(spec, dev, torch, ops, card)
+    return out
 
 
 # ------------------------------------------------------------------ [mesh]

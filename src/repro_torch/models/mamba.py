@@ -89,6 +89,27 @@ def _causal_conv(x, w, b, ck: int):
     return out + b
 
 
+def chunked_scan(dt, xf, Bf, Cf, A, h0):
+    """The reference's scan where S is a multiple of ``CHUNK``: within
+    each chunk a log-step scan (``layers.assoc_scan``) of its (B, CHUNK,
+    di, N) state, carried from chunk to chunk.  float32 dt, x (B, S, di),
+    B, C (B, S, N), A (di, N), h0 (B, di, N); returns (y without the D
+    term, h_last)."""
+    s = dt.shape[1]
+    h, ys = h0, []
+    for c0 in range(0, s, CHUNK):
+        dt_c, x_c = dt[:, c0:c0 + CHUNK], xf[:, c0:c0 + CHUNK]
+        dA = torch.exp(dt_c[..., None] * A)  # (B,Ck,di,N)
+        dBx = (dt_c * x_c)[..., None] * Bf[:, c0:c0 + CHUNK, None, :]
+        a_s, b_s = L.assoc_scan(dA, dBx)
+        del dA, dBx
+        hs = a_s * h[:, None] + b_s  # (B,Ck,di,N)
+        del a_s, b_s
+        ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cf[:, c0:c0 + CHUNK]))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
 def ssm_forward(p, x, cfg, h0=None, impl=None):
     """x: (B, S, di) post-conv activations. Returns (y, h_last).
 
@@ -118,18 +139,7 @@ def ssm_forward(p, x, cfg, h0=None, impl=None):
         y, h_last = kops.ssm_scan(dt, xf.contiguous(), Bf.contiguous(), Cf.contiguous(), A,
                                   h0.contiguous())
     elif s % CHUNK == 0:
-        h, ys = h0, []
-        for c0 in range(0, s, CHUNK):
-            dt_c, x_c = dt[:, c0:c0 + CHUNK], xf[:, c0:c0 + CHUNK]
-            dA = torch.exp(dt_c[..., None] * A)  # (B,Ck,di,N)
-            dBx = (dt_c * x_c)[..., None] * Bf[:, c0:c0 + CHUNK, None, :]
-            a_s, b_s = L.assoc_scan(dA, dBx)
-            del dA, dBx
-            hs = a_s * h[:, None] + b_s  # (B,Ck,di,N)
-            del a_s, b_s
-            ys.append(torch.einsum("bsdn,bsn->bsd", hs, Cf[:, c0:c0 + CHUNK]))
-            h = hs[:, -1]
-        y, h_last = torch.cat(ys, dim=1), h
+        y, h_last = chunked_scan(dt, xf, Bf, Cf, A, h0)
     else:
         y, h_last = ssm_scan_plain(dt, xf, Bf, Cf, A, h0)
     y = y + xf * p["D"]

@@ -65,15 +65,18 @@ def cast_float(tree, dtype):
 
 
 def tree_unflatten(like, leaves: list):
-    """``leaves``, in :func:`tree_leaves` order, in ``like``'s structure."""
-    it = iter(leaves)
+    """``leaves``, in :func:`tree_leaves` order, in ``like``'s structure.
+    A module-level recursion: a nested recursive closure would keep itself,
+    and through its iterator every leaf, in a reference cycle that only
+    the garbage collector frees (a train step's gradients, 4 B a
+    parameter, alive into the next step's graph capture)."""
+    return _unflatten(like, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        return next(it)
 
-    return build(like)
+def _unflatten(t, it):
+    if isinstance(t, dict):
+        return {k: _unflatten(t[k], it) for k in sorted(t)}
+    return next(it)
 
 
 def unstack(tree, n: int) -> list:

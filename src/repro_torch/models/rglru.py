@@ -303,8 +303,16 @@ def run_stack(params, x, positions, cfg, *, mode, cache, pos=None):
 
 
 def _train_stack(params, x, positions, cfg):
-    """The train mode's stack: each full unit under ``remat``, then the
-    tail."""
+    """The train mode's stack (:func:`train_layers`)."""
+    for fn, lp in train_layers(params, positions, cfg):
+        x, _ = fn(lp, x)
+    return x
+
+
+def train_layers(params, positions, cfg, prefix_len: int = 0) -> list:
+    """The train mode's stack as (fn, params) pairs in the order it runs
+    them, ``fn(p, x) -> (x, 0.0)``: each full unit under ``remat``, then
+    the tail's layers one by one (``prefix_len``: none in this family)."""
     from repro_torch.models import transformer as T
 
     def unit(up, h):
@@ -313,14 +321,14 @@ def _train_stack(params, x, positions, cfg):
                                mode="train", cache=None)
         return h
 
+    def layer(kind):
+        return lambda lp, h: (layer_apply(lp, h, positions, cfg, kind=kind, mode="train",
+                                          cache=None)[0], 0.0)
+
     n_units, tail = _pattern_layout(cfg)
     body = T.remat(unit, cfg)
-    for up in unstack(params["units"], n_units):
-        x = body(up, x)
-    for i, kind in enumerate(tail):
-        x, _ = layer_apply(params["tail"][f"t{i}_{kind}"], x, positions, cfg, kind=kind,
-                           mode="train", cache=None)
-    return x
+    out = [(lambda up, h: (body(up, h), 0.0), up) for up in unstack(params["units"], n_units)]
+    return out + [(layer(kind), params["tail"][f"t{i}_{kind}"]) for i, kind in enumerate(tail)]
 
 
 def forward_train(params, batch, cfg):
@@ -330,12 +338,9 @@ def forward_train(params, batch, cfg):
     from repro_torch.models import transformer as T
 
     params = cast_float(params, cfg.compute_dtype)
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = T.embed_tokens(params, tokens, cfg)
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x, positions, _ = T.train_input(params, batch, cfg)
     x, _ = run_stack(params, x, positions, cfg, mode="train", cache=None)
-    return T.lm_loss(params, x, *T.next_token_targets(tokens), cfg)
+    return T.train_loss(params, x, 0.0, batch["tokens"], cfg)
 
 
 def prefill(params, batch, cfg, cache):

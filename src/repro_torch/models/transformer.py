@@ -187,19 +187,32 @@ def remat(fn, cfg):
     return run
 
 
+def train_layers(params, positions, cfg, prefix_len: int = 0) -> list:
+    """The train mode's stack as (fn, layer params) pairs in the order it
+    runs them, ``fn(lp, x) -> (x, aux loss)`` the layer under
+    :func:`remat`: :func:`run_stack` composes them, and a layer-by-layer
+    check walks the same pairs."""
+    kw = {"prefix_len": prefix_len} if prefix_len else {}
+
+    def layer(body):
+        return lambda lp, x: body(lp, x, positions, cfg, mode="train", cache=None, **kw)
+
+    return [(layer(remat(apply, cfg)), lp) for apply, lp, _ in stack_order(params, None, cfg)]
+
+
 def run_stack(params, x, positions, cfg, *, mode, cache, pos=None, prefix_len=0):
     """Run the layer stack; the stacked cache is updated in place.
     ``prefix_len`` (the vlm family's prefill and training) reaches the
     dense blocks.  Returns (x, cache); in ``mode="train"`` (cache None)
     (x, the sum of the layers' aux losses), each layer under
     :func:`remat`."""
-    kw = {"prefix_len": prefix_len} if prefix_len else {}
     if mode == "train":
         aux = 0.0
-        for apply, lp, _ in stack_order(params, None, cfg):
-            x, a = remat(apply, cfg)(lp, x, positions, cfg, mode=mode, cache=None, **kw)
+        for fn, lp in train_layers(params, positions, cfg, prefix_len):
+            x, a = fn(lp, x)
             aux = aux + a
         return x, aux
+    kw = {"prefix_len": prefix_len} if prefix_len else {}
     for apply, lp, lc in stack_order(params, cache, cfg):
         x, _ = apply(lp, x, positions, cfg, mode=mode, cache=lc, pos=pos, **kw)
     return x, cache
@@ -266,6 +279,15 @@ def forward_train(params, batch, cfg):
     leaves, before the per-layer views, so the gradients land on the
     float32 masters."""
     params = cast_float(params, cfg.compute_dtype)
+    x, positions, prefix_len = train_input(params, batch, cfg)
+    x, aux = run_stack(params, x, positions, cfg, mode="train", cache=None,
+                       prefix_len=prefix_len)
+    return train_loss(params, x, aux, batch["tokens"], cfg)
+
+
+def train_input(params, batch, cfg):
+    """(x, positions, prefix_len): the train stack's input from the cast
+    ``params``, the embedded tokens behind the vlm family's patches."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = embed_tokens(params, tokens, cfg)
@@ -274,8 +296,12 @@ def forward_train(params, batch, cfg):
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         prefix_len, s = cfg.n_patches, x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    x, aux = run_stack(params, x, positions, cfg, mode="train", cache=None,
-                       prefix_len=prefix_len)
+    return x, positions, prefix_len
+
+
+def train_loss(params, x, aux, tokens, cfg):
+    """The train loss of the stack's output ``x`` (the patches' rows
+    dropped) and its summed aux losses ``aux``."""
     if cfg.family == "vlm":
         x = x[:, cfg.n_patches:]
     loss = lm_loss(params, x, *next_token_targets(tokens), cfg)
