@@ -7,12 +7,19 @@ GPU.  Run from the repository root, with no arguments:
 (``--host-us`` runs only the ``[host]`` line, ``--train`` only the
 ``[train]`` phase, ``--mesh`` only the ``[mesh]`` phase, ``--examples``
 only the ``[examples]`` phase and its two granite-34b kernel cases,
-``--recurrent-served`` only the ``[recurrent served]`` phase.)
+``--recurrent-served`` only the ``[recurrent served]`` phase, ``--bwd``
+only flash_attention's backward at the train shapes (its kernel cases of
+``[train]``, with the compiler's registers and spills), ``--train-replays``
+only each attention family's replayed train step, timed and profiled: a
+copy of the script run from a parent's checkout reads that tree; ``--c15``
+only the train families' layer gradients side by side, the kernels, the
+bf16 reference and the recompute against the float32 reference, and each
+attention call's dq, dk and dv against float64, ROADMAP.md C15.)
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. card   -- the card's name and power limit (nvidia-smi).
-2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (nine
+2. build  -- every CUDA kernel from ``src/repro_torch/csrc`` (ten
              libraries; flash_decode's holds its chunk launch too), one
              nvcc each, all started together; then one line
              of the decode key-chunk plan.
@@ -347,13 +354,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
 6. train  -- the training slice (``run_train_phase``; ``--train`` runs
              only this phase).  flash_attention's autograd Function at the
              train paths' shapes (bf16: qwen1.5-4b's B 2 x 512, whisper's
-             encoder B 8 x 1500, paligemma's prefix P 256 at hd 256, MQA,
-             recurrentgemma's local attention B 2 x 4096, 10 q heads over
-             1 kv, hd 256, window 2048; sdpa under the boolean mask):
-             its forward equal to the raw kernel's output bitwise, dq/dk/dv
-             within 2e-2 rel L2 of autograd through flash_attention_plain,
-             its forward, recompute backward and both timed beside sdpa's
-             forward + backward and the bounds.  The train step's CUDA
+             encoder B 8 x 1500 and cross-attention B 8 x 64 over 1500,
+             paligemma's prefix P 256 at hd 256, MQA, recurrentgemma's
+             local attention B 2 x 4096, 10 q heads over 1 kv, hd 256,
+             window 2048; sdpa under the boolean mask; and qwen's shape in
+             float32, the backward's FMA route): its forward equal to the
+             raw kernel's output bitwise, with and without the saved
+             log-sum-exp; its backward the flash_attention_bwd kernel
+             (launched once), two launches bitwise, within 2e-3 rel L2
+             of flash_attention_bwd_plain on the same inputs (float32
+             1e-4), dq/dk/dv within 2e-2 rel L2 of autograd through
+             flash_attention_plain; the backward kernel timed beside the
+             recompute (the parent's design), sdpa's backward and forward
+             + backward, and the bounds.  The train step's CUDA
              graph (``make_train_step(graph=True)``: an eager first step,
              the capture, replays) held against the eager step at
              qwen1.5-4b's full width, 4 layers deep: 2 steps each from
@@ -373,19 +386,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
              not held (on random weights they are chaotic: ROADMAP.md C11;
              the reference's own bf16 against float32 printed beside as
              the witness), finite losses, flash_attention launched exactly
-             10 x 2 x 2 a step (dots recomputes its forward), eager and
-             graphed alike (a replay's tally), and no other kernel; one
-             capture and a replay; step time, tokens/s, peak memory
-             allocated and reserved, capture seconds (``--train`` adds an
-             eager and a replayed step profiled: card busy, the products'
-             share, time by kernel; the gradients and AdamW timed apart;
+             10 x 2 x 2 a step (dots recomputes its forward) and
+             flash_attention_bwd 10 x 2, eager and graphed alike (a
+             replay's tally), and no other kernel; one capture and a
+             replay; step time, tokens/s, peak memory allocated and
+             reserved, capture seconds; a replay profiled (card busy, the
+             backward kernel's share, time by group; ``--train`` adds an
+             eager step profiled, the gradients and AdamW timed apart and
              each remat policy eager and graphed).  whisper-tiny --full
              through ``repro_torch.launch.train``: 4 steps eagerly,
              then 4 graphed (the launcher's step) checkpointed every 2,
              held against the eager run as qwen's depth-4 steps are, then
              --restore --steps 6: the step-4 checkpoint equal to the state
              bitwise, the data cursor 4 -> 6, finite losses,
-             flash_attention 12 a step exactly, one capture a run.  The HeteroTrainer over
+             flash_attention and flash_attention_bwd 12 each a step
+             exactly, one capture a run; then its step through
+             build_state and make_train_step, replays timed and one
+             profiled.  The
+             HeteroTrainer over
              ``discover()``'s cpu:0 and cuda:0 (whisper-tiny, batch 8,
              quantum 1, 1 step, the cuda group's power hint 16): shares
              covering the batch; the CPU share's parameter gradients layer
@@ -414,10 +432,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
              graphed (one capture, 2 replays; falcon-mamba-7b 2, its
              steps take 4 s) from seed-0 states,
              flash_attention exactly its attention layers x 2 (remat
-             recomputes the Function's forward) a step, nothing else;
+             recomputes the Function's forward) and flash_attention_bwd
+             its attention layers a step, nothing else;
              step seconds, tokens/s, peak allocated and reserved, capture
              seconds by phase; a replayed step profiled (card busy, time
-             by group: elementwise, cuBLAS, flash_attention, copies,
+             by group: elementwise, cuBLAS, flash_attention_bwd,
+             flash_attention, copies,
              reductions), falcon-mamba-7b's chunked scan timed alone at a
              layer's shapes beside it; graphed == eager bitwise at 3, 2
              and 2 layers, seed-0 states side by side, 2 steps each.
@@ -483,7 +503,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
              count on that path; layer_norm's on the whisper-tiny path;
              flash_attention's prefix-LM mode, listed as
              flash_attention_prefix with paligemma-3b's case, its count on
-             that path), then the last line
+             that path; flash_attention_bwd with its qwen1.5-4b train case,
+             sdpa's backward alone its library call, its count on the qwen
+             train path's eager run), then the last line
              ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1477,7 +1499,7 @@ def run_layer_norm_case(case, dev, flush, torch, ln):
                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
     print(f"  layer_norm | {name} ({rows} x {d}, {dname}, plan {norm_plan(d)}): "
           f"max_abs_err={err:.3g} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-          f"F.layer_norm={lib_ms:.4f} ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']})",
+          f"F.layer_norm={lib_ms:.4f} ms bound={rec['bound_ms']:.3g} ms ({rec['bound_by']})",
           flush=True)
     return rec
 
@@ -1750,7 +1772,9 @@ KERNEL_SYMBOLS = (("flash_decode_paged", "flash_decode_paged"),
                   ("flash_decode_chunk", "flash_decode_chunk"),
                   # The decode kernels' merge of a slot's key chunks.
                   ("combine_chunks_kernel", "flash_decode_combine"),
-                  ("flash_decode", "flash_decode"), ("flash_attention", "flash_attention"),
+                  ("flash_decode", "flash_decode"),
+                  ("flash_attention_bwd", "flash_attention_bwd"),
+                  ("flash_attention", "flash_attention"),
                   ("gemm_wgmma_kernel", "gemm_rowinv"), ("gemm_f32_kernel", "gemm_rowinv"),
                   ("rms_norm_kernel", "rms_norm"), ("layer_norm_kernel", "layer_norm"),
                   ("moe_gemm_kernel", "moe_gemm"),
@@ -2113,7 +2137,8 @@ def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
     in_proj, x_proj, dt_proj, out_proj; recurrent layer: in_y, in_x, the
     two block-diagonal gates and out, plus three MLP products), one for the
     head; one rms_norm per norm of a layer and the final one; two
-    ``moe_gemm`` per MoE layer (gate and up fused, then down).  The audio
+    ``moe_gemm`` per MoE layer (gate and up fused, then down); no
+    ``flash_attention_bwd`` (a forward pass runs no backward).  The audio
     family's first pass is its prefill, the rest decode steps: a prefill
     runs per encoder layer q, k, v, o and two MLP products and two
     layer_norms, then the encoder's final norm, per decoder layer its self
@@ -2135,13 +2160,14 @@ def row_kernel_launches(arch: str, forwards: int, n_layers: int = 0) -> dict:
     elif cfg.family == "audio":
         e, steps = cfg.enc_layers, forwards - 1
         return {"gemm_rowinv": 6 * e + 10 * n + 1 + (8 * n + 1) * steps, "rms_norm": 0,
-                "moe_gemm": 0, "layer_norm": 2 * e + 3 * n + 2 + (3 * n + 1) * steps}
+                "moe_gemm": 0, "layer_norm": 2 * e + 3 * n + 2 + (3 * n + 1) * steps,
+                "flash_attention_bwd": 0}
     else:
         kinds = layer_kinds(cfg, n)
         rec = kinds.count("rec")
         gemm, norms = 8 * rec + 7 * (n - rec) + 1, 2 * n + 1
     return {"gemm_rowinv": gemm * forwards, "rms_norm": norms * forwards,
-            "moe_gemm": moe * forwards, "layer_norm": 0}
+            "moe_gemm": moe * forwards, "layer_norm": 0, "flash_attention_bwd": 0}
 
 
 # The main paths run cut to these depths, full width (every layer launches
@@ -2889,7 +2915,8 @@ def _launches(n, fa=0, fd=0, fdp=0, forwards=(), arch="qwen1.5-4b", ss=0, rg=0) 
     pair."""
     want = {"flash_attention": fa, "flash_decode": fd,
             "flash_decode_paged": fdp, "ssm_scan": ss, "rglru_scan": rg,
-            "gemm_rowinv": 0, "rms_norm": 0, "moe_gemm": 0, "layer_norm": 0}
+            "gemm_rowinv": 0, "rms_norm": 0, "moe_gemm": 0, "layer_norm": 0,
+            "flash_attention_bwd": 0}
     for f, layers in forwards:
         for name, c in row_kernel_launches(arch, f, layers).items():
             want[name] += c
@@ -4381,14 +4408,29 @@ def run_examples_phase(dev, torch, card) -> dict:
 TRAIN_REL_TOL = 2e-2   # dq/dk/dv, and per-layer parameter gradients, rel L2
 TRAIN_LOSS_REL = 1e-2  # step 0's loss against kernel_impl="reference"
 TRAIN_ATTENTION = (
-    # name, B, S, H, KV, hd, causal, prefix_len, window
-    ("train qwen1.5-4b (B 2, S 512, causal)", 2, 512, 20, 20, 128, True, 0, 0),
-    ("train whisper-tiny encoder (B 8, 1500, bidirectional)", 8, 1500, 6, 6, 64, False, 0, 0),
-    ("train paligemma-3b prefix-LM (B 8, 256 + 32, MQA, hd 256)", 8, 288, 8, 1, 256, True,
+    # name, B, Sq, Sk, H, KV, hd, causal, prefix_len, window
+    ("train qwen1.5-4b (B 2, S 512, causal)", 2, 512, 512, 20, 20, 128, True, 0, 0),
+    ("train whisper-tiny encoder (B 8, 1500, bidirectional)", 8, 1500, 1500, 6, 6, 64, False,
+     0, 0),
+    ("train whisper-tiny cross-attention (B 8, 64 over 1500, bidirectional)", 8, 64, 1500, 6, 6,
+     64, False, 0, 0),
+    ("train paligemma-3b prefix-LM (B 8, 256 + 32, MQA, hd 256)", 8, 288, 288, 8, 1, 256, True,
      256, 0),
-    ("train recurrentgemma-2b local (B 2, S 4096, MQA, hd 256, window 2048)", 2, 4096, 10, 1,
-     256, True, 0, 2048),
+    ("train recurrentgemma-2b local (B 2, S 4096, MQA, hd 256, window 2048)", 2, 4096, 4096, 10,
+     1, 256, True, 0, 2048),
 )
+# The float32 FMA route of the backward: the mesh's float32 train steps
+# ((c) and (e)) at qwen1.5-4b's shape.
+TRAIN_ATTENTION_F32 = ("train qwen1.5-4b float32 (B 2, S 512, causal; the mesh's float32 steps)",
+                       2, 512, 512, 20, 20, 128, True, 0, 0)
+# The backward kernel against flash_attention_bwd_plain on the same inputs
+# (rel L2 a gradient): both round P and the outputs to bf16 (dS: two bf16
+# halves in the kernel, float32 in the plain version), but their float32
+# sums run in other orders, so the elements whose sums straddle a rounding
+# step part by a bf16 ulp (2^-8 relative; 4.7e-4 rel L2 at most in the
+# first chip runs): 2e-3 in bf16; float32 1e-4, the kernels' float32
+# tolerance.
+BWD_PLAIN_REL = {"bfloat16": 2e-3, "float32": F32_TOL}
 # qwen1.5-4b at its published widths, cut to 10 of its 40 layers: the float32
 # state (weights, gradients, m, v) and the bf16 cast take 18 bytes a
 # parameter (80 GB at 40 layers does not fit; 20 fit, and 10 leave the full
@@ -4425,32 +4467,87 @@ def tree_rel_l2(a: list, b: list) -> float:
     return (num / den) ** 0.5 if den > 0 else 0.0
 
 
-def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
+def kernel_pass_ms(fn, torch, calls: int = 5) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by the
+    profiler over ``calls`` calls (warm: no L2 flush): the backward's dq
+    and dk/dv passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ("dq" if "_dq_" in e.name() else "dk/dv" if "_dkdv_" in e.name()
+                else kernel_group(e.name()))
+        out[name] = out.get(name, 0.0) + e.duration_ns() / 1e6 / calls
+    return out
+
+
+def run_train_attention_case(case, dev, flush, torch, F, fa, dname="bfloat16") -> dict:
     """flash_attention's Function at a train shape: the forward equals the
-    raw kernel's output bitwise, dq/dk/dv are within TRAIN_REL_TOL of
-    autograd through flash_attention_plain, and its times beside sdpa's
-    forward + backward and the bounds."""
-    name, b, s, h, kv, hd, causal, prefix, window = case
-    dt = torch.bfloat16
+    raw kernel's output bitwise (with and without the saved log-sum-exp);
+    the backward kernel (``flash_attention_bwd``) is what the Function's
+    backward launches, gives the same bits on two launches, is within
+    BWD_PLAIN_REL of ``flash_attention_bwd_plain`` on the same inputs, and
+    dq/dk/dv are within TRAIN_REL_TOL of autograd through
+    flash_attention_plain; its times beside the recompute (the parent's
+    design), sdpa's backward and forward + backward, and the bounds."""
+    name, b, sq, sk, h, kv, hd, causal, prefix, window = case
+    dt = getattr(torch, dname)
     g = torch.Generator(device=dev).manual_seed(len(name))
-    q = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt).requires_grad_()
-    k = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
-    v = torch.randn((b, s, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
-    do = torch.randn((b, s, h, hd), generator=g, device=dev).to(dt)
+    q = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt).requires_grad_()
+    k = torch.randn((b, sk, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
+    v = torch.randn((b, sk, kv, hd), generator=g, device=dev).to(dt).requires_grad_()
+    do = torch.randn((b, sq, h, hd), generator=g, device=dev).to(dt)
     kw = dict(causal=causal, prefix_len=prefix, window=window)
     with torch.no_grad():
         raw = fa._flash_attention_cuda(q, k, v, q_offset=0, block_q=64, block_k=fa.BLOCK_K, **kw)
+        saved, lse = fa._flash_attention_cuda(q, k, v, q_offset=0, block_q=64,
+                                              block_k=fa.BLOCK_K, lse=True, **kw)
     out = fa.flash_attention(q, k, v, **kw)
     if out.grad_fn is None or "FlashAttention" not in type(out.grad_fn).__name__:
         fail(f"flash_attention {name}: the output does not come from the autograd Function")
-    if not torch.equal(out, raw):
-        fail(f"flash_attention {name}: the Function's forward differs from the kernel's output")
+    if not (torch.equal(out, raw) and torch.equal(saved, raw)):
+        fail(f"flash_attention {name}: the Function's forward, or the launch that saves the "
+             f"log-sum-exp, differs from the kernel's output")
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
     got = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    # The plain version's forward + backward, timed on the check's one call
-    # (its seconds would dominate the phase if it were timed as the kernel
-    # is).
+    if _build.LAUNCHES["flash_attention_bwd"] != 1:
+        fail(f"flash_attention {name}: the Function's backward launched flash_attention_bwd "
+             f"{_build.LAUNCHES['flash_attention_bwd']} times, want 1")
+    with torch.no_grad():
+        one = fa.flash_attention_bwd(q, k, v, saved, lse, do, **kw)
+        two = fa.flash_attention_bwd(q, k, v, saved, lse, do, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(one, two)):
+        fail(f"flash_attention {name}: two launches of the backward kernel differ")
+    if not all(torch.equal(x, y) for x, y in zip(one, got)):
+        fail(f"flash_attention {name}: the Function's backward differs from the kernel's")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.no_grad():
+        pl = fa.flash_attention_bwd_plain(q, k, v, saved, lse, do, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    bwd_plain_ms = start.elapsed_time(end)
+    plain_errs = {n: rel_l2(a, w) for n, a, w in zip(("dq", "dk", "dv"), one, pl)}
+    max_abs = max(float((a.float() - w.float()).abs().max()) for a, w in zip(one, pl))
+    if max(plain_errs.values()) > BWD_PLAIN_REL[dname]:
+        fail(f"flash_attention_bwd {name}: kernel against flash_attention_bwd_plain {plain_errs} "
+             f"beyond {BWD_PLAIN_REL[dname]} rel L2")
+    del pl, two
+    # The plain version's forward + backward through autograd, timed on the
+    # check's one call (its seconds would dominate the phase if it were
+    # timed as the kernel is).
     start.record()
     want = torch.autograd.grad(fa.flash_attention_plain(q, k, v, **kw), (q, k, v), do)
     end.record()
@@ -4460,16 +4557,24 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
     if max(errs.values()) > TRAIN_REL_TOL:
         fail(f"flash_attention {name}: gradients {errs} beyond {TRAIN_REL_TOL} rel L2 of autograd "
              f"through flash_attention_plain")
-    del got, want
+    del got, want, one
     fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, **kw), flush, 10)
+    with torch.no_grad():
+        kern_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, saved, lse, do, **kw), flush,
+                          20)
+        passes = kernel_pass_ms(lambda: fa.flash_attention_bwd(q, k, v, saved, lse, do, **kw),
+                                torch)
     out = fa.flash_attention(q, k, v, **kw)
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
                      flush, 10)
     both_ms = time_ms(lambda: torch.autograd.grad(fa.flash_attention(q, k, v, **kw), (q, k, v),
                                                   do), flush, 10)
-    qpos = torch.arange(s, device=dev)[:, None]
-    kpos = torch.arange(s, device=dev)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=dev)
+    mask_kw = dict(causal=causal, window=window, q_offset=0, prefix_len=prefix)
+    rec_ms = time_ms(lambda: torch.autograd.grad(fa.recompute(q, k, v, **mask_kw), (q, k, v),
+                                                 do), flush, 5)
+    qpos = torch.arange(sq, device=dev)[:, None]
+    kpos = torch.arange(sk, device=dev)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
     if causal:
         mask &= (kpos <= qpos) | ((qpos < prefix) & (kpos < prefix))
     if window:
@@ -4478,13 +4583,16 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
     dot = do.transpose(1, 2).contiguous()
     plain_causal = causal and not prefix and not window
 
-    def sdpa():
-        o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=None if plain_causal or
-                                           not causal else mask, is_causal=plain_causal,
-                                           enable_gqa=h != kv)
-        return torch.autograd.grad(o, (qt, kt, vt), dot)
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=None if plain_causal or
+                                              not causal else mask, is_causal=plain_causal,
+                                              enable_gqa=h != kv)
 
-    lib_ms = time_ms(sdpa, flush, 10)
+    lib_ms = time_ms(lambda: torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot), flush, 10)
+    o_lib = sdpa_fwd()
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(o_lib, (qt, kt, vt), dot,
+                                                     retain_graph=True), flush, 10)
+    del o_lib
     pairs = int(mask.sum())
     esz = q.element_size()
     # Forward: 2 products of 2 hd flops a (query, key) pair; backward: the
@@ -4492,27 +4600,37 @@ def run_train_attention_case(case, dev, flush, torch, F, fa) -> dict:
     fwd_ops, bwd_ops = 4 * hd * b * h * pairs, 10 * hd * b * h * pairs
     qn, kn = q.numel(), k.numel()
     both_bytes = esz * (4 * qn + 4 * kn)  # q, k, v, do in; out, dq, dk, dv out
-    bwd_bytes = esz * (3 * qn + 4 * kn)   # q, k, v, do in; dq, dk, dv out
+    bwd_bytes = esz * (4 * qn + 4 * kn) + 4 * b * sq * h  # q, k, v, out, do, lse in; dq, dk, dv
 
     def bound(nbytes, ops):
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS["bfloat16"] * 1e3
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_FLOPS[dname] * 1e3
         return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
     both_bound, both_by = bound(both_bytes, fwd_ops + bwd_ops)
     bwd_bound, bwd_by = bound(bwd_bytes, bwd_ops)
-    recompute = ("prefix-LM" if prefix else "naive" if s * s <= fa.RECOMPUTE_NAIVE_MAX
+    plan = fa.backward_plan(b, sq, sk, h, kv, hd, dt)
+    recompute = ("prefix-LM" if prefix else "naive" if sq * sk <= fa.RECOMPUTE_NAIVE_MAX
                  else "chunked 1024")
-    rec = dict(case=name, recompute=recompute, pairs=pairs, rel_l2=errs, forward_ms=fwd_ms,
-               backward_ms=bwd_ms, forward_backward_ms=both_ms, plain_forward_backward_ms=plain_ms,
-               sdpa_forward_backward_ms=lib_ms, bound_forward_backward_ms=both_bound,
-               bound_forward_backward_by=both_by, bound_backward_ms=bwd_bound,
-               bound_backward_by=bwd_by)
-    print(f"  flash_attention train | {name}: forward == kernel bitwise; dq/dk/dv rel L2 "
-          f"{', '.join(f'{v:.2e}' for v in errs.values())} (held {TRAIN_REL_TOL}); forward "
-          f"{fwd_ms:.4f} ms, backward ({recompute} recompute) {bwd_ms:.4f} ms, forward + "
-          f"backward {both_ms:.4f} ms; sdpa forward + backward {lib_ms:.4f} ms; plain "
-          f"{plain_ms:.4f} ms; bound forward + backward {both_bound:.4f} ms ({both_by}), "
-          f"backward {bwd_bound:.4f} ms ({bwd_by})", flush=True)
+    rec = dict(case=name, dtype=dname, route=plan["route"], pairs=pairs, rel_l2=errs,
+               kernel_vs_plain_rel_l2=plain_errs, max_abs_err=max_abs, ms=kern_ms,
+               plain_ms=bwd_plain_ms, bound_ms=bwd_bound, bound_by=bwd_by,
+               library_ms=lib_bwd_ms, pass_ms=passes, forward_ms=fwd_ms, backward_ms=bwd_ms,
+               forward_backward_ms=both_ms, recompute=recompute, recompute_backward_ms=rec_ms,
+               plain_forward_backward_ms=plain_ms, sdpa_forward_backward_ms=lib_ms,
+               bound_forward_backward_ms=both_bound, bound_forward_backward_by=both_by)
+    print(f"  flash_attention train | {name} ({dname}, {plan['route']} route): forward == kernel "
+          f"bitwise; backward kernel: two launches bitwise, the Function's backward; against "
+          f"flash_attention_bwd_plain rel L2 {', '.join(f'{e:.2e}' for e in plain_errs.values())} "
+          f"(held {BWD_PLAIN_REL[dname]}), max abs {max_abs:.3g}; dq/dk/dv against autograd "
+          f"through flash_attention_plain rel L2 {', '.join(f'{e:.2e}' for e in errs.values())} "
+          f"(held {TRAIN_REL_TOL}); backward kernel {kern_ms:.4f} ms (passes, profiled warm: "
+          f"{', '.join(f'{n} {ms:.4f}' for n, ms in passes.items())}; the Function's backward "
+          f"{bwd_ms:.4f}); the parent's design, the {recompute} recompute's forward + backward, "
+          f"{rec_ms:.4f} ms; sdpa backward {lib_bwd_ms:.4f} ms, forward + backward "
+          f"{lib_ms:.4f} ms; bound backward {bwd_bound:.4f} ms ({bwd_by}); forward {fwd_ms:.4f} "
+          f"ms, forward + backward {both_ms:.4f} ms (bound {both_bound:.4f}, {both_by}); plain "
+          f"backward {bwd_plain_ms:.1f} ms, plain forward + backward through autograd "
+          f"{plain_ms:.1f} ms", flush=True)
     return rec
 
 
@@ -4775,7 +4893,7 @@ def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
             step_s.append(time.perf_counter() - t)
         counts = ops.launch_counts()
         want = {k: 0 for k in counts}
-        want["flash_attention"] = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB * forwards * QWEN_TRAIN_STEPS
+        want.update(train_attention_launches(cfg, QWEN_TRAIN_STEPS))
         if counts != want:
             fail(f"qwen1.5-4b train ({mode}) launch counts {counts} != {want}")
         if not all(math.isfinite(x) for x in losses):
@@ -4816,10 +4934,13 @@ def run_qwen_train(dev, torch, ops, card, attn_recs, detail) -> dict:
            "layer_grad_rel_l2_max": max(layer_errs), "layer_grad_rel_l2": layer_errs,
            "leaf_grad_rel_l2_max_not_held": max(leaf), "grad_rel_l2_all_not_held": whole,
            "reference_bf16_vs_float32_not_held": witness}
+    prof, state = profile_train_step(graph_fn, state, batches[-1], torch)
+    groups, line = replay_share_line(prof)
+    out["graphed"]["profile"] = {**prof, "coarse": groups}
+    print(f"  {line} -- {card}", flush=True)
     if detail:
         out["profile"], state = profile_train_step(make_train_step(cfg, api, graph=False), state,
-                                                   batches[2], torch)
-        out["graphed"]["profile"], state = profile_train_step(graph_fn, state, batches[2], torch)
+                                                   batches[-1], torch)
         for mode, prof in (("eager", out["profile"]), ("graphed", out["graphed"]["profile"])):
             print(f"  profiled {mode} step ({cfg.remat}): wall {prof['wall_ms']:.1f} ms, card busy "
                   f"{prof['device_busy_ms']:.1f} ms ({prof['device_busy_ms'] / prof['wall_ms']:.1%}), "
@@ -4980,9 +5101,9 @@ def train_step_parts(cfg, api, state, batches, fa_rec, forwards, torch, card) ->
         remat[policy] = rec
     per_mb = QWEN_TRAIN_LAYERS * QWEN_TRAIN_MB
     attn_fwd_s = per_mb * forwards * fa_rec["forward_ms"] / 1e3
-    attn_bwd_s = per_mb * fa_rec["backward_ms"] / 1e3
+    attn_bwd_s = per_mb * fa_rec["ms"] / 1e3
     print(f"  a step's parts: gradients {grad_s:.3f} s (of which flash_attention forward "
-          f"{attn_fwd_s:.3f} s and its recompute backward {attn_bwd_s:.3f} s, from the [train] "
+          f"{attn_fwd_s:.3f} s and its backward kernel {attn_bwd_s:.3f} s, from the [train] "
           f"kernel line's times x {per_mb * forwards} and x {per_mb}), AdamW {adam_s:.3f} s -- "
           f"{card}", flush=True)
     for policy, rec in remat.items():
@@ -5090,7 +5211,7 @@ def run_whisper_train(dev, torch, ops, card) -> dict:
     per_step = cfg.enc_layers + 2 * cfg.n_layers  # encoder self; decoder self and cross
     for counts, steps in ((c1, 4), (c2, 2)):
         want = {k: 0 for k in counts}
-        want["flash_attention"] = per_step * steps
+        want["flash_attention"] = want["flash_attention_bwd"] = per_step * steps
         if counts != want:
             fail(f"whisper-tiny train launch counts {counts} != {want}")
     step_s = {"eager": eager[2], "graphed": r1["step_s"], "restored_graphed": r2["step_s"]}
@@ -5105,8 +5226,8 @@ def run_whisper_train(dev, torch, ops, card) -> dict:
           f"{[round(x, 4) for x in step_s['eager']]}, graphed "
           f"{[round(x, 4) for x in step_s['graphed']]} (capture {out['capture_s'][0]:.3f} s), "
           f"restored {[round(x, 4) for x in step_s['restored_graphed']]} (capture "
-          f"{out['capture_s'][1]:.3f} s); flash_attention {per_step} a step (encoder "
-          f"{cfg.enc_layers}, decoder self and cross {2 * cfg.n_layers}), exact; "
+          f"{out['capture_s'][1]:.3f} s); flash_attention and flash_attention_bwd {per_step} each "
+          f"a step (encoder {cfg.enc_layers}, decoder self and cross {2 * cfg.n_layers}), exact; "
           f"{r1['seconds']:.1f} s + {r2['seconds']:.1f} s -- {card}", flush=True)
     return out
 
@@ -5254,7 +5375,8 @@ GRAPH_CHECK_STEPS = 2
 # The coarse kernel groups of a profiled train step, by words in the
 # kernels' names (the first group that matches; "elementwise" takes the
 # rest of PyTorch's kernels).
-STEP_GROUPS = (("flash_attention", ("flash_attention",)), ("cuBLAS", GEMM_WORDS),
+STEP_GROUPS = (("flash_attention_bwd", ("flash_attention_bwd",)),
+               ("flash_attention", ("flash_attention",)), ("cuBLAS", GEMM_WORDS),
                ("copies", ("memcpy", "memset", "copy")),
                ("reductions", ("reduce", "softmax", "norm", "scan")))
 
@@ -5271,22 +5393,25 @@ def family_cfg(spec, depth=None):
                                **({"n_layers": depth} if depth else {}))
 
 
-def train_attention_launches(cfg) -> int:
-    """flash_attention's launches in one train step of ``cfg``: each
-    attention layer's forward a microbatch, twice in a layer under remat
-    "dots" or "full" (the Function's forward runs again in the backward);
-    RG-LRU's tail runs outside remat."""
+def train_attention_launches(cfg, steps: int = 1) -> dict:
+    """flash_attention's and its backward's launches in ``steps`` train
+    steps of ``cfg``: each attention layer's forward a microbatch, twice in
+    a layer under remat "dots" or "full" (the Function's forward runs again
+    in the backward), and its backward once; RG-LRU's tail runs outside
+    remat."""
     from repro_torch.models import rglru
 
     forwards = 2 if cfg.remat in ("dots", "full") else 1
     if cfg.family == "ssm":
-        n = 0
+        n = n_bwd = 0
     elif cfg.family == "hybrid":
         n_units, tail = rglru._pattern_layout(cfg)
+        n_bwd = n_units * cfg.block_pattern.count("attn") + tail.count("attn")
         n = n_units * cfg.block_pattern.count("attn") * forwards + tail.count("attn")
     else:
-        n = cfg.n_layers * forwards
-    return n * max(cfg.microbatches, 1)
+        n, n_bwd = cfg.n_layers * forwards, cfg.n_layers
+    mb = max(cfg.microbatches, 1) * steps
+    return {"flash_attention": n * mb, "flash_attention_bwd": n_bwd * mb}
 
 
 def step_groups(prof) -> dict:
@@ -5329,7 +5454,7 @@ def family_train_check(spec, cfg, api, batch, dev, torch, ops) -> dict:
     grads_s = time.perf_counter() - t
     counts = ops.launch_counts()
     want = {k: 0 for k in counts}
-    want["flash_attention"] = train_attention_launches(cfg)
+    want.update(train_attention_launches(cfg))
     out = {"loss": float(l_cu), "loss_reference": float(l_ref), "grads_s": grads_s,
            "launches": counts}
     if ref_counts:
@@ -5386,7 +5511,8 @@ def family_train_check(spec, cfg, api, batch, dev, torch, ops) -> dict:
               f"{out['layer_check_s']:.1f} s); whole-model gradient leaves, not held (chaotic on "
               f"random weights): max rel L2 {out['leaf_grad_rel_l2_max_not_held']:.3g}, all "
               f"leaves {out['grad_rel_l2_all_not_held']:.3g}; flash_attention "
-              f"{want['flash_attention']} a step ({grads_s:.3f} s for the gradients)",
+              f"{want['flash_attention']} and flash_attention_bwd "
+              f"{want['flash_attention_bwd']} a step ({grads_s:.3f} s for the gradients)",
               flush=True)
     del params
     gc.collect()
@@ -5445,7 +5571,7 @@ def family_runs(spec, cfg, api, batches, dev, torch, ops, card) -> tuple:
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         want = {k: 0 for k in counts}
-        want["flash_attention"] = train_attention_launches(cfg) * steps
+        want.update(train_attention_launches(cfg, steps))
         if counts != want:
             fail(f"{arch} train ({mode}) launch counts {counts} != {want}")
         if not all(math.isfinite(x) for x in losses):
@@ -5549,17 +5675,15 @@ def run_family_train(spec, dev, torch, ops, card) -> dict:
     prof, state = profile_train_step(fn, state, batches[0], torch)
     if (fn.graphs.stats()["captures"], fn.graphs.stats()["replays"]) != (1, before + 1):
         fail(f"{arch} train: the profiled step was not a replay of the one graph")
-    groups = step_groups(prof)
+    groups, line = replay_share_line(prof)
     out["graphed"]["profile"] = {**prof, "coarse": groups}
     del fn, state
     gc.collect()
     torch.cuda.empty_cache()
     busy = prof["device_busy_ms"]
-    print(f"  profiled replayed step: wall {prof['wall_ms']:.1f} ms, card busy {busy:.1f} ms "
-          f"({busy / prof['wall_ms']:.1%}), {prof['kernels']} kernels; by group: "
-          + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})" for g, ms in groups.items())
-          + "; by kernel: " + ", ".join(f"{g} {ms:.1f} ms" for g, ms in prof["groups"][:6])
-          + f" -- {card}", flush=True)
+    print(f"  {line}; by kernel: "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in prof["groups"][:6]) + f" -- {card}",
+          flush=True)
     if cfg.family == "ssm":
         scan = time_chunked_scan(cfg, spec["batch"], spec["seq"], dev, torch)
         scan["step_ms_est"] = cfg.n_layers * (scan["forward_ms"] + scan["forward_backward_ms"])
@@ -5581,6 +5705,87 @@ def run_family_train(spec, dev, torch, ops, card) -> dict:
     del batches
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def replay_share_line(prof) -> tuple:
+    """A profiled replayed step's coarse groups (:func:`step_groups`) and
+    a line of its busy time, flash_attention's forward and backward
+    kernels' shares and the groups."""
+    groups = step_groups(prof)
+    busy = prof["device_busy_ms"]
+    return groups, (f"profiled replayed step: wall {prof['wall_ms']:.1f} ms, card busy "
+                    f"{busy:.1f} ms ({busy / prof['wall_ms']:.1%}), {prof['kernels']} kernels; "
+                    f"flash_attention_bwd {groups['flash_attention_bwd']:.2f} ms "
+                    f"({groups['flash_attention_bwd'] / busy:.1%}), flash_attention "
+                    f"{groups['flash_attention']:.2f} ms; by group: "
+                    + ", ".join(f"{g} {ms:.1f} ms ({ms / busy:.1%})" for g, ms in groups.items()))
+
+
+# ``--train-replays``: each family that trains attention on one card at its
+# [train] path's shapes, through build_state and make_train_step (graphed):
+# a step with the capture, then TRAIN_REPLAYS replays timed and one more
+# profiled.  It reads the src/ beside the script, so a copy run from a
+# parent's checkout measures the parent in the same call.
+TRAIN_REPLAYS = 4
+
+
+def replay_specs() -> list:
+    """(label, cfg, batch, seq) of qwen1.5-4b's, whisper-tiny's and the
+    families' train paths."""
+    from repro_torch.configs import get_config
+
+    qwen = dataclasses.replace(get_config("qwen1.5-4b"), n_layers=QWEN_TRAIN_LAYERS,
+                               kernel_impl="cuda", microbatches=QWEN_TRAIN_MB)
+    whisper = dataclasses.replace(get_config("whisper-tiny"), kernel_impl="cuda")
+    out = [(f"qwen1.5-4b, {QWEN_TRAIN_LAYERS} layers", qwen, QWEN_TRAIN_B, QWEN_TRAIN_S),
+           ("whisper-tiny", whisper, 8, 64)]
+    for spec in FAMILY_TRAIN:
+        if spec["arch"] != "falcon-mamba-7b":  # no attention
+            out.append((spec["arch"], family_cfg(spec), spec["batch"], spec["seq"]))
+    return out
+
+
+def run_train_replays(dev, torch, ops, card, only=None) -> dict:
+    """The replayed train steps of :func:`replay_specs` (those labelled in
+    ``only``, if given), with their launches and a profiled replay's
+    groups."""
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+    from repro_torch.train import make_train_step
+
+    out = {}
+    for label, cfg, b, s in replay_specs():
+        if only is not None and label not in only:
+            continue
+        api = get_model(cfg)
+        state = build_state(cfg, api, dev, 0)[0]
+        ds = SyntheticTokens(cfg, b, s, seed=0)
+        batches = [to_device(next(ds), dev) for _ in range(2)]
+        fn = make_train_step(cfg, api, graph=True)
+        ops.reset_launch_counts()
+        step_s = []
+        for i in range(TRAIN_REPLAYS + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = fn(state, batches[i % 2])
+            float(m["loss"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+        counts = {k: n for k, n in ops.launch_counts().items() if n}
+        prof, state = profile_train_step(fn, state, batches[0], torch)
+        groups, line = replay_share_line(prof)
+        rep = sorted(step_s[1:])
+        out[label] = {"step_s": step_s, "replay_s_median": rep[len(rep) // 2],
+                      "launches": counts, "profile": {**prof, "coarse": groups}}
+        print(f"  {label}: B {b} x {s}, remat {cfg.remat!r}; first step (eager + capture) "
+              f"{step_s[0]:.3f} s, replays {' / '.join(f'{x:.4f}' for x in step_s[1:])} s "
+              f"(median {rep[len(rep) // 2]:.4f}); launches {counts}; {line} -- {card}",
+              flush=True)
+        del fn, state, batches
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5655,6 +5860,201 @@ def run_c13(dev, torch, card) -> dict:
     return out
 
 
+# C15's families: (arch, depth or None for the spec's, B, S, microbatches
+# or None for the config's), each the [train] phase's own first batch.
+C15_RUNS = (("paligemma-3b", None, 8, 32, None), ("recurrentgemma-2b", None, 1, 4096, None),
+            ("qwen1.5-4b", QWEN_TRAIN_LAYERS, QWEN_TRAIN_B, QWEN_TRAIN_S, QWEN_TRAIN_MB))
+
+
+def attention_grad_sides(cap, torch, fa) -> dict:
+    """dq, dk and dv of one captured Function call (q, k, v, out, lse,
+    dO, its arguments), each side's rel L2 against float64 from the same
+    bf16 inputs: the kernel, its plain version, autograd through the
+    reference (:func:`recompute`, the parent design), and dense float32
+    versions of the backward's algorithm with P, dP and dS in float32
+    unless named: "two_part" (P from the row's max m and log2 l as two
+    numbers, D = rowsum(P dP): the first kernel of C15), "lse1" (P from one
+    float32 lse = m + log2 l), "lse1_dnorm" (D divided by rowsum(P)),
+    "design" (that, and dS rounded to bf16 once before its products: the
+    kernel's algorithm), "dp_bf16" (dP rounded as the reference's bf16
+    autograd rounds it), "d_from_o" (D = rowsum(dO * out), out the
+    forward's bf16 output)."""
+    q, k, v, out, lse, do, a = cap
+    b, sq, h, hd = q.shape
+    n_rep = h // k.shape[2]
+    scale = hd ** -0.5
+    dev = q.device
+    valid = fa._valid(a["q_offset"] + torch.arange(sq, device=dev),
+                      torch.arange(k.shape[1], device=dev), a["causal"], a["window"],
+                      a["prefix_len"])
+
+    def rep(t, dt):  # (B, S, KV, hd) -> (B, H, S, hd)
+        return t.to(dt).repeat_interleave(n_rep, dim=2).transpose(1, 2)
+
+    def fold(t):  # (B, H, Sk, hd) summed over each group's heads -> (B, Sk, KV, hd)
+        return t.reshape(b, h // n_rep, n_rep, *t.shape[2:]).sum(2).transpose(1, 2)
+
+    def grads(dt, *, lse1=False, dnorm=False, ds_bf16=False, dp_bf16=False, d_from_o=False,
+              p_bf16_dv=True):
+        qh, doh = q.to(dt).transpose(1, 2), do.to(dt).transpose(1, 2)
+        kh, vh = rep(k, dt), rep(v, dt)
+        s = (qh @ kh.transpose(-1, -2)).masked_fill(~valid, float("-inf"))
+        if dt == torch.float64:
+            p = torch.softmax(s * scale, dim=-1)
+        else:
+            # The kernel's exponent: fmaf(s, scale log2 e, -x), one rounding.
+            c = float(torch.tensor(scale * fa.LOG2E, dtype=torch.float32))
+            sc = s.double() * c
+            m = sc.float().amax(-1, keepdim=True)
+            l2 = torch.log2(torch.exp2((sc - m.double()).float()).sum(-1, keepdim=True))
+            p = (torch.exp2((sc - (m + l2).double()).float()) if lse1
+                 else torch.exp2((sc - m.double()).float() - l2))
+        dp = doh @ vh.transpose(-1, -2)
+        if dp_bf16:
+            dp = dp.to(torch.bfloat16).to(dt)
+        if d_from_o:
+            d = (doh * out.to(dt).transpose(1, 2)).sum(-1, keepdim=True)
+        else:
+            d = (p * dp).sum(-1, keepdim=True)
+            if dnorm:
+                d = d / p.sum(-1, keepdim=True)
+        ds = p * (dp - d)
+        if ds_bf16:
+            ds = ds.to(torch.bfloat16).to(dt)
+        pv = p.to(torch.bfloat16).to(dt) if p_bf16_dv else p
+        return ((ds @ kh).transpose(1, 2) * scale, fold(ds.transpose(-1, -2) @ qh) * scale,
+                fold(pv.transpose(-1, -2) @ doh))
+
+    truth = grads(torch.float64, p_bf16_dv=False)
+    sides = {"kernel": fa.flash_attention_bwd(q, k, v, out, lse, do, **a),
+             "plain": fa.flash_attention_bwd_plain(q, k, v, out, lse, do, **a)}
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        o = fa.recompute(qq, kk, vv, causal=a["causal"], window=a["window"],
+                         q_offset=a["q_offset"], prefix_len=a["prefix_len"])
+        sides["reference"] = torch.autograd.grad(o, (qq, kk, vv), do)
+    f32 = torch.float32
+    for name, kw in (("two_part", {}), ("lse1", {"lse1": True}),
+                     ("lse1_dnorm", {"lse1": True, "dnorm": True}),
+                     ("design", {"lse1": True, "dnorm": True, "ds_bf16": True}),
+                     ("dp_bf16", {"dp_bf16": True}), ("d_from_o", {"d_from_o": True})):
+        sides[name] = grads(f32, **kw)
+    with torch.no_grad():
+        p64 = torch.softmax((q.double().transpose(1, 2) @ rep(k, torch.float64).transpose(-1, -2)
+                             ).masked_fill(~valid, float("-inf")) * scale, dim=-1)
+        peak = float(p64.amax(-1).mean())
+    out_d = {name: {n: rel_l2(x, t) for n, x, t in zip(("dq", "dk", "dv"), g, truth)}
+             for name, g in sides.items()}
+    out_d["mean_row_max_p"] = peak
+    return out_d
+
+
+def c15_layers(cfg, params, batch, torch, fa) -> list:
+    """Per layer of the family's train stack, as :func:`train_layer_errors`
+    walks it (each layer's VJP on the kernel run's own input and output
+    gradient, first microbatch): the largest rel L2 of its parameter
+    gradients, and the leaf that holds it, for the check (kernels against
+    kernel_impl="reference", both bf16) and for each of the kernels, the
+    bf16 reference and the parent design (the kernels with the Function's
+    backward through :func:`recompute`) against the float32 reference on
+    the same inputs; with each attention call's dq, dk and dv against
+    float64 (:func:`attention_grad_sides`)."""
+    from repro_torch.models.params import cast_float, tree_map_path
+    from repro_torch.train.step import microbatches
+
+    mb = microbatches(batch, cfg.microbatches)[0]
+    p = cast_float(params, cfg.compute_dtype)
+    x, layers, loss = train_walk(cfg, p, mb)
+    ref_layers = train_walk(dataclasses.replace(cfg, kernel_impl="reference"), p, mb)[1]
+    cfg32 = dataclasses.replace(cfg, kernel_impl="reference", compute_dtype="float32")
+    f32_layers = train_walk(cfg32, cast_float(params, "float32"), mb)[1]
+    xs, x, aux = walk_forward(x, layers, torch)
+    xf = x.detach().requires_grad_()
+    g = torch.autograd.grad(loss(xf, aux), xf)[0]
+    del x, xf
+    kernel_bwd = fa.flash_attention_bwd  # what the Function's backward calls
+    caps = []
+
+    def capturing(q, k, v, out, lse, do, **kw):
+        caps.append(tuple(t.detach().clone() for t in (q, k, v, out, lse, do)) + (kw,))
+        return kernel_bwd(q, k, v, out, lse, do, **kw)
+
+    def recomputing(q, k, v, out, lse, do, **kw):
+        with torch.enable_grad():
+            qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+            o = fa.recompute(qq, kk, vv, **{n: kw[n] for n in
+                                            ("causal", "window", "q_offset", "prefix_len")})
+            return torch.autograd.grad(o, (qq, kk, vv), do)
+
+    def vjp(fn, lp, xin, cot, bwd=kernel_bwd):
+        fa.flash_attention_bwd = bwd
+        try:
+            return layer_vjp(lambda lp, x, fn=fn: fn(lp, x)[0], lp, [xin], cot, cot.device, torch)
+        finally:
+            fa.flash_attention_bwd = kernel_bwd
+
+    def worst(a, b, paths):
+        errs = [rel_l2(x, y) for x, y in zip(a, b)]
+        i = max(range(len(errs)), key=errs.__getitem__)
+        return {"max": errs[i], "leaf": paths[i]}
+
+    rows = []
+    for i in reversed(range(len(layers))):
+        paths = []
+        tree_map_path(lambda path, _: paths.append(path), layers[i][1])  # tree_leaves' order
+        caps.clear()
+        (gi,), kern = vjp(layers[i][0], layers[i][1], xs[i], g, capturing)
+        ref = vjp(ref_layers[i][0], layers[i][1], xs[i], g)[1]
+        par = vjp(layers[i][0], layers[i][1], xs[i], g, recomputing)[1]
+        r32 = vjp(f32_layers[i][0], f32_layers[i][1], xs[i].float(), g.float())[1]
+        row = {"layer": i, "check": worst(kern, ref, paths),
+               "kernel_vs_f32": worst(kern, r32, paths),
+               "reference_vs_f32": worst(ref, r32, paths),
+               "parent_vs_f32": worst(par, r32, paths),
+               "attention": [attention_grad_sides(c, torch, fa) for c in caps]}
+        caps.clear()
+        rows.append(row)
+        att = "; ".join(
+            "attention vs float64 (mean row max P {:.3f}): ".format(s["mean_row_max_p"]) + ", ".join(
+                f"{n} " + "/".join(f"{s[n][w]:.2e}" for w in ("dq", "dk", "dv"))
+                for n in s if n != "mean_row_max_p") for s in row["attention"])
+        print(f"  layer {i}: check {row['check']['max']:.2e} ({row['check']['leaf']}); vs the "
+              f"float32 reference: kernels {row['kernel_vs_f32']['max']:.2e} "
+              f"({row['kernel_vs_f32']['leaf']}), bf16 reference "
+              f"{row['reference_vs_f32']['max']:.2e} ({row['reference_vs_f32']['leaf']}), "
+              f"parent {row['parent_vs_f32']['max']:.2e} ({row['parent_vs_f32']['leaf']})"
+              + (f"; {att}" if att else ""), flush=True)
+        g = gi
+        del kern, ref, par, r32
+    return rows[::-1]
+
+
+def run_c15(dev, torch, card) -> dict:
+    """C15's reading: for each of :data:`C15_RUNS` at full width, seed-0
+    params and the first batch, :func:`c15_layers`."""
+    from repro_torch.data import SyntheticTokens, to_device
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import get_model
+
+    out = {"card": card}
+    for arch, depth, bsz, seq, nmb in C15_RUNS:
+        spec = {"arch": arch, "depth": depth}
+        if nmb:
+            spec["microbatches"] = nmb
+        cfg = family_cfg(spec)
+        api = get_model(cfg)
+        params = build_state(cfg, api, dev, 0)[0]["params"]
+        batch = to_device(next(SyntheticTokens(cfg, bsz, seq, seed=0)), dev)
+        print(at() + f" [C15] {arch}, {cfg.n_layers} layers, B {bsz} x {seq}, "
+              f"{max(cfg.microbatches, 1)} microbatch(es) -- {card}", flush=True)
+        out[arch] = c15_layers(cfg, params, batch, torch, fa)
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
     """The [train] phase; ``detail`` (``--train``) adds where a qwen
     step's time goes (:func:`train_step_parts`)."""
@@ -5662,6 +6062,8 @@ def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
 
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
     attn = [run_train_attention_case(c, dev, flush, torch, F, fa) for c in TRAIN_ATTENTION]
+    attn.append(run_train_attention_case(TRAIN_ATTENTION_F32, dev, flush, torch, F, fa,
+                                         "float32"))
     del flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -5677,10 +6079,11 @@ def run_train_phase(dev, torch, F, ops, card, detail=False) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(at() + " [train] whisper-tiny --full through repro_torch.launch.train, eager and "
-          "graphed, checkpoint and restore", flush=True)
+          "graphed, checkpoint and restore; then a replay of its step profiled", flush=True)
     whisper = run_whisper_train(dev, torch, ops, card)
     gc.collect()
     torch.cuda.empty_cache()
+    whisper["replays"] = run_train_replays(dev, torch, ops, card, ("whisper-tiny",))
     print(at() + f" [train] HeteroTrainer over discover()'s cpu:0 and cuda:0, whisper-tiny "
           f"--full, batch {HETERO_B}, quantum 1, {HETERO_STEPS} steps", flush=True)
     hetero = run_hetero_train(dev, torch, card)
@@ -5716,8 +6119,8 @@ MESH_ELASTIC_ARGV = ["--arch", "whisper-tiny", "--full", "--batch", "8", "--seq"
                      "--mesh-shape", "2x1"]
 MESH_LOGITS_REL = {"bfloat16": BF16_TOL, "float32": F32_TOL}  # rel L2 a step's logits
 MESH_LOSS_REL, MESH_GRAD_REL = 1e-4, 1e-3  # data parallelism, float32 compute
-MESH_KERNELS = ("flash_attention", "flash_decode", "gemm_rowinv", "rms_norm", "moe_gemm",
-                "rglru_scan")
+MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode", "gemm_rowinv",
+                "rms_norm", "moe_gemm", "rglru_scan")
 
 
 def _mem(torch) -> dict:
@@ -6523,7 +6926,7 @@ def mesh_elastic_rank(rank, world, dev, ckpt, store):
         b = to_device(next(ds), mesh.device)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        _, m = runner.step_fn(restored, b)
+        stepped, m = runner.step_fn(restored, b)
         losses.append(float(m["loss"]))
         step_s.append(time.perf_counter() - t)
     torch.cuda.synchronize()
@@ -6533,7 +6936,7 @@ def mesh_elastic_rank(rank, world, dev, ckpt, store):
                elastic_losses=losses, elastic_step_s=step_s,
                elastic_loops=graph_loops(g), elastic_replays=g["replays"],
                backend_after=torch.distributed.get_backend())
-    del restored, m, b
+    del restored, stepped, m, b
     # A re-mesh frees the old step function's graphs and pool with it.
     runner.on_failure([0], f"file://{store}.again")
     torch.cuda.synchronize()
@@ -7224,6 +7627,23 @@ def summary_row(path: str, rec: dict) -> dict:
             "capture_s": om["graph"]["capture_s"]}
 
 
+def _build_printed(names) -> dict:
+    """Build the kernel libraries ``names`` that are missing, one ``nvcc``
+    each, all at once, and print the time and each kernel's registers and
+    spills.  Returns the compiler's output of each library built."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    out = _build.build(names, ptxas_info=True)
+    print(f"[build] {len(out)} kernel libraries built in {time.perf_counter() - t0:.1f} s "
+          f"into {_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
+    for name, text in out.items():
+        for line in text.splitlines():
+            if "Used" in line and "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    return out
+
+
 def main() -> None:
     if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from the repository")
@@ -7291,6 +7711,15 @@ def main() -> None:
         print(json.dumps({"c13": run_c13(dev, torch, card)}))
         print(at() + " [done] C13 passed", flush=True)
         return
+    if "--c15" in sys.argv[1:]:
+        # Only C15's reading: the train families' layer gradients against a
+        # float32 reference, side by side, the two attention kernels built.
+        from repro_torch.kernels import _build
+
+        _build.build(("flash_attention", "flash_attention_bwd"))
+        print(json.dumps({"c15": run_c15(dev, torch, card)}))
+        print(at() + " [done] C15's reading", flush=True)
+        return
     if "--recurrent-served" in sys.argv[1:]:
         # Only the [recurrent served] phase, the kernels built first (the
         # launcher's server builds them all).
@@ -7302,11 +7731,39 @@ def main() -> None:
         print(json.dumps({"recurrent_served": run_recurrent_served(dev, torch, card)}))
         print(at() + " [done] the [recurrent served] phase passed", flush=True)
         return
-    if "--train" in sys.argv[1:]:
-        # Only the [train] phase, its one kernel built alone.
+    if "--bwd" in sys.argv[1:]:
+        # Only flash_attention's backward at the train shapes, its two
+        # kernels built alone (the compiler's registers and spills printed).
+        from repro_torch.kernels import flash_attention as fa
+
+        out = _build_printed(("flash_attention", "flash_attention_bwd"))
+        for line in out.get("flash_attention_bwd", "").splitlines():
+            if "entry function" in line or "Used" in line or "spill" in line:
+                print(f"  [ptxas] {line.strip()}", flush=True)
+        flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+        recs = [run_train_attention_case(c, dev, flush, torch, F, fa) for c in TRAIN_ATTENTION]
+        recs.append(run_train_attention_case(TRAIN_ATTENTION_F32, dev, flush, torch, F, fa,
+                                             "float32"))
+        print(json.dumps({"train_attention": recs, "built": sorted(out)}))
+        print(at() + " [done] the backward's cases passed", flush=True)
+        return
+    if "--train-replays" in sys.argv[1:]:
+        # Only the replayed train steps of the families with attention, the
+        # kernels that the src/ beside this script has built first.
         from repro_torch.kernels import _build, ops
 
-        _build.build(("flash_attention",))
+        _build_printed(tuple(n for n in ("flash_attention", "flash_attention_bwd")
+                             if n in _build.KERNELS))
+        print(at() + " [train replays] each family's graphed train step, replays timed and "
+              "profiled", flush=True)
+        print(json.dumps({"train_replays": run_train_replays(dev, torch, ops, card)}))
+        print(at() + " [done] the train replays", flush=True)
+        return
+    if "--train" in sys.argv[1:]:
+        # Only the [train] phase, its two kernels built alone.
+        from repro_torch.kernels import _build, ops
+
+        _build.build(("flash_attention", "flash_attention_bwd"))
         print(json.dumps({"train_path": run_train_phase(dev, torch, F, ops, card, True)}))
         print(at() + " [done] the [train] phase passed", flush=True)
         return
@@ -7321,14 +7778,7 @@ def main() -> None:
     from repro_torch.kernels import ssm_scan as ss
     from repro_torch.models import attention as attn
 
-    t0 = time.perf_counter()
-    out = _build.build(ptxas_info=True)
-    print(f"[build] {len(out)} kernel libraries built in {time.perf_counter() - t0:.1f} s "
-          f"into {_build.BUILD_DIR.relative_to(ROOT)}", flush=True)
-    for name, text in out.items():
-        for line in text.splitlines():
-            if "Used" in line and "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    out = _build_printed(_build.KERNELS)
     if "ssm_scan" not in out:
         print("[ptxas] ssm_scan was built before this run: no ptxas output", flush=True)
     for inst, regs, spills in ssm_ptxas(out.get("ssm_scan")):
@@ -7561,7 +8011,15 @@ def main() -> None:
     print(at() + " [train] flash_attention's autograd Function at the train paths' shapes "
           "(bf16): forward == the kernel bitwise, dq/dk/dv against autograd through "
           "flash_attention_plain, times beside sdpa's forward + backward", flush=True)
-    print(json.dumps({"train_path": run_train_phase(dev, torch, F, ops, card)}))
+    train = run_train_phase(dev, torch, F, ops, card)
+    print(json.dumps({"train_path": train}))
+    # The backward's line: its qwen1.5-4b case, and its launches on the qwen
+    # train path (its eager run).
+    recs["flash_attention_bwd"] = {k: train["attention"][0][k] for k in
+                                   ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by")}
+    launches["flash_attention_bwd"] = train["qwen1.5-4b"]["launches"]["flash_attention_bwd"]
+    del train
     gc.collect()
     torch.cuda.empty_cache()
     print(at() + " [C13] HeteroTrainer gradient graphs on cuda:0 over share sizes "
@@ -7571,6 +8029,9 @@ def main() -> None:
 
     sources = {"flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:145"),
+               # No pallas_call: the JAX package's VJP recomputes in jnp.
+               "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                       "src/repro/kernels/flash_attention.py:106"),
                "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                                 "src/repro/kernels/flash_decode.py:195"),
                # The chunk launch of flash_decode.cu: the JAX package's

@@ -69,6 +69,15 @@ __host__ __device__ inline Plan plan(int rows, int bk, int hd) {
   return Plan{0, 0, 0};
 }
 
+// Heads of one kv group that share a block of the prefill's bf16 route (and
+// of its backward's dq pass): the largest divisor of n_rep up to 16.
+inline int heads_per_block(int n_rep) {
+  int G = 1;
+  for (int d = 1; d <= n_rep && d <= 16; ++d)
+    if (n_rep % d == 0) G = d;
+  return G;
+}
+
 __host__ __device__ inline size_t q_bytes(const Plan& p, int hd) {
   return (size_t)(kRows / p.ks) * (hd + kPad) * sizeof(bf16);
 }
@@ -236,10 +245,14 @@ struct PagedKeyPos {
 
 // Where a block's rows go: normalised into `out` through the RowMap (acc ==
 // nullptr), or as one chunk's partial: acc (rows x hd) and ml (rows x 2:
-// the running max in base-2 units and the sum l).
+// the running max in base-2 units and the sum l).  With normalised rows, lse
+// (the prefill's autograd forward; null on every inference launch) also
+// takes each row's log-sum-exp of its scaled scores in base 2, m + log2 l, at
+// lse[row's offset / hd]; the output's bits do not depend on it.
 struct Partial {
   float* acc;
   float* ml;
+  float* lse = nullptr;
 };
 
 template <int HD>
@@ -252,8 +265,9 @@ __device__ __forceinline__ void emit2(bf16* __restrict__ out, const Partial& par
   } else {
     const int gr = r0 + r;
     const float inv = fmaxf(l, 1e-30f);
-    *reinterpret_cast<uint32_t*>(out + rm.base + (size_t)(gr / rm.div) * rm.stride +
-                                 (size_t)(gr % rm.div) * HD + d) = pack_bf16(a0 / inv, a1 / inv);
+    const size_t row = rm.base + (size_t)(gr / rm.div) * rm.stride + (size_t)(gr % rm.div) * HD;
+    *reinterpret_cast<uint32_t*>(out + row + d) = pack_bf16(a0 / inv, a1 / inv);
+    if (part.lse && d == 0) part.lse[row / HD] = m + log2f(inv);
   }
 }
 

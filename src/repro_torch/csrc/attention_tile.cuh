@@ -177,12 +177,62 @@ struct Mask {
   int causal;
   int window;
   int prefix = 0;
-  __device__ __forceinline__ bool operator()(int r, int kp) const {
-    const int rp = base + r / div;
+  // A key at kp for a row at position rp.
+  __device__ __forceinline__ bool at(int rp, int kp) const {
     const bool pre = rp < prefix && kp < prefix;
     return kp >= 0 && (!causal || kp <= rp || pre) && (window <= 0 || kp > rp - window || pre);
   }
+  __device__ __forceinline__ bool operator()(int r, int kp) const { return at(base + r / div, kp); }
 };
+
+// Tiles [lo, hi) of bk keys that rows at positions first..last can reach
+// (rows inside a prefix of P positions reach all of it): the prefill
+// kernel's tile range (flash_attention.cu) and its backward's
+// (flash_attention_bwd.cu).
+__device__ __forceinline__ int2 tile_range(int first, int last, int Sk, int bk, int causal,
+                                           int window, int prefix) {
+  const int kv_end = causal ? min(Sk, max(last, prefix - 1) + 1) : Sk;
+  const int kv_begin = window > 0 && first >= prefix ? max(0, first - window + 1) : 0;
+  const int lo = kv_begin / bk;
+  return make_int2(lo, kv_end > kv_begin ? (kv_end + bk - 1) / bk : lo);
+}
+
+// Its inverse: the row tiles [lo, hi) of bq rows (row r at position
+// q_offset + r / div, n_rows rows) whose tile_range reaches key tile t.  A
+// tile's range [x, y) has x growing with the tile, and is empty exactly
+// when its window starts at or past Sk (then every later tile's is too), so
+// the tiles with x <= t and a range are a prefix [0, hi); within it y grows,
+// and lo is the first whose y passes t.  Two binary searches, the same in
+// kernels/flash_attention.py (_inverse_tile_range).
+__device__ __forceinline__ int2 inverse_tile_range(int t, int n_rows, int div, int bq,
+                                                   int q_offset, int Sk, int bk, int causal,
+                                                   int window, int prefix) {
+  auto range = [&](int i) {
+    const int r0 = i * bq;
+    return tile_range(q_offset + r0 / div, q_offset + (min(r0 + bq, n_rows) - 1) / div, Sk, bk,
+                      causal, window, prefix);
+  };
+  int lo = 0, hi = (n_rows + bq - 1) / bq;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    const int2 r = range(mid);
+    if (r.x <= t && r.x < r.y)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int end = lo;
+  lo = 0;
+  hi = end;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (range(mid).y > t)
+      hi = mid;
+    else
+      lo = mid + 1;
+  }
+  return make_int2(lo, end);
+}
 
 // Rows per thread in the score and PV loops: each shared-memory read of K
 // or V feeds RB independent FMA chains (the q and p reads are warp
@@ -248,12 +298,15 @@ __device__ __forceinline__ void pv_tile(float* acc, const float* sc, const float
 // Tiles maps a tile index to the TileRef of its keys (ContigTiles for a
 // contiguous timeline, PagedTiles for a block pool): one tile body serves
 // every attention kernel, so a paged tile gives the same bits as the same
-// keys in a contiguous tile.
+// keys in a contiguous tile.  With lse (the prefill's autograd forward) each
+// row's log-sum-exp of its scaled scores in base 2, m log2(e) + log2 l, goes
+// to lse[row's offset / hd] beside its output, which it does not change.
 template <typename TQ, typename TKV, typename Tiles>
 __device__ void attend_rows(const TQ* __restrict__ q, TQ* __restrict__ out, RowMap rm,
                             int rows, const TKV* __restrict__ k,
                             const TKV* __restrict__ v, Tiles tiles, int t_lo, int t_hi,
-                            int bk, int hd, float scale, Mask mask) {
+                            int bk, int hd, float scale, Mask mask,
+                            float* __restrict__ lse = nullptr) {
   extern __shared__ float smem[];
   float* qs = smem;                 // rows x hd
   float* acc = qs + rows * hd;      // rows x hd
@@ -326,6 +379,10 @@ __device__ void attend_rows(const TQ* __restrict__ q, TQ* __restrict__ out, RowM
     out[rm.base + (size_t)(r / rm.div) * rm.stride + (size_t)(r % rm.div) * hd + d] =
         from_float<TQ>(acc[i] / fmaxf(l_s[r], 1e-30f));
   }
+  if (lse)
+    for (int r = tid; r < rows; r += kThreads)
+      lse[(rm.base + (size_t)(r / rm.div) * rm.stride + (size_t)(r % rm.div) * hd) / hd] =
+          m_s[r] * 1.4426950408889634f + log2f(fmaxf(l_s[r], 1e-30f));
 }
 
 }  // namespace repro

@@ -35,26 +35,21 @@
 // float32 (and bf16 at other head sizes or tiles that are not a multiple of
 // 16 keys) keeps attend_rows (attention_tile.cuh): one block per (q tile of
 // bq rows, batch * head), float FMAs from shared memory, held at 1e-4.
+//
+// Given an lse pointer (the autograd forward's launch; inference passes
+// null) either body also writes each row's log-sum-exp, which the backward
+// (flash_attention_bwd.cu) reads; the output's bits are the same either way.
 #include "attention_mma.cuh"
 
 namespace repro {
 
-// Tiles [lo, hi) of bk keys that rows at positions first..last can reach
-// (rows inside a prefix of P positions reach all of it).
-__device__ __forceinline__ int2 tile_range(int first, int last, int Sk, int bk, int causal,
-                                           int window, int prefix) {
-  const int kv_end = causal ? min(Sk, max(last, prefix - 1) + 1) : Sk;
-  const int kv_begin = window > 0 && first >= prefix ? max(0, first - window + 1) : 0;
-  const int lo = kv_begin / bk;
-  return make_int2(lo, kv_end > kv_begin ? (kv_end + bk - 1) / bk : lo);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out, int Sq, int Sk,
-                           int H, int KV, int hd, int bq, int bk, int causal, int window,
-                           int q_offset, int prefix, float scale) {
+                           const T* __restrict__ v, T* __restrict__ out,
+                           float* __restrict__ lse, int Sq, int Sk, int H, int KV, int hd,
+                           int bq, int bk, int causal, int window, int q_offset, int prefix,
+                           float scale) {
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh - b * H;
   const int g = h / (H / KV);
@@ -65,7 +60,7 @@ __global__ void __launch_bounds__(kThreads)
   const RowMap rm{(((size_t)b * Sq + q0) * H + h) * hd, 1, (size_t)H * hd};
   const Mask mask{first, 1, causal, window, prefix};
   const ContigTiles tiles{((size_t)b * Sk * KV + g) * hd, (size_t)KV * hd, nullptr, Sk, bk};
-  attend_rows<T, T>(q, out, rm, rows, k, v, tiles, tr.x, tr.y, bk, hd, scale, mask);
+  attend_rows<T, T>(q, out, rm, rows, k, v, tiles, tr.x, tr.y, bk, hd, scale, mask, lse);
 }
 
 template <int HD, int KW>
@@ -73,9 +68,9 @@ __global__ void __launch_bounds__(mma::kThreads)
     flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v,
-                               __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV,
-                               int G, int bk, int sb, int causal, int window, int q_offset,
-                               int prefix, float scale_log2) {
+                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                               int Sq, int Sk, int H, int KV, int G, int bk, int sb, int causal,
+                               int window, int q_offset, int prefix, float scale_log2) {
   const int n_rep = H / KV, groups = n_rep / G;
   const int bgh = blockIdx.x;  // (batch, kv head, head group)
   const int b = bgh / (KV * groups), rest = bgh - b * KV * groups;
@@ -90,13 +85,13 @@ __global__ void __launch_bounds__(mma::kThreads)
                   (size_t)H * HD};
   const Mask mask{q_offset, G, causal, window, prefix};
   const ContigTiles tiles{((size_t)b * Sk * KV + g) * HD, (size_t)KV * HD, nullptr, Sk, bk};
-  mma::attend_rows_mma<HD, KW>(q, out, mma::Partial{nullptr, nullptr}, rm, r0, rows, k, v,
+  mma::attend_rows_mma<HD, KW>(q, out, mma::Partial{nullptr, nullptr, lse}, rm, r0, rows, k, v,
                                tiles, tr.x, tr.y, bk, sb, scale_log2, mask);
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Sk, int H, int KV, int hd, int bq, int bk, int causal, int window,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Sk, int H, int KV, int hd, int bq, int bk, int causal, int window,
                    int q_offset, int prefix, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(bq, hd, bk);
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T>,
@@ -106,15 +101,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   const dim3 grid((Sq + bq - 1) / bq, B * H);
   flash_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Sk, H, KV, hd, bq, bk, causal, window, q_offset, prefix,
+      static_cast<T*>(out), lse, Sq, Sk, H, KV, hd, bq, bk, causal, window, q_offset, prefix,
       scale);
   return cudaGetLastError();
 }
 
 template <int HD, int KW>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                       int Sk, int H, int KV, int G, int bk, const mma::Plan& p, int causal,
-                       int window, int q_offset, int prefix, float scale,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int B, int Sq, int Sk, int H, int KV, int G, int bk, const mma::Plan& p,
+                       int causal, int window, int q_offset, int prefix, float scale,
                        cudaStream_t stream) {
   const size_t smem = mma::smem_bytes(p, HD);
   auto kernel = flash_attention_mma_kernel<HD, KW>;
@@ -124,17 +119,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out, i
   const dim3 grid(B * KV * (H / KV / G), (Sq * G + mma::kRows - 1) / mma::kRows);
   kernel<<<grid, mma::kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
-      G, bk, p.sb, causal, window, q_offset, prefix, scale * mma::kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse, Sq, Sk, H,
+      KV, G, bk, p.sb, causal, window, q_offset, prefix, scale * mma::kLog2e);
   return cudaGetLastError();
-}
-
-// Heads of one kv group that share a block of the bf16 route.
-inline int heads_per_block(int n_rep) {
-  int G = 1;
-  for (int d = 1; d <= n_rep && d <= 16; ++d)
-    if (n_rep % d == 0) G = d;
-  return G;
 }
 
 }  // namespace repro
@@ -142,11 +129,13 @@ inline int heads_per_block(int n_rep) {
 // dtype codes: 0 = float32, 1 = bfloat16.  bfloat16 at hd 64/112/128/256 with bk
 // a multiple of 16 runs the tensor-core body (bq is then the fixed 64 rows of
 // a block); everything else runs attend_rows.  prefix: the prefix-LM length
-// (0: none).  Returns a cudaError_t value.
+// (0: none).  lse: null, or (B, Sq, H) float32 for each row's log-sum-exp of
+// its scaled scores in base 2 (the autograd forward's, which
+// flash_attention_bwd.cu reads).  Returns a cudaError_t value.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int Sq, int Sk, int H, int KV, int hd, int bq,
-                                      int bk, int causal, int window, int q_offset, int prefix,
-                                      float scale, int dtype, void* stream) {
+                                      float* lse, int B, int Sq, int Sk, int H, int KV, int hd,
+                                      int bq, int bk, int causal, int window, int q_offset,
+                                      int prefix, float scale, int dtype, void* stream) {
   using namespace repro;
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KV <= 0 || H % KV != 0 || hd <= 0 || bq <= 0 ||
       bq > kMaxRows || bk <= 0 || bk > kMaxBlockK || prefix < 0)
@@ -154,13 +143,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const auto st = static_cast<cudaStream_t>(stream);
   const mma::Plan p = mma::plan(mma::kRows, bk, hd);
   if (dtype == 1 && p.sb > 0 && (hd == 64 || hd == 112 || hd == 128 || hd == 256)) {
-    const int G = heads_per_block(H / KV);
+    const int G = mma::heads_per_block(H / KV);
     if ((Sq * G + mma::kRows - 1) / mma::kRows > 65535 || mma::smem_bytes(p, hd) > kMaxSmem)
       return cudaErrorInvalidValue;
 #define REPRO_FA_MMA(HD_, KW_)                                                              \
   if (hd == HD_ && p.kw == KW_)                                                             \
-    return launch_mma<HD_, KW_>(q, k, v, out, B, Sq, Sk, H, KV, G, bk, p, causal, window,  \
-                                q_offset, prefix, scale, st);
+    return launch_mma<HD_, KW_>(q, k, v, out, lse, B, Sq, Sk, H, KV, G, bk, p, causal,     \
+                                window, q_offset, prefix, scale, st);
     REPRO_FA_MMA(64, 16) REPRO_FA_MMA(64, 32) REPRO_FA_MMA(64, 64)
     REPRO_FA_MMA(112, 16) REPRO_FA_MMA(112, 32) REPRO_FA_MMA(112, 64)
     REPRO_FA_MMA(128, 16) REPRO_FA_MMA(128, 32) REPRO_FA_MMA(128, 64)
@@ -171,10 +160,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if ((long long)B * H > 65535 || smem_bytes(bq, hd, bk) > kMaxSmem)
     return cudaErrorInvalidValue;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KV, hd, bq, bk, causal, window,
-                                 q_offset, prefix, scale, st);
+    return launch<__nv_bfloat16>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, bq, bk, causal,
+                                 window, q_offset, prefix, scale, st);
   if (dtype == 0)
-    return launch<float>(q, k, v, out, B, Sq, Sk, H, KV, hd, bq, bk, causal, window,
+    return launch<float>(q, k, v, out, lse, B, Sq, Sk, H, KV, hd, bq, bk, causal, window,
                          q_offset, prefix, scale, st);
   return cudaErrorInvalidValue;
 }

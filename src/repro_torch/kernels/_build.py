@@ -42,8 +42,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "--split-compile=8")
-KERNELS = ("flash_attention", "flash_decode", "flash_decode_paged", "ssm_scan",
-           "rglru_scan", "gemm_rowinv", "rms_norm", "moe_gemm", "layer_norm")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode", "flash_decode_paged",
+           "ssm_scan", "rglru_scan", "gemm_rowinv", "rms_norm", "moe_gemm", "layer_norm")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' row and tile limits and shared-memory budget (attention_tile.cuh).
 MAX_ROWS = 64

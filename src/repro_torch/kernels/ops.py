@@ -9,7 +9,7 @@ more than one query row a slot.
 """
 from repro_torch.kernels._build import LAUNCHES, MULTI_ROW
 from repro_torch.kernels._build import reset_launches as reset_launch_counts  # noqa: F401
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd  # noqa: F401
 from repro_torch.kernels.flash_decode import (  # noqa: F401
     flash_decode,
     flash_decode_chunk,

@@ -216,11 +216,13 @@ def test_function_prefix_grads_match_jax(prefix, window, kv):
 
 
 def test_function_chunked_recompute_branch(monkeypatch):
-    """Above 2^20 (query, key) pairs the backward recomputes through
-    ``chunked_attention`` in chunks of 1024, as ``_flash_vjp_bwd`` does, and
-    still matches jax.grad through the JAX kernel (whose VJP chunks too)."""
+    """Above 2^20 (query, key) pairs :func:`recompute` (the parent design's
+    backward, the card's yardstick) goes through ``chunked_attention`` in
+    chunks of 1024, as ``_flash_vjp_bwd`` does, and its gradient matches
+    jax.grad through the JAX kernel (whose VJP chunks too)."""
     import jax
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import layers as L
 
     chunked = []
@@ -230,7 +232,9 @@ def test_function_chunked_recompute_branch(monkeypatch):
     case = (1, 1040, 1040, 2, 1, 16, True, 0, 0)
     q, k, v = inputs(case, seed=15)
     dout = np.random.default_rng(16).standard_normal(q.shape).astype(np.float32)
-    _, got = _port_grads(q, k, v, dout, causal=True)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = fa.recompute(tq, tk, tv, causal=True, window=0, q_offset=0, prefix_len=0)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
     assert [(c["q_chunk"], c["kv_chunk"]) for c in chunked] == [(1024, 1024)]
     _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, block_q=128, block_k=128,
                                                          interpret=True),
@@ -269,6 +273,9 @@ def _t(device, shape, dtype=torch.float32):
 
 WRAPPER_ARGS = {  # name: device -> the wrapper's positional arguments
     "flash_attention": lambda d: (_t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8))),
+    "flash_attention_bwd": lambda d: (_t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8)),
+                                      _t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8)),
+                                      _t(d, (1, 4, 2)), _t(d, (1, 4, 2, 8))),
     "flash_decode": lambda d: (_t(d, (1, 1, 2, 8)), _t(d, (1, 4, 2, 8)), _t(d, (1, 4, 2, 8)),
                                _t(d, (1, 4), torch.int32), _t(d, (1,), torch.int32)),
     "flash_decode_chunk": lambda d: (_t(d, (1, 2, 2, 8)), _t(d, (1, 4, 2, 8)),

@@ -155,7 +155,7 @@ def test_cpu_tensors_count_no_launch():
     assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                "flash_decode_paged": 0, "ssm_scan": 0,
                                "rglru_scan": 0, "gemm_rowinv": 0, "rms_norm": 0,
-                               "moe_gemm": 0, "layer_norm": 0}
+                               "moe_gemm": 0, "layer_norm": 0, "flash_attention_bwd": 0}
     assert multi_row_counts() == {"flash_decode": 0, "flash_decode_paged": 0}
 
 

@@ -72,7 +72,7 @@ def test_launcher_runs_on_cpu(arch, capsys):
     assert launch_counts() == {"flash_attention": 0, "flash_decode": 0,
                                "flash_decode_paged": 0, "ssm_scan": 0,
                                "rglru_scan": 0, "gemm_rowinv": 0, "rms_norm": 0,
-                               "moe_gemm": 0, "layer_norm": 0}
+                               "moe_gemm": 0, "layer_norm": 0, "flash_attention_bwd": 0}
     again = launcher.main(["--arch", arch, "--device", "cpu", "--requests", "2",
                            "--prompt-len", "8", "--gen", "3", "--seed", "1",
                            "--kernel", "reference"])
